@@ -14,6 +14,8 @@ Phases, each printing one JSON line:
    (CUDA events, median of 100 runs after warm-up), the bound from the
    bytes each call must move, and the torch.sparse_csr_tensor product
    as the library yardstick;
+   kernels_tiled: the same for the tile-plan kernels (tile_aligned=True),
+   each also held against the CSR kernel on the same vectors;
 4. main_path: firstorderlp_torch.optimize on that LP in f32 with the
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
    on the host and each kernel's launch count on that run;
@@ -21,7 +23,13 @@ Phases, each printing one JSON line:
    device busy time and the ops that take it);
 5. determinism: the 20k-node LP solved twice, both OPTIMAL with
    bitwise-equal results;
-6. the kernel list ({"kernels": [...]}).
+6. refine_path: firstorderlp_torch.optimize_iterative_refinement on the
+   100k-node LP to OPTIMAL at 1e-8 with the f32 phases on the tile-plan
+   kernels (ops.routed.DEFAULT_TILE_ALIGNED set for the phase),
+   residuals and gap recomputed in f64 here, the tile-plan kernels'
+   launch counts above 0 and the CSR kernels' at 0;
+7. determinism_tiled: the 20k-node LP solved twice on the tile plan;
+8. the kernel list ({"kernels": [...]}).
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
 Exits non-zero, before the last line, when there is no CUDA device or
@@ -29,6 +37,7 @@ any phase fails. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -167,6 +176,64 @@ def host_residuals(problem, x, y):
     }
 
 
+@contextlib.contextmanager
+def timed(torch, profile_on: bool):
+    """Times the block on the host clock, up to a device synchronize,
+    under torch.profiler when `profile_on`; the profiler's own start and
+    stop stay outside the time. Yields a dict that holds "t0" (the
+    block's start) and, once the block has ended, "seconds" and, when
+    profiling, "profile"."""
+    result = {}
+    profiler = contextlib.nullcontext()
+    if profile_on:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        )
+    with profiler as active:
+        result["t0"] = time.time()
+        yield result
+        torch.cuda.synchronize()
+        result["seconds"] = time.time() - result["t0"]
+    if profile_on:
+        result["profile"] = profile_summary(torch, active, result["seconds"])
+
+
+def profile_summary(torch, profiler, wall_s):
+    host_events = profiler.key_averages()
+    # Kernels only: an aten op's device time repeats its kernels'.
+    events = [e for e in host_events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    return {
+        "device_busy_seconds": device_us / 1e6,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
+        "kernel_launches": sum(e.count for e in events),
+        "top_device_ops": [
+            {"name": e.key[:60], "calls": e.count,
+             "device_ms": e.self_device_time_total / 1e3}
+            for e in sorted(events,
+                            key=lambda e: -e.self_device_time_total)[:12]
+        ],
+        "top_host_ops": [
+            {"name": e.key[:60], "calls": e.count,
+             "host_ms": e.self_cpu_time_total / 1e3}
+            for e in sorted(host_events,
+                            key=lambda e: -e.self_cpu_time_total)[:12]
+        ],
+    }
+
+
+def plan_bytes(plan) -> int:
+    """Packed indices and values of every stored entry, padding
+    included, the group table and the tile and strip pointers, each read
+    once."""
+    return (8 * plan.ngroups * plan.group + 16 * plan.ngroups
+            + 4 * int(plan.tile_ptr.shape[0])
+            + 4 * int(plan.strip_tile_ptr.shape[0]))
+
+
 def csr_bytes(mat) -> int:
     """indptr, indices and values read once (the long-row tables are a
     few hundred bytes and left out)."""
@@ -191,7 +258,7 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is missing: {exc}", file=sys.stderr)
         return 2
-    from firstorderlp_torch import rescale_problem
+    from firstorderlp_torch import refine, rescale_problem
     from firstorderlp_torch.generators import generate_pagerank_lp
     from firstorderlp_torch.models.pdhg import optimize, prepare_problem
     from firstorderlp_torch.ops import kernels_build, routed
@@ -199,7 +266,7 @@ def main() -> int:
     try:
         return run(args, torch, optimize, rescale_problem,
                    generate_pagerank_lp, prepare_problem, kernels_build,
-                   routed)
+                   routed, refine)
     finally:
         if args.out:
             with open(args.out, "w") as f:
@@ -207,10 +274,12 @@ def main() -> int:
 
 
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
-        prepare_problem, kernels_build, routed) -> int:
+        prepare_problem, kernels_build, routed, refine) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Each phase names its layout itself, whatever FOLP_TILE_ALIGNED says.
+    routed.DEFAULT_TILE_ALIGNED = False
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -271,21 +340,21 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     lib_a = routed.library_spmv(op.a)
     lib_at = routed.library_spmv(op.at)
 
-    def entry_check(name, got, want, scale):
+    def entry_check(name, got, want, scale, phase="kernels"):
         got = got.double().cpu().numpy()
         want = want.double().cpu().numpy()
         err = np.abs(got - want)
         bad = err > TOL_ENTRY * scale + TOL_ABS
         if bad.any():
             i = int(np.argmax(err - TOL_ENTRY * scale))
-            fail("kernels", f"{name}: entry {i} differs by {err[i]:.3e} "
-                            f"(scale {scale[i]:.3e})")
+            fail(phase, f"{name}: entry {i} differs by {err[i]:.3e} "
+                        f"(scale {scale[i]:.3e})")
         return float(err.max())
 
-    def sum_check(name, got, want):
+    def sum_check(name, got, want, phase="kernels"):
         got, want = float(got), float(want)
         if abs(got - want) > TOL_SUM * abs(want) + TOL_ABS:
-            fail("kernels", f"{name}: sum {got!r} vs plain {want!r}")
+            fail(phase, f"{name}: sum {got!r} vs {want!r}")
         return abs(got - want)
 
     results = []
@@ -377,17 +446,129 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "flops": 2 * op.at.nnz + 5 * n,
         "library_ms": time_ms(torch, lambda: lib_at @ y),
     })
-    for r in results:
-        t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / H100_F32_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    def add_bounds(rows):
+        for r in rows:
+            t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
+            t_ops = r["flops"] / H100_F32_FLOPS * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+    tolerance = (f"|d| <= {TOL_ENTRY}*(|A||x|)_i + {TOL_ABS}; "
+                 f"sums rtol {TOL_SUM}")
+    add_bounds(results)
     emit({"phase": "kernels", "ok": True, "m": m, "n": n,
           "nnz": int(a64.nnz), "setup_seconds": setup_s,
-          "tolerance": f"|d| <= {TOL_ENTRY}*(|A||x|)_i + {TOL_ABS}; "
-                       f"sums rtol {TOL_SUM}",
-          "results": results})
-    del op, mat, mat_ns, lib_a, lib_at
+          "tolerance": tolerance, "results": results})
+
+    # 3b. the tile-plan kernels, against their plain versions and
+    # against the CSR kernels on the same vectors
+    ph = "kernels_tiled"
+    t0 = time.time()
+    top = routed.build_routed_op(a64, dev, tile_aligned=True)
+    plan_setup_s = time.time() - t0
+    tiled = []
+    for label, plan, mat, vec, scale, lib in (
+        ("A", top.a, op.a, x, scale_ax, lib_a),
+        ("AT", top.at, op.at, y, scale_aty, lib_at),
+    ):
+        got = routed.tiled_spmv(plan, vec)
+        want = routed.tiled_spmv_plain(plan, vec)
+        torch.cuda.synchronize()
+        err = entry_check(f"tiled_spmv:{label}", got, want, scale, ph)
+        err_csr = entry_check(f"tiled_spmv:{label} vs spmv_csr", got,
+                              routed.spmv_csr(mat, vec), scale, ph)
+        tiled.append({
+            "name": f"tiled_spmv:{label}",
+            "route": "cuda",
+            "source": "firstorderlp_torch/csrc/tiled_spmv.cu",
+            "replaces": "firstorderlp_tpu/ops/routed.py:347 (_make_fused)",
+            "max_abs_err": err,
+            "max_abs_err_vs_csr_kernel": err_csr,
+            "ms": time_ms(torch, lambda: routed.tiled_spmv(plan, vec)),
+            "plain_ms": time_ms(
+                torch, lambda: routed.tiled_spmv_plain(plan, vec)
+            ),
+            "bytes": plan_bytes(plan) + 4 * plan.num_cols
+            + 4 * plan.num_rows,
+            "flops": 2 * plan.nnz,
+            "library_ms": time_ms(torch, lambda: lib @ vec),
+            "out_strip": plan.out_strip,
+            "in_window": plan.in_window,
+            "group": plan.group,
+            "strips": plan.nstrips,
+            "groups": plan.ngroups,
+            "tiles": int(plan.tile_ptr.shape[0]) - 1,
+            "padding_share": plan.padding_share,
+        })
+
+    got_y, got_dy2 = routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
+    want_y, want_dy2 = routed.tiled_dual_step_plain(
+        top.a, x, y, b, eq, sigma
+    )
+    csr_y, csr_dy2 = routed.spmv_dual_step(op.a, x, y, b, eq, sigma)
+    torch.cuda.synchronize()
+    err = entry_check("tiled_dual_step", got_y, want_y, scale_dual, ph)
+    err = max(err, sum_check("tiled_dual_step dy2", got_dy2, want_dy2, ph))
+    err_csr = entry_check("tiled_dual_step vs spmv_dual_step", got_y,
+                          csr_y, scale_dual, ph)
+    err_csr = max(err_csr, sum_check("tiled_dual_step dy2 vs spmv_dual_step",
+                                     got_dy2, csr_dy2, ph))
+    tiled.append({
+        "name": "tiled_dual_step",
+        "route": "cuda",
+        "source": "firstorderlp_torch/csrc/tiled_dual_step.cu",
+        "replaces": "firstorderlp_tpu/ops/routed.py:378 (_make_fused_dual)",
+        "max_abs_err": err,
+        "max_abs_err_vs_csr_kernel": err_csr,
+        "ms": time_ms(
+            torch, lambda: routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
+        ),
+        "plain_ms": time_ms(
+            torch,
+            lambda: routed.tiled_dual_step_plain(top.a, x, y, b, eq, sigma),
+        ),
+        "bytes": plan_bytes(top.a) + 4 * n + 4 * 4 * m + 4,
+        "flops": 2 * top.a.nnz + 7 * m,
+        "library_ms": time_ms(torch, lambda: lib_a @ x),
+    })
+
+    got = routed.tiled_rmv_stats(top.at, y, dx, aty_old)
+    want = routed.tiled_rmv_stats_plain(top.at, y, dx, aty_old)
+    csr_got = routed.spmv_rmv_stats(op.at, y, dx, aty_old)
+    torch.cuda.synchronize()
+    err = entry_check("tiled_rmv_stats", got[0], want[0], scale_aty, ph)
+    err_csr = entry_check("tiled_rmv_stats vs spmv_rmv_stats", got[0],
+                          csr_got[0], scale_aty, ph)
+    for k, what in ((1, "interaction"), (2, "dx2")):
+        err = max(err, sum_check(f"tiled_rmv_stats {what}", got[k],
+                                 want[k], ph))
+        err_csr = max(err_csr, sum_check(
+            f"tiled_rmv_stats {what} vs spmv_rmv_stats", got[k],
+            csr_got[k], ph))
+    tiled.append({
+        "name": "tiled_rmv_stats",
+        "route": "cuda",
+        "source": "firstorderlp_torch/csrc/tiled_rmv_stats.cu",
+        "replaces": "firstorderlp_tpu/ops/routed.py:418 "
+                    "(_make_fused_rmv_stats)",
+        "max_abs_err": err,
+        "max_abs_err_vs_csr_kernel": err_csr,
+        "ms": time_ms(
+            torch, lambda: routed.tiled_rmv_stats(top.at, y, dx, aty_old)
+        ),
+        "plain_ms": time_ms(
+            torch,
+            lambda: routed.tiled_rmv_stats_plain(top.at, y, dx, aty_old),
+        ),
+        "bytes": plan_bytes(top.at) + 4 * m + 3 * 4 * n + 8,
+        "flops": 2 * top.at.nnz + 5 * n,
+        "library_ms": time_ms(torch, lambda: lib_at @ y),
+    })
+    add_bounds(tiled)
+    emit({"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
+          "plan_setup_seconds": plan_setup_s, "tolerance": tolerance,
+          "results": tiled})
+    del op, top, plan, mat, mat_ns, lib, lib_a, lib_at
 
     # 4. main path
     params = make_params(1e-4, 20_000)
@@ -423,7 +604,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         problems.append("primal shape")
     if any(v > 1e-4 for v in res.values()):
         problems.append(f"host residuals {res}")
-    if any(v <= 0 for v in launches.values()):
+    csr_names = [r["name"] for r in results]
+    if any(launches[k] <= 0 for k in csr_names):
         problems.append(f"a kernel was not launched: {launches}")
     main["ok"] = not problems
     if problems:
@@ -440,46 +622,15 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # loaded), optionally under torch.profiler for the device busy time.
     warm = prepare_problem(params, problem, device=dev)
     torch.cuda.synchronize()
-    profiler = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        profiler = profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        )
-        profiler.__enter__()
-    t0 = time.time()
-    out2 = optimize(params, problem, prepared=warm)
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
+    with timed(torch, args.profile) as warm_run:
+        out2 = optimize(params, problem, prepared=warm)
+    warm_s = warm_run["seconds"]
     record = {"phase": "main_path_warm", "ok": True,
               "iterations": out2.iteration_count,
               "solve_seconds": warm_s,
               "iterations_per_second": out2.iteration_count / warm_s}
-    if profiler is not None:
-        profiler.__exit__(None, None, None)
-        # Kernels only: an aten op's device time repeats its kernels'.
-        events = [e for e in profiler.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        host_events = profiler.key_averages()
-        device_us = sum(e.self_device_time_total for e in events)
-        record["profile"] = {
-            "device_busy_seconds": device_us / 1e6,
-            "device_idle_share": 1.0 - device_us / 1e6 / warm_s,
-            "kernel_launches": sum(e.count for e in events),
-            "top_device_ops": [
-                {"name": e.key[:60], "calls": e.count,
-                 "device_ms": e.self_device_time_total / 1e3}
-                for e in sorted(events,
-                                key=lambda e: -e.self_device_time_total)[:12]
-            ],
-            "top_host_ops": [
-                {"name": e.key[:60], "calls": e.count,
-                 "host_ms": e.self_cpu_time_total / 1e3}
-                for e in sorted(host_events,
-                                key=lambda e: -e.self_cpu_time_total)[:12]
-            ],
-        }
+    if args.profile:
+        record["profile"] = warm_run["profile"]
     emit(record)
     del prepared, warm
 
@@ -502,11 +653,125 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if not same:
         raise SystemExit(1)
 
-    # 6. kernel list
+    # 6. refine path: certified 1e-8 with the f32 phases on the tile plan
+    stages = []
+    inner_optimize = refine._optimize
+
+    def logged_optimize(stage_params, stage_problem, stage_prepared,
+                        elapsed_offset=0.0):
+        t_stage = time.time()
+        stage_out = inner_optimize(stage_params, stage_problem,
+                                   stage_prepared, elapsed_offset)
+        crit = stage_params.termination_criteria
+        stages.append({
+            "dtype": stage_params.dtype,
+            "eps": crit.eps_optimal_relative,
+            "reason": stage_out.termination_reason.name,
+            "iterations": stage_out.iteration_count,
+            "begin": t_stage,  # run_refine rebases it on the run's start
+            "seconds": time.time() - t_stage,
+        })
+        return stage_out
+
+    refine_params = make_params(1e-8, 200_000, fmt="auto")
+
+    def run_refine(profile_on=False):
+        del stages[:]
+        routed.DEFAULT_TILE_ALIGNED = True
+        refine._optimize = logged_optimize
+        try:
+            routed.reset_launch_counts()
+            with timed(torch, profile_on) as run:
+                result = refine.optimize_iterative_refinement(
+                    refine_params, problem, device=dev
+                )
+            for stage in stages:
+                stage["begin"] -= run["t0"]
+            return (result, run["seconds"], dict(routed.LAUNCHES),
+                    run.get("profile"))
+        finally:
+            refine._optimize = inner_optimize
+            routed.DEFAULT_TILE_ALIGNED = False
+
+    (rout, used_fallback), refine_s, refine_launches, _ = run_refine()
+    rstats = rout.iteration_stats[-1] if rout.iteration_stats else None
+    rres = host_residuals(problem, rout.primal_solution, rout.dual_solution)
+    rounds = (
+        rstats.method_specific_stats.get("refinement_rounds")
+        if rstats is not None and not used_fallback else None
+    )
+    rec = {
+        "phase": "refine_path", "nodes": NODES,
+        "reason": rout.termination_reason.name,
+        "iterations": rout.iteration_count,
+        "stages": list(stages), "refinement_rounds": rounds,
+        "used_fallback": bool(used_fallback),
+        "kkt_passes": rstats.cumulative_kkt_matrix_passes if rstats else None,
+        "seconds": refine_s, "host_f64": rres,
+        "launches": refine_launches,
+    }
+    problems = []
+    if rec["reason"] != "TERMINATION_REASON_OPTIMAL":
+        problems.append(f"reason {rec['reason']}")
+    if any(not v <= 1e-8 for v in rres.values()):
+        problems.append(f"host residuals {rres}")
+    tiled_names = [r["name"] for r in tiled]
+    if any(refine_launches[k] <= 0 for k in tiled_names):
+        problems.append(f"a tile-plan kernel was not launched: "
+                        f"{refine_launches}")
+    if any(refine_launches[k] != 0 for k in csr_names):
+        problems.append(f"a CSR kernel was launched: {refine_launches}")
+    rec["ok"] = not problems
+    if problems:
+        rec["problems"] = problems
+    emit(rec)
+    if problems:
+        raise SystemExit(1)
+    for r in tiled:
+        r["launches"] = refine_launches[r["name"]]
+        r["launches_per_iteration"] = (
+            refine_launches[r["name"]] / rout.iteration_count
+        )
+    if args.profile:
+        # The same path again under torch.profiler (operators built anew,
+        # kernels loaded): where its wall time goes.
+        (pout, _), profiled_s, _, summary = run_refine(profile_on=True)
+        emit({"phase": "refine_path_profiled", "ok": True,
+              "iterations": pout.iteration_count,
+              "stages": list(stages), "seconds": profiled_s,
+              "profile": summary})
+
+    # 7. determinism on the tile plan
+    routed.DEFAULT_TILE_ALIGNED = True
+    try:
+        routed.reset_launch_counts()
+        runs = [optimize(params, small, device=dev) for _ in range(2)]
+        det_launches = dict(routed.LAUNCHES)
+    finally:
+        routed.DEFAULT_TILE_ALIGNED = False
+    reasons = [r.termination_reason.name for r in runs]
+    same = (
+        reasons == ["TERMINATION_REASON_OPTIMAL"] * 2
+        and runs[0].iteration_count == runs[1].iteration_count
+        and np.array_equal(runs[0].primal_solution, runs[1].primal_solution)
+        and np.array_equal(runs[0].dual_solution, runs[1].dual_solution)
+        and all(det_launches[k] > 0 for k in tiled_names)
+        and all(det_launches[k] == 0 for k in csr_names)
+    )
+    emit({"phase": "determinism_tiled", "ok": bool(same),
+          "nodes": DET_NODES,
+          "iterations": [r.iteration_count for r in runs],
+          "reasons": reasons, "launches": det_launches})
+    if not same:
+        raise SystemExit(1)
+
+    # 8. kernel list
+    results = results + tiled
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("ms_without_long_row_pass", "launches_per_iteration")
+    extra = ("ms_without_long_row_pass", "launches_per_iteration",
+             "max_abs_err_vs_csr_kernel", "padding_share")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

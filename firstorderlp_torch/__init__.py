@@ -57,6 +57,11 @@ from .models.pdhg import (
     prepare_problem,
 )
 from .models.api import MirrorProxParameters, optimize
+from .refine import (
+    optimize_split_precision,
+    optimize_iterative_refinement,
+    phase1_params,
+)
 
 __all__ = [
     "QuadraticProgrammingProblem",
@@ -97,6 +102,9 @@ __all__ = [
     "MirrorProxParameters",
     "prepare_problem",
     "optimize",
+    "optimize_split_precision",
+    "optimize_iterative_refinement",
+    "phase1_params",
 ]
 
 __version__ = "0.1.0"

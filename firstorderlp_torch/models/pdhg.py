@@ -33,7 +33,8 @@ from ..iteration_stats import (
     print_to_screen_this_iteration,
     to_host_stats,
 )
-from ..ops.device_problem import DeviceScaledQp, to_device_scaled
+from ..ops.device import resolve_device
+from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
 from ..ops.routed import RoutedOp
 from ..preprocess import rescale_problem
 from ..problem import QuadraticProgrammingProblem, validate
@@ -144,19 +145,6 @@ class _PdhgConfig:
     # The estimated objective bounds are diagnostics only; skip their
     # trust-region solve in the loop when nothing records them.
     need_bound_estimates: bool = True
-
-
-def resolve_device(device=None) -> torch.device:
-    """The solve's device: CUDA unless the caller names another one.
-    Raises when no GPU is present and no device was asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the plain PyTorch path on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -627,6 +615,7 @@ def prepare_problem(
     original_problem: QuadraticProgrammingProblem,
     warm_start=None,
     device=None,
+    _reuse: "PreparedProblem | None" = None,
 ) -> PreparedProblem:
     """Validates, rescales and moves `original_problem` to `device` for
     `optimize` (reference: the rescaling step of optimize, pdhg.jl:
@@ -634,30 +623,49 @@ def prepare_problem(
     when no GPU is present.
 
     warm_start: optional (primal, dual) in UNSCALED space; the solver
-    starts from that point instead of zeros."""
-    device = resolve_device(device)
+    starts from that point instead of zeros.
+
+    _reuse: a PreparedProblem for the SAME problem from an earlier phase
+    (refine.py). The solve stays on its device. When its original
+    (stats) bundle has this phase's stats dtype, its host
+    ScaledQpProblem (rescaling does not depend on the dtype) and that
+    bundle are reused, and only the scaled bundle is rebuilt."""
+    device = _reuse.device if _reuse is not None else resolve_device(device)
     validate(original_problem)
     _check_ported(params)
     dtype = _torch_dtype(params.dtype)
     stats_dtype = (
         _torch_dtype(params.stats_dtype) if params.stats_dtype else None
     )
-    scaled_problem = rescale_problem(
-        params.l_inf_ruiz_iterations,
-        params.l2_norm_rescaling,
-        params.pock_chambolle_alpha,
-        params.verbosity,
-        original_problem,
-        bound_width_rescaling_flag=params.bound_width_rescaling,
-    )
-    bundle = to_device_scaled(
-        scaled_problem,
-        dtype,
-        params.matrix_format,
-        device,
-        stats_dtype=stats_dtype,
-        stats_format=params.stats_matrix_format,
-    )
+    if _reuse is not None and (
+        _reuse.bundle.original.objective_vector.dtype
+        == (stats_dtype or dtype)
+    ):
+        scaled_problem = _reuse.scaled_problem
+        bundle = dataclasses.replace(
+            _reuse.bundle,
+            scaled=to_device(
+                scaled_problem.scaled_qp, dtype, params.matrix_format,
+                device,
+            ),
+        )
+    else:
+        scaled_problem = rescale_problem(
+            params.l_inf_ruiz_iterations,
+            params.l2_norm_rescaling,
+            params.pock_chambolle_alpha,
+            params.verbosity,
+            original_problem,
+            bound_width_rescaling_flag=params.bound_width_rescaling,
+        )
+        bundle = to_device_scaled(
+            scaled_problem,
+            dtype,
+            params.matrix_format,
+            device,
+            stats_dtype=stats_dtype,
+            stats_format=params.stats_matrix_format,
+        )
 
     state = _initial_state(bundle, dtype, device)
     cumulative_kkt_passes = 0.0
@@ -758,12 +766,16 @@ def optimize(
     original_problem: QuadraticProgrammingProblem,
     prepared: "PreparedProblem | None" = None,
     device=None,
+    _elapsed_offset: float = 0.0,
 ) -> SaddlePointOutput:
     """Solves a QP with PDHG (reference optimize, pdhg.jl:769-1049).
 
     Runs on CUDA unless `device` names another device; raises when no
     GPU is present and no device was asked for. `prepared` (from
-    prepare_problem on the SAME problem and params) skips ingest."""
+    prepare_problem on the SAME problem and params) skips ingest.
+    `_elapsed_offset` pre-charges the time-limit clock (refine.py: a
+    sub-solve's budget is what remains of the caller's declared
+    time_sec_limit)."""
     validate_termination_criteria(params.termination_criteria)
     if params.primal_importance <= 0 or not np.isfinite(
         params.primal_importance
@@ -780,7 +792,7 @@ def optimize(
     display_iteration_stats_heading(params.verbosity)
 
     iteration_stats = []
-    start_time = time.time()
+    start_time = time.time() - float(_elapsed_offset)
     basic_algorithm_time = 0.0
     evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
     while True:

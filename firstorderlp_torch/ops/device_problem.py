@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..problem import QuadraticProgrammingProblem, ScaledQpProblem
+from .device import resolve_device
 from .linops import LinOp, build_linop, matvec, rmatvec
 
 
@@ -35,7 +36,10 @@ class DeviceQp:
     objective_vector: torch.Tensor  # (n,)
     objective_constant: torch.Tensor  # scalar
     right_hand_side: torch.Tensor  # (m,)
-    is_equality: torch.Tensor  # (m,) bool; equality rows come first
+    # (m,) bool. Ingest puts equality rows first, but a shifted
+    # refinement problem promotes rows in the middle: every device code
+    # path reads this as a mask, never as a prefix length.
+    is_equality: torch.Tensor
     is_equality_f32: torch.Tensor  # (m,) f32 copy for the dual-step kernel
     constraint_matrix: LinOp
     objective_matrix: Optional[LinOp]  # None for LPs
@@ -78,7 +82,13 @@ def to_device(
     dtype=torch.float64,
     format: str = "auto",
     device=None,
+    share_from: Optional[DeviceQp] = None,
 ) -> DeviceQp:
+    """`device`: CUDA when None (raises without a GPU), the CPU only
+    when asked. `share_from`: a DeviceQp over the same sparsity pattern
+    (the scaled copy); a kernel operator built here reuses its index
+    tensors (build_linop's share_plan_with)."""
+    device = resolve_device(device)
     m = problem.num_constraints
     is_equality = np.zeros(m, dtype=bool)
     is_equality[: problem.num_equalities] = True
@@ -104,7 +114,10 @@ def to_device(
             is_equality.astype(np.float32), device=device
         ),
         constraint_matrix=build_linop(
-            problem.constraint_matrix, dtype, format, device
+            problem.constraint_matrix, dtype, format, device,
+            share_plan_with=(
+                None if share_from is None else share_from.constraint_matrix
+            ),
         ),
         objective_matrix=objective_matrix,
     )
@@ -121,7 +134,9 @@ def to_device_scaled(
     """`stats_dtype` (default: `dtype`) is the precision of the ORIGINAL
     problem copy, the rescaling vectors and the norm cache, i.e. of the
     termination/stats evaluation. `stats_format` (default: `format`) is
-    the matrix layout of the original copy."""
+    the matrix layout of the original copy. `device`: CUDA when None
+    (raises without a GPU), the CPU only when asked."""
+    device = resolve_device(device)
     if stats_dtype is None:
         stats_dtype = dtype
     if stats_format is None:
@@ -148,10 +163,12 @@ def to_device_scaled(
             stats_dtype
         )
 
+    scaled = to_device(scaled_problem.scaled_qp, dtype, format, device)
     return DeviceScaledQp(
-        scaled=to_device(scaled_problem.scaled_qp, dtype, format, device),
+        scaled=scaled,
         original=to_device(
-            scaled_problem.original_qp, stats_dtype, stats_format, device
+            scaled_problem.original_qp, stats_dtype, stats_format, device,
+            share_from=scaled,
         ),
         constraint_rescaling=vec(scaled_problem.constraint_rescaling),
         variable_rescaling=vec(scaled_problem.variable_rescaling),

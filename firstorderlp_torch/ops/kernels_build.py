@@ -30,6 +30,9 @@ KERNEL_SOURCES = {
     "spmv_csr": "spmv_csr.cu",
     "spmv_dual_step": "spmv_dual_step.cu",
     "spmv_rmv_stats": "spmv_rmv_stats.cu",
+    "tiled_spmv": "tiled_spmv.cu",
+    "tiled_dual_step": "tiled_dual_step.cu",
+    "tiled_rmv_stats": "tiled_rmv_stats.cu",
 }
 
 NVCC_FLAGS = [
@@ -118,13 +121,22 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
 def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     csr = [p, p, p, i, p, p, p, p, i, i, i, p, i]
-    extra = {
-        "spmv_csr": [p, p],  # x, y
-        "spmv_dual_step": [p, p, p, p, p, p, p],  # z y b eq sigma y+ parts
-        "spmv_rmv_stats": [p, p, p, p, p],  # y dx aty_old aty parts
+    # loc vals meta tile_ptr strip_tile_ptr, then nstrips group out_strip
+    # in_window num_rows num_cols
+    plan = [p, p, p, p, p, i, i, i, i, i, i]
+    spmv = [p, p]  # x, y
+    dual_step = [p, p, p, p, p, p, p]  # z y b eq sigma y+ parts
+    rmv_stats = [p, p, p, p, p]  # y dx aty_old aty parts
+    matrix, vectors = {
+        "spmv_csr": (csr, spmv),
+        "spmv_dual_step": (csr, dual_step),
+        "spmv_rmv_stats": (csr, rmv_stats),
+        "tiled_spmv": (plan, spmv),
+        "tiled_dual_step": (plan, dual_step),
+        "tiled_rmv_stats": (plan, rmv_stats),
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
-    fn.argtypes = csr + extra + [p]  # trailing: the CUDA stream
+    fn.argtypes = matrix + vectors + [p]  # trailing: the CUDA stream
     fn.restype = ctypes.c_int
     return dll
 

@@ -23,7 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .routed import RoutedOp, build_routed_op
+from .device import resolve_device
+from .routed import RoutedOp, build_routed_op, pattern_hash
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,16 +130,24 @@ def build_linop(
     dtype=torch.float64,
     format: str = "auto",
     device=None,
+    share_plan_with: Optional[LinOp] = None,
 ) -> LinOp:
-    """Chooses a layout for `matrix` (the JAX package's format rules).
+    """Chooses a layout for `matrix` (the JAX package's format rules)
+    and builds it on `device`: CUDA when None (raises without a GPU),
+    the CPU only when asked.
 
     format: "dense" (also "dense_onchip"), "sparse"/"ell"/"coo" (CsrOp),
     "routed" (the f32 kernel operator), or "auto": dense when
     m*n <= DENSE_SIZE_LIMIT, the kernel operator on a CUDA device for
     f32 matrices with >= ROUTED_NNZ_THRESHOLD nonzeros (the JAX package
     asks for a TPU backend there), CsrOp otherwise.
+
+    share_plan_with: an operator built for a matrix of the same shape;
+    when it is a kernel operator on `device` with this matrix's sparsity
+    pattern and the kernel layout is chosen here too, its index tensors
+    are reused and only the values are transferred.
     """
-    device = torch.device(device) if device is not None else None
+    device = resolve_device(device)
     m, n = matrix.shape
     if format in ("dense", "dense_onchip") or (
         format == "auto" and m * n <= DENSE_SIZE_LIMIT
@@ -148,11 +157,16 @@ def build_linop(
         format == "auto"
         and dtype == torch.float32
         and matrix.nnz >= ROUTED_NNZ_THRESHOLD
-        and device is not None
         and device.type == "cuda"
     ):
         if dtype != torch.float32:
             raise ValueError("routed layout computes in f32")
+        donor = share_plan_with
+        if isinstance(donor, RoutedOp) and donor.a.device == device:
+            csr = sp.csr_matrix(matrix, dtype=np.float64)
+            csr.sum_duplicates()
+            if pattern_hash(csr) == donor.pattern_hash:
+                return build_routed_op(csr, share_plan_with=donor)
         return build_routed_op(matrix, device)
     if format not in ("auto", "sparse", "ell", "coo"):
         raise ValueError(f"unknown matrix format {format!r}")

@@ -1,39 +1,51 @@
-"""The kernel operator: A x, A' y and the fused PDLP step kernels on
-CSR, the port's counterpart of the JAX package's ``ops/routed.py``.
+"""The kernel operator: A x, A' y and the fused PDLP step kernels, the
+port's counterpart of the JAX package's ``ops/routed.py``.
 
 The JAX package's routed operator selects x entries with one-hot matrix
 products over tile plans, because gathers on the TPU are bound by index
-rate. Hopper gathers natively, so this operator keeps the contract of
-each Pallas kernel and not its layout: A and A' are each stored as CSR
-(int32 indptr and indices, f32 values), every output row is summed by
-one group of threads, and no kernel uses atomics, so two runs give the
-same bits.
+rate. Hopper gathers natively, so the port keeps the contract of each
+Pallas kernel and not its arithmetic. Like the JAX package it has two
+layouts, and ``DEFAULT_TILE_ALIGNED`` (environment variable
+``FOLP_TILE_ALIGNED=1``) picks the second:
 
-Three hand-written CUDA kernels (``firstorderlp_torch/csrc``) cover the
-four Pallas kernels on the main path:
+- CSR (the default): A and A' are each stored as CSR (int32 indptr and
+  indices, f32 values) and every output row is summed by one group of
+  threads. Three CUDA kernels cover the composed Pallas kernels:
+  ``spmv_csr`` (B1 expand + chunk gather + B2 reduce),
+  ``spmv_dual_step`` (B1 + B3 reduce-dual) and ``spmv_rmv_stats``
+  (B1 + B4 reduce-rmv-stats).
+- Tile plan (``tile_aligned=True``): the matrix is cut into tiles of
+  `out_strip` output rows by `in_window` input columns; one launch per
+  product, one block per output strip, the input window and the strip's
+  sums in shared memory, the epilogue once per strip. Three CUDA kernels
+  replace the fused Pallas kernels: ``tiled_spmv`` (B5 fused),
+  ``tiled_dual_step`` (B6 fused-dual) and ``tiled_rmv_stats`` (B7
+  fused-rmv-stats).
 
-- ``spmv_csr``: y = A x, or A' y with the arrays of A' (B1 expand + chunk
-  gather + B2 reduce);
-- ``spmv_dual_step``: y+ = proj(y + sigma (b - A z)) and sum((y+ - y)^2)
-  (B1 + B3 reduce-dual);
-- ``spmv_rmv_stats``: aty+ = A' y+, sum(dx (aty+ - aty_old)) and
-  sum(dx^2) (B1 + B4 reduce-rmv-stats).
-
-Each wrapper takes the plain PyTorch version beside it only for tensors
-on the CPU; for a CUDA tensor it launches its kernel or raises. Each
-launch adds one to the wrapper's entry in ``LAUNCHES``.
+No kernel uses atomics, so two runs give the same bits. Each wrapper
+takes the plain PyTorch version beside it only when the matrix and the
+vectors are on the CPU; for a CUDA tensor it launches its kernel or
+raises. Each launch adds one to the wrapper's entry in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import hashlib
+import os
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from . import kernels_build
+from .device import resolve_device
+
+# Default layout for build_routed_op(tile_aligned=None), read when the
+# operator is built: the tile plan when FOLP_TILE_ALIGNED=1 was set at
+# import (the JAX package's switch), else CSR.
+DEFAULT_TILE_ALIGNED = os.environ.get("FOLP_TILE_ALIGNED", "0") == "1"
 
 # Entries one warp sums in the long-row pass (kLongSegment, csr_spmv.cuh).
 LONG_SEGMENT = 512
@@ -49,6 +61,10 @@ LAUNCHES: Dict[str, int] = {
     "spmv_csr:AT": 0,
     "spmv_dual_step": 0,
     "spmv_rmv_stats": 0,
+    "tiled_spmv:A": 0,
+    "tiled_spmv:AT": 0,
+    "tiled_dual_step": 0,
+    "tiled_rmv_stats": 0,
 }
 
 
@@ -89,13 +105,34 @@ def _threads_per_row(rows: int, nnz: int) -> int:
     return int(min(max(tpr, 2), 32))
 
 
+def _f32_tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(
+        np.ascontiguousarray(a, dtype=np.float32), device=device
+    )
+
+
+def _i32_tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(
+        np.ascontiguousarray(a, dtype=np.int32), device=device
+    )
+
+
 def build_csr_kernel_matrix(
-    csr: sp.csr_matrix, device, label: str
+    csr: sp.csr_matrix, device, label: str,
+    index_from: "Optional[CsrKernelMatrix]" = None,
 ) -> CsrKernelMatrix:
-    """Host-side build of one orientation (vectorized numpy)."""
+    """Host-side build of one orientation (vectorized numpy).
+
+    index_from: the same orientation of a matrix with the same sparsity
+    pattern; its index tensors are reused on the device and only the
+    values are transferred."""
     rows, cols = csr.shape
     if csr.nnz >= 2**31:
         raise ValueError("int32 CSR indices cannot hold this matrix")
+    if index_from is not None:
+        return dataclasses.replace(
+            index_from, vals=_f32_tensor(csr.data, index_from.device)
+        )
     indptr = csr.indptr.astype(np.int64)
     row_len = np.diff(indptr)
     tpr = _threads_per_row(rows, csr.nnz)
@@ -110,26 +147,19 @@ def build_csr_kernel_matrix(
     )
     seg_begin = indptr[seg_row] + LONG_SEGMENT * within
 
-    def i32(a):
-        return torch.as_tensor(
-            np.ascontiguousarray(a, dtype=np.int32), device=device
-        )
-
     return CsrKernelMatrix(
-        indptr=i32(indptr),
-        indices=i32(csr.indices),
-        vals=torch.as_tensor(
-            np.ascontiguousarray(csr.data, dtype=np.float32), device=device
-        ),
+        indptr=_i32_tensor(indptr, device),
+        indices=_i32_tensor(csr.indices, device),
+        vals=_f32_tensor(csr.data, device),
         num_rows=rows,
         num_cols=cols,
         label=label,
         tpr=tpr,
         long_threshold=threshold,
-        long_rows=i32(long_rows),
-        long_seg_ptr=i32(long_seg_ptr),
-        seg_row=i32(seg_row),
-        seg_begin=i32(seg_begin),
+        long_rows=_i32_tensor(long_rows, device),
+        long_seg_ptr=_i32_tensor(long_seg_ptr, device),
+        seg_row=_i32_tensor(seg_row, device),
+        seg_begin=_i32_tensor(seg_begin, device),
     )
 
 
@@ -277,6 +307,349 @@ def spmv_rmv_stats(mat, y, dx, aty_old):
 
 
 # ---------------------------------------------------------------------------
+# Tile plan (the layout of the fused kernels)
+# ---------------------------------------------------------------------------
+
+# Strip sizes and group size, chosen for the H100 (132 SMs, 227 KB of
+# shared memory a block).
+# - A local index has 16 bits, and the JAX package's plan allows strips
+#   of at most 16,384, so a window or a strip is at most 64 KB of f32
+#   and both fit one block's shared memory together.
+# - One block owns one output strip, so there should be at least as many
+#   strips as SMs: the output strip is the largest power of two that
+#   still gives NUM_SMS strips (512 rows at the 100k-node PageRank LP:
+#   196 strips), and at least MIN_STRIP.
+# - Every block reads each input window it meets, whatever the window's
+#   size, so the window is as wide as the packing allows: fewer tiles,
+#   so less padding and fewer barriers per entry. With a 64 KB window
+#   three blocks fit on an SM, more than the strips need.
+# - A group is the unit of padding and of the group table. 128 entries
+#   keep the padding near a tenth at the 100k-node size (about 64 wasted
+#   entries per nonempty tile) and the table at 16 bytes per 128 entries.
+#   A block consumes 512 entries of a tile per step (kTileThreads,
+#   csrc/tiled_spmv.cuh), four groups.
+NUM_SMS = 132
+MAX_STRIP = 16384
+MIN_STRIP = 32
+TILE_GROUP = 128
+
+
+def pick_out_strip(num_rows: int) -> int:
+    """Largest power of two in [MIN_STRIP, MAX_STRIP] that cuts
+    `num_rows` into at least NUM_SMS strips (MIN_STRIP when none does)."""
+    per_sm = max(num_rows // NUM_SMS, 1)
+    return int(min(max(1 << (per_sm.bit_length() - 1), MIN_STRIP), MAX_STRIP))
+
+
+def pick_in_window(num_cols: int) -> int:
+    """Smallest power of two in [MIN_STRIP, MAX_STRIP] that holds
+    `num_cols` (MAX_STRIP when none does)."""
+    need = 1 << max(int(num_cols) - 1, 0).bit_length()
+    return int(min(max(need, MIN_STRIP), MAX_STRIP))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One orientation of the matrix as a tile plan: tiles of
+    `out_strip` output rows by `in_window` input columns, a tile's
+    entries together and in row-major order, zero-padded to whole groups
+    of `group` entries."""
+
+    loc: torch.Tensor  # (ngroups * group,) int32: local_col | local_row << 16
+    vals: torch.Tensor  # (ngroups * group,) f32, 0 on padding
+    meta: torch.Tensor  # (ngroups, 4) int32 [out strip, first, last, in strip]
+    tile_ptr: torch.Tensor  # (ntiles + 1,) int32 first group of each tile
+    strip_tile_ptr: torch.Tensor  # (nstrips + 1,) int32 first tile of a strip
+    num_rows: int
+    num_cols: int
+    out_strip: int
+    in_window: int
+    group: int
+    nnz: int  # stored entries that are not padding
+    label: str  # "A" or "AT"
+
+    @property
+    def nstrips(self) -> int:
+        return int(self.strip_tile_ptr.shape[0]) - 1
+
+    @property
+    def ngroups(self) -> int:
+        return int(self.meta.shape[0])
+
+    @property
+    def padding_share(self) -> float:
+        return 1.0 - self.nnz / float(self.ngroups * self.group)
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+
+def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(a), dtype=np.int64)
+    np.cumsum(a[:-1], out=out[1:])
+    return out
+
+
+def _host_tile_plan(csr: sp.csr_matrix, out_strip: int, in_window: int,
+                    group: int) -> Dict[str, np.ndarray]:
+    """The plan's arrays in numpy (vectorized). `csr` is in canonical
+    form (sorted indices, duplicates summed)."""
+    rows, cols = csr.shape
+    for name, size in (("out_strip", out_strip), ("in_window", in_window)):
+        if not 1 <= size <= MAX_STRIP:
+            raise ValueError(
+                f"{name}={size}: strips above {MAX_STRIP} do not fit the "
+                "16-bit packing"
+            )
+    if group < 1:
+        raise ValueError("group must be positive")
+    nstrips = -(-rows // out_strip)
+    nwin = -(-cols // in_window)
+    coo = csr.tocoo()
+    row = coo.row.astype(np.int64)
+    col = coo.col.astype(np.int64)
+    tile = (row // out_strip) * nwin + col // in_window
+
+    # entries sorted by tile, row-major (the csr's own order) inside
+    order = np.argsort(tile, kind="stable")
+    tile_sorted = tile[order]
+    counts = np.bincount(tile, minlength=nstrips * nwin).astype(np.int64)
+    tile_groups = -(-counts // group)
+    empty_strip = tile_groups.reshape(nstrips, nwin).sum(axis=1) == 0
+    strip_groups = np.where(
+        empty_strip, 1, tile_groups.reshape(nstrips, nwin).sum(axis=1)
+    )
+    strip_ptr = np.zeros(nstrips + 1, dtype=np.int64)
+    np.cumsum(strip_groups, out=strip_ptr[1:])
+    ngroups = int(strip_ptr[-1])
+    if ngroups * group >= 2**31:
+        raise ValueError("int32 positions cannot hold this plan")
+    # first group of each tile: the groups of the tiles before it, plus
+    # the all-padding groups of the empty strips before its strip
+    tile_ids = np.arange(nstrips * nwin, dtype=np.int64)
+    tile_start = (
+        _exclusive_cumsum(tile_groups)
+        + _exclusive_cumsum(empty_strip.astype(np.int64))[tile_ids // nwin]
+    )
+    slot = np.arange(csr.nnz, dtype=np.int64) - _exclusive_cumsum(counts)[
+        tile_sorted
+    ]
+    pos = tile_start[tile_sorted] * group + slot
+
+    loc = np.zeros(ngroups * group, dtype=np.int32)
+    vals = np.zeros(ngroups * group, dtype=np.float32)
+    loc[pos] = (
+        (col[order] % in_window) | ((row[order] % out_strip) << 16)
+    ).astype(np.int32)
+    vals[pos] = coo.data[order].astype(np.float32)
+
+    nonempty = np.flatnonzero(tile_groups)
+    per_tile = tile_groups[nonempty]
+    within = np.arange(int(per_tile.sum()), dtype=np.int64) - np.repeat(
+        _exclusive_cumsum(per_tile), per_tile
+    )
+    out_of_group = np.repeat(np.arange(nstrips, dtype=np.int64), strip_groups)
+    meta = np.zeros((ngroups, 4), dtype=np.int32)
+    meta[:, 0] = out_of_group
+    meta[0, 1] = 1
+    meta[1:, 1] = out_of_group[1:] != out_of_group[:-1]
+    meta[-1, 2] = 1
+    meta[:-1, 2] = meta[1:, 1]
+    # an empty strip's all-padding group reads window 0
+    meta[np.repeat(tile_start[nonempty], per_tile) + within, 3] = np.repeat(
+        nonempty % nwin, per_tile
+    )
+
+    tile_first_group = np.sort(
+        np.concatenate([tile_start[nonempty], strip_ptr[:-1][empty_strip]])
+    )
+    return {
+        "loc": loc,
+        "vals": vals,
+        "meta": meta,
+        "tile_ptr": np.append(tile_first_group, ngroups),
+        "strip_tile_ptr": np.searchsorted(tile_first_group, strip_ptr),
+    }
+
+
+def build_tile_plan(
+    csr: sp.csr_matrix, device, label: str,
+    out_strip: Optional[int] = None, in_window: Optional[int] = None,
+    group: Optional[int] = None,
+    index_from: "Optional[TilePlan]" = None,
+) -> TilePlan:
+    """Host-side build of one orientation's tile plan.
+
+    index_from: the same orientation of a matrix with the same sparsity
+    pattern; its geometry is taken over, its index tensors are reused on
+    the device and only the values are transferred."""
+    if index_from is not None:
+        out_strip, in_window, group = (
+            index_from.out_strip, index_from.in_window, index_from.group
+        )
+    rows, cols = csr.shape
+    if out_strip is None:
+        out_strip = pick_out_strip(rows)
+    if in_window is None:
+        in_window = pick_in_window(cols)
+    if group is None:
+        group = TILE_GROUP
+    host = _host_tile_plan(csr, int(out_strip), int(in_window), int(group))
+    if index_from is not None:
+        return dataclasses.replace(
+            index_from, vals=_f32_tensor(host["vals"], index_from.device)
+        )
+    return TilePlan(
+        loc=_i32_tensor(host["loc"], device),
+        vals=_f32_tensor(host["vals"], device),
+        meta=_i32_tensor(host["meta"], device),
+        tile_ptr=_i32_tensor(host["tile_ptr"], device),
+        strip_tile_ptr=_i32_tensor(host["strip_tile_ptr"], device),
+        num_rows=rows,
+        num_cols=cols,
+        out_strip=int(out_strip),
+        in_window=int(in_window),
+        group=int(group),
+        nnz=int(csr.nnz),
+        label=label,
+    )
+
+
+def tile_plan_coordinates(plan: TilePlan):
+    """(row, col) of every stored entry, padding included, as int64
+    tensors: the local indices unpacked and the strip offsets added. A
+    padding entry lands on the first row and column of its group's
+    strips, with value 0."""
+    loc = plan.loc.long()
+    group_of = torch.arange(
+        loc.shape[0], device=loc.device
+    ) // plan.group
+    meta = plan.meta.long()
+    rows = meta[group_of, 0] * plan.out_strip + (loc >> 16)
+    cols = meta[group_of, 3] * plan.in_window + (loc & 0xFFFF)
+    return rows, cols
+
+
+def _strip_sums(plan: TilePlan, per_row: torch.Tensor) -> torch.Tensor:
+    """One partial per output strip, as the kernels' epilogues give."""
+    strip_of = torch.arange(
+        plan.num_rows, device=per_row.device
+    ) // plan.out_strip
+    return torch.zeros(
+        plan.nstrips, dtype=per_row.dtype, device=per_row.device
+    ).index_add_(0, strip_of, per_row)
+
+
+def tiled_spmv_plain(plan: TilePlan, x: torch.Tensor) -> torch.Tensor:
+    """y = A x on the plan's tensors: unpack, gather, multiply and add
+    into the padded strips, in f32."""
+    rows, cols = tile_plan_coordinates(plan)
+    y = torch.zeros(
+        plan.nstrips * plan.out_strip, dtype=torch.float32, device=x.device
+    ).index_add_(0, rows, plan.vals * x[cols])
+    return y[: plan.num_rows]
+
+
+def tiled_dual_step_plain(plan, z, y, b, is_eq, sigma):
+    """(y+, sum((y+ - y)^2)) with y+ = proj(y + sigma (b - A z)); the
+    sum is taken over one partial per strip."""
+    az = tiled_spmv_plain(plan, z)
+    cand = y + sigma * (b - az)
+    y_next = torch.where(is_eq != 0, cand, torch.clamp_min(cand, 0.0))
+    dy = y_next - y
+    return y_next, torch.sum(_strip_sums(plan, dy * dy))
+
+
+def tiled_rmv_stats_plain(plan, y, dx, aty_old):
+    """(A' y, sum(dx (A' y - aty_old)), sum(dx^2)); `plan` holds A'.
+    Each sum is taken over one partial per strip."""
+    aty = tiled_spmv_plain(plan, y)
+    return (
+        aty,
+        torch.sum(_strip_sums(plan, dx * (aty - aty_old))),
+        torch.sum(_strip_sums(plan, dx * dx)),
+    )
+
+
+def _launch_tiled(lib: str, plan: TilePlan, *args) -> None:
+    if plan.device.type != "cuda":
+        raise ValueError(f"{lib}: the plan is not on a CUDA device")
+    fn = kernels_build.kernel_function(lib)
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    err = fn(
+        plan.loc.data_ptr(), plan.vals.data_ptr(), plan.meta.data_ptr(),
+        plan.tile_ptr.data_ptr(), plan.strip_tile_ptr.data_ptr(),
+        plan.nstrips, plan.group, plan.out_strip, plan.in_window,
+        plan.num_rows, plan.num_cols, *args, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
+
+
+def _on_cpu(plan_or_mat, vec: torch.Tensor) -> bool:
+    return vec.device.type == "cpu" and plan_or_mat.device.type == "cpu"
+
+
+def tiled_spmv(plan: TilePlan, x: torch.Tensor) -> torch.Tensor:
+    """y = plan @ x (f32). Plain version for CPU tensors, else the
+    tiled_spmv kernel."""
+    if _on_cpu(plan, x):
+        return tiled_spmv_plain(plan, x)
+    _check("x", x, (plan.num_cols,), plan.device)
+    y = torch.empty(plan.num_rows, dtype=torch.float32, device=plan.device)
+    _launch_tiled("tiled_spmv", plan, x.data_ptr(), y.data_ptr())
+    LAUNCHES[f"tiled_spmv:{plan.label}"] += 1
+    return y
+
+
+def tiled_dual_step(plan, z, y, b, is_eq, sigma):
+    """Fused dual step over the tile plan of A; returns (y+,
+    sum((y+ - y)^2)). `sigma` is a one-element f32 tensor on the plan's
+    device, read by the kernel."""
+    if _on_cpu(plan, z):
+        return tiled_dual_step_plain(plan, z, y, b, is_eq, sigma)
+    m = plan.num_rows
+    _check("z", z, (plan.num_cols,), plan.device)
+    for name, t in (("y", y), ("b", b), ("is_eq", is_eq)):
+        _check(name, t, (m,), plan.device)
+    _check("sigma", sigma.reshape(()), (), plan.device)
+    y_next = torch.empty(m, dtype=torch.float32, device=plan.device)
+    parts = torch.empty(
+        plan.nstrips, dtype=torch.float32, device=plan.device
+    )
+    _launch_tiled(
+        "tiled_dual_step", plan, z.data_ptr(), y.data_ptr(), b.data_ptr(),
+        is_eq.data_ptr(), sigma.data_ptr(), y_next.data_ptr(),
+        parts.data_ptr(),
+    )
+    LAUNCHES["tiled_dual_step"] += 1
+    return y_next, torch.sum(parts)
+
+
+def tiled_rmv_stats(plan, y, dx, aty_old):
+    """Fused A' y+ with the step-control sums over the tile plan of A'.
+    Returns (aty+, sum(dx (aty+ - aty_old)), sum(dx^2))."""
+    if _on_cpu(plan, y):
+        return tiled_rmv_stats_plain(plan, y, dx, aty_old)
+    n = plan.num_rows
+    _check("y", y, (plan.num_cols,), plan.device)
+    _check("dx", dx, (n,), plan.device)
+    _check("aty_old", aty_old, (n,), plan.device)
+    aty = torch.empty(n, dtype=torch.float32, device=plan.device)
+    parts = torch.empty(
+        2, plan.nstrips, dtype=torch.float32, device=plan.device
+    )
+    _launch_tiled(
+        "tiled_rmv_stats", plan, y.data_ptr(), dx.data_ptr(),
+        aty_old.data_ptr(), aty.data_ptr(), parts.data_ptr(),
+    )
+    LAUNCHES["tiled_rmv_stats"] += 1
+    sums = torch.sum(parts, dim=1)
+    return aty, sums[0], sums[1]
+
+
+# ---------------------------------------------------------------------------
 # Operator
 # ---------------------------------------------------------------------------
 
@@ -285,51 +658,118 @@ def spmv_rmv_stats(mat, y, dx, aty_old):
 class RoutedOp:
     """Kernel linear operator (drop-in LinOp: mv / rmv / shape), with the
     fused PDLP step methods of the JAX package's RoutedOp. It works on
-    flat (m,)/(n,) vectors; the kernels compute in f32."""
+    flat (m,)/(n,) vectors; the kernels compute in f32. `a` and `at`
+    are CSR matrices, or tile plans when `tile_aligned` is set."""
 
-    a: CsrKernelMatrix
-    at: CsrKernelMatrix
+    a: Union[CsrKernelMatrix, TilePlan]
+    at: Union[CsrKernelMatrix, TilePlan]
+    tile_aligned: bool = False
+    # sha256 of the csr sparsity pattern (share_plan_with's check)
+    pattern_hash: str = ""
 
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.a.num_rows, self.a.num_cols)
 
+    def _spmv(self, mat, v: torch.Tensor) -> torch.Tensor:
+        product = tiled_spmv if self.tile_aligned else spmv_csr
+        return product(mat, v.to(torch.float32)).to(v.dtype)
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x (computed in f32, returned in x's dtype)."""
-        return spmv_csr(self.a, x.to(torch.float32)).to(x.dtype)
+        return self._spmv(self.a, x)
 
     def rmv(self, y: torch.Tensor) -> torch.Tensor:
         """A' @ y."""
-        return spmv_csr(self.at, y.to(torch.float32)).to(y.dtype)
+        return self._spmv(self.at, y)
 
     def mv_dual_step(self, z, y, b, is_eq, sigma):
         """Fused y+ = proj(y + sigma (b - A z)); returns (y+, y+ in the
         layout rmv_stats takes, sum((y+ - y)^2)). Flat vectors stand in
         for the JAX package's strip layout, so the two y+ are one
         tensor."""
-        y_next, dy2 = spmv_dual_step(self.a, z, y, b, is_eq, sigma)
+        step = tiled_dual_step if self.tile_aligned else spmv_dual_step
+        y_next, dy2 = step(self.a, z, y, b, is_eq, sigma)
         return y_next, y_next, dy2
 
     def rmv_stats(self, y_next, dx, aty_old):
         """Fused A' y+; returns (aty+, sum(dx (aty+ - aty_old)),
         sum(dx^2))."""
-        return spmv_rmv_stats(self.at, y_next, dx, aty_old)
+        stats = tiled_rmv_stats if self.tile_aligned else spmv_rmv_stats
+        return stats(self.at, y_next, dx, aty_old)
 
 
-def build_routed_op(matrix: sp.spmatrix, device=None) -> RoutedOp:
-    """Stores `matrix` and its transpose as CSR on `device`."""
+def pattern_hash(csr: sp.csr_matrix) -> str:
+    """sha256 of the shape and sparsity pattern of a canonical csr."""
+    h = hashlib.sha256()
+    h.update(repr((*csr.shape, csr.nnz)).encode())
+    h.update(np.ascontiguousarray(csr.indptr, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(csr.indices, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def build_routed_op(
+    matrix: sp.spmatrix,
+    device=None,
+    tile_aligned: Optional[bool] = None,
+    share_plan_with: Optional[RoutedOp] = None,
+    out_strip: Optional[int] = None,
+    in_window: Optional[int] = None,
+    group: Optional[int] = None,
+) -> RoutedOp:
+    """Stores `matrix` and its transpose on `device` (CUDA when None;
+    raises without a GPU), as CSR or as tile plans.
+
+    tile_aligned: None reads DEFAULT_TILE_ALIGNED at call time.
+    share_plan_with: an operator over a matrix with the SAME sparsity
+    pattern (for example the rescaled copy); the new operator takes its
+    layout and device, reuses its index tensors and transfers only the
+    values. Raises ValueError on another pattern.
+    out_strip / in_window / group: the tile plan's geometry, applied to
+    both orientations (default: pick_out_strip, pick_in_window,
+    TILE_GROUP)."""
     csr = sp.csr_matrix(matrix, dtype=np.float64)
     csr.sum_duplicates()
     m, n = csr.shape
     if csr.nnz == 0 or m == 0 or n == 0:
         raise ValueError("the kernel operator requires a nonempty matrix")
+    fingerprint = pattern_hash(csr)
+    donor = share_plan_with
+    if donor is not None:
+        if donor.pattern_hash != fingerprint:
+            raise ValueError(
+                "share_plan_with requires an identical sparsity pattern"
+            )
+        tile_aligned = donor.tile_aligned
+        device = donor.a.device
+    else:
+        device = resolve_device(device)
+        if tile_aligned is None:
+            tile_aligned = DEFAULT_TILE_ALIGNED
     csr_t = sp.csr_matrix(csr.T)
     csr_t.sum_duplicates()
-    if device is None:
-        device = torch.device("cuda")
+    if tile_aligned:
+        geometry = dict(out_strip=out_strip, in_window=in_window, group=group)
+        return RoutedOp(
+            a=build_tile_plan(
+                csr, device, "A", index_from=donor and donor.a, **geometry
+            ),
+            at=build_tile_plan(
+                csr_t, device, "AT", index_from=donor and donor.at,
+                **geometry,
+            ),
+            tile_aligned=True,
+            pattern_hash=fingerprint,
+        )
     return RoutedOp(
-        a=build_csr_kernel_matrix(csr, device, "A"),
-        at=build_csr_kernel_matrix(csr_t, device, "AT"),
+        a=build_csr_kernel_matrix(
+            csr, device, "A", index_from=donor and donor.a
+        ),
+        at=build_csr_kernel_matrix(
+            csr_t, device, "AT", index_from=donor and donor.at
+        ),
+        tile_aligned=False,
+        pattern_hash=fingerprint,
     )
 
 

@@ -9,7 +9,10 @@ a card, from the root of the repository:
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not
 use.) Each kernel is held against its plain PyTorch version on the
 card, on shapes with the structures that stress the layout: hub rows
-and columns past the long-row threshold, empty rows and columns.
+and columns past the long-row threshold, empty rows and columns. The
+tile-plan kernels are held against their plain versions and against the
+CSR kernels, at the card's own strip sizes and at small ones that force
+ragged and empty strips and runs of one row across many steps.
 """
 
 import numpy as np
@@ -98,6 +101,91 @@ def test_kernels_match_plain(cuda, name, split):
     check(got[0], want[0], scale_aty)
     assert float(got[1]) == pytest.approx(float(want[1]), rel=1e-5)
     assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
+
+
+# (out_strip, in_window, group): the defaults, then small strips that
+# leave ragged last strips, strips with no entries (the hub matrices have
+# empty rows 1 and columns 1) and a hub row cut over many tiles and steps.
+GEOMETRIES = {
+    "default": {},
+    "small": dict(out_strip=64, in_window=256, group=32),
+    "odd": dict(out_strip=1, in_window=700, group=3),
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_tiled_kernels_match_plain_and_csr(cuda, name, geometry):
+    a = sp.csr_matrix(MATRICES[name]())
+    m, n = a.shape
+    op = routed.build_routed_op(a, cuda, tile_aligned=True,
+                                **GEOMETRIES[geometry])
+    csr = routed.build_routed_op(a, cuda, tile_aligned=False)
+    assert op.tile_aligned and not csr.tile_aligned
+    rng = np.random.default_rng(3)
+
+    def vec(size):
+        return torch.as_tensor(rng.normal(size=size), dtype=torch.float32,
+                               device=cuda)
+
+    x, y, b, dx, old = vec(n), vec(m), vec(m), vec(n), vec(n)
+    eq = torch.as_tensor((rng.random(m) < 0.3).astype(np.float32),
+                         device=cuda)
+    sigma = torch.full((), 0.37, dtype=torch.float32, device=cuda)
+    absa = abs(a)
+    scale_ax = absa @ np.abs(x.cpu().numpy().astype(np.float64))
+    scale_aty = absa.T @ np.abs(y.cpu().numpy().astype(np.float64))
+    scale_dual = np.abs(y.cpu().numpy()) + 0.37 * (
+        np.abs(b.cpu().numpy()) + scale_ax)
+
+    routed.reset_launch_counts()
+    ax = op.mv(x)
+    check(ax, routed.tiled_spmv_plain(op.a, x), scale_ax)
+    check(ax, csr.mv(x), scale_ax)
+    aty = op.rmv(y)
+    check(aty, routed.tiled_spmv_plain(op.at, y), scale_aty)
+    check(aty, csr.rmv(y), scale_aty)
+
+    yn, _, dy2 = op.mv_dual_step(x, y, b, eq, sigma)
+    yn_p, dy2_p = routed.tiled_dual_step_plain(op.a, x, y, b, eq, sigma)
+    yn_c, _, dy2_c = csr.mv_dual_step(x, y, b, eq, sigma)
+    check(yn, yn_p, scale_dual)
+    check(yn, yn_c, scale_dual)
+    assert float(dy2) == pytest.approx(float(dy2_p), rel=1e-5)
+    assert float(dy2) == pytest.approx(float(dy2_c), rel=1e-5)
+
+    got = op.rmv_stats(y, dx, old)
+    want = routed.tiled_rmv_stats_plain(op.at, y, dx, old)
+    want_c = csr.rmv_stats(y, dx, old)
+    check(got[0], want[0], scale_aty)
+    check(got[0], want_c[0], scale_aty)
+    for k in (1, 2):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5,
+                                              abs=1e-4)
+        assert float(got[k]) == pytest.approx(float(want_c[k]), rel=1e-5,
+                                              abs=1e-4)
+    assert routed.LAUNCHES["tiled_spmv:A"] == 1
+    assert routed.LAUNCHES["tiled_spmv:AT"] == 1
+    assert routed.LAUNCHES["tiled_dual_step"] == 1
+    assert routed.LAUNCHES["tiled_rmv_stats"] == 1
+
+    # the same bits on a second launch
+    again = op.rmv_stats(y, dx, old)
+    yn2, _, dy2_2 = op.mv_dual_step(x, y, b, eq, sigma)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert torch.equal(yn, yn2) and torch.equal(dy2, dy2_2)
+
+
+def test_tiled_wrappers_reject_bad_inputs(cuda):
+    a = hub_matrix(40, 30, 10, 1)
+    op = routed.build_routed_op(a, cuda, tile_aligned=True)
+    with pytest.raises(TypeError):
+        routed.tiled_spmv(op.a, torch.zeros(30, dtype=torch.float64,
+                                            device=cuda))
+    with pytest.raises(ValueError):
+        routed.tiled_spmv(op.a, torch.zeros(31, device=cuda))
+    with pytest.raises(ValueError):
+        routed.tiled_spmv(op.a, torch.zeros(30))  # a CPU vector
 
 
 def test_kernels_are_deterministic(cuda):
