@@ -16,6 +16,13 @@ Phases, each printing one JSON line:
    as the library yardstick;
    kernels_tiled: the same for the tile-plan kernels (tile_aligned=True),
    each also held against the CSR kernel on the same vectors;
+   kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
+   entries, seed 0: the expand bitwise equal to its plain version and to
+   numpy, the reduce against its plain version in f64 and twice bitwise
+   equal, with times, bounds and the one-call library versions;
+   probe_path: the probe script itself
+   (python3 -m firstorderlp_torch.ops.probe_routed), with each probe
+   kernel's launch count on that run;
 4. main_path: firstorderlp_torch.optimize on that LP in f32 with the
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
    on the host and each kernel's launch count on that run;
@@ -29,7 +36,15 @@ Phases, each printing one JSON line:
    residuals and gap recomputed in f64 here, the tile-plan kernels'
    launch counts above 0 and the CSR kernels' at 0;
 7. determinism_tiled: the 20k-node LP solved twice on the tile plan;
-8. the kernel list ({"kernels": [...]}).
+8. mirror_prox_path: firstorderlp_torch.optimize with
+   MirrorProxParameters on the 100k-node LP in f32 with the kernel
+   operator (CSR layout, l2 mirror map), to OPTIMAL at 1e-4, residuals
+   and gap recomputed in f64 here, spmv_csr launched at least twice per
+   iteration for A and for A', every other kernel of ops/routed.py at 0
+   (with --profile the same solve again under torch.profiler);
+9. determinism_mp: the 20k-node LP solved twice by Mirror Prox on the
+   tile plan, tiled_spmv launched and the CSR kernels not;
+10. the kernel list ({"kernels": [...]}).
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
 Exits non-zero, before the last line, when there is no CUDA device or
@@ -39,16 +54,11 @@ any phase fails. Imports nothing of JAX or of the JAX package.
 import argparse
 import contextlib
 import json
-import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
-TIMING_REPS = 100
 TOL_ENTRY = 1e-5  # |d| <= TOL_ENTRY * (|A||x|)_i + TOL_ABS
 TOL_ABS = 1e-7
 TOL_SUM = 1e-5  # relative, on the reduced sums
@@ -119,21 +129,30 @@ def make_params(tol, limit, dtype="float32", fmt="routed"):
     )
 
 
-def time_ms(torch, fn, reps=TIMING_REPS, warmup=10) -> float:
-    """Median device time of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(statistics.median(times))
+def make_mp_params(tol, limit, dtype="float32", fmt="routed"):
+    """bench.py's make_mp_params settings with tolerances: make_params'
+    rescaling, restarts and evaluation frequency, the l2 mirror map."""
+    from firstorderlp_torch import MirrorProxParameters
+
+    p = make_params(tol, limit, dtype, fmt)
+    return MirrorProxParameters(
+        l_inf_ruiz_iterations=p.l_inf_ruiz_iterations,
+        l2_norm_rescaling=p.l2_norm_rescaling,
+        pock_chambolle_alpha=p.pock_chambolle_alpha,
+        primal_importance=p.primal_importance,
+        scale_invariant_initial_primal_weight=(
+            p.scale_invariant_initial_primal_weight
+        ),
+        diagonal_scaling="l2",
+        verbosity=0,
+        record_iteration_stats=False,
+        termination_evaluation_frequency=40,
+        termination_criteria=p.termination_criteria,
+        restart_params=p.restart_params,
+        dtype=dtype,
+        matrix_format=fmt,
+        evaluations_per_dispatch=p.evaluations_per_dispatch,
+    )
 
 
 def host_residuals(problem, x, y):
@@ -216,6 +235,12 @@ def profile_summary(torch, profiler, wall_s):
             for e in sorted(events,
                             key=lambda e: -e.self_device_time_total)[:12]
         ],
+        # this repository's own kernels (namespace folp), whatever their rank
+        "port_kernels": [
+            {"name": e.key[:60], "calls": e.count,
+             "device_ms": e.self_device_time_total / 1e3}
+            for e in events if "folp::" in e.key
+        ],
         "top_host_ops": [
             {"name": e.key[:60], "calls": e.count,
              "host_ms": e.self_cpu_time_total / 1e3}
@@ -260,13 +285,14 @@ def main() -> int:
         return 2
     from firstorderlp_torch import refine, rescale_problem
     from firstorderlp_torch.generators import generate_pagerank_lp
+    from firstorderlp_torch.models import mirror_prox
     from firstorderlp_torch.models.pdhg import optimize, prepare_problem
-    from firstorderlp_torch.ops import kernels_build, routed
+    from firstorderlp_torch.ops import kernels_build, probe_routed, routed
 
     try:
         return run(args, torch, optimize, rescale_problem,
                    generate_pagerank_lp, prepare_problem, kernels_build,
-                   routed, refine)
+                   routed, refine, mirror_prox, probe_routed)
     finally:
         if args.out:
             with open(args.out, "w") as f:
@@ -274,8 +300,10 @@ def main() -> int:
 
 
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
-        prepare_problem, kernels_build, routed, refine) -> int:
+        prepare_problem, kernels_build, routed, refine, mirror_prox,
+        probe) -> int:
     dev = torch.device("cuda")
+    time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Each phase names its layout itself, whatever FOLP_TILE_ALIGNED says.
@@ -283,12 +311,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi unavailable"
+    smi_line = probe.card_line()
     emit({"phase": "device", "ok": True, "name": name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -381,16 +404,16 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             "replaces": "firstorderlp_tpu/ops/routed.py:160 (_make_expand)"
                         " + routed.py:188 (_make_reduce)",
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: routed.spmv_csr(mat, vec)),
+            "ms": time_ms(lambda: routed.spmv_csr(mat, vec)),
             "ms_without_long_row_pass": time_ms(
-                torch, lambda: routed.spmv_csr(mat_ns, vec)
+                lambda: routed.spmv_csr(mat_ns, vec)
             ),
             "plain_ms": time_ms(
-                torch, lambda: routed.spmv_csr_plain(mat, vec)
+                lambda: routed.spmv_csr_plain(mat, vec)
             ),
             "bytes": nbytes,
             "flops": 2 * mat.nnz,
-            "library_ms": time_ms(torch, lambda: lib @ vec),
+            "library_ms": time_ms(lambda: lib @ vec),
             "nnz": mat.nnz,
             "rows": mat.num_rows,
             "tpr": mat.tpr,
@@ -411,15 +434,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                     " + routed.py:532 (_make_reduce_dual)",
         "max_abs_err": err,
         "ms": time_ms(
-            torch, lambda: routed.spmv_dual_step(op.a, x, y, b, eq, sigma)
+            lambda: routed.spmv_dual_step(op.a, x, y, b, eq, sigma)
         ),
         "plain_ms": time_ms(
-            torch,
             lambda: routed.spmv_dual_step_plain(op.a, x, y, b, eq, sigma),
         ),
         "bytes": mbytes["A"] + 4 * n + 4 * 4 * m + 4,
         "flops": 2 * op.a.nnz + 7 * m,
-        "library_ms": time_ms(torch, lambda: lib_a @ x),
+        "library_ms": time_ms(lambda: lib_a @ x),
     })
 
     # spmv_rmv_stats
@@ -437,21 +459,20 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                     " + routed.py:566 (_make_reduce_rmv_stats)",
         "max_abs_err": err,
         "ms": time_ms(
-            torch, lambda: routed.spmv_rmv_stats(op.at, y, dx, aty_old)
+            lambda: routed.spmv_rmv_stats(op.at, y, dx, aty_old)
         ),
         "plain_ms": time_ms(
-            torch, lambda: routed.spmv_rmv_stats_plain(op.at, y, dx, aty_old)
+            lambda: routed.spmv_rmv_stats_plain(op.at, y, dx, aty_old)
         ),
         "bytes": mbytes["AT"] + 4 * m + 3 * 4 * n + 8,
         "flops": 2 * op.at.nnz + 5 * n,
-        "library_ms": time_ms(torch, lambda: lib_at @ y),
+        "library_ms": time_ms(lambda: lib_at @ y),
     })
     def add_bounds(rows):
         for r in rows:
-            t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
-            t_ops = r["flops"] / H100_F32_FLOPS * 1e3
-            r["bound_ms"] = max(t_bytes, t_ops)
-            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            r["bound_ms"], r["bound_by"] = probe.bound_ms(
+                r["bytes"], r["flops"]
+            )
 
     tolerance = (f"|d| <= {TOL_ENTRY}*(|A||x|)_i + {TOL_ABS}; "
                  f"sums rtol {TOL_SUM}")
@@ -484,14 +505,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             "replaces": "firstorderlp_tpu/ops/routed.py:347 (_make_fused)",
             "max_abs_err": err,
             "max_abs_err_vs_csr_kernel": err_csr,
-            "ms": time_ms(torch, lambda: routed.tiled_spmv(plan, vec)),
+            "ms": time_ms(lambda: routed.tiled_spmv(plan, vec)),
             "plain_ms": time_ms(
-                torch, lambda: routed.tiled_spmv_plain(plan, vec)
+                lambda: routed.tiled_spmv_plain(plan, vec)
             ),
             "bytes": plan_bytes(plan) + 4 * plan.num_cols
             + 4 * plan.num_rows,
             "flops": 2 * plan.nnz,
-            "library_ms": time_ms(torch, lambda: lib @ vec),
+            "library_ms": time_ms(lambda: lib @ vec),
             "out_strip": plan.out_strip,
             "in_window": plan.in_window,
             "group": plan.group,
@@ -521,15 +542,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "max_abs_err": err,
         "max_abs_err_vs_csr_kernel": err_csr,
         "ms": time_ms(
-            torch, lambda: routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
+            lambda: routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
         ),
         "plain_ms": time_ms(
-            torch,
             lambda: routed.tiled_dual_step_plain(top.a, x, y, b, eq, sigma),
         ),
         "bytes": plan_bytes(top.a) + 4 * n + 4 * 4 * m + 4,
         "flops": 2 * top.a.nnz + 7 * m,
-        "library_ms": time_ms(torch, lambda: lib_a @ x),
+        "library_ms": time_ms(lambda: lib_a @ x),
     })
 
     got = routed.tiled_rmv_stats(top.at, y, dx, aty_old)
@@ -554,21 +574,110 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "max_abs_err": err,
         "max_abs_err_vs_csr_kernel": err_csr,
         "ms": time_ms(
-            torch, lambda: routed.tiled_rmv_stats(top.at, y, dx, aty_old)
+            lambda: routed.tiled_rmv_stats(top.at, y, dx, aty_old)
         ),
         "plain_ms": time_ms(
-            torch,
             lambda: routed.tiled_rmv_stats_plain(top.at, y, dx, aty_old),
         ),
         "bytes": plan_bytes(top.at) + 4 * m + 3 * 4 * n + 8,
         "flops": 2 * top.at.nnz + 5 * n,
-        "library_ms": time_ms(torch, lambda: lib_at @ y),
+        "library_ms": time_ms(lambda: lib_at @ y),
     })
     add_bounds(tiled)
     emit({"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
           "plan_setup_seconds": plan_setup_s, "tolerance": tolerance,
           "results": tiled})
     del op, top, plan, mat, mat_ns, lib, lib_a, lib_at
+
+    # 3c. the probe kernels, at the probe's default size
+    ph = "kernels_probe"
+    host = probe.make_probe_inputs(probe.DEFAULT_NNZ, seed=0)
+    pd = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
+    n_strips = probe.N_STRIPS
+    eargs = (pd["strip_ids"], pd["x_strips"], pd["hi"], pd["lo"])
+    got = probe.probe_expand(*eargs)
+    want = probe.probe_expand_plain(*eargs)
+    torch.cuda.synchronize()
+    sid = np.repeat(host["strip_ids"], probe.GROUP_ROWS)
+    want_np = host["x_strips"][sid[:, None], host["hi"], host["lo"]]
+    err = float((got - want).abs().max())
+    err_np = float(np.max(np.abs(got.cpu().numpy() - want_np)))
+    if err != 0.0 or err_np != 0.0:
+        fail(ph, f"probe_expand: max |d| {err} against its plain version, "
+                 f"{err_np} against numpy; want 0")
+    hi64, lo64 = pd["hi"].long(), pd["lo"].long()
+    probes = [{
+        "name": "probe_expand",
+        "route": "cuda",
+        "source": "firstorderlp_torch/csrc/probe_expand.cu",
+        "replaces": "benchmarking/probe_routed.py:64 (make_expand)",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: probe.probe_expand(*eargs)),
+        "plain_ms": time_ms(lambda: probe.probe_expand_plain(*eargs)),
+        "bytes": probe.expand_bytes(*eargs),
+        "flops": 0,
+        "library_ms": time_ms(lambda: probe.library_expand(
+            pd["strip_ids"], pd["x_strips"], hi64, lo64)),
+    }]
+
+    g_in = pd["g2"].reshape(-1, 128)
+    rargs = (pd["meta"], g_in, pd["v"], pd["hir"], pd["lor"])
+    reduce_plan = probe.plan_probe_reduce(pd["meta"], n_strips)
+    got = probe.probe_reduce(*rargs, n_strips, plan=reduce_plan)
+    again = probe.probe_reduce(*rargs, n_strips, plan=reduce_plan)
+    want = probe.probe_reduce_plain(pd["meta"], g_in.double(),
+                                    pd["v"].double(), pd["hir"], pd["lor"],
+                                    n_strips)
+    torch.cuda.synchronize()
+    err = float((got.double() - want).abs().max())
+    rel = err / (float(want.abs().max()) + 1.0)
+    if not rel <= 1e-5:
+        fail(ph, f"probe_reduce: relative error {rel:.3e} against its plain "
+                 "version in f64; want <= 1e-5")
+    if not torch.equal(got, again):
+        fail(ph, "probe_reduce: two launches differ")
+    flat = probe.flat_slots(pd["meta"][:, 0], pd["hir"], pd["lor"],
+                            probe.HR).reshape(-1)
+    probes.append({
+        "name": "probe_reduce",
+        "route": "cuda",
+        "source": "firstorderlp_torch/csrc/probe_reduce.cu",
+        "replaces": "benchmarking/probe_routed.py:129 (make_reduce)",
+        "max_abs_err": err,
+        "max_rel_err": rel,
+        "ms": time_ms(lambda: probe.probe_reduce(
+            *rargs, n_strips, plan=reduce_plan)),
+        "plain_ms": time_ms(lambda: probe.probe_reduce_plain(
+            *rargs, n_strips)),
+        "bytes": probe.reduce_bytes(*rargs, n_strips),
+        "flops": 2 * g_in.numel(),
+        "library_ms": time_ms(lambda: probe.library_reduce(
+            flat, g_in, pd["v"], n_strips)),
+        "chunks": reduce_plan.nchunks,
+    })
+    add_bounds(probes)
+    emit({"phase": ph, "ok": True, "nnz": int(g_in.numel()),
+          "groups": int(pd["meta"].shape[0]), "strips": n_strips,
+          "tolerance": "probe_expand: max |d| = 0; probe_reduce: max |d| "
+                       "<= 1e-5 * (max |y| + 1) against f64, two launches "
+                       "bitwise equal",
+          "results": probes})
+    del pd, host, got, again, want, flat, hi64, lo64, g_in
+
+    # 3d. the probe itself, as a user runs it
+    probe.reset_launch_counts()
+    probe_result = probe.main([str(probe.DEFAULT_NNZ)])
+    probe_launches = dict(probe.LAUNCHES)
+    probe_ok = all(probe_launches[r["name"]] > 0 for r in probes) and (
+        probe_result["expand"]["max_abs_err"] == 0.0
+        and probe_result["reduce"]["max_rel_err"] <= 1e-5
+    )
+    emit({"phase": "probe_path", "ok": bool(probe_ok),
+          "launches": probe_launches, "result": probe_result})
+    if not probe_ok:
+        raise SystemExit(1)
+    for r in probes:
+        r["launches"] = probe_launches[r["name"]]
 
     # 4. main path
     params = make_params(1e-4, 20_000)
@@ -765,13 +874,112 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if not same:
         raise SystemExit(1)
 
-    # 8. kernel list
-    results = results + tiled
+    # 8. Mirror Prox on the CSR layout: plain A x and A' y products only,
+    # through the package's entry point (ingest included in the seconds)
+    from firstorderlp_torch import optimize as package_optimize
+
+    mp_params = make_mp_params(1e-4, 20_000)
+    routed.reset_launch_counts()
+    t0 = time.time()
+    mout = package_optimize(mp_params, problem, device=dev)
+    torch.cuda.synchronize()
+    mp_s = time.time() - t0
+    mp_launches = dict(routed.LAUNCHES)
+    mstats = mout.iteration_stats[-1] if mout.iteration_stats else None
+    mres = host_residuals(problem, mout.primal_solution, mout.dual_solution)
+    iters = max(mout.iteration_count, 1)
+    rec = {
+        "phase": "mirror_prox_path", "nodes": NODES,
+        "reason": mout.termination_reason.name,
+        "iterations": mout.iteration_count,
+        "kkt_passes": mstats.cumulative_kkt_matrix_passes if mstats else None,
+        "seconds": mp_s, "host_f64": mres, "launches": mp_launches,
+        "spmv_launches_per_iteration": (
+            mp_launches["spmv_csr:A"] + mp_launches["spmv_csr:AT"]
+        ) / iters,
+    }
+    problems = []
+    if rec["reason"] != "TERMINATION_REASON_OPTIMAL":
+        problems.append(f"reason {rec['reason']}")
+    if not (np.all(np.isfinite(mout.primal_solution))
+            and np.all(np.isfinite(mout.dual_solution))):
+        problems.append("non-finite solution")
+    if any(not v <= 1e-4 for v in mres.values()):
+        problems.append(f"host residuals {mres}")
+    for key in ("spmv_csr:A", "spmv_csr:AT"):
+        if mp_launches[key] < 2 * mout.iteration_count:
+            problems.append(f"{key} launched {mp_launches[key]} times in "
+                            f"{mout.iteration_count} iterations")
+    others = [k for k in mp_launches if not k.startswith("spmv_csr:")]
+    if any(mp_launches[k] != 0 for k in others):
+        problems.append(f"another kernel was launched: {mp_launches}")
+    rec["ok"] = not problems
+    if problems:
+        rec["problems"] = problems
+    emit(rec)
+    if problems:
+        raise SystemExit(1)
+    for r in results:
+        if r["name"] in ("spmv_csr:A", "spmv_csr:AT"):
+            r["launches_mirror_prox"] = mp_launches[r["name"]]
+    # The same solve again without ingest (with --profile under
+    # torch.profiler: device busy time, launches per iteration).
+    t0 = time.time()
+    mp_warm = mirror_prox.prepare_problem(mp_params, problem, device=dev)
+    torch.cuda.synchronize()
+    mp_prepare_s = time.time() - t0
+    with timed(torch, args.profile) as mp_run:
+        pout = mirror_prox.optimize(mp_params, problem, prepared=mp_warm)
+    record = {"phase": "mirror_prox_path_warm", "ok": True,
+              "iterations": pout.iteration_count,
+              "prepare_seconds": mp_prepare_s,
+              "solve_seconds": mp_run["seconds"],
+              "iterations_per_second": (
+                  pout.iteration_count / mp_run["seconds"])}
+    if args.profile:
+        summary = mp_run["profile"]
+        record["kernel_launches_per_iteration"] = (
+            summary["kernel_launches"] / max(pout.iteration_count, 1)
+        )
+        record["profile"] = summary
+    emit(record)
+    del mp_warm
+
+    # 9. determinism of Mirror Prox, on the tile plan
+    mp_small = make_mp_params(1e-4, 20_000)
+    routed.DEFAULT_TILE_ALIGNED = True
+    try:
+        routed.reset_launch_counts()
+        runs = [mirror_prox.optimize(mp_small, small, device=dev)
+                for _ in range(2)]
+        det_launches = dict(routed.LAUNCHES)
+    finally:
+        routed.DEFAULT_TILE_ALIGNED = False
+    reasons = [r.termination_reason.name for r in runs]
+    same = (
+        reasons == ["TERMINATION_REASON_OPTIMAL"] * 2
+        and runs[0].iteration_count == runs[1].iteration_count
+        and np.array_equal(runs[0].primal_solution, runs[1].primal_solution)
+        and np.array_equal(runs[0].dual_solution, runs[1].dual_solution)
+        and all(det_launches[k] > 0
+                for k in ("tiled_spmv:A", "tiled_spmv:AT"))
+        and all(det_launches[k] == 0 for k in det_launches
+                if not k.startswith("tiled_spmv:"))
+    )
+    emit({"phase": "determinism_mp", "ok": bool(same), "nodes": DET_NODES,
+          "iterations": [r.iteration_count for r in runs],
+          "reasons": reasons, "launches": det_launches})
+    if not same:
+        raise SystemExit(1)
+
+    # 10. kernel list
+    results = results + tiled + probes
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("ms_without_long_row_pass", "launches_per_iteration",
-             "max_abs_err_vs_csr_kernel", "padding_share")
+             "launches_mirror_prox", "max_abs_err_vs_csr_kernel",
+             "padding_share", "max_rel_err")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -2,9 +2,10 @@
 
 A port of the JAX package `firstorderlp_tpu` (which stays the reference)
 to PyTorch on an NVIDIA H100. Module names follow the JAX package's.
-The f32 LP hot loop runs through hand-written CUDA kernels for Hopper
-(`csrc/`, bound in `ops/routed.py`); host-side data handling (problem,
-MPS input, rescaling, generators) is plain numpy/scipy.
+Both solvers (PDHG and Mirror Prox) run their f32 products through
+hand-written CUDA kernels for Hopper (`csrc/`, bound in `ops/routed.py`
+and `ops/probe_routed.py`); host-side data handling (problem, MPS input,
+rescaling, generators, checkpoints) is plain numpy/scipy.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and
 raise when no GPU is present and no device was asked for. This package
@@ -56,7 +57,8 @@ from .models.pdhg import (
     ConstantStepsizeParams,
     prepare_problem,
 )
-from .models.api import MirrorProxParameters, optimize
+from .models.mirror_prox import MirrorProxParameters
+from .models.api import optimize
 from .refine import (
     optimize_split_precision,
     optimize_iterative_refinement,

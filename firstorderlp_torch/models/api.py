@@ -1,19 +1,16 @@
 """Single `optimize` entry point dispatching on the parameter type
-(mirrors the reference's multiple dispatch on optimize)."""
+(mirrors the reference's multiple dispatch on optimize): PDHG for
+PdhgParameters, Mirror Prox for MirrorProxParameters."""
 
 from __future__ import annotations
 
 from ..problem import QuadraticProgrammingProblem
 from ..saddle_point import SaddlePointOutput
+from . import mirror_prox as _mirror_prox
 from . import pdhg as _pdhg
+from .mirror_prox import MirrorProxParameters
 
-
-class MirrorProxParameters:
-    """Placeholder for the Mirror Prox parameters: the Mirror Prox solver
-    is not ported yet, and optimize raises NotImplementedError for it."""
-
-    def __init__(self, *args, **kwargs):
-        self.args, self.kwargs = args, kwargs
+__all__ = ["MirrorProxParameters", "optimize"]
 
 
 def optimize(
@@ -24,5 +21,5 @@ def optimize(
     if isinstance(params, _pdhg.PdhgParameters):
         return _pdhg.optimize(params, problem, device=device)
     if isinstance(params, MirrorProxParameters):
-        raise NotImplementedError("Mirror Prox is not ported yet")
+        return _mirror_prox.optimize(params, problem, device=device)
     raise TypeError(f"Unknown parameter type: {type(params)!r}")

@@ -176,3 +176,31 @@ def initial_primal_weight_host(
     if verbosity >= 6:
         print(f"Initial primal weight = {primal_weight}")
     return float(primal_weight)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The compute or stats dtype a parameter names: float32 or float64."""
+    dtype = getattr(torch, str(name), None)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {name!r}")
+    return dtype
+
+
+def host_floats(result: EvalResult):
+    """The evaluation's float scalars, read back in one transfer."""
+    values = [*result.conv, *result.infeas, result.lagrangian_value,
+              result.estimated_lower_bound, result.estimated_upper_bound,
+              result.step_size, result.primal_weight]
+    host = torch.stack(
+        [v.reshape(()).to(torch.float64) for v in values]
+    ).tolist()
+    nc, ni = len(result.conv), len(result.infeas)
+    return result._replace(
+        conv=DeviceConvergenceInfo(*host[:nc]),
+        infeas=DeviceInfeasibilityInfo(*host[nc:nc + ni]),
+        lagrangian_value=host[nc + ni],
+        estimated_lower_bound=host[nc + ni + 1],
+        estimated_upper_bound=host[nc + ni + 2],
+        step_size=host[nc + ni + 3],
+        primal_weight=host[nc + ni + 4],
+    )

@@ -43,6 +43,7 @@ from ..saddle_point import (
     RestartParameters,
     SaddlePointOutput,
     SolutionWeightedAverage,
+    add_to_primal_solution_weighted_average,
     add_to_solution_weighted_average,
     compute_new_primal_weight,
     create_last_restart_info,
@@ -59,8 +60,10 @@ from .common import (
     EvalResult,
     estimate_maximum_singular_value,
     evaluate_unscaled_stats,
+    host_floats,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
+    torch_dtype,
 )
 
 
@@ -71,8 +74,7 @@ from .common import (
 
 @dataclasses.dataclass(frozen=True)
 class MalitskyPockStepsizeParameters:
-    """Reference: pdhg.jl:15-41. Not ported yet: the solver raises
-    NotImplementedError for it."""
+    """Reference: pdhg.jl:15-41."""
 
     downscaling_factor: float
     breaking_factor: float
@@ -120,7 +122,9 @@ class PdhgParameters:
     # time-limit check is refreshed, and stats are reported, once per
     # dispatch (the JAX package's cadence; 1 = every evaluation).
     evaluations_per_dispatch: int = 1
-    # Not ported yet (the solver raises NotImplementedError if set).
+    # Checkpoint/resume (checkpoint.py): the state is written to
+    # `checkpoint_path` every `checkpoint_every_n_dispatches` dispatches
+    # and at termination; `resume_from_checkpoint` starts from a file.
     checkpoint_path: Optional[str] = None
     checkpoint_every_n_dispatches: int = 1
     resume_from_checkpoint: Optional[str] = None
@@ -147,27 +151,10 @@ class _PdhgConfig:
     need_bound_estimates: bool = True
 
 
-def _torch_dtype(name: str) -> torch.dtype:
-    dtype = getattr(torch, str(name), None)
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {name!r}")
-    return dtype
-
-
 def _check_ported(params: PdhgParameters) -> None:
-    if isinstance(
-        params.step_size_policy_params, MalitskyPockStepsizeParameters
-    ):
+    if params.profiler_trace_dir:
         raise NotImplementedError(
-            "the Malitsky-Pock step size is not ported yet"
-        )
-    if (
-        params.checkpoint_path
-        or params.resume_from_checkpoint
-        or params.profiler_trace_dir
-    ):
-        raise NotImplementedError(
-            "checkpoint and profiler parameters are not ported yet"
+            "the profiler-trace parameter is not ported yet"
         )
 
 
@@ -242,9 +229,14 @@ def _compute_next_primal(problem, x, dual_product, step_size, primal_weight):
     return project_primal(x - (step_size / primal_weight) * gradient, problem)
 
 
-def _compute_next_dual(problem, x, next_x, y, step_size, primal_weight):
-    """Reference: compute_next_dual_solution (pdhg.jl:472-494)."""
-    extrapolated = next_x + (next_x - x)
+def _compute_next_dual(problem, x, next_x, y, step_size, primal_weight,
+                       extrapolation_coefficient=None):
+    """Reference: compute_next_dual_solution (pdhg.jl:472-494); the
+    extrapolation coefficient is 1 when None."""
+    if extrapolation_coefficient is None:
+        extrapolated = next_x + (next_x - x)
+    else:
+        extrapolated = next_x + extrapolation_coefficient * (next_x - x)
     gradient = problem.right_hand_side - problem.ax(extrapolated)
     next_y = project_dual(
         y + (primal_weight * step_size) * gradient, problem
@@ -405,13 +397,86 @@ def _take_step_constant(
     )
 
 
+MALITSKY_POCK_MAX_TRIALS = 60
+
+
+def _take_step_malitsky_pock(
+    problem, state: PdhgState, params: MalitskyPockStepsizeParameters
+) -> PdhgState:
+    """Malitsky-Pock linesearch, LP only (reference pdhg.jl:551-647).
+
+    The dual-side linesearch accepts iff
+    step_size ||A'(y+ - y)|| <= breaking_factor ||y+ - y||; at most 60
+    inner trials (half a KKT pass each, after half a pass for the primal
+    step), otherwise a numerical error is flagged. Each trial's decision
+    is read back to the host, as in the adaptive rule."""
+    entry_step = state.step_size
+    x = state.current_primal_solution
+    y = state.current_dual_solution
+    next_x = _compute_next_primal(
+        problem, x, state.current_dual_product, entry_step,
+        state.primal_weight,
+    )
+    kkt = state.cumulative_kkt_passes + 0.5
+    total = state.total_number_iterations
+    step_size = entry_step + params.interpolation_coefficient * (
+        torch.sqrt(1.0 + state.ratio_step_sizes) - 1.0
+    ) * entry_step
+    accepted = False
+    for _ in range(MALITSKY_POCK_MAX_TRIALS):
+        total += 1
+        kkt += 0.5
+        ratio = step_size / entry_step
+        next_y, next_aty = _compute_next_dual(
+            problem, x, next_x, y, step_size, state.primal_weight,
+            extrapolation_coefficient=ratio,
+        )
+        delta_dual = next_y - y
+        delta_aty = next_aty - state.current_dual_product
+        accept = step_size * torch.sqrt(
+            torch.sum(delta_aty * delta_aty)
+        ) <= params.breaking_factor * torch.sqrt(
+            torch.sum(delta_dual * delta_dual)
+        )
+        if bool(accept.item()):
+            accepted = True
+            break
+        step_size = step_size * params.downscaling_factor
+    if not accepted:
+        # 60 rejections: flag a numerical error and leave the iterates,
+        # the step size and the ratio as they were (reference
+        # pdhg.jl:640-643).
+        return dataclasses.replace(
+            state,
+            numerical_error=True,
+            total_number_iterations=total,
+            cumulative_kkt_passes=kkt,
+        )
+    if state.avg.sum_primal_solutions_count == 0:
+        # Nonsymmetric averaging: the very first accepted step also adds
+        # the pre-step primal iterate with weight step_size * ratio
+        # (reference pdhg.jl:617-627).
+        state = dataclasses.replace(
+            state,
+            avg=add_to_primal_solution_weighted_average(
+                state.avg, x, step_size * ratio
+            ),
+        )
+    return dataclasses.replace(
+        _accept_solution(state, next_x, next_y, next_aty),
+        step_size=step_size,
+        ratio_step_sizes=ratio,
+        iteration=state.iteration + 1,
+        total_number_iterations=total,
+        cumulative_kkt_passes=kkt,
+    )
+
+
 def _take_step(problem, state: PdhgState, policy) -> PdhgState:
     if isinstance(policy, AdaptiveStepsizeParams):
         return _take_step_adaptive(problem, state, policy)
     if isinstance(policy, MalitskyPockStepsizeParameters):
-        raise NotImplementedError(
-            "the Malitsky-Pock step size is not ported yet"
-        )
+        return _take_step_malitsky_pock(problem, state, policy)
     return _take_step_constant(problem, state, policy)
 
 
@@ -633,9 +698,9 @@ def prepare_problem(
     device = _reuse.device if _reuse is not None else resolve_device(device)
     validate(original_problem)
     _check_ported(params)
-    dtype = _torch_dtype(params.dtype)
+    dtype = torch_dtype(params.dtype)
     stats_dtype = (
-        _torch_dtype(params.stats_dtype) if params.stats_dtype else None
+        torch_dtype(params.stats_dtype) if params.stats_dtype else None
     )
     if _reuse is not None and (
         _reuse.bundle.original.objective_vector.dtype
@@ -669,7 +734,10 @@ def prepare_problem(
 
     state = _initial_state(bundle, dtype, device)
     cumulative_kkt_passes = 0.0
-    if isinstance(params.step_size_policy_params, AdaptiveStepsizeParams):
+    if isinstance(
+        params.step_size_policy_params,
+        (AdaptiveStepsizeParams, MalitskyPockStepsizeParameters),
+    ):
         cumulative_kkt_passes += 0.5
         inf_norm = matrix_inf_norm_entrywise(
             scaled_problem.scaled_qp.constraint_matrix
@@ -741,26 +809,6 @@ def _make_config(params: PdhgParameters) -> _PdhgConfig:
     )
 
 
-def _host_floats(result: EvalResult):
-    """The evaluation's float scalars, read back in one transfer."""
-    values = [*result.conv, *result.infeas, result.lagrangian_value,
-              result.estimated_lower_bound, result.estimated_upper_bound,
-              result.step_size, result.primal_weight]
-    host = torch.stack(
-        [v.reshape(()).to(torch.float64) for v in values]
-    ).tolist()
-    nc, ni = len(result.conv), len(result.infeas)
-    return result._replace(
-        conv=DeviceConvergenceInfo(*host[:nc]),
-        infeas=DeviceInfeasibilityInfo(*host[nc:nc + ni]),
-        lagrangian_value=host[nc + ni],
-        estimated_lower_bound=host[nc + ni + 1],
-        estimated_upper_bound=host[nc + ni + 2],
-        step_size=host[nc + ni + 3],
-        primal_weight=host[nc + ni + 4],
-    )
-
-
 def optimize(
     params: PdhgParameters,
     original_problem: QuadraticProgrammingProblem,
@@ -789,12 +837,41 @@ def optimize(
     state = prepared.initial_state
     config = _make_config(params)
 
+    problem_fp = None
+    if params.checkpoint_path or params.resume_from_checkpoint:
+        from ..checkpoint import problem_fingerprint
+
+        problem_fp = problem_fingerprint(original_problem)
+    elapsed_offset = float(_elapsed_offset)
+    if params.resume_from_checkpoint:
+        from ..checkpoint import load_state
+
+        state, elapsed_offset, _ = load_state(
+            params.resume_from_checkpoint, state, fingerprint=problem_fp
+        )
+        # The previous run's termination (e.g. its iteration limit) does
+        # not apply to this run's criteria; re-evaluate from scratch.
+        state = dataclasses.replace(state, termination_reason=0)
+
+    def checkpoint(state, metadata):
+        from ..checkpoint import save_state
+
+        save_state(
+            params.checkpoint_path,
+            state,
+            elapsed_time=time.time() - start_time,
+            metadata=metadata,
+            fingerprint=problem_fp,
+        )
+
     display_iteration_stats_heading(params.verbosity)
 
     iteration_stats = []
-    start_time = time.time() - float(_elapsed_offset)
+    start_time = time.time() - elapsed_offset
     basic_algorithm_time = 0.0
     evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
+    checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
+    dispatch_count = 0
     while True:
         elapsed = time.time() - start_time
         segment_start = time.time()
@@ -805,11 +882,16 @@ def optimize(
             k += 1
         terminated = result.termination_reason != 0
         basic_algorithm_time += time.time() - segment_start
+        dispatch_count += 1
         if not (
             terminated
             or params.record_iteration_stats
             or params.verbosity > 0
         ):
+            if params.checkpoint_path and (
+                dispatch_count % checkpoint_every == 0
+            ):
+                checkpoint(state, {"iteration": -1})
             continue
         if terminated and not config.need_bound_estimates:
             # The eval block skipped the diagnostics-only bound estimates;
@@ -826,8 +908,12 @@ def optimize(
                 estimated_lower_bound=est_lb,
                 estimated_upper_bound=est_ub,
             )
-        result = _host_floats(result)
+        result = host_floats(result)
         eval_iteration = result.iteration  # = displayed iteration - 1
+        if params.checkpoint_path and (
+            dispatch_count % checkpoint_every == 0 or terminated
+        ):
+            checkpoint(state, {"iteration": eval_iteration + 1})
         method_specific_stats = {
             "time_spent_doing_basic_algorithm": basic_algorithm_time,
             "lagrangian_value": result.lagrangian_value,

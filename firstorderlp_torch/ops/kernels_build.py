@@ -33,6 +33,8 @@ KERNEL_SOURCES = {
     "tiled_spmv": "tiled_spmv.cu",
     "tiled_dual_step": "tiled_dual_step.cu",
     "tiled_rmv_stats": "tiled_rmv_stats.cu",
+    "probe_expand": "probe_expand.cu",
+    "probe_reduce": "probe_reduce.cu",
 }
 
 NVCC_FLAGS = [
@@ -127,16 +129,22 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     spmv = [p, p]  # x, y
     dual_step = [p, p, p, p, p, p, p]  # z y b eq sigma y+ parts
     rmv_stats = [p, p, p, p, p]  # y dx aty_old aty parts
-    matrix, vectors = {
-        "spmv_csr": (csr, spmv),
-        "spmv_dual_step": (csr, dual_step),
-        "spmv_rmv_stats": (csr, rmv_stats),
-        "tiled_spmv": (plan, spmv),
-        "tiled_dual_step": (plan, dual_step),
-        "tiled_rmv_stats": (plan, rmv_stats),
+    # strip_ids x_strips hi lo g, then ngroups n_strips h groups_per_block
+    probe_expand = [p, p, p, p, p, i, i, i, i]
+    # chunk_ptr strip_chunk_ptr g v hi lo parts y, then nchunks n_strips hr
+    probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
+    arguments = {
+        "spmv_csr": csr + spmv,
+        "spmv_dual_step": csr + dual_step,
+        "spmv_rmv_stats": csr + rmv_stats,
+        "tiled_spmv": plan + spmv,
+        "tiled_dual_step": plan + dual_step,
+        "tiled_rmv_stats": plan + rmv_stats,
+        "probe_expand": probe_expand,
+        "probe_reduce": probe_reduce,
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
-    fn.argtypes = matrix + vectors + [p]  # trailing: the CUDA stream
+    fn.argtypes = arguments + [p]  # trailing: the CUDA stream
     fn.restype = ctypes.c_int
     return dll
 

@@ -44,8 +44,8 @@ from .host_stats import (
     host_qp_cache,
 )
 from .iteration_stats import to_host_stats
+from .models import mirror_prox as _mp
 from .models import pdhg as _pdhg
-from .models.api import MirrorProxParameters
 from .models.common import initial_primal_weight_host
 from .ops.device import resolve_device
 from .ops.device_problem import DeviceQpCache
@@ -135,16 +135,22 @@ def _unless_untrusted(out, trusted: bool):
     )
 
 
-def _require_pdhg(params) -> None:
-    """Both entry points are written to cover PDHG and Mirror Prox (the shift
-    construction never touches solver state); Mirror Prox itself is not
-    ported yet."""
-    if isinstance(params, MirrorProxParameters):
-        raise NotImplementedError("Mirror Prox is not ported yet")
+def _is_mp_params(params) -> bool:
+    return isinstance(params, _mp.MirrorProxParameters)
 
 
 def _prepare(params, problem, warm_start=None, _reuse=None, device=None):
-    _require_pdhg(params)
+    """Solver-dispatched prepare: both refinement entry points cover PDHG and
+    Mirror Prox (the shift construction never touches solver state;
+    reference bar: termination.jl:33-45 applied to mirror_prox.jl:
+    623-919). Mirror Prox's prepare has no _reuse fast path: its f64
+    tail pays a fresh ingest, on the device of the earlier phase."""
+    if _is_mp_params(params):
+        if _reuse is not None:
+            device = _reuse.device
+        return _mp.prepare_problem(
+            params, problem, warm_start=warm_start, device=device
+        )
     return _pdhg.prepare_problem(
         params, problem, warm_start=warm_start, device=device,
         _reuse=_reuse,
@@ -152,7 +158,11 @@ def _prepare(params, problem, warm_start=None, _reuse=None, device=None):
 
 
 def _optimize(params, problem, prepared, elapsed_offset=0.0):
-    _require_pdhg(params)
+    if _is_mp_params(params):
+        return _mp.optimize(
+            params, problem, prepared=prepared,
+            _elapsed_offset=elapsed_offset,
+        )
     return _pdhg.optimize(
         params, problem, prepared=prepared,
         _elapsed_offset=elapsed_offset,
@@ -209,7 +219,7 @@ def _relabelled_if_relaxed(out1, p1, crit, reason, string):
 
 
 def optimize_split_precision(
-    params: _pdhg.PdhgParameters,
+    params,
     problem,
     switch_tolerance: float = 1e-6,
     prepared=None,
@@ -448,7 +458,6 @@ def _prepare_shifted_fast(prepared, params, c_hat, b_hat, lo, hi,
     problem vectors (scaled on host with the phase-1 cumulative
     vectors), the is_equality mask and the qp-cache norms change. Zero
     plan builds, zero matrix transfers."""
-    _require_pdhg(params)
     bundle = prepared.bundle
     device = prepared.device
     sp_prob = prepared.scaled_problem
@@ -498,6 +507,37 @@ def _prepare_shifted_fast(prepared, params, c_hat, b_hat, lo, hi,
             l2_norm_primal_right_hand_side=scalar(np.linalg.norm(b_hat)),
         ),
     )
+    if _is_mp_params(params):
+        # A and Q are unchanged by the shift, so the mirror-map diagonal
+        # scalings' matrix norms are phase 1's; only the scale-invariant
+        # primal-weight fold changes with the shifted c_s/b_s
+        # (initial_mp_scalings recomputes both host-side, reference
+        # mirror_prox.jl:484-550, 677-688).
+        shim = types.SimpleNamespace(
+            constraint_matrix=sp_prob.scaled_qp.constraint_matrix,
+            objective_matrix=sp_prob.scaled_qp.objective_matrix,
+            objective_vector=c_s,
+            right_hand_side=b_s,
+        )
+        px, py, pw = _mp.initial_mp_scalings(shim, params)
+        state = _mp.make_initial_state(
+            new_bundle.scaled.num_variables,
+            new_bundle.scaled.num_constraints,
+            f32,
+            # same scaled A as phase 1 => same 1/max|A| initial step
+            prepared.initial_state.step_size.to(f32),
+            px,
+            py,
+            pw,
+            device,
+        )
+        return _mp.PreparedMpProblem(
+            scaled_problem=sp_prob,
+            bundle=new_bundle,
+            initial_state=state,
+            device=device,
+        )
+
     state = _pdhg._initial_state(new_bundle, f32, device)
     pw = initial_primal_weight_host(
         types.SimpleNamespace(
@@ -565,7 +605,7 @@ def _confirm_infeasible(problem, criteria, out) -> bool:
 
 
 def optimize_iterative_refinement(
-    params: _pdhg.PdhgParameters,
+    params,
     problem,
     switch_tolerance: float = 1e-6,
     max_rounds: int = 4,

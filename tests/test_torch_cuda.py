@@ -211,3 +211,119 @@ def test_wrappers_reject_bad_inputs_and_count(cuda):
     routed.reset_launch_counts()
     routed.spmv_csr(op.a, torch.zeros(30, device=cuda))
     assert routed.LAUNCHES["spmv_csr:A"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The probe kernels (ops/probe_routed.py)
+# ---------------------------------------------------------------------------
+
+
+def probe_tensors(cuda, nnz, seed=0):
+    from firstorderlp_torch.ops import probe_routed as probe
+
+    host = probe.make_probe_inputs(nnz, seed)
+    dev = {k: torch.as_tensor(a, device=cuda) for k, a in host.items()}
+    dev["g"] = dev["g2"].reshape(-1, 128)
+    return probe, dev
+
+
+@pytest.mark.parametrize("nnz", [1024, 8192, 819_200])
+def test_probe_expand_is_exact(cuda, nnz):
+    probe, d = probe_tensors(cuda, nnz)
+    args = (d["strip_ids"], d["x_strips"], d["hi"], d["lo"])
+    probe.reset_launch_counts()
+    got = probe.probe_expand(*args)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["probe_expand"] == 1
+    assert torch.equal(got, probe.probe_expand_plain(*args))
+
+
+@pytest.mark.parametrize("nnz", [1024, 8192, 819_200])
+def test_probe_reduce_matches_plain_and_repeats(cuda, nnz):
+    probe, d = probe_tensors(cuda, nnz)
+    args = (d["meta"], d["g"], d["v"], d["hir"], d["lor"])
+    probe.reset_launch_counts()
+    got = probe.probe_reduce(*args, probe.N_STRIPS)
+    again = probe.probe_reduce(*args, probe.N_STRIPS)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["probe_reduce"] == 2
+    assert torch.equal(got, again)  # one fixed order of summation
+    want = probe.probe_reduce_plain(
+        d["meta"], d["g"].double(), d["v"].double(), d["hir"], d["lor"],
+        probe.N_STRIPS,
+    )
+    err = (got.double() - want).abs().max() / (want.abs().max() + 1)
+    assert float(err) <= 1e-5
+
+
+@pytest.mark.parametrize("target_chunks", [1, 7, 10_000])
+def test_probe_reduce_strip_without_groups_is_zero(cuda, target_chunks):
+    """Strips 2 and 7 of 8 are named by no group; the chunking (one
+    chunk a strip, ragged chunks, one group a chunk) changes the order
+    of summation only inside the tolerance."""
+    probe, d = probe_tensors(cuda, 40 * 1024, seed=3)
+    strips = np.sort(np.random.default_rng(1).choice(
+        [0, 1, 3, 4, 5, 6], size=40))
+    meta = np.zeros((40, 2), np.int32)
+    meta[:, 0] = strips
+    meta[0, 1] = 1
+    meta[1:, 1] = strips[1:] != strips[:-1]
+    meta = torch.as_tensor(meta, device=cuda)
+    plan = probe.plan_probe_reduce(meta, 8, target_chunks=target_chunks)
+    got = probe.probe_reduce(meta, d["g"], d["v"], d["hir"], d["lor"], 8,
+                             plan=plan)
+    want = probe.probe_reduce_plain(
+        meta, d["g"].double(), d["v"].double(), d["hir"], d["lor"], 8)
+    assert torch.count_nonzero(got[2]) == 0
+    assert torch.count_nonzero(got[7]) == 0
+    err = (got.double() - want).abs().max() / (want.abs().max() + 1)
+    assert float(err) <= 1e-5
+
+
+def test_probe_wrappers_reject_bad_inputs(cuda):
+    probe, d = probe_tensors(cuda, 8192)  # strips 0 1 1 2 3 4 5 5
+    with pytest.raises(TypeError):
+        probe.probe_expand(d["strip_ids"], d["x_strips"].double(), d["hi"],
+                           d["lo"])
+    with pytest.raises(ValueError):
+        probe.probe_expand(d["strip_ids"], d["x_strips"], d["hi"][:8],
+                           d["lo"])
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA tensors
+        probe.probe_reduce(d["meta"], d["g"].cpu(), d["v"], d["hir"],
+                           d["lor"], 8)
+    bad = d["meta"].clone()
+    bad[2, 1] = 1  # a "first group" flag inside a strip's run
+    with pytest.raises(ValueError):
+        probe.probe_reduce(bad, d["g"], d["v"], d["hir"], d["lor"], 8)
+
+
+def test_probe_kernels_guard_out_of_range_indices(cuda):
+    """An index outside the strips must not read or write outside them:
+    the expand gives 0 there, the reduce drops the entry."""
+    probe, d = probe_tensors(cuda, 8192)
+    hi, lo, ids = d["hi"].clone(), d["lo"].clone(), d["strip_ids"].clone()
+    hi[0, 0], hi[9, 5], lo[20, 7], lo[33, 1] = probe.H, -1, 128, -5
+    ids[-1] = probe.N_STRIPS  # the last group names no strip
+    got = probe.probe_expand(ids, d["x_strips"], hi, lo)
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[0, 0] = bad[9, 5] = bad[20, 7] = bad[33, 1] = True
+    bad[-probe.GROUP_ROWS:] = True
+    want = probe.probe_expand_plain(
+        ids.clamp(max=probe.N_STRIPS - 1), d["x_strips"],
+        hi.clamp(0, probe.H - 1), lo.clamp(0, 127))
+    assert torch.equal(got[~bad], want[~bad])
+    assert torch.count_nonzero(got[bad]) == 0
+
+    hir, lor = d["hir"].clone(), d["lor"].clone()
+    hir[0, 0], hir[9, 5], lor[20, 7], lor[33, 1] = probe.HR, -1, 128, -5
+    dropped = torch.zeros_like(d["g"], dtype=torch.bool)
+    dropped[0, 0] = dropped[9, 5] = dropped[20, 7] = dropped[33, 1] = True
+    got = probe.probe_reduce(d["meta"], d["g"], d["v"], hir, lor,
+                             probe.N_STRIPS)
+    want = probe.probe_reduce_plain(
+        d["meta"], torch.where(dropped, 0.0, d["g"]).double(),
+        d["v"].double(), hir.clamp(0, probe.HR - 1), lor.clamp(0, 127),
+        probe.N_STRIPS)
+    err = (got.double() - want).abs().max() / (want.abs().max() + 1)
+    assert float(err) <= 1e-5

@@ -318,19 +318,120 @@ def test_entry_points_raise_without_a_gpu():
 
 
 def test_unported_features_raise():
+    """What is left: the profiler-trace parameter. (Malitsky-Pock, the
+    checkpoint parameters and Mirror Prox are ported; their tests are
+    below, in test_torch_checkpoint.py and in
+    test_torch_mirror_prox.py.)"""
     problem = port_problem(fixtures.example_lp())
     base = port_params(pdhg_params(optimality_criteria(1e-4)))
-    for change in (
-        dict(step_size_policy_params=tx.MalitskyPockStepsizeParameters(
-            0.7, 1.0, 1.0)),
-        dict(checkpoint_path="x.npz"),
-        dict(profiler_trace_dir="trace"),
-    ):
-        with pytest.raises(NotImplementedError):
-            tx.optimize(dataclasses.replace(base, **change), problem,
-                        device="cpu")
     with pytest.raises(NotImplementedError):
-        tx.optimize(tx.MirrorProxParameters(), problem, device="cpu")
+        tx.optimize(dataclasses.replace(base, profiler_trace_dir="trace"),
+                    problem, device="cpu")
+    with pytest.raises(TypeError):
+        tx.optimize(object(), problem, device="cpu")
+
+
+MALITSKY_POCK = jx_pdhg.MalitskyPockStepsizeParameters(0.7, 1.0, 1.0)
+
+
+def test_lp_malitsky_pock():
+    """tests/test_pdhg.py's test_lp_malitsky_pock through both packages."""
+    problem = fixtures.example_lp()
+    jparams = pdhg_params(optimality_criteria(1e-9),
+                          step_size_policy=MALITSKY_POCK)
+    want = jx_pdhg.optimize(jparams, problem)
+    got = tx.optimize(port_params(jparams), port_problem(problem),
+                      device="cpu")
+    print(f"malitsky-pock: iterations port {got.iteration_count}, "
+          f"jax {want.iteration_count}")
+    assert got.termination_reason == want.termination_reason
+    assert got.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+    np.testing.assert_allclose(got.primal_solution, [1.0, 0.0, 6.0, 2.0],
+                               atol=1e-7)
+    np.testing.assert_allclose(got.dual_solution, [0.5, 4.0, 0.0],
+                               atol=1e-7)
+    np.testing.assert_allclose(got.primal_solution, want.primal_solution,
+                               atol=2e-7)
+
+
+def malitsky_pock_state(iterations):
+    """(JAX bundle, JAX state after `iterations` Malitsky-Pock steps on
+    example_lp, port bundle, the same state in the port), in f64."""
+    problem = fixtures.example_lp()
+    jparams = dataclasses.replace(
+        pdhg_params(terminate_on_iteration_limit(1000),
+                    step_size_policy=MALITSKY_POCK, ruiz_iterations=10),
+        matrix_format="dense",
+    )
+    jprep = jx_pdhg.prepare_problem(jparams, problem)
+    state = jprep.initial_state
+    for _ in range(iterations):
+        state = jx_pdhg._take_step_malitsky_pock(
+            jprep.bundle.scaled, state, MALITSKY_POCK
+        )
+    tprep = tx_pdhg.prepare_problem(port_params(jparams),
+                                    port_problem(problem), device="cpu")
+    return (jprep.bundle, state, tprep.bundle,
+            convert.state_from_arrays(state_leaves(state), device="cpu"))
+
+
+def assert_pdhg_states_close(tstate, jstate, rtol):
+    for name in ("iteration", "total_number_iterations", "numerical_error"):
+        assert getattr(tstate, name) == getattr(jstate, name).item(), name
+    assert tstate.cumulative_kkt_passes == float(
+        jstate.cumulative_kkt_passes
+    )
+    for name in ("current_primal_solution", "current_dual_solution",
+                 "current_dual_product", "delta_primal", "delta_dual",
+                 "step_size", "ratio_step_sizes", "primal_weight"):
+        assert_close_normwise(getattr(tstate, name).numpy(),
+                              getattr(jstate, name), rtol, name)
+    for name in ("sum_primal_solutions", "sum_dual_solutions",
+                 "sum_primal_solution_weights", "sum_dual_solution_weights"):
+        assert_close_normwise(getattr(tstate.avg, name).numpy(),
+                              getattr(jstate.avg, name), rtol, name)
+    for name in ("sum_primal_solutions_count", "sum_dual_solutions_count"):
+        assert getattr(tstate.avg, name) == int(getattr(jstate.avg, name))
+
+
+@pytest.mark.parametrize("iterations", [0, 7])
+def test_take_step_malitsky_pock_from_jax_state_f64(iterations):
+    """One linesearch step at rtol 1e-10: from the initial state (the
+    nonsymmetric first average: the primal count runs one ahead of the
+    dual count) and from a state a few steps in."""
+    jbundle, state, tbundle, tstate = malitsky_pock_state(iterations)
+    policy = tx.MalitskyPockStepsizeParameters(0.7, 1.0, 1.0)
+    want = jx_pdhg._take_step_malitsky_pock(jbundle.scaled, state,
+                                            MALITSKY_POCK)
+    got = tx_pdhg._take_step_malitsky_pock(tbundle.scaled, tstate, policy)
+    assert got.iteration == iterations + 2
+    assert got.avg.sum_primal_solutions_count == (
+        got.avg.sum_dual_solutions_count + 1
+    )
+    assert_pdhg_states_close(got, want, 1e-10)
+
+
+def test_malitsky_pock_sixty_rejections_flag_a_numerical_error():
+    """A breaking factor of 0 rejects every trial: after 60 of them the
+    step is a numerical error and the state is untouched, apart from the
+    accounting (half a pass for the primal step and for each trial)."""
+    jbundle, state, tbundle, tstate = malitsky_pock_state(3)
+    want = jx_pdhg._take_step_malitsky_pock(
+        jbundle.scaled, state,
+        jx_pdhg.MalitskyPockStepsizeParameters(0.7, 0.0, 1.0),
+    )
+    got = tx_pdhg._take_step_malitsky_pock(
+        tbundle.scaled, tstate, tx.MalitskyPockStepsizeParameters(0.7, 0.0, 1.0)
+    )
+    assert got.numerical_error and bool(want.numerical_error)
+    assert got.iteration == tstate.iteration
+    assert got.total_number_iterations == tstate.total_number_iterations + 60
+    assert got.cumulative_kkt_passes == tstate.cumulative_kkt_passes + 30.5
+    assert_pdhg_states_close(got, want, 0.0)
+    for name in ("current_primal_solution", "current_dual_solution",
+                 "step_size", "ratio_step_sizes"):
+        assert torch.equal(getattr(got, name), getattr(tstate, name)), name
+    assert got.avg is tstate.avg
 
 
 def _port_sources():

@@ -477,12 +477,30 @@ def test_confirmed_infeasibility_stays_final():
 
 
 def test_mirror_prox_is_not_ported():
+    """The name is from before Mirror Prox was ported, when both hooks
+    raised for it. Now they dispatch on the parameter type: Mirror Prox
+    parameters get Mirror Prox's prepare and solver (the entry points
+    themselves are held in test_torch_mirror_prox.py)."""
+    from firstorderlp_torch.models import mirror_prox as tx_mp
+    from test_mirror_prox import mp_params
+    from test_torch_mirror_prox import port_mp_params
+
     q = port_problem(fixtures.example_lp())
-    mp = tx.MirrorProxParameters()
-    with pytest.raises(NotImplementedError):
-        tx_refine._prepare(mp, q, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tx_refine._optimize(mp, q, None)
+    mp = port_mp_params(mp_params(optimality_criteria(1e-6),
+                                  diagonal_scaling="l2"))
+    prepared = tx_refine._prepare(mp, q, device="cpu")
+    assert isinstance(prepared, tx_mp.PreparedMpProblem)
+    out = tx_refine._optimize(mp, q, prepared)
+    assert out.termination_reason.name == OPTIMAL
+    # the tail's prepare stays on the earlier phase's device
+    tail = tx_refine._prepare(mp, q, warm_start=(out.primal_solution,
+                                                 out.dual_solution),
+                              _reuse=prepared)
+    assert tail.device == prepared.device
+    pdhg = tx_refine._prepare(
+        port_params(pdhg_params(optimality_criteria(1e-6))), q, device="cpu"
+    )
+    assert isinstance(pdhg, tx_pdhg.PreparedProblem)
 
 
 def test_entry_points_follow_the_device_rule():
