@@ -15,7 +15,16 @@ Phases, each printing one JSON line:
    bytes each call must move, and the torch.sparse_csr_tensor product
    as the library yardstick;
    kernels_tiled: the same for the tile-plan kernels (tile_aligned=True),
-   each also held against the CSR kernel on the same vectors;
+   each also held against the CSR kernel on the same vectors and
+   launched twice for the same bits, with the device time of a call
+   from torch.profiler and what the launch looks like (blocks, the
+   largest and the mean number of stored entries per block, tiles staged
+   and gathered, bytes staged);
+   kernels_tiled_large: tiled_spmv (A x, A' y) and tiled_dual_step again
+   on a matrix of the PageRank LP's structure with a million nodes
+   (generators.pagerank_like_matrix, made in bulk with numpy: the
+   generator's graph is a Python loop over the nodes), whose plan is
+   larger than the L2 cache;
    kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
    entries, seed 0: the expand bitwise equal to its plain version and to
    numpy, the reduce against its plain version in f64 and twice bitwise
@@ -64,6 +73,7 @@ TOL_ABS = 1e-7
 TOL_SUM = 1e-5  # relative, on the reduced sums
 NODES = 100_000  # the main path's PageRank LP
 DET_NODES = 20_000  # the determinism phase's
+LARGE_NODES = 1_000_000  # kernels_tiled_large's
 
 _lines = []
 
@@ -250,13 +260,88 @@ def profile_summary(torch, profiler, wall_s):
     }
 
 
-def plan_bytes(plan) -> int:
-    """Packed indices and values of every stored entry, padding
-    included, the group table and the tile and strip pointers, each read
-    once."""
-    return (8 * plan.ngroups * plan.group + 16 * plan.ngroups
-            + 4 * int(plan.tile_ptr.shape[0])
-            + 4 * int(plan.strip_tile_ptr.shape[0]))
+def kernels_tiled_large(torch, routed, probe, device_ms, dev):
+    """tiled_spmv (both orientations) and tiled_dual_step on the
+    million-node matrix of generators.pagerank_like_matrix (seed 0),
+    held against their plain versions; times as in kernels_tiled."""
+    from firstorderlp_torch.generators import pagerank_like_matrix
+
+    ph = "kernels_tiled_large"
+    t0 = time.time()
+    a64 = pagerank_like_matrix(LARGE_NODES, seed=0)
+    make_s = time.time() - t0
+    m, n = a64.shape
+    t0 = time.time()
+    top = routed.build_routed_op(a64, dev, tile_aligned=True)
+    csr = routed.build_routed_op(a64, dev, tile_aligned=False)
+    setup_s = time.time() - t0
+    rng = np.random.default_rng(1)
+    host = {"x": rng.standard_normal(n), "y": rng.standard_normal(m),
+            "b": rng.standard_normal(m), "eq": np.arange(m) < 1}
+    host = {k: np.asarray(a, np.float32) for k, a in host.items()}
+    v = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
+    sigma_val = 0.37
+    sigma = torch.full((), sigma_val, dtype=torch.float32, device=dev)
+    abs_a = abs(a64)
+    scale = {"A": abs_a @ np.abs(host["x"]).astype(np.float64),
+             "AT": abs_a.T @ np.abs(host["y"]).astype(np.float64)}
+    scale["dual"] = (np.abs(host["y"]) + sigma_val * np.abs(host["b"])
+                     + sigma_val * scale["A"])
+
+    def worst(name, got, want, bound):
+        err = np.abs(got.double().cpu().numpy() - want.double().cpu().numpy())
+        if np.any(err > bound):
+            fail(ph, f"{name}: differs by {float(np.max(err)):.3e}")
+        return float(np.max(err))
+
+    lib = {"A": routed.library_spmv(csr.a), "AT": routed.library_spmv(csr.at)}
+    dual_args = (v["x"], v["y"], v["b"], v["eq"], sigma)
+    calls = {
+        "tiled_spmv:A": (
+            top.a, lambda: routed.tiled_spmv(top.a, v["x"]),
+            lambda: routed.tiled_spmv_plain(top.a, v["x"]),
+            lambda: lib["A"] @ v["x"], 4 * (m + n), 0),
+        "tiled_spmv:AT": (
+            top.at, lambda: routed.tiled_spmv(top.at, v["y"]),
+            lambda: routed.tiled_spmv_plain(top.at, v["y"]),
+            lambda: lib["AT"] @ v["y"], 4 * (m + n), 0),
+        "tiled_dual_step": (
+            top.a, lambda: routed.tiled_dual_step(top.a, *dual_args),
+            lambda: routed.tiled_dual_step_plain(top.a, *dual_args),
+            lambda: lib["A"] @ v["x"], 4 * n + 16 * m + 4, 7 * m),
+    }
+    results = []
+    for name, (plan, call, plain, library, extra, flops) in calls.items():
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if name == "tiled_dual_step":
+            err = worst(name, got[0], want[0],
+                        TOL_ENTRY * scale["dual"] + TOL_ABS)
+            # against its own y+ in f64: the dense row's A z cancels, so
+            # two correct y+ give sums further apart than TOL_SUM
+            own = torch.sum((got[0].double() - v["y"].double()) ** 2)
+            err = max(err, worst(f"{name} dy2", got[1], own,
+                                 TOL_SUM * abs(float(own)) + TOL_ABS))
+        else:
+            err = worst(name, got, want, TOL_ENTRY * scale[
+                "A" if plan is top.a else "AT"] + TOL_ABS)
+        results.append({
+            "name": name, "max_abs_err": err,
+            "ms": probe.time_ms(call), "device_ms": device_ms(call),
+            "plain_ms": probe.time_ms(plain, reps=20, warmup=3),
+            "library_ms": probe.time_ms(library),
+            "library_device_ms": device_ms(library),
+            "bytes": routed.tile_plan_bytes(plan) + extra,
+            "flops": 2 * plan.nnz + flops,
+            "out_strip": plan.out_strip, "in_window": plan.in_window,
+            "group": plan.group, "strips": plan.nstrips,
+            "padding_share": plan.padding_share,
+            **routed.tile_plan_stats(plan),
+        })
+    return {"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
+            "matrix": "generators.pagerank_like_matrix(1_000_000, seed=0)",
+            "matrix_seconds": make_s, "setup_seconds": setup_s,
+            "results": results}
 
 
 def csr_bytes(mat) -> int:
@@ -287,12 +372,14 @@ def main() -> int:
     from firstorderlp_torch.generators import generate_pagerank_lp
     from firstorderlp_torch.models import mirror_prox
     from firstorderlp_torch.models.pdhg import optimize, prepare_problem
-    from firstorderlp_torch.ops import kernels_build, probe_routed, routed
+    from firstorderlp_torch.ops import (
+        compare_tiled, kernels_build, probe_routed, routed,
+    )
 
     try:
         return run(args, torch, optimize, rescale_problem,
                    generate_pagerank_lp, prepare_problem, kernels_build,
-                   routed, refine, mirror_prox, probe_routed)
+                   routed, refine, mirror_prox, probe_routed, compare_tiled)
     finally:
         if args.out:
             with open(args.out, "w") as f:
@@ -301,9 +388,11 @@ def main() -> int:
 
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         prepare_problem, kernels_build, routed, refine, mirror_prox,
-        probe) -> int:
+        probe, compare_tiled) -> int:
     dev = torch.device("cuda")
     time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
+    device_ms = compare_tiled.device_ms  # torch.profiler, per call
+    plan_bytes = routed.tile_plan_bytes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Each phase names its layout itself, whatever FOLP_TILE_ALIGNED says.
@@ -498,6 +587,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         err = entry_check(f"tiled_spmv:{label}", got, want, scale, ph)
         err_csr = entry_check(f"tiled_spmv:{label} vs spmv_csr", got,
                               routed.spmv_csr(mat, vec), scale, ph)
+        if not torch.equal(got, routed.tiled_spmv(plan, vec)):
+            fail(ph, f"tiled_spmv:{label}: two launches differ")
         tiled.append({
             "name": f"tiled_spmv:{label}",
             "route": "cuda",
@@ -513,6 +604,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             + 4 * plan.num_rows,
             "flops": 2 * plan.nnz,
             "library_ms": time_ms(lambda: lib @ vec),
+            "device_ms": device_ms(lambda: routed.tiled_spmv(plan, vec)),
+            "library_device_ms": device_ms(lambda: lib @ vec),
             "out_strip": plan.out_strip,
             "in_window": plan.in_window,
             "group": plan.group,
@@ -520,6 +613,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             "groups": plan.ngroups,
             "tiles": int(plan.tile_ptr.shape[0]) - 1,
             "padding_share": plan.padding_share,
+            **routed.tile_plan_stats(plan),
         })
 
     got_y, got_dy2 = routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
@@ -534,6 +628,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                           csr_y, scale_dual, ph)
     err_csr = max(err_csr, sum_check("tiled_dual_step dy2 vs spmv_dual_step",
                                      got_dy2, csr_dy2, ph))
+    again_y, again_dy2 = routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
+    if not (torch.equal(got_y, again_y) and torch.equal(got_dy2, again_dy2)):
+        fail(ph, "tiled_dual_step: two launches differ")
     tiled.append({
         "name": "tiled_dual_step",
         "route": "cuda",
@@ -550,6 +647,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "bytes": plan_bytes(top.a) + 4 * n + 4 * 4 * m + 4,
         "flops": 2 * top.a.nnz + 7 * m,
         "library_ms": time_ms(lambda: lib_a @ x),
+        "device_ms": device_ms(
+            lambda: routed.tiled_dual_step(top.a, x, y, b, eq, sigma)
+        ),
+        "library_device_ms": device_ms(lambda: lib_a @ x),
+        **routed.tile_plan_stats(top.a),
     })
 
     got = routed.tiled_rmv_stats(top.at, y, dx, aty_old)
@@ -565,6 +667,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         err_csr = max(err_csr, sum_check(
             f"tiled_rmv_stats {what} vs spmv_rmv_stats", got[k],
             csr_got[k], ph))
+    again = routed.tiled_rmv_stats(top.at, y, dx, aty_old)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail(ph, "tiled_rmv_stats: two launches differ")
     tiled.append({
         "name": "tiled_rmv_stats",
         "route": "cuda",
@@ -582,12 +687,28 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "bytes": plan_bytes(top.at) + 4 * m + 3 * 4 * n + 8,
         "flops": 2 * top.at.nnz + 5 * n,
         "library_ms": time_ms(lambda: lib_at @ y),
+        "device_ms": device_ms(
+            lambda: routed.tiled_rmv_stats(top.at, y, dx, aty_old)
+        ),
+        "library_device_ms": device_ms(lambda: lib_at @ y),
+        **routed.tile_plan_stats(top.at),
     })
     add_bounds(tiled)
     emit({"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
           "plan_setup_seconds": plan_setup_s, "tolerance": tolerance,
           "results": tiled})
     del op, top, plan, mat, mat_ns, lib, lib_a, lib_at
+
+    # 3b'. B5 and B6 again where the plan is larger than the L2 cache
+    large = kernels_tiled_large(torch, routed, probe, device_ms, dev)
+    add_bounds(large["results"])
+    emit(large)
+    for r in tiled:
+        for big in large["results"]:
+            if big["name"] == r["name"]:
+                r["large"] = {k: big[k] for k in (
+                    "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms", "plain_ms", "max_abs_err")}
 
     # 3c. the probe kernels, at the probe's default size
     ph = "kernels_probe"
@@ -979,7 +1100,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             "library_ms")
     extra = ("ms_without_long_row_pass", "launches_per_iteration",
              "launches_mirror_prox", "max_abs_err_vs_csr_kernel",
-             "padding_share", "max_rel_err")
+             "padding_share", "max_rel_err", "device_ms",
+             "library_device_ms", "blocks", "entries_per_block_max",
+             "entries_per_block_mean", "tiles_staged", "tiles_gathered",
+             "bytes_staged", "large")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -7,176 +7,178 @@
 // padded with zero entries to a whole number of groups of `group`
 // entries. Each entry is one packed int32, local_col | local_row << 16,
 // and one f32 value. meta holds four int32 per group: output strip,
-// first-of-strip, last-of-strip, input strip. tile_ptr gives the first
-// group of every stored tile, strip_tile_ptr the first stored tile of
-// every output strip; an empty strip still stores one all-padding
-// group, so every strip has a block, an output and an epilogue.
+// first-of-strip, last-of-strip, input window. An empty strip still
+// stores one all-padding group, so every strip has an output and an
+// epilogue.
 //
-// One block owns one output strip. It keeps the strip's sums and the
-// current tile's window of the input vector in shared memory, walks the
-// strip's tiles in plan order and hands the finished strip to the
-// caller's epilogue: one launch per product, nothing intermediate in
-// global memory.
+// What bounds the accumulation on an H100 is not bytes but the longest
+// chain of dependent latencies in any one block: the plan of the
+// 100k-node PageRank LP is 8 MB and sits in the L2 cache, while its
+// equality row puts an eighth of all entries into one output strip. The
+// design therefore balances entries, not strips, and keeps every
+// block-wide barrier out of the walk over the entries:
 //
-// Summation without atomics. The block takes kTileThreads entries of a
-// tile at a time, one per thread. Local rows are sorted inside a tile,
-// so equal rows are neighbours and a segmented scan over each warp
-// gives every run of equal rows its sum, always in lane order. A run
-// that touches neither end of its warp is the row's only run in this
-// step, and its last lane adds the sum to the strip. Runs that touch a
-// warp's first or last lane may continue in the neighbouring warp: each
-// warp files them as two boundary items, and after a barrier warp 0
-// runs the same segmented scan over the 32 items and adds each row's
-// total. A second barrier ends the step. Every sum is therefore taken
-// in one fixed order, and two launches on the same inputs give the same
-// bits. A row of any length (the PageRank LP's equality row puts
-// several thousand equal local rows into each tile of strip 0) costs
-// the same five shuffle rounds per step as any other.
+// - Work items. The host cuts each strip's run of groups into items of
+//   about equal size (the `items` table: first group, index of the item
+//   inside its strip, items of the strip, first scratch slot of the
+//   strip; one sentinel row). A light strip is one item, a heavy strip
+//   many. One block per item.
+// - Warp-private sums. The block's warps share the item's entries in
+//   contiguous runs of 32-entry steps, and each warp adds into its own
+//   copy of the strip in shared memory, so no two warps ever touch the
+//   same address and the walk needs no barrier. Local rows are sorted
+//   inside a tile, so equal rows are neighbours in a step and a
+//   segmented scan over the warp gives every run of equal rows its sum
+//   in lane order; the run's last lane adds it to the warp's copy. A
+//   row of any length costs the same five shuffle rounds a step.
+// - Loads in flight. A warp loads kStepsAhead steps of packed indices,
+//   values and window numbers together, one batch ahead of the batch
+//   whose x it gathers and whose runs it scans, so several memory
+//   latencies overlap in every warp. Two steps a batch in 32 registers
+//   were as fast as four at the 100k-node size and 5-10% faster at a
+//   million nodes; eight spilled and were slower at both.
+// - No staging. Every entry gathers x[window base + local column]
+//   straight from device memory through the read-only cache: the vector
+//   lives in the L2 cache, a dense row's gathers are consecutive
+//   addresses, and a sparse tile needs a few hundred of its window's
+//   16,384 values. No window is copied to shared memory.
+// - One fixed order for every sum, without floating-point atomics:
+//   lane order in a step, step order in a warp, warp order in a block
+//   (one barrier, then thread i adds the warps' copies of row i), item
+//   order in a strip. A strip of one item finishes in its block. The
+//   items of a split strip write their sums to `scratch` (one strip's
+//   length per item, split strips only) and take an integer ticket; the
+//   block that draws the strip's last ticket adds the partial strips in
+//   item order, whichever block it is, and runs the epilogue. The
+//   partial sums of the epilogue (one per strip) are added the same
+//   way: a ticket per launch, and the block that finishes the last
+//   strip adds them in strip order into the slots after the partials.
+//   The last block of each count sets its ticket back to zero, so the
+//   next launch on the stream finds the tickets as this one did.
 //
 // Padding: an entry with packed index 0 that is not the first entry of
-// its tile is padding (row-major order puts local (0, 0) first, and
-// duplicates are summed on the host). It is given the row kNoRow, which
-// sorts after every real row and is never added anywhere.
+// its group is padding (row-major order puts local (0, 0) first in its
+// tile, duplicates are summed on the host, and only a tile's last
+// group is padded). It is given no row and is never added anywhere.
 
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace folp {
 
-constexpr int kTileThreads = 512;
-constexpr int kTileWarps = kTileThreads / 32;
-constexpr unsigned kNoRow = 0xFFFFu;  // strips hold at most 16,384 rows
+constexpr int kMaxTileWarps = 16;
+constexpr int kStepsAhead = 2;  // steps of 32 entries loaded together
+constexpr unsigned kNoKey = 0xFFFFFFFFu;
 constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(2 * kTileWarps == 32,
-              "one warp scans the two boundary items of every warp");
 
 struct TilePlanArgs {
-  const int* loc;             // (ngroups * group,) packed local indices
-  const float* vals;          // (ngroups * group,)
-  const int* meta;            // (ngroups, 4)
-  const int* tile_ptr;        // (ntiles + 1,) first group of each tile
-  const int* strip_tile_ptr;  // (nstrips + 1,) first tile of each strip
+  const int* loc;     // (ngroups * group,) packed local indices
+  const float* vals;  // (ngroups * group,)
+  const int* meta;    // (ngroups, 4)
+  const int* items;   // (nitems + 1, 4)
+  float* scratch;     // (slots, out_strip) partial strips of split strips
+  int* tickets;       // (nstrips + 1,) zero between launches
+  int nitems;
   int nstrips;
   int group;      // entries per group
   int out_strip;  // rows per output strip
   int in_window;  // columns per input window
   int num_rows;   // length of the output vector
   int num_cols;   // length of the input vector
-};
-
-// Shared memory of one block, carved from the dynamic allocation.
-struct TileShared {
-  float* win;      // (in_window,) the tile's window of the input
-  float* acc;      // (out_strip,) the strip's sums
-  float* bnd_sum;  // (32,) boundary items of one step
-  unsigned* bnd_row;
-  float* red;      // (kTileWarps,) scratch of block_sum
+  int warps;      // warps per block
 };
 
 inline size_t tile_shared_bytes(const TilePlanArgs& p) {
-  return sizeof(float) * (size_t)(p.in_window + p.out_strip + 32 + 32 +
-                                  kTileWarps);
-}
-
-__device__ __forceinline__ TileShared carve_shared(const TilePlanArgs& p,
-                                                   float* smem) {
-  TileShared s;
-  s.win = smem;
-  s.acc = s.win + p.in_window;
-  s.bnd_sum = s.acc + p.out_strip;
-  s.bnd_row = reinterpret_cast<unsigned*>(s.bnd_sum + 32);
-  s.red = reinterpret_cast<float*>(s.bnd_row + 32);
-  return s;
+  return sizeof(float) * ((size_t)p.warps * p.out_strip + kMaxTileWarps);
 }
 
 // Inclusive segmented scan over one warp: lane i gets the sum of the
-// values of its run of equal rows up to and including itself. Equal
-// rows must be neighbours. Every lane of the warp must call this.
-__device__ __forceinline__ float run_scan(float v, unsigned row, int lane) {
+// values of its run of equal keys up to and including itself. Equal
+// keys must be neighbours. Every lane of the warp must call this.
+__device__ __forceinline__ float run_scan(float v, unsigned key, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const float up = __shfl_up_sync(kFullMask, v, d);
-    const unsigned row_up = __shfl_up_sync(kFullMask, row, d);
-    if (lane >= d && row_up == row) v += up;
+    const unsigned key_up = __shfl_up_sync(kFullMask, key, d);
+    if (lane >= d && key_up == key) v += up;
   }
   return v;
 }
 
-// Sums the strip's entries into s.acc. Ends with a barrier, so every
-// thread may read s.acc afterwards.
-__device__ __forceinline__ void accumulate_strip(const TilePlanArgs& p,
-                                                 const float* __restrict__ x,
-                                                 int strip,
-                                                 const TileShared& s) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int i = tid; i < p.out_strip; i += kTileThreads) s.acc[i] = 0.f;
+// kStepsAhead steps of one warp's entries, as loaded.
+struct StepBatch {
+  unsigned packed[kStepsAhead];
+  float val[kStepsAhead];
+  int win[kStepsAhead];
+};
 
-  const int t_end = p.strip_tile_ptr[strip + 1];
-  for (int t = p.strip_tile_ptr[strip]; t < t_end; ++t) {
-    const int g0 = p.tile_ptr[t];
-    const int e_begin = g0 * p.group;
-    const int e_end = p.tile_ptr[t + 1] * p.group;
-    const int in_base = p.meta[4 * g0 + 3] * p.in_window;
-    const int in_len = min(p.in_window, p.num_cols - in_base);
-    __syncthreads();  // the last tile's gathers are done
-    for (int i = tid; i < in_len; i += kTileThreads) {
-      s.win[i] = x[in_base + i];
-    }
-    __syncthreads();
-
-    // The step's entries are loaded one step ahead, so the loads of the
-    // next step are in flight across this step's two barriers.
-    int e = e_begin + tid;
-    unsigned packed = e < e_end ? (unsigned)p.loc[e] : 0u;
-    float val = e < e_end ? p.vals[e] : 0.f;
-    for (; e - tid < e_end; e += kTileThreads) {
-      const int e_ahead = e + kTileThreads;
-      const unsigned packed_ahead =
-          e_ahead < e_end ? (unsigned)p.loc[e_ahead] : 0u;
-      const float val_ahead = e_ahead < e_end ? p.vals[e_ahead] : 0.f;
-      unsigned row = kNoRow;
-      float v = 0.f;
-      if (e < e_end && (packed != 0u || e == e_begin)) {
-        row = packed >> 16;
-        v = val * s.win[packed & 0xFFFFu];
-      }
-      packed = packed_ahead;
-      val = val_ahead;
-      v = run_scan(v, row, lane);
-      const unsigned row_next = __shfl_down_sync(kFullMask, row, 1);
-      const unsigned row_first = __shfl_sync(kFullMask, row, 0);
-      if (lane == 31 || row_next != row) {  // last lane of its run
-        if (row == row_first) {
-          s.bnd_row[2 * warp] = row;
-          s.bnd_sum[2 * warp] = v;
-          if (lane == 31) {  // the whole warp is one run
-            s.bnd_row[2 * warp + 1] = row;
-            s.bnd_sum[2 * warp + 1] = 0.f;
-          }
-        } else if (lane == 31) {
-          s.bnd_row[2 * warp + 1] = row;
-          s.bnd_sum[2 * warp + 1] = v;
-        } else if (row != kNoRow) {
-          s.acc[row] += v;
-        }
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const unsigned brow = s.bnd_row[lane];
-        const float total = run_scan(s.bnd_sum[lane], brow, lane);
-        const unsigned brow_next = __shfl_down_sync(kFullMask, brow, 1);
-        if ((lane == 31 || brow_next != brow) && brow != kNoRow) {
-          s.acc[brow] += total;
-        }
-      }
-      __syncthreads();
-    }
+// Loads the batch that starts at entry `base`; a lane past `e_end`
+// loads nothing and gets zeros.
+__device__ __forceinline__ StepBatch load_batch(const TilePlanArgs& p,
+                                                int base, int e_end,
+                                                int lane) {
+  StepBatch b;
+#pragma unroll
+  for (int k = 0; k < kStepsAhead; ++k) {
+    const int e = base + 32 * k + lane;
+    const bool valid = e < e_end;
+    b.packed[k] = valid ? (unsigned)__ldg(p.loc + e) : 0u;
+    b.val[k] = valid ? __ldg(p.vals + e) : 0.f;
+    b.win[k] = valid ? __ldg(p.meta + 4 * (e / p.group) + 3) : 0;
   }
-  __syncthreads();
+  return b;
+}
+
+// One warp adds the entries [e_begin, e_end) into `acc`, its own copy
+// of the strip. The next batch's loads are started before this batch's
+// gathers and scans. Every lane of the warp must call this.
+__device__ __forceinline__ void accumulate_range(const TilePlanArgs& p,
+                                                 const float* __restrict__ x,
+                                                 int e_begin, int e_end,
+                                                 float* acc, int lane) {
+  StepBatch b = load_batch(p, e_begin, e_end, lane);
+  for (int base = e_begin; base < e_end; base += 32 * kStepsAhead) {
+    const StepBatch next =
+        load_batch(p, base + 32 * kStepsAhead, e_end, lane);
+    bool real[kStepsAhead];
+#pragma unroll
+    for (int k = 0; k < kStepsAhead; ++k) {
+      const int e = base + 32 * k + lane;
+      real[k] = e < e_end && (b.packed[k] != 0u || e % p.group == 0);
+      const float xv =
+          real[k] ? __ldg(x + (size_t)b.win[k] * p.in_window +
+                          (b.packed[k] & 0xFFFFu))
+                  : 0.f;
+      b.val[k] = real[k] ? b.val[k] * xv : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kStepsAhead; ++k) {
+      if (base + 32 * k >= e_end) break;  // the same for every lane
+      const unsigned row = b.packed[k] >> 16;
+      // Runs are keyed by window and row: a step may cross into the
+      // next tile, where the rows start again (ops/routed.py keeps the
+      // window number under 65,536).
+      const unsigned key =
+          real[k] ? ((unsigned)b.win[k] << 16) | row : kNoKey;
+      const float v = run_scan(b.val[k], key, lane);
+      const unsigned key_next = __shfl_down_sync(kFullMask, key, 1);
+      const bool adds = real[k] && (lane == 31 || key_next != key);
+      const int win0 = __shfl_sync(kFullMask, b.win[k], 0);
+      if (__all_sync(kFullMask, !real[k] || b.win[k] == win0)) {
+        // one tile: the runs' rows all differ
+        if (adds) acc[row] += v;
+        __syncwarp();
+      } else {
+        // several tiles may hold the same row: add in lane order
+        for (int l = 0; l < 32; ++l) {
+          if (lane == l && adds) acc[row] += v;
+          __syncwarp();
+        }
+      }
+    }
+    b = next;
+  }
 }
 
 // Block sum in a fixed order: a shuffle tree inside each warp, then
@@ -191,49 +193,143 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float total = 0.f;
   if (threadIdx.x == 0) {
-    for (int w = 0; w < kTileWarps; ++w) total += red[w];
+    const int warps = blockDim.x >> 5;
+    for (int w = 0; w < warps; ++w) total += red[w];
   }
   __syncthreads();
   return total;
 }
 
-// One block per output strip: the strip's sums, then the epilogue
-// `ep(p, strip, s)` once, when the strip is complete.
+// Thread 0 draws a ticket from `counter`; true in every thread of the
+// block that draws the last of `count`, which also sets the counter
+// back to zero. What the block wrote before is visible to the block
+// that draws the last ticket, which must read it past the L1 cache
+// (__ldcg).
+__device__ __forceinline__ bool last_ticket(int* counter, int count,
+                                            int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int drawn = atomicAdd(counter, 1);
+    *flag = drawn == count - 1;
+    if (*flag) *counter = 0;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// One block per item. `Epilogue` has kParts (the number of partial sums
+// it takes per strip, 0 to 2) and row(row, sum, part): called once for
+// every output row with the row's complete sum, by the thread that then
+// holds part[kParts] for the rows it was given. `parts` (kParts > 0)
+// holds kParts * nstrips partials, then the kParts totals.
 template <class Epilogue>
-__global__ void __launch_bounds__(kTileThreads)
-    tiled_strip_kernel(TilePlanArgs p, const float* __restrict__ x,
-                       Epilogue ep) {
+__global__ void __launch_bounds__(32 * kMaxTileWarps)
+    tiled_item_kernel(TilePlanArgs p, const float* __restrict__ x,
+                      Epilogue ep, float* __restrict__ parts) {
   extern __shared__ float smem[];
-  const TileShared s = carve_shared(p, smem);
-  accumulate_strip(p, x, blockIdx.x, s);
-  ep(p, blockIdx.x, s);
+  __shared__ int flag;
+  constexpr int kParts = Epilogue::kParts;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  float* acc = smem;  // (warps, out_strip)
+  float* red = smem + (size_t)p.warps * p.out_strip;
+
+  const int4 item = reinterpret_cast<const int4*>(p.items)[blockIdx.x];
+  const int g_begin = item.x;
+  const int g_end = p.items[4 * (blockIdx.x + 1)];
+  const int strip = p.meta[4 * g_begin];
+  const int nsplit = item.z;  // items of this strip
+
+  for (int i = tid; i < p.warps * p.out_strip; i += threads) acc[i] = 0.f;
+  __syncthreads();
+  {
+    // contiguous shares of whole steps, in warp order
+    const int e0 = g_begin * p.group;
+    const int e1 = g_end * p.group;
+    const int steps = (e1 - e0 + 31) / 32;
+    const int share = (steps + p.warps - 1) / p.warps;
+    const int warp = tid >> 5;
+    const int w_begin = min(e0 + 32 * share * warp, e1);
+    const int w_end = min(w_begin + 32 * share, e1);
+    accumulate_range(p, x, w_begin, w_end, acc + (size_t)warp * p.out_strip,
+                     tid & 31);
+  }
+  __syncthreads();
+
+  const float* slots = p.scratch + (size_t)item.w * p.out_strip;
+  if (nsplit > 1) {
+    float* mine = p.scratch + (size_t)(item.w + item.y) * p.out_strip;
+    for (int i = tid; i < p.out_strip; i += threads) {
+      float sum = 0.f;
+      for (int w = 0; w < p.warps; ++w) sum += acc[w * p.out_strip + i];
+      __stcg(mine + i, sum);
+    }
+    if (!last_ticket(p.tickets + strip, nsplit, &flag)) return;
+  }
+
+  float part[kParts > 0 ? kParts : 1] = {};
+  const int row0 = strip * p.out_strip;
+  for (int i = tid; i < p.out_strip && row0 + i < p.num_rows; i += threads) {
+    float sum = 0.f;
+    if (nsplit > 1) {
+      for (int k = 0; k < nsplit; ++k) {
+        sum += __ldcg(slots + (size_t)k * p.out_strip + i);
+      }
+    } else {
+      for (int w = 0; w < p.warps; ++w) sum += acc[w * p.out_strip + i];
+    }
+    ep.row(row0 + i, sum, part);
+  }
+  if (kParts == 0) return;
+
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) {
+    const float total = block_sum(part[k], red);
+    if (tid == 0) __stcg(parts + (size_t)k * p.nstrips + strip, total);
+  }
+  if (!last_ticket(p.tickets + p.nstrips, p.nstrips, &flag)) return;
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) {
+    float v = 0.f;
+    for (int s = tid; s < p.nstrips; s += threads) {
+      v += __ldcg(parts + (size_t)k * p.nstrips + s);
+    }
+    const float total = block_sum(v, red);
+    if (tid == 0) parts[(size_t)kParts * p.nstrips + k] = total;
+  }
 }
 
 template <class Epilogue>
 inline int launch_tiled(const TilePlanArgs& p, const float* x, Epilogue ep,
-                        cudaStream_t stream) {
-  if (p.nstrips <= 0) return 0;
-  if (p.out_strip > 16384 || p.in_window > 16384 || p.group <= 0) {
+                        float* parts, cudaStream_t stream) {
+  if (p.nitems <= 0) return 0;
+  if (p.out_strip > 16384 || p.in_window > 16384 || p.group <= 0 ||
+      p.warps < 1 || p.warps > kMaxTileWarps) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t bytes = tile_shared_bytes(p);
-  // Above 48 KB a block's shared memory must be asked for.
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_strip_kernel<Epilogue>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  tiled_strip_kernel<Epilogue>
-      <<<p.nstrips, kTileThreads, bytes, stream>>>(p, x, ep);
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {  // must be asked for
+    cudaError_t err = cudaFuncSetAttribute(
+        tiled_item_kernel<Epilogue>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tiled_item_kernel<Epilogue>
+      <<<p.nitems, 32 * p.warps, bytes, stream>>>(p, x, ep, parts);
   return (int)cudaGetLastError();
 }
 
 // The C entry points take the plan as this list of arguments.
-#define FOLP_TILE_PLAN_PARAMS                                              \
-  const int *loc, const float *vals, const int *meta, const int *tile_ptr, \
-      const int *strip_tile_ptr, int nstrips, int group, int out_strip,    \
-      int in_window, int num_rows, int num_cols
-#define FOLP_TILE_PLAN_ARGS                                             \
-  {loc, vals, meta, tile_ptr, strip_tile_ptr, nstrips, group, out_strip, \
-   in_window, num_rows, num_cols}
+#define FOLP_TILE_PLAN_PARAMS                                             \
+  const int *loc, const float *vals, const int *meta, const int *items,   \
+      float *scratch, int *tickets, int nitems, int nstrips, int group,   \
+      int out_strip, int in_window, int num_rows, int num_cols, int warps
+#define FOLP_TILE_PLAN_ARGS                                               \
+  {loc,       vals,      meta,      items,    scratch,  tickets, nitems, \
+   nstrips,   group,     out_strip, in_window, num_rows, num_cols, warps}
 
 }  // namespace folp

@@ -73,6 +73,29 @@ def barabasi_albert_graph(num_nodes: int, degree: int, seed: int = 0):
     return adj
 
 
+def pagerank_like_matrix(num_nodes: int, per_row: int = 7,
+                         damping_factor: float = 0.99,
+                         seed: int = 0) -> sp.csr_matrix:
+    """A matrix with the structure of generate_pagerank_lp's constraint
+    matrix, made in bulk with numpy (the graph above is a Python loop
+    over the nodes): one dense row of sqrt(n), then I - d S for a random
+    S with `per_row` entries in every row, at uniformly random columns
+    (not by preferential attachment), each column scaled to sum 1.
+    Shape (n + 1, n); about (per_row + 2) n entries."""
+    n = int(num_nodes)
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    cols = rng.integers(0, n, size=rows.size)
+    adj = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+    adj.sum_duplicates()
+    col_sum = np.maximum(np.asarray(adj.sum(axis=0)).ravel(), 1.0)
+    lower = sp.identity(n, format="csr") - damping_factor * (
+        adj @ sp.diags(1.0 / col_sum)
+    )
+    top = sp.csr_matrix(np.full((1, n), np.sqrt(n)))
+    return sp.vstack([top, lower], format="csr")
+
+
 def generate_pagerank_lp(
     num_nodes: int,
     approx_num_edges: int | None = None,

@@ -123,9 +123,9 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
 def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     csr = [p, p, p, i, p, p, p, p, i, i, i, p, i]
-    # loc vals meta tile_ptr strip_tile_ptr, then nstrips group out_strip
-    # in_window num_rows num_cols
-    plan = [p, p, p, p, p, i, i, i, i, i, i]
+    # loc vals meta items scratch tickets, then nitems nstrips group
+    # out_strip in_window num_rows num_cols warps
+    plan = [p, p, p, p, p, p, i, i, i, i, i, i, i, i]
     spmv = [p, p]  # x, y
     dual_step = [p, p, p, p, p, p, p]  # z y b eq sigma y+ parts
     rmv_stats = [p, p, p, p, p]  # y dx aty_old aty parts

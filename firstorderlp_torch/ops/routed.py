@@ -15,14 +15,17 @@ layouts, and ``DEFAULT_TILE_ALIGNED`` (environment variable
   ``spmv_dual_step`` (B1 + B3 reduce-dual) and ``spmv_rmv_stats``
   (B1 + B4 reduce-rmv-stats).
 - Tile plan (``tile_aligned=True``): the matrix is cut into tiles of
-  `out_strip` output rows by `in_window` input columns; one launch per
-  product, one block per output strip, the input window and the strip's
-  sums in shared memory, the epilogue once per strip. Three CUDA kernels
-  replace the fused Pallas kernels: ``tiled_spmv`` (B5 fused),
+  `out_strip` output rows by `in_window` input columns and each output
+  strip's entries into work items of about equal size; one launch per
+  product, one block per item, the strip's sums in shared memory, x
+  gathered straight from device memory, the epilogue once per output
+  row on complete sums. Three CUDA kernels replace the fused Pallas
+  kernels: ``tiled_spmv`` (B5 fused),
   ``tiled_dual_step`` (B6 fused-dual) and ``tiled_rmv_stats`` (B7
   fused-rmv-stats).
 
-No kernel uses atomics, so two runs give the same bits. Each wrapper
+No kernel uses floating-point atomics and every sum has one fixed
+order, so two runs give the same bits. Each wrapper
 takes the plain PyTorch version beside it only when the matrix and the
 vectors are on the CPU; for a CUDA tensor it launches its kernel or
 raises. Each launch adds one to the wrapper's entry in ``LAUNCHES``.
@@ -310,35 +313,59 @@ def spmv_rmv_stats(mat, y, dx, aty_old):
 # Tile plan (the layout of the fused kernels)
 # ---------------------------------------------------------------------------
 
-# Strip sizes and group size, chosen for the H100 (132 SMs, 227 KB of
-# shared memory a block).
+# Strip sizes, group size and work items, chosen for the H100 (132 SMs,
+# 227 KB of shared memory a block).
 # - A local index has 16 bits, and the JAX package's plan allows strips
-#   of at most 16,384, so a window or a strip is at most 64 KB of f32
-#   and both fit one block's shared memory together.
-# - One block owns one output strip, so there should be at least as many
-#   strips as SMs: the output strip is the largest power of two that
-#   still gives NUM_SMS strips (512 rows at the 100k-node PageRank LP:
-#   196 strips), and at least MIN_STRIP.
-# - Every block reads each input window it meets, whatever the window's
-#   size, so the window is as wide as the packing allows: fewer tiles,
-#   so less padding and fewer barriers per entry. With a 64 KB window
-#   three blocks fit on an SM, more than the strips need.
-# - A group is the unit of padding and of the group table. 128 entries
-#   keep the padding near a tenth at the 100k-node size (about 64 wasted
-#   entries per nonempty tile) and the table at 16 bytes per 128 entries.
-#   A block consumes 512 entries of a tile per step (kTileThreads,
-#   csrc/tiled_spmv.cuh), four groups.
+#   of at most 16,384, so a window or a strip is at most 64 KB of f32.
+# - One block owns one work item: a run of groups of one output strip.
+#   A strip is cut into items of at most `cap` groups, cap = ITEM_SLACK
+#   times the mean number of groups per strip (per NUM_SMS-th of the
+#   plan when there are fewer strips than SMs), in equal shares. A strip
+#   up to a quarter over the mean is one item (with cap at the mean,
+#   half the strips of an even matrix would be cut in two); the strip of
+#   a dense row is many. So no item holds more than 2.25 times the mean
+#   item plus two groups, whatever the matrix (work_items). A split strip's items leave partial strips in
+#   `scratch`, and the one that draws the strip's last ticket adds them
+#   in item order.
+# - The output strip is the largest power of two that still gives
+#   NUM_SMS strips (512 rows at the 100k-node PageRank LP: 196 strips),
+#   at least MIN_STRIP and at most MAX_PICKED_STRIP: the fewer strips,
+#   the fewer tiles and the less padding, but a warp's copy of a strip of
+#   4,096 rows leaves room for 12 warps on an SM, too few to keep the
+#   device memory busy (at a million nodes strips of 4,096 took twice
+#   the time of strips of 1,024).
+# - No block stages a window: every entry gathers its x from device
+#   memory. The window only bounds the local column, so it is as wide as
+#   the packing allows: fewer tiles, so less padding.
+# - Every warp of a block sums into its own copy of the strip in shared
+#   memory, so a block has as many warps (a power of two, at most
+#   MAX_BLOCK_WARPS) as SHARED_BUDGET holds copies: 16 warps and 32 KB
+#   at strips of 512 rows.
+# - A group is the unit of padding and of the group table: a nonempty
+#   tile wastes half a group on average. The group is the power of two
+#   in [MIN_GROUP, TILE_GROUP] nearest under a quarter of the mean tile
+#   (pick_group): 128 entries at the 100k-node size (583 entries a tile,
+#   padding near a tenth, the table 16 bytes per 128 entries), 32 at a
+#   million nodes, where a strip's entries spread over 62 windows.
 NUM_SMS = 132
 MAX_STRIP = 16384
+MAX_PICKED_STRIP = 1024
 MIN_STRIP = 32
 TILE_GROUP = 128
+MIN_GROUP = 32
+ITEM_SLACK = 1.25
+MAX_BLOCK_WARPS = 16
+SHARED_BUDGET = 64 * 1024
+# The kernels key a run of equal rows by 16 bits of its window number.
+MAX_WINDOWS = 65536
 
 
 def pick_out_strip(num_rows: int) -> int:
-    """Largest power of two in [MIN_STRIP, MAX_STRIP] that cuts
+    """Largest power of two in [MIN_STRIP, MAX_PICKED_STRIP] that cuts
     `num_rows` into at least NUM_SMS strips (MIN_STRIP when none does)."""
     per_sm = max(num_rows // NUM_SMS, 1)
-    return int(min(max(1 << (per_sm.bit_length() - 1), MIN_STRIP), MAX_STRIP))
+    return int(min(max(1 << (per_sm.bit_length() - 1), MIN_STRIP),
+                   MAX_PICKED_STRIP))
 
 
 def pick_in_window(num_cols: int) -> int:
@@ -348,18 +375,47 @@ def pick_in_window(num_cols: int) -> int:
     return int(min(max(need, MIN_STRIP), MAX_STRIP))
 
 
+def pick_group(shape, nnz: int, out_strip: int, in_window: int) -> int:
+    """Largest power of two in [MIN_GROUP, TILE_GROUP] that is at most a
+    quarter of the mean number of entries per tile."""
+    rows, cols = shape
+    tiles = -(-rows // out_strip) * -(-cols // in_window)
+    quarter = max(int(nnz) // (4 * max(tiles, 1)), 1)
+    return int(min(max(1 << (quarter.bit_length() - 1), MIN_GROUP),
+                   TILE_GROUP))
+
+
+def pick_block_warps(out_strip: int) -> int:
+    """Largest power of two, at most MAX_BLOCK_WARPS, of f32 copies of a
+    strip that fit SHARED_BUDGET (at least 1)."""
+    copies = max(SHARED_BUDGET // (4 * int(out_strip)), 1)
+    return int(min(1 << (copies.bit_length() - 1), MAX_BLOCK_WARPS))
+
+
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     """One orientation of the matrix as a tile plan: tiles of
     `out_strip` output rows by `in_window` input columns, a tile's
     entries together and in row-major order, zero-padded to whole groups
-    of `group` entries."""
+    of `group` entries. `items` cuts every strip's run of groups into
+    the kernels' work items; `scratch` and `tickets` are the kernels'
+    own (partial strips of split strips; integer counters that are zero
+    between launches), shared by every plan with these index tensors, so
+    such plans launch on one stream."""
 
     loc: torch.Tensor  # (ngroups * group,) int32: local_col | local_row << 16
     vals: torch.Tensor  # (ngroups * group,) f32, 0 on padding
     meta: torch.Tensor  # (ngroups, 4) int32 [out strip, first, last, in strip]
+    # the tiles, for the plan's readers; the kernels walk `items`
     tile_ptr: torch.Tensor  # (ntiles + 1,) int32 first group of each tile
     strip_tile_ptr: torch.Tensor  # (nstrips + 1,) int32 first tile of a strip
+    # (nitems + 1, 4) int32 [first group, index in its strip, items of
+    # its strip, scratch slot of the strip's first item]; the last row
+    # holds ngroups
+    items: torch.Tensor
+    scratch: torch.Tensor  # (max(slots, 1), out_strip) f32
+    tickets: torch.Tensor  # (nstrips + 1,) int32
+    warps: int  # warps per block
     num_rows: int
     num_cols: int
     out_strip: int
@@ -377,6 +433,10 @@ class TilePlan:
         return int(self.meta.shape[0])
 
     @property
+    def nitems(self) -> int:
+        return int(self.items.shape[0]) - 1
+
+    @property
     def padding_share(self) -> float:
         return 1.0 - self.nnz / float(self.ngroups * self.group)
 
@@ -389,6 +449,39 @@ def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     out = np.zeros(len(a), dtype=np.int64)
     np.cumsum(a[:-1], out=out[1:])
     return out
+
+
+def work_items(strip_groups: np.ndarray) -> np.ndarray:
+    """The item table of a plan whose strips hold `strip_groups` groups
+    (each at least 1), in plan order: (nitems + 1, 4) int64 rows [first
+    group, index inside its strip, items of its strip, scratch slot of
+    the strip's first item (0 for a strip of one item)], and a last row
+    that holds the number of groups. A strip of g groups is cut into
+    ceil(g / cap) items of floor or ceil of equal shares, cap =
+    ceil(ITEM_SLACK groups / max(strips, NUM_SMS)): no item holds more
+    than cap groups, and there are at most (1 + 1 / ITEM_SLACK)
+    max(strips, NUM_SMS) items, so the largest item is at most
+    1 + ITEM_SLACK = 2.25 times the mean item, plus two groups."""
+    strip_groups = np.asarray(strip_groups, dtype=np.int64)
+    nstrips = len(strip_groups)
+    ngroups = int(strip_groups.sum())
+    cap = int(np.ceil(ITEM_SLACK * ngroups / max(nstrips, NUM_SMS)))
+    per_strip = -(-strip_groups // cap)
+    nitems = int(per_strip.sum())
+    strip_of = np.repeat(np.arange(nstrips, dtype=np.int64), per_strip)
+    index = np.arange(nitems, dtype=np.int64) - np.repeat(
+        _exclusive_cumsum(per_strip), per_strip
+    )
+    slots = _exclusive_cumsum(np.where(per_strip > 1, per_strip, 0))
+    items = np.zeros((nitems + 1, 4), dtype=np.int64)
+    items[:-1, 0] = _exclusive_cumsum(strip_groups)[strip_of] + (
+        index * strip_groups[strip_of]
+    ) // per_strip[strip_of]
+    items[:-1, 1] = index
+    items[:-1, 2] = per_strip[strip_of]
+    items[:-1, 3] = slots[strip_of]
+    items[-1, 0] = ngroups
+    return items
 
 
 def _host_tile_plan(csr: sp.csr_matrix, out_strip: int, in_window: int,
@@ -406,6 +499,11 @@ def _host_tile_plan(csr: sp.csr_matrix, out_strip: int, in_window: int,
         raise ValueError("group must be positive")
     nstrips = -(-rows // out_strip)
     nwin = -(-cols // in_window)
+    if nwin > MAX_WINDOWS:
+        raise ValueError(
+            f"in_window={in_window} cuts {cols} columns into more than "
+            f"{MAX_WINDOWS} windows"
+        )
     coo = csr.tocoo()
     row = coo.row.astype(np.int64)
     col = coo.col.astype(np.int64)
@@ -423,7 +521,7 @@ def _host_tile_plan(csr: sp.csr_matrix, out_strip: int, in_window: int,
     strip_ptr = np.zeros(nstrips + 1, dtype=np.int64)
     np.cumsum(strip_groups, out=strip_ptr[1:])
     ngroups = int(strip_ptr[-1])
-    if ngroups * group >= 2**31:
+    if ngroups * group >= 2**31 - 4096:  # the kernels look a batch ahead
         raise ValueError("int32 positions cannot hold this plan")
     # first group of each tile: the groups of the tiles before it, plus
     # the all-padding groups of the empty strips before its strip
@@ -470,6 +568,7 @@ def _host_tile_plan(csr: sp.csr_matrix, out_strip: int, in_window: int,
         "meta": meta,
         "tile_ptr": np.append(tile_first_group, ngroups),
         "strip_tile_ptr": np.searchsorted(tile_first_group, strip_ptr),
+        "items": work_items(strip_groups),
     }
 
 
@@ -494,18 +593,29 @@ def build_tile_plan(
     if in_window is None:
         in_window = pick_in_window(cols)
     if group is None:
-        group = TILE_GROUP
+        group = pick_group(csr.shape, csr.nnz, out_strip, in_window)
     host = _host_tile_plan(csr, int(out_strip), int(in_window), int(group))
     if index_from is not None:
         return dataclasses.replace(
             index_from, vals=_f32_tensor(host["vals"], index_from.device)
         )
+    items = host["items"]
+    nstrips = len(host["strip_tile_ptr"]) - 1
+    split = items[:-1, 2] > 1
+    slots = (items[:-1, 3] + items[:-1, 2])[split].max() if split.any() else 0
     return TilePlan(
         loc=_i32_tensor(host["loc"], device),
         vals=_f32_tensor(host["vals"], device),
         meta=_i32_tensor(host["meta"], device),
         tile_ptr=_i32_tensor(host["tile_ptr"], device),
         strip_tile_ptr=_i32_tensor(host["strip_tile_ptr"], device),
+        items=_i32_tensor(items, device),
+        scratch=torch.empty(
+            max(int(slots), 1), int(out_strip), dtype=torch.float32,
+            device=device,
+        ),
+        tickets=torch.zeros(nstrips + 1, dtype=torch.int32, device=device),
+        warps=pick_block_warps(out_strip),
         num_rows=rows,
         num_cols=cols,
         out_strip=int(out_strip),
@@ -514,6 +624,39 @@ def build_tile_plan(
         nnz=int(csr.nnz),
         label=label,
     )
+
+
+def tile_plan_stats(plan: TilePlan) -> Dict[str, float]:
+    """What the kernels' launch over `plan` looks like: blocks (one per
+    item), stored entries (padding included) of the largest and of the
+    mean block, how many tiles stage their window into shared memory
+    and how many gather x straight from device memory, and the bytes
+    staged per product. The kernels stage nothing (csrc/tiled_spmv.cuh),
+    so the staged counts are 0 by design."""
+    items = plan.items.cpu().numpy().astype(np.int64)
+    sizes = np.diff(items[:, 0]) * plan.group
+    split = items[:-1, 2] > 1
+    return {
+        "blocks": plan.nitems,
+        "block_warps": plan.warps,
+        "entries_per_block_max": int(sizes.max()),
+        "entries_per_block_mean": float(sizes.mean()),
+        "max_over_mean": float(sizes.max() / sizes.mean()),
+        "split_strips": int(np.sum(split & (items[:-1, 1] == 0))),
+        "scratch_bytes": int(4 * split.sum() * plan.out_strip),
+        "tiles_staged": 0,
+        "tiles_gathered": int(plan.tile_ptr.shape[0]) - 1,
+        "bytes_staged": 0,
+        "plan_bytes": tile_plan_bytes(plan),
+    }
+
+
+def tile_plan_bytes(plan: TilePlan) -> int:
+    """Bytes of the plan a product must read: packed indices and values
+    of every stored entry, padding included, the group table and the
+    item table, each once."""
+    return (8 * plan.ngroups * plan.group + 16 * plan.ngroups
+            + 16 * (plan.nitems + 1))
 
 
 def tile_plan_coordinates(plan: TilePlan):
@@ -579,9 +722,10 @@ def _launch_tiled(lib: str, plan: TilePlan, *args) -> None:
     stream = torch.cuda.current_stream(plan.device).cuda_stream
     err = fn(
         plan.loc.data_ptr(), plan.vals.data_ptr(), plan.meta.data_ptr(),
-        plan.tile_ptr.data_ptr(), plan.strip_tile_ptr.data_ptr(),
-        plan.nstrips, plan.group, plan.out_strip, plan.in_window,
-        plan.num_rows, plan.num_cols, *args, stream,
+        plan.items.data_ptr(), plan.scratch.data_ptr(),
+        plan.tickets.data_ptr(), plan.nitems, plan.nstrips, plan.group,
+        plan.out_strip, plan.in_window, plan.num_rows, plan.num_cols,
+        plan.warps, *args, stream,
     )
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
@@ -615,8 +759,9 @@ def tiled_dual_step(plan, z, y, b, is_eq, sigma):
         _check(name, t, (m,), plan.device)
     _check("sigma", sigma.reshape(()), (), plan.device)
     y_next = torch.empty(m, dtype=torch.float32, device=plan.device)
+    # one partial per strip, then their sum in strip order
     parts = torch.empty(
-        plan.nstrips, dtype=torch.float32, device=plan.device
+        plan.nstrips + 1, dtype=torch.float32, device=plan.device
     )
     _launch_tiled(
         "tiled_dual_step", plan, z.data_ptr(), y.data_ptr(), b.data_ptr(),
@@ -624,7 +769,7 @@ def tiled_dual_step(plan, z, y, b, is_eq, sigma):
         parts.data_ptr(),
     )
     LAUNCHES["tiled_dual_step"] += 1
-    return y_next, torch.sum(parts)
+    return y_next, parts[plan.nstrips]
 
 
 def tiled_rmv_stats(plan, y, dx, aty_old):
@@ -637,16 +782,16 @@ def tiled_rmv_stats(plan, y, dx, aty_old):
     _check("dx", dx, (n,), plan.device)
     _check("aty_old", aty_old, (n,), plan.device)
     aty = torch.empty(n, dtype=torch.float32, device=plan.device)
+    # two partials per strip, then the two sums in strip order
     parts = torch.empty(
-        2, plan.nstrips, dtype=torch.float32, device=plan.device
+        2 * plan.nstrips + 2, dtype=torch.float32, device=plan.device
     )
     _launch_tiled(
         "tiled_rmv_stats", plan, y.data_ptr(), dx.data_ptr(),
         aty_old.data_ptr(), aty.data_ptr(), parts.data_ptr(),
     )
     LAUNCHES["tiled_rmv_stats"] += 1
-    sums = torch.sum(parts, dim=1)
-    return aty, sums[0], sums[1]
+    return aty, parts[2 * plan.nstrips], parts[2 * plan.nstrips + 1]
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +872,7 @@ def build_routed_op(
     values. Raises ValueError on another pattern.
     out_strip / in_window / group: the tile plan's geometry, applied to
     both orientations (default: pick_out_strip, pick_in_window,
-    TILE_GROUP)."""
+    pick_group)."""
     csr = sp.csr_matrix(matrix, dtype=np.float64)
     csr.sum_duplicates()
     m, n = csr.shape

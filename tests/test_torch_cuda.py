@@ -12,7 +12,10 @@ card, on shapes with the structures that stress the layout: hub rows
 and columns past the long-row threshold, empty rows and columns. The
 tile-plan kernels are held against their plain versions and against the
 CSR kernels, at the card's own strip sizes and at small ones that force
-ragged and empty strips and runs of one row across many steps.
+ragged and empty strips and runs of one row across many steps, and on
+matrices built for the paths of the work items: a strip split over many
+blocks, a strip that is one dense row, steps that cross tiles, fewer
+rows than a strip, a single strip.
 """
 
 import numpy as np
@@ -116,10 +119,15 @@ GEOMETRIES = {
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_tiled_kernels_match_plain_and_csr(cuda, name, geometry):
-    a = sp.csr_matrix(MATRICES[name]())
+    check_tiled(cuda, sp.csr_matrix(MATRICES[name]()), GEOMETRIES[geometry])
+
+
+def check_tiled(cuda, a, geometry):
+    """The four tile-plan products against their plain versions and the
+    CSR kernels, one launch counted for each, a second launch bitwise
+    equal. Returns the tile-plan operator."""
     m, n = a.shape
-    op = routed.build_routed_op(a, cuda, tile_aligned=True,
-                                **GEOMETRIES[geometry])
+    op = routed.build_routed_op(a, cuda, tile_aligned=True, **geometry)
     csr = routed.build_routed_op(a, cuda, tile_aligned=False)
     assert op.tile_aligned and not csr.tile_aligned
     rng = np.random.default_rng(3)
@@ -174,6 +182,83 @@ def test_tiled_kernels_match_plain_and_csr(cuda, name, geometry):
     yn2, _, dy2_2 = op.mv_dual_step(x, y, b, eq, sigma)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     assert torch.equal(yn, yn2) and torch.equal(dy2, dy2_2)
+    # the tickets are back at zero for the next launch
+    assert not op.a.tickets.any() and not op.at.tickets.any()
+    return op
+
+
+def dense_rows_matrix(m, n, dense, seed):
+    """Three entries in every row, and the rows `dense` full."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(m, n, density=3.0 / n, random_state=rng,
+                  data_rvs=rng.standard_normal).tolil()
+    for r in dense:
+        a[r, :] = rng.standard_normal(n)
+    return sp.csr_matrix(a)
+
+
+# name -> (matrix, geometry, least items of the heaviest strip of A)
+BUILT = {
+    # one strip of 64 rows holds two dense rows of 5,000: many blocks
+    "split_strip": (lambda: dense_rows_matrix(4000, 5000, [70, 100], 0),
+                    dict(out_strip=64, in_window=1024, group=32), 8),
+    # strips of one row: the dense row's strip holds nothing else
+    "dense_row_alone": (lambda: dense_rows_matrix(300, 40_000, [7], 1),
+                        dict(out_strip=1, in_window=16384, group=128), 8),
+    # groups of 3 in windows of 50: most steps of 32 cross several tiles
+    "steps_cross_tiles": (lambda: dense_rows_matrix(500, 700, [0, 250], 2),
+                          dict(out_strip=128, in_window=50, group=3), 2),
+    # 203 x 157 at strips of 32: last strip 11 rows, last window 29 wide
+    "ragged": (lambda: dense_rows_matrix(203, 157, [202], 3),
+               dict(out_strip=32, in_window=32, group=8), 1),
+    # fewer rows than one strip, at the card's own geometry
+    "below_one_strip": (lambda: dense_rows_matrix(20, 3000, [3], 4), {}, 2),
+    # one strip of A, cut into as many items as the card has SMs
+    "single_strip": (lambda: dense_rows_matrix(500, 9000, [1, 2, 3], 5),
+                     dict(out_strip=512), 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUILT))
+def test_tiled_kernels_on_the_paths_of_the_work_items(cuda, case):
+    make, geometry, least_items = BUILT[case]
+    op = check_tiled(cuda, make(), geometry)
+    items = op.a.items.cpu().numpy()
+    assert items[:-1, 2].max() >= least_items
+    sizes = np.diff(items[:, 0])
+    assert sizes.max() <= 2.25 * sizes.mean() + 2
+
+
+@pytest.mark.parametrize("case", sorted(BUILT) + sorted(MATRICES))
+def test_tiled_kernels_repeat_bitwise(cuda, case):
+    """20 launches of each tile-plan kernel on the same inputs give the
+    same bits, however the blocks were scheduled."""
+    if case in BUILT:
+        make, geometry, _ = BUILT[case]
+    else:
+        make, geometry = MATRICES[case], {}
+    a = sp.csr_matrix(make())
+    m, n = a.shape
+    op = routed.build_routed_op(a, cuda, tile_aligned=True, **geometry)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dx, old = (torch.randn(n, device=cuda, generator=gen)
+                  for _ in range(3))
+    y, b = (torch.randn(m, device=cuda, generator=gen) for _ in range(2))
+    eq = (torch.rand(m, device=cuda, generator=gen) < 0.3).float()
+    sigma = torch.full((), 0.37, device=cuda)
+    calls = {
+        "tiled_spmv:A": lambda: (routed.tiled_spmv(op.a, x),),
+        "tiled_spmv:AT": lambda: (routed.tiled_spmv(op.at, y),),
+        "tiled_dual_step": lambda: routed.tiled_dual_step(
+            op.a, x, y, b, eq, sigma),
+        "tiled_rmv_stats": lambda: routed.tiled_rmv_stats(
+            op.at, y, dx, old),
+    }
+    for name, call in calls.items():
+        first = call()
+        for _ in range(19):
+            again = call()
+            assert all(torch.equal(u, v) for u, v in zip(first, again)), name
 
 
 def test_tiled_wrappers_reject_bad_inputs(cuda):

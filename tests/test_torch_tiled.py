@@ -13,6 +13,11 @@
 - The plan's structure: one tile per group, row-major order inside a
   tile, zero padding, the group table's flags, one all-padding group
   for a strip without entries.
+- The work items of the kernels: every group in exactly one item, a
+  strip's items contiguous and in plan order, no item above 2.25 times
+  the mean plus two groups, an item for every empty strip; the kernels' walk
+  over the items (warps' shares, padding rule, runs keyed by window and
+  row, partial strips added in item order) emulated in numpy.
 - share_plan_with reuses the index tensors for both layouts; the
   layout switch is read when the operator is built; the device rule of
   build_linop, to_device and to_device_scaled.
@@ -37,6 +42,7 @@ from firstorderlp_torch.ops import routed as tx_routed
 
 from test_torch_ops import MATRICES as BASE_MATRICES
 from test_torch_ops import assert_entrywise, port_problem, random_matrix, t
+from test_torch_cuda import hub_matrix
 import fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,8 +76,14 @@ def single_entry():
     return sp.csr_matrix(([2.5], ([37], [101])), shape=(70, 130))
 
 
+def hub_2000():
+    """2,000 x 2,000 with a hub row and a hub column of 4,000 draws."""
+    return hub_matrix(2000, 2000, 4000, 0)
+
+
 MATRICES = dict(
     BASE_MATRICES,
+    hub_2000=hub_2000,
     ragged_empty=ragged_empty_matrix,
     dense_row=one_dense_row,
     dense_column=one_dense_column,
@@ -248,6 +260,201 @@ def test_plan_round_trip_and_structure(name, geometry):
             assert all(pairs[k][0] == s for k in tiles)
 
 
+def plans_of(name, geometry):
+    a = sp.csr_matrix(MATRICES[name]())
+    a.sum_duplicates()
+    op = tx_routed.build_routed_op(a, CPU, tile_aligned=True,
+                                   **GEOMETRIES[geometry])
+    return a, ((op.a, a), (op.at, sp.csr_matrix(a.T)))
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_work_items_cover_the_plan(name, geometry):
+    """Every group lies in exactly one item; an item stays inside one
+    strip; a strip's items are contiguous, in plan order and numbered
+    0..k-1; split strips get scratch slots of their own; the largest
+    item is at most 2.25 times the mean plus two groups."""
+    _, plans = plans_of(name, geometry)
+    for plan, _ in plans:
+        items = plan.items.numpy().astype(np.int64)
+        meta = plan.meta.numpy()
+        assert items.shape == (plan.nitems + 1, 4)
+        first = items[:, 0]
+        assert first[0] == 0 and first[-1] == plan.ngroups
+        sizes = np.diff(first)
+        assert np.all(sizes > 0)  # a partition of range(ngroups)
+        assert sizes.max() <= 2.25 * sizes.mean() + 2
+        strip_of_item = meta[first[:-1], 0]
+        for i in range(plan.nitems):
+            assert np.all(meta[first[i]:first[i + 1], 0] == strip_of_item[i])
+        assert np.all(np.diff(strip_of_item) >= 0)
+        assert set(strip_of_item) == set(range(plan.nstrips))
+        used_slots = []
+        for s in range(plan.nstrips):
+            mine = np.flatnonzero(strip_of_item == s)
+            k = len(mine)
+            assert np.all(np.diff(mine) == 1)
+            np.testing.assert_array_equal(items[mine, 1], np.arange(k))
+            np.testing.assert_array_equal(items[mine, 2], k)
+            assert len(set(items[mine, 3])) == 1
+            # the strip's first and last group open and close its items
+            assert meta[first[mine[0]], 1] == 1
+            assert meta[first[mine[-1] + 1] - 1, 2] == 1
+            if k > 1:
+                used_slots.extend(items[mine[0], 3] + np.arange(k))
+        assert used_slots == list(range(len(used_slots)))
+        assert plan.scratch.shape == (max(len(used_slots), 1),
+                                      plan.out_strip)
+        assert plan.scratch.dtype == torch.float32
+        assert plan.tickets.shape == (plan.nstrips + 1,)
+        assert plan.tickets.dtype == torch.int32
+        assert not plan.tickets.any()
+        assert plan.warps == tx_routed.pick_block_warps(plan.out_strip)
+        stats = tx_routed.tile_plan_stats(plan)
+        assert stats["blocks"] == plan.nitems
+        assert stats["entries_per_block_max"] == sizes.max() * plan.group
+        assert stats["max_over_mean"] == pytest.approx(
+            sizes.max() / sizes.mean())
+        assert stats["tiles_staged"] == 0 and stats["bytes_staged"] == 0
+        assert stats["tiles_gathered"] == len(plan.tile_ptr) - 1
+        assert stats["plan_bytes"] == (
+            8 * plan.loc.numel() + 4 * plan.meta.numel()
+            + 4 * plan.items.numel())
+
+
+def emulate_kernel_walk(plan, x):
+    """tiled_item_kernel (csrc/tiled_spmv.cuh) step by step in f64: one
+    block per item, the warps' contiguous shares of 32-entry steps, the
+    padding rule, runs keyed by (window, row), warp copies added in warp
+    order, a split strip's partial strips added in item order."""
+    loc = plan.loc.numpy().astype(np.int64) & 0xFFFFFFFF
+    vals = plan.vals.numpy().astype(np.float64)
+    meta = plan.meta.numpy().astype(np.int64)
+    items = plan.items.numpy().astype(np.int64)
+    warps, group, strip_len = plan.warps, plan.group, plan.out_strip
+    y = np.full(plan.nstrips * strip_len, np.nan)
+    scratch = {}
+    tickets = np.zeros(plan.nstrips, dtype=np.int64)
+    for it in range(plan.nitems):
+        g_begin, index, nsplit, first_slot = items[it]
+        g_end = items[it + 1, 0]
+        strip = meta[g_begin, 0]
+        acc = np.zeros((warps, strip_len))
+        e0, e1 = g_begin * group, g_end * group
+        share = -(-(-(-(e1 - e0) // 32)) // warps)
+        for w in range(warps):
+            w_begin = min(e0 + 32 * share * w, e1)
+            w_end = min(w_begin + 32 * share, e1)
+            for base in range(w_begin, w_end, 32):
+                e = np.arange(base, min(base + 32, w_end))
+                g = e // group
+                real = (loc[e] != 0) | (e == g * group)
+                win, row, col = meta[g, 3], loc[e] >> 16, loc[e] & 0xFFFF
+                keys = list(zip(win[real], row[real]))
+                # equal keys are neighbours: the segmented scan's premise
+                runs = [k for i, k in enumerate(keys)
+                        if i == 0 or keys[i - 1] != k]
+                assert len(runs) == len(set(runs))
+                source = win[real] * plan.in_window + col[real]
+                assert np.all(source < plan.num_cols)
+                assert np.all(row[real] < strip_len)
+                np.add.at(acc[w], row[real], vals[e][real] * x[source])
+        total = acc.sum(axis=0)
+        if nsplit > 1:
+            scratch[first_slot + index] = total
+            tickets[strip] += 1
+            if tickets[strip] < nsplit:
+                continue
+            total = sum(scratch[first_slot + k] for k in range(nsplit))
+        assert np.isnan(y[strip * strip_len]), "a strip finished twice"
+        y[strip * strip_len:(strip + 1) * strip_len] = total
+    assert not np.isnan(y).any(), "a strip never finished"
+    return y[:plan.num_rows]
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_kernel_walk_over_the_items_gives_the_product(name, geometry):
+    """In f64 the walk is exact up to rounding of sums: rtol 1e-12
+    against scipy on the f32 values."""
+    _, plans = plans_of(name, geometry)
+    for plan, mat in plans:
+        x = np.random.default_rng(5).normal(size=mat.shape[1])
+        mat32 = mat.astype(np.float32).astype(np.float64)
+        want = mat32 @ x
+        scale = abs(mat32) @ np.abs(x)
+        got = emulate_kernel_walk(plan, x)
+        assert np.all(np.abs(got - want) <= 1e-12 * scale + 1e-300)
+
+
+@pytest.mark.parametrize("name", ["dense_row", "dense_column", "hub_2000"])
+def test_a_dense_row_is_cut_into_many_items(name):
+    """The strip of a dense row is split over blocks, and no block holds
+    more than 2.25 times the mean plus two groups."""
+    _, plans = plans_of(name, "s32")
+    split_somewhere = False
+    for plan, _ in plans:
+        items = plan.items.numpy()
+        sizes = np.diff(items[:, 0])
+        assert sizes.max() <= 2.25 * sizes.mean() + 2
+        per_strip = np.bincount(plan.meta.numpy()[items[:-1, 0], 0])
+        split_somewhere |= per_strip.max() >= 4
+    assert split_somewhere
+
+
+def test_work_items_of_given_strip_sizes():
+    items = tx_routed.work_items(np.array([1, 1, 1, 1000, 1, 2]))
+    sizes = np.diff(items[:, 0])
+    cap = int(np.ceil(1.25 * 1006 / tx_routed.NUM_SMS))
+    assert sizes.max() <= cap and sizes.sum() == 1006
+    k = -(-1000 // cap)
+    np.testing.assert_array_equal(items[3:3 + k, 1], np.arange(k))
+    np.testing.assert_array_equal(items[3:3 + k, 2], k)
+    np.testing.assert_array_equal(items[:3, 2], 1)
+    assert items[-1].tolist() == [1006, 0, 0, 0]
+    # more strips than SMs, all equal: one item each
+    items = tx_routed.work_items(np.full(500, 3))
+    np.testing.assert_array_equal(items[:-1, 0], 3 * np.arange(500))
+    assert not items[:-1, 1:].any() or np.all(items[:-1, 2] == 1)
+
+
+@pytest.mark.parametrize("out_strip,want", [
+    (32, 16), (512, 16), (1024, 16), (2048, 8), (4096, 4), (16384, 1),
+    (7, 16),
+])
+def test_block_warps_fit_the_shared_budget(out_strip, want):
+    warps = tx_routed.pick_block_warps(out_strip)
+    assert warps == want
+    assert warps == 1 or 4 * warps * out_strip <= tx_routed.SHARED_BUDGET
+
+
+def test_too_many_windows_raise():
+    a = sp.csr_matrix(([1.0], ([0], [0])),
+                      shape=(4, 32 * tx_routed.MAX_WINDOWS + 1))
+    with pytest.raises(ValueError, match="windows"):
+        tx_routed.build_routed_op(a, CPU, tile_aligned=True, in_window=32)
+
+
+def test_pagerank_like_matrix_has_the_pagerank_structure():
+    from firstorderlp_torch.generators import pagerank_like_matrix
+
+    n = 500
+    a = pagerank_like_matrix(n, seed=3)
+    assert a.shape == (n + 1, n)
+    np.testing.assert_allclose(a[0].toarray().ravel(), np.sqrt(n))
+    lower = a[1:]
+    assert np.all(lower.diagonal() > 0)
+    per_row = np.diff(lower.indptr)
+    assert 2 <= per_row.min() and per_row.max() <= 8
+    # columns of S sum to 1 where the column is hit at all
+    s = (sp.identity(n) - lower) / 0.99
+    sums = np.asarray(s.sum(axis=0)).ravel()
+    assert np.all((np.abs(sums - 1.0) < 1e-12) | (np.abs(sums) < 1e-12))
+    b = pagerank_like_matrix(n, seed=3)
+    assert (a != b).nnz == 0
+
+
 def test_empty_strip_gets_one_padding_group_and_its_epilogue():
     a = ragged_empty_matrix()
     op = tx_routed.build_routed_op(a, CPU, tile_aligned=True,
@@ -260,6 +467,13 @@ def test_empty_strip_gets_one_padding_group_and_its_epilogue():
         assert not op.a.loc[lo:lo + op.a.group].any()
         assert not op.a.vals[lo:lo + op.a.group].any()
     assert len(np.flatnonzero(op.at.meta.numpy()[:, 0] == 2)) == 1
+    # and an item of its own, so a block runs its epilogue
+    items = op.a.items.numpy()
+    for strip in (2, 3):
+        group = int(np.flatnonzero(meta[:, 0] == strip)[0])
+        at = np.flatnonzero(items[:-1, 0] == group)
+        assert len(at) == 1 and items[at[0] + 1, 0] == group + 1
+        assert items[at[0], 2] == 1
     # the dual step on an empty strip is proj(y + sigma b), not zero
     v = vectors(a, 5)
     yn = run_port(op, v)[2]
@@ -275,7 +489,13 @@ def test_card_geometry():
     assert -(-100_001 // 512) >= tx_routed.NUM_SMS
     assert tx_routed.pick_out_strip(20_001) == 128
     assert tx_routed.pick_out_strip(10) == tx_routed.MIN_STRIP
-    assert tx_routed.pick_out_strip(10**8) == tx_routed.MAX_STRIP
+    assert tx_routed.pick_out_strip(10**8) == tx_routed.MAX_PICKED_STRIP
+    assert tx_routed.pick_out_strip(1_000_001) == 1024
+    assert tx_routed.pick_group((100_001, 100_000), 799_982, 512,
+                                16384) == tx_routed.TILE_GROUP
+    assert tx_routed.pick_group((1_000_001, 1_000_000), 8_999_968, 1024,
+                                16384) == tx_routed.MIN_GROUP
+    assert tx_routed.pick_group((70, 130), 1, 32, 32) == tx_routed.MIN_GROUP
     assert tx_routed.pick_in_window(100_000) == tx_routed.MAX_STRIP
     assert tx_routed.pick_in_window(300) == 512
     assert tx_routed.pick_in_window(3) == tx_routed.MIN_STRIP
@@ -298,7 +518,8 @@ def test_share_plan_with(tile_aligned):
     assert op2.tile_aligned == tile_aligned
     assert op2.pattern_hash == op.pattern_hash
     index_fields = (
-        ("loc", "meta", "tile_ptr", "strip_tile_ptr") if tile_aligned
+        ("loc", "meta", "tile_ptr", "strip_tile_ptr", "items", "scratch",
+         "tickets") if tile_aligned
         else ("indptr", "indices", "long_rows", "long_seg_ptr", "seg_row",
               "seg_begin")
     )
