@@ -3,28 +3,33 @@
 
 Run from the root of the repository:
 
-    python3 chip_smoke.py [--out FILE] [--profile]
+    python3 chip_smoke.py [--out FILE] [--profile] [--parent DIR]
 
 Phases, each printing one JSON line:
 
 1. device: the card's name and `nvidia-smi` name and power limit;
 2. build: compiles the CUDA kernels from firstorderlp_torch/csrc;
 3. kernels: on the 100k-node PageRank LP (seed 0) after rescaling, each
-   kernel against its plain PyTorch version on the card, with times
-   (CUDA events, median of 100 runs after warm-up), the bound from the
-   bytes each call must move, and the torch.sparse_csr_tensor product
-   as the library yardstick;
+   CSR kernel against its plain PyTorch version on the card, with times
+   (CUDA events, median of 100 runs after warm-up; the device time and
+   the kernels launched per call from torch.profiler), the bound from
+   the bytes each call must move, the torch.sparse_csr_tensor product as
+   the library yardstick, what the launch looks like (blocks, the
+   largest and the mean number of stored entries per block, rows cut
+   into pieces), 20 launches bitwise equal with the tickets back at
+   zero, and each again with no row cut (`ms_without_row_split`,
+   `device_ms_without_row_split`);
    kernels_tiled: the same for the tile-plan kernels (tile_aligned=True),
    each also held against the CSR kernel on the same vectors and
    launched twice for the same bits, with the device time of a call
    from torch.profiler and what the launch looks like (blocks, the
    largest and the mean number of stored entries per block, tiles staged
    and gathered, bytes staged);
-   kernels_tiled_large: tiled_spmv (A x, A' y) and tiled_dual_step again
-   on a matrix of the PageRank LP's structure with a million nodes
-   (generators.pagerank_like_matrix, made in bulk with numpy: the
-   generator's graph is a Python loop over the nodes), whose plan is
-   larger than the L2 cache;
+   kernels_tiled_large: tiled_spmv (A x, A' y) and tiled_dual_step, and
+   the three CSR kernels, again on a matrix of the PageRank LP's
+   structure with a million nodes (generators.pagerank_like_matrix, made
+   in bulk with numpy: the generator's graph is a Python loop over the
+   nodes), whose arrays are larger than the L2 cache;
    kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
    entries, seed 0: the expand bitwise equal to its plain version and to
    numpy, the reduce against its plain version in f64 and twice bitwise
@@ -36,7 +41,10 @@ Phases, each printing one JSON line:
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
    on the host and each kernel's launch count on that run;
    then the same solve warm (with --profile, under torch.profiler:
-   device busy time and the ops that take it);
+   device busy time and the ops that take it); with --parent DIR,
+   main_path_parent: the warm solve at six seeds by another version of
+   the package (DIR holds it as firstorderlp_torch_parent) and by this
+   one, in turns;
 5. determinism: the 20k-node LP solved twice, both OPTIMAL with
    bitwise-equal results;
 6. refine_path: firstorderlp_torch.optimize_iterative_refinement on the
@@ -74,6 +82,7 @@ TOL_SUM = 1e-5  # relative, on the reduced sums
 NODES = 100_000  # the main path's PageRank LP
 DET_NODES = 20_000  # the determinism phase's
 LARGE_NODES = 1_000_000  # kernels_tiled_large's
+SOLVE_SEEDS = (0, 1, 2, 3, 4, 5)  # main_path_parent's LPs (--parent)
 
 _lines = []
 
@@ -89,20 +98,16 @@ def fail(phase: str, message: str) -> None:
     raise SystemExit(1)
 
 
-def make_params(tol, limit, dtype="float32", fmt="routed"):
+def make_params(tol, limit, dtype="float32", fmt="routed", pkg=None):
     """bench.py's make_params settings with tolerances: adaptive steps
     0.3/0.6, adaptive-normalized restarts, 10 Ruiz iterations +
-    Pock-Chambolle alpha=1, an evaluation every 40 iterations."""
-    from firstorderlp_torch import (
-        AdaptiveStepsizeParams,
-        PdhgParameters,
-        RestartScheme,
-        RestartToCurrentMetric,
-        TerminationCriteria,
-        construct_restart_parameters,
-    )
+    Pock-Chambolle alpha=1, an evaluation every 40 iterations. `pkg`:
+    the package whose parameter types to use (default
+    firstorderlp_torch)."""
+    if pkg is None:
+        import firstorderlp_torch as pkg
 
-    return PdhgParameters(
+    return pkg.PdhgParameters(
         l_inf_ruiz_iterations=10,
         l2_norm_rescaling=False,
         pock_chambolle_alpha=1.0,
@@ -111,17 +116,17 @@ def make_params(tol, limit, dtype="float32", fmt="routed"):
         verbosity=0,
         record_iteration_stats=False,
         termination_evaluation_frequency=40,
-        termination_criteria=TerminationCriteria(
+        termination_criteria=pkg.TerminationCriteria(
             eps_optimal_absolute=tol,
             eps_optimal_relative=tol,
             eps_primal_infeasible=0.0,
             eps_dual_infeasible=0.0,
             iteration_limit=limit,
         ),
-        restart_params=construct_restart_parameters(
-            restart_scheme=RestartScheme.ADAPTIVE_NORMALIZED,
+        restart_params=pkg.construct_restart_parameters(
+            restart_scheme=pkg.RestartScheme.ADAPTIVE_NORMALIZED,
             restart_to_current_metric=(
-                RestartToCurrentMetric.GAP_OVER_DISTANCE_SQUARED
+                pkg.RestartToCurrentMetric.GAP_OVER_DISTANCE_SQUARED
             ),
             restart_frequency_if_fixed=100,
             artificial_restart_threshold=0.5,
@@ -130,7 +135,7 @@ def make_params(tol, limit, dtype="float32", fmt="routed"):
             primal_weight_update_smoothing=0.5,
             use_approximate_localized_duality_gap=False,
         ),
-        step_size_policy_params=AdaptiveStepsizeParams(
+        step_size_policy_params=pkg.AdaptiveStepsizeParams(
             reduction_exponent=0.3, growth_exponent=0.6
         ),
         dtype=dtype,
@@ -261,8 +266,9 @@ def profile_summary(torch, profiler, wall_s):
 
 
 def kernels_tiled_large(torch, routed, probe, device_ms, dev):
-    """tiled_spmv (both orientations) and tiled_dual_step on the
-    million-node matrix of generators.pagerank_like_matrix (seed 0),
+    """tiled_spmv (both orientations) and tiled_dual_step, and the three
+    CSR kernels (spmv_csr both ways, spmv_dual_step, spmv_rmv_stats), on
+    the million-node matrix of generators.pagerank_like_matrix (seed 0),
     held against their plain versions; times as in kernels_tiled."""
     from firstorderlp_torch.generators import pagerank_like_matrix
 
@@ -277,7 +283,8 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
     setup_s = time.time() - t0
     rng = np.random.default_rng(1)
     host = {"x": rng.standard_normal(n), "y": rng.standard_normal(m),
-            "b": rng.standard_normal(m), "eq": np.arange(m) < 1}
+            "b": rng.standard_normal(m), "eq": np.arange(m) < 1,
+            "dx": rng.standard_normal(n), "old": rng.standard_normal(n)}
     host = {k: np.asarray(a, np.float32) for k, a in host.items()}
     v = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
     sigma_val = 0.37
@@ -287,6 +294,8 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
              "AT": abs_a.T @ np.abs(host["y"]).astype(np.float64)}
     scale["dual"] = (np.abs(host["y"]) + sigma_val * np.abs(host["b"])
                      + sigma_val * scale["A"])
+    inter_scale = float(np.sum(np.abs(host["dx"]) * (
+        scale["AT"] + np.abs(host["old"]))))
 
     def worst(name, got, want, bound):
         err = np.abs(got.double().cpu().numpy() - want.double().cpu().numpy())
@@ -296,6 +305,8 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
 
     lib = {"A": routed.library_spmv(csr.a), "AT": routed.library_spmv(csr.at)}
     dual_args = (v["x"], v["y"], v["b"], v["eq"], sigma)
+    stats_args = (v["y"], v["dx"], v["old"])
+    # name -> (layout, call, plain, library, vector bytes, epilogue flops)
     calls = {
         "tiled_spmv:A": (
             top.a, lambda: routed.tiled_spmv(top.a, v["x"]),
@@ -309,12 +320,29 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             top.a, lambda: routed.tiled_dual_step(top.a, *dual_args),
             lambda: routed.tiled_dual_step_plain(top.a, *dual_args),
             lambda: lib["A"] @ v["x"], 4 * n + 16 * m + 4, 7 * m),
+        "spmv_csr:A": (
+            csr.a, lambda: routed.spmv_csr(csr.a, v["x"]),
+            lambda: routed.spmv_csr_plain(csr.a, v["x"]),
+            lambda: lib["A"] @ v["x"], 4 * (m + n), 0),
+        "spmv_csr:AT": (
+            csr.at, lambda: routed.spmv_csr(csr.at, v["y"]),
+            lambda: routed.spmv_csr_plain(csr.at, v["y"]),
+            lambda: lib["AT"] @ v["y"], 4 * (m + n), 0),
+        "spmv_dual_step": (
+            csr.a, lambda: routed.spmv_dual_step(csr.a, *dual_args),
+            lambda: routed.spmv_dual_step_plain(csr.a, *dual_args),
+            lambda: lib["A"] @ v["x"], 4 * n + 16 * m + 4, 7 * m),
+        "spmv_rmv_stats": (
+            csr.at, lambda: routed.spmv_rmv_stats(csr.at, *stats_args),
+            lambda: routed.spmv_rmv_stats_plain(csr.at, *stats_args),
+            lambda: lib["AT"] @ v["y"], 4 * m + 12 * n + 8, 5 * n),
     }
     results = []
-    for name, (plan, call, plain, library, extra, flops) in calls.items():
+    for name, (mat, call, plain, library, extra, flops) in calls.items():
         got, want = call(), plain()
         torch.cuda.synchronize()
-        if name == "tiled_dual_step":
+        orientation = "A" if mat is top.a or mat is csr.a else "AT"
+        if name.endswith("dual_step"):
             err = worst(name, got[0], want[0],
                         TOL_ENTRY * scale["dual"] + TOL_ABS)
             # against its own y+ in f64: the dense row's A z cancels, so
@@ -322,32 +350,82 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             own = torch.sum((got[0].double() - v["y"].double()) ** 2)
             err = max(err, worst(f"{name} dy2", got[1], own,
                                  TOL_SUM * abs(float(own)) + TOL_ABS))
+        elif name == "spmv_rmv_stats":
+            err = worst(name, got[0], want[0],
+                        TOL_ENTRY * scale["AT"] + TOL_ABS)
+            err = max(err, worst(f"{name} interaction", got[1], want[1],
+                                 TOL_ENTRY * inter_scale + TOL_ABS))
+            err = max(err, worst(f"{name} dx2", got[2], want[2],
+                                 TOL_SUM * abs(float(want[2])) + TOL_ABS))
         else:
-            err = worst(name, got, want, TOL_ENTRY * scale[
-                "A" if plan is top.a else "AT"] + TOL_ABS)
-        results.append({
+            err = worst(name, got, want,
+                        TOL_ENTRY * scale[orientation] + TOL_ABS)
+        tiled = isinstance(mat, routed.TilePlan)
+        row = {
             "name": name, "max_abs_err": err,
             "ms": probe.time_ms(call), "device_ms": device_ms(call),
             "plain_ms": probe.time_ms(plain, reps=20, warmup=3),
             "library_ms": probe.time_ms(library),
             "library_device_ms": device_ms(library),
-            "bytes": routed.tile_plan_bytes(plan) + extra,
-            "flops": 2 * plan.nnz + flops,
-            "out_strip": plan.out_strip, "in_window": plan.in_window,
-            "group": plan.group, "strips": plan.nstrips,
-            "padding_share": plan.padding_share,
-            **routed.tile_plan_stats(plan),
-        })
+            "bytes": (routed.tile_plan_bytes(mat) if tiled
+                      else routed.csr_kernel_bytes(mat)) + extra,
+            "flops": 2 * mat.nnz + flops,
+        }
+        if tiled:
+            row.update({"out_strip": mat.out_strip,
+                        "in_window": mat.in_window, "group": mat.group,
+                        "strips": mat.nstrips,
+                        "padding_share": mat.padding_share,
+                        **routed.tile_plan_stats(mat)})
+        else:
+            row.update(routed.csr_item_stats(mat))
+        results.append(row)
     return {"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
             "matrix": "generators.pagerank_like_matrix(1_000_000, seed=0)",
             "matrix_seconds": make_s, "setup_seconds": setup_s,
             "results": results}
 
 
-def csr_bytes(mat) -> int:
-    """indptr, indices and values read once (the long-row tables are a
-    few hundred bytes and left out)."""
-    return 4 * (mat.num_rows + 1) + 8 * mat.nnz
+def main_path_parent(torch, parent_dir, dev):
+    """The main path's solve, warm, on the PageRank LPs of SOLVE_SEEDS by
+    another version of this package (`parent_dir` holds it as
+    `firstorderlp_torch_parent`) and by this one, in turns (parent,
+    this, this, parent): iterations, seconds (host clock up to a device
+    synchronize) and reason of each solve."""
+    import importlib
+
+    sys.path.insert(0, parent_dir)
+    names = {"parent": "firstorderlp_torch_parent",
+             "this": "firstorderlp_torch"}
+    mods = {who: {part: importlib.import_module(f"{name}{part}")
+                  for part in ("", ".generators", ".models.pdhg")}
+            for who, name in names.items()}
+
+    def solve(who, problem):
+        pkg, pdhg = mods[who][""], mods[who][".models.pdhg"]
+        params = make_params(1e-4, 20_000, pkg=pkg)
+        prepared = pdhg.prepare_problem(params, problem, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = pdhg.optimize(params, problem, prepared=prepared)
+        torch.cuda.synchronize()
+        return {"package": who, "iterations": out.iteration_count,
+                "seconds": time.time() - t0,
+                "reason": out.termination_reason.name}
+
+    for who in names:  # kernels built and modules loaded, untimed
+        solve(who, mods[who][".generators"].generate_pagerank_lp(
+            num_nodes=DET_NODES, seed=0))
+    rows = []
+    for seed in SOLVE_SEEDS:
+        problems = {who: mods[who][".generators"].generate_pagerank_lp(
+            num_nodes=NODES, seed=seed) for who in names}
+        for who in ("parent", "this", "this", "parent"):
+            rows.append({"seed": seed, **solve(who, problems[who])})
+    mine = [r for r in rows if r["package"] == "this"]
+    ok = all(r["reason"] == "TERMINATION_REASON_OPTIMAL" for r in mine)
+    return {"phase": "main_path_parent", "ok": ok, "nodes": NODES,
+            "parent": parent_dir, "solves": rows}
 
 
 def main() -> int:
@@ -356,6 +434,11 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="trace the warm main-path solve with "
                              "torch.profiler")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="also solve the main path's LP at other "
+                             "seeds by another version of the package, "
+                             "held in DIR as firstorderlp_torch_parent "
+                             "(phase main_path_parent)")
     args = parser.parse_args()
 
     import torch
@@ -373,13 +456,14 @@ def main() -> int:
     from firstorderlp_torch.models import mirror_prox
     from firstorderlp_torch.models.pdhg import optimize, prepare_problem
     from firstorderlp_torch.ops import (
-        compare_tiled, kernels_build, probe_routed, routed,
+        compare_kernels, kernels_build, probe_routed, routed,
     )
 
     try:
         return run(args, torch, optimize, rescale_problem,
                    generate_pagerank_lp, prepare_problem, kernels_build,
-                   routed, refine, mirror_prox, probe_routed, compare_tiled)
+                   routed, refine, mirror_prox, probe_routed,
+                   compare_kernels)
     finally:
         if args.out:
             with open(args.out, "w") as f:
@@ -388,10 +472,11 @@ def main() -> int:
 
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         prepare_problem, kernels_build, routed, refine, mirror_prox,
-        probe, compare_tiled) -> int:
+        probe, compare) -> int:
     dev = torch.device("cuda")
     time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
-    device_ms = compare_tiled.device_ms  # torch.profiler, per call
+    device_ms = compare.device_ms  # torch.profiler, per call
+    device_profile = compare.device_profile  # (device ms, kernels)
     plan_bytes = routed.tile_plan_bytes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -470,20 +555,39 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         return abs(got - want)
 
     results = []
-    mbytes = {"A": csr_bytes(op.a), "AT": csr_bytes(op.at)}
+    mbytes = {"A": routed.csr_kernel_bytes(op.a),
+              "AT": routed.csr_kernel_bytes(op.at)}
+
+    def csr_launch(name, mat, call):
+        """What one call, `call(mat)`, looks like on the card: the kernels
+        it launches and their device time (torch.profiler), the item
+        table's shape, REPEATS launches bitwise equal with the tickets
+        back at zero, and the times of the same call with no row cut
+        into pieces."""
+        problem = compare.repeat_differs(lambda: call(mat), (mat.tickets,))
+        if problem:
+            fail("kernels", f"{name}: {problem}")
+        dev_ms, per_call = device_profile(lambda: call(mat))
+        whole = routed.csr_with_items(mat, split_rows=False)
+        return {"device_ms": dev_ms, "kernels_per_call": per_call,
+                "repeats_bitwise": compare.REPEATS,
+                "ms_without_row_split": time_ms(lambda: call(whole)),
+                "device_ms_without_row_split": device_ms(
+                    lambda: call(whole)),
+                **routed.csr_item_stats(mat)}
 
     # spmv_csr, both orientations
     for label, mat, vec, scale, lib in (
         ("A", op.a, x, scale_ax, lib_a),
         ("AT", op.at, y, scale_aty, lib_at),
     ):
-        mat_ns = routed._without_long_row_pass(mat)
+        whole = routed.csr_with_items(mat, split_rows=False)
         got = routed.spmv_csr(mat, vec)
         want = routed.spmv_csr_plain(mat, vec)
-        got_ns = routed.spmv_csr(mat_ns, vec)
+        got_whole = routed.spmv_csr(whole, vec)
         torch.cuda.synchronize()
         err = entry_check(f"spmv_csr:{label}", got, want, scale)
-        entry_check(f"spmv_csr:{label} (no long-row pass)", got_ns, want,
+        entry_check(f"spmv_csr:{label} (no row split)", got_whole, want,
                     scale)
         nbytes = mbytes[label] + 4 * mat.num_cols + 4 * mat.num_rows
         results.append({
@@ -494,19 +598,17 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                         " + routed.py:188 (_make_reduce)",
             "max_abs_err": err,
             "ms": time_ms(lambda: routed.spmv_csr(mat, vec)),
-            "ms_without_long_row_pass": time_ms(
-                lambda: routed.spmv_csr(mat_ns, vec)
-            ),
             "plain_ms": time_ms(
                 lambda: routed.spmv_csr_plain(mat, vec)
             ),
             "bytes": nbytes,
             "flops": 2 * mat.nnz,
             "library_ms": time_ms(lambda: lib @ vec),
+            "library_device_ms": device_ms(lambda: lib @ vec),
             "nnz": mat.nnz,
             "rows": mat.num_rows,
-            "tpr": mat.tpr,
-            "long_rows": int(mat.long_rows.shape[0]),
+            **csr_launch(f"spmv_csr:{label}", mat,
+                         lambda mat_, vec=vec: routed.spmv_csr(mat_, vec)),
         })
 
     # spmv_dual_step
@@ -531,6 +633,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "bytes": mbytes["A"] + 4 * n + 4 * 4 * m + 4,
         "flops": 2 * op.a.nnz + 7 * m,
         "library_ms": time_ms(lambda: lib_a @ x),
+        "library_device_ms": device_ms(lambda: lib_a @ x),
+        **csr_launch("spmv_dual_step", op.a,
+                     lambda mat: routed.spmv_dual_step(
+                         mat, x, y, b, eq, sigma)),
     })
 
     # spmv_rmv_stats
@@ -556,6 +662,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "bytes": mbytes["AT"] + 4 * m + 3 * 4 * n + 8,
         "flops": 2 * op.at.nnz + 5 * n,
         "library_ms": time_ms(lambda: lib_at @ y),
+        "library_device_ms": device_ms(lambda: lib_at @ y),
+        **csr_launch("spmv_rmv_stats", op.at,
+                     lambda mat: routed.spmv_rmv_stats(
+                         mat, y, dx, aty_old)),
     })
     def add_bounds(rows):
         for r in rows:
@@ -697,13 +807,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit({"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
           "plan_setup_seconds": plan_setup_s, "tolerance": tolerance,
           "results": tiled})
-    del op, top, plan, mat, mat_ns, lib, lib_a, lib_at
+    del op, top, plan, mat, whole, lib, lib_a, lib_at
 
-    # 3b'. B5 and B6 again where the plan is larger than the L2 cache
+    # 3b'. B2-B6 again where the arrays are larger than the L2 cache
     large = kernels_tiled_large(torch, routed, probe, device_ms, dev)
     add_bounds(large["results"])
     emit(large)
-    for r in tiled:
+    for r in results + tiled:
         for big in large["results"]:
             if big["name"] == r["name"]:
                 r["large"] = {k: big[k] for k in (
@@ -863,6 +973,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         record["profile"] = warm_run["profile"]
     emit(record)
     del prepared, warm
+    if args.parent:
+        record = main_path_parent(torch, args.parent, dev)
+        emit(record)
+        if not record["ok"]:
+            raise SystemExit(1)
 
     # 5. determinism
     small = generate_pagerank_lp(num_nodes=DET_NODES, seed=0)
@@ -1098,12 +1213,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("ms_without_long_row_pass", "launches_per_iteration",
+    extra = ("ms_without_row_split", "device_ms_without_row_split",
+             "launches_per_iteration",
              "launches_mirror_prox", "max_abs_err_vs_csr_kernel",
              "padding_share", "max_rel_err", "device_ms",
-             "library_device_ms", "blocks", "entries_per_block_max",
-             "entries_per_block_mean", "tiles_staged", "tiles_gathered",
-             "bytes_staged", "large")
+             "library_device_ms", "kernels_per_call", "blocks",
+             "entries_per_block_max", "entries_per_block_mean",
+             "tiles_staged", "tiles_gathered", "bytes_staged", "large")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

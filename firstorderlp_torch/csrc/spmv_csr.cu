@@ -1,5 +1,5 @@
 // spmv_csr: y = A x in f32 over a CSR matrix (A x with A's arrays,
-// A^T y with the arrays of A^T).
+// A^T y with the arrays of A^T), in one launch.
 //
 // Replaces, on the PDHG main path, the JAX package's routed matvec:
 // the expand kernel (_make_expand / _expand_body,
@@ -7,44 +7,36 @@
 // reduce kernel (_make_reduce / _reduce_body, routed.py:188,127). Those
 // select x entries by one-hot matrix products because gathers on the
 // TPU are bound by index rate; Hopper gathers natively, so this is a
-// plain CSR row sum (see csr_spmv.cuh for the layout, the long-row
-// pass and why it uses no atomics).
+// CSR row sum over work items balanced by entries (csr_spmv.cuh: the
+// items, the walk, and why it uses no atomics).
 //
 // Bound on an H100 SXM: bytes. Per call it must read indptr (4 (m+1)
 // B), indices and values (8 nnz B), x (4 n B) and write y (4 m B):
 // about 7.6 MB for the 100k-node PageRank LP (800k nnz), ~2.3 us at
-// 3.35 TB/s, against 2 nnz flops (~0.02 us at 67 TFLOP/s f32). At this
-// size the launches, not the bytes, set the time; PERF.md has the
-// measured times.
+// 3.35 TB/s, against 2 nnz flops (~0.02 us at 67 TFLOP/s f32). At that
+// size the arrays sit in the L2 cache and the time is the launch and
+// the longest block's chain of dependent loads, so the design keeps
+// every item near the same size and the call at one launch; PERF.md
+// has the measured times.
 
 #include "csr_spmv.cuh"
 
 namespace folp {
 
-template <int TPR>
-__global__ void spmv_rows(CsrArgs a, const float* __restrict__ x,
-                          float* __restrict__ y) {
-  const int row = blockIdx.x * (kBlockThreads / TPR) + threadIdx.x / TPR;
-  const int lane = threadIdx.x & (TPR - 1);
-  const float acc = row_sum<TPR>(a, row, lane, x);
-  if (lane == 0 && row < a.rows) y[row] = acc;
-}
+struct StoreRow {
+  static constexpr int kParts = 0;
+  struct In {};
+  float* y;
+  __device__ In load(int) const { return {}; }
+  __device__ void row(int row, float sum, const In&, float*) const {
+    y[row] = sum;
+  }
+};
 
 }  // namespace folp
 
-extern "C" int folp_spmv_csr(
-    const int* indptr, const int* indices, const float* vals, int rows,
-    const int* long_rows, const int* long_seg_ptr, const int* seg_row,
-    const int* seg_begin, int nlong, int nseg, int long_threshold,
-    float* partials, int tpr, const float* x, float* y, void* stream_ptr) {
+extern "C" int folp_spmv_csr(const folp::CsrArgs* a, const float* x,
+                             float* y, void* stream_ptr) {
   using namespace folp;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  CsrArgs a{indptr, indices, vals, rows, long_rows, long_seg_ptr, seg_row,
-            seg_begin, nlong, nseg, long_threshold, partials};
-  int err = launch_long_row_partials(a, x, stream);
-  if (err) return err;
-  if (rows == 0) return 0;
-  const int blocks = row_blocks(rows, tpr);
-  FOLP_DISPATCH_TPR(tpr, spmv_rows, blocks, stream, a, x, y);
-  return (int)cudaGetLastError();
+  return launch_csr(a, x, StoreRow{y}, nullptr, (cudaStream_t)stream_ptr);
 }

@@ -1,69 +1,60 @@
-// spmv_dual_step: the PDHG dual step fused into the SpMV A z,
+// spmv_dual_step: the PDHG dual step fused into the SpMV A z, in one
+// launch:
 //     y+ = proj(y + sigma (b - A z)),  proj: >= 0 where is_eq == 0,
-// plus one partial of sum((y+ - y)^2) per block (the caller sums the
-// partials with torch.sum, as the JAX package sums `parts` outside its
-// kernel, routed.py:798).
+// and sum((y+ - y)^2), added in item order by the block that draws the
+// launch's last ticket (csr_spmv.cuh) into sums[0]; the JAX package sums
+// its `parts` outside its kernel (routed.py:798), this needs no second
+// launch.
 //
 // Replaces the JAX package's expand kernel (_make_expand,
 // firstorderlp_tpu/ops/routed.py:160) plus chunk gather plus the
 // dual-step reduce kernel (_make_reduce_dual / _reduce_dual_body,
 // routed.py:532,455). Same contract, CSR layout: the epilogue runs in
-// registers on each row's sum, so y+ never makes a second trip through
-// memory. sigma is read from device memory, so the host never waits on
-// the step size.
+// registers on each row's complete sum, so y+ never makes a second
+// trip through memory. sigma is read from device memory, so the host
+// never waits on the step size.
 //
-// Bound on an H100 SXM: bytes. The SpMV's bytes (csr_spmv.cuh) plus y,
+// Bound on an H100 SXM: bytes. The SpMV's bytes (spmv_csr.cu) plus y,
 // b and is_eq read (12 m B) and y+ written (4 m B): about 8.8 MB for
-// the 100k-node PageRank LP, ~2.6 us at 3.35 TB/s. Launch overhead
-// dominates at that size.
+// the 100k-node PageRank LP, ~2.6 us at 3.35 TB/s. At that size the
+// launch and the longest block's chain of loads set the time; the
+// design (csr_spmv.cuh) keeps the call at one launch of blocks of about
+// equal work, the dense equality row cut over many of them.
 
 #include "csr_spmv.cuh"
 
 namespace folp {
 
-template <int TPR>
-__global__ void dual_step_rows(CsrArgs a, const float* __restrict__ z,
-                               const float* __restrict__ y,
-                               const float* __restrict__ b,
-                               const float* __restrict__ is_eq,
-                               const float* __restrict__ sigma,
-                               float* __restrict__ y_next,
-                               float* __restrict__ parts) {
-  __shared__ float shared[kBlockThreads];
-  const int row = blockIdx.x * (kBlockThreads / TPR) + threadIdx.x / TPR;
-  const int lane = threadIdx.x & (TPR - 1);
-  const float az = row_sum<TPR>(a, row, lane, z);
-  float dy2 = 0.f;
-  if (lane == 0 && row < a.rows) {
-    const float y_in = y[row];
-    const float cand = y_in + sigma[0] * (b[row] - az);
-    const float yn = is_eq[row] != 0.f ? cand : fmaxf(cand, 0.f);
-    y_next[row] = yn;
-    const float dy = yn - y_in;
-    dy2 = dy * dy;
+struct DualStepRow {
+  static constexpr int kParts = 1;
+  const float* y;
+  const float* b;
+  const float* is_eq;
+  const float* sigma;
+  float* y_next;
+  struct In {
+    float y, b, is_eq;
+  };
+  __device__ In load(int row) const {
+    return {__ldg(y + row), __ldg(b + row), __ldg(is_eq + row)};
   }
-  const float total = block_sum_rows<TPR>(dy2, shared);
-  if (threadIdx.x == 0) parts[blockIdx.x] = total;
-}
+  __device__ void row(int row, float sum, const In& in, float* part) const {
+    const float cand = in.y + __ldg(sigma) * (in.b - sum);
+    const float yn = in.is_eq != 0.f ? cand : fmaxf(cand, 0.f);
+    y_next[row] = yn;
+    const float dy = yn - in.y;
+    part[0] += dy * dy;
+  }
+};
 
 }  // namespace folp
 
-extern "C" int folp_spmv_dual_step(
-    const int* indptr, const int* indices, const float* vals, int rows,
-    const int* long_rows, const int* long_seg_ptr, const int* seg_row,
-    const int* seg_begin, int nlong, int nseg, int long_threshold,
-    float* partials, int tpr, const float* z, const float* y,
-    const float* b, const float* is_eq, const float* sigma, float* y_next,
-    float* parts, void* stream_ptr) {
+extern "C" int folp_spmv_dual_step(const folp::CsrArgs* a, const float* z,
+                                   const float* y, const float* b,
+                                   const float* is_eq, const float* sigma,
+                                   float* y_next, float* sums,
+                                   void* stream_ptr) {
   using namespace folp;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  CsrArgs a{indptr, indices, vals, rows, long_rows, long_seg_ptr, seg_row,
-            seg_begin, nlong, nseg, long_threshold, partials};
-  int err = launch_long_row_partials(a, z, stream);
-  if (err) return err;
-  if (rows == 0) return 0;
-  const int blocks = row_blocks(rows, tpr);
-  FOLP_DISPATCH_TPR(tpr, dual_step_rows, blocks, stream, a, z, y, b, is_eq,
-                    sigma, y_next, parts);
-  return (int)cudaGetLastError();
+  return launch_csr(a, z, DualStepRow{y, b, is_eq, sigma, y_next}, sums,
+                    (cudaStream_t)stream_ptr);
 }

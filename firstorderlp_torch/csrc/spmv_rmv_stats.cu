@@ -1,66 +1,51 @@
 // spmv_rmv_stats: aty+ = A^T y+ over the CSR arrays of A^T, fused with
-// the PDLP step-control reductions: per block, one partial of
-// sum(dx * (aty+ - aty_old)) (the interaction term) and one of
-// sum(dx^2) (the primal movement). The caller sums the partials with
-// torch.sum, as the JAX package sums `parts` (routed.py:834-835).
+// the PDLP step-control sums, in one launch: sum(dx (aty+ - aty_old))
+// (the interaction term) into sums[0] and sum(dx^2) (the primal
+// movement) into sums[1], each added in item order by the block that
+// draws the launch's last ticket (csr_spmv.cuh). The JAX package sums
+// its `parts` outside its kernel (routed.py:834-835).
 //
 // Replaces the JAX package's expand kernel (_make_expand,
 // firstorderlp_tpu/ops/routed.py:160) plus chunk gather plus the
 // step-control reduce kernel (_make_reduce_rmv_stats /
 // _reduce_rmv_stats_body, routed.py:566,495). Same contract, CSR
-// layout of A^T, epilogue in registers.
+// layout of A^T, epilogue in registers on each row's complete sum.
 //
-// Bound on an H100 SXM: bytes. The SpMV's bytes (csr_spmv.cuh) plus dx
+// Bound on an H100 SXM: bytes. The SpMV's bytes (spmv_csr.cu) plus dx
 // and aty_old read (8 n B): about 8.4 MB for the 100k-node PageRank LP,
-// ~2.5 us at 3.35 TB/s. Launch overhead dominates at that size.
+// ~2.5 us at 3.35 TB/s. At that size the launch and the longest block's
+// chain of loads set the time; the design (csr_spmv.cuh) keeps the call
+// at one launch of blocks of about equal work.
 
 #include "csr_spmv.cuh"
 
 namespace folp {
 
-template <int TPR>
-__global__ void rmv_stats_rows(CsrArgs a, const float* __restrict__ y,
-                               const float* __restrict__ dx,
-                               const float* __restrict__ aty_old,
-                               float* __restrict__ aty,
-                               float* __restrict__ parts, int nblocks) {
-  __shared__ float shared[kBlockThreads];
-  const int row = blockIdx.x * (kBlockThreads / TPR) + threadIdx.x / TPR;
-  const int lane = threadIdx.x & (TPR - 1);
-  const float acc = row_sum<TPR>(a, row, lane, y);
-  float inter = 0.f, dx2 = 0.f;
-  if (lane == 0 && row < a.rows) {
-    aty[row] = acc;
-    const float d = dx[row];
-    inter = d * (acc - aty_old[row]);
-    dx2 = d * d;
+struct RmvStatsRow {
+  static constexpr int kParts = 2;
+  const float* dx;
+  const float* aty_old;
+  float* aty;
+  struct In {
+    float dx, aty_old;
+  };
+  __device__ In load(int row) const {
+    return {__ldg(dx + row), __ldg(aty_old + row)};
   }
-  const float inter_total = block_sum_rows<TPR>(inter, shared);
-  __syncthreads();  // `shared` is reused by the second sum
-  const float dx2_total = block_sum_rows<TPR>(dx2, shared);
-  if (threadIdx.x == 0) {
-    parts[blockIdx.x] = inter_total;
-    parts[nblocks + blockIdx.x] = dx2_total;
+  __device__ void row(int row, float sum, const In& in, float* part) const {
+    aty[row] = sum;
+    part[0] += in.dx * (sum - in.aty_old);
+    part[1] += in.dx * in.dx;
   }
-}
+};
 
 }  // namespace folp
 
-extern "C" int folp_spmv_rmv_stats(
-    const int* indptr, const int* indices, const float* vals, int rows,
-    const int* long_rows, const int* long_seg_ptr, const int* seg_row,
-    const int* seg_begin, int nlong, int nseg, int long_threshold,
-    float* partials, int tpr, const float* y, const float* dx,
-    const float* aty_old, float* aty, float* parts, void* stream_ptr) {
+extern "C" int folp_spmv_rmv_stats(const folp::CsrArgs* a, const float* y,
+                                   const float* dx, const float* aty_old,
+                                   float* aty, float* sums,
+                                   void* stream_ptr) {
   using namespace folp;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  CsrArgs a{indptr, indices, vals, rows, long_rows, long_seg_ptr, seg_row,
-            seg_begin, nlong, nseg, long_threshold, partials};
-  int err = launch_long_row_partials(a, y, stream);
-  if (err) return err;
-  if (rows == 0) return 0;
-  const int blocks = row_blocks(rows, tpr);
-  FOLP_DISPATCH_TPR(tpr, rmv_stats_rows, blocks, stream, a, y, dx, aty_old,
-                    aty, parts, blocks);
-  return (int)cudaGetLastError();
+  return launch_csr(a, y, RmvStatsRow{dx, aty_old, aty}, sums,
+                    (cudaStream_t)stream_ptr);
 }

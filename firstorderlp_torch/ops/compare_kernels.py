@@ -1,0 +1,374 @@
+"""Checks and times the kernel operator's kernels in one layout on one
+GPU, optionally beside those of another checkout of this package, in
+turns on the same card.
+
+    python3 -m firstorderlp_torch.ops.compare_kernels [--layout csr|tiled]
+        [--nodes N] [--parent DIR] [--bulk] [--sweep] [--out FILE]
+
+--layout: the CSR kernels (spmv_csr, spmv_dual_step, spmv_rmv_stats;
+  the default) or the tile-plan kernels (tiled_spmv, tiled_dual_step,
+  tiled_rmv_stats).
+--parent DIR: a directory that holds another version of this package
+  under the name `firstorderlp_torch_parent` (for example
+  `git archive <commit> firstorderlp_torch | tar -x -C DIR` and a
+  rename). Its kernels are built beside this package's and every product
+  is timed parent, this, this, parent.
+--bulk: the matrix of generators.pagerank_like_matrix (made in bulk)
+  instead of the rescaled generate_pagerank_lp.
+--sweep: this package's kernels again at other item sizes and group
+  widths (csr), or at other warps per block and strip and group sizes
+  (tiled).
+
+Prints one JSON line per step, after the card's name and power limit:
+what ptxas said of the layout's kernels; each kernel against its plain
+version (tiled: also against the CSR kernel on the same vectors) with
+the tolerance of chip_smoke.py, REPEATS launches bitwise equal and the
+tickets back at zero; then per product the time of one call (CUDA
+events around each call, median of 100: the wrapper's host work
+included), the time per call of 50 calls enqueued back to back
+(`burst_ms`), the device time and the kernels launched per call from
+torch.profiler (`device_ms`, `kernels_per_call`), the same for the
+one-call library product, and the bytes bound; csr: also the device
+time and events time of the product with no row cut into pieces
+(`*_without_row_split`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import sys
+
+import numpy as np
+import torch
+
+from .. import generators
+from ..preprocess import rescale_problem
+from . import kernels_build, probe_routed, routed
+
+TOL_ENTRY, TOL_ABS, TOL_SUM = 1e-5, 1e-7, 1e-5
+BURST = 50
+REPEATS = 20
+# layout -> its (product, dual step, rmv stats) kernels
+KERNELS = {"csr": ("spmv_csr", "spmv_dual_step", "spmv_rmv_stats"),
+           "tiled": ("tiled_spmv", "tiled_dual_step", "tiled_rmv_stats")}
+
+
+def burst_ms(fn, reps: int = 20) -> float:
+    """Median time per call of BURST calls enqueued back to back."""
+    for _ in range(BURST):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BURST):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / BURST)
+    return float(np.median(times))
+
+
+def device_profile(fn, calls: int = BURST):
+    """(device ms, kernels launched) per call: every kernel under
+    torch.profiler over `calls` calls, the library's and PyTorch's own
+    included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    return total_us / 1e3 / calls, sum(e.count for e in kernels) / calls
+
+
+def device_ms(fn, calls: int = BURST) -> float:
+    """Device time per call (device_profile)."""
+    return device_profile(fn, calls)[0]
+
+
+def repeat_differs(call, tickets=(), times: int = REPEATS):
+    """None when `times` calls of `call` return the same bits and every
+    tensor of `tickets` is zero after them; else what went wrong."""
+    def outputs():
+        out = call()
+        return out if isinstance(out, tuple) else (out,)
+
+    first = outputs()
+    for k in range(1, times):
+        differ = [int(torch.count_nonzero(u != v))
+                  for u, v in zip(first, outputs())]
+        if any(differ):
+            return f"launch {k + 1} differs from the first in {differ} entries"
+    torch.cuda.synchronize()
+    if any(bool(t.any()) for t in tickets):
+        return "a ticket is not back at zero"
+    return None
+
+
+def products(mod, op, v, layout):
+    """name -> call, for one package's operator in `layout`."""
+    spmv, dual, stats = KERNELS[layout]
+    return {
+        f"{spmv}:A": lambda: getattr(mod, spmv)(op.a, v["x"]),
+        f"{spmv}:AT": lambda: getattr(mod, spmv)(op.at, v["y"]),
+        dual: lambda: getattr(mod, dual)(
+            op.a, v["x"], v["y"], v["b"], v["eq"], v["sigma"]),
+        stats: lambda: getattr(mod, stats)(
+            op.at, v["y"], v["dx"], v["aty_old"]),
+    }
+
+
+def check(name, got, want, scale=None):
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    err = np.abs(got - want)
+    bound = (TOL_ENTRY * scale + TOL_ABS if scale is not None
+             else TOL_SUM * np.abs(want) + TOL_ABS)
+    if np.any(err > bound):
+        raise SystemExit(f"{name}: differs by {float(np.max(err)):.3e}")
+    return float(np.max(err))
+
+
+def verify(layout, op, csr, v, scales):
+    """Every kernel of `layout` against its plain version (tiled: and
+    against the CSR kernel of `csr`); REPEATS launches of each bitwise
+    equal, the tickets at zero after them."""
+    spmv, dual, stats = KERNELS[layout]
+
+    def wants(kernel, mat, csr_mat, args):
+        out = [("plain", getattr(routed, kernel + "_plain")(mat, *args))]
+        if layout == "tiled":
+            twin = KERNELS["csr"][KERNELS["tiled"].index(kernel)]
+            out.append(("csr", getattr(routed, twin)(csr_mat, *args)))
+        return out
+
+    errs = {}
+    for label, mat, cmat, vec in (("A", op.a, csr.a, v["x"]),
+                                  ("AT", op.at, csr.at, v["y"])):
+        got = getattr(routed, spmv)(mat, vec)
+        errs[f"{spmv}:{label}"] = max(
+            check(f"{spmv}:{label} vs {what}", got, want, scales[label])
+            for what, want in wants(spmv, mat, cmat, (vec,)))
+    args = (v["x"], v["y"], v["b"], v["eq"], v["sigma"])
+    got = getattr(routed, dual)(op.a, *args)
+    errs[dual] = max(check(f"{dual} vs {what}", got[0], want[0],
+                           scales["dual"])
+                     for what, want in wants(dual, op.a, csr.a, args))
+    # The sum is held against its own y+ in f64: where one row's A z
+    # cancels (the dense row), sum((y+ - y)^2) of two correct y+ differ
+    # by more than any tolerance on a sum.
+    check(f"{dual} dy2", got[1],
+          torch.sum((got[0].double() - v["y"].double()) ** 2))
+    args = (v["y"], v["dx"], v["aty_old"])
+    got = getattr(routed, stats)(op.at, *args)
+    errs[stats] = 0.0
+    for what, want in wants(stats, op.at, csr.at, args):
+        errs[stats] = max(
+            errs[stats],
+            check(f"{stats} vs {what}", got[0], want[0], scales["AT"]),
+            check(f"{stats} dx2 vs {what}", got[2], want[2]))
+        inter = abs(float(got[1]) - float(want[1]))
+        if inter > TOL_ENTRY * scales["inter"] + TOL_ABS:
+            raise SystemExit(f"{stats} interaction vs {what}: {inter:.3e}")
+    for name, call in products(routed, op, v, layout).items():
+        problem = repeat_differs(call, (op.a.tickets, op.at.tickets))
+        if problem:
+            raise SystemExit(f"{name}: {problem}")
+    return errs
+
+
+def sweep_csr(op, v, emit):
+    def width(tpr, factor):
+        return int(min(max(tpr * factor, 2), 32))
+
+    for entries in (256, 512, 1024, 2048, 4096, 8192):
+        for factor in (0.5, 1, 2):
+            op_s = routed.RoutedOp(
+                a=routed.csr_with_items(op.a, entries,
+                                        tpr=width(op.a.tpr, factor)),
+                at=routed.csr_with_items(op.at, entries,
+                                         tpr=width(op.at.tpr, factor)))
+            emit({"step": "sweep", "item_entries": entries,
+                  "tpr": [op_s.a.tpr, op_s.at.tpr],
+                  "blocks": [op_s.a.nitems, op_s.at.nitems],
+                  "device_ms": {
+                      k: device_ms(c)
+                      for k, c in products(routed, op_s, v, "csr").items()}})
+
+
+def sweep_tiled(a64, op, v, emit):
+    for warps in (2, 4, 8, 16):
+        if 4 * warps * op.a.out_strip > 200 * 1024:
+            continue
+        sw = dataclasses.replace
+        op_w = routed.RoutedOp(a=sw(op.a, warps=warps),
+                               at=sw(op.at, warps=warps), tile_aligned=True)
+        emit({"step": "sweep", "warps": warps, "device_ms": {
+            k: device_ms(c)
+            for k, c in products(routed, op_w, v, "tiled").items()}})
+    strip = op.a.out_strip
+    for out_strip in (strip, strip // 2, strip * 2):
+        for group in (128, 64, 32):
+            op_g = routed.build_routed_op(a64, op.a.device, tile_aligned=True,
+                                          out_strip=out_strip, group=group)
+            emit({"step": "sweep", "out_strip": out_strip, "group": group,
+                  "warps": op_g.a.warps,
+                  "padding_share": op_g.a.padding_share,
+                  "blocks": [op_g.a.nitems, op_g.at.nitems],
+                  "device_ms": {
+                      k: device_ms(c)
+                      for k, c in products(routed, op_g, v, "tiled").items()
+                  }})
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--layout", choices=sorted(KERNELS), default="csr")
+    parser.add_argument("--nodes", type=int, default=100_000)
+    parser.add_argument("--parent")
+    parser.add_argument("--bulk", action="store_true")
+    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--out")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    layout, tiled = args.layout, args.layout == "tiled"
+    lines = []
+
+    def emit(obj):
+        lines.append(json.dumps(obj))
+        print(lines[-1], flush=True)
+
+    card = probe_routed.card_line()
+    print(card, flush=True)
+    kernels_build.build_kernels()
+    emit({"step": "build", "layout": layout,
+          "seconds": kernels_build.last_build_seconds,
+          "ptxas": {lib: [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln]
+                    for lib, log in kernels_build.last_build_log.items()
+                    if lib in KERNELS[layout]}})
+
+    rng = np.random.default_rng(0)
+    if args.bulk:
+        a64 = generators.pagerank_like_matrix(args.nodes, seed=0)
+        rhs = rng.standard_normal(a64.shape[0])
+        num_eq = 1
+    else:
+        problem = generators.generate_pagerank_lp(args.nodes, seed=0)
+        scaled = rescale_problem(10, False, 1.0, 0, problem).scaled_qp
+        a64 = scaled.constraint_matrix.tocsr()
+        rhs, num_eq = scaled.right_hand_side, scaled.num_equalities
+    m, n = a64.shape
+    host = {"x": rng.standard_normal(n), "y": rng.standard_normal(m),
+            "b": rhs, "dx": rng.standard_normal(n),
+            "aty_old": rng.standard_normal(n)}
+    host["eq"] = (np.arange(m) < num_eq).astype(np.float64)
+    host = {k: a.astype(np.float32) for k, a in host.items()}
+    v = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
+    sigma = 0.37
+    v["sigma"] = torch.full((), sigma, dtype=torch.float32, device=dev)
+    abs_a = abs(a64)
+    scales = {"A": abs_a @ np.abs(host["x"]).astype(np.float64),
+              "AT": abs_a.T @ np.abs(host["y"]).astype(np.float64)}
+    scales["dual"] = (np.abs(host["y"]) + sigma * np.abs(host["b"])
+                      + sigma * scales["A"])
+    scales["inter"] = float(np.sum(np.abs(host["dx"]) * (
+        scales["AT"] + np.abs(host["aty_old"]))))
+    csr = routed.build_routed_op(a64, dev, tile_aligned=False)
+    op = routed.build_routed_op(a64, dev, tile_aligned=True) if tiled else csr
+    step = {"step": "verify", "layout": layout, "card": card, "m": m,
+            "n": n, "nnz": int(a64.nnz),
+            "max_abs_err": verify(layout, op, csr, v, scales)}
+    if tiled:
+        step.update({"plan_A": routed.tile_plan_stats(op.a),
+                     "plan_AT": routed.tile_plan_stats(op.at),
+                     "geometry": [op.a.out_strip, op.a.in_window,
+                                  op.a.group],
+                     "padding_share": [op.a.padding_share,
+                                       op.at.padding_share]})
+    else:
+        step.update({"items_A": routed.csr_item_stats(op.a),
+                     "items_AT": routed.csr_item_stats(op.at)})
+    emit(step)
+
+    parent_calls = whole_calls = None
+    if args.parent:
+        sys.path.insert(0, args.parent)
+        parent = importlib.import_module(
+            "firstorderlp_torch_parent.ops.routed")
+        parent_op = parent.build_routed_op(a64, dev, tile_aligned=tiled)
+        parent_calls = products(parent, parent_op, v, layout)
+    if not tiled:
+        whole = routed.RoutedOp(
+            a=routed.csr_with_items(op.a, split_rows=False),
+            at=routed.csr_with_items(op.at, split_rows=False))
+        whole_calls = products(routed, whole, v, "csr")
+    lib = {"A": routed.library_spmv(csr.a), "AT": routed.library_spmv(csr.at)}
+    spmv, dual, stats = KERNELS[layout]
+    lib_calls = {
+        f"{spmv}:A": lambda: lib["A"] @ v["x"],
+        f"{spmv}:AT": lambda: lib["AT"] @ v["y"],
+        dual: lambda: lib["A"] @ v["x"],
+        stats: lambda: lib["AT"] @ v["y"],
+    }
+    # bytes of the vectors each product reads and writes, each once, and
+    # the operations of its epilogue
+    extra = {f"{spmv}:A": (4 * (m + n), 0), f"{spmv}:AT": (4 * (m + n), 0),
+             dual: (4 * n + 16 * m + 4, 7 * m),
+             stats: (4 * m + 12 * n + 8, 5 * n)}
+    time_ms = probe_routed.time_ms
+    for name, call in products(routed, op, v, layout).items():
+        mat = op.a if name in (f"{spmv}:A", dual) else op.at
+        row = {"step": "time", "name": name, "card": card}
+        if parent_calls:
+            old = parent_calls[name]
+            row["parent_ms"] = [time_ms(old)]
+            row["ms"] = [time_ms(call), time_ms(call)]
+            row["parent_ms"].append(time_ms(old))
+            row["parent_burst_ms"] = burst_ms(old)
+            (row["parent_device_ms"],
+             row["parent_kernels_per_call"]) = device_profile(old)
+        else:
+            row["ms"] = [time_ms(call), time_ms(call)]
+        row["burst_ms"] = burst_ms(call)
+        row["device_ms"], row["kernels_per_call"] = device_profile(call)
+        if whole_calls:
+            row["ms_without_row_split"] = time_ms(whole_calls[name])
+            row["device_ms_without_row_split"] = device_ms(whole_calls[name])
+        row["library_ms"] = time_ms(lib_calls[name])
+        row["library_burst_ms"] = burst_ms(lib_calls[name])
+        (row["library_device_ms"],
+         row["library_kernels_per_call"]) = device_profile(lib_calls[name])
+        nbytes = (routed.tile_plan_bytes(mat) if tiled
+                  else routed.csr_kernel_bytes(mat))
+        row["bound_ms"], row["bound_by"] = probe_routed.bound_ms(
+            nbytes + extra[name][0], 2 * mat.nnz + extra[name][1])
+        emit(row)
+
+    if args.sweep:
+        if tiled:
+            sweep_tiled(a64, op, v, emit)
+        else:
+            sweep_csr(op, v, emit)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(card + "\n" + "\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -122,13 +122,14 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
 
 def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    csr = [p, p, p, i, p, p, p, p, i, i, i, p, i]
+    csr = [p]  # the matrix's CsrArgs, built once (routed._CsrArgs)
     # loc vals meta items scratch tickets, then nitems nstrips group
     # out_strip in_window num_rows num_cols warps
     plan = [p, p, p, p, p, p, i, i, i, i, i, i, i, i]
     spmv = [p, p]  # x, y
-    dual_step = [p, p, p, p, p, p, p]  # z y b eq sigma y+ parts
-    rmv_stats = [p, p, p, p, p]  # y dx aty_old aty parts
+    # then the sums (CSR) or the partials and sums (tile plan)
+    dual_step = [p, p, p, p, p, p, p]  # z y b eq sigma y+ sums
+    rmv_stats = [p, p, p, p, p]  # y dx aty_old aty sums
     # strip_ids x_strips hi lo g, then ngroups n_strips h groups_per_block
     probe_expand = [p, p, p, p, p, i, i, i, i]
     # chunk_ptr strip_chunk_ptr g v hi lo parts y, then nchunks n_strips hr

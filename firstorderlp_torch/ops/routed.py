@@ -9,8 +9,11 @@ layouts, and ``DEFAULT_TILE_ALIGNED`` (environment variable
 ``FOLP_TILE_ALIGNED=1``) picks the second:
 
 - CSR (the default): A and A' are each stored as CSR (int32 indptr and
-  indices, f32 values) and every output row is summed by one group of
-  threads. Three CUDA kernels cover the composed Pallas kernels:
+  indices, f32 values) and cut into work items of about equal work
+  (``csr_work_items``: runs of short rows, or a long row or a piece of
+  one); one launch per product, one block per item, the epilogue once
+  per output row on complete sums. Three CUDA kernels cover the
+  composed Pallas kernels:
   ``spmv_csr`` (B1 expand + chunk gather + B2 reduce),
   ``spmv_dual_step`` (B1 + B3 reduce-dual) and ``spmv_rmv_stats``
   (B1 + B4 reduce-rmv-stats).
@@ -33,7 +36,9 @@ raises. Each launch adds one to the wrapper's entry in ``LAUNCHES``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 from typing import Dict, Optional, Tuple, Union
@@ -50,13 +55,28 @@ from .device import resolve_device
 # import (the JAX package's switch), else CSR.
 DEFAULT_TILE_ALIGNED = os.environ.get("FOLP_TILE_ALIGNED", "0") == "1"
 
-# Entries one warp sums in the long-row pass (kLongSegment, csr_spmv.cuh).
-LONG_SEGMENT = 512
-# A row is "long" when it holds more than LONG_ROW_GROUP_TRIPS trips of
-# its thread group (256 * TPR entries): shorter rows gain less from the
-# extra launch of the long-row pass than it costs.
-LONG_ROW_GROUP_TRIPS = 256
-_NO_SPLIT = 2**31 - 1
+# Work items of the CSR kernels (csrc/csr_spmv.cuh), chosen for the H100
+# (132 SMs, 2,048 threads an SM: eight blocks of 256).
+# - A row is short when its group of TPR lanes (TPR from the mean row
+#   length) walks it in at most LONG_ROW_TRIPS trips. Short rows are
+#   packed in row order into runs of about `item_entries` units of work
+#   (a stored entry is one unit and a row one more: its pointer and its
+#   epilogue), at most MAX_ITEM_ROWS rows (the kernel stages their
+#   pointers in shared memory).
+# - A long row is walked by a whole block, alone; a row longer than
+#   `item_entries` is cut into pieces of equal shares, one block each,
+#   so the PageRank LP's dense equality row is many blocks, not one.
+# - ITEM_ENTRIES units an item: the card's sweeps of 256-8,192 put 2,048
+#   first or within 5% of the first at the 100k-node PageRank LP (900k
+#   units, 544 items for A: four blocks an SM) and at a million nodes
+#   (4,884 items); larger items leave too few blocks at 100k nodes and
+#   are no faster at a million (PERF.md). No smaller LP was measured.
+# One block per item; no item holds more than ITEM_ENTRIES plus one
+# short row's entries.
+ITEM_BLOCK_THREADS = 256  # kBlockThreads
+LONG_ROW_TRIPS = 16
+MAX_ITEM_ROWS = 1024  # kMaxItemRows
+ITEM_ENTRIES = 2048
 
 # Launch counts per kernel wrapper (A x and A' y counted apart).
 LAUNCHES: Dict[str, int] = {
@@ -76,9 +96,30 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
 
 
+class _CsrArgs(ctypes.Structure):
+    """csrc/csr_spmv.cuh's CsrArgs: a matrix's constant kernel
+    arguments, passed by address."""
+
+    _fields_ = [
+        ("indptr", ctypes.c_void_p),
+        ("indices", ctypes.c_void_p),
+        ("vals", ctypes.c_void_p),
+        ("items", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("tickets", ctypes.c_void_p),
+        ("nitems", ctypes.c_int),
+        ("tpr", ctypes.c_int),
+    ]
+
+
 @dataclasses.dataclass(frozen=True)
 class CsrKernelMatrix:
-    """One orientation of the matrix, as the kernels take it."""
+    """One orientation of the matrix, as the kernels take it: the CSR
+    arrays, the work items (csr_work_items) and the kernels' own
+    `scratch` (piece sums and per-item partial sums) and `tickets`
+    (integer counters, zero between launches). Matrices built with the
+    same index tensors share items, scratch and tickets, so they launch
+    on one stream."""
 
     indptr: torch.Tensor  # (rows + 1,) int32
     indices: torch.Tensor  # (nnz,) int32
@@ -86,26 +127,108 @@ class CsrKernelMatrix:
     num_rows: int
     num_cols: int
     label: str  # "A" or "AT"
-    tpr: int  # threads per row group
-    long_threshold: int  # rows longer than this take the long-row pass
-    long_rows: torch.Tensor  # (nlong,) int32, sorted
-    long_seg_ptr: torch.Tensor  # (nlong + 1,) int32
-    seg_row: torch.Tensor  # (nseg,) int32
-    seg_begin: torch.Tensor  # (nseg,) int32
+    tpr: int  # lanes per row in a run of short rows
+    item_entries: int  # the item size the items were cut to
+    # (nitems + 1, 4) int32 [first entry, first row, index of the piece
+    # in its row, pieces of its row (0: a run of short rows)]; the last
+    # row holds [nnz, rows, 0, 0]
+    items: torch.Tensor
+    scratch: torch.Tensor  # (3 max(nitems, 1),) f32
+    tickets: torch.Tensor  # (nitems + 1,) int32
 
     @property
     def nnz(self) -> int:
         return int(self.indices.shape[0])
 
     @property
+    def nitems(self) -> int:
+        return int(self.items.shape[0]) - 1
+
+    @property
     def device(self) -> torch.device:
         return self.vals.device
 
+    @functools.cached_property
+    def kernel_args(self) -> _CsrArgs:
+        """The constant arguments of every launch on this matrix, built
+        at its first launch."""
+        return _CsrArgs(
+            self.indptr.data_ptr(), self.indices.data_ptr(),
+            self.vals.data_ptr(), self.items.data_ptr(),
+            self.scratch.data_ptr(), self.tickets.data_ptr(),
+            self.nitems, self.tpr,
+        )
+
+    @functools.cached_property
+    def kernel_args_address(self) -> int:
+        return ctypes.addressof(self.kernel_args)
+
 
 def _threads_per_row(rows: int, nnz: int) -> int:
-    mean = nnz / max(rows, 1)
-    tpr = 1 << max(int(np.ceil(np.log2(max(mean, 1.0)))), 0)
-    return int(min(max(tpr, 2), 32))
+    """Lanes per short row: the power of two nearest the mean row length
+    (in log scale), in [2, 32]: 8 at the PageRank LPs' mean of 8-9
+    entries, where 16 lanes left half the lanes idle."""
+    mean = max(nnz / max(rows, 1), 1.0)
+    return int(min(max(1 << int(np.round(np.log2(mean))), 2), 32))
+
+
+def csr_work_items(indptr: np.ndarray, tpr: int, item_entries: int,
+                   split_rows: bool = True) -> np.ndarray:
+    """The item table of a CSR matrix with row pointers `indptr`, in row
+    order: (nitems + 1, 4) int64 rows [first entry, first row, index of
+    the piece in its row, pieces of its row], and a last row [nnz, rows,
+    0, 0]. A row longer than LONG_ROW_TRIPS * tpr entries is long: its
+    own item (pieces 1), or, longer than `item_entries` and with
+    `split_rows`, ceil(len / item_entries) pieces of floor or ceil of
+    equal shares. The short rows between long rows are cut into runs
+    (pieces 0) at the rows where the run's work before the row (entries
+    plus rows, a row at least item_entries / MAX_ITEM_ROWS) passes a
+    multiple of `item_entries`: at most MAX_ITEM_ROWS rows and
+    item_entries plus one row's entries."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    if item_entries < 1:
+        raise ValueError("item_entries must be positive")
+    row_len = np.diff(indptr)
+    rows = len(row_len)
+    long = row_len > LONG_ROW_TRIPS * int(tpr)
+
+    # runs of short rows: a new run where a row follows a long row, or
+    # where the run's work before it passes a multiple of item_entries;
+    # a row counts at least item_entries / MAX_ITEM_ROWS units, so no
+    # run holds more than MAX_ITEM_ROWS rows
+    short = np.flatnonzero(~long)
+    starts = np.ones(len(short), dtype=bool)
+    starts[1:] = short[1:] != short[:-1] + 1
+    seg_first = np.flatnonzero(starts)[np.cumsum(starts) - 1]
+    least = -(-int(item_entries) // MAX_ITEM_ROWS)
+    work_before = _exclusive_cumsum(np.maximum(row_len[short] + 1, least))
+    key = (work_before - work_before[seg_first]) // int(item_entries)
+    cut = starts.copy()
+    cut[1:] |= key[1:] != key[:-1]
+    run_rows = short[cut]
+
+    longs = np.flatnonzero(long)
+    pieces = (np.maximum(-(-row_len[longs] // int(item_entries)), 1)
+              if split_rows else np.ones(len(longs), dtype=np.int64))
+    piece_row = np.repeat(longs, pieces)
+    count = np.repeat(pieces, pieces)
+    index = np.arange(int(pieces.sum())) - np.repeat(
+        _exclusive_cumsum(pieces), pieces
+    )
+    first = indptr[piece_row] + (index * row_len[piece_row]) // count
+
+    zeros = np.zeros(len(run_rows), dtype=np.int64)
+    table = np.stack([
+        np.concatenate([indptr[run_rows], first]),
+        np.concatenate([run_rows, piece_row]),
+        np.concatenate([zeros, index]),
+        np.concatenate([zeros, count]),
+    ], axis=1)
+    order = np.lexsort((table[:, 2], table[:, 1]))
+    items = np.zeros((len(order) + 1, 4), dtype=np.int64)
+    items[:-1] = table[order]
+    items[-1] = [indptr[-1], rows, 0, 0]
+    return items
 
 
 def _f32_tensor(a, device) -> torch.Tensor:
@@ -120,61 +243,93 @@ def _i32_tensor(a, device) -> torch.Tensor:
     )
 
 
+def _item_tensors(indptr: np.ndarray, tpr: int, item_entries: int,
+                  split_rows: bool, device) -> Dict[str, torch.Tensor]:
+    items = csr_work_items(indptr, tpr, item_entries, split_rows)
+    nitems = len(items) - 1
+    return {
+        "items": _i32_tensor(items, device),
+        "scratch": torch.empty(3 * max(nitems, 1), dtype=torch.float32,
+                               device=device),
+        "tickets": torch.zeros(nitems + 1, dtype=torch.int32, device=device),
+    }
+
+
 def build_csr_kernel_matrix(
     csr: sp.csr_matrix, device, label: str,
     index_from: "Optional[CsrKernelMatrix]" = None,
 ) -> CsrKernelMatrix:
-    """Host-side build of one orientation (vectorized numpy).
+    """Host-side build of one orientation (vectorized numpy), its items
+    cut to ITEM_ENTRIES units.
 
     index_from: the same orientation of a matrix with the same sparsity
-    pattern; its index tensors are reused on the device and only the
-    values are transferred."""
+    pattern; its index tensors, items, scratch and tickets are reused on
+    the device and only the values are transferred."""
     rows, cols = csr.shape
-    if csr.nnz >= 2**31:
+    # a block's int32 walk steps up to ITEM_BLOCK_THREADS past its end
+    if csr.nnz >= 2**31 - ITEM_BLOCK_THREADS:
         raise ValueError("int32 CSR indices cannot hold this matrix")
     if index_from is not None:
         return dataclasses.replace(
             index_from, vals=_f32_tensor(csr.data, index_from.device)
         )
-    indptr = csr.indptr.astype(np.int64)
-    row_len = np.diff(indptr)
     tpr = _threads_per_row(rows, csr.nnz)
-    threshold = LONG_ROW_GROUP_TRIPS * tpr
-    long_rows = np.flatnonzero(row_len > threshold)
-    nseg_of = -(-row_len[long_rows] // LONG_SEGMENT)
-    long_seg_ptr = np.zeros(len(long_rows) + 1, dtype=np.int64)
-    np.cumsum(nseg_of, out=long_seg_ptr[1:])
-    seg_row = np.repeat(long_rows, nseg_of)
-    within = np.arange(int(long_seg_ptr[-1])) - np.repeat(
-        long_seg_ptr[:-1], nseg_of
-    )
-    seg_begin = indptr[seg_row] + LONG_SEGMENT * within
-
     return CsrKernelMatrix(
-        indptr=_i32_tensor(indptr, device),
+        indptr=_i32_tensor(csr.indptr, device),
         indices=_i32_tensor(csr.indices, device),
         vals=_f32_tensor(csr.data, device),
         num_rows=rows,
         num_cols=cols,
         label=label,
         tpr=tpr,
-        long_threshold=threshold,
-        long_rows=_i32_tensor(long_rows, device),
-        long_seg_ptr=_i32_tensor(long_seg_ptr, device),
-        seg_row=_i32_tensor(seg_row, device),
-        seg_begin=_i32_tensor(seg_begin, device),
+        item_entries=ITEM_ENTRIES,
+        **_item_tensors(csr.indptr, tpr, ITEM_ENTRIES, True, device),
     )
 
 
-def _without_long_row_pass(mat: CsrKernelMatrix) -> CsrKernelMatrix:
-    """`mat` with the long-row pass off: every row is walked by one
-    thread group. A timing and testing yardstick only."""
-    empty = mat.long_rows[:0]
+def csr_with_items(mat: CsrKernelMatrix, item_entries: Optional[int] = None,
+                   split_rows: bool = True,
+                   tpr: Optional[int] = None) -> CsrKernelMatrix:
+    """`mat` with items of another size or another group width, or with
+    no row cut into pieces (split_rows=False: a long row is one block
+    however long); new scratch and tickets. A timing and testing
+    yardstick."""
+    item_entries = int(item_entries or mat.item_entries)
+    tpr = int(tpr or mat.tpr)
     return dataclasses.replace(
-        mat, long_threshold=_NO_SPLIT, long_rows=empty,
-        long_seg_ptr=torch.zeros_like(mat.long_seg_ptr[:1]),
-        seg_row=empty, seg_begin=empty,
+        mat, item_entries=item_entries, tpr=tpr,
+        **_item_tensors(mat.indptr.cpu().numpy(), tpr, item_entries,
+                        split_rows, mat.device),
     )
+
+
+def csr_item_stats(mat: CsrKernelMatrix) -> Dict[str, float]:
+    """What a launch over `mat` looks like: blocks (one per item), stored
+    entries of the largest and of the mean block, rows walked by a whole
+    block and rows cut into pieces."""
+    items = mat.items.cpu().numpy().astype(np.int64)
+    sizes = np.diff(items[:, 0])
+    block = items[:-1, 3] > 0
+    return {
+        "blocks": mat.nitems,
+        "tpr": mat.tpr,
+        "item_entries": mat.item_entries,
+        "entries_per_block_max": int(sizes.max()) if len(sizes) else 0,
+        "entries_per_block_mean": float(sizes.mean()) if len(sizes) else 0.0,
+        "max_over_mean": (float(sizes.max() / sizes.mean())
+                          if len(sizes) and sizes.mean() > 0 else 0.0),
+        "long_rows": int(np.sum(block & (items[:-1, 2] == 0))),
+        "split_rows": int(np.sum((items[:-1, 3] > 1) & (items[:-1, 2] == 0))),
+        "matrix_bytes": csr_kernel_bytes(mat),
+        "item_table_bytes": int(mat.items.numel()) * 4,
+    }
+
+
+def csr_kernel_bytes(mat: CsrKernelMatrix) -> int:
+    """Bytes of the matrix a product must read: indptr, indices and
+    values, each once (the item table is the kernels' own, not the
+    product's: csr_item_stats counts it apart)."""
+    return 4 * (mat.num_rows + 1) + 8 * mat.nnz
 
 
 # ---------------------------------------------------------------------------
@@ -221,31 +376,18 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _csr_args(mat: CsrKernelMatrix, partials: torch.Tensor):
-    return (
-        mat.indptr.data_ptr(), mat.indices.data_ptr(), mat.vals.data_ptr(),
-        mat.num_rows, mat.long_rows.data_ptr(), mat.long_seg_ptr.data_ptr(),
-        mat.seg_row.data_ptr(), mat.seg_begin.data_ptr(),
-        int(mat.long_rows.shape[0]), int(mat.seg_row.shape[0]),
-        mat.long_threshold, partials.data_ptr(), mat.tpr,
-    )
-
-
-def _row_blocks(mat: CsrKernelMatrix) -> int:
-    per_block = 256 // mat.tpr  # kBlockThreads / TPR
-    return -(-mat.num_rows // per_block)
+def _on_cpu(plan_or_mat, vec: torch.Tensor) -> bool:
+    return vec.device.type == "cpu" and plan_or_mat.device.type == "cpu"
 
 
 def _launch(lib: str, mat: CsrKernelMatrix, *args) -> None:
+    """One launch of `lib` on the current stream: the matrix's constant
+    arguments by address (built once), then the call's own."""
     if mat.device.type != "cuda":
         raise ValueError(f"{lib}: the matrix is not on a CUDA device")
     fn = kernels_build.kernel_function(lib)
-    partials = torch.empty(
-        max(int(mat.seg_row.shape[0]), 1), dtype=torch.float32,
-        device=mat.device,
-    )
     stream = torch.cuda.current_stream(mat.device).cuda_stream
-    err = fn(*_csr_args(mat, partials), *args, stream)
+    err = fn(mat.kernel_args_address, *args, stream)
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
 
@@ -253,7 +395,7 @@ def _launch(lib: str, mat: CsrKernelMatrix, *args) -> None:
 def spmv_csr(mat: CsrKernelMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = mat @ x (f32). Plain version for CPU tensors, else the
     spmv_csr kernel."""
-    if x.device.type == "cpu" and mat.device.type == "cpu":
+    if _on_cpu(mat, x):
         return spmv_csr_plain(mat, x)
     _check("x", x, (mat.num_cols,), mat.device)
     y = torch.empty(mat.num_rows, dtype=torch.float32, device=mat.device)
@@ -265,48 +407,43 @@ def spmv_csr(mat: CsrKernelMatrix, x: torch.Tensor) -> torch.Tensor:
 def spmv_dual_step(mat, z, y, b, is_eq, sigma):
     """Fused dual step; returns (y+, sum((y+ - y)^2)). `sigma` is a
     one-element f32 tensor on the matrix's device (read by the kernel,
-    so the host never waits for it)."""
-    if z.device.type == "cpu" and mat.device.type == "cpu":
+    so the host never waits for it). y+ and the sum share one new
+    tensor; the sum is never a view of the matrix's scratch."""
+    if _on_cpu(mat, z):
         return spmv_dual_step_plain(mat, z, y, b, is_eq, sigma)
     m = mat.num_rows
     _check("z", z, (mat.num_cols,), mat.device)
     for name, t in (("y", y), ("b", b), ("is_eq", is_eq)):
         _check(name, t, (m,), mat.device)
     _check("sigma", sigma.reshape(()), (), mat.device)
-    y_next = torch.empty(m, dtype=torch.float32, device=mat.device)
-    parts = torch.empty(
-        max(_row_blocks(mat), 1), dtype=torch.float32, device=mat.device
-    )
+    out = torch.empty(m + 1, dtype=torch.float32, device=mat.device)
+    ptr = out.data_ptr()
     _launch(
         "spmv_dual_step", mat, z.data_ptr(), y.data_ptr(), b.data_ptr(),
-        is_eq.data_ptr(), sigma.data_ptr(), y_next.data_ptr(),
-        parts.data_ptr(),
+        is_eq.data_ptr(), sigma.data_ptr(), ptr, ptr + 4 * m,
     )
     LAUNCHES["spmv_dual_step"] += 1
-    if m == 0:
-        return y_next, torch.zeros((), dtype=torch.float32, device=mat.device)
-    return y_next, torch.sum(parts)
+    return out[:m], out[m]
 
 
 def spmv_rmv_stats(mat, y, dx, aty_old):
     """Fused A' y+ with the step-control sums; `mat` holds A'. Returns
-    (aty+, sum(dx (aty+ - aty_old)), sum(dx^2))."""
-    if y.device.type == "cpu" and mat.device.type == "cpu":
+    (aty+, sum(dx (aty+ - aty_old)), sum(dx^2)), all three in one new
+    tensor."""
+    if _on_cpu(mat, y):
         return spmv_rmv_stats_plain(mat, y, dx, aty_old)
     n = mat.num_rows
     _check("y", y, (mat.num_cols,), mat.device)
     _check("dx", dx, (n,), mat.device)
     _check("aty_old", aty_old, (n,), mat.device)
-    aty = torch.empty(n, dtype=torch.float32, device=mat.device)
-    blocks = max(_row_blocks(mat), 1)
-    parts = torch.empty(2, blocks, dtype=torch.float32, device=mat.device)
+    out = torch.empty(n + 2, dtype=torch.float32, device=mat.device)
+    ptr = out.data_ptr()
     _launch(
         "spmv_rmv_stats", mat, y.data_ptr(), dx.data_ptr(),
-        aty_old.data_ptr(), aty.data_ptr(), parts.data_ptr(),
+        aty_old.data_ptr(), ptr, ptr + 4 * n,
     )
     LAUNCHES["spmv_rmv_stats"] += 1
-    sums = torch.sum(parts, dim=1)
-    return aty, sums[0], sums[1]
+    return out[:n], out[n], out[n + 1]
 
 
 # ---------------------------------------------------------------------------
@@ -729,10 +866,6 @@ def _launch_tiled(lib: str, plan: TilePlan, *args) -> None:
     )
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
-
-
-def _on_cpu(plan_or_mat, vec: torch.Tensor) -> bool:
-    return vec.device.type == "cpu" and plan_or_mat.device.type == "cpu"
 
 
 def tiled_spmv(plan: TilePlan, x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,11 @@ a card, from the root of the repository:
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not
 use.) Each kernel is held against its plain PyTorch version on the
 card, on shapes with the structures that stress the layout: hub rows
-and columns past the long-row threshold, empty rows and columns. The
+and columns cut into pieces over many blocks (or, as a yardstick, not
+cut), empty rows and columns, more items than a block has threads. The
+CSR kernels also launch 20 times for the same bits with their tickets
+back at zero, are one kernel a call by torch.profiler, return sums that
+outlive the next launch, and reject bad inputs. The
 tile-plan kernels are held against their plain versions and against the
 CSR kernels, at the card's own strip sizes and at small ones that force
 ragged and empty strips and runs of one row across many steps, and on
@@ -25,6 +29,7 @@ import torch
 
 from firstorderlp_torch.generators import generate_pagerank_lp
 from firstorderlp_torch.ops import routed
+from firstorderlp_torch.ops.compare_kernels import repeat_differs
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +43,8 @@ def cuda():
 
 def hub_matrix(m, n, hub_len, seed):
     """Random entries plus a dense-ish row 0 and column 0 of `hub_len`
-    entries (past the long-row threshold), and empty rows/columns."""
+    entries (long rows, cut into pieces over several items), and empty
+    rows/columns."""
     rng = np.random.default_rng(seed)
     nnz = 4 * m
     rows = np.concatenate([rng.integers(2, m, nnz), np.zeros(hub_len, int),
@@ -65,15 +71,61 @@ def check(got, want, scale):
     assert np.all(err <= 1e-5 * scale + 1e-7), float(err.max())
 
 
+# The CSR kernels' matrices: MATRICES, and one of more items than a
+# block has threads (the launch's last ticket adds 256+ partials).
+CSR_MATRICES = dict(
+    MATRICES, many_items=lambda: hub_matrix(20000, 20000, 30000, 2))
+# Item sizes below ITEM_ENTRIES, where that would leave the dense row of
+# 2,000 entries whole or fewer items than a block has threads.
+CSR_ITEM_ENTRIES = {"pagerank2000": 256, "many_items": 256}
+
+
+def csr_op(cuda, name, split):
+    """The CSR operator of CSR_MATRICES[name], its items cut to
+    CSR_ITEM_ENTRIES; split=False: the same rows with no row cut into
+    pieces (a long row is one block)."""
+    a = sp.csr_matrix(CSR_MATRICES[name]())
+    op = routed.build_routed_op(a, cuda, tile_aligned=False)
+    entries = CSR_ITEM_ENTRIES.get(name)
+    if entries or not split:
+        op = routed.RoutedOp(
+            a=routed.csr_with_items(op.a, entries, split_rows=split),
+            at=routed.csr_with_items(op.at, entries, split_rows=split))
+    return a, op
+
+
+def csr_calls(op, gen_device, m, n):
+    """name -> call of the three CSR kernels on vectors drawn on the
+    card from a seeded generator; each call returns a tuple."""
+    gen = torch.Generator(device=gen_device).manual_seed(0)
+    x, dx, old = (torch.randn(n, device=gen_device, generator=gen)
+                  for _ in range(3))
+    y, b = (torch.randn(m, device=gen_device, generator=gen)
+            for _ in range(2))
+    eq = (torch.rand(m, device=gen_device, generator=gen) < 0.3).float()
+    sigma = torch.full((), 0.37, device=gen_device)
+    return {
+        "spmv_csr:A": lambda: (routed.spmv_csr(op.a, x),),
+        "spmv_csr:AT": lambda: (routed.spmv_csr(op.at, y),),
+        "spmv_dual_step": lambda: routed.spmv_dual_step(
+            op.a, x, y, b, eq, sigma),
+        "spmv_rmv_stats": lambda: routed.spmv_rmv_stats(
+            op.at, y, dx, old),
+    }
+
+
 @pytest.mark.parametrize("split", [True, False])
-@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("name", sorted(CSR_MATRICES))
 def test_kernels_match_plain(cuda, name, split):
-    a = sp.csr_matrix(MATRICES[name]())
+    """split: rows longer than the item size are cut across items (the
+    default); else no row is cut."""
+    a, op = csr_op(cuda, name, split)
     m, n = a.shape
-    op = routed.build_routed_op(a, cuda)
-    if not split:
-        op = routed.RoutedOp(a=routed._without_long_row_pass(op.a),
-                             at=routed._without_long_row_pass(op.at))
+    pieces = op.a.items[:-1, 3].cpu().numpy()
+    if name != "tiny":
+        assert (pieces.max() > 1) == split
+    if name == "many_items":
+        assert op.a.nitems > routed.ITEM_BLOCK_THREADS
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
     y = torch.as_tensor(rng.normal(size=m), dtype=torch.float32, device=cuda)
@@ -93,6 +145,9 @@ def test_kernels_match_plain(cuda, name, split):
     yn_p, dy2_p = routed.spmv_dual_step_plain(op.a, x, y, b, eq, sigma)
     check(yn, yn_p, np.abs(y.cpu().numpy()) + 0.37 * (
         np.abs(b.cpu().numpy()) + scale_ax))
+    # and against its own y+ in f64
+    own = torch.sum((yn.double() - y.double()) ** 2)
+    assert float(dy2) == pytest.approx(float(own), rel=1e-5)
     assert float(dy2) == pytest.approx(float(dy2_p), rel=1e-5)
 
     dx = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
@@ -104,6 +159,60 @@ def test_kernels_match_plain(cuda, name, split):
     check(got[0], want[0], scale_aty)
     assert float(got[1]) == pytest.approx(float(want[1]), rel=1e-5)
     assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("name", sorted(CSR_MATRICES))
+def test_csr_kernels_repeat_bitwise(cuda, name, split):
+    """20 launches of each CSR kernel on the same inputs give the same
+    bits, however the blocks were scheduled; the tickets are back at
+    zero after every launch."""
+    a, op = csr_op(cuda, name, split)
+    for key, call in csr_calls(op, cuda, *a.shape).items():
+        problem = repeat_differs(call, (op.a.tickets, op.at.tickets), 20)
+        assert problem is None, (key, problem)
+
+
+def test_csr_kernels_are_one_launch_a_call(cuda):
+    """torch.profiler sees one kernel, the port's own, per call of each
+    CSR wrapper: no long-row pass and no torch.sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, op = csr_op(cuda, "pagerank2000", True)
+    assert op.a.items[:-1, 3].max() > 1  # the dense row is cut
+    for key, call in csr_calls(op, cuda, *a.shape).items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in kernels) == 5, (key, kernels)
+        assert all("folp::" in e.key for e in kernels), key
+
+
+def test_csr_sums_are_not_views_of_the_scratch(cuda):
+    """The returned sums survive the next launch on the same matrix
+    (the caller keeps them across iterations)."""
+    a, op = csr_op(cuda, "hub", True)
+    calls = csr_calls(op, cuda, *a.shape)
+    first = calls["spmv_dual_step"]()
+    stats = calls["spmv_rmv_stats"]()
+    kept = [t.clone() for t in (*first, *stats)]
+    z = torch.zeros(a.shape[1], device=cuda)
+    sigma = torch.ones((), device=cuda)
+    for _ in range(3):  # other inputs, other sums
+        routed.spmv_dual_step(op.a, z, first[0] + 1.0, first[0], first[0],
+                              sigma)
+        routed.spmv_rmv_stats(op.at, first[0] + 2.0, stats[0], stats[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip((*first, *stats), kept))
+    for s in (first[1], stats[1], stats[2]):
+        assert s.dim() == 0
+        assert s.untyped_storage().data_ptr() != op.a.scratch.data_ptr()
+        assert s.untyped_storage().data_ptr() != op.at.scratch.data_ptr()
 
 
 # (out_strip, in_window, group): the defaults, then small strips that
@@ -232,7 +341,8 @@ def test_tiled_kernels_on_the_paths_of_the_work_items(cuda, case):
 @pytest.mark.parametrize("case", sorted(BUILT) + sorted(MATRICES))
 def test_tiled_kernels_repeat_bitwise(cuda, case):
     """20 launches of each tile-plan kernel on the same inputs give the
-    same bits, however the blocks were scheduled."""
+    same bits, however the blocks were scheduled; the tickets are back
+    at zero after them."""
     if case in BUILT:
         make, geometry, _ = BUILT[case]
     else:
@@ -255,10 +365,8 @@ def test_tiled_kernels_repeat_bitwise(cuda, case):
             op.at, y, dx, old),
     }
     for name, call in calls.items():
-        first = call()
-        for _ in range(19):
-            again = call()
-            assert all(torch.equal(u, v) for u, v in zip(first, again)), name
+        problem = repeat_differs(call, (op.a.tickets, op.at.tickets), 20)
+        assert problem is None, (name, problem)
 
 
 def test_tiled_wrappers_reject_bad_inputs(cuda):
@@ -293,9 +401,35 @@ def test_wrappers_reject_bad_inputs_and_count(cuda):
                                           device=cuda))
     with pytest.raises(ValueError):
         routed.spmv_csr(op.a, torch.zeros(31, device=cuda))
+    m, n = a.shape
+    z, y = torch.zeros(n, device=cuda), torch.zeros(m, device=cuda)
+    sigma = torch.ones((), device=cuda)
+    bad_dual = (
+        (TypeError, (z.double(), y, y, y, sigma)),  # f64 z
+        (ValueError, (z, y[:-1], y, y, sigma)),  # short y
+        (ValueError, (z, y, y.cpu(), y, sigma)),  # a CPU b
+        (ValueError, (z, y, y, torch.zeros(2 * m, device=cuda)[::2],
+                      sigma)),  # a strided is_eq
+        (ValueError, (z, y, y, y, sigma.cpu())),  # a CPU sigma
+    )
+    for error, args in bad_dual:
+        with pytest.raises(error):
+            routed.spmv_dual_step(op.a, *args)
+    bad_stats = (
+        (TypeError, (y.half(), z, z)),
+        (ValueError, (y, z[:-1], z)),
+        (ValueError, (y, z, z.cpu())),
+    )
+    for error, args in bad_stats:
+        with pytest.raises(error):
+            routed.spmv_rmv_stats(op.at, *args)
     routed.reset_launch_counts()
     routed.spmv_csr(op.a, torch.zeros(30, device=cuda))
+    routed.spmv_dual_step(op.a, z, y, y, y, sigma)
+    routed.spmv_rmv_stats(op.at, y, z, z)
     assert routed.LAUNCHES["spmv_csr:A"] == 1
+    assert routed.LAUNCHES["spmv_dual_step"] == 1
+    assert routed.LAUNCHES["spmv_rmv_stats"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,18 @@ package, on the CPU.
   mode, which is what the reference runs off the TPU. Tolerance, the f32
   rounding class (the two sum in different orders):
   |d| <= 1e-5 (|A||x|)_i + 1e-7 per entry, rtol 1e-5 on the sums.
+- The CSR kernels' work items (csr_work_items): every entry and row in
+  one item, in row order, the caps, long rows cut into pieces and short
+  rows never; the kernels' walk over the items, emulated in f64 in
+  their order of items and tickets, against the same reference and
+  against scipy (1e-12).
 - DenseOp/CsrOp, the device problem, termination, iteration_stats,
   trust_region and run_restart_scheme in f64 at rtol 1e-12 (trust_region
   also in f32, at the f32 rounding class).
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -155,42 +161,425 @@ def test_kernel_op_keeps_dtype_and_rejects_cuda_mismatch():
         tx_routed.build_routed_op(sp.csr_matrix((3, 3)), CPU)
 
 
-@pytest.mark.parametrize("split", [True, False])
-def test_long_row_tables_cover_each_long_row(split):
-    """The long-row pass's tables (built on the host, read by the CUDA
-    kernels) cover every entry of each long row exactly once."""
-    rng = np.random.default_rng(2)
-    a = random_matrix(rng, 50, 20000, 400)
-    a = sp.vstack([sp.csr_matrix(np.ones((1, 20000))), a,
-                   sp.csr_matrix(np.ones((1, 20000)))]).tocsr()
-    mat = tx_routed.build_csr_kernel_matrix(a, CPU, "A")
-    if not split:
-        mat = tx_routed._without_long_row_pass(mat)
-    lens = np.diff(a.indptr)
-    long_rows = mat.long_rows.numpy()
-    if not split:
-        assert long_rows.size == 0 and mat.long_threshold == 2**31 - 1
-        assert mat.seg_row.numel() == 0
-        assert mat.long_seg_ptr.tolist() == [0]
-        return
-    np.testing.assert_array_equal(
-        long_rows, np.flatnonzero(lens > mat.long_threshold)
+# ---------------------------------------------------------------------------
+# The work items of the CSR kernels (csrc/csr_spmv.cuh)
+# ---------------------------------------------------------------------------
+
+
+def rows_matrix(lengths, n, seed):
+    """Rows of the given lengths, in order, over `n` columns."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, size=k, replace=False)) for k in lengths]
+        + [np.zeros(0, int)]
     )
-    assert set(long_rows) == {0, 51}
-    seg_ptr = mat.long_seg_ptr.numpy()
-    seg_row = mat.seg_row.numpy()
-    seg_begin = mat.seg_begin.numpy()
-    for k, r in enumerate(long_rows):
-        segs = range(seg_ptr[k], seg_ptr[k + 1])
-        assert all(seg_row[s] == r for s in segs)
-        starts = seg_begin[list(segs)]
-        np.testing.assert_array_equal(
-            starts,
-            a.indptr[r] + tx_routed.LONG_SEGMENT * np.arange(len(starts)),
-        )
-        assert starts[-1] < a.indptr[r + 1] <= (
-            starts[-1] + tx_routed.LONG_SEGMENT
-        )
+    return sp.csr_matrix((rng.normal(size=indptr[-1]), indices, indptr),
+                         shape=(len(lengths), n))
+
+
+# name -> (matrix, item_entries): structures that reach every kind of
+# item and every cut of csr_work_items
+ITEM_CASES = {
+    # long runs of empty rows between short rows, and trailing empties
+    "empty_rows": (lambda: rows_matrix([0] * 700 + [3, 0, 5] + [0] * 900,
+                                       40, 0), 64),
+    # every row long (past 16 trips of 32 lanes) and longer than the
+    # item size: all pieces
+    "all_rows_long": (lambda: rows_matrix([600, 1000, 513, 700], 1200, 1),
+                      128),
+    # a long row of exactly the item size: one block, not cut
+    "row_of_exactly_e": (lambda: rows_matrix([2] * 200 + [256] + [1] * 200,
+                                             300, 2), 256),
+    # a dense row among short rows, cut into many pieces
+    "dense_row": (lambda: rows_matrix([3] * 50 + [5000] + [4] * 60, 6000,
+                                      3), 256),
+    # more short rows than a run may stage
+    "many_short_rows": (lambda: rows_matrix([1] * 5000, 30, 4), 100_000),
+}
+
+
+def item_matrix(case):
+    """(csr, CsrKernelMatrix) of a MATRICES name (default item size, or
+    `name:e` for item size e) or of an ITEM_CASES name."""
+    name, _, size = case.partition(":")
+    if name in ITEM_CASES:
+        make, entries = ITEM_CASES[name]
+    else:
+        make, entries = MATRICES[name], int(size) if size else None
+    a = sp.csr_matrix(make())
+    a.sum_duplicates()
+    return a, csr_matrix_of(a, "A", entries)
+
+
+def csr_matrix_of(a, label, entries=None):
+    """The kernel matrix of `a`, its items cut to `entries` (default:
+    ITEM_ENTRIES)."""
+    mat = tx_routed.build_csr_kernel_matrix(a, CPU, label)
+    return tx_routed.csr_with_items(mat, entries) if entries else mat
+
+
+ITEM_MATRICES = (sorted(MATRICES) + [f"{k}:16" for k in sorted(MATRICES)]
+                 + sorted(ITEM_CASES))
+
+
+def check_items(mat, a, split_rows=True):
+    """The item table's invariants (csr_work_items' contract)."""
+    items = mat.items.numpy().astype(np.int64)
+    indptr = a.indptr.astype(np.int64)
+    lens = np.diff(indptr)
+    rows, e = a.shape[0], mat.item_entries
+    threshold = tx_routed.LONG_ROW_TRIPS * mat.tpr
+    assert items.shape == (mat.nitems + 1, 4)
+    assert items[-1].tolist() == [a.nnz, rows, 0, 0]
+    assert items[0, 0] == 0 and items[0, 1] == 0
+    assert np.all(np.diff(items[:, 0]) >= 0)
+    assert np.all(np.diff(items[:, 1]) >= 0)
+    covered = np.zeros(rows, dtype=int)
+    i = 0
+    while i < mat.nitems:
+        e0, r0, index, pieces = items[i]
+        if pieces == 0:  # a run of whole short rows
+            r1 = items[i + 1, 1]
+            assert 0 < r1 - r0 <= tx_routed.MAX_ITEM_ROWS
+            assert e0 == indptr[r0] and items[i + 1, 0] == indptr[r1]
+            assert np.all(lens[r0:r1] <= threshold)
+            assert indptr[r1] - e0 <= e + threshold
+            assert index == 0
+            covered[r0:r1] += 1
+            i += 1
+            continue
+        # a long row: its pieces together, in order, from its first
+        # entry to its last, none above the item size
+        assert lens[r0] > threshold
+        want = max(-(-lens[r0] // e), 1) if split_rows else 1
+        assert pieces == want
+        np.testing.assert_array_equal(items[i:i + pieces, 1], r0)
+        np.testing.assert_array_equal(items[i:i + pieces, 2],
+                                      np.arange(pieces))
+        np.testing.assert_array_equal(items[i:i + pieces, 3], pieces)
+        bounds = items[i:i + pieces + 1, 0]
+        assert bounds[0] == indptr[r0] and bounds[-1] == indptr[r0 + 1]
+        sizes = np.diff(bounds)
+        assert np.all(sizes > 0)
+        if split_rows:
+            assert sizes.max() <= e and sizes.max() - sizes.min() <= 1
+        covered[r0] += 1
+        i += pieces
+    np.testing.assert_array_equal(covered, 1)  # every row in one item
+    assert mat.scratch.shape == (3 * max(mat.nitems, 1),)
+    assert mat.scratch.dtype == torch.float32
+    assert mat.tickets.shape == (mat.nitems + 1,)
+    assert mat.tickets.dtype == torch.int32 and not mat.tickets.any()
+    return items
+
+
+@pytest.mark.parametrize("case", ITEM_MATRICES)
+def test_work_items_cover_the_rows(case):
+    """Every stored entry and every row lies in exactly one item, in row
+    order; a run holds whole short rows, at most MAX_ITEM_ROWS of them
+    and the item size plus one short row's entries; a long row is one
+    item or pieces of floor or ceil of equal shares, none above the
+    item size; both orientations."""
+    a, mat = item_matrix(case)
+    check_items(mat, a)
+    at = sp.csr_matrix(a.T)
+    check_items(csr_matrix_of(at, "AT", mat.item_entries), at)
+
+
+def test_a_dense_row_is_cut_into_many_items_and_a_short_row_never():
+    a, mat = item_matrix("dense_row")
+    items = check_items(mat, a)
+    dense = items[:-1, 1] == 50
+    assert dense.sum() == 20 and np.all(items[:-1][dense, 3] == 20)
+    short = items[:-1, 3] == 0
+    assert not np.any(items[:-1][~dense, 3])  # every other row in runs
+    assert np.all(np.diff(items[:, 1])[short] >= 1)
+    stats = tx_routed.csr_item_stats(mat)
+    assert stats["split_rows"] == 1 and stats["long_rows"] == 1
+    assert stats["blocks"] == mat.nitems
+    assert stats["entries_per_block_max"] == np.diff(items[:, 0]).max()
+    # the same rows with no row cut: the dense row is one block
+    whole = tx_routed.csr_with_items(mat, split_rows=False)
+    items = check_items(whole, a, split_rows=False)
+    assert np.sum(items[:-1, 1] == 50) == 1
+    assert tx_routed.csr_item_stats(whole)["split_rows"] == 0
+    assert whole.scratch.data_ptr() != mat.scratch.data_ptr()
+
+
+def test_edge_structures_of_the_items():
+    # empty rows: runs of at most the row cap, the empty rows included
+    a, mat = item_matrix("empty_rows")
+    items = check_items(mat, a)
+    assert not items[:-1, 3].any()
+    # 1,603 rows and 8 entries: 1,611 units in runs of 64
+    assert mat.nitems == 26 and np.diff(items[:, 1]).max() == 64
+    assert np.diff(items[:, 1])[:10].tolist() == [64] * 10
+    # every row longer than E: pieces only
+    a, mat = item_matrix("all_rows_long")
+    items = check_items(mat, a)
+    assert np.all(items[:-1, 3] > 1)
+    assert mat.tpr == 32
+    assert [int(np.sum(items[:-1, 1] == r)) for r in range(4)] == [
+        5, 8, 5, 6]
+    # a row of exactly E entries is one whole-row item
+    a, mat = item_matrix("row_of_exactly_e")
+    items = check_items(mat, a)
+    mine = np.flatnonzero(items[:-1, 1] == 200)
+    assert len(mine) == 1 and items[mine[0]].tolist() == [400, 200, 0, 1]
+    assert items[mine[0] + 1].tolist()[:2] == [656, 201]
+    # more short rows than a run may stage
+    a, mat = item_matrix("many_short_rows")
+    items = check_items(mat, a)
+    runs = np.diff(items[:, 1])
+    assert 1000 <= runs.max() <= tx_routed.MAX_ITEM_ROWS and len(runs) == 5
+
+
+def test_item_size_and_bytes_bound():
+    """Items of ITEM_ENTRIES units whatever the matrix; the bytes bound
+    counts the CSR arrays a product needs, not the kernels' item table."""
+    for case in ("dense_row", "many_short_rows"):
+        a = sp.csr_matrix(ITEM_CASES[case][0]())
+        mat = tx_routed.build_csr_kernel_matrix(a, CPU, "A")
+        assert mat.item_entries == tx_routed.ITEM_ENTRIES == 2048
+        m, nnz = a.shape[0], a.nnz
+        assert tx_routed.csr_kernel_bytes(mat) == 4 * (m + 1) + 8 * nnz
+        stats = tx_routed.csr_item_stats(mat)
+        assert stats["matrix_bytes"] == 4 * (m + 1) + 8 * nnz
+        assert stats["item_table_bytes"] == 16 * (mat.nitems + 1)
+    with pytest.raises(ValueError):
+        tx_routed.csr_work_items(np.array([0, 1]), 2, 0)
+
+
+@pytest.mark.parametrize("layout", ["csr", "tiled"])
+def test_compare_tool_drives_every_kernel_of_its_layout(layout):
+    """ops/compare_kernels' table of products calls each wrapper of the
+    layout on that layout's operator (on the CPU: the plain versions),
+    each under its LAUNCHES name, with the results of scipy in f64."""
+    from firstorderlp_torch.ops import compare_kernels
+
+    a = sp.csr_matrix(ITEM_CASES["dense_row"][0]())
+    m, n = a.shape
+    op = tx_routed.build_routed_op(a, CPU, tile_aligned=layout == "tiled")
+    rng = np.random.default_rng(5)
+    host = {k: rng.normal(size=size).astype(np.float32) for k, size in (
+        ("x", n), ("y", m), ("b", m), ("dx", n), ("aty_old", n))}
+    host["eq"] = (rng.random(m) < 0.3).astype(np.float32)
+    v = {k: torch.as_tensor(h) for k, h in host.items()}
+    v["sigma"] = torch.full((), 0.37)
+    h = {k: x.astype(np.float64) for k, x in host.items()}
+    ax, aty = a @ h["x"], a.T @ h["y"]
+    cand = h["y"] + 0.37 * (h["b"] - ax)
+    y_next = np.where(h["eq"] != 0, cand, np.maximum(cand, 0.0))
+    spmv, dual, stats = compare_kernels.KERNELS[layout]
+    want = {
+        f"{spmv}:A": (ax,), f"{spmv}:AT": (aty,),
+        dual: (y_next, np.sum((y_next - h["y"]) ** 2)),
+        stats: (aty, np.sum(h["dx"] * (aty - h["aty_old"])),
+                np.sum(h["dx"] ** 2)),
+    }
+    calls = compare_kernels.products(tx_routed, op, v, layout)
+    assert set(calls) == set(want) and set(calls) <= set(tx_routed.LAUNCHES)
+    for name, call in calls.items():
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == len(want[name]), name
+        for g, w in zip(got, want[name]):
+            np.testing.assert_allclose(g.double().numpy(), w, rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
+def tree(values, width):
+    """The shuffle-down tree over `width` lanes (lane 0's total)."""
+    v = list(values) + [0.0] * (width - len(values))
+    off = width // 2
+    while off:
+        v = [v[j] + v[j + off] if j + off < width else v[j]
+             for j in range(width)]
+        off //= 2
+    return v[0]
+
+
+def block_tree(values):
+    """block_sum (csrc/fixed_order.cuh): a tree in each warp of 32, then
+    the warps' sums in warp order."""
+    threads = tx_routed.ITEM_BLOCK_THREADS
+    v = list(values) + [0.0] * (threads - len(values))
+    total = 0.0
+    for w in range(threads // 32):
+        total += tree(v[32 * w:32 * w + 32], 32)
+    return total
+
+
+def strided(values, start, stop, step):
+    """Thread t's sum of values[start + t], values[start + t + step],
+    ... below `stop`, for every thread of a block."""
+    return [float(np.sum(values[start + t:stop:step])) for t in range(step)]
+
+
+def emulate_csr_walk(mat, x, epilogue=None, parts=0):
+    """csr_item_kernel (csrc/csr_spmv.cuh) item by item in f64, in the
+    kernel's order of items and tickets: a run's rows by groups of TPR
+    lanes in turn, lane-strided, then the group's tree; a long row or a
+    piece by the whole block's threads, then block_sum; a cut row's
+    piece sums added in item order by the block that draws its last
+    ticket; each item's epilogue partials (a cut row's in its first
+    item's slot), then their sums in item order by the block that draws
+    the launch's last ticket. `epilogue(row,
+    sum)` returns the row's `parts` terms. Returns (row sums, sums)."""
+    indptr = mat.indptr.numpy().astype(np.int64)
+    prod = (mat.vals.numpy().astype(np.float64)
+            * np.asarray(x, np.float64)[mat.indices.numpy()])
+    items = mat.items.numpy().astype(np.int64)
+    threads, tpr, nitems = tx_routed.ITEM_BLOCK_THREADS, mat.tpr, mat.nitems
+    y = np.full(mat.num_rows, np.nan)
+    scratch = np.full(nitems, np.nan)
+    tickets = np.zeros(nitems + 1, dtype=np.int64)
+    item_parts = np.zeros((parts, nitems))
+    for it in range(nitems):
+        e0, r0, index, pieces = items[it]
+        e1, r1 = items[it + 1, :2]
+        finished = []  # (row, sum) in the order the threads hold them
+        if pieces == 0:
+            groups = threads // tpr
+            for base in range(0, r1 - r0, groups):
+                for r in range(r0 + base, min(r0 + base + groups, r1)):
+                    lanes = strided(prod, indptr[r], indptr[r + 1], tpr)
+                    finished.append((r, tree(lanes, tpr)))
+        else:
+            total = block_tree(strided(prod, e0, e1, threads))
+            if pieces > 1:
+                scratch[it] = total
+                first = it - index
+                tickets[first] += 1
+                if tickets[first] == pieces:
+                    tickets[first] = 0
+                    finished.append((r0, block_tree(strided(
+                        scratch, first, first + pieces, threads))))
+            else:
+                finished.append((r0, total))
+        part = np.zeros(parts)
+        for r, total in finished:
+            assert np.isnan(y[r]), "a row finished twice"
+            y[r] = total
+            if parts:
+                part += epilogue(r, total)
+        # a cut row's terms in its first item's slot, 0 in its others'
+        if pieces > 1:
+            if index:
+                item_parts[:, it] = 0.0
+            if finished:
+                item_parts[:, it - index] = part
+        else:
+            item_parts[:, it] = part
+        tickets[nitems] += 1
+    assert not np.isnan(y).any(), "a row never finished"
+    assert tickets[:nitems].sum() == 0 and tickets[nitems] == nitems
+    sums = [block_tree(strided(item_parts[k], 0, nitems, threads))
+            for k in range(parts)]
+    return y, sums
+
+
+def walk_products(a, mat, mat_t, v):
+    """The port's four products by emulate_csr_walk, in f64."""
+    ax, _ = emulate_csr_walk(mat, v["x"])
+    aty, _ = emulate_csr_walk(mat_t, v["y"])
+    sigma = float(v["sigma"])
+    yn = np.zeros(a.shape[0])
+
+    def dual(row, az):
+        cand = v["y"][row] + sigma * (v["b"][row] - az)
+        yn[row] = cand if v["eq"][row] != 0 else max(cand, 0.0)
+        return [(yn[row] - v["y"][row]) ** 2]
+
+    _, (dy2,) = emulate_csr_walk(mat, v["z"], dual, 1)
+
+    def stats(row, s):
+        d = float(v["dx"][row])
+        return [d * (s - v["aty_old"][row]), d * d]
+
+    aty_next, (inter, dx2) = emulate_csr_walk(mat_t, yn, stats, 2)
+    return ax, aty, yn, dy2, aty_next, inter, dx2
+
+
+@functools.lru_cache(maxsize=None)
+def routed_reference(name):
+    """The JAX package's RoutedOp products in interpret mode, on
+    walk_vectors(name); computed once per matrix."""
+    a = sp.csr_matrix(WALK_MATRICES[name]())
+    v = walk_vectors(a)
+    ref = jx_build_routed(a, group_rows=4)
+    ryn, ryns, rdy2 = ref.mv_dual_step(
+        jnp.asarray(v["z"]), ref.pad_dual_strips(jnp.asarray(v["y"])),
+        ref.pad_dual_strips(jnp.asarray(v["b"])),
+        ref.pad_dual_strips(jnp.asarray(v["eq"])), float(v["sigma"]),
+    )
+    raty, rinter, rdx2 = ref.rmv_stats(
+        ryns, ref.pad_primal_strips(jnp.asarray(v["dx"])),
+        ref.pad_primal_strips(jnp.asarray(v["aty_old"])),
+    )
+    return (np.asarray(ref.mv(jnp.asarray(v["x"]))),
+            np.asarray(ref.rmv(jnp.asarray(v["y"]))), np.asarray(ryn),
+            float(rdy2), np.asarray(raty), float(rinter), float(rdx2))
+
+
+def walk_vectors(a):
+    m, n = a.shape
+    rng = np.random.default_rng(m * 3 + n)
+    f32 = np.float32
+    return dict(
+        x=rng.normal(size=n).astype(f32), y=rng.normal(size=m).astype(f32),
+        z=rng.normal(size=n).astype(f32), b=rng.normal(size=m).astype(f32),
+        eq=(rng.random(m) < 0.4).astype(f32),
+        dx=rng.normal(size=n).astype(f32),
+        aty_old=rng.normal(size=n).astype(f32), sigma=f32(0.37),
+    )
+
+
+# The shapes and structures of tests/test_routed.py:33,51,195, plus a
+# small PageRank LP; each at the default item size and at 16, which cuts
+# every row past 16 trips of its group into pieces.
+WALK_MATRICES = dict(
+    MATRICES,
+    **{"700x500": lambda: random_matrix(np.random.default_rng(1200), 700,
+                                        500, 6000)},
+)
+
+
+@pytest.mark.parametrize("entries", [None, 16])
+@pytest.mark.parametrize("name", sorted(WALK_MATRICES))
+def test_kernel_walk_over_the_items_matches_routed_interpret(name, entries):
+    """The kernels' walk over the items (emulate_csr_walk, f64) gives the
+    four products of the JAX package's RoutedOp in interpret mode, in
+    the f32 rounding class (the interaction sum, which cancels, to 1e-5
+    of the sum of its terms' magnitudes), and scipy's products to
+    1e-12."""
+    a = sp.csr_matrix(WALK_MATRICES[name]())
+    a.sum_duplicates()
+    v = walk_vectors(a)
+    mat = csr_matrix_of(a, "A", entries)
+    at = sp.csr_matrix(a.T)
+    mat_t = csr_matrix_of(at, "AT", entries)
+    got = walk_products(a, mat, mat_t, v)
+    want = routed_reference(name)
+    a32 = abs(a.astype(np.float32).astype(np.float64))
+    assert_entrywise(got[0], want[0], a32 @ np.abs(v["x"]))
+    assert_entrywise(got[1], want[1], a32.T @ np.abs(v["y"]))
+    scale = np.abs(v["y"]) + v["sigma"] * (np.abs(v["b"])
+                                           + a32 @ np.abs(v["z"]))
+    assert_entrywise(got[2], want[2], scale)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5)
+    assert_entrywise(got[4], want[4], a32.T @ np.abs(got[2]))
+    inter_scale = np.sum(np.abs(v["dx"]) * (a32.T @ np.abs(got[2])
+                                            + np.abs(v["aty_old"])))
+    assert abs(got[5] - want[5]) <= 1e-5 * inter_scale + 1e-7
+    np.testing.assert_allclose(got[6], want[6], rtol=1e-5)
+    f32 = a.astype(np.float32).astype(np.float64)
+    for product, mat_, vec in ((got[0], f32, v["x"]), (got[1], f32.T,
+                                                       v["y"])):
+        exact = mat_ @ vec.astype(np.float64)
+        assert np.all(np.abs(product - exact)
+                      <= 1e-12 * (abs(mat_) @ np.abs(vec)) + 1e-300)
 
 
 def test_kernel_wrappers_reject_mismatched_inputs():

@@ -587,8 +587,18 @@ def test_time_limit_is_global_across_phases():
     inner = tx_refine._optimize
 
     def slow_phase1(stage_params, problem, prepared, elapsed_offset=0.0):
+        # The phase itself runs without a time limit, so it ends OPTIMAL
+        # or at its iteration limit however loaded the host is; then the
+        # sleep spends the global budget before the next phase could start.
         calls.append(stage_params.dtype)
-        out = inner(stage_params, problem, prepared, elapsed_offset)
+        unlimited = dataclasses.replace(
+            stage_params,
+            termination_criteria=dataclasses.replace(
+                stage_params.termination_criteria,
+                time_sec_limit=float("inf"),
+            ),
+        )
+        out = inner(unlimited, problem, prepared, elapsed_offset)
         tx_refine._time.sleep(0.3)
         return out
 

@@ -520,8 +520,7 @@ def test_share_plan_with(tile_aligned):
     index_fields = (
         ("loc", "meta", "tile_ptr", "strip_tile_ptr", "items", "scratch",
          "tickets") if tile_aligned
-        else ("indptr", "indices", "long_rows", "long_seg_ptr", "seg_row",
-              "seg_begin")
+        else ("indptr", "indices", "items", "scratch", "tickets")
     )
     for half in ("a", "at"):
         for field in index_fields:
