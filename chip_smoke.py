@@ -25,15 +25,17 @@ Phases, each printing one JSON line:
    from torch.profiler and what the launch looks like (blocks, the
    largest and the mean number of stored entries per block, tiles staged
    and gathered, bytes staged);
-   kernels_tiled_large: tiled_spmv (A x, A' y) and tiled_dual_step, and
-   the three CSR kernels, again on a matrix of the PageRank LP's
+   kernels_tiled_large: the three tile-plan kernels and the three CSR
+   kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
    in bulk with numpy: the generator's graph is a Python loop over the
    nodes), whose arrays are larger than the L2 cache;
    kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
    entries, seed 0: the expand bitwise equal to its plain version and to
-   numpy, the reduce against its plain version in f64 and twice bitwise
-   equal, with times, bounds and the one-call library versions;
+   numpy, the reduce against its plain version in f64, twice bitwise
+   equal, its tickets back at zero and one kernel a call, with times
+   (events and device time, in turns with the one-call library
+   versions), bounds and the reduce's bytes beyond its inputs;
    probe_path: the probe script itself
    (python3 -m firstorderlp_torch.ops.probe_routed), with each probe
    kernel's launch count on that run;
@@ -266,10 +268,13 @@ def profile_summary(torch, profiler, wall_s):
 
 
 def kernels_tiled_large(torch, routed, probe, device_ms, dev):
-    """tiled_spmv (both orientations) and tiled_dual_step, and the three
-    CSR kernels (spmv_csr both ways, spmv_dual_step, spmv_rmv_stats), on
-    the million-node matrix of generators.pagerank_like_matrix (seed 0),
-    held against their plain versions; times as in kernels_tiled."""
+    """The three tile-plan kernels (tiled_spmv both ways,
+    tiled_dual_step, tiled_rmv_stats) and the three CSR kernels
+    (spmv_csr both ways, spmv_dual_step, spmv_rmv_stats), on the
+    million-node matrix of generators.pagerank_like_matrix (seed 0),
+    held against their plain versions (tiled_rmv_stats also against
+    spmv_rmv_stats, and launched twice for the same bits); times as in
+    kernels_tiled."""
     from firstorderlp_torch.generators import pagerank_like_matrix
 
     ph = "kernels_tiled_large"
@@ -320,6 +325,10 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             top.a, lambda: routed.tiled_dual_step(top.a, *dual_args),
             lambda: routed.tiled_dual_step_plain(top.a, *dual_args),
             lambda: lib["A"] @ v["x"], 4 * n + 16 * m + 4, 7 * m),
+        "tiled_rmv_stats": (
+            top.at, lambda: routed.tiled_rmv_stats(top.at, *stats_args),
+            lambda: routed.tiled_rmv_stats_plain(top.at, *stats_args),
+            lambda: lib["AT"] @ v["y"], 4 * m + 12 * n + 8, 5 * n),
         "spmv_csr:A": (
             csr.a, lambda: routed.spmv_csr(csr.a, v["x"]),
             lambda: routed.spmv_csr_plain(csr.a, v["x"]),
@@ -350,13 +359,25 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             own = torch.sum((got[0].double() - v["y"].double()) ** 2)
             err = max(err, worst(f"{name} dy2", got[1], own,
                                  TOL_SUM * abs(float(own)) + TOL_ABS))
-        elif name == "spmv_rmv_stats":
-            err = worst(name, got[0], want[0],
-                        TOL_ENTRY * scale["AT"] + TOL_ABS)
-            err = max(err, worst(f"{name} interaction", got[1], want[1],
-                                 TOL_ENTRY * inter_scale + TOL_ABS))
-            err = max(err, worst(f"{name} dx2", got[2], want[2],
-                                 TOL_SUM * abs(float(want[2])) + TOL_ABS))
+        elif name.endswith("rmv_stats"):
+            # tiled: against the CSR kernel too, and twice the same bits
+            wants = [("", want)]
+            if name == "tiled_rmv_stats":
+                wants.append((" vs spmv_rmv_stats",
+                              routed.spmv_rmv_stats(csr.at, *stats_args)))
+                again = call()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(ph, f"{name}: two launches differ")
+            err = 0.0
+            for label, want in wants:
+                err = max(err, worst(f"{name}{label}", got[0], want[0],
+                                     TOL_ENTRY * scale["AT"] + TOL_ABS))
+                err = max(err, worst(f"{name}{label} interaction", got[1],
+                                     want[1],
+                                     TOL_ENTRY * inter_scale + TOL_ABS))
+                err = max(err, worst(f"{name}{label} dx2", got[2], want[2],
+                                     TOL_SUM * abs(float(want[2]))
+                                     + TOL_ABS))
         else:
             err = worst(name, got, want,
                         TOL_ENTRY * scale[orientation] + TOL_ABS)
@@ -367,8 +388,7 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             "plain_ms": probe.time_ms(plain, reps=20, warmup=3),
             "library_ms": probe.time_ms(library),
             "library_device_ms": device_ms(library),
-            "bytes": (routed.tile_plan_bytes(mat) if tiled
-                      else routed.csr_kernel_bytes(mat)) + extra,
+            "bytes": routed.csr_kernel_bytes(mat) + extra,
             "flops": 2 * mat.nnz + flops,
         }
         if tiled:
@@ -386,23 +406,19 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             "results": results}
 
 
-def main_path_parent(torch, parent_dir, dev):
+def main_path_parent(torch, compare, parent_dir, dev):
     """The main path's solve, warm, on the PageRank LPs of SOLVE_SEEDS by
     another version of this package (`parent_dir` holds it as
     `firstorderlp_torch_parent`) and by this one, in turns (parent,
     this, this, parent): iterations, seconds (host clock up to a device
     synchronize) and reason of each solve."""
-    import importlib
-
-    sys.path.insert(0, parent_dir)
-    names = {"parent": "firstorderlp_torch_parent",
-             "this": "firstorderlp_torch"}
-    mods = {who: {part: importlib.import_module(f"{name}{part}")
-                  for part in ("", ".generators", ".models.pdhg")}
-            for who, name in names.items()}
+    dirs = {"parent": parent_dir, "this": None}
+    mods = {who: {part: compare.package_module(part, where)
+                  for part in ("", "generators", "models.pdhg")}
+            for who, where in dirs.items()}
 
     def solve(who, problem):
-        pkg, pdhg = mods[who][""], mods[who][".models.pdhg"]
+        pkg, pdhg = mods[who][""], mods[who]["models.pdhg"]
         params = make_params(1e-4, 20_000, pkg=pkg)
         prepared = pdhg.prepare_problem(params, problem, device=dev)
         torch.cuda.synchronize()
@@ -413,13 +429,13 @@ def main_path_parent(torch, parent_dir, dev):
                 "seconds": time.time() - t0,
                 "reason": out.termination_reason.name}
 
-    for who in names:  # kernels built and modules loaded, untimed
-        solve(who, mods[who][".generators"].generate_pagerank_lp(
+    for who in dirs:  # kernels built and modules loaded, untimed
+        solve(who, mods[who]["generators"].generate_pagerank_lp(
             num_nodes=DET_NODES, seed=0))
     rows = []
     for seed in SOLVE_SEEDS:
-        problems = {who: mods[who][".generators"].generate_pagerank_lp(
-            num_nodes=NODES, seed=seed) for who in names}
+        problems = {who: mods[who]["generators"].generate_pagerank_lp(
+            num_nodes=NODES, seed=seed) for who in dirs}
         for who in ("parent", "this", "this", "parent"):
             rows.append({"seed": seed, **solve(who, problems[who])})
     mine = [r for r in rows if r["package"] == "this"]
@@ -477,7 +493,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
     device_ms = compare.device_ms  # torch.profiler, per call
     device_profile = compare.device_profile  # (device ms, kernels)
-    plan_bytes = routed.tile_plan_bytes
+    matrix_bytes = routed.csr_kernel_bytes  # the bound's, in either layout
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # Each phase names its layout itself, whatever FOLP_TILE_ALIGNED says.
@@ -710,7 +726,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             "plain_ms": time_ms(
                 lambda: routed.tiled_spmv_plain(plan, vec)
             ),
-            "bytes": plan_bytes(plan) + 4 * plan.num_cols
+            "bytes": matrix_bytes(plan) + 4 * plan.num_cols
             + 4 * plan.num_rows,
             "flops": 2 * plan.nnz,
             "library_ms": time_ms(lambda: lib @ vec),
@@ -754,7 +770,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "plain_ms": time_ms(
             lambda: routed.tiled_dual_step_plain(top.a, x, y, b, eq, sigma),
         ),
-        "bytes": plan_bytes(top.a) + 4 * n + 4 * 4 * m + 4,
+        "bytes": matrix_bytes(top.a) + 4 * n + 4 * 4 * m + 4,
         "flops": 2 * top.a.nnz + 7 * m,
         "library_ms": time_ms(lambda: lib_a @ x),
         "device_ms": device_ms(
@@ -794,7 +810,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "plain_ms": time_ms(
             lambda: routed.tiled_rmv_stats_plain(top.at, y, dx, aty_old),
         ),
-        "bytes": plan_bytes(top.at) + 4 * m + 3 * 4 * n + 8,
+        "bytes": matrix_bytes(top.at) + 4 * m + 3 * 4 * n + 8,
         "flops": 2 * top.at.nnz + 5 * n,
         "library_ms": time_ms(lambda: lib_at @ y),
         "device_ms": device_ms(
@@ -809,7 +825,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
           "results": tiled})
     del op, top, plan, mat, whole, lib, lib_a, lib_at
 
-    # 3b'. B2-B6 again where the arrays are larger than the L2 cache
+    # 3b'. B2-B7 again where the arrays are larger than the L2 cache
     large = kernels_tiled_large(torch, routed, probe, device_ms, dev)
     add_bounds(large["results"])
     emit(large)
@@ -822,6 +838,23 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 3c. the probe kernels, at the probe's default size
     ph = "kernels_probe"
+
+    def probe_times(kernel, library):
+        """ms and device ms (kernel, library; in turns, medians of
+        three), and kernels a call of each: the largest over the turns,
+        and each turn's (a turn where the profiler lost kernels reads
+        low)."""
+        timed = probe.in_turns({"kernel": kernel, "library": library})
+        out = {}
+        for who, prefix in (("kernel", ""), ("library", "library_")):
+            out[prefix + "ms"] = float(np.median(timed[who]["ms"]))
+            out[prefix + "device_ms"] = float(
+                np.median(timed[who]["device_ms"]))
+            counts = timed[who]["kernels_per_call"]
+            out[prefix + "kernels_per_call"] = max(counts)
+            out[prefix + "kernels_per_call_turns"] = counts
+        return out
+
     host = probe.make_probe_inputs(probe.DEFAULT_NNZ, seed=0)
     pd = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
     n_strips = probe.N_STRIPS
@@ -843,12 +876,12 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "source": "firstorderlp_torch/csrc/probe_expand.cu",
         "replaces": "benchmarking/probe_routed.py:64 (make_expand)",
         "max_abs_err": err,
-        "ms": time_ms(lambda: probe.probe_expand(*eargs)),
         "plain_ms": time_ms(lambda: probe.probe_expand_plain(*eargs)),
         "bytes": probe.expand_bytes(*eargs),
         "flops": 0,
-        "library_ms": time_ms(lambda: probe.library_expand(
-            pd["strip_ids"], pd["x_strips"], hi64, lo64)),
+        **probe_times(lambda: probe.probe_expand(*eargs),
+                      lambda: probe.library_expand(
+                          pd["strip_ids"], pd["x_strips"], hi64, lo64)),
     }]
 
     g_in = pd["g2"].reshape(-1, 128)
@@ -867,6 +900,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                  "version in f64; want <= 1e-5")
     if not torch.equal(got, again):
         fail(ph, "probe_reduce: two launches differ")
+    if reduce_plan.tickets.any():
+        fail(ph, "probe_reduce: a ticket is not back at zero")
     flat = probe.flat_slots(pd["meta"][:, 0], pd["hir"], pd["lor"],
                             probe.HR).reshape(-1)
     probes.append({
@@ -876,16 +911,20 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "replaces": "benchmarking/probe_routed.py:129 (make_reduce)",
         "max_abs_err": err,
         "max_rel_err": rel,
-        "ms": time_ms(lambda: probe.probe_reduce(
-            *rargs, n_strips, plan=reduce_plan)),
         "plain_ms": time_ms(lambda: probe.probe_reduce_plain(
             *rargs, n_strips)),
         "bytes": probe.reduce_bytes(*rargs, n_strips),
+        "bytes_beyond_inputs": probe.reduce_scratch_bytes(reduce_plan),
         "flops": 2 * g_in.numel(),
-        "library_ms": time_ms(lambda: probe.library_reduce(
-            flat, g_in, pd["v"], n_strips)),
+        **probe_times(lambda: probe.probe_reduce(
+            *rargs, n_strips, plan=reduce_plan),
+            lambda: probe.library_reduce(flat, g_in, pd["v"], n_strips)),
         "chunks": reduce_plan.nchunks,
+        "warps": reduce_plan.warps,
     })
+    if probes[-1]["kernels_per_call"] != 1:
+        fail(ph, f"probe_reduce: {probes[-1]['kernels_per_call']} kernels "
+                 "a call; want 1")
     add_bounds(probes)
     emit({"phase": ph, "ok": True, "nnz": int(g_in.numel()),
           "groups": int(pd["meta"].shape[0]), "strips": n_strips,
@@ -974,7 +1013,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit(record)
     del prepared, warm
     if args.parent:
-        record = main_path_parent(torch, args.parent, dev)
+        record = main_path_parent(torch, compare, args.parent, dev)
         emit(record)
         if not record["ok"]:
             raise SystemExit(1)
@@ -1217,7 +1256,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "launches_per_iteration",
              "launches_mirror_prox", "max_abs_err_vs_csr_kernel",
              "padding_share", "max_rel_err", "device_ms",
-             "library_device_ms", "kernels_per_call", "blocks",
+             "library_device_ms", "kernels_per_call",
+             "library_kernels_per_call", "bytes_beyond_inputs", "chunks",
+             "warps", "blocks",
              "entries_per_block_max", "entries_per_block_mean",
              "tiles_staged", "tiles_gathered", "bytes_staged", "large")
     emit({"kernels": [

@@ -30,12 +30,18 @@ struct DualStepRow {
   const float* is_eq;
   const float* sigma;
   float* y_next;
-  __device__ void row(int row, float sum, float* part) const {
-    const float y_in = y[row];
-    const float cand = y_in + __ldg(sigma) * (b[row] - sum);
-    const float yn = is_eq[row] != 0.f ? cand : fmaxf(cand, 0.f);
+  struct In {
+    float y, b, is_eq, sigma;
+  };
+  __device__ In load(int row) const {
+    return {__ldg(y + row), __ldg(b + row), __ldg(is_eq + row),
+            __ldg(sigma)};
+  }
+  __device__ void row(int row, float sum, const In& in, float* part) const {
+    const float cand = in.y + in.sigma * (in.b - sum);
+    const float yn = in.is_eq != 0.f ? cand : fmaxf(cand, 0.f);
     y_next[row] = yn;
-    const float dy = yn - y_in;
+    const float dy = yn - in.y;
     part[0] += dy * dy;
   }
 };

@@ -25,7 +25,11 @@ namespace folp {
 struct StoreRow {
   static constexpr int kParts = 0;
   float* y;
-  __device__ void row(int row, float sum, float*) const { y[row] = sum; }
+  struct In {};
+  __device__ In load(int) const { return {}; }
+  __device__ void row(int row, float sum, const In&, float*) const {
+    y[row] = sum;
+  }
 };
 
 }  // namespace folp

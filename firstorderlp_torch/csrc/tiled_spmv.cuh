@@ -50,11 +50,21 @@
 //   length per item, split strips only) and take an integer ticket; the
 //   block that draws the strip's last ticket adds the partial strips in
 //   item order, whichever block it is, and runs the epilogue. The
-//   partial sums of the epilogue (one per strip) are added the same
-//   way: a ticket per launch, and the block that finishes the last
-//   strip adds them in strip order into the slots after the partials.
-//   The last block of each count sets its ticket back to zero, so the
-//   next launch on the stream finds the tickets as this one did.
+//   partial sums of the epilogue (kParts a strip, stored together) are
+//   added the same way: a ticket per launch, and the block that finishes
+//   the last strip adds them in strip order into the slots after the
+//   partials. The last block of each count sets its ticket back to
+//   zero, so the next launch on the stream finds the tickets as this
+//   one did.
+// - A short tail. After the walk, what is left is a chain of latencies,
+//   so the epilogue keeps it short: in a strip of one item each thread
+//   loads the epilogue's inputs of its first kAheadRows rows before the
+//   walk (their latency hides under it); each warp zeroes its own copy,
+//   so no barrier comes before the walk; the kParts partials of a strip
+//   are reduced over the block together (block_sums: one barrier pair
+//   for all of them) and thread 0 stores them and draws the launch's
+//   ticket in the same barrier pair (store_sums_last_ticket); the last
+//   block reduces the kParts totals together too.
 //
 // Padding: an entry with packed index 0 that is not the first entry of
 // its group is padding (row-major order puts local (0, 0) first in its
@@ -71,6 +81,7 @@ namespace folp {
 
 constexpr int kMaxTileWarps = 16;
 constexpr int kStepsAhead = 2;  // steps of 32 entries loaded together
+constexpr int kAheadRows = 2;   // rows a thread loads its epilogue for early
 constexpr unsigned kNoKey = 0xFFFFFFFFu;
 
 struct TilePlanArgs {
@@ -91,7 +102,8 @@ struct TilePlanArgs {
 };
 
 inline size_t tile_shared_bytes(const TilePlanArgs& p) {
-  return sizeof(float) * ((size_t)p.warps * p.out_strip + kMaxTileWarps);
+  // the warps' copies of the strip, then two sums a warp (block_sums)
+  return sizeof(float) * ((size_t)p.warps * p.out_strip + 2 * kMaxTileWarps);
 }
 
 // Inclusive segmented scan over one warp: lane i gets the sum of the
@@ -183,10 +195,12 @@ __device__ __forceinline__ void accumulate_range(const TilePlanArgs& p,
 }
 
 // One block per item. `Epilogue` has kParts (the number of partial sums
-// it takes per strip, 0 to 2) and row(row, sum, part): called once for
-// every output row with the row's complete sum, by the thread that then
-// holds part[kParts] for the rows it was given. `parts` (kParts > 0)
-// holds kParts * nstrips partials, then the kParts totals.
+// it takes per strip, 0 to 2), a type In of a row's epilogue inputs,
+// load(row), which reads them, and row(row, sum, in, part): called once
+// for every output row with the row's complete sum, by the thread that
+// then holds part[kParts] for the rows it was given. `parts` (kParts > 0)
+// holds the kParts partials of each strip together (kParts * nstrips),
+// then the kParts totals.
 template <class Epilogue>
 __global__ void __launch_bounds__(32 * kMaxTileWarps)
     tiled_item_kernel(TilePlanArgs p, const float* __restrict__ x,
@@ -194,8 +208,10 @@ __global__ void __launch_bounds__(32 * kMaxTileWarps)
   extern __shared__ float smem[];
   __shared__ int flag;
   constexpr int kParts = Epilogue::kParts;
+  using In = typename Epilogue::In;
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
+  const int warp = tid >> 5;
   float* acc = smem;  // (warps, out_strip)
   float* red = smem + (size_t)p.warps * p.out_strip;
 
@@ -204,20 +220,36 @@ __global__ void __launch_bounds__(32 * kMaxTileWarps)
   const int g_end = p.items[4 * (blockIdx.x + 1)];
   const int strip = p.meta[4 * g_begin];
   const int nsplit = item.z;  // items of this strip
+  const int row0 = strip * p.out_strip;
+  const int rows = min(p.out_strip, p.num_rows - row0);
 
-  for (int i = tid; i < p.warps * p.out_strip; i += threads) acc[i] = 0.f;
-  __syncthreads();
+  // The epilogue's inputs of this thread's first kAheadRows rows, loaded
+  // before the walk so that their latency hides under it. In a split
+  // strip only the item that draws the strip's last ticket runs the
+  // epilogue; it loads them then (as fast as loading them ahead in every
+  // item of the strip, and no loads wasted).
+  const bool load_ahead = nsplit == 1;
+  In ahead[kAheadRows] = {};
+  if (load_ahead) {
+#pragma unroll
+    for (int r = 0; r < kAheadRows; ++r) {
+      const int i = tid + r * threads;
+      if (i < rows) ahead[r] = ep.load(row0 + i);
+    }
+  }
   {
+    // each warp zeroes and fills its own copy: no barrier before the walk
+    float* mine = acc + (size_t)warp * p.out_strip;
+    for (int i = tid & 31; i < p.out_strip; i += 32) mine[i] = 0.f;
+    __syncwarp();
     // contiguous shares of whole steps, in warp order
     const int e0 = g_begin * p.group;
     const int e1 = g_end * p.group;
     const int steps = (e1 - e0 + 31) / 32;
     const int share = (steps + p.warps - 1) / p.warps;
-    const int warp = tid >> 5;
     const int w_begin = min(e0 + 32 * share * warp, e1);
     const int w_end = min(w_begin + 32 * share, e1);
-    accumulate_range(p, x, w_begin, w_end, acc + (size_t)warp * p.out_strip,
-                     tid & 31);
+    accumulate_range(p, x, w_begin, w_end, mine, tid & 31);
   }
   __syncthreads();
 
@@ -233,8 +265,7 @@ __global__ void __launch_bounds__(32 * kMaxTileWarps)
   }
 
   float part[kParts > 0 ? kParts : 1] = {};
-  const int row0 = strip * p.out_strip;
-  for (int i = tid; i < p.out_strip && row0 + i < p.num_rows; i += threads) {
+  auto finish = [&](int i, const In& in) {
     float sum = 0.f;
     if (nsplit > 1) {
       for (int k = 0; k < nsplit; ++k) {
@@ -243,24 +274,41 @@ __global__ void __launch_bounds__(32 * kMaxTileWarps)
     } else {
       for (int w = 0; w < p.warps; ++w) sum += acc[w * p.out_strip + i];
     }
-    ep.row(row0 + i, sum, part);
-  }
-  if (kParts == 0) return;
-
+    ep.row(row0 + i, sum, in, part);
+  };
 #pragma unroll
-  for (int k = 0; k < kParts; ++k) {
-    const float total = block_sum(part[k], red);
-    if (tid == 0) __stcg(parts + (size_t)k * p.nstrips + strip, total);
+  for (int r = 0; r < kAheadRows; ++r) {
+    const int i = tid + r * threads;
+    if (i < rows) finish(i, load_ahead ? ahead[r] : ep.load(row0 + i));
   }
-  if (!last_ticket(p.tickets + p.nstrips, p.nstrips, &flag)) return;
-#pragma unroll
-  for (int k = 0; k < kParts; ++k) {
-    float v = 0.f;
-    for (int s = tid; s < p.nstrips; s += threads) {
-      v += __ldcg(parts + (size_t)k * p.nstrips + s);
+  for (int i = tid + kAheadRows * threads; i < rows; i += threads) {
+    finish(i, ep.load(row0 + i));
+  }
+  if constexpr (kParts > 0) {
+    // the strip's partials, then the launch's ticket, in one barrier pair
+    if (!store_sums_last_ticket(part, red, parts + (size_t)kParts * strip,
+                                p.tickets + p.nstrips, p.nstrips, &flag)) {
+      return;
     }
-    const float total = block_sum(v, red);
-    if (tid == 0) parts[(size_t)kParts * p.nstrips + k] = total;
+    float v[kParts] = {};
+    for (int s = tid; s < p.nstrips; s += threads) {
+      const float* from = parts + (size_t)kParts * s;
+      if constexpr (kParts == 2) {
+        const float2 two = __ldcg(reinterpret_cast<const float2*>(from));
+        v[0] += two.x;
+        v[1] += two.y;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kParts; ++k) v[k] += __ldcg(from + k);
+      }
+    }
+    block_sums(v, red);
+    if (tid == 0) {
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) {
+        parts[(size_t)kParts * p.nstrips + k] = v[k];
+      }
+    }
   }
 }
 

@@ -697,6 +697,13 @@ def prepare_problem(
     bundle are reused, and only the scaled bundle is rebuilt."""
     device = _reuse.device if _reuse is not None else resolve_device(device)
     validate(original_problem)
+    if isinstance(
+        params.step_size_policy_params, MalitskyPockStepsizeParameters
+    ) and original_problem.objective_matrix.nnz > 0:
+        raise ValueError(
+            "Malitsky and Pock linesearch is only supported for linear"
+            " programming problems."
+        )
     _check_ported(params)
     dtype = torch_dtype(params.dtype)
     stats_dtype = (

@@ -2,35 +2,44 @@
 GPU, optionally beside those of another checkout of this package, in
 turns on the same card.
 
-    python3 -m firstorderlp_torch.ops.compare_kernels [--layout csr|tiled]
-        [--nodes N] [--parent DIR] [--bulk] [--sweep] [--out FILE]
+    python3 -m firstorderlp_torch.ops.compare_kernels
+        [--layout csr|tiled|probe] [--nodes N] [--parent DIR] [--bulk]
+        [--sweep] [--out FILE]
 
 --layout: the CSR kernels (spmv_csr, spmv_dual_step, spmv_rmv_stats;
-  the default) or the tile-plan kernels (tiled_spmv, tiled_dual_step,
-  tiled_rmv_stats).
+  the default), the tile-plan kernels (tiled_spmv, tiled_dual_step,
+  tiled_rmv_stats) or the probe's two kernels (probe_expand,
+  probe_reduce) at the probe's default size (--nodes and --bulk do not
+  apply).
 --parent DIR: a directory that holds another version of this package
   under the name `firstorderlp_torch_parent` (for example
   `git archive <commit> firstorderlp_torch | tar -x -C DIR` and a
-  rename). Its kernels are built beside this package's and every product
-  is timed parent, this, this, parent.
+  rename). Its kernels are built beside this package's, every product
+  is timed in turns with this package's and the library's, and each
+  product's outputs are compared bit for bit with the other version's.
 --bulk: the matrix of generators.pagerank_like_matrix (made in bulk)
   instead of the rescaled generate_pagerank_lp.
 --sweep: this package's kernels again at other item sizes and group
-  widths (csr), or at other warps per block and strip and group sizes
-  (tiled).
+  widths (csr), at other warps per block and strip and group sizes
+  (tiled), or probe_reduce at other chunk counts and warps per block
+  (probe).
 
 Prints one JSON line per step, after the card's name and power limit:
 what ptxas said of the layout's kernels; each kernel against its plain
-version (tiled: also against the CSR kernel on the same vectors) with
-the tolerance of chip_smoke.py, REPEATS launches bitwise equal and the
-tickets back at zero; then per product the time of one call (CUDA
-events around each call, median of 100: the wrapper's host work
-included), the time per call of 50 calls enqueued back to back
-(`burst_ms`), the device time and the kernels launched per call from
-torch.profiler (`device_ms`, `kernels_per_call`), the same for the
-one-call library product, and the bytes bound; csr: also the device
-time and events time of the product with no row cut into pieces
-(`*_without_row_split`).
+version (tiled: also against the CSR kernel on the same vectors; probe:
+probe_expand bitwise, probe_reduce in f64) with the tolerance of
+chip_smoke.py, REPEATS launches bitwise equal and the tickets back at
+zero; with --parent, which products give the other
+version's bits; then per product, one value for each of three turns
+(probe_routed.in_turns), the time of one call (`ms`: CUDA events around
+each call, median of 100, the wrapper's host work included) and the
+device time per call from torch.profiler (`device_ms`), with the kernels
+launched per call, and the time per call of 50 calls enqueued back to
+back (`burst_ms`), each also for the other version (`parent_*`) and the
+one-call library product (`library_*`); the bytes bound; csr: also the
+device time and events time of the product with no row cut into pieces
+(`*_without_row_split`); last (csr, tiled) the tails, turn by turn: the
+fused kernels' device time over the product's on the same matrix.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import dataclasses
 import importlib
 import json
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,6 +57,7 @@ import torch
 from .. import generators
 from ..preprocess import rescale_problem
 from . import kernels_build, probe_routed, routed
+from .probe_routed import device_profile
 
 TOL_ENTRY, TOL_ABS, TOL_SUM = 1e-5, 1e-7, 1e-5
 BURST = 50
@@ -54,6 +65,18 @@ REPEATS = 20
 # layout -> its (product, dual step, rmv stats) kernels
 KERNELS = {"csr": ("spmv_csr", "spmv_dual_step", "spmv_rmv_stats"),
            "tiled": ("tiled_spmv", "tiled_dual_step", "tiled_rmv_stats")}
+
+
+def package_module(module: str, parent_dir: Optional[str] = None):
+    """`module` ("" for the package, "ops.routed", ...) of this package,
+    or, given `parent_dir`, of the version of it that the directory holds
+    as `firstorderlp_torch_parent`."""
+    root = "firstorderlp_torch"
+    if parent_dir:
+        if parent_dir not in sys.path:
+            sys.path.insert(0, parent_dir)
+        root = "firstorderlp_torch_parent"
+    return importlib.import_module(".".join(filter(None, (root, module))))
 
 
 def burst_ms(fn, reps: int = 20) -> float:
@@ -72,25 +95,6 @@ def burst_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / BURST)
     return float(np.median(times))
-
-
-def device_profile(fn, calls: int = BURST):
-    """(device ms, kernels launched) per call: every kernel under
-    torch.profiler over `calls` calls, the library's and PyTorch's own
-    included."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    return total_us / 1e3 / calls, sum(e.count for e in kernels) / calls
 
 
 def device_ms(fn, calls: int = BURST) -> float:
@@ -127,6 +131,20 @@ def products(mod, op, v, layout):
             op.a, v["x"], v["y"], v["b"], v["eq"], v["sigma"]),
         stats: lambda: getattr(mod, stats)(
             op.at, v["y"], v["dx"], v["aty_old"]),
+    }
+
+
+def probe_products(mod, d, plan):
+    """name -> call of the probe's two kernels in `mod` (a probe_routed
+    module) on the probe's inputs `d` (make_probe_inputs, as tensors);
+    `plan`: the reduce's chunk table, from `mod`."""
+    g = d["g2"].reshape(-1, 128)
+    return {
+        "probe_expand": lambda: mod.probe_expand(
+            d["strip_ids"], d["x_strips"], d["hi"], d["lo"]),
+        "probe_reduce": lambda: mod.probe_reduce(
+            d["meta"], g, d["v"], d["hir"], d["lor"], mod.N_STRIPS,
+            plan=plan),
     }
 
 
@@ -232,9 +250,126 @@ def sweep_tiled(a64, op, v, emit):
                   }})
 
 
+def sweep_probe(d, emit):
+    probe = probe_routed
+    for target in (33, 66, 132, 264, 528):
+        plan = probe.plan_probe_reduce(d["meta"], probe.N_STRIPS, target)
+        for warps in (1, 2, 4, 8, 11):
+            call = probe_products(probe, d, dataclasses.replace(
+                plan, warps=warps))["probe_reduce"]
+            emit({"step": "sweep", "target_chunks": target,
+                  "chunks": plan.nchunks, "warps": warps,
+                  "max_rel_err": reduce_error(d, call()),
+                  "device_ms": device_ms(call)})
+
+
+def reduce_error(d, y):
+    """probe_reduce's largest error against its plain version in f64,
+    over (max |y| + 1)."""
+    want = probe_routed.probe_reduce_plain(
+        d["meta"], d["g2"].reshape(-1, 128).double(), d["v"].double(),
+        d["hir"], d["lor"], probe_routed.N_STRIPS)
+    return float((y.double() - want).abs().max()) / (
+        float(want.abs().max()) + 1.0)
+
+
+def same_bits(this_calls, parent_calls):
+    """name -> whether the two versions' calls give the same bits."""
+    same = {}
+    for name, call in this_calls.items():
+        mine, theirs = call(), parent_calls[name]()
+        mine = mine if isinstance(mine, tuple) else (mine,)
+        theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+        same[name] = all(torch.equal(u, w) for u, w in zip(mine, theirs))
+    return same
+
+
+def time_in_turns(this_calls, lib_calls, parent_calls, bounds, card, emit,
+                  whole_calls=None):
+    """One "time" line a call (in_turns with the library's call and the
+    parent's, burst_ms, the bound); name -> {who: device ms a turn}."""
+    device = {}
+    for name, call in this_calls.items():
+        row = {"step": "time", "name": name, "card": card}
+        turns = {"this": call, "library": lib_calls[name]}
+        if parent_calls:
+            turns = {"parent": parent_calls[name], **turns}
+        timed = probe_routed.in_turns(turns)
+        for who, got in timed.items():
+            prefix = "" if who == "this" else f"{who}_"
+            for key, value in got.items():
+                row[prefix + key] = value
+            row[prefix + "burst_ms"] = burst_ms(turns[who])
+        device[name] = {who: got["device_ms"] for who, got in timed.items()}
+        if whole_calls:
+            row["ms_without_row_split"] = probe_routed.time_ms(
+                whole_calls[name])
+            row["device_ms_without_row_split"] = device_ms(whole_calls[name])
+        row["bound_ms"], row["bound_by"] = bounds[name]
+        emit(row)
+    return device
+
+
+def compare_probe(args, dev, card, emit):
+    """--layout probe: P1 and P2 checked, against the parent's bits,
+    timed in turns and (--sweep) P2 swept."""
+    probe = probe_routed
+    d = {k: torch.as_tensor(a, device=dev)
+         for k, a in probe.make_probe_inputs(probe.DEFAULT_NNZ,
+                                             seed=0).items()}
+    plan = probe.plan_probe_reduce(d["meta"], probe.N_STRIPS)
+    this_calls = probe_products(probe, d, plan)
+    eargs = (d["strip_ids"], d["x_strips"], d["hi"], d["lo"])
+    errs = {"probe_expand": float((this_calls["probe_expand"]()
+                                   - probe.probe_expand_plain(*eargs))
+                                  .abs().max()),
+            "probe_reduce": reduce_error(d, this_calls["probe_reduce"]())}
+    if errs["probe_expand"] != 0.0 or not errs["probe_reduce"] <= TOL_SUM:
+        raise SystemExit(f"probe kernels against their plain versions: "
+                         f"{errs}")
+    for name, call in this_calls.items():
+        problem = repeat_differs(call, (plan.tickets,))
+        if problem:
+            raise SystemExit(f"{name}: {problem}")
+    emit({"step": "verify", "layout": "probe", "card": card,
+          "nnz": probe.DEFAULT_NNZ, "max_err": errs,
+          "chunks": plan.nchunks, "warps": plan.warps,
+          "bytes_beyond_inputs": probe.reduce_scratch_bytes(plan)})
+    parent_calls = None
+    if args.parent:
+        old = package_module("ops.probe_routed", args.parent)
+        parent_calls = probe_products(
+            old, d, old.plan_probe_reduce(d["meta"], probe.N_STRIPS))
+        emit({"step": "bitwise_equal_to_parent",
+              "equal": same_bits(this_calls, parent_calls),
+              "parent_max_err": {
+                  "probe_reduce": reduce_error(
+                      d, parent_calls["probe_reduce"]())}})
+    g = d["g2"].reshape(-1, 128)
+    flat = probe.flat_slots(d["meta"][:, 0], d["hir"], d["lor"],
+                            probe.HR).reshape(-1)
+    hi64, lo64 = d["hi"].long(), d["lo"].long()
+    lib_calls = {
+        "probe_expand": lambda: probe.library_expand(
+            d["strip_ids"], d["x_strips"], hi64, lo64),
+        "probe_reduce": lambda: probe.library_reduce(
+            flat, g, d["v"], probe.N_STRIPS),
+    }
+    rargs = (d["meta"], g, d["v"], d["hir"], d["lor"], probe.N_STRIPS)
+    bounds = {
+        "probe_expand": probe.bound_ms(probe.expand_bytes(*eargs), 0),
+        "probe_reduce": probe.bound_ms(probe.reduce_bytes(*rargs),
+                                       2 * g.numel()),
+    }
+    time_in_turns(this_calls, lib_calls, parent_calls, bounds, card, emit)
+    if args.sweep:
+        sweep_probe(d, emit)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--layout", choices=sorted(KERNELS), default="csr")
+    parser.add_argument("--layout", choices=sorted(KERNELS) + ["probe"],
+                        default="csr")
     parser.add_argument("--nodes", type=int, default=100_000)
     parser.add_argument("--parent")
     parser.add_argument("--bulk", action="store_true")
@@ -255,12 +390,17 @@ def main(argv=None) -> int:
     card = probe_routed.card_line()
     print(card, flush=True)
     kernels_build.build_kernels()
+    names = (probe_routed.LAUNCHES if layout == "probe"
+             else KERNELS[layout])
     emit({"step": "build", "layout": layout,
           "seconds": kernels_build.last_build_seconds,
           "ptxas": {lib: [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln]
                     for lib, log in kernels_build.last_build_log.items()
-                    if lib in KERNELS[layout]}})
+                    if lib in names}})
+    if layout == "probe":
+        compare_probe(args, dev, card, emit)
+        return finish(args, card, lines)
 
     rng = np.random.default_rng(0)
     if args.bulk:
@@ -307,9 +447,7 @@ def main(argv=None) -> int:
 
     parent_calls = whole_calls = None
     if args.parent:
-        sys.path.insert(0, args.parent)
-        parent = importlib.import_module(
-            "firstorderlp_torch_parent.ops.routed")
+        parent = package_module("ops.routed", args.parent)
         parent_op = parent.build_routed_op(a64, dev, tile_aligned=tiled)
         parent_calls = products(parent, parent_op, v, layout)
     if not tiled:
@@ -330,40 +468,38 @@ def main(argv=None) -> int:
     extra = {f"{spmv}:A": (4 * (m + n), 0), f"{spmv}:AT": (4 * (m + n), 0),
              dual: (4 * n + 16 * m + 4, 7 * m),
              stats: (4 * m + 12 * n + 8, 5 * n)}
-    time_ms = probe_routed.time_ms
-    for name, call in products(routed, op, v, layout).items():
+    this_calls = products(routed, op, v, layout)
+    if parent_calls:
+        emit({"step": "bitwise_equal_to_parent",
+              "equal": same_bits(this_calls, parent_calls)})
+    bounds = {}
+    for name in this_calls:
         mat = op.a if name in (f"{spmv}:A", dual) else op.at
-        row = {"step": "time", "name": name, "card": card}
-        if parent_calls:
-            old = parent_calls[name]
-            row["parent_ms"] = [time_ms(old)]
-            row["ms"] = [time_ms(call), time_ms(call)]
-            row["parent_ms"].append(time_ms(old))
-            row["parent_burst_ms"] = burst_ms(old)
-            (row["parent_device_ms"],
-             row["parent_kernels_per_call"]) = device_profile(old)
-        else:
-            row["ms"] = [time_ms(call), time_ms(call)]
-        row["burst_ms"] = burst_ms(call)
-        row["device_ms"], row["kernels_per_call"] = device_profile(call)
-        if whole_calls:
-            row["ms_without_row_split"] = time_ms(whole_calls[name])
-            row["device_ms_without_row_split"] = device_ms(whole_calls[name])
-        row["library_ms"] = time_ms(lib_calls[name])
-        row["library_burst_ms"] = burst_ms(lib_calls[name])
-        (row["library_device_ms"],
-         row["library_kernels_per_call"]) = device_profile(lib_calls[name])
-        nbytes = (routed.tile_plan_bytes(mat) if tiled
-                  else routed.csr_kernel_bytes(mat))
-        row["bound_ms"], row["bound_by"] = probe_routed.bound_ms(
-            nbytes + extra[name][0], 2 * mat.nnz + extra[name][1])
-        emit(row)
+        bounds[name] = probe_routed.bound_ms(
+            routed.csr_kernel_bytes(mat) + extra[name][0],
+            2 * mat.nnz + extra[name][1])
+    device = time_in_turns(this_calls, lib_calls, parent_calls, bounds,
+                           card, emit, whole_calls)
+    # the epilogue and the launch's tail: each fused kernel's device time
+    # over the product's on the same matrix, turn by turn
+    tails = {}
+    for fused, product in ((dual, f"{spmv}:A"), (stats, f"{spmv}:AT")):
+        for who in set(device[fused]) - {"library"}:
+            tails[f"{fused} - {product}" + ("" if who == "this"
+                                            else f" ({who})")] = [
+                a - b for a, b in zip(device[fused][who],
+                                      device[product][who])]
+    emit({"step": "tails", "device_ms": tails})
 
     if args.sweep:
         if tiled:
             sweep_tiled(a64, op, v, emit)
         else:
             sweep_csr(op, v, emit)
+    return finish(args, card, lines)
+
+
+def finish(args, card, lines) -> int:
     if args.out:
         with open(args.out, "w") as f:
             f.write(card + "\n" + "\n".join(lines) + "\n")

@@ -132,7 +132,7 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     rmv_stats = [p, p, p, p, p]  # y dx aty_old aty sums
     # strip_ids x_strips hi lo g, then ngroups n_strips h groups_per_block
     probe_expand = [p, p, p, p, p, i, i, i, i]
-    # chunk_ptr strip_chunk_ptr g v hi lo parts y, then nchunks n_strips hr
+    # chunks g v hi lo scratch tickets y, then nchunks hr warps
     probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
     arguments = {
         "spmv_csr": csr + spmv,

@@ -6,12 +6,16 @@ into strips of the output), the port's counterpart of the JAX package's
     python3 -m firstorderlp_torch.ops.probe_routed [nnz]
 
 prints, for each of the two kernels, its time on the card (CUDA events,
-median of 100 launches), the bound from the bytes it must move, the time
-of the one PyTorch call that computes the same, entries per second and
-the largest error against numpy; then a chunk gather
-(``torch.index_select`` of 128-wide rows, which the JAX package leaves
-to XLA outside any kernel) and two f64 sanity lines. Every line follows
-the card's name and power limit as ``nvidia-smi`` gives them.
+median of 100 launches), its device time and the kernels it launches a
+call (torch.profiler), each the median of three turns, the bound from
+the bytes it must move, the same times of the one PyTorch call that
+computes the same, entries per second and the largest error against
+numpy; then a chunk gather (``torch.index_select`` of 128-wide rows,
+which the JAX package leaves to XLA outside any kernel) and two f64
+sanity lines. Every line follows the card's name and power limit as
+``nvidia-smi`` gives them. ``compare_kernels --layout probe`` times the
+two kernels beside another version of this package and sweeps the
+reduce's chunks and warps.
 
 The entries come in groups of 8 x 128 = 1024; a group reads one strip of
 ``H`` x 128 inputs (expand) or adds into one strip of ``HR`` x 128
@@ -43,14 +47,20 @@ N_STRIPS = 8
 GROUP_ROWS = 8  # a group is 8 rows of 128 entries
 GROUP_ENTRIES = GROUP_ROWS * 128
 TIMING_REPS = 100
+TURNS = 3  # turns of in_turns: the spread of a device time between turns
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 
-# Blocks of probe_expand, and chunks of probe_reduce (one warp each),
-# aimed at: a few for each of the card's 132 SMs.
+# Blocks of probe_expand aimed at: two for each of the card's 132 SMs.
 EXPAND_TARGET_BLOCKS = 2 * 132
-REDUCE_TARGET_CHUNKS = 8 * 132
+# probe_reduce: chunks aimed at (one block each, about one a SM), and
+# warps a block, each with its own 20 KB copy of the strip: as many as
+# an SM's 227 KB of shared memory holds. Picked by compare_kernels
+# --layout probe --sweep on an H100 (PERF.md).
+REDUCE_TARGET_CHUNKS = 132
+REDUCE_WARPS = 11
+MAX_REDUCE_WARPS = 11  # kMaxReduceWarps of csrc/probe_reduce.cu
 
 LAUNCHES: Dict[str, int] = {"probe_expand": 0, "probe_reduce": 0}
 
@@ -144,28 +154,39 @@ def probe_reduce_plain(meta, g, v, hi, lo, n_strips: int,
 
 @dataclasses.dataclass(frozen=True)
 class ProbeReducePlan:
-    """How probe_reduce cuts the groups into blocks: chunk c holds the
-    groups chunk_ptr[c]..chunk_ptr[c+1], all of one strip, and strip s
-    owns the chunks strip_chunk_ptr[s]..strip_chunk_ptr[s+1]."""
+    """How probe_reduce cuts the groups into blocks. Row c of `chunks`
+    is chunk c: [first group, strip, first chunk of the strip, chunks of
+    the strip]; the chunk holds the groups up to the next row's first
+    group, all of one strip, and a strip that no group names has one
+    empty chunk. The last row is [ngroups, n_strips, nchunks, 0].
+    `tickets` (one int32 a strip, zero between launches) belong to the
+    plan, so its launches run on one stream."""
 
-    chunk_ptr: torch.Tensor  # (nchunks + 1,) int32
-    strip_chunk_ptr: torch.Tensor  # (n_strips + 1,) int32
+    chunks: torch.Tensor  # (nchunks + 1, 4) int32
+    tickets: torch.Tensor  # (n_strips,) int32
     ngroups: int
     n_strips: int
+    warps: int = REDUCE_WARPS  # warps a block
+
+    def __post_init__(self):
+        if not 1 <= int(self.warps) <= MAX_REDUCE_WARPS:
+            raise ValueError(f"warps must lie in [1, {MAX_REDUCE_WARPS}]")
 
     @property
     def nchunks(self) -> int:
-        return int(self.chunk_ptr.shape[0]) - 1
+        return int(self.chunks.shape[0]) - 1
 
 
 def plan_probe_reduce(meta: torch.Tensor, n_strips: int,
                       target_chunks: int = REDUCE_TARGET_CHUNKS
                       ) -> ProbeReducePlan:
     """Host-side build of the chunk table from `meta` (one transfer to
-    the host; build it once for a table that is used again). Each strip's
-    run of groups is cut into chunks of ceil(ngroups / target_chunks)
-    groups. Raises ValueError unless the strips are sorted and in range
-    and meta[:, 1] marks exactly the first group of every strip."""
+    the host; build it once for a table that is used again). A strip of
+    r groups is cut into ceil(r / cap) chunks of floor or ceil of equal
+    shares, cap = ceil(ngroups / target_chunks); a strip of no group is
+    one empty chunk. Raises ValueError unless the strips are sorted and
+    in range and meta[:, 1] marks exactly the first group of every
+    strip."""
     table = meta.detach().cpu().numpy()
     if table.ndim != 2 or table.shape[1] != 2:
         raise ValueError(f"meta has shape {table.shape}, want (ngroups, 2)")
@@ -182,28 +203,36 @@ def plan_probe_reduce(meta: torch.Tensor, n_strips: int,
             "meta[:, 1] must be 1 at the first group of a strip and 0 "
             "elsewhere"
         )
-    per_chunk = max(1, -(-ngroups // max(int(target_chunks), 1)))
-    run_start = np.flatnonzero(first)
-    run_len = np.diff(np.append(run_start, ngroups))
-    pieces = -(-run_len // per_chunk)
-    within = np.arange(int(pieces.sum())) - np.repeat(
-        np.cumsum(pieces) - pieces, pieces
-    )
-    chunk_start = np.repeat(run_start, pieces) + per_chunk * within
-    chunk_strip = np.repeat(strips[run_start], pieces)
-    strip_chunk_ptr = np.searchsorted(chunk_strip, np.arange(n_strips + 1))
-
-    def i32(a):
-        return torch.as_tensor(
-            np.ascontiguousarray(a, dtype=np.int32), device=meta.device
-        )
-
+    cap = max(1, -(-ngroups // max(int(target_chunks), 1)))
+    run = np.bincount(strips, minlength=n_strips).astype(np.int64)
+    run_start = np.cumsum(run) - run
+    pieces = np.maximum(-(-run // cap), 1)
+    first_chunk = np.cumsum(pieces) - pieces
+    strip_of = np.repeat(np.arange(n_strips, dtype=np.int64), pieces)
+    index = np.arange(int(pieces.sum())) - first_chunk[strip_of]
+    chunks = np.zeros((len(strip_of) + 1, 4), dtype=np.int64)
+    chunks[:-1, 0] = run_start[strip_of] + (
+        index * run[strip_of]) // pieces[strip_of]
+    chunks[:-1, 1] = strip_of
+    chunks[:-1, 2] = first_chunk[strip_of]
+    chunks[:-1, 3] = pieces[strip_of]
+    chunks[-1, :3] = ngroups, n_strips, len(strip_of)
     return ProbeReducePlan(
-        chunk_ptr=i32(np.append(chunk_start, ngroups)),
-        strip_chunk_ptr=i32(strip_chunk_ptr),
+        chunks=torch.as_tensor(chunks.astype(np.int32), device=meta.device),
+        tickets=torch.zeros(int(n_strips), dtype=torch.int32,
+                            device=meta.device),
         ngroups=ngroups,
         n_strips=int(n_strips),
     )
+
+
+def reduce_scratch_bytes(plan: ProbeReducePlan, hr: int = HR) -> int:
+    """Bytes probe_reduce moves beyond its inputs and output: the
+    partial strips of the chunks of split strips, each written once and
+    read once, and the chunk table."""
+    chunks = plan.chunks.cpu().numpy()
+    split = int(np.sum(chunks[:-1, 3] > 1))
+    return 2 * 4 * hr * 128 * split + 16 * (plan.nchunks + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -271,10 +300,10 @@ def probe_reduce(meta, g, v, hi, lo, n_strips: int, hr: int = HR,
     sorted; g, v: (ngroups * 8, 128) f32; hi, lo: the same shape, int32,
     unsorted; the kernel drops an entry whose hi or lo is out of range
     (the plain version raises). A strip that no group names comes out
-    zero. `plan`: the
-    chunk table of `meta` from plan_probe_reduce; built here (one
-    transfer to the host) when None. Plain version for CPU tensors, else
-    the probe_reduce kernel."""
+    zero. `plan`: the chunk table of `meta` from plan_probe_reduce;
+    built here (one transfer to the host) when None. Plain version for
+    CPU tensors, else one launch of the probe_reduce kernel, which loads
+    16 bytes at a time and so wants g, v, hi and lo 16-byte aligned."""
     if _all_on_cpu(meta, g, v, hi, lo):
         return probe_reduce_plain(meta, g, v, hi, lo, n_strips, hr)
     device = g.device
@@ -284,22 +313,24 @@ def probe_reduce(meta, g, v, hi, lo, n_strips: int, hr: int = HR,
     for name, t, dtype in (("g", g, torch.float32), ("v", v, torch.float32),
                            ("hi", hi, torch.int32), ("lo", lo, torch.int32)):
         _check(name, t, dtype, (rows, 128), device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     if plan is None:
         plan = plan_probe_reduce(meta, n_strips)
     if plan.ngroups != ngroups or plan.n_strips != n_strips:
         raise ValueError("the plan was built for another table")
-    if plan.chunk_ptr.device != device:
-        raise ValueError(f"the plan is on {plan.chunk_ptr.device}")
+    if plan.chunks.device != device:
+        raise ValueError(f"the plan is on {plan.chunks.device}")
     y = torch.empty(n_strips, hr, 128, dtype=torch.float32, device=device)
-    parts = torch.empty(
+    scratch = torch.empty(
         max(plan.nchunks, 1), hr, 128, dtype=torch.float32, device=device
     )
     fn = kernels_build.kernel_function("probe_reduce")
     err = fn(
-        plan.chunk_ptr.data_ptr(), plan.strip_chunk_ptr.data_ptr(),
-        g.data_ptr(), v.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        parts.data_ptr(), y.data_ptr(), plan.nchunks, int(n_strips),
-        int(hr), torch.cuda.current_stream(device).cuda_stream,
+        plan.chunks.data_ptr(), g.data_ptr(), v.data_ptr(), hi.data_ptr(),
+        lo.data_ptr(), scratch.data_ptr(), plan.tickets.data_ptr(),
+        y.data_ptr(), plan.nchunks, int(hr), plan.warps,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"probe_reduce launch failed: CUDA error {err}")
@@ -364,6 +395,43 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 10) -> float:
     return float(statistics.median(times))
 
 
+def device_profile(fn, calls: int = 50):
+    """(device ms, kernels launched) per call: every kernel under
+    torch.profiler over `calls` calls, the library's and PyTorch's own
+    included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    return total_us / 1e3 / calls, sum(e.count for e in kernels) / calls
+
+
+def in_turns(calls: Dict[str, object]) -> Dict[str, dict]:
+    """Times every call of `calls` (name -> function) in TURNS turns:
+    the names in order, then in reverse, and so on. Per name: "ms"
+    (time_ms), "device_ms" and "kernels_per_call" (device_profile), one
+    value a turn. The profiler may lose kernels in a turn, which then
+    reads low; a second kernel a call shows in every turn, so the
+    largest count over the turns is the one to hold to a limit."""
+    out = {key: {"ms": [], "device_ms": [], "kernels_per_call": []}
+           for key in calls}
+    for r in range(TURNS):
+        for key in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            out[key]["ms"].append(time_ms(calls[key]))
+            device, kernels = device_profile(calls[key])
+            out[key]["device_ms"].append(device)
+            out[key]["kernels_per_call"].append(kernels)
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     try:
@@ -380,6 +448,15 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # The probe
 # ---------------------------------------------------------------------------
+
+
+def _timing_line(timed, who):
+    got = timed[who]
+    turns = ", ".join(f"{t:.5f}" for t in got["device_ms"])
+    return (f"{statistics.median(got['ms']):.4f} ms, device "
+            f"{statistics.median(got['device_ms']):.4f} ms ({turns}), "
+            "kernels a call "
+            f"({', '.join(f'{k:g}' for k in got['kernels_per_call'])})")
 
 
 def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
@@ -401,6 +478,21 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
     def line(text):
         print(f"[{card}] {text}")
 
+    def record(name, timed, extra):
+        row = dict(extra)
+        for who, got in timed.items():
+            prefix = "" if who == "kernel" else f"{who}_"
+            row[prefix + "ms"] = float(statistics.median(got["ms"]))
+            row[prefix + "device_ms"] = float(
+                statistics.median(got["device_ms"]))
+            row[prefix + "kernels_per_call"] = max(got["kernels_per_call"])
+        row["turns"] = timed
+        result[name] = row
+        line(f"{name}: {_timing_line(timed, 'kernel')} (bound "
+             f"{extra['bound_ms']:.4f} ms by {extra['bound_by']}; library "
+             f"{_timing_line(timed, 'library')}; "
+             f"{nnz / row['ms'] / 1e6:.2f} Gentry/s)")
+
     # expand
     args = (dev["strip_ids"], dev["x_strips"], dev["hi"], dev["lo"])
     g = probe_expand(*args)
@@ -409,16 +501,13 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
     want = host["x_strips"][sid[:, None], host["hi"], host["lo"]]
     err = float(np.max(np.abs(g.cpu().numpy() - want), initial=0.0))
     hi64, lo64 = dev["hi"].long(), dev["lo"].long()
-    ms = time_ms(lambda: probe_expand(*args))
-    lib = time_ms(
-        lambda: library_expand(dev["strip_ids"], dev["x_strips"], hi64, lo64)
-    )
+    calls = {"kernel": lambda: probe_expand(*args),
+             "library": lambda: library_expand(
+                 dev["strip_ids"], dev["x_strips"], hi64, lo64)}
     bound, by = bound_ms(expand_bytes(*args), 0)
-    line(f"expand: {ms:.4f} ms (bound {bound:.4f} ms by {by}, library "
-         f"{lib:.4f} ms, {nnz / ms / 1e6:.2f} Gentry/s)")
+    record("expand", in_turns(calls),
+           {"bound_ms": bound, "bound_by": by, "max_abs_err": err})
     line(f"expand max abs err vs numpy: {err:.2e}")
-    result["expand"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib, "max_abs_err": err}
 
     # chunk gather: the rows of 128 entries in a permuted order
     src = dev["src"].long()
@@ -430,27 +519,29 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
     g2 = dev["g2"].reshape(ngroups * GROUP_ROWS, 128)
     rargs = (dev["meta"], g2, dev["v"], dev["hir"], dev["lor"])
     plan = plan_probe_reduce(dev["meta"], N_STRIPS)
-    y = probe_reduce(*rargs, N_STRIPS, plan=plan)
-    torch.cuda.synchronize()
     want_y = np.zeros((N_STRIPS, HR, 128), np.float32)
     rows = np.repeat(host["meta"][:, 0], GROUP_ROWS)
     np.add.at(want_y, (rows[:, None], host["hir"], host["lor"]),
               host["g2"].reshape(-1, 128) * host["v"])
-    err = float(np.max(np.abs(y.cpu().numpy() - want_y), initial=0.0)
-                / (np.max(np.abs(want_y), initial=0.0) + 1))
+
+    def rel_err(y):
+        return float(np.max(np.abs(y.cpu().numpy() - want_y), initial=0.0)
+                     / (np.max(np.abs(want_y), initial=0.0) + 1))
+
+    err = rel_err(probe_reduce(*rargs, N_STRIPS, plan=plan))
     flat = flat_slots(dev["meta"][:, 0], dev["hir"], dev["lor"],
                       HR).reshape(-1)
-    ms = time_ms(lambda: probe_reduce(*rargs, N_STRIPS, plan=plan))
-    lib = time_ms(lambda: library_reduce(flat, g2, dev["v"], N_STRIPS))
+    calls = {"kernel": lambda: probe_reduce(*rargs, N_STRIPS, plan=plan),
+             "library": lambda: library_reduce(flat, g2, dev["v"],
+                                               N_STRIPS)}
     bound, by = bound_ms(reduce_bytes(*rargs, N_STRIPS), 2 * nnz)
-    line(f"reduce: {ms:.4f} ms (bound {bound:.4f} ms by {by}, library "
-         f"{lib:.4f} ms, {nnz / ms / 1e6:.2f} Gentry/s, "
-         f"{plan.nchunks} chunks)")
-    line(f"reduce max rel err vs numpy: {err:.2e}")
-    result["reduce"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib, "max_rel_err": err,
-                        "chunks": plan.nchunks}
-
+    extra = {"bound_ms": bound, "bound_by": by, "max_rel_err": err,
+             "chunks": plan.nchunks, "warps": plan.warps,
+             "bytes_beyond_inputs": reduce_scratch_bytes(plan)}
+    record("reduce", in_turns(calls), extra)
+    line(f"reduce max rel err vs numpy: {err:.2e}; {plan.nchunks} chunks "
+         f"of {plan.warps} warps, {extra['bytes_beyond_inputs']} bytes "
+         "beyond the inputs")
     # f64 sanity
     a64, x64, big64 = dev["a64"], dev["x64"], dev["big64"]
     ms = time_ms(lambda: a64 @ x64, 10)

@@ -325,10 +325,13 @@ def csr_item_stats(mat: CsrKernelMatrix) -> Dict[str, float]:
     }
 
 
-def csr_kernel_bytes(mat: CsrKernelMatrix) -> int:
-    """Bytes of the matrix a product must read: indptr, indices and
-    values, each once (the item table is the kernels' own, not the
-    product's: csr_item_stats counts it apart)."""
+def csr_kernel_bytes(mat) -> int:
+    """Bytes of the matrix a product must read, in CSR: indptr, indices
+    and values, each once. A CsrKernelMatrix's item table is the
+    kernels' own, not the product's (csr_item_stats counts it apart);
+    a TilePlan of the same matrix is held to the same bytes, since its
+    padding, group table and item table are the plan's own
+    (tile_plan_stats counts them apart as plan_bytes)."""
     return 4 * (mat.num_rows + 1) + 8 * mat.nnz
 
 
@@ -789,9 +792,10 @@ def tile_plan_stats(plan: TilePlan) -> Dict[str, float]:
 
 
 def tile_plan_bytes(plan: TilePlan) -> int:
-    """Bytes of the plan a product must read: packed indices and values
-    of every stored entry, padding included, the group table and the
-    item table, each once."""
+    """Bytes the plan's kernels read: packed indices and values of every
+    stored entry, padding included, the group table and the item table,
+    each once. Not a bound: the product needs only the CSR bytes of the
+    matrix (csr_kernel_bytes)."""
     return (8 * plan.ngroups * plan.group + 16 * plan.ngroups
             + 16 * (plan.nitems + 1))
 

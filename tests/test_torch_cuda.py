@@ -19,8 +19,14 @@ CSR kernels, at the card's own strip sizes and at small ones that force
 ragged and empty strips and runs of one row across many steps, and on
 matrices built for the paths of the work items: a strip split over many
 blocks, a strip that is one dense row, steps that cross tiles, fewer
-rows than a strip, a single strip.
+rows than a strip, a single strip; tiled_rmv_stats also on a plan of A'
+with split strips and on one without. The probe's reduce is one kernel
+a call, gives the same bits on every launch with its tickets back at
+zero, and writes every strip, those that no group names too, at every
+block size it allows.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -381,6 +387,43 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
         routed.tiled_spmv(op.a, torch.zeros(30))  # a CPU vector
 
 
+# A' of these has a strip split over many items (the dense columns of A
+# are dense rows of A') or none (dense rows of A spread over A''s strips).
+RMV_STATS_PLANS = {
+    "split": (lambda: dense_rows_matrix(5000, 4000, [70, 100], 6).T.tocsr(),
+              True),
+    "whole": (lambda: dense_rows_matrix(4000, 5000, [70, 100], 7), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RMV_STATS_PLANS))
+def test_tiled_rmv_stats_on_split_and_whole_strips(cuda, case):
+    """tiled_rmv_stats against its plain version and against the CSR
+    spmv_rmv_stats, 20 launches bitwise equal with the tickets back at
+    zero, on a plan of A' with split strips and on one without."""
+    make, split = RMV_STATS_PLANS[case]
+    a = make()
+    m, n = a.shape
+    op = routed.build_routed_op(a, cuda, tile_aligned=True)
+    csr = routed.build_routed_op(a, cuda, tile_aligned=False)
+    items = op.at.items.cpu().numpy()
+    assert (items[:-1, 2].max() > 1) == split
+    rng = np.random.default_rng(4)
+    y, dx, old = (torch.as_tensor(rng.normal(size=size), dtype=torch.float32,
+                                  device=cuda) for size in (m, n, n))
+    got = routed.tiled_rmv_stats(op.at, y, dx, old)
+    scale_aty = abs(a).T @ np.abs(y.cpu().numpy().astype(np.float64))
+    for want in (routed.tiled_rmv_stats_plain(op.at, y, dx, old),
+                 routed.spmv_rmv_stats(csr.at, y, dx, old)):
+        check(got[0], want[0], scale_aty)
+        for k in (1, 2):
+            assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5,
+                                                  abs=1e-4)
+    problem = repeat_differs(
+        lambda: routed.tiled_rmv_stats(op.at, y, dx, old), (op.at.tickets,))
+    assert problem is None, problem
+
+
 def test_kernels_are_deterministic(cuda):
     a = hub_matrix(3000, 2500, 6000, 0)
     op = routed.build_routed_op(a, cuda)
@@ -457,29 +500,47 @@ def test_probe_expand_is_exact(cuda, nnz):
     assert torch.equal(got, probe.probe_expand_plain(*args))
 
 
+def reduce_error(probe, got, meta, d, n_strips):
+    """Largest |y - plain| over max |plain| + 1, the plain version in
+    f64."""
+    want = probe.probe_reduce_plain(meta, d["g"].double(), d["v"].double(),
+                                    d["hir"], d["lor"], n_strips)
+    return float((got.double() - want).abs().max() / (want.abs().max() + 1))
+
+
 @pytest.mark.parametrize("nnz", [1024, 8192, 819_200])
 def test_probe_reduce_matches_plain_and_repeats(cuda, nnz):
+    """One kernel a call by torch.profiler, within 1e-5 of the plain
+    version in f64, 20 launches bitwise equal, the tickets back at zero
+    after each launch."""
+    from firstorderlp_torch.ops.probe_routed import device_profile
+
     probe, d = probe_tensors(cuda, nnz)
     args = (d["meta"], d["g"], d["v"], d["hir"], d["lor"])
+    plan = probe.plan_probe_reduce(d["meta"], probe.N_STRIPS)
     probe.reset_launch_counts()
-    got = probe.probe_reduce(*args, probe.N_STRIPS)
-    again = probe.probe_reduce(*args, probe.N_STRIPS)
+    got = probe.probe_reduce(*args, probe.N_STRIPS, plan=plan)
     torch.cuda.synchronize()
-    assert probe.LAUNCHES["probe_reduce"] == 2
-    assert torch.equal(got, again)  # one fixed order of summation
-    want = probe.probe_reduce_plain(
-        d["meta"], d["g"].double(), d["v"].double(), d["hir"], d["lor"],
-        probe.N_STRIPS,
-    )
-    err = (got.double() - want).abs().max() / (want.abs().max() + 1)
-    assert float(err) <= 1e-5
+    assert probe.LAUNCHES["probe_reduce"] == 1
+    assert not plan.tickets.any()
+    assert reduce_error(probe, got, d["meta"], d, probe.N_STRIPS) <= 1e-5
+    problem = repeat_differs(
+        lambda: probe.probe_reduce(*args, probe.N_STRIPS, plan=plan),
+        (plan.tickets,))
+    assert problem is None, problem
+    # the largest count of three windows: the profiler may lose a kernel
+    # in one, while a second kernel a call shows in every window
+    kernels = max(device_profile(
+        lambda: probe.probe_reduce(*args, probe.N_STRIPS, plan=plan), 20)[1]
+        for _ in range(3))
+    assert kernels == 1
 
 
 @pytest.mark.parametrize("target_chunks", [1, 7, 10_000])
 def test_probe_reduce_strip_without_groups_is_zero(cuda, target_chunks):
     """Strips 2 and 7 of 8 are named by no group; the chunking (one
-    chunk a strip, ragged chunks, one group a chunk) changes the order
-    of summation only inside the tolerance."""
+    chunk a strip, a few chunks a strip, one group a chunk) changes the
+    order of summation only inside the tolerance."""
     probe, d = probe_tensors(cuda, 40 * 1024, seed=3)
     strips = np.sort(np.random.default_rng(1).choice(
         [0, 1, 3, 4, 5, 6], size=40))
@@ -489,14 +550,49 @@ def test_probe_reduce_strip_without_groups_is_zero(cuda, target_chunks):
     meta[1:, 1] = strips[1:] != strips[:-1]
     meta = torch.as_tensor(meta, device=cuda)
     plan = probe.plan_probe_reduce(meta, 8, target_chunks=target_chunks)
-    got = probe.probe_reduce(meta, d["g"], d["v"], d["hir"], d["lor"], 8,
-                             plan=plan)
-    want = probe.probe_reduce_plain(
-        meta, d["g"].double(), d["v"].double(), d["hir"], d["lor"], 8)
+    for _ in range(2):
+        # y likely takes this freed block: every strip must be written
+        junk = torch.full((8, probe.HR, 128), float("nan"), device=cuda)
+        del junk
+        got = probe.probe_reduce(meta, d["g"], d["v"], d["hir"], d["lor"],
+                                 8, plan=plan)
+    torch.cuda.synchronize()
     assert torch.count_nonzero(got[2]) == 0
     assert torch.count_nonzero(got[7]) == 0
-    err = (got.double() - want).abs().max() / (want.abs().max() + 1)
-    assert float(err) <= 1e-5
+    assert not plan.tickets.any()
+    assert reduce_error(probe, got, meta, d, 8) <= 1e-5
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 11])
+@pytest.mark.parametrize("table", ["one_strip", "empty_strip"])
+def test_probe_reduce_tables_and_block_sizes(cuda, table, warps):
+    """A table whose groups all name one strip (that strip split over
+    many chunks, the others one empty chunk each), and one where a strip
+    between others is named by no group; at every block size the
+    kernel allows, within 1e-5 of the plain version, and the same bits
+    twice."""
+    probe, d = probe_tensors(cuda, 64 * 1024, seed=4)
+    strips = np.zeros(64, np.int64) + 3
+    if table == "empty_strip":
+        strips = np.sort(np.random.default_rng(2).choice([0, 1, 2, 4, 5],
+                                                         size=64))
+    meta = np.zeros((64, 2), np.int32)
+    meta[:, 0] = strips
+    meta[0, 1] = 1
+    meta[1:, 1] = strips[1:] != strips[:-1]
+    meta = torch.as_tensor(meta, device=cuda)
+    plan = dataclasses.replace(
+        probe.plan_probe_reduce(meta, 6, target_chunks=16), warps=warps)
+    args = (meta, d["g"], d["v"], d["hir"], d["lor"], 6)
+    got = probe.probe_reduce(*args, plan=plan)
+    again = probe.probe_reduce(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not plan.tickets.any()
+    assert reduce_error(probe, got, meta, d, 6) <= 1e-5
+    named = set(strips.tolist())
+    for s in set(range(6)) - named:
+        assert torch.count_nonzero(got[s]) == 0
 
 
 def test_probe_wrappers_reject_bad_inputs(cuda):
@@ -514,6 +610,12 @@ def test_probe_wrappers_reject_bad_inputs(cuda):
     bad[2, 1] = 1  # a "first group" flag inside a strip's run
     with pytest.raises(ValueError):
         probe.probe_reduce(bad, d["g"], d["v"], d["hir"], d["lor"], 8)
+    with pytest.raises(ValueError):  # contiguous, not 16-byte aligned
+        buf = torch.empty(d["hir"].numel() + 1, dtype=torch.int32,
+                          device=cuda)
+        hir = buf[1:].view(-1, 128)
+        hir.copy_(d["hir"])
+        probe.probe_reduce(d["meta"], d["g"], d["v"], hir, d["lor"], 8)
 
 
 def test_probe_kernels_guard_out_of_range_indices(cuda):

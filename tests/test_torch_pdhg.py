@@ -354,6 +354,25 @@ def test_lp_malitsky_pock():
                                atol=2e-7)
 
 
+@pytest.mark.parametrize("entry", [
+    "optimize", "prepare_problem", "optimize_iterative_refinement",
+    "optimize_split_precision"])
+def test_malitsky_pock_rejects_a_qp(entry):
+    """The linesearch is LP-only: the port raises the reference's
+    ValueError, with the same text, before rescaling, from each entry
+    point that prepares a PDHG problem."""
+    problem = fixtures.example_qp()
+    jparams = pdhg_params(optimality_criteria(1e-6),
+                          step_size_policy=MALITSKY_POCK)
+    with pytest.raises(ValueError) as want:
+        jx_pdhg.optimize(jparams, problem)
+    assert "only supported for linear programming" in str(want.value)
+    with pytest.raises(ValueError) as got:
+        getattr(tx, entry)(port_params(jparams), port_problem(problem),
+                           device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 def malitsky_pock_state(iterations):
     """(JAX bundle, JAX state after `iterations` Malitsky-Pock steps on
     example_lp, port bundle, the same state in the port), in f64."""

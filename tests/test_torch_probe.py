@@ -12,6 +12,7 @@ relative 1e-6 on the strips that occur (the Pallas kernel never writes a
 strip that no group names; the port zeroes it).
 """
 
+import dataclasses
 import functools
 import importlib.util
 import os
@@ -148,36 +149,105 @@ def test_probe_reduce_plain_matches_the_pallas_kernel(jax_probe, seed):
 
 
 CHUNK_CASES = {
-    # strips of the groups, n_strips, target chunks: expected chunk_ptr
-    # and strip_chunk_ptr
-    "one_chunk_a_strip": ([0, 0, 0, 2, 2], 4, 1, [0, 3, 5], [0, 1, 1, 2, 2]),
-    "ragged": ([0, 0, 0, 0, 0, 1, 1, 3], 4, 3,
-               [0, 3, 5, 7, 8], [0, 2, 3, 3, 4]),
-    "one_group_a_chunk": ([1, 1, 2], 3, 100, [0, 1, 2, 3], [0, 0, 2, 3]),
-    "no_groups": ([], 2, 4, [0], [0, 0, 0]),
+    # strips of the groups, n_strips, target chunks: the expected chunk
+    # table, rows [first group, strip, first chunk of the strip, chunks
+    # of the strip] and the sentinel [ngroups, n_strips, nchunks, 0]
+    "one_chunk_a_strip": ([0, 0, 0, 2, 2], 4, 1, [
+        [0, 0, 0, 1], [3, 1, 1, 1], [3, 2, 2, 1], [5, 3, 3, 1],
+        [5, 4, 4, 0]]),
+    "ragged": ([0, 0, 0, 0, 0, 1, 1, 3], 4, 3, [
+        [0, 0, 0, 2], [2, 0, 0, 2], [5, 1, 2, 1], [7, 2, 3, 1],
+        [7, 3, 4, 1], [8, 4, 5, 0]]),
+    "one_group_a_chunk": ([1, 1, 2], 3, 100, [
+        [0, 0, 0, 1], [0, 1, 1, 2], [1, 1, 1, 2], [2, 2, 3, 1],
+        [3, 3, 4, 0]]),
+    "no_groups": ([], 2, 4, [[0, 0, 0, 1], [0, 1, 1, 1], [0, 2, 2, 0]]),
+    "probe_default": (probe.make_probe_inputs()["meta"][:, 0], 8,
+                      probe.REDUCE_TARGET_CHUNKS, None),
 }
+
+
+def reduce_by_plan(plan, meta, g, v, hi, lo, hr=probe.HR):
+    """The reduce in numpy, chunk by chunk as the plan cuts it: each
+    chunk's groups into its own partial strip, then every strip's
+    partials in chunk order. A strip that no chunk fills stays zero."""
+    chunks = plan.chunks.numpy()
+    y = np.zeros((plan.n_strips, hr, 128))
+    for c in range(plan.nchunks):
+        rows = slice(8 * chunks[c, 0], 8 * chunks[c + 1, 0])
+        part = np.zeros((hr, 128))
+        np.add.at(part, (hi[rows], lo[rows]),
+                  g[rows].astype(np.float64) * v[rows])
+        y[chunks[c, 1]] += part
+    return y
 
 
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_plan_probe_reduce(case):
-    strips, n_strips, target, chunk_ptr, strip_chunk_ptr = CHUNK_CASES[case]
+    """The chunk table: as expected where written out; for every case
+    chunks in order that cover every group once, each inside one strip,
+    every strip with at least one chunk (an empty one where no group
+    names it), no chunk above the plan's cap and the chunks of a strip
+    within one group of each other; and the reduce done chunk by chunk
+    as the table says equals the plain version, zero on empty strips."""
+    strips, n_strips, target, want = CHUNK_CASES[case]
     strips = np.asarray(strips, np.int32)
-    meta = np.zeros((len(strips), 2), np.int32)
+    ngroups = len(strips)
+    meta = np.zeros((ngroups, 2), np.int32)
     meta[:, 0] = strips
-    if len(strips):
+    if ngroups:
         meta[:, 1] = np.r_[1, strips[1:] != strips[:-1]]
     plan = probe.plan_probe_reduce(torch.as_tensor(meta), n_strips, target)
-    assert plan.chunk_ptr.dtype == torch.int32
-    assert plan.chunk_ptr.tolist() == chunk_ptr
-    assert plan.strip_chunk_ptr.tolist() == strip_chunk_ptr
-    assert plan.nchunks == len(chunk_ptr) - 1
-    # every chunk lies inside one strip
+    assert plan.chunks.dtype == torch.int32
+    assert plan.tickets.dtype == torch.int32
+    assert plan.tickets.tolist() == [0] * n_strips
+    assert plan.warps == probe.REDUCE_WARPS
+    chunks = plan.chunks.numpy().astype(np.int64)
+    if want is not None:
+        assert chunks.tolist() == want
+    assert plan.nchunks == len(chunks) - 1
+    assert chunks[-1].tolist() == [ngroups, n_strips, plan.nchunks, 0]
+    first, strip_of = chunks[:, 0], chunks[:-1, 1]
+    sizes = np.diff(first)
+    assert first[0] == 0 and np.all(sizes >= 0)  # in order, every group
+    assert np.all(np.diff(strip_of) >= 0)
+    np.testing.assert_array_equal(np.unique(strip_of), np.arange(n_strips))
+    cap = max(1, -(-ngroups // target))
+    assert np.all(sizes <= cap)
     for c in range(plan.nchunks):
-        assert len(set(strips[chunk_ptr[c]:chunk_ptr[c + 1]])) == 1
+        assert set(strips[first[c]:first[c + 1]]) <= {strip_of[c]}
+        s = strip_of[c]
+        mine = np.flatnonzero(strip_of == s)
+        assert chunks[c, 2] == mine[0] and chunks[c, 3] == len(mine)
+        assert sizes[mine].max() - sizes[mine].min() <= 1
+        if s not in strips:
+            assert len(mine) == 1 and sizes[c] == 0
+    if case == "probe_default":
+        # about one chunk a SM, a few groups each, every strip split
+        assert 100 <= plan.nchunks <= probe.REDUCE_TARGET_CHUNKS
+        assert np.all(chunks[:-1, 3] > 1)
+        assert probe.reduce_scratch_bytes(plan) == (
+            2 * 4 * probe.HR * 128 * plan.nchunks + 16 * (plan.nchunks + 1))
+
+    rng = np.random.default_rng(5)
+    rows = 8 * ngroups
+    g, v = (rng.normal(size=(rows, 128)).astype(np.float32)
+            for _ in range(2))
+    hi = rng.integers(0, probe.HR, (rows, 128)).astype(np.int32)
+    lo = rng.integers(0, 128, (rows, 128)).astype(np.int32)
+    got = reduce_by_plan(plan, meta, g, v, hi, lo)
+    want_y = probe.probe_reduce_plain(
+        *(torch.as_tensor(a) for a in (meta, g.astype(np.float64),
+                                       v.astype(np.float64), hi, lo)),
+        n_strips).numpy()
+    np.testing.assert_allclose(got, want_y, rtol=1e-12, atol=1e-12)
+    for s in set(range(n_strips)) - set(strips.tolist()):
+        assert not got[s].any()
 
 
 @pytest.mark.parametrize("fault", ["unsorted", "flag_inside_run",
-                                   "flag_missing", "out_of_range", "shape"])
+                                   "flag_missing", "out_of_range", "shape",
+                                   "no_warps", "too_many_warps"])
 def test_plan_probe_reduce_rejects_bad_tables(fault):
     meta = np.array([[0, 1], [0, 0], [1, 1], [2, 1]], np.int32)
     if fault == "unsorted":
@@ -191,8 +261,72 @@ def test_plan_probe_reduce_rejects_bad_tables(fault):
         meta[3, 0] = 4
     elif fault == "shape":
         meta = meta[:, :1]
-    with pytest.raises(ValueError):
-        probe.plan_probe_reduce(torch.as_tensor(meta), 4)
+    warps = {"no_warps": 0, "too_many_warps": probe.MAX_REDUCE_WARPS + 1}
+    meta = torch.as_tensor(meta)
+    if fault in warps:  # a plan at a block size the kernel cannot take
+        plan = probe.plan_probe_reduce(meta, 4)
+        with pytest.raises(ValueError):
+            dataclasses.replace(plan, warps=warps[fault])
+    else:
+        with pytest.raises(ValueError):
+            probe.plan_probe_reduce(meta, 4)
+
+
+def test_compare_tool_drives_the_probe_kernels():
+    """ops/compare_kernels' probe layout calls both wrappers under their
+    LAUNCHES names (on the CPU: the plain versions), with numpy's
+    results, and its sweep's plans keep the chunk table of their target
+    at another block size."""
+    from firstorderlp_torch.ops import compare_kernels
+
+    host = probe.make_probe_inputs(8 * 1024, seed=3)
+    d = {k: torch.as_tensor(a) for k, a in host.items()}
+    plan = probe.plan_probe_reduce(d["meta"], probe.N_STRIPS, 5)
+    calls = compare_kernels.probe_products(probe, d, plan)
+    assert set(calls) == set(probe.LAUNCHES)
+    sid = np.repeat(host["strip_ids"], probe.GROUP_ROWS)
+    np.testing.assert_array_equal(
+        calls["probe_expand"]().numpy(),
+        host["x_strips"][sid[:, None], host["hi"], host["lo"]])
+    want = np.zeros((probe.N_STRIPS, probe.HR, 128))
+    rows = np.repeat(host["meta"][:, 0], probe.GROUP_ROWS)
+    np.add.at(want, (rows[:, None], host["hir"], host["lor"]),
+              host["g2"].reshape(-1, 128).astype(np.float64) * host["v"])
+    got = calls["probe_reduce"]()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert compare_kernels.reduce_error(d, got) <= 1e-6
+    small = dataclasses.replace(plan, warps=1)
+    assert torch.equal(small.chunks, plan.chunks) and small.warps == 1
+
+
+def test_package_module_loads_this_version_or_the_parent(tmp_path,
+                                                         monkeypatch):
+    """compare_kernels.package_module: this package's module, or the
+    module of the version a directory holds as firstorderlp_torch_parent
+    (the one import that chip_smoke.py --parent and compare_kernels
+    --parent share)."""
+    from firstorderlp_torch.ops import compare_kernels
+
+    root = tmp_path / "firstorderlp_torch_parent"
+    (root / "ops").mkdir(parents=True)
+    (root / "__init__.py").write_text("WHO = 'parent'\n")
+    (root / "ops" / "__init__.py").write_text("")
+    (root / "ops" / "probe_routed.py").write_text("WHO = 'parent probe'\n")
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    for name in [n for n in sys.modules
+                 if n.startswith("firstorderlp_torch_parent")]:
+        monkeypatch.delitem(sys.modules, name)
+    try:
+        assert compare_kernels.package_module("ops.probe_routed") is probe
+        assert compare_kernels.package_module(
+            "ops.probe_routed", str(tmp_path)).WHO == "parent probe"
+        assert compare_kernels.package_module(
+            "", str(tmp_path)).WHO == "parent"
+        assert sys.path.count(str(tmp_path)) == 1
+    finally:
+        for name in [n for n in sys.modules
+                     if n.startswith("firstorderlp_torch_parent")]:
+            del sys.modules[name]
 
 
 def test_bounds_count_each_array_once():

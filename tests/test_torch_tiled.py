@@ -276,7 +276,7 @@ def test_work_items_cover_the_plan(name, geometry):
     0..k-1; split strips get scratch slots of their own; the largest
     item is at most 2.25 times the mean plus two groups."""
     _, plans = plans_of(name, geometry)
-    for plan, _ in plans:
+    for plan, csr in plans:
         items = plan.items.numpy().astype(np.int64)
         meta = plan.meta.numpy()
         assert items.shape == (plan.nitems + 1, 4)
@@ -321,6 +321,9 @@ def test_work_items_cover_the_plan(name, geometry):
         assert stats["plan_bytes"] == (
             8 * plan.loc.numel() + 4 * plan.meta.numel()
             + 4 * plan.items.numel())
+        # the bound's bytes are the matrix's in CSR, not the plan's
+        assert tx_routed.csr_kernel_bytes(plan) == (
+            4 * (csr.shape[0] + 1) + 8 * csr.nnz)
 
 
 def emulate_kernel_walk(plan, x):
