@@ -33,7 +33,8 @@ Phases, each printing one JSON line:
    kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
    entries, seed 0: the expand bitwise equal to its plain version and to
    numpy, the reduce against its plain version in f64, twice bitwise
-   equal, its tickets back at zero and one kernel a call, with times
+   equal, its tickets back at zero and one kernel a call (counted at
+   the host's launch calls, in every turn), with times
    (events and device time, in turns with the one-call library
    versions), bounds and the reduce's bytes beyond its inputs;
    probe_path: the probe script itself
@@ -63,7 +64,34 @@ Phases, each printing one JSON line:
    (with --profile the same solve again under torch.profiler);
 9. determinism_mp: the 20k-node LP solved twice by Mirror Prox on the
    tile plan, tiled_spmv launched and the CSR kernels not;
-10. the kernel list ({"kernels": [...]}).
+10. kernels_lanes: the lane kernel L1 (ops/lanes.py) on the 128-lane
+    20k-node PageRank fleet's scaled planes, A and A', against its plain
+    version on the card and an f64 recomputation, 20 launches bitwise
+    equal with the tickets back at zero, with times (events; device time
+    and kernels a call in turns with the block-diagonal library SpMV),
+    the bound, blocks and entries per block (ops/compare_kernels.lanes_row,
+    which compare_kernels --layout lanes prints too);
+11. fleet_path: batch.solve_batch_shared_pattern on that fleet (a
+    FleetSpec, pagerank_fleet_spec) by PDHG in f32 to 1e-4 with a limit
+    of 20,000 iterations a lane; every lane OPTIMAL with residuals and
+    gap recomputed in f64 on the host (a lane that is not: solved alone
+    by optimize under the same limit, which must give the same reason);
+    L1 launched, the single-instance kernels not; lanes 0 and 127 solved
+    again by optimize (the same reason, host residuals under 1e-4);
+    fleet_mirror_prox: the same with Mirror Prox;
+12. fleet_throughput: bench.py's protocol (zero tolerances, 600
+    iterations a lane, a warm-up solve, then a timed one), PDHG and
+    Mirror Prox: aggregate iterations and KKT passes a second, ingest
+    cold and warm, step trials and read-backs, and the kernel launches
+    of a step trial and of an evaluation (one segment under
+    torch.profiler); with --profile the timed solves under
+    torch.profiler (device busy and idle share, top ops);
+13. determinism_fleet: 16 lanes solved twice, bitwise equal;
+    fleet_checkpoint: an 8-lane fleet stopped by a limit of 120
+    iterations (one dispatch) with a checkpoint, resumed, against an
+    uninterrupted run: the same reasons, solutions within 1e-6, and
+    whether they are bitwise equal;
+14. the kernel list ({"kernels": [...]}).
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
 Exits non-zero, before the last line, when there is no CUDA device or
@@ -85,11 +113,26 @@ NODES = 100_000  # the main path's PageRank LP
 DET_NODES = 20_000  # the determinism phase's
 LARGE_NODES = 1_000_000  # kernels_tiled_large's
 SOLVE_SEEDS = (0, 1, 2, 3, 4, 5)  # main_path_parent's LPs (--parent)
+# The fleet phases: the JAX package's headline fleet (bench.py), a
+# PageRank damping sweep on one 20k-node graph, 128 lanes.
+FLEET_NODES = 20_000
+FLEET_LANES = 128
+DET_FLEET_LANES = 16  # determinism_fleet's
+CKPT_FLEET_LANES = 8  # fleet_checkpoint's
+CKPT_LIMIT = 120  # its first run's iteration limit, a multiple of 40
+THROUGHPUT_ITERS = 600  # fleet_throughput's iterations per lane
 
 _lines = []
 
 
+_start = time.time()
+_card = {}  # "line": the nvidia-smi name and power limit, once known
+
+
 def emit(obj) -> None:
+    if "phase" in obj:  # the card, and seconds since the script started
+        obj = {**obj, "at_seconds": round(time.time() - _start, 3)}
+        obj.setdefault("card", _card.get("line"))
     line = json.dumps(obj)
     _lines.append(line)
     print(line, flush=True)
@@ -192,19 +235,19 @@ def host_residuals(problem, x, y):
     bound = np.where(g > 0.0, lb, ub)
     rc = np.where(np.isfinite(bound), g, 0.0)
     dual_viol = np.concatenate([np.maximum(-y[meq:], 0.0), g - rc])
-    primal_obj = problem.objective_constant + c @ x
+    primal_obj = problem.objective_constant + np.sum(c * x)
     active = rc != 0.0
     dual_obj = (
-        b @ y + problem.objective_constant
+        np.sum(b * y) + problem.objective_constant
         + np.sum(np.where(active, bound, 0.0) * rc)
     )
+
+    def norm(v):  # no BLAS call: its threads cost tens of ms a call here
+        return np.sqrt(np.sum(v * v))
+
     return {
-        "rel_primal_residual": float(
-            np.linalg.norm(viol) / (1.0 + np.linalg.norm(b))
-        ),
-        "rel_dual_residual": float(
-            np.linalg.norm(dual_viol) / (1.0 + np.linalg.norm(c))
-        ),
+        "rel_primal_residual": float(norm(viol) / (1.0 + norm(b))),
+        "rel_dual_residual": float(norm(dual_viol) / (1.0 + norm(c))),
         "rel_gap": float(
             abs(primal_obj - dual_obj)
             / (1.0 + abs(primal_obj) + abs(dual_obj))
@@ -237,15 +280,28 @@ def timed(torch, profile_on: bool):
 
 
 def profile_summary(torch, profiler, wall_s):
+    """Busy and idle share of the device (the kernels' device time,
+    scaled to the host's launches as probe_routed.device_profile does),
+    launches, and the top ops."""
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+
     host_events = profiler.key_averages()
     # Kernels only: an aten op's device time repeats its kernels'.
     events = [e for e in host_events
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
+    kept = sum(e.count for e in events)
+    launches = max(kept, sum(
+        e.count for e in host_events
+        if e.device_type == torch.autograd.DeviceType.CPU
+        and e.key in LAUNCH_CALLS))
+    # the device records the profiler lost, at the mean time of the kept
+    device_us = sum(e.self_device_time_total for e in events) * (
+        launches / kept if kept else 0.0)
     return {
         "device_busy_seconds": device_us / 1e6,
         "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
-        "kernel_launches": sum(e.count for e in events),
+        "kernel_launches": launches,
+        "device_records_kept": kept,
         "top_device_ops": [
             {"name": e.key[:60], "calls": e.count,
              "device_ms": e.self_device_time_total / 1e3}
@@ -265,6 +321,318 @@ def profile_summary(torch, profiler, wall_s):
                             key=lambda e: -e.self_cpu_time_total)[:12]
         ],
     }
+
+
+def kernels_lanes(torch, lanes, fleet, compare):
+    """L1 on the fleet's scaled planes, A and A': compare.lanes_row (the
+    f64 product and the plain version, repeats, times in turns with the
+    library call)."""
+    ph = "kernels_lanes"
+    t_phase = time.time()
+    op = fleet.bundle.scaled.constraint_matrix
+    pattern = op.pattern
+    nl = op.lanes
+    dev = op.vals.device
+    rng = np.random.default_rng(0)
+    m, n = pattern.shape
+    x = torch.as_tensor(rng.standard_normal((n, nl)).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.standard_normal((m, nl)).astype(np.float32),
+                        device=dev)
+    rows = []
+    for label, half, vals, v in (("A", pattern.fwd, op.vals, x),
+                                 ("AT", pattern.bwd, op.vals_t, y)):
+        try:
+            row = compare.lanes_row(label, half, vals, v)
+        except compare.KernelMismatch as e:
+            fail(ph, str(e))
+        rows.append({
+            "name": row.pop("name"),
+            "route": "cuda",
+            "source": "firstorderlp_torch/csrc/lanes_spmv.cu",
+            "replaces": "none (no pl.pallas_call): the JAX package's XLA "
+                        "gathers over ELL planes under vmap, "
+                        "firstorderlp_tpu/ops/linops.py:68",
+            **row})
+    emit({"phase": ph, "ok": True, "nodes": FLEET_NODES,
+          "phase_seconds": time.time() - t_phase,
+          "lanes": nl, "m": m, "n": n, "nnz": pattern.nnz,
+          "tolerance": f"|d| <= {compare.TOL_ENTRY}*(|A||x|)_(r,b) + "
+                       f"{compare.TOL_ABS} against the f64 product",
+          "results": rows})
+    return rows
+
+
+def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
+                      fleet, problems, single_optimize):
+    """One fleet solve to 1e-4, checked lane by lane (see the module
+    docstring, fleet_path)."""
+    t_phase = time.time()
+    lanes.reset_launch_counts()
+    routed.reset_launch_counts()
+    stats = batch.FleetRunStats()
+    t0 = time.time()
+    outs = batch.solve_batch_shared_pattern(params, spec, fleet=fleet,
+                                            run_stats=stats)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    launches = dict(lanes.LAUNCHES)
+    single_kernels = {k: v for k, v in routed.LAUNCHES.items() if v}
+    reasons = [o.termination_reason.name for o in outs]
+    iterations = [o.iteration_count for o in outs]
+    kkt = [o.iteration_stats[-1].cumulative_kkt_matrix_passes
+           for o in outs]
+    problems_found = []
+    worst = {"rel_primal_residual": 0.0, "rel_dual_residual": 0.0,
+             "rel_gap": 0.0}
+    alone = []
+    for i, out in enumerate(outs):
+        if not (np.all(np.isfinite(out.primal_solution))
+                and np.all(np.isfinite(out.dual_solution))):
+            problems_found.append(f"lane {i}: non-finite solution")
+        if out.primal_solution.shape != (FLEET_NODES,):
+            problems_found.append(f"lane {i}: primal shape")
+        res = host_residuals(problems[i], out.primal_solution,
+                             out.dual_solution)
+        for k, v in res.items():
+            worst[k] = max(worst[k], v)
+        if reasons[i] != "TERMINATION_REASON_OPTIMAL":
+            single = single_optimize(params, problems[i])
+            alone.append({"lane": i, "fleet": reasons[i],
+                          "alone": single.termination_reason.name})
+            if single.termination_reason.name != reasons[i]:
+                problems_found.append(
+                    f"lane {i}: {reasons[i]} in the fleet, "
+                    f"{single.termination_reason.name} alone")
+        elif any(not v <= 1e-4 for v in res.values()):
+            problems_found.append(f"lane {i}: host residuals {res}")
+    if any(v <= 0 for v in launches.values()):
+        problems_found.append(f"L1 was not launched: {launches}")
+    if single_kernels:
+        problems_found.append(f"a single-instance kernel was launched: "
+                              f"{single_kernels}")
+    singles = []
+    for i in (0, len(outs) - 1):
+        single = single_optimize(params, problems[i])
+        res = host_residuals(problems[i], single.primal_solution,
+                             single.dual_solution)
+        singles.append({"lane": i, "reason": single.termination_reason.name,
+                        "iterations": single.iteration_count,
+                        "fleet_iterations": iterations[i],
+                        "host_f64": res})
+        if single.termination_reason.name != reasons[i]:
+            problems_found.append(f"lane {i} alone: "
+                                  f"{single.termination_reason.name}")
+        if any(not v <= 1e-4 for v in res.values()):
+            problems_found.append(f"lane {i} alone: host residuals {res}")
+    counts = {r: reasons.count(r) for r in sorted(set(reasons))}
+    rec = {
+        "phase": ph, "nodes": FLEET_NODES,
+        "lanes": len(outs), "reasons": counts,
+        "iterations_min": min(iterations), "iterations_max": max(iterations),
+        "iterations_sum": sum(iterations), "kkt_passes_sum": sum(kkt),
+        "solve_seconds": solve_s,
+        "aggregate_iterations_per_second": sum(iterations) / solve_s,
+        "dispatches": stats.dispatches, "evaluations": stats.segments,
+        "step_trials": stats.trials, "read_backs": stats.read_backs,
+        "launches": launches,
+        "host_f64_worst": worst, "not_optimal": alone,
+        "single_solves": singles,
+        "phase_seconds": time.time() - t_phase,
+    }
+    rec["ok"] = not problems_found
+    if problems_found:
+        rec["problems"] = problems_found
+    emit(rec)
+    if problems_found:
+        raise SystemExit(1)
+    return rec
+
+
+def fleet_throughput(torch, batch, params_of, spec, profile_on, dev):
+    """bench.py's protocol for one solver: zero tolerances, a fixed
+    iteration budget a lane, a warm-up solve, then a timed one."""
+    params = params_of(0.0, THROUGHPUT_ITERS)
+    t0 = time.time()
+    fleet = batch.prepare_shared_pattern_fleet(params, spec, device=dev)
+    torch.cuda.synchronize()
+    ingest = time.time() - t0
+    batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+    torch.cuda.synchronize()
+    stats = batch.FleetRunStats()
+    with timed(torch, profile_on) as run:
+        outs = batch.solve_batch_shared_pattern(params, spec, fleet=fleet,
+                                                run_stats=stats)
+    seconds = run["seconds"]
+    iterations = sum(o.iteration_count for o in outs)
+    kkt = sum(o.iteration_stats[-1].cumulative_kkt_matrix_passes
+              for o in outs)
+    rec = {"seconds": seconds, "ingest_seconds": ingest,
+           "iterations_sum": iterations, "kkt_passes_sum": kkt,
+           "aggregate_iterations_per_second": iterations / seconds,
+           "aggregate_kkt_passes_per_second": kkt / seconds,
+           "step_trials": stats.trials, "evaluations": stats.segments,
+           "dispatches": stats.dispatches, "read_backs": stats.read_backs,
+           "reasons": sorted({o.termination_reason.name for o in outs})}
+    if profile_on:
+        rec["profile"] = run["profile"]
+    rec.update(segment_launches(torch, batch, params, fleet))
+    return rec
+
+
+def segment_launches(torch, batch, params, fleet):
+    """Kernel launches of one step trial and of one evaluation: one
+    segment after the first ten iterations (an evaluation and 30 or more
+    trials) and its evaluation alone, each under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = batch._config(params)
+    state = fleet.initial_state
+    for _ in range(10):  # iterations 1-10 are one segment each
+        state, _, _ = batch.run_segment(fleet.bundle, state, 0.0, config)
+    eval_block = (batch.mp_eval_block if batch._is_mp(params)
+                  else batch.pdhg_eval_block)
+
+    def launches(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    _, per_eval = launches(lambda: eval_block(fleet.bundle, state, 0.0,
+                                              config))
+    (_, _, counts), per_segment = launches(
+        lambda: batch.run_segment(fleet.bundle, state, 0.0, config))
+    return {"segment_trials": counts.trials,
+            "kernel_launches_per_evaluation": per_eval,
+            "kernel_launches_per_trial":
+            (per_segment - per_eval) / max(counts.trials, 1)}
+
+
+def fleet_phases(args, torch, dev, compare, routed,
+                 single_optimize):
+    """The fleet's phases (kernels_lanes, fleet_path, fleet_mirror_prox,
+    fleet_throughput, determinism_fleet, fleet_checkpoint); returns L1's
+    rows for the kernel list."""
+    import dataclasses
+    import tempfile
+
+    from firstorderlp_torch import batch, generators
+    from firstorderlp_torch.ops import lanes
+
+    damping = np.linspace(0.7, 0.995, FLEET_LANES)
+    spec = generators.pagerank_fleet_spec(FLEET_NODES, damping, seed=0)
+    params = make_params(1e-4, 20_000, fmt="auto")
+    t0 = time.time()
+    fleet = batch.prepare_shared_pattern_fleet(params, spec, device=dev)
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    rows = kernels_lanes(torch, lanes, fleet, compare)
+    # the lanes as host problems, for the f64 residuals and the single
+    # solves (the same graph as the spec's)
+    problems = generators.generate_pagerank_lp_fleet(FLEET_NODES, damping,
+                                                     seed=0)
+
+    # 11. the fleet by PDHG, then by Mirror Prox
+    rec = fleet_solve_phase("fleet_path", torch, batch, lanes, routed,
+                            params, spec, fleet, problems, single_optimize)
+    for r in rows:
+        r["launches"] = rec["launches"][r["name"]]
+    del fleet
+    mp_params = make_mp_params(1e-4, 20_000, fmt="auto")
+    mp_fleet = batch.prepare_shared_pattern_fleet(mp_params, spec,
+                                                  device=dev)
+    mrec = fleet_solve_phase("fleet_mirror_prox", torch, batch, lanes,
+                             routed, mp_params, spec, mp_fleet, problems,
+                             single_optimize)
+    for r in rows:
+        r["launches_mirror_prox"] = mrec["launches"][r["name"]]
+    del mp_fleet
+
+    # 12. throughput: bench.py's protocol
+    t_phase = warm_t0 = time.time()
+    batch.prepare_shared_pattern_fleet(params, spec, device=dev)
+    torch.cuda.synchronize()
+    warm_ingest_s = time.time() - warm_t0
+    pdhg = fleet_throughput(
+        torch, batch, lambda tol, lim: make_params(tol, lim, fmt="auto"),
+        spec, args.profile, dev)
+    mirror = fleet_throughput(
+        torch, batch, lambda tol, lim: make_mp_params(tol, lim, fmt="auto"),
+        spec, args.profile, dev)
+    emit({"phase": "fleet_throughput", "ok": True,
+          "nodes": FLEET_NODES, "lanes": FLEET_LANES,
+          "iterations_per_lane": THROUGHPUT_ITERS,
+          "ingest_cold_seconds": ingest_s,
+          "ingest_warm_seconds": warm_ingest_s,
+          "phase_seconds": time.time() - t_phase,
+          "pdhg": pdhg, "mirror_prox": mirror})
+
+    # 13. determinism of a 16-lane fleet, and checkpoint/resume
+    t_phase = time.time()
+    det_spec = generators.pagerank_fleet_spec(
+        FLEET_NODES, np.linspace(0.7, 0.995, DET_FLEET_LANES), seed=0)
+    runs = [batch.solve_batch_shared_pattern(params, det_spec, device=dev)
+            for _ in range(2)]
+    same = all(
+        a.termination_reason == b.termination_reason
+        and a.iteration_count == b.iteration_count
+        and np.array_equal(a.primal_solution, b.primal_solution)
+        and np.array_equal(a.dual_solution, b.dual_solution)
+        for a, b in zip(*runs)
+    ) and all(o.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+              for o in runs[0])
+    emit({"phase": "determinism_fleet", "ok": bool(same),
+          "nodes": FLEET_NODES, "lanes": DET_FLEET_LANES,
+          "phase_seconds": time.time() - t_phase,
+          "iterations": [o.iteration_count for o in runs[0]]})
+    if not same:
+        raise SystemExit(1)
+
+    t_phase = time.time()
+    ck_spec = generators.pagerank_fleet_spec(
+        FLEET_NODES, np.linspace(0.7, 0.995, CKPT_FLEET_LANES), seed=0)
+    full = batch.solve_batch_shared_pattern(params, ck_spec, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/fleet.npz"
+        crit = params.termination_criteria
+        first = dataclasses.replace(
+            params, checkpoint_path=path,
+            termination_criteria=dataclasses.replace(
+                crit, iteration_limit=CKPT_LIMIT))
+        cut_stats = batch.FleetRunStats()
+        cut = batch.solve_batch_shared_pattern(first, ck_spec, device=dev,
+                                               run_stats=cut_stats)
+        resumed = batch.solve_batch_shared_pattern(
+            dataclasses.replace(params, resume_from_checkpoint=path),
+            ck_spec, device=dev)
+    diff = max(max(float(np.max(np.abs(a.primal_solution
+                                       - b.primal_solution))),
+                   float(np.max(np.abs(a.dual_solution - b.dual_solution))))
+               for a, b in zip(resumed, full))
+    bitwise = all(np.array_equal(a.primal_solution, b.primal_solution)
+                  and np.array_equal(a.dual_solution, b.dual_solution)
+                  for a, b in zip(resumed, full))
+    ok = (cut_stats.dispatches == 1
+          and all(o.termination_reason.name
+                  == "TERMINATION_REASON_ITERATION_LIMIT" for o in cut)
+          and [o.termination_reason for o in resumed]
+          == [o.termination_reason for o in full]
+          and diff <= 1e-6)
+    emit({"phase": "fleet_checkpoint", "ok": bool(ok),
+          "lanes": CKPT_FLEET_LANES, "dispatches_before_checkpoint":
+          cut_stats.dispatches,
+          "reasons": sorted({o.termination_reason.name for o in resumed}),
+          "iterations_resumed": [o.iteration_count for o in resumed],
+          "iterations_uninterrupted": [o.iteration_count for o in full],
+          "max_abs_diff": diff, "bitwise_equal": bool(bitwise),
+          "phase_seconds": time.time() - t_phase})
+    if not ok:
+        raise SystemExit(1)
+    return rows
 
 
 def kernels_tiled_large(torch, routed, probe, device_ms, dev):
@@ -501,7 +869,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi_line = probe.card_line()
+    smi_line = _card["line"] = probe.card_line()
     emit({"phase": "device", "ok": True, "name": name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -840,19 +1208,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     ph = "kernels_probe"
 
     def probe_times(kernel, library):
-        """ms and device ms (kernel, library; in turns, medians of
-        three), and kernels a call of each: the largest over the turns,
-        and each turn's (a turn where the profiler lost kernels reads
-        low)."""
+        """ms, device ms and kernels a call of the kernel and the library
+        call, in turns (probe.turn_summary)."""
         timed = probe.in_turns({"kernel": kernel, "library": library})
         out = {}
         for who, prefix in (("kernel", ""), ("library", "library_")):
-            out[prefix + "ms"] = float(np.median(timed[who]["ms"]))
-            out[prefix + "device_ms"] = float(
-                np.median(timed[who]["device_ms"]))
-            counts = timed[who]["kernels_per_call"]
-            out[prefix + "kernels_per_call"] = max(counts)
-            out[prefix + "kernels_per_call_turns"] = counts
+            out.update({prefix + k: v for k, v in
+                        probe.turn_summary(timed[who]).items()})
         return out
 
     host = probe.make_probe_inputs(probe.DEFAULT_NNZ, seed=0)
@@ -922,9 +1284,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "chunks": reduce_plan.nchunks,
         "warps": reduce_plan.warps,
     })
-    if probes[-1]["kernels_per_call"] != 1:
-        fail(ph, f"probe_reduce: {probes[-1]['kernels_per_call']} kernels "
-                 "a call; want 1")
+    # One kernel a call in every turn, counted at its launches.
+    if set(probes[-1]["kernels_per_call_turns"]) != {1}:
+        fail(ph, f"probe_reduce: {probes[-1]['kernels_per_call_turns']} "
+                 "kernels a call in the turns; want 1")
     add_bounds(probes)
     emit({"phase": ph, "ok": True, "nnz": int(g_in.numel()),
           "groups": int(pd["meta"].shape[0]), "strips": n_strips,
@@ -1247,8 +1610,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if not same:
         raise SystemExit(1)
 
-    # 10. kernel list
-    results = results + tiled + probes
+    # 10-13. the shared-pattern fleet
+    lane_rows = fleet_phases(
+        args, torch, dev, compare, routed,
+        lambda p, prob: package_optimize(p, prob, device=dev),
+    )
+
+    # 14. kernel list
+    results = results + tiled + probes + lane_rows
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1260,7 +1629,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "library_kernels_per_call", "bytes_beyond_inputs", "chunks",
              "warps", "blocks",
              "entries_per_block_max", "entries_per_block_mean",
-             "tiles_staged", "tiles_gathered", "bytes_staged", "large")
+             "tiles_staged", "tiles_gathered", "bytes_staged", "large",
+             "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -173,3 +173,35 @@ def mp_state_from_arrays(
         avg_primal_out=floating("avg_primal_out"),
         avg_dual_out=floating("avg_dual_out"),
     )
+
+
+def _lane_leaves(cls, leaves: Dict[str, np.ndarray], device, prefix=""):
+    """`cls` with every leaf a tensor of the array under its dotted key
+    (the nested average and restart info walked by field name)."""
+    nested = {"avg": SolutionWeightedAverage, "restart_info": RestartInfo}
+    values = {}
+    for f in dataclasses.fields(cls):
+        if f.name in nested:
+            values[f.name] = _lane_leaves(nested[f.name], leaves, device,
+                                          prefix + f.name + ".")
+        else:
+            values[f.name] = _tensor(leaves, prefix + f.name, device)
+    return cls(**values)
+
+
+def fleet_state_from_arrays(
+    leaves: Dict[str, np.ndarray], device="cpu"
+) -> PdhgState:
+    """The fleet's PdhgState (batch.py: every leaf a lane tensor) from
+    the leaves of the JAX package's batched PdhgState, minor-stacked
+    ((dim, B) vectors, (B,) scalars), keyed as for state_from_arrays.
+    Every leaf keeps its dtype."""
+    return _lane_leaves(PdhgState, leaves, torch.device(device))
+
+
+def mp_fleet_state_from_arrays(
+    leaves: Dict[str, np.ndarray], device="cpu"
+) -> MirrorProxState:
+    """The fleet's MirrorProxState from the leaves of the JAX package's
+    batched MirrorProxState, as fleet_state_from_arrays."""
+    return _lane_leaves(MirrorProxState, leaves, torch.device(device))

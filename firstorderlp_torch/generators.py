@@ -9,8 +9,9 @@ Reference semantics:
   (benchmarking/generate_l1_svm_lp.jl:45-72, 141-167).
 
 Both produce canonical standard-form problems directly (no MPS round
-trip needed). Copied from the JAX package's generators.py without its
-device-generated fleet spec (batch solves are not ported yet).
+trip needed). Copied from the JAX package's generators.py; its
+device-generated fleet spec (pagerank_fleet_spec) builds a batch.FleetSpec
+whose generators are torch functions.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .problem import QuadraticProgrammingProblem, linear_programming_problem
 
@@ -169,6 +171,80 @@ def generate_pagerank_lp_fleet(
         )
         for d in damping_factors
     ]
+
+
+def pagerank_fleet_spec(
+    num_nodes: int,
+    damping_factors,
+    approx_num_edges: "int | None" = None,
+    seed: int = 0,
+):
+    """A PageRank damping sweep generated on the device (a
+    batch.FleetSpec).
+
+    The whole fleet is an affine function of the damping factor d:
+    A(d) = [sqrt(n) 1'; I - d S] and b(d) = [sqrt(n); (1-d)/n 1], so the
+    spec holds ONE base problem plus the per-entry coefficients (p, q)
+    with A(d).data = p + d q, O(nnz) numbers instead of the (nnz, B)
+    value planes. The coefficients come from two instances of the same
+    constructor (same CSR entry order), as in the JAX package's
+    pagerank_fleet_spec, and the generators compute in f32 as it does.
+    Damping 0 is refused: I - 0 S loses the S entries, so the pattern
+    changes.
+    """
+    from .batch import FleetSpec
+
+    damping = np.asarray(list(damping_factors), dtype=np.float64)
+    if damping.ndim != 1 or damping.size == 0:
+        raise ValueError("damping_factors must be a nonempty 1-D list")
+    if np.any(damping == 0.0):
+        raise ValueError(
+            "damping factor 0 changes the sparsity pattern (I - d S "
+            "loses the S entries); use generate_pagerank_lp_fleet"
+        )
+    if approx_num_edges is None:
+        approx_num_edges = 3 * num_nodes
+    degree = max(1, round(approx_num_edges / num_nodes))
+    adjacency = barabasi_albert_graph(num_nodes, degree, seed)
+
+    def instance(d):
+        return generate_pagerank_lp(
+            num_nodes=num_nodes,
+            approx_num_edges=approx_num_edges,
+            damping_factor=float(d),
+            seed=seed,
+            _adjacency=adjacency,
+        )
+
+    d1, d2 = 0.5, 0.75
+    base = instance(float(damping[0]))
+    a1 = sp.csr_matrix(instance(d1).constraint_matrix)
+    a1.sum_duplicates()
+    a2 = sp.csr_matrix(instance(d2).constraint_matrix)
+    a2.sum_duplicates()
+    q = (a2.data - a1.data) / (d2 - d1)
+    p = a1.data - d1 * q
+    n = num_nodes
+    rhs_p = np.concatenate([[np.sqrt(n)], np.full(n, 1.0 / n)])
+    rhs_q = np.concatenate([[0.0], np.full(n, -1.0 / n)])
+    # host (numpy) constants, moved to the lane's device when generated
+    p32, q32 = p.astype(np.float32), q.astype(np.float32)
+    rhs_p32, rhs_q32 = rhs_p.astype(np.float32), rhs_q.astype(np.float32)
+
+    def affine(p_host, q_host):
+        def generate(d):
+            dev = d.device
+            return (torch.as_tensor(p_host, device=dev)
+                    + d.to(torch.float32) * torch.as_tensor(q_host,
+                                                            device=dev))
+        return generate
+
+    return FleetSpec(
+        base_problem=base,
+        thetas=damping,
+        matrix_values=affine(p32, q32),
+        right_hand_side=affine(rhs_p32, rhs_q32),
+    )
 
 
 @dataclasses.dataclass

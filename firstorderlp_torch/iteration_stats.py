@@ -1,7 +1,10 @@
 """Iteration statistics: residuals, objectives, infeasibility certificates.
 
-Device-side functions returning namedtuples of 0-d torch tensors (always
-computed on the unscaled original problem),
+Device-side functions returning namedtuples of torch tensors (always
+computed on the unscaled original problem). Every reduction is over dim
+0, so a vector (dim,) gives 0-d results and a fleet's lanes (dim, B),
+with per-lane bounds, objective constant and norm cache, give (B,)
+results (batch.py);
 plus host-side conversion to solve_log.IterationStats and the console
 display table.
 
@@ -51,13 +54,13 @@ class DeviceInfeasibilityInfo(NamedTuple):
 
 
 def _linf(x):
-    if x.numel() == 0:
-        return torch.zeros((), dtype=x.dtype, device=x.device)
-    return torch.max(torch.abs(x))
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    return torch.amax(torch.abs(x), dim=0)
 
 
 def _l2sq(x):
-    return torch.sum(x * x)
+    return torch.sum(x * x, dim=0)
 
 
 def _zero(like):
@@ -122,9 +125,11 @@ def reduced_costs_dual_objective_contribution(lb, ub, reduced_costs):
     needs_infinite = active & ~torch.isfinite(bound)
     safe_bound = torch.where(active & torch.isfinite(bound), bound, 0.0)
     contribution = torch.sum(
-        safe_bound * torch.where(active, reduced_costs, 0.0)
+        safe_bound * torch.where(active, reduced_costs, 0.0), dim=0
     )
-    return torch.where(torch.any(needs_infinite), -torch.inf, contribution)
+    return torch.where(
+        torch.any(needs_infinite, dim=0), -torch.inf, contribution
+    )
 
 
 def compute_dual_stats(
@@ -163,7 +168,7 @@ def compute_dual_stats(
     linf = torch.maximum(_linf(dual_sign_violation), _linf(rc_violation))
     l2 = torch.sqrt(_l2sq(dual_sign_violation) + _l2sq(rc_violation))
 
-    base_dual_objective = torch.sum(b * dual) + const - 0.5 * qx_dot_x
+    base_dual_objective = torch.sum(b * dual, dim=0) + const - 0.5 * qx_dot_x
     dual_objective = (
         base_dual_objective
         + reduced_costs_dual_objective_contribution(
@@ -186,12 +191,12 @@ def compute_convergence_information(
     qx = problem.qx(primal)
     primal_objective = (
         problem.objective_constant
-        + torch.sum(problem.objective_vector * primal)
-        + 0.5 * torch.sum(primal * qx)
+        + torch.sum(problem.objective_vector * primal, dim=0)
+        + 0.5 * torch.sum(primal * qx, dim=0)
     )
     primal_gradient = qx + problem.objective_vector - problem.aty(dual)
     dual_stats = compute_dual_stats(
-        problem, primal, dual, primal_gradient, torch.sum(primal * qx)
+        problem, primal, dual, primal_gradient, torch.sum(primal * qx, dim=0)
     )
     corrected_dual_objective = torch.where(
         dual_stats.l_inf_dual_residual == 0.0,
@@ -260,7 +265,7 @@ def compute_infeasibility_information(
         torch.maximum(_linf(lower_violation), _linf(upper_violation)),
     )
     primal_ray_linear_objective = torch.sum(
-        problem.objective_vector * primal_ray
+        problem.objective_vector * primal_ray, dim=0
     )
     primal_ray_quadratic_norm = _linf(problem.qx(primal_ray))
 

@@ -3,14 +3,18 @@ GPU, optionally beside those of another checkout of this package, in
 turns on the same card.
 
     python3 -m firstorderlp_torch.ops.compare_kernels
-        [--layout csr|tiled|probe] [--nodes N] [--parent DIR] [--bulk]
-        [--sweep] [--out FILE]
+        [--layout csr|tiled|probe|lanes] [--nodes N] [--lanes B]
+        [--parent DIR] [--bulk] [--sweep] [--out FILE]
 
 --layout: the CSR kernels (spmv_csr, spmv_dual_step, spmv_rmv_stats;
   the default), the tile-plan kernels (tiled_spmv, tiled_dual_step,
   tiled_rmv_stats) or the probe's two kernels (probe_expand,
   probe_reduce) at the probe's default size (--nodes and --bulk do not
-  apply).
+  apply), or the fleet's lane kernel (lanes_spmv, A and A') on the
+  scaled value planes of a PageRank damping sweep of --lanes lanes
+  (default 128) at --nodes nodes (default 20,000 for this layout;
+  --bulk does not apply), beside the block-diagonal library SpMV
+  (ops/lanes.library_lanes_matrix).
 --parent DIR: a directory that holds another version of this package
   under the name `firstorderlp_torch_parent` (for example
   `git archive <commit> firstorderlp_torch | tar -x -C DIR` and a
@@ -21,8 +25,8 @@ turns on the same card.
   instead of the rescaled generate_pagerank_lp.
 --sweep: this package's kernels again at other item sizes and group
   widths (csr), at other warps per block and strip and group sizes
-  (tiled), or probe_reduce at other chunk counts and warps per block
-  (probe).
+  (tiled), probe_reduce at other chunk counts and warps per block
+  (probe), or lanes_spmv at other item sizes (lanes).
 
 Prints one JSON line per step, after the card's name and power limit:
 what ptxas said of the layout's kernels; each kernel against its plain
@@ -40,6 +44,10 @@ one-call library product (`library_*`); the bytes bound; csr: also the
 device time and events time of the product with no row cut into pieces
 (`*_without_row_split`); last (csr, tiled) the tails, turn by turn: the
 fused kernels' device time over the product's on the same matrix.
+Lanes: one "time" line per orientation (lanes_row, which chip_smoke.py
+shares) with the checks and the times in one. Kernels a call are counted
+at their launches on the host, and the device time of the kernels the
+profiler kept is scaled to them (probe_routed.device_profile).
 """
 
 from __future__ import annotations
@@ -115,7 +123,8 @@ def repeat_differs(call, tickets=(), times: int = REPEATS):
                   for u, v in zip(first, outputs())]
         if any(differ):
             return f"launch {k + 1} differs from the first in {differ} entries"
-    torch.cuda.synchronize()
+    if first[0].is_cuda:
+        torch.cuda.synchronize()
     if any(bool(t.any()) for t in tickets):
         return "a ticket is not back at zero"
     return None
@@ -366,11 +375,149 @@ def compare_probe(args, dev, card, emit):
         sweep_probe(d, emit)
 
 
+class KernelMismatch(RuntimeError):
+    """A kernel disagrees with its plain version or does not repeat its
+    bits."""
+
+
+def check_lanes(label, half, vals, v):
+    """L1 (ops/lanes.lanes_spmv) on one orientation of a fleet ("A": `half`
+    is the pattern's fwd, "AT": its bwd), its value planes `vals` and lane
+    vectors `v`: against the f64 product entry by entry and against its
+    plain version (TOL_ENTRY, TOL_ABS), REPEATS launches bitwise equal
+    with the tickets back at zero, and the block-diagonal library SpMV
+    against the f64 product. The errors as a row; raises KernelMismatch."""
+    from . import lanes
+
+    name = f"lanes_spmv:{label}"
+    got = lanes.lanes_spmv(half, vals, v)
+    plain = lanes.lanes_spmv_plain(half, vals, v)
+    f64 = lanes.lanes_spmv_plain(half, vals.double(), v.double())
+    scale = lanes.lanes_spmv_plain(half, vals.double().abs(),
+                                   v.double().abs())
+    err = (got.double() - f64).abs()
+    bad = err > TOL_ENTRY * scale + TOL_ABS
+    if bool(bad.any()):
+        raise KernelMismatch(f"{name}: {int(bad.sum())} entries off the f64 "
+                             f"product, max |d| {float(err.max()):.3e}")
+    err_plain = float((got - plain).abs().max())
+    if err_plain > TOL_ENTRY * float(scale.max()) + TOL_ABS:
+        raise KernelMismatch(f"{name}: max |d| {err_plain:.3e} against its "
+                             "plain version")
+    problem = repeat_differs(lambda: lanes.lanes_spmv(half, vals, v),
+                             (half.tickets,))
+    if problem:
+        raise KernelMismatch(f"{name}: {problem}")
+    lib = lanes.library_lanes_matrix(half, vals) @ v.reshape(-1)
+    return {"name": name,
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (scale + 1e-30)).max()),
+            "max_abs_err_vs_plain": err_plain,
+            "library_max_abs_err": float(
+                (lib.reshape(-1, v.shape[1]).double() - f64).abs().max()),
+            "repeats_bitwise": REPEATS}
+
+
+def lanes_row(label, half, vals, v, parent_call=None):
+    """check_lanes, then L1 timed in turns (probe_routed.in_turns) beside
+    the block-diagonal library SpMV and `parent_call`, another version's
+    launch, if given; with its plain
+    version's time, its bound and its work items. The row of
+    chip_smoke.py's kernels_lanes and of --layout lanes."""
+    from . import lanes
+
+    row = check_lanes(label, half, vals, v)
+    nl = v.shape[1]
+    lib = lanes.library_lanes_matrix(half, vals)
+    flat = v.reshape(-1)
+    turns = {"this": lambda: lanes.lanes_spmv(half, vals, v),
+             "library": lambda: lib @ flat}
+    if parent_call is not None:
+        turns = {"parent": parent_call, **turns}
+    for who, got in probe_routed.in_turns(turns).items():
+        prefix = "" if who == "this" else f"{who}_"
+        row.update({prefix + k: value for k, value in
+                    probe_routed.turn_summary(got).items()})
+        row[prefix + "burst_ms"] = burst_ms(turns[who])
+    sizes = np.diff(half.items.cpu().numpy()[:, 0])
+    row.update({
+        "plain_ms": probe_routed.time_ms(
+            lambda: lanes.lanes_spmv_plain(half, vals, v)),
+        "bytes": lanes.lanes_kernel_bytes(half, nl, v.element_size()),
+        "flops": 2 * half.nnz * nl,
+        "lanes": nl, "nnz": half.nnz, "rows": half.num_rows,
+        "blocks": half.nitems, "item_entries": half.item_entries,
+        "entries_per_block_max": int(sizes.max()),
+        "entries_per_block_mean": float(sizes.mean()),
+    })
+    row["bound_ms"], row["bound_by"] = probe_routed.bound_ms(row["bytes"],
+                                                             row["flops"])
+    return row
+
+
+def compare_lanes(args, dev, card, emit):
+    """--layout lanes: L1 on a fleet's scaled planes, checked, against
+    the parent's bits, timed in turns with the block-diagonal library
+    SpMV (lanes_row) and (--sweep) at other item sizes."""
+    from .. import batch
+    from . import lanes
+
+    nodes, nl = args.nodes or 20_000, args.lanes
+    spec = generators.pagerank_fleet_spec(
+        nodes, np.linspace(0.7, 0.995, nl), seed=0)
+    pat = batch._canonical_csr(spec.base_problem.constraint_matrix)
+    m, n = pat.shape
+    pattern = lanes.build_lanes_pattern(pat, dev)
+    v_orig, vectors, _ = batch._spec_lanes(spec, torch.float32, dev,
+                                           (m, n, pat.nnz))
+    op = lanes.lanes_op(pattern, batch.fleet_rescale(
+        pattern, v_orig, vectors, 10, False, 1.0).v)
+    rng = np.random.default_rng(0)
+    vecs = {"A": torch.as_tensor(rng.standard_normal((n, nl)),
+                                 device=dev).float(),
+            "AT": torch.as_tensor(rng.standard_normal((m, nl)),
+                                  device=dev).float()}
+
+    def calls(mod, pat_obj):
+        return {
+            "lanes_spmv:A": lambda: mod.lanes_spmv(pat_obj.fwd, op.vals,
+                                                   vecs["A"]),
+            "lanes_spmv:AT": lambda: mod.lanes_spmv(pat_obj.bwd, op.vals_t,
+                                                    vecs["AT"]),
+        }
+
+    emit({"step": "fleet", "layout": "lanes", "card": card, "m": m,
+          "n": n, "nnz": pat.nnz, "lanes": nl})
+    parent_calls = {}
+    if args.parent:
+        old = package_module("ops.lanes", args.parent)
+        parent_calls = calls(old, old.build_lanes_pattern(pat, dev))
+        emit({"step": "bitwise_equal_to_parent",
+              "equal": same_bits(calls(lanes, pattern), parent_calls)})
+    for label, half, vals in (("A", pattern.fwd, op.vals),
+                              ("AT", pattern.bwd, op.vals_t)):
+        row = lanes_row(label, half, vals, vecs[label],
+                        parent_calls.get(f"lanes_spmv:{label}"))
+        emit({"step": "time", "card": card, **row})
+    if args.sweep:
+        for entries in (16, 32, 64, 128, 256, 512, 2048):
+            swept = lanes.build_lanes_pattern(pat, dev, item_entries=entries)
+            row = {"step": "sweep", "item_entries": entries, "card": card}
+            for name, call in calls(lanes, swept).items():
+                row[name] = {"device_ms": device_ms(call),
+                             "blocks": (swept.fwd if name.endswith(":A")
+                                        else swept.bwd).nitems}
+            emit(row)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--layout", choices=sorted(KERNELS) + ["probe"],
+    parser.add_argument("--layout",
+                        choices=sorted(KERNELS) + ["probe", "lanes"],
                         default="csr")
-    parser.add_argument("--nodes", type=int, default=100_000)
+    parser.add_argument("--nodes", type=int, default=None,
+                        help="default 100,000 (20,000 for lanes)")
+    parser.add_argument("--lanes", type=int, default=128)
     parser.add_argument("--parent")
     parser.add_argument("--bulk", action="store_true")
     parser.add_argument("--sweep", action="store_true")
@@ -390,8 +537,8 @@ def main(argv=None) -> int:
     card = probe_routed.card_line()
     print(card, flush=True)
     kernels_build.build_kernels()
-    names = (probe_routed.LAUNCHES if layout == "probe"
-             else KERNELS[layout])
+    names = {"probe": probe_routed.LAUNCHES,
+             "lanes": ("lanes_spmv",)}.get(layout) or KERNELS[layout]
     emit({"step": "build", "layout": layout,
           "seconds": kernels_build.last_build_seconds,
           "ptxas": {lib: [ln.strip() for ln in log.splitlines()
@@ -401,6 +548,10 @@ def main(argv=None) -> int:
     if layout == "probe":
         compare_probe(args, dev, card, emit)
         return finish(args, card, lines)
+    if layout == "lanes":
+        compare_lanes(args, dev, card, emit)
+        return finish(args, card, lines)
+    args.nodes = args.nodes or 100_000
 
     rng = np.random.default_rng(0)
     if args.bulk:

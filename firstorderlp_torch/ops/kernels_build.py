@@ -35,6 +35,7 @@ KERNEL_SOURCES = {
     "tiled_rmv_stats": "tiled_rmv_stats.cu",
     "probe_expand": "probe_expand.cu",
     "probe_reduce": "probe_reduce.cu",
+    "lanes_spmv": "lanes_spmv.cu",
 }
 
 NVCC_FLAGS = [
@@ -134,6 +135,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     probe_expand = [p, p, p, p, p, i, i, i, i]
     # chunks g v hi lo scratch tickets y, then nchunks hr warps
     probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
+    # indptr indices vals items nitems x y scratch tickets lanes elem_bytes
+    lanes_spmv = [p, p, p, p, i, p, p, p, p, i, i]
     arguments = {
         "spmv_csr": csr + spmv,
         "spmv_dual_step": csr + dual_step,
@@ -143,6 +146,7 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "tiled_rmv_stats": plan + rmv_stats,
         "probe_expand": probe_expand,
         "probe_reduce": probe_reduce,
+        "lanes_spmv": lanes_spmv,
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
     fn.argtypes = arguments + [p]  # trailing: the CUDA stream

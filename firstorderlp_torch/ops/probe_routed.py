@@ -48,6 +48,13 @@ GROUP_ROWS = 8  # a group is 8 rows of 128 entries
 GROUP_ENTRIES = GROUP_ROWS * 128
 TIMING_REPS = 100
 TURNS = 3  # turns of in_turns: the spread of a device time between turns
+# The host calls that put one record on the device each, as
+# torch.profiler names them: kernel launches (runtime and driver API)
+# and asynchronous copies and fills.
+LAUNCH_CALLS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+    "cudaMemsetAsync"})
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -395,41 +402,82 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 10) -> float:
     return float(statistics.median(times))
 
 
-def device_profile(fn, calls: int = 50):
-    """(device ms, kernels launched) per call: every kernel under
-    torch.profiler over `calls` calls, the library's and PyTorch's own
-    included."""
+def _profile_window(fn, calls: int):
+    """(device us of the device records kept, device records kept,
+    launches) of `calls` calls under torch.profiler. Launches are the
+    host's launch and async copy calls, each of which puts one record
+    on the device."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    return total_us / 1e3 / calls, sum(e.count for e in kernels) / calls
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key in LAUNCH_CALLS)
+    return (sum(e.self_device_time_total for e in device),
+            sum(e.count for e in device), launches)
+
+
+def _device_profile(fn, calls: int = 50):
+    """(device ms, kernels launched, device records kept) per call."""
+    fn()
+    torch.cuda.synchronize()
+    total_us, kept, launches = _profile_window(fn, calls)
+    # more records than launches: a launch through a call not listed
+    kernels = max(launches, kept)
+    # the kernels the profiler lost, at the mean time of those it kept
+    scale = kernels / kept if kept else 0.0
+    return total_us * scale / 1e3 / calls, kernels / calls, kept / calls
+
+
+def device_profile(fn, calls: int = 50):
+    """(device ms, kernels launched) per call: every kernel under
+    torch.profiler over `calls` calls, the library's and PyTorch's own
+    included. The kernels are counted at their launches on the host (or
+    as the device records kept, where those are more). In a process that
+    has run for a minute or more the profiler keeps fewer device records
+    than there were kernels, a share that grows with the process's age
+    (PERF.md), so the device time of the records kept is scaled by
+    kernels over kept, which is exact for a call of one kernel."""
+    return _device_profile(fn, calls)[:2]
 
 
 def in_turns(calls: Dict[str, object]) -> Dict[str, dict]:
     """Times every call of `calls` (name -> function) in TURNS turns:
     the names in order, then in reverse, and so on. Per name: "ms"
-    (time_ms), "device_ms" and "kernels_per_call" (device_profile), one
-    value a turn. The profiler may lose kernels in a turn, which then
-    reads low; a second kernel a call shows in every turn, so the
-    largest count over the turns is the one to hold to a limit."""
-    out = {key: {"ms": [], "device_ms": [], "kernels_per_call": []}
+    (time_ms), "device_ms" and "kernels_per_call" (device_profile), and
+    "kept_per_call" (the device records the profiler kept a call), one
+    value a turn."""
+    out = {key: {"ms": [], "device_ms": [], "kernels_per_call": [],
+                 "kept_per_call": []}
            for key in calls}
     for r in range(TURNS):
         for key in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
             out[key]["ms"].append(time_ms(calls[key]))
-            device, kernels = device_profile(calls[key])
+            device, launched, kept = _device_profile(calls[key])
             out[key]["device_ms"].append(device)
-            out[key]["kernels_per_call"].append(kernels)
+            out[key]["kernels_per_call"].append(launched)
+            out[key]["kept_per_call"].append(kept)
     return out
+
+
+def turn_summary(got: dict) -> dict:
+    """One name of in_turns' result in numbers: "ms" and "device_ms",
+    the medians over the turns; "kernels_per_call", the largest over the
+    turns; and each turn's device ms, kernels launched and device
+    records kept a call."""
+    return {"ms": float(statistics.median(got["ms"])),
+            "device_ms": float(statistics.median(got["device_ms"])),
+            "device_ms_turns": list(got["device_ms"]),
+            "kernels_per_call": max(got["kernels_per_call"]),
+            "kernels_per_call_turns": list(got["kernels_per_call"]),
+            "kept_per_call_turns": list(got["kept_per_call"])}
 
 
 def card_line() -> str:
@@ -450,13 +498,14 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _timing_line(timed, who):
-    got = timed[who]
-    turns = ", ".join(f"{t:.5f}" for t in got["device_ms"])
-    return (f"{statistics.median(got['ms']):.4f} ms, device "
-            f"{statistics.median(got['device_ms']):.4f} ms ({turns}), "
-            "kernels a call "
-            f"({', '.join(f'{k:g}' for k in got['kernels_per_call'])})")
+def _timing_line(row, prefix=""):
+    turns = ", ".join(f"{t:.5f}" for t in row[prefix + "device_ms_turns"])
+    device = row[prefix + "device_ms"]
+    device = "none complete" if device is None else f"{device:.4f} ms"
+    counts = ", ".join(f"{k:g}"
+                       for k in row[prefix + "kernels_per_call_turns"])
+    return (f"{row[prefix + 'ms']:.4f} ms, device {device} ({turns}), "
+            f"kernels a call ({counts})")
 
 
 def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
@@ -478,19 +527,17 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
     def line(text):
         print(f"[{card}] {text}")
 
-    def record(name, timed, extra):
+    def record(name, calls, extra):
+        """Times the kernel and the library call in turns."""
+        timed = in_turns(calls)
         row = dict(extra)
         for who, got in timed.items():
             prefix = "" if who == "kernel" else f"{who}_"
-            row[prefix + "ms"] = float(statistics.median(got["ms"]))
-            row[prefix + "device_ms"] = float(
-                statistics.median(got["device_ms"]))
-            row[prefix + "kernels_per_call"] = max(got["kernels_per_call"])
-        row["turns"] = timed
+            row.update({prefix + k: v for k, v in turn_summary(got).items()})
         result[name] = row
-        line(f"{name}: {_timing_line(timed, 'kernel')} (bound "
+        line(f"{name}: {_timing_line(row)} (bound "
              f"{extra['bound_ms']:.4f} ms by {extra['bound_by']}; library "
-             f"{_timing_line(timed, 'library')}; "
+             f"{_timing_line(row, 'library_')}; "
              f"{nnz / row['ms'] / 1e6:.2f} Gentry/s)")
 
     # expand
@@ -505,7 +552,7 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
              "library": lambda: library_expand(
                  dev["strip_ids"], dev["x_strips"], hi64, lo64)}
     bound, by = bound_ms(expand_bytes(*args), 0)
-    record("expand", in_turns(calls),
+    record("expand", calls,
            {"bound_ms": bound, "bound_by": by, "max_abs_err": err})
     line(f"expand max abs err vs numpy: {err:.2e}")
 
@@ -538,7 +585,7 @@ def run_probe(nnz: int = DEFAULT_NNZ, device=None) -> dict:
     extra = {"bound_ms": bound, "bound_by": by, "max_rel_err": err,
              "chunks": plan.nchunks, "warps": plan.warps,
              "bytes_beyond_inputs": reduce_scratch_bytes(plan)}
-    record("reduce", in_turns(calls), extra)
+    record("reduce", calls, extra)
     line(f"reduce max rel err vs numpy: {err:.2e}; {plan.nchunks} chunks "
          f"of {plan.warps} warps, {extra['bytes_beyond_inputs']} bytes "
          "beyond the inputs")

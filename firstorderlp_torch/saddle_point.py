@@ -85,8 +85,9 @@ def project_dual(dual, problem):
 
 
 def weighted_norm(vec, weights):
-    """sqrt(sum_i w_i v_i^2) (reference l.119-129)."""
-    return torch.sqrt(torch.sum(weights * vec * vec))
+    """sqrt(sum_i w_i v_i^2) (reference l.119-129), over dim 0: per lane
+    for a fleet's (dim, B) vectors."""
+    return torch.sqrt(torch.sum(weights * vec * vec, dim=0))
 
 
 # ---------------------------------------------------------------------------

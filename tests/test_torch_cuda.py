@@ -23,7 +23,10 @@ rows than a strip, a single strip; tiled_rmv_stats also on a plan of A'
 with split strips and on one without. The probe's reduce is one kernel
 a call, gives the same bits on every launch with its tickets back at
 zero, and writes every strip, those that no group names too, at every
-block size it allows.
+block size it allows. The lane kernel (ops/lanes.py) is held against its
+plain version in f32 and f64 at 1 to 300 lanes, with the dense rows cut
+into pieces and walked whole, repeats its bits with the tickets back at
+zero, rejects bad inputs, and carries a small fleet to OPTIMAL.
 """
 
 import dataclasses
@@ -648,3 +651,126 @@ def test_probe_kernels_guard_out_of_range_indices(cuda):
         probe.N_STRIPS)
     err = (got.double() - want).abs().max() / (want.abs().max() + 1)
     assert float(err) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The lane kernel L1 (ops/lanes.py) and the fleet
+# ---------------------------------------------------------------------------
+
+
+def lane_case(cuda, name, lanes_count, dtype, item_entries, seed=0):
+    from firstorderlp_torch.ops import lanes
+
+    a = sp.csr_matrix(MATRICES[name](), dtype=np.float64)
+    a.sum_duplicates()
+    a.sort_indices()
+    pattern = lanes.build_lanes_pattern(a, cuda, item_entries=item_entries)
+    rng = np.random.default_rng(seed)
+    vals = torch.as_tensor(rng.standard_normal((a.nnz, lanes_count)),
+                           device=cuda).to(dtype)
+    op = lanes.lanes_op(pattern, vals)
+    x = torch.as_tensor(rng.standard_normal((a.shape[1], lanes_count)),
+                        device=cuda).to(dtype)
+    y = torch.as_tensor(rng.standard_normal((a.shape[0], lanes_count)),
+                        device=cuda).to(dtype)
+    return lanes, pattern, op, x, y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes_count", [1, 3, 128, 300])
+@pytest.mark.parametrize("item_entries", [16, 64, 256])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_lanes_spmv_matches_plain(cuda, name, item_entries, lanes_count,
+                                  dtype):
+    """Against the plain version in f64, both orientations: within
+    1e-5 (|A||x|) + 1e-7 in f32, 1e-12 (|A||x|) + 1e-14 in f64."""
+    lanes, pattern, op, x, y = lane_case(cuda, name, lanes_count, dtype,
+                                         item_entries)
+    rel, tiny = (1e-5, 1e-7) if dtype == torch.float32 else (1e-12, 1e-14)
+    for half, vals, v in ((pattern.fwd, op.vals, x),
+                          (pattern.bwd, op.vals_t, y)):
+        got = lanes.lanes_spmv(half, vals, v)
+        want = lanes.lanes_spmv_plain(half, vals.double(), v.double())
+        scale = lanes.lanes_spmv_plain(half, vals.double().abs(),
+                                       v.double().abs())
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.double() - want).abs()
+        assert bool((err <= rel * scale + tiny).all()), float(err.max())
+
+
+@pytest.mark.parametrize("lanes_count", [3, 128])
+@pytest.mark.parametrize("item_entries", [16, 256])
+def test_lanes_spmv_repeats_bitwise(cuda, item_entries, lanes_count):
+    lanes, pattern, op, x, y = lane_case(cuda, "hub", lanes_count,
+                                         torch.float32, item_entries)
+    for half, vals, v in ((pattern.fwd, op.vals, x),
+                          (pattern.bwd, op.vals_t, y)):
+        problem = repeat_differs(lambda: lanes.lanes_spmv(half, vals, v),
+                                 (half.tickets,))
+        assert problem is None, problem
+
+
+def test_lanes_wrapper_rejects_bad_inputs_and_counts(cuda):
+    lanes, pattern, op, x, y = lane_case(cuda, "tiny", 4, torch.float32, 16)
+    half = pattern.fwd
+    bad = (
+        (TypeError, (op.vals, x.half())),  # f16
+        (TypeError, (op.vals.double(), x)),  # values of another dtype
+        (ValueError, (op.vals, x[:-1])),  # short x
+        (ValueError, (op.vals[:, :3].contiguous(), x)),  # fewer lanes
+        (ValueError, (op.vals, x.cpu())),  # a CPU x
+        (ValueError, (op.vals, x.T.contiguous().T)),  # strided x
+    )
+    for error, args in bad:
+        with pytest.raises(error):
+            lanes.lanes_spmv(half, *args)
+    lanes.reset_launch_counts()
+    op.mv(x)
+    op.rmv(y)
+    op.rmv(y)
+    assert lanes.LAUNCHES == {"lanes_spmv:A": 1, "lanes_spmv:AT": 2}
+
+
+def test_fleet_solves_on_the_card(cuda):
+    """A 4-lane FleetSpec fleet in f32 on the card ends OPTIMAL at 1e-4
+    in every lane through the lane kernel, with the reasons of the same
+    fleet on the CPU."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.generators import pagerank_fleet_spec
+    from firstorderlp_torch.ops import lanes
+
+    import firstorderlp_torch as tx
+
+    params = tx.PdhgParameters(
+        l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+        pock_chambolle_alpha=1.0, primal_importance=1.0,
+        scale_invariant_initial_primal_weight=True, verbosity=0,
+        record_iteration_stats=False, termination_evaluation_frequency=40,
+        termination_criteria=tx.TerminationCriteria(
+            eps_optimal_absolute=1e-4, eps_optimal_relative=1e-4,
+            eps_primal_infeasible=0.0, eps_dual_infeasible=0.0,
+            iteration_limit=20_000),
+        restart_params=tx.construct_restart_parameters(
+            restart_scheme=tx.RestartScheme.ADAPTIVE_NORMALIZED,
+            restart_to_current_metric=(
+                tx.RestartToCurrentMetric.GAP_OVER_DISTANCE_SQUARED),
+            restart_frequency_if_fixed=100, artificial_restart_threshold=0.5,
+            sufficient_reduction_for_restart=0.1,
+            necessary_reduction_for_restart=0.9,
+            primal_weight_update_smoothing=0.5,
+            use_approximate_localized_duality_gap=False),
+        step_size_policy_params=tx.AdaptiveStepsizeParams(
+            reduction_exponent=0.3, growth_exponent=0.6),
+        dtype="float32",
+    )
+    spec = pagerank_fleet_spec(500, [0.7, 0.8, 0.9, 0.99], seed=0)
+    lanes.reset_launch_counts()
+    on_card = batch.solve_batch_shared_pattern(params, spec, device=cuda)
+    assert lanes.LAUNCHES["lanes_spmv:A"] > 0
+    assert lanes.LAUNCHES["lanes_spmv:AT"] > 0
+    on_cpu = batch.solve_batch_shared_pattern(params, spec, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+        assert b.termination_reason == a.termination_reason
+        assert np.all(np.isfinite(a.primal_solution))

@@ -355,3 +355,54 @@ def test_probe_needs_a_gpu():
         probe.run_probe(1024)
     with pytest.raises(RuntimeError, match="CUDA"):
         probe.main(["1024"])
+
+
+def test_turn_summary_gives_medians_and_each_turn():
+    """probe_routed.turn_summary: the medians of the times over the
+    turns, the largest count of kernels launched a call, and each turn's
+    device time, launches and device records kept."""
+    got = {"ms": [0.3, 0.1, 0.2], "device_ms": [0.05, 0.07, 0.072],
+           "kernels_per_call": [1.0, 2.0, 1.0],
+           "kept_per_call": [0.76, 1.0, 1.0]}
+    summary = probe.turn_summary(got)
+    assert summary["ms"] == 0.2 and summary["device_ms"] == 0.07
+    assert summary["kernels_per_call"] == 2.0
+    assert summary["device_ms_turns"] == got["device_ms"]
+    assert summary["kernels_per_call_turns"] == got["kernels_per_call"]
+    assert summary["kept_per_call_turns"] == got["kept_per_call"]
+
+
+@pytest.mark.parametrize("kept, launches, want_ms", [
+    (50, 50, 1000.0 / 50 / 1e3),  # every device record kept
+    (38, 50, 1000.0 * 50 / 38 / 50 / 1e3),  # 12 lost: their mean time
+    (150, 100, 1000.0 / 50 / 1e3),  # a launch through a call not listed
+    (0, 50, 0.0),  # nothing kept
+])
+def test_device_profile_counts_launches_and_scales_the_time_kept(
+        monkeypatch, kept, launches, want_ms):
+    """device_profile: kernels a call are the host's launch calls (the
+    device records kept, where those are more), and the device time of
+    the records the profiler kept is scaled by kernels over kept (exact
+    for a call of one kernel)."""
+    windows = []
+
+    def window(fn, calls):
+        windows.append(calls)
+        return 1000.0, kept, launches
+
+    monkeypatch.setattr(probe, "_profile_window", window)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ms, kernels = probe.device_profile(lambda: None, 50)
+    assert windows == [50]
+    assert ms == pytest.approx(want_ms, rel=1e-15, abs=0)
+    assert kernels == max(launches, kept) / 50
+    assert probe._device_profile(lambda: None, 50)[2] == kept / 50
+
+
+def test_launch_calls_are_the_profilers_names():
+    """The host calls device_profile counts, by torch.profiler's names:
+    the runtime's and the driver's kernel launches and the asynchronous
+    copies and fills, and no synchronisation."""
+    assert {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cudaMemcpyAsync", "cudaMemsetAsync"} <= probe.LAUNCH_CALLS
+    assert not {name for name in probe.LAUNCH_CALLS if "ynchron" in name}
