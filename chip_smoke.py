@@ -69,8 +69,11 @@ Phases, each printing one JSON line:
     version on the card and an f64 recomputation, 20 launches bitwise
     equal with the tickets back at zero, with times (events; device time
     and kernels a call in turns with the block-diagonal library SpMV),
-    the bound, blocks and entries per block (ops/compare_kernels.lanes_row,
-    which compare_kernels --layout lanes prints too);
+    the bound, blocks and entries per block, and the launch's design: the
+    variant (lanes a thread), the entries a warp loads at once, and what
+    ptxas said of registers, static shared memory and spills
+    (ops/compare_kernels.lanes_row, which compare_kernels --layout lanes
+    prints too);
 11. fleet_path: batch.solve_batch_shared_pattern on that fleet (a
     FleetSpec, pagerank_fleet_spec) by PDHG in f32 to 1e-4 with a limit
     of 20,000 iterations a lane; every lane OPTIMAL with residuals and
@@ -512,6 +515,47 @@ def segment_launches(torch, batch, params, fleet):
             (per_segment - per_eval) / max(counts.trials, 1)}
 
 
+def fleet_parent(torch, compare, parent_dir, dev):
+    """fleet_throughput's PDHG protocol (zero tolerances,
+    THROUGHPUT_ITERS iterations a lane, the 128-lane fleet prepared and
+    solved once untimed) by another version of this package
+    (`parent_dir` holds it as `firstorderlp_torch_parent`) and by this
+    one, in turns (parent, this, this, parent): lane-iterations a
+    second, seconds (host clock up to a device synchronize) and L1's
+    launches in each timed solve."""
+    dirs = {"parent": parent_dir, "this": None}
+    runs = {}
+    for who, where in dirs.items():
+        pkg, batch, generators, lanes = (
+            compare.package_module(part, where)
+            for part in ("", "batch", "generators", "ops.lanes"))
+        params = make_params(0.0, THROUGHPUT_ITERS, fmt="auto", pkg=pkg)
+        spec = generators.pagerank_fleet_spec(
+            FLEET_NODES, np.linspace(0.7, 0.995, FLEET_LANES), seed=0)
+        fleet = batch.prepare_shared_pattern_fleet(params, spec, device=dev)
+        batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+        runs[who] = (batch, lanes, params, spec, fleet)
+    torch.cuda.synchronize()
+    rows = []
+    for who in ("parent", "this", "this", "parent"):
+        batch, lanes, params, spec, fleet = runs[who]
+        lanes.reset_launch_counts()
+        t0 = time.time()
+        outs = batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        iterations = sum(o.iteration_count for o in outs)
+        rows.append({"package": who, "seconds": seconds,
+                     "iterations_sum": iterations,
+                     "aggregate_iterations_per_second": iterations / seconds,
+                     "launches": dict(lanes.LAUNCHES)})
+    ok = all(r["iterations_sum"] == FLEET_LANES * THROUGHPUT_ITERS
+             and min(r["launches"].values()) > 0 for r in rows)
+    return {"phase": "fleet_parent", "ok": ok, "nodes": FLEET_NODES,
+            "lanes": FLEET_LANES, "iterations_per_lane": THROUGHPUT_ITERS,
+            "parent": parent_dir, "solves": rows}
+
+
 def fleet_phases(args, torch, dev, compare, routed,
                  single_optimize):
     """The fleet's phases (kernels_lanes, fleet_path, fleet_mirror_prox,
@@ -570,6 +614,11 @@ def fleet_phases(args, torch, dev, compare, routed,
           "ingest_warm_seconds": warm_ingest_s,
           "phase_seconds": time.time() - t_phase,
           "pdhg": pdhg, "mirror_prox": mirror})
+    if args.parent:
+        record = fleet_parent(torch, compare, args.parent, dev)
+        emit(record)
+        if not record["ok"]:
+            raise SystemExit(1)
 
     # 13. determinism of a 16-lane fleet, and checkpoint/resume
     t_phase = time.time()
@@ -820,9 +869,10 @@ def main() -> int:
                              "torch.profiler")
     parser.add_argument("--parent", metavar="DIR",
                         help="also solve the main path's LP at other "
-                             "seeds by another version of the package, "
-                             "held in DIR as firstorderlp_torch_parent "
-                             "(phase main_path_parent)")
+                             "seeds and the fleet's throughput protocol "
+                             "by another version of the package, held in "
+                             "DIR as firstorderlp_torch_parent (phases "
+                             "main_path_parent, fleet_parent)")
     args = parser.parse_args()
 
     import torch
@@ -1630,7 +1680,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "warps", "blocks",
              "entries_per_block_max", "entries_per_block_mean",
              "tiles_staged", "tiles_gathered", "bytes_staged", "large",
-             "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns")
+             "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns",
+             "variant", "lanes_a_thread", "unroll")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -26,7 +26,8 @@ turns on the same card.
 --sweep: this package's kernels again at other item sizes and group
   widths (csr), at other warps per block and strip and group sizes
   (tiled), probe_reduce at other chunk counts and warps per block
-  (probe), or lanes_spmv at other item sizes (lanes).
+  (probe), or lanes_spmv at other item sizes, entries loaded at once
+  and lanes a thread (lanes; one constant at a time).
 
 Prints one JSON line per step, after the card's name and power limit:
 what ptxas said of the layout's kernels; each kernel against its plain
@@ -418,6 +419,27 @@ def check_lanes(label, half, vals, v):
             "repeats_bitwise": REPEATS}
 
 
+def ptxas_usage(lib):
+    """Each kernel of `lib` (its mangled name) -> registers a thread,
+    static shared memory a block and bytes spilled, as ptxas printed them
+    in the last compile in this process; {} when the libraries were
+    loaded from the cache."""
+    found, name = {}, None
+    for line in kernels_build.last_build_log.get(lib, "").splitlines():
+        words = line.replace(",", "").split()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            found[name] = {}
+        elif name and "spill stores" in line:
+            found[name]["spill_bytes"] = int(words[words.index("spill") - 2])
+        elif name and "Used" in words and "registers" in words:
+            found[name]["registers"] = int(words[words.index("Used") + 1])
+            if "smem" in words:
+                found[name]["smem_bytes"] = int(
+                    words[words.index("smem") - 2])
+    return found
+
+
 def lanes_row(label, half, vals, v, parent_call=None):
     """check_lanes, then L1 timed in turns (probe_routed.in_turns) beside
     the block-diagonal library SpMV and `parent_call`, another version's
@@ -440,6 +462,7 @@ def lanes_row(label, half, vals, v, parent_call=None):
                     probe_routed.turn_summary(got).items()})
         row[prefix + "burst_ms"] = burst_ms(turns[who])
     sizes = np.diff(half.items.cpu().numpy()[:, 0])
+    plan = lanes.launch_plan(half, vals, v)
     row.update({
         "plain_ms": probe_routed.time_ms(
             lambda: lanes.lanes_spmv_plain(half, vals, v)),
@@ -449,6 +472,9 @@ def lanes_row(label, half, vals, v, parent_call=None):
         "blocks": half.nitems, "item_entries": half.item_entries,
         "entries_per_block_max": int(sizes.max()),
         "entries_per_block_mean": float(sizes.mean()),
+        "variant": plan.variant, "lanes_a_thread": plan.vec,
+        "unroll": plan.unroll, "slabs": plan.slabs,
+        "ptxas": ptxas_usage("lanes_spmv"),
     })
     row["bound_ms"], row["bound_by"] = probe_routed.bound_ms(row["bytes"],
                                                              row["flops"])
@@ -500,13 +526,42 @@ def compare_lanes(args, dev, card, emit):
                         parent_calls.get(f"lanes_spmv:{label}"))
         emit({"step": "time", "card": card, **row})
     if args.sweep:
-        for entries in (16, 32, 64, 128, 256, 512, 2048):
-            swept = lanes.build_lanes_pattern(pat, dev, item_entries=entries)
-            row = {"step": "sweep", "item_entries": entries, "card": card}
-            for name, call in calls(lanes, swept).items():
-                row[name] = {"device_ms": device_ms(call),
-                             "blocks": (swept.fwd if name.endswith(":A")
-                                        else swept.bwd).nitems}
+        sweep_lanes(pat, dev, op, vecs, card, emit)
+
+
+def sweep_lanes(pat, dev, op, vecs, card, emit):
+    """L1's design constants one at a time around the package's: item
+    entries (a new pattern), entries a warp loads at once (unroll) and
+    the bytes of a thread's lanes (4, 8, 16); device ms a call of A x and
+    A' y, with each plan's shape."""
+    from . import lanes
+
+    base = {"item_entries": lanes.LANE_ITEM_ENTRIES,
+            "unroll": lanes.LANE_UNROLL,
+            "vector_bytes": lanes.LANE_VECTOR_BYTES}
+    values = {"item_entries": (16, 32, 64, 128, 256, 512),
+              "unroll": (4, 8, 16),
+              "vector_bytes": (4, 8, 16)}
+    patterns = {}
+    for key, options in values.items():
+        for value in options:
+            cfg = dict(base, **{key: value})
+            entries = cfg.pop("item_entries")
+            if entries not in patterns:
+                patterns[entries] = lanes.build_lanes_pattern(
+                    pat, dev, item_entries=entries)
+            swept = patterns[entries]
+            row = {"step": "sweep", "card": card, "swept": key,
+                   "item_entries": entries, **cfg}
+            for label, half, vals in (("A", swept.fwd, op.vals),
+                                      ("AT", swept.bwd, op.vals_t)):
+                v = vecs[label]
+                plan = lanes.lanes_plan(half, v.shape[1], v.element_size(),
+                                        True, **cfg)
+                row[f"lanes_spmv:{label}"] = {
+                    "device_ms": device_ms(
+                        lambda: lanes.lanes_spmv(half, vals, v, plan=plan)),
+                    "blocks": half.nitems, "variant": plan.variant}
             emit(row)
 
 

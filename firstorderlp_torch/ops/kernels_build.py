@@ -135,8 +135,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     probe_expand = [p, p, p, p, p, i, i, i, i]
     # chunks g v hi lo scratch tickets y, then nchunks hr warps
     probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
-    # indptr indices vals items nitems x y scratch tickets lanes elem_bytes
-    lanes_spmv = [p, p, p, p, i, p, p, p, p, i, i]
+    # the half's LanesArgs (ops/lanes._LanesArgs), vals, x, y
+    lanes_spmv = [p, p, p, p]
     arguments = {
         "spmv_csr": csr + spmv,
         "spmv_dual_step": csr + dual_step,

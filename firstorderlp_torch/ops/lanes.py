@@ -22,13 +22,21 @@ package computes this product with XLA gathers over ELL planes under
 vmap (ops/linops.py:68-129 there); no Pallas kernel does. The wrapper
 takes the plain version (``lanes_spmv_plain``: a gather and
 ``index_add_``) only for CPU tensors; on a CUDA tensor it launches the
-kernel or raises. Each launch adds one to ``LAUNCHES``.
+kernel or raises. Each launch adds one to ``LAUNCHES``, whichever
+variant ran: the vector one (16-byte lanes) where the planes and x are
+16-byte aligned and a lane row is a multiple of 16 bytes, else the
+scalar one (``lanes_plan``). What every launch on a half at one lane
+count and dtype reuses is built at the first: the pieces' scratch and
+the kernel's constant arguments, bound once in a ctypes structure
+passed by address.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Dict
+import functools
+from typing import Dict, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -37,16 +45,17 @@ import torch
 from . import kernels_build
 from .routed import LONG_ROW_TRIPS, csr_work_items, pattern_hash
 
-# Work items of the lane kernel (csrc/lanes_spmv.cu): a block's threads
-# span the lanes and walk the item's entries one by one, so an entry is
-# B times the work it is in the single-instance kernels. Items of about
-# LANE_ITEM_ENTRIES entries (and rows); a row longer than that is cut
-# into pieces of about that size, added in piece order behind a ticket.
-# 64 entries give the 128-lane 20k-node PageRank fleet about 2,850
-# blocks for A (the dense row 313 pieces); the card's sweep of 64-2,048
-# (compare_kernels --layout lanes --sweep, PERF.md) put 64 first, 1.8
-# times faster than 256, and the time fell with every halving.
+# Work items of the lane kernel (csrc/lanes_spmv.cu): one block per item
+# of about LANE_ITEM_ENTRIES entries (and rows); a row longer than that
+# is cut into pieces of about that size, added in piece order behind a
+# ticket. 64 entries give the 128-lane 20k-node PageRank fleet about
+# 2,850 blocks for A (the dense row 313 pieces).
 LANE_ITEM_ENTRIES = 64
+# Entries whose values and x rows a warp loads at once (4, 8 or 16),
+# and the bytes of a thread's lanes in the vector variant (16: float4,
+# double2; 4 or 8 only for compare_kernels --sweep).
+LANE_UNROLL = 8
+LANE_VECTOR_BYTES = 16
 
 # Launch counts per orientation (A x and A' y counted apart).
 LAUNCHES: Dict[str, int] = {"lanes_spmv:A": 0, "lanes_spmv:AT": 0}
@@ -73,6 +82,13 @@ class LanesHalf:
     num_cols: int
     label: str  # "A" or "AT"
     item_entries: int
+    # (dtype, lanes) -> the pieces' partial sums, shared by the value
+    # planes of this half, whose products run on one stream; and (dtype,
+    # lanes, aligned, plan) -> _Launch: both made at the first launch
+    scratch: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+    launches: dict = dataclasses.field(default_factory=dict, compare=False,
+                                       repr=False)
 
     @property
     def nnz(self) -> int:
@@ -82,7 +98,7 @@ class LanesHalf:
     def nitems(self) -> int:
         return int(self.items.shape[0]) - 1
 
-    @property
+    @functools.cached_property
     def device(self) -> torch.device:
         return self.indices.device
 
@@ -177,46 +193,155 @@ def lanes_spmv_plain(half: LanesHalf, vals: torch.Tensor,
     return y.index_add_(0, half.rows, prod)
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the pattern on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+@dataclasses.dataclass(frozen=True)
+class LanesPlan:
+    """How one launch of L1 walks a half: the variant (`vec` lanes a
+    thread, 1 for the scalar one), the slabs of 32 vec lanes (a warp's)
+    it cuts the lanes into, the entries a warp loads at once and the grid
+    (one block of four warps per item)."""
+
+    vec: int
+    slabs: int
+    unroll: int
+    blocks: int
+
+    @property
+    def variant(self) -> str:
+        return "scalar" if self.vec == 1 else f"vector{self.vec}"
 
 
-def lanes_spmv(half: LanesHalf, vals: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
+def lanes_plan(half: LanesHalf, lanes: int, elem_bytes: int,
+               aligned: bool, unroll: int = LANE_UNROLL,
+               vector_bytes: int = LANE_VECTOR_BYTES) -> LanesPlan:
+    """The launch of L1 on `half` at `lanes` lanes of `elem_bytes` bytes:
+    the vector variant (vector_bytes / elem_bytes lanes a thread) when a
+    lane row (lanes elem_bytes) is a multiple of `vector_bytes` and the
+    planes and vectors are `aligned` to it, else the scalar one."""
+    if unroll not in (4, 8, 16):
+        raise ValueError(f"unroll must be 4, 8 or 16, got {unroll}")
+    vec = max(vector_bytes // elem_bytes, 1)
+    if not aligned or (lanes * elem_bytes) % (vec * elem_bytes):
+        vec = 1
+    return LanesPlan(vec=vec, slabs=-(-lanes // (32 * vec)),
+                     unroll=int(unroll), blocks=half.nitems)
+
+
+class _LanesArgs(ctypes.Structure):
+    """csrc/lanes_spmv.cu's LanesArgs: a half's constant kernel
+    arguments at one lane count, dtype and plan, passed by address."""
+
+    _fields_ = [
+        ("indptr", ctypes.c_void_p),
+        ("indices", ctypes.c_void_p),
+        ("items", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("tickets", ctypes.c_void_p),
+        ("nitems", ctypes.c_int),
+        ("lanes", ctypes.c_int),
+        ("elem_bytes", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("unroll", ctypes.c_int),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Launch:
+    """What every launch on a half at one lane count, dtype and plan
+    reuses: the constant arguments, bound once, their address and the C
+    entry point."""
+
+    args: _LanesArgs
+    address: int
+    fn: object
+
+
+def _aligned(vals: torch.Tensor, x: torch.Tensor) -> bool:
+    return (vals.data_ptr() | x.data_ptr()) % LANE_VECTOR_BYTES == 0
+
+
+def _launch_for(half: LanesHalf, dtype: torch.dtype, lanes: int,
+                aligned: bool, plan: Optional[LanesPlan]) -> _Launch:
+    key = (dtype, lanes, aligned, plan)
+    got = half.launches.get(key)
+    if got is not None:
+        return got
+    if plan is not None and plan.vec > 1 and not aligned:
+        raise ValueError("lanes_spmv: a vector plan on unaligned tensors")
+    elem_bytes = torch.finfo(dtype).bits // 8
+    plan = plan or lanes_plan(half, lanes, elem_bytes, aligned)
+    scratch = half.scratch.get((dtype, lanes))
+    if scratch is None:
+        scratch = half.scratch[(dtype, lanes)] = torch.empty(
+            max(half.nitems, 1) * lanes, dtype=dtype, device=half.device)
+    args = _LanesArgs(
+        half.indptr.data_ptr(), half.indices.data_ptr(),
+        half.items.data_ptr(), scratch.data_ptr(), half.tickets.data_ptr(),
+        half.nitems, lanes, elem_bytes, plan.vec, plan.unroll,
+    )
+    got = half.launches[key] = _Launch(
+        args=args, address=ctypes.addressof(args),
+        fn=kernels_build.kernel_function("lanes_spmv"))
+    return got
+
+
+def _current_stream(index: int) -> int:
+    """The handle of the current CUDA stream of device `index`: torch's
+    raw accessor (the one its own generated kernels call; 0.1 us a call
+    on the card's host, against 8 us for the public
+    torch.cuda.current_stream(...).cuda_stream) where the build has it."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _check(half: LanesHalf, vals: torch.Tensor, x: torch.Tensor) -> None:
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"lanes_spmv takes f32 or f64, got {x.dtype}")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"vals must be {x.dtype}, got {vals.dtype}")
+    device = half.device
+    if x.device != device or vals.device != device:
+        raise ValueError(f"x on {x.device} and vals on {vals.device}, the "
+                         f"pattern on {device}")
+    if x.dim() != 2 or x.shape[0] != half.num_cols:
+        raise ValueError(f"x has shape {tuple(x.shape)}, want "
+                         f"({half.num_cols}, lanes)")
+    if vals.shape != (half.nnz, x.shape[1]):
+        raise ValueError(f"vals has shape {tuple(vals.shape)}, want "
+                         f"({half.nnz}, {x.shape[1]})")
+    if not (x.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("x and vals must be contiguous")
+
+
+def lanes_spmv(half: LanesHalf, vals: torch.Tensor, x: torch.Tensor,
+               plan: Optional[LanesPlan] = None) -> torch.Tensor:
     """y = A x for every lane: `vals` (nnz, B) in `half`'s entry order,
     x (cols, B), y (rows, B), f32 or f64. The plain version for CPU
-    tensors, else the lanes_spmv kernel."""
+    tensors, else the lanes_spmv kernel: the vector variant where the
+    planes and x are 16-byte aligned and a lane row a multiple of 16
+    bytes, else the scalar one (lanes_plan). `plan`: another plan, for
+    compare_kernels --sweep; the solver passes none."""
     if x.device.type == "cpu" and half.device.type == "cpu":
         return lanes_spmv_plain(half, vals, x)
     if half.device.type != "cuda":
         raise ValueError("lanes_spmv: the pattern is not on a CUDA device")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"lanes_spmv takes f32 or f64, got {x.dtype}")
-    lanes = int(x.shape[1]) if x.dim() == 2 else -1
-    _check("x", x, (half.num_cols, lanes), x.dtype, half.device)
-    _check("vals", vals, (half.nnz, lanes), x.dtype, half.device)
+    _check(half, vals, x)
+    lanes = x.shape[1]
+    launch = _launch_for(half, x.dtype, lanes, _aligned(vals, x), plan)
     y = torch.empty((half.num_rows, lanes), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(max(half.nitems, 1) * lanes, dtype=x.dtype,
-                          device=x.device)
-    fn = kernels_build.kernel_function("lanes_spmv")
-    stream = torch.cuda.current_stream(half.device).cuda_stream
-    err = fn(
-        half.indptr.data_ptr(), half.indices.data_ptr(), vals.data_ptr(),
-        half.items.data_ptr(), half.nitems, x.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), half.tickets.data_ptr(), lanes,
-        x.element_size(), stream,
-    )
+    err = launch.fn(launch.address, vals.data_ptr(), x.data_ptr(),
+                    y.data_ptr(), _current_stream(half.device.index))
     if err != 0:
         raise RuntimeError(f"lanes_spmv launch failed: CUDA error {err}")
     LAUNCHES[f"lanes_spmv:{half.label}"] += 1
     return y
+
+
+def launch_plan(half: LanesHalf, vals: torch.Tensor,
+                x: torch.Tensor) -> LanesPlan:
+    """The plan lanes_spmv(half, vals, x) launches with."""
+    return lanes_plan(half, x.shape[1], x.element_size(), _aligned(vals, x))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,9 +24,12 @@ with split strips and on one without. The probe's reduce is one kernel
 a call, gives the same bits on every launch with its tickets back at
 zero, and writes every strip, those that no group names too, at every
 block size it allows. The lane kernel (ops/lanes.py) is held against its
-plain version in f32 and f64 at 1 to 300 lanes, with the dense rows cut
-into pieces and walked whole, repeats its bits with the tickets back at
-zero, rejects bad inputs, and carries a small fleet to OPTIMAL.
+plain version in f32 and f64 at 1 to 300 lanes, in its vector and its
+scalar variant, with the dense rows cut into pieces and walked whole,
+gives the same bits on row slices that are not 16-byte aligned and
+under every plan the sweep takes, repeats its bits with the tickets
+back at zero, counts one launch a product, rejects bad inputs, and
+carries a small fleet to OPTIMAL.
 """
 
 import dataclasses
@@ -37,6 +40,7 @@ import scipy.sparse as sp
 import torch
 
 from firstorderlp_torch.generators import generate_pagerank_lp
+from firstorderlp_torch.ops import lanes as lane_ops
 from firstorderlp_torch.ops import routed
 from firstorderlp_torch.ops.compare_kernels import repeat_differs
 
@@ -676,14 +680,23 @@ def lane_case(cuda, name, lanes_count, dtype, item_entries, seed=0):
     return lanes, pattern, op, x, y
 
 
+# Lane counts of the vector variant (a lane row a multiple of 16 bytes:
+# 4, 128, 300 in f32; 128, 300 in f64) and of the scalar one (1, 3, 5,
+# 130, and 4 in f64); item sizes that cut the hub rows into many pieces,
+# the default and a large one.
+LANE_COUNTS = [1, 3, 4, 5, 128, 130, 300]
+LANE_ITEM_SIZES = sorted({16, 64, 256, lane_ops.LANE_ITEM_ENTRIES})
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("lanes_count", [1, 3, 128, 300])
-@pytest.mark.parametrize("item_entries", [16, 64, 256])
+@pytest.mark.parametrize("lanes_count", LANE_COUNTS)
+@pytest.mark.parametrize("item_entries", LANE_ITEM_SIZES)
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_lanes_spmv_matches_plain(cuda, name, item_entries, lanes_count,
                                   dtype):
     """Against the plain version in f64, both orientations: within
-    1e-5 (|A||x|) + 1e-7 in f32, 1e-12 (|A||x|) + 1e-14 in f64."""
+    1e-5 (|A||x|) + 1e-7 in f32, 1e-12 (|A||x|) + 1e-14 in f64, in the
+    variant the lane count and alignment give."""
     lanes, pattern, op, x, y = lane_case(cuda, name, lanes_count, dtype,
                                          item_entries)
     rel, tiny = (1e-5, 1e-7) if dtype == torch.float32 else (1e-12, 1e-14)
@@ -699,16 +712,63 @@ def test_lanes_spmv_matches_plain(cuda, name, item_entries, lanes_count,
         assert bool((err <= rel * scale + tiny).all()), float(err.max())
 
 
-@pytest.mark.parametrize("lanes_count", [3, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes_count", [3, 128, 130])
 @pytest.mark.parametrize("item_entries", [16, 256])
-def test_lanes_spmv_repeats_bitwise(cuda, item_entries, lanes_count):
+def test_lanes_spmv_repeats_bitwise(cuda, item_entries, lanes_count, dtype):
     lanes, pattern, op, x, y = lane_case(cuda, "hub", lanes_count,
-                                         torch.float32, item_entries)
+                                         dtype, item_entries)
     for half, vals, v in ((pattern.fwd, op.vals, x),
                           (pattern.bwd, op.vals_t, y)):
         problem = repeat_differs(lambda: lanes.lanes_spmv(half, vals, v),
                                  (half.tickets,))
         assert problem is None, problem
+
+
+def shifted(t):
+    """`t` again, one lane row further into a larger tensor: a row slice
+    whose base is B elements past an aligned one."""
+    big = torch.empty((t.shape[0] + 1, t.shape[1]), dtype=t.dtype,
+                      device=t.device)
+    big[1:] = t
+    return big[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes_count", [3, 4, 5, 128, 130])
+def test_lanes_spmv_same_bits_in_every_variant_and_plan(cuda, lanes_count,
+                                                        dtype):
+    """The hub rows cut into pieces (items of 16 entries): the planes and
+    vectors as row slices (16-byte aligned only where B s is a multiple
+    of 16: the scalar variant at B = 3, 5, 130), and every plan the
+    sweep may take (4, 8 or 16 entries loaded at once; 4-, 8- and
+    16-byte lanes) give the default launch's bits: each lane of a row is
+    summed by one thread in entry order whatever the launch. Each
+    product is one count in LAUNCHES, whichever variant ran."""
+    lanes, pattern, op, x, y = lane_case(cuda, "hub", lanes_count, dtype,
+                                         16)
+    s = x.element_size()
+    for half, vals, v in ((pattern.fwd, op.vals, x),
+                          (pattern.bwd, op.vals_t, y)):
+        want = lanes.lanes_spmv(half, vals, v)
+        assert lanes.launch_plan(half, vals, v).variant == (
+            "scalar" if lanes_count * s % 16 else f"vector{16 // s}")
+        vals_s, v_s = shifted(vals), shifted(v)
+        plan = lanes.launch_plan(half, vals_s, v_s)
+        assert plan.variant == ("scalar" if lanes_count * s % 16
+                                else f"vector{16 // s}")
+        lanes.reset_launch_counts()
+        got = lanes.lanes_spmv(half, vals_s, v_s)
+        assert lanes.LAUNCHES[f"lanes_spmv:{half.label}"] == 1
+        assert torch.equal(got, want)
+        for unroll in (4, 8, 16):
+            for vector_bytes in sorted({s, 8, 16}):
+                other = lanes.lanes_plan(half, lanes_count, s, True,
+                                         unroll=unroll,
+                                         vector_bytes=vector_bytes)
+                got = lanes.lanes_spmv(half, vals, v, plan=other)
+                assert torch.equal(got, want), other
+        assert not half.tickets.any()
 
 
 def test_lanes_wrapper_rejects_bad_inputs_and_counts(cuda):

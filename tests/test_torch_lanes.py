@@ -239,3 +239,82 @@ def test_compare_tool_checks_the_lane_kernel(label, monkeypatch):
     monkeypatch.setattr(lanes, "lanes_spmv", drifts)
     with pytest.raises(compare_kernels.KernelMismatch, match="differs"):
         compare_kernels.check_lanes(label, half, vals, v)
+
+
+
+def plan_model(nitems, lanes_count, elem_bytes, aligned, unroll=8,
+               vector_bytes=16):
+    """numpy's model of the launch csrc/lanes_spmv.cu is given: 16-byte
+    lanes (vector_bytes / elem_bytes a thread) when a lane row is a
+    multiple of them and the tensors are aligned, else one (and one
+    where an element is wider); a warp's 32 threads across a slab of
+    lanes; one block per item."""
+    per_thread = max(vector_bytes // elem_bytes, 1)
+    vector = aligned and lanes_count % per_thread == 0
+    vec = per_thread if vector else 1
+    return {"vec": vec, "slabs": int(np.ceil(lanes_count / (32 * vec))),
+            "unroll": unroll, "blocks": nitems}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("elem_bytes", [4, 8])
+@pytest.mark.parametrize("lanes_count", [1, 3, 4, 5, 128, 130, 300])
+def test_launch_plan_matches_its_model(lanes_count, elem_bytes, aligned):
+    """lanes_plan (the variant, slabs, entries loaded at once and grid)
+    against the numpy model, at the default item size and at one that
+    cuts row 0, for every unroll and lane width the sweep takes."""
+    a = random_pattern(40, 30, seed=11)
+    for item_entries in (8, lanes.LANE_ITEM_ENTRIES):
+        pattern = lanes.build_lanes_pattern(a, CPU,
+                                            item_entries=item_entries)
+        for half in (pattern.fwd, pattern.bwd):
+            plan = lanes.lanes_plan(half, lanes_count, elem_bytes, aligned)
+            want = plan_model(half.nitems, lanes_count, elem_bytes, aligned)
+            assert dataclasses.asdict(plan) == want
+            assert plan.variant == ("scalar" if want["vec"] == 1
+                                    else f"vector{want['vec']}")
+            for unroll in (4, 16):
+                for vector_bytes in (4, 8):
+                    plan = lanes.lanes_plan(half, lanes_count, elem_bytes,
+                                            aligned, unroll, vector_bytes)
+                    assert dataclasses.asdict(plan) == plan_model(
+                        half.nitems, lanes_count, elem_bytes, aligned,
+                        unroll, vector_bytes)
+    with pytest.raises(ValueError, match="unroll"):
+        lanes.lanes_plan(pattern.fwd, lanes_count, elem_bytes, aligned,
+                         unroll=5)
+
+
+def test_launch_plan_at_the_fleet_width():
+    """The slice's cell: 128 lanes of f32, aligned: four lanes a thread,
+    one slab, one block per item (2,855 for A); f64 two lanes a thread,
+    two slabs; misaligned tensors, or 130 lanes, the scalar variant."""
+    half = lanes.LanesHalf(
+        indptr=torch.zeros(20_002, dtype=torch.int32),
+        indices=torch.zeros(159_982, dtype=torch.int32),
+        rows=torch.zeros(0, dtype=torch.int64),
+        items=torch.zeros((2856, 4), dtype=torch.int32),
+        tickets=torch.zeros(2856, dtype=torch.int32),
+        num_rows=20_001, num_cols=20_000, label="A", item_entries=64,
+    )
+    plan = lanes.lanes_plan(half, 128, 4, True)
+    assert (plan.vec, plan.slabs, plan.unroll, plan.blocks) == (
+        4, 1, lanes.LANE_UNROLL, 2855)
+    f64 = lanes.lanes_plan(half, 128, 8, True)
+    assert (f64.vec, f64.slabs) == (2, 2)
+    assert lanes.lanes_plan(half, 128, 4, False).variant == "scalar"
+    assert lanes.lanes_plan(half, 130, 4, True).variant == "scalar"
+
+
+def test_launch_plan_of_the_wrapper_follows_alignment():
+    """launch_plan, the plan lanes_spmv launches with, reads the
+    alignment off the tensors: a row slice of a (rows + 1, B) tensor
+    starts B elements in, 16-byte aligned only when B s is."""
+    a = random_pattern(25, 20, seed=12)
+    pattern = lanes.build_lanes_pattern(a, CPU)
+    for b, variant in ((4, "vector4"), (3, "scalar"), (8, "vector4")):
+        vals = torch.zeros((a.nnz + 1, b), dtype=torch.float32)[1:]
+        x = torch.zeros((21, b), dtype=torch.float32)[1:]
+        assert lanes.launch_plan(pattern.fwd, vals, x).variant == variant
+        assert lanes.launch_plan(pattern.fwd, vals[:, :1].contiguous(),
+                                 x[:, :1].contiguous()).variant == "scalar"
