@@ -94,7 +94,30 @@ Phases, each printing one JSON line:
     iterations (one dispatch) with a checkpoint, resumed, against an
     uninterrupted run: the same reasons, solutions within 1e-6, and
     whether they are bitwise equal;
-14. the kernel list ({"kernels": [...]}).
+14. kernels_block_lanes: B2 (spmv_csr) on the heterogeneous fleet's
+    interleaved block-diagonal matrix (ops/block_lanes.py), A and A',
+    against its plain version on the card and an f64 product, 20
+    launches bitwise equal with the tickets back at zero, times (events,
+    device time and kernels a call in turns with the
+    torch.sparse_csr_tensor product of the same block matrix), the bytes
+    bound, blocks and entries per block;
+15. hetero_fleet: batch.solve_batch on 32 PageRank LPs of 10,000-40,000
+    nodes (generate_pagerank_lp(nodes_i, seed=10+i)) by PDHG in f32 to
+    1e-4 with a limit of 20,000 iterations a lane: every lane OPTIMAL
+    with host-f64 residuals and gap under 1e-4, B2 launched and L1 and
+    B3-B7 not, lanes 0 and 31 solved again by optimize (the same
+    reason); generation, ingest and solve seconds, lane-iterations a
+    second;
+16. qp_fleet: batch.solve_batch_shared_pattern on a 32-lane Tikhonov
+    path (the 20k-node PageRank LP plus lambda_b I, lambda_b geometric
+    in [1e-3, 1]) by PDHG and by Mirror Prox to 1e-4 (the per-instance
+    ingest): every lane OPTIMAL in host f64, L1 launched for A, A' and
+    Q, lanes 0 and 31 solved again by optimize;
+17. constant_step_fleet: the 32-lane damping sweep as a problem list
+    with constant steps and bound-width rescaling, to 1e-4 or 20,000
+    iterations a lane: lanes 0 and 31 give the reasons of optimize
+    alone, OPTIMAL lanes under 1e-4 in host f64, L1 launched;
+18. the kernel list ({"kernels": [...]}).
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
 Exits non-zero, before the last line, when there is no CUDA device or
@@ -124,6 +147,14 @@ DET_FLEET_LANES = 16  # determinism_fleet's
 CKPT_FLEET_LANES = 8  # fleet_checkpoint's
 CKPT_LIMIT = 120  # its first run's iteration limit, a multiple of 40
 THROUGHPUT_ITERS = 600  # fleet_throughput's iterations per lane
+# The heterogeneous fleet: 32 PageRank LPs of 10k-40k nodes, seeds
+# 10-41 (the construction of tests/test_batch.py's mixed fleet at the
+# size docs/performance.md names for such fleets).
+HETERO_LANES = 32
+HETERO_NODES = (10_000, 40_000)
+# The QP fleet (a Tikhonov path lambda I over one 20k-node PageRank LP)
+# and the constant-step fleet (the damping sweep), 32 lanes each.
+SLOW_FLEET_LANES = 32
 
 _lines = []
 
@@ -221,8 +252,12 @@ def make_mp_params(tol, limit, dtype="float32", fmt="routed"):
 def host_residuals(problem, x, y):
     """Relative residuals of (x, y) on the unscaled problem, recomputed
     in f64 with scipy: the solver's own definitions (l2 norms, relative
-    to eps_abs/eps_rel = 1 plus the norm of b, c or the objectives)."""
+    to eps_abs/eps_rel = 1 plus the norm of b, c or the objectives; a
+    QP's objective matrix Q in the gradient Q x + c - A'y and in both
+    objectives)."""
     a = problem.constraint_matrix.tocsr()
+    q = problem.objective_matrix
+    qx = q.tocsr() @ x if q is not None and q.nnz else np.zeros_like(x)
     b = problem.right_hand_side
     c = problem.objective_vector
     lb, ub = problem.variable_lower_bound, problem.variable_upper_bound
@@ -234,14 +269,15 @@ def host_residuals(problem, x, y):
         np.maximum(lb - x, 0.0),
         np.maximum(x - ub, 0.0),
     ])
-    g = c - a.T @ y
+    g = qx + c - a.T @ y
     bound = np.where(g > 0.0, lb, ub)
     rc = np.where(np.isfinite(bound), g, 0.0)
     dual_viol = np.concatenate([np.maximum(-y[meq:], 0.0), g - rc])
-    primal_obj = problem.objective_constant + np.sum(c * x)
+    quadratic = 0.5 * np.sum(x * qx)
+    primal_obj = problem.objective_constant + np.sum(c * x) + quadratic
     active = rc != 0.0
     dual_obj = (
-        np.sum(b * y) + problem.objective_constant
+        np.sum(b * y) + problem.objective_constant - quadratic
         + np.sum(np.where(active, bound, 0.0) * rc)
     )
 
@@ -409,7 +445,7 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
                     f"{single.termination_reason.name} alone")
         elif any(not v <= 1e-4 for v in res.values()):
             problems_found.append(f"lane {i}: host residuals {res}")
-    if any(v <= 0 for v in launches.values()):
+    if not (launches["lanes_spmv:A"] > 0 and launches["lanes_spmv:AT"] > 0):
         problems_found.append(f"L1 was not launched: {launches}")
     if single_kernels:
         problems_found.append(f"a single-instance kernel was launched: "
@@ -550,7 +586,8 @@ def fleet_parent(torch, compare, parent_dir, dev):
                      "aggregate_iterations_per_second": iterations / seconds,
                      "launches": dict(lanes.LAUNCHES)})
     ok = all(r["iterations_sum"] == FLEET_LANES * THROUGHPUT_ITERS
-             and min(r["launches"].values()) > 0 for r in rows)
+             and r["launches"]["lanes_spmv:A"] > 0
+             and r["launches"]["lanes_spmv:AT"] > 0 for r in rows)
     return {"phase": "fleet_parent", "ok": ok, "nodes": FLEET_NODES,
             "lanes": FLEET_LANES, "iterations_per_lane": THROUGHPUT_ITERS,
             "parent": parent_dir, "solves": rows}
@@ -681,6 +718,303 @@ def fleet_phases(args, torch, dev, compare, routed,
           "phase_seconds": time.time() - t_phase})
     if not ok:
         raise SystemExit(1)
+    return rows
+
+
+def block_lanes_rows(torch, routed, probe, compare, op):
+    """B2 on the heterogeneous fleet's interleaved block-diagonal matrix
+    (ops/block_lanes.py), A and A': against its plain version on the
+    card and an f64 product on the host, 20 launches bitwise equal with
+    the tickets back at zero, times in turns with the library call on
+    the same block matrix, the bytes bound and the items' shape."""
+    import scipy.sparse as sp
+
+    from firstorderlp_torch.ops import block_lanes
+
+    ph = "kernels_block_lanes"
+    rng = np.random.default_rng(0)
+    m, n = op.shape
+    nl = op.lanes
+    dev = op.a.device
+    rows = []
+    for label, mat, dim, out_dim in (("A", op.a, n, m), ("AT", op.at, m, n)):
+        v_np = rng.standard_normal((dim, nl)).astype(np.float32)
+        v = torch.as_tensor(v_np, device=dev)
+        flat = v.reshape(-1)
+        got = routed.spmv_csr(mat, flat).reshape(out_dim, nl)
+        plain = block_lanes.block_lanes_spmv_plain(mat, v)
+        host = sp.csr_matrix(
+            (mat.vals.double().cpu().numpy(), mat.indices.cpu().numpy(),
+             mat.indptr.cpu().numpy()), shape=(mat.num_rows, mat.num_cols))
+        v64 = v_np.reshape(-1).astype(np.float64)
+        want = host @ v64
+        scale = abs(host) @ np.abs(v64)
+        got_np = got.double().cpu().numpy().reshape(-1)
+        err = np.abs(got_np - want)
+        err_plain = np.abs(got_np - plain.double().cpu().numpy().reshape(-1))
+        for what, e in (("f64", err), ("plain", err_plain)):
+            bad = e > TOL_ENTRY * scale + TOL_ABS
+            if bad.any():
+                i = int(np.argmax(e - TOL_ENTRY * scale))
+                fail(ph, f"spmv_csr:{label} (block lanes) against {what}: "
+                         f"entry {i} differs by {e[i]:.3e} (scale "
+                         f"{scale[i]:.3e})")
+        problem = compare.repeat_differs(lambda: routed.spmv_csr(mat, flat),
+                                         (mat.tickets,))
+        if problem:
+            fail(ph, f"spmv_csr:{label} (block lanes): {problem}")
+        lib = routed.library_spmv(mat)
+        timed = probe.in_turns({"kernel": lambda: routed.spmv_csr(mat, flat),
+                                "library": lambda: lib @ flat})
+        times = {}
+        for who, prefix in (("kernel", ""), ("library", "library_")):
+            times.update({prefix + k: val for k, val in
+                          probe.turn_summary(timed[who]).items()})
+        nbytes = (routed.csr_kernel_bytes(mat)
+                  + 4 * (mat.num_cols + mat.num_rows))
+        bound, bound_by = probe.bound_ms(nbytes, 2 * mat.nnz)
+        rows.append({
+            "name": f"spmv_csr:{label} (block lanes)",
+            "route": "cuda",
+            "source": "firstorderlp_torch/csrc/spmv_csr.cu",
+            "replaces": "firstorderlp_tpu/ops/routed.py:160 (_make_expand)"
+                        " + routed.py:188 (_make_reduce); the JAX package "
+                        "runs this product as XLA gathers over aligned ELL "
+                        "planes, firstorderlp_tpu/batch.py:1248",
+            "max_abs_err": float(err.max()),
+            "max_abs_err_vs_plain": float(err_plain.max()),
+            "plain_ms": probe.time_ms(
+                lambda: block_lanes.block_lanes_spmv_plain(mat, v)),
+            "bytes": nbytes, "flops": 2 * mat.nnz,
+            "bound_ms": bound, "bound_by": bound_by,
+            "repeats_bitwise": compare.REPEATS,
+            "lanes": nl, "nnz": mat.nnz, "rows": mat.num_rows,
+            **times,
+            **routed.csr_item_stats(mat),
+        })
+        del lib, host
+    return rows
+
+
+def lane_checks(problems, outs, params, single_optimize, single_lanes):
+    """Each lane's host-f64 residuals (every OPTIMAL lane under 1e-4),
+    finite solutions of the lane's own shape, and the lanes
+    `single_lanes` solved again alone by optimize, which must give the
+    same reason. Returns (record fields, problems found)."""
+    found = []
+    worst = {"rel_primal_residual": 0.0, "rel_dual_residual": 0.0,
+             "rel_gap": 0.0}
+    reasons = [o.termination_reason.name for o in outs]
+    for i, (problem, out) in enumerate(zip(problems, outs)):
+        if not (np.all(np.isfinite(out.primal_solution))
+                and np.all(np.isfinite(out.dual_solution))):
+            found.append(f"lane {i}: non-finite solution")
+        if (out.primal_solution.shape != (problem.num_variables,)
+                or out.dual_solution.shape != (problem.num_constraints,)):
+            found.append(f"lane {i}: solution shapes "
+                         f"{out.primal_solution.shape} "
+                         f"{out.dual_solution.shape}")
+            continue
+        res = host_residuals(problem, out.primal_solution,
+                             out.dual_solution)
+        for k, v in res.items():
+            worst[k] = max(worst[k], v)
+        if (reasons[i] == "TERMINATION_REASON_OPTIMAL"
+                and any(not v <= 1e-4 for v in res.values())):
+            found.append(f"lane {i}: host residuals {res}")
+    singles = []
+    for i in single_lanes:
+        single = single_optimize(params, problems[i])
+        singles.append({"lane": i, "reason": single.termination_reason.name,
+                        "iterations": single.iteration_count,
+                        "fleet_iterations": outs[i].iteration_count})
+        if single.termination_reason.name != reasons[i]:
+            found.append(f"lane {i}: {reasons[i]} in the fleet, "
+                         f"{single.termination_reason.name} alone")
+    iterations = [o.iteration_count for o in outs]
+    return {
+        "reasons": {r: reasons.count(r) for r in sorted(set(reasons))},
+        "iterations_min": min(iterations), "iterations_max": max(iterations),
+        "iterations_sum": sum(iterations),
+        "kkt_passes_sum": sum(o.iteration_stats[-1]
+                              .cumulative_kkt_matrix_passes for o in outs),
+        "host_f64_worst": worst, "single_solves": singles,
+    }, found
+
+
+def run_fleet(torch, batch, lanes, routed, solve, params, problems, fleet):
+    """One fleet solve with the launch counts set to 0 just before it
+    and read just after: (outputs, seconds, run stats, L1 launches, the
+    routed kernels' launches)."""
+    lanes.reset_launch_counts()
+    routed.reset_launch_counts()
+    stats = batch.FleetRunStats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = solve(params, problems, fleet=fleet, run_stats=stats)
+    torch.cuda.synchronize()
+    return (outs, time.time() - t0, stats, dict(lanes.LAUNCHES),
+            dict(routed.LAUNCHES))
+
+
+def emit_checked(rec, found):
+    rec["ok"] = not found
+    if found:
+        rec["problems"] = found
+    emit(rec)
+    if found:
+        raise SystemExit(1)
+
+
+def slow_and_hetero_phases(torch, dev, compare, routed, probe,
+                           single_optimize):
+    """The heterogeneous fleet (kernels_block_lanes, hetero_fleet), the
+    QP fleet (qp_fleet) and the constant-step fleet
+    (constant_step_fleet); returns B2's rows at the heterogeneous
+    fleet's shape for the kernel list."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from firstorderlp_torch import ConstantStepsizeParams, batch, generators
+    from firstorderlp_torch.ops import lanes
+
+    params = make_params(1e-4, 20_000, fmt="auto")
+    last = (0, HETERO_LANES - 1)
+
+    # 15. the heterogeneous fleet through B2
+    t_phase = t0 = time.time()
+    nodes = np.rint(np.linspace(*HETERO_NODES, HETERO_LANES)).astype(int)
+    problems = [generators.generate_pagerank_lp(int(k), seed=10 + i)
+                for i, k in enumerate(nodes)]
+    generate_s = time.time() - t0
+    t0 = time.time()
+    fleet = batch.prepare_batch(params, problems, device=dev)
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    op = fleet.bundle.scaled.constraint_matrix
+    rows = block_lanes_rows(torch, routed, probe, compare, op)
+    emit({"phase": "kernels_block_lanes", "ok": True, "lanes": op.lanes,
+          "m": op.num_rows, "n": op.num_cols,
+          "block_shape": [op.a.num_rows, op.a.num_cols],
+          "tolerance": f"|d| <= {TOL_ENTRY}*(|A||x|)_i + {TOL_ABS} "
+                       "against the f64 product and the plain version",
+          "phase_seconds": time.time() - t_phase, "results": rows})
+    t_phase = time.time()
+    outs, solve_s, stats, l1, b2 = run_fleet(
+        torch, batch, lanes, routed, batch.solve_batch, params, problems,
+        fleet)
+    del fleet, op
+    fields, found = lane_checks(problems, outs, params, single_optimize,
+                                last)
+    if fields["reasons"] != {"TERMINATION_REASON_OPTIMAL": HETERO_LANES}:
+        found.append(f"not every lane OPTIMAL: {fields['reasons']}")
+    if not (b2["spmv_csr:A"] > 0 and b2["spmv_csr:AT"] > 0):
+        found.append(f"B2 was not launched: {b2}")
+    others = {k: v for k, v in b2.items()
+              if v and k not in ("spmv_csr:A", "spmv_csr:AT")}
+    if others or any(l1.values()):
+        found.append(f"another kernel was launched: {others} {l1}")
+    for r in rows:
+        r["launches"] = b2[r["name"].split(" ")[0]]
+    emit_checked({
+        "phase": "hetero_fleet", "lanes": HETERO_LANES,
+        "nodes": [int(nodes[0]), int(nodes[-1])],
+        "nnz_sum": int(sum(p.constraint_matrix.nnz for p in problems)),
+        "generate_seconds": generate_s, "ingest_seconds": ingest_s,
+        "solve_seconds": solve_s,
+        "aggregate_iterations_per_second": fields["iterations_sum"]
+        / solve_s,
+        "dispatches": stats.dispatches, "evaluations": stats.segments,
+        "step_trials": stats.trials, "read_backs": stats.read_backs,
+        "launches": {k: v for k, v in b2.items() if v},
+        "lane_kernel_launches": l1, **fields,
+        "phase_seconds": time.time() - t_phase}, found)
+    del problems, outs
+
+    # 16. a QP fleet (one pattern of A and of Q) by PDHG and Mirror Prox,
+    # through the per-instance ingest and L1
+    t_phase = t0 = time.time()
+    base = generators.generate_pagerank_lp(FLEET_NODES, seed=0)
+    lambdas = np.geomspace(1e-3, 1.0, SLOW_FLEET_LANES)
+    qps = [dataclasses.replace(base, objective_matrix=sp.csc_matrix(
+        w * sp.eye(base.num_variables))) for w in lambdas]
+    generate_s = time.time() - t0
+    last = (0, SLOW_FLEET_LANES - 1)
+    record = {"phase": "qp_fleet", "lanes": SLOW_FLEET_LANES,
+              "nodes": FLEET_NODES,
+              "lambda": [float(lambdas[0]), float(lambdas[-1])],
+              "generate_seconds": generate_s}
+    found = []
+    for solver, solver_params in (
+            ("pdhg", params), ("mirror_prox", make_mp_params(
+                1e-4, 20_000, fmt="auto"))):
+        t0 = time.time()
+        fleet = batch.prepare_shared_pattern_fleet(solver_params, qps,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        ingest_s = time.time() - t0
+        outs, solve_s, stats, l1, b2 = run_fleet(
+            torch, batch, lanes, routed, batch.solve_batch_shared_pattern,
+            solver_params, qps, fleet)
+        del fleet
+        fields, lane_found = lane_checks(qps, outs, solver_params,
+                                         single_optimize, last)
+        found += [f"{solver}: {f}" for f in lane_found]
+        if fields["reasons"] != {"TERMINATION_REASON_OPTIMAL":
+                                 SLOW_FLEET_LANES}:
+            found.append(f"{solver}: not every lane OPTIMAL: "
+                         f"{fields['reasons']}")
+        if not all(l1[k] > 0 for k in ("lanes_spmv:A", "lanes_spmv:AT",
+                                       "lanes_spmv:Q")):
+            found.append(f"{solver}: L1 was not launched for A, A' and "
+                         f"Q: {l1}")
+        if any(b2.values()):
+            found.append(f"{solver}: a routed kernel was launched: {b2}")
+        record[solver] = {
+            "ingest_seconds": ingest_s, "solve_seconds": solve_s,
+            "aggregate_iterations_per_second":
+            fields["iterations_sum"] / solve_s,
+            "step_trials": stats.trials, "evaluations": stats.segments,
+            "launches": l1, **fields}
+        del outs
+    record["phase_seconds"] = time.time() - t_phase
+    emit_checked(record, found)
+    del qps
+
+    # 17. the damping sweep with constant steps and bound-width
+    # rescaling, through the per-instance ingest
+    t_phase = t0 = time.time()
+    sweep = generators.generate_pagerank_lp_fleet(
+        FLEET_NODES, np.linspace(0.7, 0.995, SLOW_FLEET_LANES), seed=0)
+    generate_s = time.time() - t0
+    const_params = dataclasses.replace(
+        params, step_size_policy_params=ConstantStepsizeParams(),
+        bound_width_rescaling=True)
+    t0 = time.time()
+    fleet = batch.prepare_shared_pattern_fleet(const_params, sweep,
+                                               device=dev)
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    outs, solve_s, stats, l1, b2 = run_fleet(
+        torch, batch, lanes, routed, batch.solve_batch_shared_pattern,
+        const_params, sweep, fleet)
+    del fleet
+    fields, found = lane_checks(sweep, outs, const_params, single_optimize,
+                                last)
+    if not (l1["lanes_spmv:A"] > 0 and l1["lanes_spmv:AT"] > 0):
+        found.append(f"L1 was not launched: {l1}")
+    if any(b2.values()):
+        found.append(f"a routed kernel was launched: {b2}")
+    emit_checked({
+        "phase": "constant_step_fleet", "lanes": SLOW_FLEET_LANES,
+        "nodes": FLEET_NODES, "generate_seconds": generate_s,
+        "ingest_seconds": ingest_s, "solve_seconds": solve_s,
+        "aggregate_iterations_per_second": fields["iterations_sum"]
+        / solve_s,
+        "step_trials": stats.trials, "evaluations": stats.segments,
+        "launches": l1, **fields,
+        "phase_seconds": time.time() - t_phase}, found)
     return rows
 
 
@@ -1666,8 +2000,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         lambda p, prob: package_optimize(p, prob, device=dev),
     )
 
-    # 14. kernel list
-    results = results + tiled + probes + lane_rows
+    # 15-17. the heterogeneous, QP and constant-step fleets
+    block_rows = slow_and_hetero_phases(
+        torch, dev, compare, routed, probe,
+        lambda p, prob: package_optimize(p, prob, device=dev),
+    )
+
+    # 18. kernel list
+    results = results + tiled + probes + lane_rows + block_rows
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1681,7 +2021,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "entries_per_block_max", "entries_per_block_mean",
              "tiles_staged", "tiles_gathered", "bytes_staged", "large",
              "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns",
-             "variant", "lanes_a_thread", "unroll")
+             "variant", "lanes_a_thread", "unroll", "split_rows")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

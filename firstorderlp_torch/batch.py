@@ -1,23 +1,36 @@
-"""Shared-pattern fleets: many LPs with one sparsity pattern, solved
-together on one device by PDHG (adaptive steps) or Mirror Prox.
+"""Fleets: many LPs or QPs solved together on one device by PDHG or
+Mirror Prox.
 
-The port of the JAX package's ``solve_batch_shared_pattern``
-(firstorderlp_tpu/batch.py:209-258, 303-922, 1037-1245). Semantics: B
-independent ``optimize`` calls (scenario sweeps: damping factors, rhs,
-objective or regularization paths). Layout, the JAX package's minor
-batch axis written out: every lane vector is (dim, B), contiguous in B;
-every per-lane scalar is a (B,) tensor; the pattern's index tensors are
-held once (ops/lanes.py), and the products run through the lane kernel
-L1 (csrc/lanes_spmv.cu). The states are the solvers' own dataclasses
-(pdhg.PdhgState, mirror_prox.MirrorProxState, with the same leaf names
-as the JAX package's) whose every leaf is a lane tensor: counters
-(B,) int64, flags (B,) bool, reasons (B,) int32.
+The port of the JAX package's batch.py (firstorderlp_tpu/batch.py).
+Semantics: B independent ``optimize`` calls. Layout, the JAX package's
+minor batch axis written out: every lane vector is (dim, B), contiguous
+in B; every per-lane scalar is a (B,) tensor. The states are the
+solvers' own dataclasses (pdhg.PdhgState, mirror_prox.MirrorProxState,
+with the same leaf names as the JAX package's) whose every leaf is a
+lane tensor: counters (B,) int64, flags (B,) bool, reasons (B,) int32.
+Two kinds of fleet share one lane core and one host loop:
+
+- shared-pattern fleets (``solve_batch_shared_pattern``: scenario
+  sweeps over damping factors, rhs, objectives or regularization
+  paths), PDHG with adaptive or constant steps, or Mirror Prox. The
+  pattern's index tensors are held once and the products run through
+  the lane kernel L1 (ops/lanes.py, csrc/lanes_spmv.cu), for A and for
+  a QP's objective matrix Q. LP fleets with adaptive steps or Mirror
+  Prox and no bound-width rescaling are rescaled on the device
+  (``fleet_rescale``); the others (QP, constant steps, bound-width
+  rescaling) are rescaled per instance on the host, as the single
+  solver does (``_prepare_fleet_slow``);
+- heterogeneous fleets (``solve_batch``: mixed sizes and patterns),
+  PDHG with adaptive or constant steps. Every instance is padded to the
+  fleet's largest (m, n) (parallel.pad_problem) and rescaled on the
+  host; A and Q of all lanes are one interleaved block-diagonal matrix
+  each, whose product is B2 spmv_csr (ops/block_lanes.py).
 
 The JAX package vmaps its single-instance segment. The port's
 single-instance loop decides on the host, so the fleet has its own
 lane-wise core, written from the JAX functions that already select on
-the device (pdhg._take_step_adaptive, _eval_block, _segment_core;
-mirror_prox._take_step, _eval_block, _segment_core;
+the device (pdhg._take_step_adaptive, _take_step_constant, _eval_block,
+_segment_core; mirror_prox._take_step, _eval_block, _segment_core;
 saddle_point.run_restart_scheme) and kept to a vmapped while_loop's
 semantics:
 
@@ -36,10 +49,9 @@ semantics:
   weighted-average reset); A' y of the restart point is one lane
   product for all lanes, selected where a lane restarts to the average.
 
-LP fleets only, on the adaptive step rule or Mirror Prox. Not ported yet
-(A13b in ROADMAP.md): heterogeneous fleets (``solve_batch``) and the
-JAX package's per-instance ingest (QP fleets, constant steps,
-bound-width rescaling); those raise NotImplementedError.
+Unlike the JAX package, the per-instance ingest applies
+``bound_width_rescaling`` (the JAX package's fleets drop the flag:
+C4 in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,7 +59,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -60,11 +72,21 @@ from .iteration_stats import (
 )
 from .models import mirror_prox as _mp
 from .models import pdhg as _pdhg
-from .models.common import EvalResult, evaluate_unscaled_stats, torch_dtype
+from .models.common import (
+    EvalResult,
+    estimate_maximum_singular_value,
+    evaluate_unscaled_stats,
+    initial_primal_weight_host,
+    matrix_inf_norm_entrywise,
+    torch_dtype,
+)
+from .ops.block_lanes import build_block_lanes
 from .ops.device import resolve_device
 from .ops.device_problem import DeviceQp, DeviceQpCache, DeviceScaledQp
 from .ops.lanes import LanesPattern, build_lanes_pattern, lanes_op, lanes_spmv
 from .ops.routed import pattern_hash
+from .parallel.sharded import pad_problem
+from .preprocess import rescale_problem
 from .problem import QuadraticProgrammingProblem, ScaledQpProblem, validate
 from .saddle_point import (
     RestartInfo,
@@ -82,12 +104,6 @@ from .saddle_point import (
 from .solve_log import PointType, RestartChoice, TerminationReason
 from .termination import validate_termination_criteria
 from .trust_region import ObjectiveBound, solve_bound_constrained_trust_region
-
-_NOT_PORTED = (
-    "{what} are not ported yet (A13b in ROADMAP.md): the shared-pattern "
-    "fleet takes LP fleets with the adaptive step rule or Mirror Prox"
-)
-
 
 # ---------------------------------------------------------------------------
 # Fleets
@@ -130,12 +146,16 @@ class FleetSpec:
 
 @dataclasses.dataclass
 class SharedPatternFleet:
-    """A prepared fleet on its device (prepare_shared_pattern_fleet)."""
+    """A prepared fleet on its device (prepare_shared_pattern_fleet, or
+    prepare_batch for a heterogeneous fleet)."""
 
-    bundle: DeviceScaledQp  # lane tensors; the operators are LanesOps
+    bundle: DeviceScaledQp  # lane tensors; LanesOps or BlockLanesOps
     initial_state: object  # PdhgState or MirrorProxState of lane tensors
     scaled_problems: List[ScaledQpProblem]  # per lane: rescaling vectors
     device: torch.device
+    # a heterogeneous fleet: each lane's own (m, n), to slice the padded
+    # solutions back; None for a shared-pattern fleet
+    lane_shapes: Optional[List[Tuple[int, int]]] = None
 
     @property
     def num_instances(self) -> int:
@@ -257,17 +277,19 @@ def fleet_rescale(pattern: LanesPattern, v_orig: torch.Tensor, vectors,
     )
 
 
-def _lane_qp(pattern, values, vectors, const, is_equality) -> DeviceQp:
+def _lane_qp(constraint_op, objective_op, vectors, const,
+             is_equality) -> DeviceQp:
     return DeviceQp(
         variable_lower_bound=vectors["lo"],
         variable_upper_bound=vectors["hi"],
         objective_vector=vectors["c"],
         objective_constant=const,
         right_hand_side=vectors["b"],
-        is_equality=is_equality,  # (m, 1): broadcasts over the lanes
+        # (m, 1) broadcasts over the lanes; (m, B) where they differ
+        is_equality=is_equality,
         is_equality_f32=is_equality.to(torch.float32),
-        constraint_matrix=lanes_op(pattern, values),
-        objective_matrix=None,
+        constraint_matrix=constraint_op,
+        objective_matrix=objective_op,  # None for an LP fleet
     )
 
 
@@ -307,17 +329,22 @@ def _initial_restart_info(n, m, lanes, dtype, device) -> RestartInfo:
     )
 
 
-def _initial_pdhg_state(params, n, m, lanes, dtype, device, rescaled):
-    """The zero state with 1 / max|A_scaled| as the step size, the
-    initial primal weight and half a KKT pass per lane."""
+def _device_primal_weight(params, lanes, dtype, device, rescaled):
+    """The initial primal weight per lane from the scaled norms of c and
+    b (initial_primal_weight_host on the device)."""
     pi = float(params.primal_importance)
     if params.scale_invariant_initial_primal_weight:
         nc, nb = rescaled.norm_c, rescaled.norm_b
-        primal_weight = torch.where(
+        return torch.where(
             (nc > 0) & (nb > 0), pi * nc / torch.where(nb > 0, nb, 1.0), pi
         )
-    else:
-        primal_weight = torch.full((lanes,), pi, dtype=dtype, device=device)
+    return torch.full((lanes,), pi, dtype=dtype, device=device)
+
+
+def _initial_pdhg_state(n, m, lanes, dtype, device, step_size,
+                        primal_weight, kkt_passes):
+    """The zero state with each lane's step size, primal weight and
+    KKT passes of its ingest ((B,) tensors)."""
 
     def zeros(size):
         return _lane_zeros(size, lanes, dtype, device)
@@ -333,10 +360,10 @@ def _initial_pdhg_state(params, n, m, lanes, dtype, device, rescaled):
         current_dual_product=zeros(n),
         avg=_initial_average(n, m, lanes, dtype, device),
         restart_info=_initial_restart_info(n, m, lanes, dtype, device),
-        step_size=rescaled.step_size.to(dtype),
+        step_size=step_size.to(dtype),
         primal_weight=primal_weight.to(dtype),
         numerical_error=scalar(False, torch.bool),
-        cumulative_kkt_passes=scalar(0.5, torch.float64),
+        cumulative_kkt_passes=kkt_passes.to(torch.float64),
         total_number_iterations=scalar(0, torch.int64),
         ratio_step_sizes=scalar(1.0),
         iteration=scalar(1, torch.int64),
@@ -384,6 +411,14 @@ def _initial_mp_state(params, pattern, v_orig, n, m, lanes, dtype, device,
     else:
         new_pw = torch.full((lanes,), pi, dtype=dtype, device=device)
     ratio = new_pw / pw0
+    return _mp_zero_state(n, m, lanes, dtype, device, px * ratio,
+                          py / ratio, rescaled.step_size, new_pw)
+
+
+def _mp_zero_state(n, m, lanes, dtype, device, primal_scaling,
+                   dual_scaling, step_size, primal_weight):
+    """The zero Mirror Prox state with each lane's mirror-map scalings
+    ((n, B), (m, B)), step size and primal weight ((B,))."""
 
     def scalar(v, kind):
         return torch.full((lanes,), v, dtype=kind, device=device)
@@ -391,12 +426,12 @@ def _initial_mp_state(params, pattern, v_orig, n, m, lanes, dtype, device,
     return _mp.MirrorProxState(
         current_primal=_lane_zeros(n, lanes, dtype, device),
         current_dual=_lane_zeros(m, lanes, dtype, device),
-        primal_scaling=(px * ratio).to(dtype),
-        dual_scaling=(py / ratio).to(dtype),
+        primal_scaling=primal_scaling.to(dtype),
+        dual_scaling=dual_scaling.to(dtype),
         avg=_initial_average(n, m, lanes, dtype, device),
         restart_info=_initial_restart_info(n, m, lanes, dtype, device),
-        step_size=rescaled.step_size.to(dtype),
-        primal_weight=new_pw,
+        step_size=step_size.to(dtype),
+        primal_weight=primal_weight.to(dtype),
         numerical_error=scalar(False, torch.bool),
         cumulative_kkt_passes=scalar(0.0, torch.float64),
         iteration=scalar(1, torch.int64),
@@ -405,6 +440,23 @@ def _initial_mp_state(params, pattern, v_orig, n, m, lanes, dtype, device,
         termination_reason=scalar(0, torch.int32),
         avg_primal_out=_lane_zeros(n, lanes, dtype, device),
         avg_dual_out=_lane_zeros(m, lanes, dtype, device),
+    )
+
+
+def _norm_cache(c, b) -> DeviceQpCache:
+    """Per lane, the norms of the ORIGINAL c and b ((dim, B) tensors;
+    reference termination.jl:140-158)."""
+
+    def linf(v):
+        if v.shape[0] == 0:
+            return torch.zeros(v.shape[1], dtype=v.dtype, device=v.device)
+        return torch.amax(torch.abs(v), dim=0)
+
+    return DeviceQpCache(
+        l_inf_norm_primal_linear_objective=linf(c),
+        l_inf_norm_primal_right_hand_side=linf(b),
+        l2_norm_primal_linear_objective=torch.linalg.vector_norm(c, dim=0),
+        l2_norm_primal_right_hand_side=torch.linalg.vector_norm(b, dim=0),
     )
 
 
@@ -421,34 +473,23 @@ def _finish_fleet(params, pattern: LanesPattern, k_eq: int, v_orig,
         bool(params.l2_norm_rescaling), params.pock_chambolle_alpha,
     )
     is_equality = (torch.arange(m, device=device) < k_eq)[:, None]
-
-    def linf(v):
-        if v.shape[0] == 0:
-            return torch.zeros(lanes, dtype=dtype, device=device)
-        return torch.amax(torch.abs(v), dim=0)
-
     bundle = DeviceScaledQp(
-        scaled=_lane_qp(pattern, rescaled.v, rescaled.vectors, const,
-                        is_equality),
-        original=_lane_qp(pattern, v_orig, vectors, const, is_equality),
+        scaled=_lane_qp(lanes_op(pattern, rescaled.v), None,
+                        rescaled.vectors, const, is_equality),
+        original=_lane_qp(lanes_op(pattern, v_orig), None, vectors, const,
+                          is_equality),
         constraint_rescaling=rescaled.cum_con,
         variable_rescaling=rescaled.cum_var,
-        # norms of the ORIGINAL c and b (reference termination.jl:140-158)
-        qp_cache=DeviceQpCache(
-            l_inf_norm_primal_linear_objective=linf(vectors["c"]),
-            l_inf_norm_primal_right_hand_side=linf(vectors["b"]),
-            l2_norm_primal_linear_objective=torch.linalg.vector_norm(
-                vectors["c"], dim=0),
-            l2_norm_primal_right_hand_side=torch.linalg.vector_norm(
-                vectors["b"], dim=0),
-        ),
+        qp_cache=_norm_cache(vectors["c"], vectors["b"]),
     )
     if _is_mp(params):
         state = _initial_mp_state(params, pattern, v_orig, n, m, lanes,
                                   dtype, device, rescaled)
     else:
-        state = _initial_pdhg_state(params, n, m, lanes, dtype, device,
-                                    rescaled)
+        state = _initial_pdhg_state(
+            n, m, lanes, dtype, device, rescaled.step_size,
+            _device_primal_weight(params, lanes, dtype, device, rescaled),
+            torch.full((lanes,), 0.5, dtype=torch.float64, device=device))
     # one read-back for the host-side unscaling vectors
     cum_con = rescaled.cum_con.double().cpu().numpy()
     cum_var = rescaled.cum_var.double().cpu().numpy()
@@ -492,8 +533,7 @@ def _prepare_fleet_fast(params, problems, device) -> SharedPatternFleet:
         ):
             raise ValueError(
                 "shared-pattern batching requires identical sparsity "
-                "patterns (heterogeneous fleets are not ported yet: A13b "
-                "in ROADMAP.md)"
+                "patterns (use solve_batch for heterogeneous fleets)"
             )
 
     def lanes(arrays):
@@ -558,10 +598,21 @@ def _prepare_fleet_from_spec(params, spec: FleetSpec,
     """A FleetSpec: the base problem and the thetas go to the device, the
     lanes are generated there. The index tensors are kept on the spec,
     keyed by the pattern's hash and the device."""
+    if not _is_mp(params) and not isinstance(
+            params.step_size_policy_params, _pdhg.AdaptiveStepsizeParams):
+        raise ValueError(
+            "FleetSpec fleets require the adaptive step rule (or mirror "
+            "prox)")
+    if params.bound_width_rescaling:
+        # the device rescaling has no bound-width step; the JAX package
+        # drops the flag here without a word (C4 in ROADMAP.md)
+        raise ValueError(
+            "FleetSpec fleets do not take bound_width_rescaling: pass "
+            "the instances as a list")
     base = spec.base_problem
     validate(base)
     if base.objective_matrix is not None and base.objective_matrix.nnz > 0:
-        raise NotImplementedError(_NOT_PORTED.format(what="QP fleets"))
+        raise ValueError("FleetSpec fleets are LP-only")
     if spec.matrix_values is None:
         raise ValueError("FleetSpec.matrix_values is required")
     dtype = torch_dtype(params.dtype)
@@ -582,35 +633,244 @@ def _prepare_fleet_from_spec(params, spec: FleetSpec,
 def _check_fleet_params(params) -> None:
     if not _is_mp(params):
         policy = params.step_size_policy_params
-        if isinstance(policy, _pdhg.ConstantStepsizeParams):
-            raise NotImplementedError(
-                _NOT_PORTED.format(what="constant-step fleets"))
-        if not isinstance(policy, _pdhg.AdaptiveStepsizeParams):
+        if not isinstance(policy, (_pdhg.AdaptiveStepsizeParams,
+                                   _pdhg.ConstantStepsizeParams)):
             raise ValueError(
                 "batched solves support adaptive or constant step sizes")
         _pdhg._check_ported(params)
-    if params.bound_width_rescaling:
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="fleets with bound-width rescaling"))
+
+
+def _is_qp(problem) -> bool:
+    return (problem.objective_matrix is not None
+            and problem.objective_matrix.nnz > 0)
 
 
 def prepare_shared_pattern_fleet(params, problems, device=None
                                  ) -> SharedPatternFleet:
     """Rescales the fleet, builds the shared lane operators and the
     initial lane state on `device` (CUDA when None; raises without a
-    GPU, the CPU only when asked). `problems`: a list of LPs with one
-    sparsity pattern (ValueError otherwise), or a FleetSpec. Separate
-    from the solve, so that repeated solves skip ingest."""
+    GPU, the CPU only when asked). `problems`: a list of LPs or QPs
+    with one shape, num_equalities and sparsity pattern of A (and of Q)
+    (ValueError otherwise), or a FleetSpec. LP fleets with the adaptive
+    step rule or Mirror Prox and no bound-width rescaling are rescaled on
+    the device; the others per instance on the host
+    (_prepare_fleet_slow), as the JAX package dispatches
+    (firstorderlp_tpu/batch.py:421-445). Separate from the solve, so that
+    repeated solves skip ingest."""
     device = resolve_device(device)
     _check_fleet_params(params)
     if isinstance(problems, FleetSpec):
         return _prepare_fleet_from_spec(params, problems, device)
     if len(problems) == 0:
         raise ValueError("an empty fleet has nothing to prepare")
-    if any(p.objective_matrix is not None and p.objective_matrix.nnz > 0
-           for p in problems):
-        raise NotImplementedError(_NOT_PORTED.format(what="QP fleets"))
-    return _prepare_fleet_fast(params, problems, device)
+    fast_ok = (
+        (_is_mp(params) or isinstance(params.step_size_policy_params,
+                                      _pdhg.AdaptiveStepsizeParams))
+        and not any(_is_qp(p) for p in problems)
+        and not params.bound_width_rescaling
+    )
+    if fast_ok:
+        return _prepare_fleet_fast(params, problems, device)
+    return _prepare_fleet_slow(params, problems, device)
+
+
+# ---------------------------------------------------------------------------
+# Ingest instance by instance on the host: QP, constant-step and
+# bound-width fleets, and heterogeneous fleets
+# ---------------------------------------------------------------------------
+
+
+def _rescale(params, problem) -> ScaledQpProblem:
+    """validate, then the single solver's rescaling, bound-width step
+    included (the JAX package's fleet ingests drop the flag: C4)."""
+    validate(problem)
+    return rescale_problem(
+        params.l_inf_ruiz_iterations,
+        params.l2_norm_rescaling,
+        params.pock_chambolle_alpha,
+        0,
+        problem,
+        bound_width_rescaling_flag=params.bound_width_rescaling,
+    )
+
+
+class _LaneStart(NamedTuple):
+    """One lane's start, computed on the host as the single solver
+    computes it (pdhg.prepare_problem, mirror_prox.prepare_problem)."""
+
+    step_size: float
+    primal_weight: float
+    kkt_passes: float
+    primal_scaling: Optional[np.ndarray]  # Mirror Prox only
+    dual_scaling: Optional[np.ndarray]
+
+
+def _lane_start(params, scaled: ScaledQpProblem) -> _LaneStart:
+    """The JAX package's per-instance start (batch.py:960-1015 there):
+    1 / max|A| and half a KKT pass for the adaptive rule, 0.8 / sigma_max
+    and the power method's iterations for constant steps, the mirror-map
+    scalings for Mirror Prox."""
+    qp = scaled.scaled_qp
+    if _is_mp(params):
+        inf_norm = matrix_inf_norm_entrywise(qp.constraint_matrix)
+        px, py, pw = _mp.initial_mp_scalings(qp, params)
+        return _LaneStart(1.0 / inf_norm if inf_norm > 0 else 1.0, pw, 0.0,
+                          px, py)
+    if isinstance(params.step_size_policy_params,
+                  _pdhg.AdaptiveStepsizeParams):
+        inf_norm = matrix_inf_norm_entrywise(qp.constraint_matrix)
+        step_size = 1.0 / inf_norm if inf_norm > 0 else 1.0
+        kkt = 0.5
+    else:
+        sigma_max, iterations = estimate_maximum_singular_value(
+            qp.constraint_matrix, probability_of_failure=0.001,
+            desired_relative_error=0.2)
+        step_size = 0.8 / sigma_max
+        kkt = float(iterations)
+    primal_weight = initial_primal_weight_host(
+        qp, params.primal_importance,
+        params.scale_invariant_initial_primal_weight, 0)
+    return _LaneStart(step_size, primal_weight, kkt, None, None)
+
+
+def _shared_lanes_ops(mats, device, dtype, label, share_with=None):
+    """L1 lane operator of B matrices with one pattern (ValueError
+    otherwise, as the JAX package's stacking raises); the pattern of
+    `share_with` is reused where it is the same."""
+    csrs = [_canonical_csr(a) for a in mats]
+    pat = csrs[0]
+    for a in csrs[1:]:
+        if (a.nnz != pat.nnz or not np.array_equal(a.indptr, pat.indptr)
+                or not np.array_equal(a.indices, pat.indices)):
+            raise ValueError(
+                "shared-pattern batching requires identical index "
+                "structure across instances")
+    pattern = None
+    if share_with is not None:
+        pattern = share_with.pattern
+        if pattern.pattern_hash != pattern_hash(pat):
+            pattern = None
+    if pattern is None:
+        pattern = build_lanes_pattern(pat, device, label=label)
+    values = np.stack([a.data for a in csrs], axis=1)
+    return lanes_op(pattern, torch.as_tensor(values, device=device).to(dtype))
+
+
+def _host_fleet(params, scaled_problems: Sequence[ScaledQpProblem],
+                build_ops, device, lane_shapes=None) -> SharedPatternFleet:
+    """The fleet of instances rescaled on the host, all of one (m, n):
+    the lane vectors stacked into (dim, B), A (and Q) of each copy on the
+    operators `build_ops(matrices, device, dtype, label, share_with=)`
+    makes (L1 lane operators or the block lane operator), the norm cache
+    and the initial state from each lane's start (the JAX package's
+    _prepare_fleet_slow and solve_batch ingest, batch.py:924-1034 and
+    1364-1450 there)."""
+    dtype = torch_dtype(params.dtype)
+    lanes = len(scaled_problems)
+    originals = [s.original_qp for s in scaled_problems]
+    scaled_qps = [s.scaled_qp for s in scaled_problems]
+    m, n = originals[0].constraint_matrix.shape
+
+    def stack(arrays):
+        host = np.stack([np.asarray(a, np.float64) for a in arrays], axis=1)
+        return torch.as_tensor(host, device=device).to(dtype).contiguous()
+
+    def scalars(values, kind=dtype):
+        return torch.as_tensor(np.array(values, np.float64),
+                               device=device).to(kind)
+
+    def vectors(qps):
+        return {"c": stack([q.objective_vector for q in qps]),
+                "b": stack([q.right_hand_side for q in qps]),
+                "lo": stack([q.variable_lower_bound for q in qps]),
+                "hi": stack([q.variable_upper_bound for q in qps])}
+
+    k_eq = np.array([q.num_equalities for q in originals])
+    rows = torch.arange(m, device=device)[:, None]
+    if np.all(k_eq == k_eq[0]):
+        is_equality = rows < int(k_eq[0])  # (m, 1)
+    else:
+        is_equality = rows < torch.as_tensor(k_eq, device=device)[None, :]
+    const = scalars([q.objective_constant for q in originals])
+    a_scaled = build_ops([q.constraint_matrix for q in scaled_qps], device,
+                         dtype, "A")
+    a_orig = build_ops([q.constraint_matrix for q in originals], device,
+                       dtype, "A", share_with=a_scaled)
+    q_scaled = q_orig = None
+    if any(_is_qp(q) for q in originals):
+        q_scaled = build_ops([q.objective_matrix for q in scaled_qps],
+                             device, dtype, "Q")
+        q_orig = build_ops([q.objective_matrix for q in originals], device,
+                           dtype, "Q", share_with=q_scaled)
+
+    original = vectors(originals)
+    bundle = DeviceScaledQp(
+        scaled=_lane_qp(a_scaled, q_scaled, vectors(scaled_qps), const,
+                        is_equality),
+        original=_lane_qp(a_orig, q_orig, original, const, is_equality),
+        constraint_rescaling=stack(
+            [s.constraint_rescaling for s in scaled_problems]),
+        variable_rescaling=stack(
+            [s.variable_rescaling for s in scaled_problems]),
+        qp_cache=_norm_cache(original["c"], original["b"]),
+    )
+    starts = [_lane_start(params, s) for s in scaled_problems]
+    step_size = scalars([s.step_size for s in starts])
+    primal_weight = scalars([s.primal_weight for s in starts])
+    if _is_mp(params):
+        state = _mp_zero_state(
+            n, m, lanes, dtype, device,
+            stack([s.primal_scaling for s in starts]),
+            stack([s.dual_scaling for s in starts]), step_size,
+            primal_weight)
+    else:
+        state = _initial_pdhg_state(
+            n, m, lanes, dtype, device, step_size, primal_weight,
+            scalars([s.kkt_passes for s in starts], torch.float64))
+    return SharedPatternFleet(bundle=bundle, initial_state=state,
+                              scaled_problems=list(scaled_problems),
+                              device=device, lane_shapes=lane_shapes)
+
+
+def _prepare_fleet_slow(params, problems, device) -> SharedPatternFleet:
+    """A shared-pattern fleet rescaled instance by instance on the host
+    (QP fleets, constant steps, bound-width rescaling: the JAX package's
+    _prepare_fleet_slow, batch.py:924-1034 there); A and Q on L1 lane
+    operators."""
+    if len({(p.constraint_matrix.shape, p.num_equalities)
+            for p in problems}) != 1:
+        raise ValueError(
+            "shared-pattern batching requires identical problem shapes")
+    return _host_fleet(params, [_rescale(params, p) for p in problems],
+                       _shared_lanes_ops, device)
+
+
+def prepare_batch(params, problems, device=None) -> SharedPatternFleet:
+    """A heterogeneous fleet for solve_batch (PDHG with adaptive or
+    constant steps; any shapes and patterns): every instance validated,
+    padded to the fleet's largest (m, n) (parallel.pad_problem) and
+    rescaled on the host; A and Q of each copy on one interleaved
+    block-diagonal operator (ops/block_lanes.py, B2 in f32); `device`
+    as for prepare_shared_pattern_fleet."""
+    if _is_mp(params):
+        raise ValueError(
+            "solve_batch runs PDHG (PdhgParameters with adaptive or "
+            "constant steps); Mirror Prox fleets of one pattern run in "
+            "solve_batch_shared_pattern")
+    device = resolve_device(device)
+    _check_fleet_params(params)
+    if len(problems) == 0:
+        raise ValueError("an empty fleet has nothing to prepare")
+    max_m = max(p.constraint_matrix.shape[0] for p in problems)
+    max_n = max(p.constraint_matrix.shape[1] for p in problems)
+    scaled, shapes = [], []
+    for problem in problems:
+        validate(problem)
+        padded, m, n = pad_problem(problem, max_m, max_n)
+        scaled.append(_rescale(params, padded))
+        shapes.append((m, n))
+    return _host_fleet(params, scaled, build_block_lanes, device,
+                       lane_shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -633,19 +893,38 @@ def _lane_stats(bundle, criteria, avg_primal, avg_dual, numerical_error,
     return conv, infeas, reason
 
 
+def _primal_gradient(problem, x, aty):
+    """Q x + c - A'y per lane; c - A'y for an LP, whose objective matrix
+    adds exact zeros (the JAX package's _compute_next_primal,
+    pdhg.py:246-249 there)."""
+    if problem.objective_matrix is None:
+        return problem.objective_vector - aty
+    return problem.qx(x) + problem.objective_vector - aty
+
+
 def _lp_parts(problem, x, y):
-    """(A'y, A x, primal gradient c - A'y, Lagrangian) per lane of an LP
-    (the objective matrix is zero, so the JAX package's Qx terms add
-    exact zeros)."""
+    """(A'y, A x, primal gradient Q x + c - A'y, Lagrangian) per lane
+    (trust_region.bound_optimal_objective_euclidean_batched's terms; for
+    an LP the Q x terms are left out, as they add exact zeros)."""
     aty = problem.aty(y)
     ax = problem.ax(x)
+    if problem.objective_matrix is None:
+        lagrangian = (
+            torch.sum(x * problem.objective_vector, dim=0)
+            - torch.sum(x * aty, dim=0)
+            + torch.sum(y * problem.right_hand_side, dim=0)
+            + problem.objective_constant
+        )
+        return aty, ax, problem.objective_vector - aty, lagrangian
+    qx = problem.qx(x)
     lagrangian = (
-        torch.sum(x * problem.objective_vector, dim=0)
+        0.5 * torch.sum(x * qx, dim=0)
+        + torch.sum(x * problem.objective_vector, dim=0)
         - torch.sum(x * aty, dim=0)
         + torch.sum(y * problem.right_hand_side, dim=0)
         + problem.objective_constant
     )
-    return aty, ax, problem.objective_vector - aty, lagrangian
+    return aty, ax, qx + problem.objective_vector - aty, lagrangian
 
 
 def _dual_bounds(problem, lanes):
@@ -978,6 +1257,26 @@ def _pdhg_step_size_factors(total, policy, dtype):
             1 + t1 ** (-policy.growth_exponent))
 
 
+def _pdhg_trial_point(problem, state):
+    """(x+, y+, A'y+) per lane: the primal step from the state's A'y,
+    then the dual step at the extrapolated point (the JAX package's
+    _compute_next_primal and _compute_next_dual)."""
+    step = state.step_size
+    pw = state.primal_weight
+    x = state.current_primal_solution
+    y = state.current_dual_solution
+    next_x = project_primal(
+        x - (step / pw) * _primal_gradient(problem, x,
+                                           state.current_dual_product),
+        problem)
+    extrapolated = next_x + (next_x - x)
+    next_y = project_dual(
+        y + (pw * step) * (problem.right_hand_side - problem.ax(extrapolated)),
+        problem,
+    )
+    return next_x, next_y, problem.aty(next_y)
+
+
 def pdhg_lane_step(problem, state, active, policy):
     """One accept/reject trial of the adaptive step rule in every lane
     (the JAX package's _take_step_adaptive, pdhg.py:303-410 there);
@@ -988,17 +1287,13 @@ def pdhg_lane_step(problem, state, active, policy):
     y = state.current_dual_solution
     aty = state.current_dual_product
     total = state.total_number_iterations + 1
-    next_x = project_primal(
-        x - (step / pw) * (problem.objective_vector - aty), problem)
-    extrapolated = next_x + (next_x - x)
-    next_y = project_dual(
-        y + (pw * step) * (problem.right_hand_side - problem.ax(extrapolated)),
-        problem,
-    )
-    next_aty = problem.aty(next_y)
+    next_x, next_y, next_aty = _pdhg_trial_point(problem, state)
     dx = next_x - x
     dy = next_y - y
     interaction = torch.abs(torch.sum(dx * (next_aty - aty), dim=0))
+    if problem.objective_matrix is not None:
+        interaction = interaction + torch.abs(
+            0.5 * torch.sum(dx * problem.qx(dx), dim=0))
     movement = (0.5 * pw * torch.sum(dx * dx, dim=0)
                 + (0.5 / pw) * torch.sum(dy * dy, dim=0))
     numerical_error = movement == 0.0
@@ -1032,6 +1327,38 @@ def pdhg_lane_step(problem, state, active, policy):
                                     state.numerical_error),
         total_number_iterations=torch.where(
             active, total, state.total_number_iterations),
+        cumulative_kkt_passes=torch.where(
+            active, state.cumulative_kkt_passes + 1.0,
+            state.cumulative_kkt_passes),
+    )
+
+
+def pdhg_lane_step_constant(problem, state, active):
+    """One step of the constant step rule in every lane (the JAX
+    package's _take_step_constant, pdhg.py:412-437 there): always
+    accepted, one KKT pass; lanes where `active` is false stay bitwise as
+    they were."""
+    x = state.current_primal_solution
+    y = state.current_dual_solution
+    next_x, next_y, next_aty = _pdhg_trial_point(problem, state)
+    return dataclasses.replace(
+        state,
+        delta_primal=torch.where(active, next_x - x, state.delta_primal),
+        delta_dual=torch.where(active, next_y - y, state.delta_dual),
+        current_primal_solution=torch.where(active, next_x, x),
+        current_dual_solution=torch.where(active, next_y, y),
+        current_dual_product=torch.where(active, next_aty,
+                                         state.current_dual_product),
+        avg=_select(
+            active,
+            add_to_solution_weighted_average(state.avg, next_x, next_y,
+                                             state.step_size),
+            state.avg,
+        ),
+        iteration=torch.where(active, state.iteration + 1, state.iteration),
+        total_number_iterations=torch.where(
+            active, state.total_number_iterations + 1,
+            state.total_number_iterations),
         cumulative_kkt_passes=torch.where(
             active, state.cumulative_kkt_passes + 1.0,
             state.cumulative_kkt_passes),
@@ -1121,9 +1448,17 @@ def mp_lane_step(problem, state, active):
         return (project_primal(x - step * gx / ps, problem),
                 project_dual(y - step * gy / ds, problem))
 
-    gx, gy = c - problem.aty(y), problem.ax(x) - b
+    def gradient(px, py):
+        """(c + Q x - A'y, A x - b) (mirror_prox._pseudo_gradient)."""
+        if problem.objective_matrix is None:
+            gx = c - problem.aty(py)
+        else:
+            gx = c + problem.qx(px) - problem.aty(py)
+        return gx, problem.ax(px) - b
+
+    gx, gy = gradient(x, y)
     test_x, test_y = prox(gx, gy)
-    tgx, tgy = c - problem.aty(test_y), problem.ax(test_x) - b
+    tgx, tgy = gradient(test_x, test_y)
     cand_x, cand_y = prox(tgx, tgy)
 
     def bregman(dx, dy):
@@ -1252,6 +1587,10 @@ def run_segment(bundle, state, elapsed_time, config):
     segment can take, then one read-back a trial of whether any lane is
     active. Returns (state, result, SegmentCounts)."""
     mp = isinstance(config, _mp._MpConfig)
+    constant = not mp and isinstance(config.step_policy,
+                                     _pdhg.ConstantStepsizeParams)
+    # the evaluation is the same for both step rules, as in the JAX
+    # package's _eval_block
     eval_block = mp_eval_block if mp else pdhg_eval_block
     state, result = eval_block(bundle, state, elapsed_time, config)
     running = state.termination_reason == 0
@@ -1277,6 +1616,8 @@ def run_segment(bundle, state, elapsed_time, config):
                 break
         if mp:
             state = mp_lane_step(bundle.scaled, state, active)
+        elif constant:
+            state = pdhg_lane_step_constant(bundle.scaled, state, active)
         else:
             state = pdhg_lane_step(bundle.scaled, state, active,
                                    config.step_policy)
@@ -1325,8 +1666,8 @@ _LIMIT_REASONS = (
 
 @dataclasses.dataclass
 class FleetRunStats:
-    """What a solve_batch_shared_pattern call did on the host:
-    dispatches, evaluations (segments), step trials and read-backs
+    """What a solve_batch_shared_pattern or solve_batch call did on the
+    host: dispatches, evaluations (segments), step trials and read-backs
     (host waits for the device, the reasons of each dispatch included).
     Read by chip_smoke.py."""
 
@@ -1340,25 +1681,65 @@ def solve_batch_shared_pattern(
     params, problems, fleet: Optional[SharedPatternFleet] = None,
     device=None, run_stats: Optional[FleetRunStats] = None,
 ) -> List[SaddlePointOutput]:
-    """Solves a fleet of same-pattern LPs, one output per lane (the JAX
-    package's solve_batch_shared_pattern, batch.py:1037-1245 there).
+    """Solves a fleet of same-pattern LPs or QPs, one output per lane
+    (the JAX package's solve_batch_shared_pattern, batch.py:1037-1245
+    there).
 
     `problems`: a list (identical shapes, num_equalities and sparsity
-    patterns; ValueError otherwise) or a FleetSpec. `params`:
-    PdhgParameters with the adaptive step rule, or MirrorProxParameters.
-    `fleet` (from prepare_shared_pattern_fleet) skips ingest. `device`:
-    CUDA when None (raises without a GPU), the CPU only when asked.
-    Per dispatch (`evaluations_per_dispatch` evaluations) the host reads
-    the (B,) reasons once; a lane's solve time is the end of the
-    dispatch where it ended. Checkpoints (`checkpoint_path`,
-    `resume_from_checkpoint`) hold the whole lane state; on resume, lanes
-    that had ended on a limit run again."""
+    patterns of A and Q; ValueError otherwise) or a FleetSpec (LPs).
+    `params`: PdhgParameters with the adaptive or the constant step
+    rule, or MirrorProxParameters. `fleet` (from
+    prepare_shared_pattern_fleet) skips ingest. `device`: CUDA when None
+    (raises without a GPU), the CPU only when asked. Per dispatch
+    (`evaluations_per_dispatch` evaluations) the host reads the (B,)
+    reasons once; a lane's solve time is the end of the dispatch where
+    it ended. Checkpoints (`checkpoint_path`, `resume_from_checkpoint`)
+    hold the whole lane state; on resume, lanes that had ended on a
+    limit run again."""
     if (not isinstance(problems, FleetSpec) and len(problems) == 0
             and fleet is None):
         return []
     validate_termination_criteria(params.termination_criteria)
     if fleet is None:
         fleet = prepare_shared_pattern_fleet(params, problems, device=device)
+    return _solve_fleet(params, problems, fleet, run_stats)
+
+
+def solve_batch(
+    params, problems: Sequence[QuadraticProgrammingProblem],
+    fleet: Optional[SharedPatternFleet] = None, device=None,
+    run_stats: Optional[FleetRunStats] = None,
+) -> List[SaddlePointOutput]:
+    """Solves a heterogeneous fleet (any sizes and sparsity patterns,
+    LPs or QPs) by PDHG with adaptive or constant steps, one output per
+    instance, its solutions sliced back to its own (m, n) (the JAX
+    package's solve_batch, batch.py:1364-1532 there). The instances are
+    padded to the fleet's largest shape and their A (and Q) stacked into
+    one interleaved block-diagonal matrix (prepare_batch); the lane core
+    and the host loop are solve_batch_shared_pattern's. Only final
+    iteration stats are recorded, with POINT_TYPE_AVERAGE_ITERATE and
+    RESTART_CHOICE_UNSPECIFIED as in the JAX package. `fleet` (from
+    prepare_batch) skips ingest. `device`: CUDA when None (raises
+    without a GPU), the CPU only when asked."""
+    if len(problems) == 0 and fleet is None:
+        return []
+    validate_termination_criteria(params.termination_criteria)
+    if fleet is None:
+        fleet = prepare_batch(params, problems, device=device)
+    outputs = _solve_fleet(params, problems, fleet, run_stats)
+    return [
+        dataclasses.replace(out, primal_solution=out.primal_solution[:n],
+                            dual_solution=out.dual_solution[:m])
+        for out, (m, n) in zip(outputs, fleet.lane_shapes)
+    ]
+
+
+def _solve_fleet(params, problems, fleet: SharedPatternFleet,
+                 run_stats: Optional[FleetRunStats]
+                 ) -> List[SaddlePointOutput]:
+    """The host loop of both kinds of fleet: dispatches of
+    `evaluations_per_dispatch` segments, one read-back of the (B,)
+    reasons a dispatch, checkpoints between dispatches."""
     bundle, state = fleet.bundle, fleet.initial_state
     scaled_problems = fleet.scaled_problems
     lanes = fleet.num_instances

@@ -205,3 +205,16 @@ def mp_fleet_state_from_arrays(
     """The fleet's MirrorProxState from the leaves of the JAX package's
     batched MirrorProxState, as fleet_state_from_arrays."""
     return _lane_leaves(MirrorProxState, leaves, torch.device(device))
+
+
+def fleet_state_from_leading_arrays(
+    leaves: Dict[str, np.ndarray], device="cpu"
+) -> PdhgState:
+    """The fleet's PdhgState from the leaves of the JAX package's
+    batched PdhgState with a LEADING batch axis ((B, dim) vectors, (B,)
+    scalars), as its solve_batch stacks a heterogeneous fleet
+    (firstorderlp_tpu/batch.py:1455-1457): every vector leaf moved to
+    the port's (dim, B) layout, contiguous in B."""
+    minor = {key: np.ascontiguousarray(np.moveaxis(np.asarray(value), 0, -1))
+             for key, value in leaves.items()}
+    return fleet_state_from_arrays(minor, device)

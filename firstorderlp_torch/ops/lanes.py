@@ -57,8 +57,10 @@ LANE_ITEM_ENTRIES = 64
 LANE_UNROLL = 8
 LANE_VECTOR_BYTES = 16
 
-# Launch counts per orientation (A x and A' y counted apart).
-LAUNCHES: Dict[str, int] = {"lanes_spmv:A": 0, "lanes_spmv:AT": 0}
+# Launch counts per orientation (A x and A' y counted apart; Q x: a QP
+# fleet's objective matrix).
+LAUNCHES: Dict[str, int] = {"lanes_spmv:A": 0, "lanes_spmv:AT": 0,
+                            "lanes_spmv:Q": 0, "lanes_spmv:QT": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,7 +82,7 @@ class LanesHalf:
     tickets: torch.Tensor  # (nitems + 1,) int32, zero between launches
     num_rows: int
     num_cols: int
-    label: str  # "A" or "AT"
+    label: str  # "A" or "AT" ("Q", "QT": an objective matrix)
     item_entries: int
     # (dtype, lanes) -> the pieces' partial sums, shared by the value
     # planes of this half, whose products run on one stream; and (dtype,
@@ -149,11 +151,12 @@ def _half(csr: sp.csr_matrix, label: str, item_entries: int,
 
 
 def build_lanes_pattern(pattern: sp.csr_matrix, device,
-                        item_entries: int = LANE_ITEM_ENTRIES
-                        ) -> LanesPattern:
+                        item_entries: int = LANE_ITEM_ENTRIES,
+                        label: str = "A") -> LanesPattern:
     """The index tensors of `pattern` (a canonical csr: sorted indices,
-    no duplicates) on `device`. The A' permutation comes from a transpose
-    of the entry ids on the host."""
+    no duplicates) on `device`, its halves labelled `label` and
+    `label`T (their launches count under ``lanes_spmv:<label>``). The A'
+    permutation comes from a transpose of the entry ids on the host."""
     csr = sp.csr_matrix(pattern)
     if not csr.has_canonical_format:
         raise ValueError("the lane pattern must be a canonical csr matrix")
@@ -168,8 +171,8 @@ def build_lanes_pattern(pattern: sp.csr_matrix, device,
     ids_t.sort_indices()
     perm_t = ids_t.data.astype(np.int64) - 1
     return LanesPattern(
-        fwd=_half(csr, "A", item_entries, device),
-        bwd=_half(ids_t, "AT", item_entries, device),
+        fwd=_half(csr, label, item_entries, device),
+        bwd=_half(ids_t, label + "T", item_entries, device),
         perm_t=torch.as_tensor(perm_t, device=device),
         pattern_hash=pattern_hash(csr),
     )

@@ -82,6 +82,9 @@ ITEM_ENTRIES = 2048
 LAUNCHES: Dict[str, int] = {
     "spmv_csr:A": 0,
     "spmv_csr:AT": 0,
+    # a heterogeneous QP fleet's objective matrix (ops/block_lanes.py)
+    "spmv_csr:Q": 0,
+    "spmv_csr:QT": 0,
     "spmv_dual_step": 0,
     "spmv_rmv_stats": 0,
     "tiled_spmv:A": 0,
@@ -126,7 +129,7 @@ class CsrKernelMatrix:
     vals: torch.Tensor  # (nnz,) f32
     num_rows: int
     num_cols: int
-    label: str  # "A" or "AT"
+    label: str  # "A" or "AT" ("Q", "QT": an objective matrix)
     tpr: int  # lanes per row in a run of short rows
     item_entries: int  # the item size the items were cut to
     # (nitems + 1, 4) int32 [first entry, first row, index of the piece

@@ -7,17 +7,19 @@ package's, on the CPU, in f64.
   against its prepared fleet (PDHG, Mirror Prox l1 / l2 / off).
 - One lane step and one segment from a JAX batched state
   (convert.fleet_state_from_arrays) against the JAX package's vmapped
-  _take_step and _run_segment_shared, PDHG and Mirror Prox: iterates at
-  rtol 1e-10 (the step size and the step-weighted sums at 1e-6, as in
-  the single-instance segment tests), counters exact, and a lane that
-  had already terminated bitwise unchanged.
-- Whole fleets against the JAX package's solve_batch_shared_pattern:
-  the same reasons and iteration counts, solutions within atol 1e-6
+  _take_step and _run_segment_shared, PDHG (adaptive and constant
+  steps, LP and QP) and Mirror Prox (LP and QP): iterates at rtol 1e-10
+  (the step size and the step-weighted sums at 1e-6, as in the
+  single-instance segment tests), counters exact, and a lane that had
+  already terminated bitwise unchanged.
+- Whole fleets against the JAX package's solve_batch_shared_pattern
+  (both ingests: constant steps and QPs take the per-instance one): the
+  same reasons and iteration counts, solutions within atol 1e-6
   (objectives at rtol 1e-6 for the L1-SVM path, whose optima are not
   unique); and each lane against the port's own single-instance
   optimize.
-- Errors, checkpoint/resume (both ingests, and across packages), the
-  device rule.
+- Errors (a FleetSpec's refusals among them), checkpoint/resume (both
+  ingests, and across packages), the device rule.
 """
 
 import dataclasses
@@ -48,7 +50,6 @@ from firstorderlp_torch import batch, convert
 from firstorderlp_torch.generators import pagerank_fleet_spec
 from firstorderlp_torch.ops import lanes
 
-import fixtures
 from test_mirror_prox import mp_params
 from test_torch_mirror_prox import port_mp_params
 from test_torch_pdhg import (
@@ -89,6 +90,19 @@ def fleet_pdhg_params(criteria):
 def fleet_mp_params(criteria, scaling):
     return mp_params(criteria, diagonal_scaling=scaling, ruiz_iterations=10,
                      pock_chambolle_alpha=1.0)
+
+
+def constant_steps(params):
+    return dataclasses.replace(
+        params, step_size_policy_params=jx_pdhg.ConstantStepsizeParams())
+
+
+def qp_fleet(nodes=120):
+    """pagerank_fleet with an objective matrix lambda I per lane (a
+    Tikhonov path over the damping sweep)."""
+    return [dataclasses.replace(p, objective_matrix=sp.csc_matrix(
+        w * sp.eye(p.constraint_matrix.shape[1])))
+        for p, w in zip(pagerank_fleet(nodes), (0.01, 0.1, 1.0))]
 
 
 def to_port(params):
@@ -264,15 +278,28 @@ def jax_config(params):
     )
 
 
+# solver: (parameters, fleet); constant steps and QPs take the
+# per-instance ingest
 SOLVERS = {
-    "pdhg": lambda: fleet_pdhg_params(terminate_on_iteration_limit(1000)),
-    "mirror_prox": lambda: fleet_mp_params(
-        terminate_on_iteration_limit(1000), "l2"),
+    "pdhg": (lambda: fleet_pdhg_params(terminate_on_iteration_limit(1000)),
+             pagerank_fleet),
+    "pdhg_constant": (lambda: constant_steps(fleet_pdhg_params(
+        terminate_on_iteration_limit(1000))), pagerank_fleet),
+    "pdhg_qp": (lambda: fleet_pdhg_params(terminate_on_iteration_limit(1000)),
+                qp_fleet),
+    "mirror_prox": (lambda: fleet_mp_params(
+        terminate_on_iteration_limit(1000), "l2"), pagerank_fleet),
+    "mirror_prox_qp": (lambda: fleet_mp_params(
+        terminate_on_iteration_limit(1000), "l2"), qp_fleet),
 }
 
 
+def is_mp_solver(solver):
+    return solver.startswith("mirror_prox")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("solver", sorted(SOLVERS))
+@pytest.mark.parametrize("solver", ["mirror_prox", "pdhg"])
 def test_step_size_factors_match_the_jax_formulas(solver, dtype):
     """The port's own step-size factors (the one-step and one-segment
     tests above swap in XLA's pow) against the JAX package's formulas
@@ -305,8 +332,8 @@ def test_step_size_factors_match_the_jax_formulas(solver, dtype):
 def mid_solve(solver, start):
     """The JAX fleet run to iteration `start` or later, and both
     packages' fleets and configs."""
-    params = SOLVERS[solver]()
-    problems = pagerank_fleet()
+    make_params, make_problems = SOLVERS[solver]
+    params, problems = make_params(), make_problems()
     jfleet = jx_batch.prepare_shared_pattern_fleet(params, problems)
     config = jax_config(params)
     state = jfleet.initial_state
@@ -321,7 +348,7 @@ def mid_solve(solver, start):
 
 def to_state(solver, jstate):
     convert_fn = (convert.mp_fleet_state_from_arrays
-                  if solver == "mirror_prox"
+                  if is_mp_solver(solver)
                   else convert.fleet_state_from_arrays)
     return convert_fn(state_leaves(jstate), device="cpu")
 
@@ -368,31 +395,31 @@ def test_one_lane_step_from_jax_state(solver, monkeypatch):
     monkeypatch.setattr(batch, "_mp_step_size_factors", xla_mp_factors)
     params, jfleet, _, jstate, tparams, tfleet = mid_solve(solver, 50)
     bundle_axes, state_axes = jfleet.axes_box.trees()
-    if solver == "pdhg":
-        def step(b, s):
-            return jx_pdhg._take_step(b.scaled, s,
-                                      params.step_size_policy_params)
-    else:
+    if is_mp_solver(solver):
         def step(b, s):
             s = jx_mp._take_step(b.scaled, s)
             return dataclasses.replace(s, iteration=s.iteration + 1)
+    else:
+        def step(b, s):
+            return jx_pdhg._take_step(b.scaled, s,
+                                      params.step_size_policy_params)
     want = jax.vmap(step, in_axes=(bundle_axes, state_axes),
                     out_axes=state_axes)(jfleet.batched_bundle, jstate)
     tstate = to_state(solver, jstate)
-    active = torch.ones(len(DAMPING), dtype=torch.bool)
-    if solver == "pdhg":
-        got = batch.pdhg_lane_step(tfleet.bundle.scaled, tstate, active,
-                                   tparams.step_size_policy_params)
-    else:
-        got = batch.mp_lane_step(tfleet.bundle.scaled, tstate, active)
+
+    def port_step(active):
+        scaled = tfleet.bundle.scaled
+        if is_mp_solver(solver):
+            return batch.mp_lane_step(scaled, tstate, active)
+        if solver == "pdhg_constant":
+            return batch.pdhg_lane_step_constant(scaled, tstate, active)
+        return batch.pdhg_lane_step(scaled, tstate, active,
+                                    tparams.step_size_policy_params)
+
+    got = port_step(torch.ones(len(DAMPING), dtype=torch.bool))
     compare_states(got, want, rtol=1e-12)
     # an inactive lane does not move at all
-    frozen = torch.tensor([True, False, True])
-    if solver == "pdhg":
-        held = batch.pdhg_lane_step(tfleet.bundle.scaled, tstate, frozen,
-                                    tparams.step_size_policy_params)
-    else:
-        held = batch.mp_lane_step(tfleet.bundle.scaled, tstate, frozen)
+    held = port_step(torch.tensor([True, False, True]))
     before, after = (state_leaves_of_port(tstate),
                      state_leaves_of_port(held))
     for key in before:
@@ -468,6 +495,12 @@ def svm_fleet():
 FLEETS = {
     "pdhg_pagerank": (lambda: fleet_pdhg_params(optimality_criteria(1e-8)),
                       pagerank_fleet),
+    "pdhg_constant": (lambda: constant_steps(fleet_pdhg_params(
+        optimality_criteria(1e-8))), pagerank_fleet),
+    "pdhg_qp": (lambda: fleet_pdhg_params(optimality_criteria(1e-8)),
+                qp_fleet),
+    "mp_l2_qp": (lambda: fleet_mp_params(optimality_criteria(1e-6), "l2"),
+                 qp_fleet),
     "pdhg_l1_svm_path": (
         lambda: fleet_pdhg_params(optimality_criteria(1e-7)), svm_fleet),
     "mp_l2": (lambda: fleet_mp_params(optimality_criteria(1e-6), "l2"),
@@ -483,6 +516,12 @@ FLEETS = {
 # the objective is held at rtol 1e-6 instead of the solutions and the
 # KKT passes.
 NON_UNIQUE = {"pdhg_l1_svm_path"}
+# The QP fleet's f64 step sizes drift apart from the JAX package's by
+# about 1e-10 (relative) by iteration 121, as the LP fleets' do (see
+# STEP_TOLERANCE); at 1e-8 one borderline trial of some 320 is rejected
+# in one package and accepted in the other, so there the KKT passes are
+# held within one trial (iterations and solutions as for the others).
+KKT_TRIALS_APART = {"pdhg_qp": 1.0}
 
 _solved = {}
 
@@ -534,7 +573,8 @@ def test_fleet_matches_jax(case):
         assert gs.iteration_number == ws.iteration_number
         if case not in NON_UNIQUE:
             assert gs.cumulative_kkt_matrix_passes == pytest.approx(
-                ws.cumulative_kkt_matrix_passes)
+                ws.cumulative_kkt_matrix_passes,
+                abs=KKT_TRIALS_APART.get(case, 0.0))
 
 
 @pytest.mark.parametrize("case", sorted(FLEETS))
@@ -583,25 +623,45 @@ def test_mismatched_patterns_raise():
         batch.solve_batch_shared_pattern(params, problems, device="cpu")
 
 
-NOT_PORTED = {
-    "constant_step": lambda p: dataclasses.replace(
-        p, step_size_policy_params=tx.ConstantStepsizeParams()),
-    "bound_width": lambda p: dataclasses.replace(
-        p, bound_width_rescaling=True),
-    "qp_fleet": None,
+def qp_base_spec(spec):
+    base = spec.base_problem
+    return dataclasses.replace(spec, base_problem=dataclasses.replace(
+        base, objective_matrix=sp.csc_matrix(
+            sp.eye(base.constraint_matrix.shape[1]))))
+
+
+# case: (a change of the parameters, of the spec, the error's words)
+SPEC_REFUSALS = {
+    "qp_base": (lambda p: p, qp_base_spec, "FleetSpec fleets are LP-only"),
+    "constant_step": (constant_steps, lambda s: s,
+                      "require the adaptive step rule"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_a13b_cases_raise_not_implemented(case):
-    params = port_params(fleet_pdhg_params(optimality_criteria(1e-6)))
-    problems = [port_problem(p) for p in pagerank_fleet(40)]
-    if case == "qp_fleet":
-        problems = [port_problem(fixtures.example_qp())] * 2
-    else:
-        params = NOT_PORTED[case](params)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        batch.prepare_shared_pattern_fleet(params, problems, device="cpu")
+@pytest.mark.parametrize("case", sorted(SPEC_REFUSALS))
+def test_fleet_spec_refusals_match_jax(case):
+    """A FleetSpec over a QP, or with constant steps: both packages
+    raise the same ValueError."""
+    change_params, change_spec, words = SPEC_REFUSALS[case]
+    params = change_params(fleet_pdhg_params(optimality_criteria(1e-6)))
+    with pytest.raises(ValueError, match=words):
+        jx_batch.prepare_shared_pattern_fleet(
+            params, change_spec(jx_fleet_spec(40, [0.8, 0.9])))
+    with pytest.raises(ValueError, match=words):
+        batch.prepare_shared_pattern_fleet(
+            to_port(params), change_spec(pagerank_fleet_spec(40, [0.8, 0.9])),
+            device="cpu")
+
+
+def test_fleet_spec_refuses_bound_width_rescaling():
+    """The device rescaling has no bound-width step: a FleetSpec with the
+    flag raises (the JAX package drops the flag: C4 in ROADMAP.md)."""
+    params = dataclasses.replace(
+        port_params(fleet_pdhg_params(optimality_criteria(1e-6))),
+        bound_width_rescaling=True)
+    with pytest.raises(ValueError, match="bound_width_rescaling"):
+        batch.prepare_shared_pattern_fleet(
+            params, pagerank_fleet_spec(40, [0.8, 0.9]), device="cpu")
 
 
 def test_malitsky_pock_fleet_is_refused():

@@ -29,7 +29,12 @@ scalar variant, with the dense rows cut into pieces and walked whole,
 gives the same bits on row slices that are not 16-byte aligned and
 under every plan the sweep takes, repeats its bits with the tickets
 back at zero, counts one launch a product, rejects bad inputs, and
-carries a small fleet to OPTIMAL.
+carries a small fleet to OPTIMAL. The heterogeneous fleet's block lane
+operator (ops/block_lanes.py) runs B2 on an interleaved block-diagonal
+matrix of lanes of mixed sizes and patterns: against its plain version,
+20 launches bitwise equal; a 4-lane heterogeneous fleet and a 4-lane QP
+fleet (PDHG and Mirror Prox) end OPTIMAL on the card with the reasons
+of the same fleets on the CPU.
 """
 
 import dataclasses
@@ -789,20 +794,15 @@ def test_lanes_wrapper_rejects_bad_inputs_and_counts(cuda):
     op.mv(x)
     op.rmv(y)
     op.rmv(y)
-    assert lanes.LAUNCHES == {"lanes_spmv:A": 1, "lanes_spmv:AT": 2}
+    assert lanes.LAUNCHES == {"lanes_spmv:A": 1, "lanes_spmv:AT": 2,
+                              "lanes_spmv:Q": 0, "lanes_spmv:QT": 0}
 
 
-def test_fleet_solves_on_the_card(cuda):
-    """A 4-lane FleetSpec fleet in f32 on the card ends OPTIMAL at 1e-4
-    in every lane through the lane kernel, with the reasons of the same
-    fleet on the CPU."""
-    from firstorderlp_torch import batch
-    from firstorderlp_torch.generators import pagerank_fleet_spec
-    from firstorderlp_torch.ops import lanes
-
+def card_params():
+    """bench.py's settings in f32 to 1e-4 (chip_smoke.py's make_params)."""
     import firstorderlp_torch as tx
 
-    params = tx.PdhgParameters(
+    return tx.PdhgParameters(
         l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
         pock_chambolle_alpha=1.0, primal_importance=1.0,
         scale_invariant_initial_primal_weight=True, verbosity=0,
@@ -824,12 +824,132 @@ def test_fleet_solves_on_the_card(cuda):
             reduction_exponent=0.3, growth_exponent=0.6),
         dtype="float32",
     )
+
+
+def test_fleet_solves_on_the_card(cuda):
+    """A 4-lane FleetSpec fleet in f32 on the card ends OPTIMAL at 1e-4
+    in every lane through the lane kernel, with the reasons of the same
+    fleet on the CPU."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.generators import pagerank_fleet_spec
+    from firstorderlp_torch.ops import lanes
+
+    params = card_params()
     spec = pagerank_fleet_spec(500, [0.7, 0.8, 0.9, 0.99], seed=0)
     lanes.reset_launch_counts()
     on_card = batch.solve_batch_shared_pattern(params, spec, device=cuda)
     assert lanes.LAUNCHES["lanes_spmv:A"] > 0
     assert lanes.LAUNCHES["lanes_spmv:AT"] > 0
     on_cpu = batch.solve_batch_shared_pattern(params, spec, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+        assert b.termination_reason == a.termination_reason
+        assert np.all(np.isfinite(a.primal_solution))
+
+
+def mixed_fleet_matrices(sizes=(300, 1000, 2500, 600), seed=3):
+    """The constraint matrices of PageRank LPs of mixed sizes (each with
+    its dense equality row) padded to the largest, and an empty one."""
+    mats = [generate_pagerank_lp(nodes, seed=seed + i).constraint_matrix
+            for i, nodes in enumerate(sizes)]
+    m = max(a.shape[0] for a in mats)
+    n = max(a.shape[1] for a in mats)
+    padded = []
+    for a in mats:
+        coo = a.tocoo()
+        padded.append(sp.csr_matrix((coo.data, (coo.row, coo.col)),
+                                    shape=(m, n)))
+    return padded + [sp.csr_matrix((m, n))]
+
+
+@pytest.mark.parametrize("item_entries", [256, routed.ITEM_ENTRIES])
+def test_block_lanes_spmv_matches_plain_and_repeats(cuda, item_entries):
+    """B2 on the interleaved block-diagonal matrix of five lanes (every
+    lane's dense row cut into pieces at 256-entry items): A x and A' y
+    against the plain version on the card within the f32 rounding of
+    the sums, 20 launches bitwise equal with the tickets back at zero,
+    one count a product."""
+    from firstorderlp_torch.ops import block_lanes
+
+    mats = mixed_fleet_matrices()
+    lanes_count = len(mats)
+    op = block_lanes.build_block_lanes(mats, cuda)
+    a = routed.csr_with_items(op.a, item_entries)
+    at = routed.csr_with_items(op.at, item_entries)
+    m, n = op.shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n, lanes_count), generator=gen, device=cuda)
+    y = torch.randn((m, lanes_count), generator=gen, device=cuda)
+    for mat, v, rows in ((a, x, m), (at, y, n)):
+        got = routed.spmv_csr(mat, v.reshape(-1)).reshape(rows, lanes_count)
+        want = block_lanes.block_lanes_spmv_plain(mat, v)
+        scale = block_lanes.block_lanes_spmv_plain(
+            dataclasses.replace(mat, vals=mat.vals.abs()), v.abs())
+        assert torch.all((got - want).abs() <= 1e-5 * scale + 1e-7)
+        problem = repeat_differs(
+            lambda mat=mat, v=v: routed.spmv_csr(mat, v.reshape(-1)),
+            (mat.tickets,))
+        assert problem is None, problem
+    routed.reset_launch_counts()
+    op.mv(x)
+    op.rmv(y)
+    assert routed.LAUNCHES["spmv_csr:A"] == 1
+    assert routed.LAUNCHES["spmv_csr:AT"] == 1
+
+
+def test_hetero_fleet_solves_on_the_card(cuda):
+    """A 4-lane heterogeneous fleet (PageRank LPs of 300-2,500 nodes) in
+    f32 on the card ends OPTIMAL at 1e-4 in every lane through B2 (and
+    not L1), with the reasons of the same fleet on the CPU."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.ops import lanes
+
+    params = card_params()
+    problems = [generate_pagerank_lp(nodes, seed=10 + i)
+                for i, nodes in enumerate((300, 1000, 2500, 600))]
+    routed.reset_launch_counts()
+    lanes.reset_launch_counts()
+    on_card = batch.solve_batch(params, problems, device=cuda)
+    assert routed.LAUNCHES["spmv_csr:A"] > 0
+    assert routed.LAUNCHES["spmv_csr:AT"] > 0
+    assert not any(lanes.LAUNCHES.values())
+    on_cpu = batch.solve_batch(params, problems, device="cpu")
+    for problem, a, b in zip(problems, on_card, on_cpu):
+        assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+        assert b.termination_reason == a.termination_reason
+        assert a.primal_solution.shape == (problem.num_variables,)
+        assert np.all(np.isfinite(a.primal_solution))
+
+
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_qp_fleet_solves_on_the_card(cuda, solver):
+    """A 4-lane Tikhonov path (a 500-node PageRank LP plus lambda I) on
+    the card ends OPTIMAL at 1e-4 in every lane, L1 launched for A, A'
+    and Q, with the reasons of the same fleet on the CPU."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.models.mirror_prox import MirrorProxParameters
+    from firstorderlp_torch.ops import lanes
+
+    params = card_params()
+    if solver == "mirror_prox":
+        params = MirrorProxParameters(
+            l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+            pock_chambolle_alpha=1.0, primal_importance=1.0,
+            scale_invariant_initial_primal_weight=True,
+            diagonal_scaling="l2", verbosity=0,
+            record_iteration_stats=False,
+            termination_evaluation_frequency=40,
+            termination_criteria=params.termination_criteria,
+            restart_params=params.restart_params, dtype="float32")
+    base = generate_pagerank_lp(500, seed=0)
+    problems = [dataclasses.replace(
+        base, objective_matrix=sp.csc_matrix(w * sp.eye(base.num_variables)))
+        for w in np.geomspace(1e-3, 1.0, 4)]
+    lanes.reset_launch_counts()
+    on_card = batch.solve_batch_shared_pattern(params, problems, device=cuda)
+    for key in ("lanes_spmv:A", "lanes_spmv:AT", "lanes_spmv:Q"):
+        assert lanes.LAUNCHES[key] > 0, key
+    on_cpu = batch.solve_batch_shared_pattern(params, problems, device="cpu")
     for a, b in zip(on_card, on_cpu):
         assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
         assert b.termination_reason == a.termination_reason
