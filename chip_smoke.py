@@ -48,6 +48,20 @@ Phases, each printing one JSON line:
    main_path_parent: the warm solve at six seeds by another version of
    the package (DIR holds it as firstorderlp_torch_parent) and by this
    one, in turns;
+   cli_path: the port's CLIs (firstorderlp_torch/cli) as a user
+   runs them: generate_pagerank_lp writes that LP (3 edges a node, the
+   generator's default) to an .mps.gz, which must read back with the
+   main path's pattern and values; the native tokenizer (it must load)
+   and the Python parser read it, every field equal, with both MB/s;
+   solve_qp in f32 on the kernel operator at 1e-4 must give OPTIMAL,
+   its four files, host-f64 residuals of the written primal and dual
+   under 1e-4, the CSR kernels launched and main_path's objective; at
+   its default float64 (CsrOp) on the 20k-node LP OPTIMAL with no kernel
+   launched (iterations, seconds); solve_lp_external with HiGHS on a
+   2,000-node LP, residuals evaluated on the card; a traced optimize
+   (profiler_trace_dir) on the 20k-node LP between two untraced ones,
+   whose Chrome trace must name the port's folp:: kernels; the build
+   phase prints compile_meter's split;
 5. determinism: the 20k-node LP solved twice, both OPTIMAL with
    bitwise-equal results;
 6. refine_path: firstorderlp_torch.optimize_iterative_refinement on the
@@ -1157,6 +1171,241 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             "results": results}
 
 
+def cli_path(torch, routed, problem, small, main_out, params, dev):
+    """The user's front door, the port's CLIs, at the main path's
+    size (see the module docstring, phase cli_path). Returns the phase's
+    record; its "problems" list is empty when every check held."""
+    import dataclasses
+    import gzip
+    import os
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from firstorderlp_torch import compile_meter, qps_reader_to_standard_form
+    from firstorderlp_torch.cli import (
+        generate_pagerank_lp as gen_cli,
+        solve_lp_external,
+        solve_qp,
+    )
+    from firstorderlp_torch.io import mps, native
+    from firstorderlp_torch.models.pdhg import PROFILER_TRACE_FILE, optimize
+
+    rec = {"phase": "cli_path", "nodes": NODES}
+    problems = []
+    # The CLIs print their "Elapsed time" lines; stdout stays this
+    # script's JSON lines.
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    csr_names = ("spmv_csr:A", "spmv_csr:AT", "spmv_dual_step",
+                 "spmv_rmv_stats")
+
+    def canonical(matrix):
+        csr = sp.csr_matrix(matrix, dtype=np.float64)
+        csr.sum_duplicates()
+        return csr
+
+    def summary_of(out_dir, name):
+        with open(os.path.join(out_dir, name + "_summary.json")) as f:
+            return json.load(f)
+
+    def solution_of(out_dir, name):
+        return (np.loadtxt(os.path.join(out_dir, name + "_primal.txt")),
+                np.loadtxt(os.path.join(out_dir, name + "_dual.txt")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The LP, written by the generator CLI with the edge count that
+        # generate_pagerank_lp takes when it gets None (3 per node).
+        path = os.path.join(tmp, "pagerank.mps.gz")
+        t0 = time.time()
+        gen_cli.main(["--num_nodes", str(NODES), "--approx_num_edges",
+                      str(3 * NODES), "--output_filename", path])
+        rec["generate_and_write_seconds"] = time.time() - t0
+        rec["file_bytes"] = os.path.getsize(path)
+
+        # Read back: the native tokenizer and the Python parser.
+        with compile_meter.CompileWindow() as window:
+            lib = native.load()
+        rec["tokenizer_build"] = {"seconds": window.seconds,
+                                  "backend_seconds": window.backend_seconds,
+                                  "library": getattr(lib, "_name", None)}
+        if lib is None:
+            rec.update(ok=False, problems=["the native tokenizer did not "
+                                           "load"])
+            return rec
+        with open(path, "rb") as f:
+            raw = gzip.decompress(f.read())
+        rec["text_bytes"] = len(raw)
+        t0 = time.time()
+        native_data = mps.read_mps(path)
+        native_s = time.time() - t0
+        t0 = time.time()
+        native.parse_bytes(lib, raw)
+        tokenize_s = time.time() - t0
+        t0 = time.time()
+        python_data = mps._read_mps_python(path)
+        python_s = time.time() - t0
+        rec["read_mb_per_second"] = {
+            "native": len(raw) / 1e6 / native_s,
+            "native_tokenize_only": len(raw) / 1e6 / tokenize_s,
+            "python": len(raw) / 1e6 / python_s,
+        }
+        for field in dataclasses.fields(native_data):
+            a = getattr(native_data, field.name)
+            b = getattr(python_data, field.name)
+            same = (np.array_equal(a, b, equal_nan=True)
+                    if isinstance(a, np.ndarray) else a == b)
+            if not same:
+                problems.append(f"parsers differ in {field.name}")
+        del native_data, python_data, raw
+        read_back = qps_reader_to_standard_form(path)
+        a_file = canonical(read_back.constraint_matrix)
+        a_main = canonical(problem.constraint_matrix)
+        rec["pattern_hash_equal"] = (
+            routed.pattern_hash(a_file) == routed.pattern_hash(a_main))
+        if not rec["pattern_hash_equal"]:
+            problems.append("the file's pattern differs from the main "
+                            "path's")
+        if (a_file != a_main).nnz or not np.array_equal(
+                read_back.right_hand_side, problem.right_hand_side):
+            problems.append("the file's values differ from the main path's")
+        del read_back, a_file, a_main
+
+        # solve_qp in f32 on the kernel operator, at main_path's
+        # tolerances
+        out_dir = os.path.join(tmp, "f32")
+        flags = ["--method", "pdhg", "--instance_path", path,
+                 "--output_dir", out_dir, "--verbosity", "0",
+                 "--absolute_optimality_tol", "1e-4",
+                 "--relative_optimality_tol", "1e-4",
+                 "--iteration_limit", "20000", "--device", dev.type]
+        routed.reset_launch_counts()
+        t0 = time.time()
+        with quiet:
+            solve_qp.main(flags + ["--dtype", "float32",
+                                   "--matrix_format", "routed"])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        launches = dict(routed.LAUNCHES)
+        summary = summary_of(out_dir, "pagerank")
+        files = sorted(os.listdir(out_dir))
+        x, y = solution_of(out_dir, "pagerank")
+        res = host_residuals(problem, x, y)
+        objective = summary["solution_stats"]["convergence_information"][0][
+            "primal_objective"]
+        main_objective = main_out.iteration_stats[-1].convergence_information[
+            0].primal_objective
+        rec["f32"] = {
+            "reason": summary["termination_reason"],
+            "iterations": summary["iteration_count"],
+            "solve_time_sec": summary["solve_time_sec"],
+            "cli_seconds": cli_s, "files": files, "host_f64": res,
+            "launches": launches, "objective": objective,
+            "main_path_objective": main_objective,
+        }
+        if summary["termination_reason"] != "TERMINATION_REASON_OPTIMAL":
+            problems.append(f"f32 CLI solve: {summary['termination_reason']}")
+        if len(files) != 4:
+            problems.append(f"f32 CLI solve wrote {files}")
+        if any(not v <= 1e-4 for v in res.values()):
+            problems.append(f"f32 CLI solve: host residuals {res}")
+        if any(launches[k] <= 0 for k in csr_names[1:]):
+            problems.append(f"f32 CLI solve: a kernel was not launched: "
+                            f"{launches}")
+        if not abs(objective - main_objective) <= 1e-4 * (
+                1.0 + abs(main_objective)):
+            problems.append(f"f32 CLI objective {objective} against "
+                            f"main_path's {main_objective}")
+
+        # solve_qp at its default float64 (CsrOp) on the 20k-node LP
+        small_path = os.path.join(tmp, "pagerank20k.mps.gz")
+        gen_cli.main(["--num_nodes", str(DET_NODES), "--approx_num_edges",
+                      str(3 * DET_NODES), "--output_filename", small_path])
+        out_dir = os.path.join(tmp, "f64")
+        flags[flags.index(path)] = small_path
+        flags[flags.index(os.path.join(tmp, "f32"))] = out_dir
+        routed.reset_launch_counts()
+        t0 = time.time()
+        with quiet:
+            solve_qp.main(flags)
+        torch.cuda.synchronize()
+        f64_s = time.time() - t0
+        launches = dict(routed.LAUNCHES)
+        summary = summary_of(out_dir, "pagerank20k")
+        res = host_residuals(small, *solution_of(out_dir, "pagerank20k"))
+        rec["f64"] = {
+            "nodes": DET_NODES, "reason": summary["termination_reason"],
+            "iterations": summary["iteration_count"],
+            "solve_time_sec": summary["solve_time_sec"],
+            "cli_seconds": f64_s, "host_f64": res, "launches": launches,
+        }
+        if summary["termination_reason"] != "TERMINATION_REASON_OPTIMAL":
+            problems.append(f"f64 CLI solve: {summary['termination_reason']}")
+        if any(launches.values()):
+            problems.append(f"f64 CLI solve launched a kernel: {launches}")
+        if any(not v <= 1e-4 for v in res.values()):
+            problems.append(f"f64 CLI solve: host residuals {res}")
+
+        # solve_lp_external with HiGHS, residuals evaluated on the card
+        ext_path = os.path.join(tmp, "pagerank2k.mps.gz")
+        gen_cli.main(["--num_nodes", "2000", "--approx_num_edges", "6000",
+                      "--output_filename", ext_path])
+        t0 = time.time()
+        with quiet:
+            log = solve_lp_external.main([
+                "--solver", "highs", "--instance_path", ext_path,
+                "--output_dir", os.path.join(tmp, "highs"),
+                "--device", dev.type])
+        conv = log.solution_stats.convergence_information[0]
+        rec["highs"] = {
+            "nodes": 2000, "reason": log.termination_reason.name,
+            "seconds": time.time() - t0, "solve_time_sec": log.solve_time_sec,
+            "l2_primal_residual": conv.l2_primal_residual,
+            "l2_dual_residual": conv.l2_dual_residual,
+            "relative_optimality_gap": conv.relative_optimality_gap,
+        }
+        if log.termination_reason.name != "TERMINATION_REASON_OPTIMAL":
+            problems.append(f"HiGHS: {log.termination_reason.name}")
+        if not (conv.l2_primal_residual <= 1e-6
+                and conv.l2_dual_residual <= 1e-6):
+            problems.append(f"HiGHS residuals {rec['highs']}")
+
+        # optimize under the profiler trace, against the same solve
+        # untraced
+        trace_dir = os.path.join(tmp, "trace")
+        traced_params = dataclasses.replace(params,
+                                            profiler_trace_dir=trace_dir)
+        solves = {}
+        for label, p in (("untraced", params), ("traced", traced_params),
+                         ("untraced_again", params)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            o = optimize(p, small, device=dev)
+            torch.cuda.synchronize()
+            solves[label] = {"seconds": time.time() - t0,
+                             "iterations": o.iteration_count,
+                             "reason": o.termination_reason.name}
+        trace_path = os.path.join(trace_dir, PROFILER_TRACE_FILE)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({
+            e["name"].split("<")[0].replace("void ", "")
+            for e in events
+            if str(e.get("cat", "")).lower() == "kernel"
+            and "folp::" in e.get("name", "")})
+        rec["trace"] = {"solves": solves, "trace_bytes":
+                        os.path.getsize(trace_path), "events": len(events),
+                        "folp_kernels": kernels}
+        if not kernels:
+            problems.append("the trace names no folp kernel")
+        if any(v["reason"] != "TERMINATION_REASON_OPTIMAL"
+               for v in solves.values()):
+            problems.append(f"traced or untraced solve: {solves}")
+    rec["ok"] = not problems
+    if problems:
+        rec["problems"] = problems
+    return rec
+
+
 def main_path_parent(torch, compare, parent_dir, dev):
     """The main path's solve, warm, on the PageRank LPs of SOLVE_SEEDS by
     another version of this package (`parent_dir` holds it as
@@ -1259,8 +1508,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
+    from firstorderlp_torch import compile_meter
+
     try:
-        kernels_build.build_kernels()
+        with compile_meter.CompileWindow() as build_window:
+            kernels_build.build_kernels()
     except RuntimeError as exc:
         fail("build", str(exc))
     ptxas = {
@@ -1268,7 +1520,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         for lib, log in kernels_build.last_build_log.items()
     }
     emit({"phase": "build", "ok": True,
-          "seconds": kernels_build.last_build_seconds, "ptxas": ptxas})
+          "seconds": kernels_build.last_build_seconds,
+          "compile_meter": {"seconds": build_window.seconds,
+                            "backend_seconds": build_window.backend_seconds},
+          "ptxas": ptxas})
 
     # 3. kernels, at the main path's shapes
     t0 = time.time()
@@ -1765,8 +2020,14 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         if not record["ok"]:
             raise SystemExit(1)
 
-    # 5. determinism
+    # 4b. the CLIs
     small = generate_pagerank_lp(num_nodes=DET_NODES, seed=0)
+    record = cli_path(torch, routed, problem, small, out, params, dev)
+    emit(record)
+    if not record["ok"]:
+        raise SystemExit(1)
+
+    # 5. determinism
     runs = []
     for _ in range(2):
         o = optimize(params, small, device=dev)

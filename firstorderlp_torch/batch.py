@@ -94,7 +94,12 @@ from .saddle_point import (
     SaddlePointOutput,
     SolutionWeightedAverage,
     add_to_solution_weighted_average,
+    compute_average,
+    compute_dual_gradient,
+    compute_lagrangian_value,
     compute_new_primal_weight,
+    compute_primal_gradient,
+    compute_primal_gradient_from_dual_product,
     project_dual,
     project_primal,
     should_reset_to_average,
@@ -637,7 +642,6 @@ def _check_fleet_params(params) -> None:
                                    _pdhg.ConstantStepsizeParams)):
             raise ValueError(
                 "batched solves support adaptive or constant step sizes")
-        _pdhg._check_ported(params)
 
 
 def _is_qp(problem) -> bool:
@@ -893,38 +897,15 @@ def _lane_stats(bundle, criteria, avg_primal, avg_dual, numerical_error,
     return conv, infeas, reason
 
 
-def _primal_gradient(problem, x, aty):
-    """Q x + c - A'y per lane; c - A'y for an LP, whose objective matrix
-    adds exact zeros (the JAX package's _compute_next_primal,
-    pdhg.py:246-249 there)."""
-    if problem.objective_matrix is None:
-        return problem.objective_vector - aty
-    return problem.qx(x) + problem.objective_vector - aty
-
-
 def _lp_parts(problem, x, y):
     """(A'y, A x, primal gradient Q x + c - A'y, Lagrangian) per lane
-    (trust_region.bound_optimal_objective_euclidean_batched's terms; for
-    an LP the Q x terms are left out, as they add exact zeros)."""
+    (trust_region.bound_optimal_objective_euclidean_batched's terms)."""
     aty = problem.aty(y)
     ax = problem.ax(x)
-    if problem.objective_matrix is None:
-        lagrangian = (
-            torch.sum(x * problem.objective_vector, dim=0)
-            - torch.sum(x * aty, dim=0)
-            + torch.sum(y * problem.right_hand_side, dim=0)
-            + problem.objective_constant
-        )
-        return aty, ax, problem.objective_vector - aty, lagrangian
-    qx = problem.qx(x)
-    lagrangian = (
-        0.5 * torch.sum(x * qx, dim=0)
-        + torch.sum(x * problem.objective_vector, dim=0)
-        - torch.sum(x * aty, dim=0)
-        + torch.sum(y * problem.right_hand_side, dim=0)
-        + problem.objective_constant
-    )
-    return aty, ax, qx + problem.objective_vector - aty, lagrangian
+    qx = None if problem.objective_matrix is None else problem.qx(x)
+    return (aty, ax,
+            compute_primal_gradient_from_dual_product(problem, x, aty, qx),
+            compute_lagrangian_value(problem, x, y, aty, qx))
 
 
 def _dual_bounds(problem, lanes):
@@ -966,7 +947,7 @@ def lane_euclidean_bounds(problem, points, primal_norm_weights,
     for i, ((x, y, _), (_, ax, pg, lagrangian)) in enumerate(
             zip(points, parts)):
         sol = result.solution[i * lanes:(i + 1) * lanes]
-        dual_gradient = problem.right_hand_side - ax
+        dual_gradient = compute_dual_gradient(problem, x, ax)
         bounds.append(ObjectiveBound(
             lagrangian_value=lagrangian,
             lower_bound_value=lagrangian + torch.sum(
@@ -1035,13 +1016,7 @@ def lane_restart_scheme(problem, avg, current_primal, current_dual,
     device = primal_weight.device
     has_average = ((avg.sum_primal_solutions_count > 0)
                    & (avg.sum_dual_solutions_count > 0))
-    safe_avg_primal = avg.sum_primal_solutions / torch.where(
-        avg.sum_primal_solution_weights > 0,
-        avg.sum_primal_solution_weights, 1.0,
-    )
-    safe_avg_dual = avg.sum_dual_solutions / torch.where(
-        avg.sum_dual_solution_weights > 0, avg.sum_dual_solution_weights, 1.0
-    )
+    safe_avg_primal, safe_avg_dual = compute_average(avg)
     restart_length = avg.sum_primal_solutions_count
     do_restart = restart_length.to(torch.float64) >= (
         restart_params.artificial_restart_threshold
@@ -1182,21 +1157,9 @@ def _averages(state, primal, dual):
     has_avg = (~state.numerical_error
                & (avg.sum_primal_solutions_count > 0)
                & (avg.sum_dual_solutions_count > 0))
-    avg_primal = torch.where(
-        has_avg,
-        avg.sum_primal_solutions / torch.where(
-            avg.sum_primal_solution_weights > 0,
-            avg.sum_primal_solution_weights, 1.0),
-        primal,
-    )
-    avg_dual = torch.where(
-        has_avg,
-        avg.sum_dual_solutions / torch.where(
-            avg.sum_dual_solution_weights > 0,
-            avg.sum_dual_solution_weights, 1.0),
-        dual,
-    )
-    return avg_primal, avg_dual
+    avg_primal, avg_dual = compute_average(avg)
+    return (torch.where(has_avg, avg_primal, primal),
+            torch.where(has_avg, avg_dual, dual))
 
 
 def _bound_estimates(config, problem, avg_primal, avg_dual, primal_norm,
@@ -1266,12 +1229,12 @@ def _pdhg_trial_point(problem, state):
     x = state.current_primal_solution
     y = state.current_dual_solution
     next_x = project_primal(
-        x - (step / pw) * _primal_gradient(problem, x,
-                                           state.current_dual_product),
+        x - (step / pw) * compute_primal_gradient_from_dual_product(
+            problem, x, state.current_dual_product),
         problem)
     extrapolated = next_x + (next_x - x)
     next_y = project_dual(
-        y + (pw * step) * (problem.right_hand_side - problem.ax(extrapolated)),
+        y + (pw * step) * compute_dual_gradient(problem, extrapolated),
         problem,
     )
     return next_x, next_y, problem.aty(next_y)
@@ -1442,7 +1405,7 @@ def mp_lane_step(problem, state, active):
     as they were. Four lane products."""
     x, y = state.current_primal, state.current_dual
     ps, ds, step = state.primal_scaling, state.dual_scaling, state.step_size
-    c, b = problem.objective_vector, problem.right_hand_side
+    b = problem.right_hand_side
 
     def prox(gx, gy):
         return (project_primal(x - step * gx / ps, problem),
@@ -1450,11 +1413,8 @@ def mp_lane_step(problem, state, active):
 
     def gradient(px, py):
         """(c + Q x - A'y, A x - b) (mirror_prox._pseudo_gradient)."""
-        if problem.objective_matrix is None:
-            gx = c - problem.aty(py)
-        else:
-            gx = c + problem.qx(px) - problem.aty(py)
-        return gx, problem.ax(px) - b
+        return (compute_primal_gradient(problem, px, py),
+                problem.ax(px) - b)
 
     gx, gy = gradient(x, y)
     test_x, test_y = prox(gx, gy)

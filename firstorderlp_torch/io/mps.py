@@ -1,4 +1,4 @@
-"""MPS / QPS file reader (host side, pure Python).
+"""MPS / QPS file reader (host side).
 
 Replaces the reference's use of the QPSReader.jl package
 (reference: src/quadratic_programming_io.jl:147-197). Supports:
@@ -101,8 +101,25 @@ def _lines(filename: str) -> Iterator[str]:
 
 
 def read_mps(filename: str, fixed_format: bool = False) -> MpsData:
-    """Parses an MPS/QPS file into an MpsData struct (pure Python; the
-    JAX package's C++ tokenizer is not ported yet)."""
+    """Parses an MPS/QPS file into an MpsData struct.
+
+    Free-format files go through the native C++ tokenizer (io/native.py;
+    its speed against the pure-Python parser is measured by
+    chip_smoke.py's cli_path phase, PERF.md). Fixed format,
+    FIRSTORDERLP_NO_NATIVE_MPS=1, or a machine without g++ and without
+    the built library uses the pure-Python path below; the two are
+    field-exact equivalent (tests/test_torch_io_native.py).
+    """
+    if not fixed_format:
+        from . import native
+
+        lib = native.load()
+        if lib is not None:
+            with open(filename, "rb") as f:
+                raw = f.read()
+            if filename.endswith(".gz"):
+                raw = gzip.decompress(raw)
+            return native.parse_bytes(lib, raw)
     return _read_mps_python(filename, fixed_format)
 
 

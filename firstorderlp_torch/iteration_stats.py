@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .saddle_point import compute_primal_gradient_from_dual_product
 from .solve_log import (
     ConvergenceInformation,
     InfeasibilityInformation,
@@ -194,7 +195,9 @@ def compute_convergence_information(
         + torch.sum(problem.objective_vector * primal, dim=0)
         + 0.5 * torch.sum(primal * qx, dim=0)
     )
-    primal_gradient = qx + problem.objective_vector - problem.aty(dual)
+    primal_gradient = compute_primal_gradient_from_dual_product(
+        problem, primal, problem.aty(dual), qx
+    )
     dual_stats = compute_dual_stats(
         problem, primal, dual, primal_gradient, torch.sum(primal * qx, dim=0)
     )

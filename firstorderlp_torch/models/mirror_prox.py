@@ -47,7 +47,9 @@ from ..saddle_point import (
     SaddlePointOutput,
     SolutionWeightedAverage,
     add_to_solution_weighted_average,
+    compute_average,
     compute_new_primal_weight,
+    compute_primal_gradient,
     create_last_restart_info,
     initialize_solution_weighted_average,
     project_dual,
@@ -144,10 +146,7 @@ class MirrorProxState:
 def _pseudo_gradient(problem, x, y):
     """(grad_x phi, -grad_y phi) = (c + Qx - A'y, Ax - b)
     (reference mirror_prox.jl:284-307)."""
-    if problem.objective_matrix is None:
-        gx = problem.objective_vector - problem.aty(y)
-    else:
-        gx = problem.objective_vector + problem.qx(x) - problem.aty(y)
+    gx = compute_primal_gradient(problem, x, y)
     gy = problem.ax(x) - problem.right_hand_side
     return gx, gy
 
@@ -318,14 +317,7 @@ def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
 
     has_avg = not numerical_error and count_primal > 0 and count_dual > 0
     if has_avg:
-        avg_primal = avg.sum_primal_solutions / torch.where(
-            avg.sum_primal_solution_weights > 0,
-            avg.sum_primal_solution_weights, 1.0,
-        )
-        avg_dual = avg.sum_dual_solutions / torch.where(
-            avg.sum_dual_solution_weights > 0,
-            avg.sum_dual_solution_weights, 1.0,
-        )
+        avg_primal, avg_dual = compute_average(avg)
     else:
         avg_primal = state.current_primal
         avg_dual = state.current_dual

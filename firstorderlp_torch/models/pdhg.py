@@ -18,7 +18,9 @@ Step rules (tau = step/omega, sigma = step*omega; reference pdhg.jl:100-107):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional, Union
 
@@ -45,7 +47,10 @@ from ..saddle_point import (
     SolutionWeightedAverage,
     add_to_primal_solution_weighted_average,
     add_to_solution_weighted_average,
+    compute_average,
+    compute_dual_gradient,
     compute_new_primal_weight,
+    compute_primal_gradient_from_dual_product,
     create_last_restart_info,
     initialize_solution_weighted_average,
     project_dual,
@@ -136,7 +141,8 @@ class PdhgParameters:
     # Bound-width column rescaling before Ruiz/L2/PC
     # (preprocess.bound_width_rescaling). Off by default.
     bound_width_rescaling: bool = False
-    # Not ported yet (the solver raises NotImplementedError if set).
+    # A torch.profiler trace of the solve is written to this directory
+    # as PROFILER_TRACE_FILE (a Chrome trace) when set.
     profiler_trace_dir: Optional[str] = None
 
 
@@ -151,10 +157,33 @@ class _PdhgConfig:
     need_bound_estimates: bool = True
 
 
-def _check_ported(params: PdhgParameters) -> None:
-    if params.profiler_trace_dir:
-        raise NotImplementedError(
-            "the profiler-trace parameter is not ported yet"
+# The Chrome trace that `profiler_trace_dir` receives.
+PROFILER_TRACE_FILE = "pdhg_trace.json"
+
+
+@contextlib.contextmanager
+def _profiler_trace(trace_dir: Optional[str], device: torch.device):
+    """torch.profiler around the solve's host loop when `trace_dir` is
+    set (the JAX package starts jax.profiler at the same point): CPU
+    activity, and CUDA activity on a CUDA device. The trace stops however
+    the loop ends and is written as a Chrome trace to
+    `trace_dir`/PROFILER_TRACE_FILE. When unset, no profiler exists."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    profiler = profile(activities=activities)
+    try:
+        with profiler:
+            yield
+    finally:
+        profiler.export_chrome_trace(
+            os.path.join(trace_dir, PROFILER_TRACE_FILE)
         )
 
 
@@ -225,7 +254,9 @@ def _initial_state(bundle: DeviceScaledQp, dtype, device) -> PdhgState:
 
 def _compute_next_primal(problem, x, dual_product, step_size, primal_weight):
     """Reference: compute_next_primal_solution (pdhg.jl:442-470)."""
-    gradient = problem.qx(x) + problem.objective_vector - dual_product
+    gradient = compute_primal_gradient_from_dual_product(
+        problem, x, dual_product
+    )
     return project_primal(x - (step_size / primal_weight) * gradient, problem)
 
 
@@ -237,7 +268,7 @@ def _compute_next_dual(problem, x, next_x, y, step_size, primal_weight,
         extrapolated = next_x + (next_x - x)
     else:
         extrapolated = next_x + extrapolation_coefficient * (next_x - x)
-    gradient = problem.right_hand_side - problem.ax(extrapolated)
+    gradient = compute_dual_gradient(problem, extrapolated)
     next_y = project_dual(
         y + (primal_weight * step_size) * gradient, problem
     )
@@ -521,14 +552,7 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
         and avg.sum_dual_solutions_count > 0
     )
     if has_avg:
-        avg_primal = avg.sum_primal_solutions / torch.where(
-            avg.sum_primal_solution_weights > 0,
-            avg.sum_primal_solution_weights, 1.0,
-        )
-        avg_dual = avg.sum_dual_solutions / torch.where(
-            avg.sum_dual_solution_weights > 0,
-            avg.sum_dual_solution_weights, 1.0,
-        )
+        avg_primal, avg_dual = compute_average(avg)
     else:
         avg_primal = state.current_primal_solution
         avg_dual = state.current_dual_solution
@@ -704,7 +728,6 @@ def prepare_problem(
             "Malitsky and Pock linesearch is only supported for linear"
             " programming problems."
         )
-    _check_ported(params)
     dtype = torch_dtype(params.dtype)
     stats_dtype = (
         torch_dtype(params.stats_dtype) if params.stats_dtype else None
@@ -836,7 +859,6 @@ def optimize(
         params.primal_importance
     ):
         raise ValueError("primal_importance must be positive and finite")
-    _check_ported(params)
     if prepared is None:
         prepared = prepare_problem(params, original_problem, device=device)
     scaled_problem = prepared.scaled_problem
@@ -873,108 +895,111 @@ def optimize(
 
     display_iteration_stats_heading(params.verbosity)
 
-    iteration_stats = []
-    start_time = time.time() - elapsed_offset
-    basic_algorithm_time = 0.0
-    evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
-    checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
-    dispatch_count = 0
-    while True:
-        elapsed = time.time() - start_time
-        segment_start = time.time()
-        state, result = _segment_core(bundle, state, elapsed, config)
-        k = 1
-        while result.termination_reason == 0 and k < evals_per_dispatch:
+    with _profiler_trace(params.profiler_trace_dir, prepared.device):
+        iteration_stats = []
+        start_time = time.time() - elapsed_offset
+        basic_algorithm_time = 0.0
+        evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
+        checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
+        dispatch_count = 0
+        while True:
+            elapsed = time.time() - start_time
+            segment_start = time.time()
             state, result = _segment_core(bundle, state, elapsed, config)
-            k += 1
-        terminated = result.termination_reason != 0
-        basic_algorithm_time += time.time() - segment_start
-        dispatch_count += 1
-        if not (
-            terminated
-            or params.record_iteration_stats
-            or params.verbosity > 0
-        ):
-            if params.checkpoint_path and (
-                dispatch_count % checkpoint_every == 0
+            k = 1
+            while result.termination_reason == 0 and k < evals_per_dispatch:
+                state, result = _segment_core(bundle, state, elapsed, config)
+                k += 1
+            terminated = result.termination_reason != 0
+            basic_algorithm_time += time.time() - segment_start
+            dispatch_count += 1
+            if not (
+                terminated
+                or params.record_iteration_stats
+                or params.verbosity > 0
             ):
-                checkpoint(state, {"iteration": -1})
-            continue
-        if terminated and not config.need_bound_estimates:
-            # The eval block skipped the diagnostics-only bound estimates;
-            # recover them once for the final stats entry.
-            lagr, est_lb, est_ub = _final_bound_estimates(
-                bundle,
-                state.avg_primal_out,
-                state.avg_dual_out,
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0
+                ):
+                    checkpoint(state, {"iteration": -1})
+                continue
+            if terminated and not config.need_bound_estimates:
+                # The eval block skipped the diagnostics-only bound estimates;
+                # recover them once for the final stats entry.
+                lagr, est_lb, est_ub = _final_bound_estimates(
+                    bundle,
+                    state.avg_primal_out,
+                    state.avg_dual_out,
+                    result.step_size,
+                    result.primal_weight,
+                )
+                result = result._replace(
+                    lagrangian_value=lagr,
+                    estimated_lower_bound=est_lb,
+                    estimated_upper_bound=est_ub,
+                )
+            result = host_floats(result)
+            eval_iteration = result.iteration  # = displayed iteration - 1
+            if params.checkpoint_path and (
+                dispatch_count % checkpoint_every == 0 or terminated
+            ):
+                checkpoint(state, {"iteration": eval_iteration + 1})
+            method_specific_stats = {
+                "time_spent_doing_basic_algorithm": basic_algorithm_time,
+                "lagrangian_value": result.lagrangian_value,
+                "estimated_lower_bound": result.estimated_lower_bound,
+                "estimated_upper_bound": result.estimated_upper_bound,
+            }
+            stats = to_host_stats(
+                result.conv,
+                result.infeas,
+                eval_iteration,
+                result.cumulative_kkt_passes,
+                elapsed,
+                RestartChoice(result.restart_used)
+                if result.restart_used != 0
+                else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
                 result.step_size,
                 result.primal_weight,
+                method_specific_stats,
+                PointType.POINT_TYPE_AVERAGE_ITERATE,
             )
-            result = result._replace(
-                lagrangian_value=lagr,
-                estimated_lower_bound=est_lb,
-                estimated_upper_bound=est_ub,
-            )
-        result = host_floats(result)
-        eval_iteration = result.iteration  # = displayed iteration - 1
-        if params.checkpoint_path and (
-            dispatch_count % checkpoint_every == 0 or terminated
-        ):
-            checkpoint(state, {"iteration": eval_iteration + 1})
-        method_specific_stats = {
-            "time_spent_doing_basic_algorithm": basic_algorithm_time,
-            "lagrangian_value": result.lagrangian_value,
-            "estimated_lower_bound": result.estimated_lower_bound,
-            "estimated_upper_bound": result.estimated_upper_bound,
-        }
-        stats = to_host_stats(
-            result.conv,
-            result.infeas,
-            eval_iteration,
-            result.cumulative_kkt_passes,
-            elapsed,
-            RestartChoice(result.restart_used)
-            if result.restart_used != 0
-            else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
-            result.step_size,
-            result.primal_weight,
-            method_specific_stats,
-            PointType.POINT_TYPE_AVERAGE_ITERATE,
-        )
-        if params.record_iteration_stats or terminated:
-            iteration_stats.append(stats)
-        if print_to_screen_this_iteration(
-            True if terminated else False,
-            eval_iteration + 1,
-            params.verbosity,
-            params.termination_evaluation_frequency,
-        ):
-            display_iteration_stats(stats, params.verbosity)
+            if params.record_iteration_stats or terminated:
+                iteration_stats.append(stats)
+            if print_to_screen_this_iteration(
+                True if terminated else False,
+                eval_iteration + 1,
+                params.verbosity,
+                params.termination_evaluation_frequency,
+            ):
+                display_iteration_stats(stats, params.verbosity)
 
-        if terminated:
-            reason = TerminationReason(result.termination_reason)
-            if params.verbosity >= 1:
-                from ..solve_log import termination_reason_to_string
+            if terminated:
+                reason = TerminationReason(result.termination_reason)
+                if params.verbosity >= 1:
+                    from ..solve_log import termination_reason_to_string
 
-                print(
-                    f"Terminated after {eval_iteration + 1} iterations: "
-                    f"{termination_reason_to_string(reason)}"
+                    print(
+                        f"Terminated after {eval_iteration + 1} iterations: "
+                        f"{termination_reason_to_string(reason)}"
+                    )
+                output = unscaled_saddle_point_output(
+                    scaled_problem,
+                    state.avg_primal_out,
+                    state.avg_dual_out,
+                    reason,
+                    eval_iteration,
+                    iteration_stats,
                 )
-            output = unscaled_saddle_point_output(
-                scaled_problem,
-                state.avg_primal_out,
-                state.avg_dual_out,
-                reason,
-                eval_iteration,
-                iteration_stats,
-            )
-            if params.verbosity >= 7:
-                # generic_final_log (reference saddle_point.jl:1004-1012)
-                from ..problem import print_variable_and_constraint_hardness
+                if params.verbosity >= 7:
+                    # generic_final_log (reference saddle_point.jl:1004-1012)
+                    from ..problem import (
+                        print_variable_and_constraint_hardness,
+                    )
 
-                print_variable_and_constraint_hardness(
-                    scaled_problem.original_qp,
-                    output.primal_solution,
-                    output.dual_solution,
-                )
-            return output
+                    print_variable_and_constraint_hardness(
+                        scaled_problem.original_qp,
+                        output.primal_solution,
+                        output.dual_solution,
+                    )
+                return output

@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Dict
 
+from .. import compile_meter
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
@@ -116,8 +118,12 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
                     "nvcc failed:\n" + "\n".join(failures)
                 )
         last_build_seconds = time.time() - start
+        if missing:
+            compile_meter.record("backend_compile", last_build_seconds)
+        start = time.perf_counter()
         for lib, so_path in todo.items():
             _libs[lib] = _bind(lib, ctypes.CDLL(so_path))
+        compile_meter.record("load", time.perf_counter() - start)
         return dict(_libs)
 
 

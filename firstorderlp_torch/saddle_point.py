@@ -169,6 +169,24 @@ def add_to_solution_weighted_average(
     return avg
 
 
+def compute_average(avg: SolutionWeightedAverage):
+    """(primal, dual) weighted averages (reference l.283-301). A fleet's
+    (dim, B) sums divide by their (B,) weights. An empty average (weight
+    0) gives zeros where the reference divides 0 by 0: the restart scheme
+    and the evaluations read it only where it is not empty, and a NaN
+    must not reach a fleet's batched trust-region solve."""
+    return (
+        avg.sum_primal_solutions / torch.where(
+            avg.sum_primal_solution_weights > 0,
+            avg.sum_primal_solution_weights, 1.0,
+        ),
+        avg.sum_dual_solutions / torch.where(
+            avg.sum_dual_solution_weights > 0,
+            avg.sum_dual_solution_weights, 1.0,
+        ),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Restart schemes
 # ---------------------------------------------------------------------------
@@ -278,6 +296,68 @@ def _distance(primal, dual, center: RestartInfo, primal_w, dual_w):
     )
 
 
+def compute_localized_duality_gap(
+    problem,
+    primal_solution,
+    dual_solution,
+    primal_norm_params,
+    dual_norm_params,
+    distance_to_optimality,
+    use_approximate: bool,
+) -> ObjectiveBound:
+    """Euclidean-ball localized gap (reference l.131-156)."""
+    return bound_optimal_objective(
+        problem,
+        primal_solution,
+        dual_solution,
+        primal_norm_params,
+        dual_norm_params,
+        distance_to_optimality,
+        use_max_norm=False,
+        solve_approximately=use_approximate,
+    )
+
+
+class LocalizedDualityGaps(NamedTuple):
+    gap_at_average: ObjectiveBound
+    distance_traveled_by_average: torch.Tensor
+    gap_at_current: ObjectiveBound
+    distance_traveled_by_current: torch.Tensor
+
+
+def compute_localized_duality_gaps(
+    problem,
+    current_primal,
+    current_dual,
+    avg_primal,
+    avg_dual,
+    primal_norm_params,
+    dual_norm_params,
+    restart_info: RestartInfo,
+    use_approximate: bool,
+) -> LocalizedDualityGaps:
+    """The localized gaps at the average and at the current point, each
+    in the ball through the last restart point (reference
+    src/saddle_point.jl:432-496). run_restart_scheme computes the same
+    gaps in one batched solve."""
+    dist_avg = _distance(avg_primal, avg_dual, restart_info,
+                         primal_norm_params, dual_norm_params)
+    dist_cur = _distance(current_primal, current_dual, restart_info,
+                         primal_norm_params, dual_norm_params)
+    return LocalizedDualityGaps(
+        gap_at_average=compute_localized_duality_gap(
+            problem, avg_primal, avg_dual, primal_norm_params,
+            dual_norm_params, dist_avg, use_approximate,
+        ),
+        distance_traveled_by_average=dist_avg,
+        gap_at_current=compute_localized_duality_gap(
+            problem, current_primal, current_dual, primal_norm_params,
+            dual_norm_params, dist_cur, use_approximate,
+        ),
+        distance_traveled_by_current=dist_cur,
+    )
+
+
 def should_reset_to_average(
     gap_current: ObjectiveBound,
     dist_current,
@@ -336,13 +416,7 @@ def run_restart_scheme(
         and avg.sum_dual_solutions_count > 0
     ):
         return no_restart
-    safe_avg_primal = avg.sum_primal_solutions / torch.where(
-        avg.sum_primal_solution_weights > 0,
-        avg.sum_primal_solution_weights, 1.0,
-    )
-    safe_avg_dual = avg.sum_dual_solutions / torch.where(
-        avg.sum_dual_solution_weights > 0, avg.sum_dual_solution_weights, 1.0
-    )
+    safe_avg_primal, safe_avg_dual = compute_average(avg)
 
     restart_length = avg.sum_primal_solutions_count
     artificial_restart = (
@@ -557,4 +631,56 @@ def update_objective_bound_estimates(
         bound.lagrangian_value,
         bound.lower_bound_value,
         bound.upper_bound_value,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Lagrangian gradients
+# ---------------------------------------------------------------------------
+#
+# The solvers, their evaluations and the fleets' restart code compute
+# these terms through the functions below, passing the products they
+# already hold (`qx`, `aty`, `ax`). The vectors may be a single
+# instance's (n,) / (m,) or a fleet's (n, B) / (m, B); sums run over
+# dim 0. For an LP the Q x terms are left out: they add exact zeros.
+
+
+def compute_primal_gradient_from_dual_product(problem, primal, dual_product,
+                                              qx=None):
+    """Q x + c - A'y given the cached A'y (reference l.1093-1100); `qx`
+    passes a cached Q x."""
+    if problem.objective_matrix is None:
+        return problem.objective_vector - dual_product
+    if qx is None:
+        qx = problem.qx(primal)
+    return qx + problem.objective_vector - dual_product
+
+
+def compute_primal_gradient(problem, primal, dual):
+    return compute_primal_gradient_from_dual_product(
+        problem, primal, problem.aty(dual)
+    )
+
+
+def compute_dual_gradient(problem, primal, ax=None):
+    """b - A x (reference l.1102-1107); `ax` passes a cached A x."""
+    return problem.right_hand_side - (problem.ax(primal) if ax is None
+                                      else ax)
+
+
+def compute_lagrangian_value(problem, primal, dual, aty=None, qx=None):
+    """0.5 x'Qx + c'x - x'A'y + b'y + const (reference l.1109-1120);
+    `aty` and `qx` pass cached products."""
+    if aty is None:
+        aty = problem.aty(dual)
+    value = torch.sum(primal * problem.objective_vector, dim=0)
+    if problem.objective_matrix is not None:
+        if qx is None:
+            qx = problem.qx(primal)
+        value = 0.5 * torch.sum(primal * qx, dim=0) + value
+    return (
+        value
+        - torch.sum(primal * aty, dim=0)
+        + torch.sum(dual * problem.right_hand_side, dim=0)
+        + problem.objective_constant
     )

@@ -317,16 +317,26 @@ def test_entry_points_raise_without_a_gpu():
         tx.prepare_problem(params, problem)
 
 
-def test_unported_features_raise():
-    """What is left: the profiler-trace parameter. (Malitsky-Pock, the
-    checkpoint parameters and Mirror Prox are ported; their tests are
-    below, in test_torch_checkpoint.py and in
-    test_torch_mirror_prox.py.)"""
+def test_unported_features_raise(tmp_path):
+    """Every parameter is ported; the last one, the profiler trace, now
+    writes its Chrome trace, and the traced solve is bitwise the
+    untraced one. An unknown parameter type still raises."""
+    import json
+
     problem = port_problem(fixtures.example_lp())
     base = port_params(pdhg_params(optimality_criteria(1e-4)))
-    with pytest.raises(NotImplementedError):
-        tx.optimize(dataclasses.replace(base, profiler_trace_dir="trace"),
-                    problem, device="cpu")
+    plain = tx.optimize(base, problem, device="cpu")
+    traced = tx.optimize(
+        dataclasses.replace(base, profiler_trace_dir=str(tmp_path)),
+        problem, device="cpu",
+    )
+    path = tmp_path / tx_pdhg.PROFILER_TRACE_FILE
+    with open(path) as f:
+        assert json.load(f)["traceEvents"]
+    assert traced.termination_reason == plain.termination_reason
+    assert traced.iteration_count == plain.iteration_count
+    assert np.array_equal(traced.primal_solution, plain.primal_solution)
+    assert np.array_equal(traced.dual_solution, plain.dual_solution)
     with pytest.raises(TypeError):
         tx.optimize(object(), problem, device="cpu")
 
