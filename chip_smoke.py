@@ -131,15 +131,45 @@ Phases, each printing one JSON line:
     with constant steps and bound-width rescaling, to 1e-4 or 20,000
     iterations a lane: lanes 0 and 31 give the reasons of optimize
     alone, OPTIMAL lanes under 1e-4 in host f64, L1 launched;
-18. the kernel list ({"kernels": [...]}).
+18. kernels_sharded: the block-partitioned operator
+    (ops/routed_sharded.py) on (2, 2) and (4, 1) meshes of cuda:0, CSR
+    blocks (B2) and tile-plan blocks (B5), at the shapes sharded_optimize
+    gives them (the 100k-node LP padded to the mesh and rescaled): A x
+    and A' y against the single-device RoutedOp and against the blocks'
+    plain versions (the f32 rounding class), two calls bitwise equal, one
+    launch a call for each non-empty block, CUDA-event ms a call beside
+    the single-device operator's, the plain versions' and the library
+    product's;
+19. sharded_path: parallel.sharded_optimize with main_path's parameters
+    on the 100k-node LP on (2, 2) and (4, 1) meshes of cuda:0 (B2 blocks
+    launched, the fused kernels not), and Mirror Prox on the 20k-node LP
+    on both meshes with tile-plan blocks (B5): OPTIMAL, host-f64
+    residuals under 1e-4, iterations, seconds (ingest apart) and ms an
+    iteration beside main_path's;
+20. distributed_path: (a) a process group of one rank on NCCL in this
+    process, parallel.distributed.distributed_optimize of the 20k-node
+    LP on a (1, 1) mesh, bitwise equal to the single-process (1, 1)
+    sharded_optimize; (b) two gloo ranks on the one card (this script
+    again, `--distributed-worker`, on a free port, killed after 300 s),
+    a (2, 1) solve of the 100k-node LP: both ranks give the same bits as
+    the single-process (2, 1) mesh, OPTIMAL in host f64, B2 launched on
+    each rank;
+21. the kernel list ({"kernels": [...]}), the sharded products' rows
+    last.
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
+
+With --multi-gpu, on a host with four cards, only the device and build
+phases and multi_gpu_path run: the 100k-node LP by sharded_optimize on
+a (2, 2) mesh on one card and on a (2, 2) mesh over four cards, and by
+four NCCL ranks (one card and one block each), all bitwise equal.
 Exits non-zero, before the last line, when there is no CUDA device or
 any phase fails. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -880,6 +910,529 @@ def emit_checked(rec, found):
         raise SystemExit(1)
 
 
+# The multi-device phases: the block-partitioned operator on one card,
+# sharded_optimize on (2, 2) and (4, 1) meshes of cuda:0, and the
+# torch.distributed layer (NCCL world of 1; two gloo ranks on the card).
+SHARDED_MESHES = ((2, 2), (4, 1))
+DIST_MESH = (2, 1)  # the two gloo ranks' mesh
+DIST_TIMEOUT = 300  # seconds; a rank that waits longer fails the phase
+
+
+def sharded_plain(torch, routed, sop, v, transpose):
+    """A ShardedRoutedOp's product with each block's plain version, the
+    partials added in the operator's order."""
+    n_dual, n_primal = sop.mesh.shape
+    rows, cols = sop.num_rows // n_dual, sop.num_cols // n_primal
+    plain = (routed.tiled_spmv_plain if sop.tile_aligned
+             else routed.spmv_csr_plain)
+    pieces = []
+    for outer in range(n_primal if transpose else n_dual):
+        total = torch.zeros(cols if transpose else rows,
+                            dtype=torch.float32, device=v.device)
+        for inner in range(n_dual if transpose else n_primal):
+            d, p = (inner, outer) if transpose else (outer, inner)
+            block = sop.blocks[d][p]
+            if block is None:
+                continue
+            part = (plain(block.at, v[d * rows:(d + 1) * rows]) if transpose
+                    else plain(block.a, v[p * cols:(p + 1) * cols]))
+            total = total + part
+        pieces.append(total)
+    return torch.cat(pieces)
+
+
+def kernels_sharded(torch, dev, routed, probe, rescale_problem, problem):
+    """B2 (CSR blocks) and B5 (tile-plan blocks) through the
+    block-partitioned operator on (2, 2) and (4, 1) meshes of cuda:0, at
+    the shapes sharded_optimize gives them: the 100k-node LP padded to
+    the mesh and rescaled. Each product against the single-device
+    RoutedOp of the same matrix and against the blocks' plain versions
+    (the f32 rounding class), two calls bitwise equal, launches a call
+    (one per non-empty block), CUDA-event ms a call beside the
+    single-device operator's."""
+    from firstorderlp_torch.ops.routed_sharded import (
+        build_sharded_routed_op, plan_routed_shards,
+    )
+    from firstorderlp_torch.parallel import pad_problem, solver_mesh
+
+    ph = "kernels_sharded"
+    t_phase = time.time()
+    rows, records = [], []
+    for shape in SHARDED_MESHES:
+        mesh = solver_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        padded, _, _ = pad_problem(problem, *shape)
+        a = rescale_problem(10, False, 1.0, 0, padded).scaled_qp
+        a = a.constraint_matrix.tocsr()
+        m, n = a.shape
+        rng = np.random.default_rng(0)
+        x_np = rng.standard_normal(n).astype(np.float32)
+        y_np = rng.standard_normal(m).astype(np.float32)
+        x = torch.as_tensor(x_np, device=dev)
+        y = torch.as_tensor(y_np, device=dev)
+        scale = {"A": abs(a) @ np.abs(x_np.astype(np.float64)),
+                 "AT": abs(a).T @ np.abs(y_np.astype(np.float64))}
+        csr_single = routed.build_routed_op(a, dev)
+        lib = {"A": routed.library_spmv(csr_single.a),
+               "AT": routed.library_spmv(csr_single.at)}
+        for tile_aligned in (False, True):
+            layout = "tiled" if tile_aligned else "csr"
+            plan = dataclasses.replace(
+                plan_routed_shards(m, n, a.nnz, mesh),
+                tile_aligned=tile_aligned)
+            t0 = time.time()
+            sop = build_sharded_routed_op(a, plan)
+            build_s = time.time() - t0
+            single = routed.build_routed_op(a, dev, tile_aligned=tile_aligned)
+            blocks = [b for row in sop.blocks for b in row if b is not None]
+            kernel = "tiled_spmv" if tile_aligned else "spmv_csr"
+            for label, vec, transpose in (("A", x, False), ("AT", y, True)):
+                call = (lambda v=vec, t=transpose:
+                        sop.rmv(v) if t else sop.mv(v))
+                one = (lambda v=vec, t=transpose:
+                       single.rmv(v) if t else single.mv(v))
+                routed.reset_launch_counts()
+                got = call()
+                torch.cuda.synchronize()
+                launches = routed.LAUNCHES[f"{kernel}:{label}"]
+                again = call()
+                want_single = one()
+                want_plain = sharded_plain(torch, routed, sop, vec, transpose)
+                torch.cuda.synchronize()
+                errs = {}
+                for what, want in (("single", want_single),
+                                   ("plain", want_plain)):
+                    err = (got.double() - want.double()).abs().cpu().numpy()
+                    bad = err > TOL_ENTRY * scale[label] + TOL_ABS
+                    if bad.any():
+                        i = int(np.argmax(err - TOL_ENTRY * scale[label]))
+                        fail(ph, f"{shape} {layout} {label}: entry {i} "
+                                 f"differs from the {what} product by "
+                                 f"{err[i]:.3e}")
+                    errs[what] = float(err.max())
+                if not torch.equal(got, again):
+                    fail(ph, f"{shape} {layout} {label}: two calls differ")
+                if launches != len(blocks):
+                    fail(ph, f"{shape} {layout} {label}: {launches} launches "
+                             f"a call for {len(blocks)} non-empty blocks")
+                mats = [b.at if transpose else b.a for b in blocks]
+                nbytes = (sum(routed.csr_kernel_bytes(mat) for mat in mats)
+                          + 4 * m + 4 * n)
+                bound, bound_by = probe.bound_ms(nbytes, 2 * a.nnz)
+                row = {
+                    "name": f"{kernel}:{label} [{shape[0]}x{shape[1]} "
+                            "blocks]",
+                    "route": "cuda",
+                    "source": ("firstorderlp_torch/csrc/tiled_spmv.cu"
+                               if tile_aligned else
+                               "firstorderlp_torch/csrc/spmv_csr.cu"),
+                    "replaces": (
+                        "firstorderlp_tpu/ops/routed.py:347 (_make_fused)"
+                        if tile_aligned else
+                        "firstorderlp_tpu/ops/routed.py:160 (_make_expand)"
+                        " + routed.py:188 (_make_reduce)")
+                    + " per block of firstorderlp_tpu/ops/routed_sharded.py"
+                    + (":191 (ShardedRoutedOp.rmv)" if transpose
+                       else ":173 (ShardedRoutedOp.mv)"),
+                    "mesh": list(shape),
+                    "layout": layout,
+                    "max_abs_err": errs["plain"],
+                    "max_abs_err_vs_single_device": errs["single"],
+                    "ms": probe.time_ms(call),
+                    "single_device_ms": probe.time_ms(one),
+                    "plain_ms": probe.time_ms(
+                        lambda v=vec, t=transpose: sharded_plain(
+                            torch, routed, sop, v, t)),
+                    "library_ms": probe.time_ms(
+                        lambda v=vec, l=lib[label]: l @ v),
+                    "bound_ms": bound,
+                    "bound_by": bound_by,
+                    "launches_a_call": launches,
+                    "blocks": len(blocks),
+                    "block_nnz": [mat.nnz for mat in mats],
+                    "build_seconds": build_s,
+                }
+                rows.append(row)
+            del sop, single
+        del csr_single, lib
+    emit({"phase": ph, "ok": True, "nodes": NODES,
+          "seconds": time.time() - t_phase,
+          "tolerance": f"|d| <= {TOL_ENTRY}*(|A||x|)_i + {TOL_ABS} against "
+                       "the single-device RoutedOp and the blocks' plain "
+                       "versions; two calls bitwise equal",
+          "results": rows})
+    return rows
+
+
+def sharded_solve_record(torch, routed, solve, problem, label, host_tol):
+    """One sharded solve with its launches, host-f64 check and the split
+    of its seconds (ingest: the solver's prepare_problem, timed by
+    wrapping it)."""
+    routed.reset_launch_counts()
+    t0 = time.time()
+    out, prepare_s = solve()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    res = host_residuals(problem, out.primal_solution, out.dual_solution)
+    iters = max(out.iteration_count, 1)
+    rec = {"solve": label, "reason": out.termination_reason.name,
+           "iterations": out.iteration_count, "seconds": seconds,
+           "prepare_seconds": prepare_s,
+           "solve_seconds": seconds - prepare_s,
+           "ms_per_iteration": 1e3 * (seconds - prepare_s) / iters,
+           "host_f64": res, "launches": dict(routed.LAUNCHES)}
+    problems = []
+    if rec["reason"] != "TERMINATION_REASON_OPTIMAL":
+        problems.append(f"{label}: reason {rec['reason']}")
+    if out.primal_solution.shape != (problem.num_variables,) or (
+            out.dual_solution.shape != (problem.num_constraints,)):
+        problems.append(f"{label}: solution shapes")
+    if not (np.all(np.isfinite(out.primal_solution))
+            and np.all(np.isfinite(out.dual_solution))):
+        problems.append(f"{label}: non-finite solution")
+    if any(not v <= host_tol for v in res.values()):
+        problems.append(f"{label}: host residuals {res}")
+    return out, rec, problems
+
+
+def timed_prepare(module):
+    """Wraps module.prepare_problem to record its seconds; returns the
+    record and a function that restores the module."""
+    inner = module.prepare_problem
+    spent = {"seconds": 0.0}
+
+    def prepare(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spent["seconds"] += time.time() - t0
+
+    module.prepare_problem = prepare
+    return spent, lambda: setattr(module, "prepare_problem", inner)
+
+
+def sharded_path(torch, dev, routed, problem, small, params, mp_params,
+                 main_rec, warm_rec):
+    """sharded_optimize as a user calls it: main_path's PDHG parameters
+    on the 100k-node LP on (2, 2) and (4, 1) meshes of cuda:0 (B2 blocks,
+    the fused kernels not launched), and Mirror Prox on both meshes at
+    20k nodes on the tile plan (B5 blocks). OPTIMAL with host-f64 residuals
+    under 1e-4, iterations, seconds and ms an iteration beside
+    main_path's."""
+    from firstorderlp_torch.models import mirror_prox as mp_module
+    from firstorderlp_torch.models import pdhg as pdhg_module
+    from firstorderlp_torch.parallel import sharded_optimize, solver_mesh
+
+    ph = "sharded_path"
+    t_phase = time.time()
+    solves, problems, launches = [], [], {}
+    csr_keys = ("spmv_csr:A", "spmv_csr:AT")
+    tiled_keys = ("tiled_spmv:A", "tiled_spmv:AT")
+    for shape in SHARDED_MESHES:
+        mesh = solver_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        spent, restore = timed_prepare(pdhg_module)
+        try:
+            _, rec, bad = sharded_solve_record(
+                torch, routed,
+                lambda: (sharded_optimize(params, problem, mesh),
+                         spent["seconds"]),
+                problem, f"pdhg {shape[0]}x{shape[1]}", 1e-4)
+        finally:
+            restore()
+        got = rec["launches"]
+        if any(got[k] <= 0 for k in csr_keys) or any(
+                v for k, v in got.items() if k not in csr_keys):
+            bad.append(f"pdhg {shape}: launches {got}")
+        rec["mesh"] = list(shape)
+        solves.append(rec)
+        problems += bad
+        launches[("csr",) + shape] = got
+    for shape in SHARDED_MESHES:
+        mesh = solver_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        routed.DEFAULT_TILE_ALIGNED = True
+        spent, restore = timed_prepare(mp_module)
+        try:
+            _, rec, bad = sharded_solve_record(
+                torch, routed,
+                lambda: (sharded_optimize(mp_params, small, mesh),
+                         spent["seconds"]),
+                small, f"mirror_prox {shape[0]}x{shape[1]} tiled", 1e-4)
+        finally:
+            restore()
+            routed.DEFAULT_TILE_ALIGNED = False
+        got = rec["launches"]
+        if any(got[k] <= 0 for k in tiled_keys) or any(
+                v for k, v in got.items() if k not in tiled_keys):
+            bad.append(f"mirror_prox {shape}: launches {got}")
+        rec.update(mesh=list(shape), nodes=DET_NODES)
+        solves.append(rec)
+        problems += bad
+        launches[("tiled",) + shape] = got
+    main_ms = 1e3 * main_rec["solve_seconds"] / main_rec["iterations"]
+    warm_ms = 1e3 * warm_rec["solve_seconds"] / warm_rec["iterations"]
+    record = {"phase": ph, "ok": not problems, "nodes": NODES,
+              "seconds": time.time() - t_phase, "solves": solves,
+              "main_path_iterations": main_rec["iterations"],
+              "main_path_ms_per_iteration": main_ms,
+              "main_path_warm_ms_per_iteration": warm_ms}
+    if problems:
+        record["problems"] = problems
+    emit(record)
+    if problems:
+        raise SystemExit(1)
+    return launches
+
+
+def distributed_worker(argv) -> int:
+    """One rank of a process group: `chip_smoke.py --distributed-worker
+    RANK WORLD PORT OUT N_DUAL N_PRIMAL` solves the 100k-node LP with
+    main_path's parameters by distributed_optimize on an (N_DUAL,
+    N_PRIMAL) global mesh and saves its result to OUT (.npz)."""
+    import torch
+    import torch.distributed as dist
+
+    from firstorderlp_torch.generators import generate_pagerank_lp
+    from firstorderlp_torch.models import pdhg as pdhg_module
+    from firstorderlp_torch.ops import routed
+    from firstorderlp_torch.parallel import distributed as D
+
+    rank, world, port = (int(a) for a in argv[:3])
+    out_path = argv[3]
+    shape = (int(argv[4]), int(argv[5]))
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    problem = generate_pagerank_lp(num_nodes=NODES, seed=0)
+    D.initialize(f"localhost:{port}", world, rank)
+    D.global_solver_mesh(*shape)  # the group's first collective, untimed
+    spent, restore = timed_prepare(pdhg_module)
+    try:
+        routed.reset_launch_counts()
+        t0 = time.time()
+        out = D.distributed_optimize(make_params(1e-4, 20_000), problem,
+                                     *shape)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        np.savez(out_path, primal=out.primal_solution,
+                 dual=out.dual_solution, iterations=out.iteration_count,
+                 reason=out.termination_reason.name, seconds=seconds,
+                 prepare_seconds=spent["seconds"],
+                 backend=dist.get_backend(),
+                 device=str(torch.device("cuda", torch.cuda.current_device())),
+                 launches=json.dumps(dict(routed.LAUNCHES)))
+    finally:
+        restore()
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def same_bits(a, b) -> bool:
+    return (str(a["reason"]) == str(b["reason"])
+            and int(a["iterations"]) == int(b["iterations"])
+            and np.array_equal(a["primal"], b["primal"])
+            and np.array_equal(a["dual"], b["dual"]))
+
+
+def as_record(out):
+    return {"primal": out.primal_solution, "dual": out.dual_solution,
+            "iterations": out.iteration_count,
+            "reason": out.termination_reason.name}
+
+
+def run_ranks(shape, problem, reference, backend):
+    """Runs one process a cell of an `shape` mesh (this script with
+    --distributed-worker, on a free port, all killed after DIST_TIMEOUT
+    seconds) and holds them to `reference`, the single-process mesh's
+    solve: the same bits on every rank, `backend`, OPTIMAL in host f64,
+    B2 launched on every rank. Returns (per-rank records, wall seconds,
+    problems)."""
+    import os
+    import subprocess
+    import tempfile
+
+    world = shape[0] * shape[1]
+    problems, ranks, logs = [], [], []
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(world)]
+        port = str(free_port())
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--distributed-worker", str(r), str(world), port, outs[r],
+             str(shape[0]), str(shape[1])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(world)]
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, DIST_TIMEOUT - (time.time() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            problems.append(f"the ranks ran over {DIST_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.time() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0 or not os.path.exists(outs[r]):
+                tail = logs[r][-1500:] if r < len(logs) else ""
+                problems.append(f"rank {r} exited {p.returncode}: {tail}")
+            else:
+                ranks.append(dict(np.load(outs[r])))
+    records = [{"rank": r, "reason": str(x["reason"]),
+                "iterations": int(x["iterations"]),
+                "seconds": float(x["seconds"]),
+                "prepare_seconds": float(x["prepare_seconds"]),
+                "ms_per_iteration": 1e3 * (float(x["seconds"])
+                                           - float(x["prepare_seconds"]))
+                / max(int(x["iterations"]), 1),
+                "backend": str(x["backend"]), "device": str(x["device"]),
+                "launches": json.loads(str(x["launches"]))}
+               for r, x in enumerate(ranks)]
+    if len(ranks) == world:
+        if not all(same_bits(x, reference) for x in ranks):
+            problems.append("a rank differs from the single-process mesh")
+        if str(ranks[0]["reason"]) != "TERMINATION_REASON_OPTIMAL":
+            problems.append(f"ranks: {ranks[0]['reason']}")
+        res = host_residuals(problem, ranks[0]["primal"], ranks[0]["dual"])
+        if any(not v <= 1e-4 for v in res.values()):
+            problems.append(f"ranks: host residuals {res}")
+        for rec in records:
+            if rec["backend"] != backend or any(
+                    rec["launches"][k] <= 0
+                    for k in ("spmv_csr:A", "spmv_csr:AT")):
+                problems.append(f"rank {rec['rank']}: {rec['backend']}, "
+                                f"launches {rec['launches']}")
+    return records, wall, problems
+
+
+def distributed_path(torch, dev, routed, problem, small, params):
+    """(a) a world of 1 on NCCL in this process: distributed_optimize on
+    a (1, 1) mesh of the 20k-node LP, bitwise equal to the
+    single-process (1, 1) sharded_optimize; (b) two gloo ranks on the
+    one card (separate processes): a (2, 1) solve of the 100k-node LP
+    whose two ranks give the same bits as the single-process (2, 1)
+    mesh."""
+    import torch.distributed as dist
+
+    from firstorderlp_torch.parallel import distributed as D
+    from firstorderlp_torch.parallel import sharded_optimize, solver_mesh
+
+    ph = "distributed_path"
+    t_phase = time.time()
+    problems = []
+    # (a)
+    reference = sharded_optimize(params, small, solver_mesh(1, 1, [dev]))
+    D.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        routed.reset_launch_counts()
+        t0 = time.time()
+        world1 = D.distributed_optimize(params, small, 1, 1)
+        torch.cuda.synchronize()
+        world1_s = time.time() - t0
+        world1_launches = dict(routed.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        problems.append(f"world of 1 on {backend}, not nccl")
+    if not same_bits(as_record(world1), as_record(reference)):
+        problems.append("world of 1 differs from the (1, 1) mesh")
+    if world1.termination_reason.name != "TERMINATION_REASON_OPTIMAL":
+        problems.append(f"world of 1: {world1.termination_reason.name}")
+    # (b)
+    t0 = time.time()
+    single = as_record(sharded_optimize(
+        params, problem, solver_mesh(*DIST_MESH, devices=[dev] * 2)))
+    single_s = time.time() - t0
+    ranks, ranks_s, bad = run_ranks(DIST_MESH, problem, single, "gloo")
+    problems += bad
+    record = {
+        "phase": ph, "ok": not problems, "seconds": time.time() - t_phase,
+        "world_of_1": {"backend": backend, "nodes": DET_NODES,
+                       "iterations": world1.iteration_count,
+                       "seconds": world1_s, "launches": world1_launches,
+                       "bitwise_equal_to_1x1_mesh": same_bits(
+                           as_record(world1), as_record(reference))},
+        "gloo_ranks": {"mesh": list(DIST_MESH), "nodes": NODES,
+                       "wall_seconds": ranks_s, "ranks": ranks,
+                       "single_process_seconds": single_s,
+                       "single_process_iterations": single["iterations"]},
+    }
+    if problems:
+        record["problems"] = problems
+    emit(record)
+    if problems:
+        raise SystemExit(1)
+
+
+def multi_gpu_path(torch, routed, problem, params):
+    """--multi-gpu, on a host with at least four cards: the 100k-node LP
+    by sharded_optimize on a (2, 2) mesh with every cell on cuda:0 (the
+    reference, solved twice: the first solve of the process pays its
+    warm-up), on a (2, 2) mesh over cuda:0-3 (blocks on four cards, the
+    vectors on cuda:0), and by four NCCL ranks, one card and one block
+    each: the same bits everywhere, OPTIMAL in host f64, with seconds
+    and ms an iteration (ingest and the group's first collective
+    apart)."""
+    from firstorderlp_torch.models import pdhg as pdhg_module
+    from firstorderlp_torch.parallel import sharded_optimize, solver_mesh
+
+    ph = "multi_gpu_path"
+    t_phase = time.time()
+    count = torch.cuda.device_count()
+    if count < 4:
+        fail(ph, f"needs 4 CUDA devices, has {count}")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    solves, problems = {}, []
+    # the first solve of the process pays its warm-up: run one card again
+    for label, devices in (("one_card_first", [cards[0]] * 4),
+                           ("four_cards", cards),
+                           ("one_card", [cards[0]] * 4)):
+        mesh = solver_mesh(2, 2, devices)
+        spent, restore = timed_prepare(pdhg_module)
+        try:
+            out, rec, bad = sharded_solve_record(
+                torch, routed,
+                lambda: (sharded_optimize(params, problem, mesh),
+                         spent["seconds"]),
+                problem, f"pdhg 2x2 {label}", 1e-4)
+        finally:
+            restore()
+        solves[label] = (as_record(out), rec)
+        problems += bad
+    reference = solves["one_card"][0]
+    for label in ("one_card_first", "four_cards"):
+        if not same_bits(solves[label][0], reference):
+            problems.append(f"{label} differs from one card")
+    ranks, ranks_s, bad = run_ranks((2, 2), problem, reference, "nccl")
+    problems += bad
+    if sorted(r["device"] for r in ranks) != [str(c) for c in cards]:
+        problems.append(f"the ranks' cards: {[r['device'] for r in ranks]}")
+    record = {"phase": ph, "ok": not problems, "nodes": NODES,
+              "seconds": time.time() - t_phase, "cards": count,
+              "solves": [rec for _, rec in solves.values()],
+              "nccl_ranks": {"mesh": [2, 2], "wall_seconds": ranks_s,
+                             "ranks": ranks}}
+    if problems:
+        record["problems"] = problems
+    emit(record)
+    if problems:
+        raise SystemExit(1)
+
+
 def slow_and_hetero_phases(torch, dev, compare, routed, probe,
                            single_optimize):
     """The heterogeneous fleet (kernels_block_lanes, hetero_fleet), the
@@ -1456,6 +2009,12 @@ def main() -> int:
                              "by another version of the package, held in "
                              "DIR as firstorderlp_torch_parent (phases "
                              "main_path_parent, fleet_parent)")
+    parser.add_argument("--multi-gpu", action="store_true",
+                        help="only the multi-device solve across four "
+                             "cards (phase multi_gpu_path), after the "
+                             "build")
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        return distributed_worker(sys.argv[2:])
     args = parser.parse_args()
 
     import torch
@@ -1524,6 +2083,17 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
           "compile_meter": {"seconds": build_window.seconds,
                             "backend_seconds": build_window.backend_seconds},
           "ptxas": ptxas})
+
+    if args.multi_gpu:
+        multi_gpu_path(torch, routed,
+                       generate_pagerank_lp(num_nodes=NODES, seed=0),
+                       make_params(1e-4, 20_000))
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     # 3. kernels, at the main path's shapes
     t0 = time.time()
@@ -2013,6 +2583,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if args.profile:
         record["profile"] = warm_run["profile"]
     emit(record)
+    warm_rec = record
     del prepared, warm
     if args.parent:
         record = main_path_parent(torch, compare, args.parent, dev)
@@ -2267,8 +2838,20 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         lambda p, prob: package_optimize(p, prob, device=dev),
     )
 
-    # 18. kernel list
-    results = results + tiled + probes + lane_rows + block_rows
+    # 18-20. the multi-device solve
+    sharded_rows = kernels_sharded(torch, dev, routed, probe,
+                                   rescale_problem, problem)
+    path_launches = sharded_path(torch, dev, routed, problem, small, params,
+                                 make_mp_params(1e-4, 20_000), main,
+                                 warm_rec)
+    for r in sharded_rows:
+        key = r["name"].split(" ")[0]
+        r["launches"] = path_launches[(r["layout"],) + tuple(r["mesh"])][key]
+    distributed_path(torch, dev, routed, problem, small, params)
+
+    # 21. kernel list
+    results = (results + tiled + probes + lane_rows + block_rows
+               + sharded_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2282,7 +2865,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "entries_per_block_max", "entries_per_block_mean",
              "tiles_staged", "tiles_gathered", "bytes_staged", "large",
              "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns",
-             "variant", "lanes_a_thread", "unroll", "split_rows")
+             "variant", "lanes_a_thread", "unroll", "split_rows", "mesh",
+             "layout", "single_device_ms", "max_abs_err_vs_single_device",
+             "launches_a_call")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -39,6 +39,7 @@ from ..iteration_stats import (
 )
 from ..ops.device import resolve_device
 from ..ops.device_problem import DeviceScaledQp, to_device_scaled
+from ..ops.routed_sharded import agreed_seconds
 from ..preprocess import rescale_problem, sparse_l2_norms
 from ..problem import QuadraticProgrammingProblem, validate
 from ..saddle_point import (
@@ -578,6 +579,7 @@ def prepare_problem(
     original_problem: QuadraticProgrammingProblem,
     warm_start=None,
     device=None,
+    _shard_plan=None,
 ) -> PreparedMpProblem:
     """Validates, rescales and moves `original_problem` to `device` for
     `optimize` (reference: the rescaling step of optimize,
@@ -586,7 +588,11 @@ def prepare_problem(
 
     warm_start: optional (primal, dual) in UNSCALED space, mirroring
     pdhg.prepare_problem's contract (used by the refinement path's
-    f64 tail; the reference always cold-starts, mirror_prox.jl:646)."""
+    f64 tail; the reference always cold-starts, mirror_prox.jl:646).
+
+    _shard_plan: see pdhg.prepare_problem."""
+    if _shard_plan is not None and device is None:
+        device = _shard_plan.mesh.home_device
     device = resolve_device(device)
     validate(original_problem)
 
@@ -609,6 +615,7 @@ def prepare_problem(
         device,
         stats_dtype=stats_dtype,
         stats_format=params.stats_matrix_format,
+        shard_plan=_shard_plan,
     )
     n = bundle.scaled.num_variables
     m = bundle.scaled.num_constraints
@@ -656,6 +663,8 @@ def optimize(
     prepared: "PreparedMpProblem | None" = None,
     device=None,
     _elapsed_offset: float = 0.0,
+    _placement=None,
+    _shard_plan=None,
 ) -> SaddlePointOutput:
     """Solves a QP with saddle-point mirror prox
     (reference optimize, mirror_prox.jl:610-919).
@@ -664,11 +673,13 @@ def optimize(
     GPU is present and no device was asked for. `prepared`: a
     PreparedMpProblem from prepare_problem (skips the per-call rescale +
     device transfer). `_elapsed_offset`: see pdhg.optimize; pre-charges
-    the time-limit clock for refinement sub-solves.
+    the time-limit clock for refinement sub-solves. `_placement`,
+    `_shard_plan`: see pdhg.optimize.
     """
     validate_termination_criteria(params.termination_criteria)
     if prepared is None:
-        prepared = prepare_problem(params, original_problem, device=device)
+        prepared = prepare_problem(params, original_problem, device=device,
+                                   _shard_plan=_shard_plan)
     scaled_problem = prepared.scaled_problem
     bundle = prepared.bundle
     state = prepared.initial_state
@@ -701,6 +712,8 @@ def optimize(
         # The previous run's termination (e.g. its iteration limit) does
         # not apply to this run's criteria; re-evaluate from scratch.
         state = dataclasses.replace(state, termination_reason=0)
+    if _placement is not None:
+        bundle, state = _placement(bundle, state)
 
     def checkpoint(state, metadata):
         from ..checkpoint import save_state
@@ -720,7 +733,9 @@ def optimize(
     checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
     dispatch_count = 0
     while True:
-        elapsed = time.time() - start_time
+        elapsed = agreed_seconds(
+            bundle.scaled.constraint_matrix, time.time() - start_time
+        )
         segment_start = time.time()
         state, result = _segment_core(bundle, state, elapsed, config)
         k = 1

@@ -38,6 +38,7 @@ from ..iteration_stats import (
 from ..ops.device import resolve_device
 from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
 from ..ops.routed import RoutedOp
+from ..ops.routed_sharded import agreed_seconds
 from ..preprocess import rescale_problem
 from ..problem import QuadraticProgrammingProblem, validate
 from ..saddle_point import (
@@ -705,6 +706,7 @@ def prepare_problem(
     warm_start=None,
     device=None,
     _reuse: "PreparedProblem | None" = None,
+    _shard_plan=None,
 ) -> PreparedProblem:
     """Validates, rescales and moves `original_problem` to `device` for
     `optimize` (reference: the rescaling step of optimize, pdhg.jl:
@@ -718,8 +720,17 @@ def prepare_problem(
     (refine.py). The solve stays on its device. When its original
     (stats) bundle has this phase's stats dtype, its host
     ScaledQpProblem (rescaling does not depend on the dtype) and that
-    bundle are reused, and only the scaled bundle is rebuilt."""
-    device = _reuse.device if _reuse is not None else resolve_device(device)
+    bundle are reused, and only the scaled bundle is rebuilt.
+
+    _shard_plan: a RoutedShardPlan (parallel.sharded): the constraint
+    operator is built block-partitioned over the plan's mesh, the rest
+    on `device` (default: the mesh's home device)."""
+    if _reuse is not None:
+        device = _reuse.device
+    elif _shard_plan is not None and device is None:
+        device = _shard_plan.mesh.home_device
+    else:
+        device = resolve_device(device)
     validate(original_problem)
     if isinstance(
         params.step_size_policy_params, MalitskyPockStepsizeParameters
@@ -741,7 +752,7 @@ def prepare_problem(
             _reuse.bundle,
             scaled=to_device(
                 scaled_problem.scaled_qp, dtype, params.matrix_format,
-                device,
+                device, shard_plan=_shard_plan,
             ),
         )
     else:
@@ -760,6 +771,7 @@ def prepare_problem(
             device,
             stats_dtype=stats_dtype,
             stats_format=params.stats_matrix_format,
+            shard_plan=_shard_plan,
         )
 
     state = _initial_state(bundle, dtype, device)
@@ -845,6 +857,8 @@ def optimize(
     prepared: "PreparedProblem | None" = None,
     device=None,
     _elapsed_offset: float = 0.0,
+    _placement=None,
+    _shard_plan=None,
 ) -> SaddlePointOutput:
     """Solves a QP with PDHG (reference optimize, pdhg.jl:769-1049).
 
@@ -853,14 +867,22 @@ def optimize(
     prepare_problem on the SAME problem and params) skips ingest.
     `_elapsed_offset` pre-charges the time-limit clock (refine.py: a
     sub-solve's budget is what remains of the caller's declared
-    time_sec_limit)."""
+    time_sec_limit).
+
+    `_placement` (parallel.sharded.make_placement): a function
+    (bundle, state) -> (bundle, state) applied before the loop starts.
+    `_shard_plan` (parallel.sharded): the constraint operator is built
+    block-partitioned over the plan's mesh at ingest. Under a process
+    group the time limit reads rank 0's clock on every rank
+    (ops/routed_sharded.agreed_seconds)."""
     validate_termination_criteria(params.termination_criteria)
     if params.primal_importance <= 0 or not np.isfinite(
         params.primal_importance
     ):
         raise ValueError("primal_importance must be positive and finite")
     if prepared is None:
-        prepared = prepare_problem(params, original_problem, device=device)
+        prepared = prepare_problem(params, original_problem, device=device,
+                                   _shard_plan=_shard_plan)
     scaled_problem = prepared.scaled_problem
     bundle = prepared.bundle
     state = prepared.initial_state
@@ -881,6 +903,8 @@ def optimize(
         # The previous run's termination (e.g. its iteration limit) does
         # not apply to this run's criteria; re-evaluate from scratch.
         state = dataclasses.replace(state, termination_reason=0)
+    if _placement is not None:
+        bundle, state = _placement(bundle, state)
 
     def checkpoint(state, metadata):
         from ..checkpoint import save_state
@@ -903,7 +927,9 @@ def optimize(
         checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
         dispatch_count = 0
         while True:
-            elapsed = time.time() - start_time
+            elapsed = agreed_seconds(
+                bundle.scaled.constraint_matrix, time.time() - start_time
+            )
             segment_start = time.time()
             state, result = _segment_core(bundle, state, elapsed, config)
             k = 1

@@ -83,11 +83,15 @@ def to_device(
     format: str = "auto",
     device=None,
     share_from: Optional[DeviceQp] = None,
+    shard_plan=None,
 ) -> DeviceQp:
     """`device`: CUDA when None (raises without a GPU), the CPU only
     when asked. `share_from`: a DeviceQp over the same sparsity pattern
     (the scaled copy); a kernel operator built here reuses its index
-    tensors (build_linop's share_plan_with)."""
+    tensors (build_linop's share_plan_with). `shard_plan`: a
+    RoutedShardPlan (ops/routed_sharded.py); the constraint matrix is
+    built block-partitioned over its mesh, everything else whole on
+    `device`."""
     device = resolve_device(device)
     m = problem.num_constraints
     is_equality = np.zeros(m, dtype=bool)
@@ -118,6 +122,7 @@ def to_device(
             share_plan_with=(
                 None if share_from is None else share_from.constraint_matrix
             ),
+            shard_plan=shard_plan,
         ),
         objective_matrix=objective_matrix,
     )
@@ -130,12 +135,16 @@ def to_device_scaled(
     device=None,
     stats_dtype=None,
     stats_format=None,
+    shard_plan=None,
 ) -> DeviceScaledQp:
     """`stats_dtype` (default: `dtype`) is the precision of the ORIGINAL
     problem copy, the rescaling vectors and the norm cache, i.e. of the
     termination/stats evaluation. `stats_format` (default: `format`) is
     the matrix layout of the original copy. `device`: CUDA when None
-    (raises without a GPU), the CPU only when asked."""
+    (raises without a GPU), the CPU only when asked. `shard_plan`: both
+    copies' constraint matrices block-partitioned over its mesh (see
+    to_device); the original copy's blocks share the scaled copy's index
+    tensors."""
     device = resolve_device(device)
     if stats_dtype is None:
         stats_dtype = dtype
@@ -163,12 +172,13 @@ def to_device_scaled(
             stats_dtype
         )
 
-    scaled = to_device(scaled_problem.scaled_qp, dtype, format, device)
+    scaled = to_device(scaled_problem.scaled_qp, dtype, format, device,
+                       shard_plan=shard_plan)
     return DeviceScaledQp(
         scaled=scaled,
         original=to_device(
             scaled_problem.original_qp, stats_dtype, stats_format, device,
-            share_from=scaled,
+            share_from=scaled, shard_plan=shard_plan,
         ),
         constraint_rescaling=vec(scaled_problem.constraint_rescaling),
         variable_rescaling=vec(scaled_problem.variable_rescaling),

@@ -8,6 +8,8 @@
   PyTorch. It stands in for the JAX package's "sparse"/"ell" and "coo"
   layouts and is the f64 path.
 - RoutedOp (ops/routed.py): the f32 kernel operator.
+- ShardedRoutedOp (ops/routed_sharded.py): any of the three, cut into a
+  (D, P) grid of blocks over a solver mesh (build_linop's shard_plan).
 
 Reference call sites these replace: `problem.constraint_matrix * x` and
 `problem.constraint_matrix' * y` (src/saddle_point.jl:1089,1106;
@@ -131,6 +133,7 @@ def build_linop(
     format: str = "auto",
     device=None,
     share_plan_with: Optional[LinOp] = None,
+    shard_plan=None,
 ) -> LinOp:
     """Chooses a layout for `matrix` (the JAX package's format rules)
     and builds it on `device`: CUDA when None (raises without a GPU),
@@ -143,17 +146,26 @@ def build_linop(
     asks for a TPU backend there), CsrOp otherwise.
 
     share_plan_with: an operator built for a matrix of the same shape;
-    when it is a kernel operator on `device` with this matrix's sparsity
+    when it is a kernel operator on `device` (or a routed
+    ShardedRoutedOp on the same mesh) with this matrix's sparsity
     pattern and the kernel layout is chosen here too, its index tensors
     are reused and only the values are transferred.
+
+    shard_plan: a RoutedShardPlan (ops/routed_sharded.py) for
+    multi-device solves: the layout is chosen as above, on the whole
+    matrix and the mesh's home device, and the matrix is built as a
+    ShardedRoutedOp whose blocks have that layout.
     """
-    device = resolve_device(device)
+    if shard_plan is not None:
+        device = shard_plan.mesh.home_device
+    else:
+        device = resolve_device(device)
     m, n = matrix.shape
     if format in ("dense", "dense_onchip") or (
         format == "auto" and m * n <= DENSE_SIZE_LIMIT
     ):
-        return build_dense_op(matrix, dtype, device)
-    if format == "routed" or (
+        layout = "dense"
+    elif format == "routed" or (
         format == "auto"
         and dtype == torch.float32
         and matrix.nnz >= ROUTED_NNZ_THRESHOLD
@@ -161,13 +173,35 @@ def build_linop(
     ):
         if dtype != torch.float32:
             raise ValueError("routed layout computes in f32")
-        donor = share_plan_with
+        layout = "routed"
+    elif format in ("auto", "sparse", "ell", "coo"):
+        layout = "sparse"
+    else:
+        raise ValueError(f"unknown matrix format {format!r}")
+    donor = share_plan_with
+    if shard_plan is not None:
+        from .routed_sharded import ShardedRoutedOp, build_sharded_routed_op
+
+        if (layout == "routed" and isinstance(donor, ShardedRoutedOp)
+                and donor.format == "routed"
+                and donor.mesh == shard_plan.mesh
+                and donor.tile_aligned == shard_plan.tile_aligned):
+            csr = sp.csr_matrix(matrix, dtype=np.float64)
+            csr.sum_duplicates()
+            if pattern_hash(csr) == donor.pattern_hash:
+                return build_sharded_routed_op(
+                    csr, shard_plan, share_plan_with=donor
+                )
+        return build_sharded_routed_op(
+            matrix, shard_plan, dtype=dtype, format=layout
+        )
+    if layout == "dense":
+        return build_dense_op(matrix, dtype, device)
+    if layout == "routed":
         if isinstance(donor, RoutedOp) and donor.a.device == device:
             csr = sp.csr_matrix(matrix, dtype=np.float64)
             csr.sum_duplicates()
             if pattern_hash(csr) == donor.pattern_hash:
                 return build_routed_op(csr, share_plan_with=donor)
         return build_routed_op(matrix, device)
-    if format not in ("auto", "sparse", "ell", "coo"):
-        raise ValueError(f"unknown matrix format {format!r}")
     return build_csr_op(matrix, dtype, device)

@@ -387,13 +387,16 @@ def _on_cpu(plan_or_mat, vec: torch.Tensor) -> bool:
 
 
 def _launch(lib: str, mat: CsrKernelMatrix, *args) -> None:
-    """One launch of `lib` on the current stream: the matrix's constant
-    arguments by address (built once), then the call's own."""
+    """One launch of `lib` on the matrix's device and its current stream
+    (whichever device is current: a mesh's blocks lie on several): the
+    matrix's constant arguments by address (built once), then the
+    call's own."""
     if mat.device.type != "cuda":
         raise ValueError(f"{lib}: the matrix is not on a CUDA device")
     fn = kernels_build.kernel_function(lib)
-    stream = torch.cuda.current_stream(mat.device).cuda_stream
-    err = fn(mat.kernel_args_address, *args, stream)
+    with torch.cuda.device(mat.device):
+        stream = torch.cuda.current_stream(mat.device).cuda_stream
+        err = fn(mat.kernel_args_address, *args, stream)
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
 
@@ -863,14 +866,15 @@ def _launch_tiled(lib: str, plan: TilePlan, *args) -> None:
     if plan.device.type != "cuda":
         raise ValueError(f"{lib}: the plan is not on a CUDA device")
     fn = kernels_build.kernel_function(lib)
-    stream = torch.cuda.current_stream(plan.device).cuda_stream
-    err = fn(
-        plan.loc.data_ptr(), plan.vals.data_ptr(), plan.meta.data_ptr(),
-        plan.items.data_ptr(), plan.scratch.data_ptr(),
-        plan.tickets.data_ptr(), plan.nitems, plan.nstrips, plan.group,
-        plan.out_strip, plan.in_window, plan.num_rows, plan.num_cols,
-        plan.warps, *args, stream,
-    )
+    with torch.cuda.device(plan.device):  # as _launch
+        stream = torch.cuda.current_stream(plan.device).cuda_stream
+        err = fn(
+            plan.loc.data_ptr(), plan.vals.data_ptr(), plan.meta.data_ptr(),
+            plan.items.data_ptr(), plan.scratch.data_ptr(),
+            plan.tickets.data_ptr(), plan.nitems, plan.nstrips, plan.group,
+            plan.out_strip, plan.in_window, plan.num_rows, plan.num_cols,
+            plan.warps, *args, stream,
+        )
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
 

@@ -603,6 +603,28 @@ def compute_new_primal_weight(
     return torch.where(valid, torch.exp(log_primal_weight), primal_weight)
 
 
+def select_initial_primal_weight(
+    problem,
+    primal_norm_params,
+    dual_norm_params,
+    primal_importance: float,
+):
+    """Scale-invariant initial primal weight: primal_importance times
+    ||c|| / ||b|| in the weighted norms, or primal_importance when
+    either norm is 0 (reference src/saddle_point.jl:1049-1075). The
+    solvers use models/common.initial_primal_weight_host, its host form
+    with all-ones weights."""
+    rhs_norm = weighted_norm(problem.right_hand_side, dual_norm_params)
+    obj_norm = weighted_norm(problem.objective_vector, primal_norm_params)
+    use_ratio = (obj_norm > 0.0) & (rhs_norm > 0.0)
+    return torch.where(
+        use_ratio,
+        primal_importance
+        * (obj_norm / torch.where(rhs_norm > 0, rhs_norm, 1.0)),
+        torch.full_like(obj_norm, primal_importance),
+    )
+
+
 def update_objective_bound_estimates(
     problem, primal, dual, primal_norm_weights, dual_norm_weights
 ):

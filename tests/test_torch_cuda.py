@@ -34,7 +34,11 @@ operator (ops/block_lanes.py) runs B2 on an interleaved block-diagonal
 matrix of lanes of mixed sizes and patterns: against its plain version,
 20 launches bitwise equal; a 4-lane heterogeneous fleet and a 4-lane QP
 fleet (PDHG and Mirror Prox) end OPTIMAL on the card with the reasons
-of the same fleets on the CPU.
+of the same fleets on the CPU. The block-partitioned operator
+(ops/routed_sharded.py) on a (2, 2) mesh of the card, CSR and tile-plan
+blocks with an empty block, against its blocks' plain versions, one
+launch a non-empty block; sharded_optimize on that mesh ends OPTIMAL
+with the same bits twice.
 """
 
 import dataclasses
@@ -954,3 +958,64 @@ def test_qp_fleet_solves_on_the_card(cuda, solver):
         assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
         assert b.termination_reason == a.termination_reason
         assert np.all(np.isfinite(a.primal_solution))
+
+
+@pytest.mark.parametrize("tile_aligned", [False, True])
+def test_sharded_operator_on_the_card(cuda, tile_aligned):
+    """The block-partitioned operator (ops/routed_sharded.py) on a (2, 2)
+    mesh of the one card, with an empty block: A x and A' y against the
+    same operator's blocks on the CPU (their plain versions), two calls
+    bitwise equal, one launch a product for each non-empty block."""
+    from firstorderlp_torch.ops.routed_sharded import (
+        RoutedShardPlan, build_sharded_routed_op,
+    )
+    from firstorderlp_torch.parallel import solver_mesh
+
+    rng = np.random.default_rng(4)
+    a = sp.lil_matrix(sp.random(600, 500, density=0.02, random_state=rng))
+    a[:300, 250:] = 0.0  # block (0, 1) empty
+    a[305, :] = rng.standard_normal(500)  # a dense row across two blocks
+    a = sp.csr_matrix(a)
+    a.eliminate_zeros()
+    ops = {
+        dev.type: build_sharded_routed_op(a, RoutedShardPlan(
+            mesh=solver_mesh(2, 2, [dev] * 4), tile_aligned=tile_aligned))
+        for dev in (cuda, torch.device("cpu"))
+    }
+    assert ops["cuda"].blocks[0][1] is None
+    kernel = "tiled_spmv" if tile_aligned else "spmv_csr"
+    for label, n, transpose in (("A", 500, False), ("AT", 600, True)):
+        v = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+
+        def product(op, vec):
+            return op.rmv(vec) if transpose else op.mv(vec)
+
+        routed.reset_launch_counts()
+        got = product(ops["cuda"], v.to(cuda))
+        torch.cuda.synchronize()
+        assert routed.LAUNCHES[f"{kernel}:{label}"] == 3
+        want = product(ops["cpu"], v)
+        dense = a.T.toarray() if transpose else a.toarray()
+        scale = np.abs(dense) @ np.abs(v.double().numpy())
+        err = np.abs(got.cpu().double().numpy() - want.double().numpy())
+        assert np.all(err <= 1e-5 * scale + 1e-7)
+        assert torch.equal(got, product(ops["cuda"], v.to(cuda)))
+
+
+def test_sharded_solve_on_the_card(cuda):
+    """sharded_optimize on a (2, 2) mesh of the card ends OPTIMAL at 1e-4
+    with the B2 blocks launched and the fused kernels not, and gives the
+    same bits twice."""
+    from firstorderlp_torch.parallel import sharded_optimize, solver_mesh
+
+    problem = generate_pagerank_lp(2_000, seed=0)
+    params = dataclasses.replace(card_params(), matrix_format="routed")
+    mesh = solver_mesh(2, 2, [cuda] * 4)
+    routed.reset_launch_counts()
+    runs = [sharded_optimize(params, problem, mesh) for _ in range(2)]
+    assert routed.LAUNCHES["spmv_csr:A"] > 0
+    assert routed.LAUNCHES["spmv_dual_step"] == 0
+    assert runs[0].termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+    assert runs[0].primal_solution.shape == (problem.num_variables,)
+    assert np.array_equal(runs[0].primal_solution, runs[1].primal_solution)
+    assert np.array_equal(runs[0].dual_solution, runs[1].dual_solution)

@@ -1,9 +1,13 @@
 """The port's public saddle-point helpers against the JAX package's, in
 f64 at rtol 1e-12, on the fixtures: compute_average,
 compute_localized_duality_gap(s), compute_primal_gradient(
-_from_dual_product), compute_dual_gradient and compute_lagrangian_value
+_from_dual_product), compute_dual_gradient, compute_lagrangian_value
 (with tests/test_saddle_point.py::test_compute_lagrangian_value's
-cases); the fleet's (n, B) vectors give each lane's single value."""
+cases) and select_initial_primal_weight (with
+tests/test_saddle_point.py::test_select_initial_primal_weight's cases);
+the fleet's (n, B) vectors give each lane's single value."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -204,3 +208,41 @@ def test_fleet_vectors_give_each_lanes_value(name):
         close(grad[:, b], tx_sp.compute_primal_gradient(got, x2[:, b],
                                                         y2[:, b]))
         close(dual_grad[:, b], tx_sp.compute_dual_gradient(got, x2[:, b]))
+
+
+def test_select_initial_primal_weight_reference_cases():
+    """tests/test_saddle_point.py's three cases (the ratio, a zero
+    objective, a zero rhs) with all-ones weights, in both packages."""
+    lp1 = fixtures.example_lp()
+    importance = 1.3
+    lp2 = dataclasses.replace(
+        lp1, objective_vector=np.zeros(lp1.num_variables))
+    lp3 = dataclasses.replace(
+        lp1, right_hand_side=np.zeros(lp1.num_constraints))
+    ones_n, ones_m = np.ones(lp1.num_variables), np.ones(lp1.num_constraints)
+    expected = (importance * np.linalg.norm(lp1.objective_vector)
+                / np.linalg.norm(lp1.right_hand_side))
+    for lp, want in ((lp1, expected), (lp2, importance), (lp3, importance)):
+        got = tx_sp.select_initial_primal_weight(
+            tx_dev.to_device(port_problem(lp), device=CPU), t(ones_n),
+            t(ones_m), importance)
+        ref = jx_sp.select_initial_primal_weight(
+            jx_dev.to_device(lp), jnp.asarray(ones_n), jnp.asarray(ones_m),
+            importance)
+        close(got, want)
+        close(got, ref)
+    assert float(tx_sp.select_initial_primal_weight(
+        tx_dev.to_device(port_problem(lp2), device=CPU), t(ones_n),
+        t(ones_m), importance)) == importance
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_select_initial_primal_weight_weighted(name):
+    """Weighted norms, on each fixture's scaled problem."""
+    want, got = problems(name)
+    rng = np.random.default_rng(7)
+    wn = rng.uniform(0.5, 2.0, got.num_variables)
+    wm = rng.uniform(0.5, 2.0, got.num_constraints)
+    close(tx_sp.select_initial_primal_weight(got, t(wn), t(wm), 0.7),
+          jx_sp.select_initial_primal_weight(want, jnp.asarray(wn),
+                                             jnp.asarray(wm), 0.7))
