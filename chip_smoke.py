@@ -154,15 +154,33 @@ Phases, each printing one JSON line:
     a (2, 1) solve of the 100k-node LP: both ranks give the same bits as
     the single-process (2, 1) mesh, OPTIMAL in host f64, B2 launched on
     each rank;
-21. the kernel list ({"kernels": [...]}), the sharded products' rows
-    last.
+21. shard_ingest_path: row-sharded ingest (parallel/shard_ingest.py)
+    on the 100k-node LP with main_path's parameters: (a)
+    mps_row_shard_spec of cli_path's .mps.gz (handed on, not written
+    again) equal to the port's reader, field by field, its row blocks
+    reassembling the reader's matrix exactly; (b) host_sharded_optimize
+    on (2, 2) (streaming the file) and (4, 1) (problem_row_shard_spec)
+    meshes of cuda:0 and on the tile plan on (2, 2): OPTIMAL in host
+    f64, B2 (or B5) launched a multiple of the non-empty cells, the
+    rescale's B2 sums apart and no other kernel, load, rescale, build
+    and solve seconds, ms an iteration beside sharded_path's, and the
+    on-device rescale against the host f64 rescale_problem (relative
+    1e-4); (c) the (2, 2) solve again, bitwise equal; (d) two gloo ranks
+    on the card (`--distributed-worker ... ingest FILE`), each streaming
+    exactly its row block of a (2, 1) mesh, bitwise equal to the
+    single-process (2, 1) mesh; (e) the f64 CsrOp row-block path on
+    (4, 1) at 20k nodes, OPTIMAL with no kernel launched;
+22. the kernel list ({"kernels": [...]}), the sharded products' rows
+    last (with the row-sharded ingest's launches beside sharded_path's).
 
 Then the `nvidia-smi` line and, last, {"ok": true, "device": {...}}.
 
 With --multi-gpu, on a host with four cards, only the device and build
 phases and multi_gpu_path run: the 100k-node LP by sharded_optimize on
 a (2, 2) mesh on one card and on a (2, 2) mesh over four cards, and by
-four NCCL ranks (one card and one block each), all bitwise equal.
+four NCCL ranks (one card and one block each), all bitwise equal; then
+host_sharded_optimize on (2, 2) as four NCCL ranks, bitwise equal to
+the (2, 2) mesh on one card.
 Exits non-zero, before the last line, when there is no CUDA device or
 any phase fails. Imports nothing of JAX or of the JAX package.
 """
@@ -171,7 +189,9 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1180,14 +1200,18 @@ def sharded_path(torch, dev, routed, problem, small, params, mp_params,
     emit(record)
     if problems:
         raise SystemExit(1)
-    return launches
+    return launches, solves
 
 
 def distributed_worker(argv) -> int:
     """One rank of a process group: `chip_smoke.py --distributed-worker
-    RANK WORLD PORT OUT N_DUAL N_PRIMAL` solves the 100k-node LP with
-    main_path's parameters by distributed_optimize on an (N_DUAL,
-    N_PRIMAL) global mesh and saves its result to OUT (.npz)."""
+    RANK WORLD PORT OUT N_DUAL N_PRIMAL [ingest SOURCE]` solves the
+    100k-node LP with main_path's parameters on an (N_DUAL, N_PRIMAL)
+    global mesh and saves its result to OUT (.npz): by
+    distributed_optimize, or with `ingest` by
+    shard_ingest.host_sharded_optimize, streaming its row block out of
+    the MPS file SOURCE (`-`: problem_row_shard_spec of the LP, made in
+    the rank)."""
     import torch
     import torch.distributed as dist
 
@@ -1195,22 +1219,46 @@ def distributed_worker(argv) -> int:
     from firstorderlp_torch.models import pdhg as pdhg_module
     from firstorderlp_torch.ops import routed
     from firstorderlp_torch.parallel import distributed as D
+    from firstorderlp_torch.parallel import shard_ingest
 
     rank, world, port = (int(a) for a in argv[:3])
     out_path = argv[3]
     shape = (int(argv[4]), int(argv[5]))
+    source = argv[7] if argv[6:7] == ["ingest"] else None
     if not torch.cuda.is_available():
         print("chip_smoke worker: no CUDA device", file=sys.stderr)
         return 2
-    problem = generate_pagerank_lp(num_nodes=NODES, seed=0)
+    problem = (generate_pagerank_lp(num_nodes=NODES, seed=0)
+               if source in (None, "-") else None)
     D.initialize(f"localhost:{port}", world, rank)
-    D.global_solver_mesh(*shape)  # the group's first collective, untimed
+    mesh = D.global_solver_mesh(*shape)  # the first collective, untimed
     spent, restore = timed_prepare(pdhg_module)
+    extra = {}
     try:
         routed.reset_launch_counts()
         t0 = time.time()
-        out = D.distributed_optimize(make_params(1e-4, 20_000), problem,
-                                     *shape)
+        if source is None:
+            out = D.distributed_optimize(make_params(1e-4, 20_000), problem,
+                                         *shape)
+        else:
+            spec = (shard_ingest.problem_row_shard_spec(problem)
+                    if problem is not None
+                    else shard_ingest.mps_row_shard_spec(source))
+            ranges, inner = [], spec.row_loader
+
+            def loader(lo, hi):
+                triplet = inner(lo, hi)
+                ranges.append((lo, hi, len(triplet[2])))
+                return triplet
+
+            spec.row_loader = loader
+            report = {}
+            out = shard_ingest.host_sharded_optimize(
+                make_params(1e-4, 20_000), spec, mesh, report)
+            # ingest: the spec's pass 1, the load, rescale and build
+            spent["seconds"] = time.time() - t0 - report["solve_seconds"]
+            extra = {"ranges": json.dumps(ranges),
+                     "report": json.dumps(report)}
         torch.cuda.synchronize()
         seconds = time.time() - t0
         np.savez(out_path, primal=out.primal_solution,
@@ -1219,7 +1267,7 @@ def distributed_worker(argv) -> int:
                  prepare_seconds=spent["seconds"],
                  backend=dist.get_backend(),
                  device=str(torch.device("cuda", torch.cuda.current_device())),
-                 launches=json.dumps(dict(routed.LAUNCHES)))
+                 launches=json.dumps(dict(routed.LAUNCHES)), **extra)
     finally:
         restore()
         dist.destroy_process_group()
@@ -1247,12 +1295,15 @@ def as_record(out):
             "reason": out.termination_reason.name}
 
 
-def run_ranks(shape, problem, reference, backend):
+def run_ranks(shape, problem, reference, backend, ingest=None):
     """Runs one process a cell of an `shape` mesh (this script with
     --distributed-worker, on a free port, all killed after DIST_TIMEOUT
     seconds) and holds them to `reference`, the single-process mesh's
     solve: the same bits on every rank, `backend`, OPTIMAL in host f64,
-    B2 launched on every rank. Returns (per-rank records, wall seconds,
+    B2 launched on every rank. `ingest`: the ranks run
+    host_sharded_optimize from that source (an MPS file, or `-`), and
+    each record carries its loader calls ((lo, hi, entries)) and the
+    ingest's report. Returns (per-rank records, wall seconds,
     problems)."""
     import os
     import subprocess
@@ -1270,7 +1321,8 @@ def run_ranks(shape, problem, reference, backend):
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__),
              "--distributed-worker", str(r), str(world), port, outs[r],
-             str(shape[0]), str(shape[1])],
+             str(shape[0]), str(shape[1])]
+            + ([] if ingest is None else ["ingest", ingest]),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env) for r in range(world)]
         try:
@@ -1299,7 +1351,9 @@ def run_ranks(shape, problem, reference, backend):
                                            - float(x["prepare_seconds"]))
                 / max(int(x["iterations"]), 1),
                 "backend": str(x["backend"]), "device": str(x["device"]),
-                "launches": json.loads(str(x["launches"]))}
+                "launches": json.loads(str(x["launches"])),
+                **{k: json.loads(str(x[k])) for k in ("ranges", "report")
+                   if k in x}}
                for r, x in enumerate(ranks)]
     if len(ranks) == world:
         if not all(same_bits(x, reference) for x in ranks):
@@ -1378,6 +1432,293 @@ def distributed_path(torch, dev, routed, problem, small, params):
         raise SystemExit(1)
 
 
+# The row-sharded ingest (parallel/shard_ingest.py) on the main path's LP.
+INGEST_MESHES = ((2, 2), (4, 1))  # (2, 2) streams the file, (4, 1) not
+INGEST_F64_MESH = (4, 1)  # the f64 CsrOp row-block path, at DET_NODES
+INGEST_TOL = 1e-4  # the rescaled values against the host f64 rescale
+
+
+def ingest_solve(torch, routed, problem, label, solve, layout="csr"):
+    """One host_sharded_optimize with its report, host-f64 check and
+    launches. `layout` "csr" or "tiled": the solve's own B2 (or B5)
+    launches are one a non-empty cell a product, so a positive multiple
+    of the cells; "none": the solve launches no kernel. The rescale's B2
+    sums come on top (report["rescale_sums"]); no other kernel."""
+    routed.reset_launch_counts()
+    report = {}
+    t0 = time.time()
+    out = solve(report)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(routed.LAUNCHES)
+    res = host_residuals(problem, out.primal_solution, out.dual_solution)
+    iters = max(out.iteration_count, 1)
+    rec = {"solve": label, "reason": out.termination_reason.name,
+           "iterations": out.iteration_count, "seconds": seconds,
+           **{k: report[k] for k in (
+               "load_seconds", "rescale_seconds", "build_seconds",
+               "solve_seconds", "block_nnz", "loaded_nnz", "rescale_sums",
+               "nonempty_cells")},
+           "ms_per_iteration": 1e3 * report["solve_seconds"] / iters,
+           "host_f64": res, "launches": launches}
+    problems = []
+    if rec["reason"] != "TERMINATION_REASON_OPTIMAL":
+        problems.append(f"{label}: reason {rec['reason']}")
+    if out.primal_solution.shape != (problem.num_variables,) or (
+            out.dual_solution.shape != (problem.num_constraints,)):
+        problems.append(f"{label}: solution shapes")
+    if not (np.all(np.isfinite(out.primal_solution))
+            and np.all(np.isfinite(out.dual_solution))):
+        problems.append(f"{label}: non-finite solution")
+    if any(not v <= 1e-4 for v in res.values()):
+        problems.append(f"{label}: host residuals {res}")
+    kernel = {"csr": "spmv_csr", "tiled": "tiled_spmv"}.get(layout)
+    own_keys = () if kernel is None else (f"{kernel}:A", f"{kernel}:AT")
+    cells = report["nonempty_cells"]
+    for key, count in launches.items():
+        own = count - report["rescale_sums"].get(key, 0)
+        if key in own_keys and (own <= 0 or own % cells):
+            problems.append(f"{label}: {own} {key} launches of the solve "
+                            f"for {cells} non-empty cells")
+        elif key not in own_keys and own != 0:
+            problems.append(f"{label}: {key} launched: {launches}")
+    return out, rec, problems
+
+
+def shard_ingest_path(torch, dev, routed, rescale_problem, small, params,
+                      mps_path, cli_rec, sharded_solves):
+    """Row-sharded ingest as a user calls it, on the main path's LP: (a)
+    mps_row_shard_spec of cli_path's .mps.gz against the port's reader;
+    (b) host_sharded_optimize with main_path's parameters on (2, 2)
+    (streaming the file) and (4, 1) (problem_row_shard_spec of the
+    reader's LP) meshes of cuda:0, OPTIMAL in host f64, B2 launched on
+    every cell, load, rescale, build and solve seconds, ms an iteration
+    beside sharded_path's, the rescale against the host f64
+    rescale_problem, the same (2, 2) solve on the tile plan (B5); (c)
+    the (2, 2) solve again from the loaded rows, bitwise equal; (d) two
+    gloo ranks on the card, each streaming its row block of a (2, 1)
+    mesh, bitwise equal to the single-process (2, 1) mesh; (e) the f64
+    CsrOp row-block path on (4, 1) at 20k nodes, no kernel launched."""
+    import scipy.sparse as sp
+
+    from firstorderlp_torch import qps_reader_to_standard_form
+    from firstorderlp_torch.ops import lanes
+    from firstorderlp_torch.parallel import solver_mesh
+    from firstorderlp_torch.parallel import shard_ingest as si
+
+    ph = "shard_ingest_path"
+    t_phase = time.time()
+    problems = []
+    rec = {"phase": ph, "nodes": NODES,
+           "mps": {"file": "cli_path's .mps.gz, handed on (not written "
+                           "again)",
+                   "written_by_cli_path_seconds":
+                       cli_rec.get("generate_and_write_seconds"),
+                   "file_bytes": cli_rec.get("file_bytes"),
+                   "text_bytes": cli_rec.get("text_bytes")}}
+
+    def mesh_of(shape):
+        return solver_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+    # (a) the streamed spec against the reader
+    t0 = time.time()
+    reader = qps_reader_to_standard_form(mps_path)
+    read_s = time.time() - t0
+    t0 = time.time()
+    spec = si.mps_row_shard_spec(mps_path)
+    pass1_s = time.time() - t0
+    loaded = {}
+    inner = spec.row_loader
+
+    def recording(lo, hi):
+        t_call = time.time()
+        triplet = inner(lo, hi)
+        loaded[lo, hi] = triplet
+        rec["mps"].setdefault("row_block_scan_seconds", []).append(
+            time.time() - t_call)
+        return triplet
+
+    spec.row_loader = recording
+    a = sp.csr_matrix(reader.constraint_matrix, dtype=np.float64)
+    a.sum_duplicates()
+    fields = {
+        "num_constraints": spec.num_constraints == reader.num_constraints,
+        "num_variables": spec.num_variables == reader.num_variables,
+        "num_equalities": spec.num_equalities == reader.num_equalities,
+        "objective_constant": (spec.objective_constant
+                               == reader.objective_constant),
+        "nnz": spec.nnz == a.nnz,
+    }
+    for name, want in (("objective_vector", reader.objective_vector),
+                       ("right_hand_side", reader.right_hand_side),
+                       ("variable_lower_bound", reader.variable_lower_bound),
+                       ("variable_upper_bound",
+                        reader.variable_upper_bound)):
+        fields[name] = bool(np.array_equal(getattr(spec, name), want))
+    problems += [f"spec field {k} differs from the reader's"
+                 for k, ok in fields.items() if not ok]
+    rec["mps"].update(reader_seconds=read_s, spec_pass1_seconds=pass1_s,
+                      fields_equal=fields)
+    if problems:
+        rec.update(ok=False, problems=problems)
+        emit(rec)
+        raise SystemExit(1)
+
+    # (b) the (2, 2) solve streams the file
+    solves, launches = [], {}
+    out22, r22, bad = ingest_solve(
+        torch, routed, reader, "pdhg 2x2 (mps stream)",
+        lambda rep: si.host_sharded_optimize(params, spec,
+                                             mesh_of((2, 2)), rep))
+    solves.append(r22)
+    problems += bad
+    launches[("csr", 2, 2)] = r22["launches"]
+    parts = [loaded[k] for k in sorted(loaded)]
+    rebuilt = sp.csr_matrix(
+        (np.concatenate([p[2] for p in parts]),
+         (np.concatenate([p[0] for p in parts]),
+          np.concatenate([p[1] for p in parts]))), shape=a.shape)
+    diff = float(abs(rebuilt - a).max()) if a.nnz else 0.0
+    rec["reassembly"] = {"row_blocks": sorted(loaded), "nnz": rebuilt.nnz,
+                         "reader_nnz": a.nnz, "max_abs_diff": diff}
+    if rebuilt.nnz != a.nnz or diff != 0.0:
+        problems.append(f"the row blocks reassemble to {rebuilt.nnz} "
+                        f"entries, max |diff| {diff}")
+
+    # the same rows again, without the file: (c) and the references
+    replay = dataclasses.replace(spec, row_loader=lambda lo, hi:
+                                 loaded[lo, hi])
+    out22b, r22b, bad = ingest_solve(
+        torch, routed, reader, "pdhg 2x2 again (loaded rows)",
+        lambda rep: si.host_sharded_optimize(params, replay,
+                                             mesh_of((2, 2)), rep))
+    solves.append(r22b)
+    problems += bad
+    det = same_bits(as_record(out22), as_record(out22b))
+    rec["determinism_bitwise_equal"] = det
+    if not det:
+        problems.append("the (2, 2) solve twice: the bits differ")
+
+    mem_spec = si.problem_row_shard_spec(reader)
+    _, r41, bad = ingest_solve(
+        torch, routed, reader, "pdhg 4x1 (in-memory spec)",
+        lambda rep: si.host_sharded_optimize(params, mem_spec,
+                                             mesh_of((4, 1)), rep))
+    solves.append(r41)
+    problems += bad
+    launches[("csr", 4, 1)] = r41["launches"]
+
+    routed.DEFAULT_TILE_ALIGNED = True
+    try:
+        _, rtiled, bad = ingest_solve(
+            torch, routed, reader, "pdhg 2x2 tile plan (loaded rows)",
+            lambda rep: si.host_sharded_optimize(params, replay,
+                                                 mesh_of((2, 2)), rep),
+            layout="tiled")
+    finally:
+        routed.DEFAULT_TILE_ALIGNED = False
+    solves.append(rtiled)
+    problems += bad
+    launches[("tiled", 2, 2)] = rtiled["launches"]
+
+    for r in solves:
+        shape = r["solve"].split()[1]
+        match = [s for s in sharded_solves
+                 if s["solve"] == f"pdhg {shape}"]
+        if match:
+            r["sharded_path_ms_per_iteration"] = match[0]["ms_per_iteration"]
+
+    # the rescale at the (2, 2) solve's blocks against the host f64 one
+    t0 = time.time()
+    m, n = spec.num_constraints, spec.num_variables
+    m_b = -(-m // 2)
+    blocks = {d: si.load_row_block(replay, d, m_b, n, dev, "routed")
+              for d in range(2)}
+
+    def vec(v, size):
+        out = np.zeros(size)
+        out[:len(v)] = v
+        return torch.as_tensor(out, device=dev).to(torch.float32)
+
+    got = si.sharded_rescale(
+        blocks, {"b": vec(spec.right_hand_side, 2 * m_b),
+                 "c": vec(spec.objective_vector, n),
+                 "lo": vec(spec.variable_lower_bound, n),
+                 "hi": vec(spec.variable_upper_bound, n)},
+        mesh_of((2, 1)), params.l_inf_ruiz_iterations,
+        params.l2_norm_rescaling, params.pock_chambolle_alpha)
+    host = rescale_problem(params.l_inf_ruiz_iterations,
+                           params.l2_norm_rescaling,
+                           params.pock_chambolle_alpha, 0, reader)
+    scaled = sp.csr_matrix(host.scaled_qp.constraint_matrix)
+    scaled.sum_duplicates()
+
+    def rel(got_t, want):
+        g = np.asarray(got_t.cpu().numpy(), np.float64)
+        return float(np.max(np.abs(g - want) / np.abs(want)))
+
+    values = torch.cat([got.values[0], got.values[1]])
+    rescale = {
+        "values_max_rel_diff": rel(values, scaled.data),
+        "constraint_rescaling_max_rel_diff": rel(
+            got.constraint_rescaling[:m], host.constraint_rescaling),
+        "variable_rescaling_max_rel_diff": rel(
+            got.variable_rescaling, host.variable_rescaling),
+        "seconds_with_host_rescale": time.time() - t0,
+        "tolerance": f"relative {INGEST_TOL} (f32 against f64)",
+    }
+    rec["rescale_vs_host_f64"] = rescale
+    if not all(v <= INGEST_TOL for k, v in rescale.items()
+               if k.endswith("diff")):
+        problems.append(f"the rescale against the host f64 one: {rescale}")
+    del blocks, got, host, scaled, values
+
+    # (d) two gloo ranks stream their row blocks of a (2, 1) mesh
+    t0 = time.time()
+    single = as_record(si.host_sharded_optimize(params, replay,
+                                                mesh_of((2, 1))))
+    single_s = time.time() - t0
+    ranks, ranks_s, bad = run_ranks((2, 1), reader, single, "gloo",
+                                    ingest=mps_path)
+    problems += bad
+    row_nnz = np.diff(a.indptr)
+    for r in ranks:
+        (lo, hi, got_nnz), = r["ranges"]
+        if (lo, hi) != (r["rank"] * m_b, min((r["rank"] + 1) * m_b, m)) or (
+                got_nnz != int(row_nnz[lo:hi].sum())):
+            problems.append(f"rank {r['rank']} loaded {r['ranges']}")
+    if sum(r["ranges"][0][2] for r in ranks) != a.nnz:
+        problems.append("the ranks' loads do not partition the matrix")
+    rec["gloo_ranks"] = {"mesh": [2, 1], "wall_seconds": ranks_s,
+                         "ranks": ranks,
+                         "single_process_seconds": single_s,
+                         "single_process_iterations": single["iterations"]}
+
+    # (e) the f64 CsrOp row-block path at 20k nodes
+    lanes.reset_launch_counts()
+    _, r64, bad = ingest_solve(
+        torch, routed, small, "pdhg f64 4x1 CsrOp blocks",
+        lambda rep: si.host_sharded_optimize(
+            make_params(1e-4, 20_000, dtype="float64", fmt="sparse"),
+            si.problem_row_shard_spec(small), mesh_of(INGEST_F64_MESH),
+            rep), layout="none")
+    r64["nodes"] = DET_NODES
+    if any(r64["launches"].values()) or any(lanes.LAUNCHES.values()):
+        bad.append(f"f64: a kernel was launched: {r64['launches']}, "
+                   f"{dict(lanes.LAUNCHES)}")
+    solves.append(r64)
+    problems += bad
+
+    rec.update(ok=not problems, seconds=time.time() - t_phase,
+               solves=solves)
+    if problems:
+        rec["problems"] = problems
+    emit(rec)
+    if problems:
+        raise SystemExit(1)
+    return launches
+
+
 def multi_gpu_path(torch, routed, problem, params):
     """--multi-gpu, on a host with at least four cards: the 100k-node LP
     by sharded_optimize on a (2, 2) mesh with every cell on cuda:0 (the
@@ -1386,9 +1727,14 @@ def multi_gpu_path(torch, routed, problem, params):
     vectors on cuda:0), and by four NCCL ranks, one card and one block
     each: the same bits everywhere, OPTIMAL in host f64, with seconds
     and ms an iteration (ingest and the group's first collective
-    apart)."""
+    apart). Then host_sharded_optimize on (2, 2) as four NCCL ranks,
+    each loading only its row block, bitwise equal to the (2, 2) mesh
+    on one card."""
     from firstorderlp_torch.models import pdhg as pdhg_module
     from firstorderlp_torch.parallel import sharded_optimize, solver_mesh
+    from firstorderlp_torch.parallel.shard_ingest import (
+        host_sharded_optimize, problem_row_shard_spec,
+    )
 
     ph = "multi_gpu_path"
     t_phase = time.time()
@@ -1421,11 +1767,25 @@ def multi_gpu_path(torch, routed, problem, params):
     problems += bad
     if sorted(r["device"] for r in ranks) != [str(c) for c in cards]:
         problems.append(f"the ranks' cards: {[r['device'] for r in ranks]}")
+    # row-sharded ingest: each NCCL rank loads its row block of (2, 2)
+    t0 = time.time()
+    ingest_ref = as_record(host_sharded_optimize(
+        params, problem_row_shard_spec(problem),
+        solver_mesh(2, 2, [cards[0]] * 4)))
+    ingest_ref_s = time.time() - t0
+    ingest_ranks, ingest_s, bad = run_ranks((2, 2), problem, ingest_ref,
+                                            "nccl", ingest="-")
+    problems += [f"host-sharded: {b}" for b in bad]
     record = {"phase": ph, "ok": not problems, "nodes": NODES,
               "seconds": time.time() - t_phase, "cards": count,
               "solves": [rec for _, rec in solves.values()],
               "nccl_ranks": {"mesh": [2, 2], "wall_seconds": ranks_s,
-                             "ranks": ranks}}
+                             "ranks": ranks},
+              "host_sharded_nccl_ranks": {
+                  "mesh": [2, 2], "wall_seconds": ingest_s,
+                  "ranks": ingest_ranks,
+                  "one_card_seconds": ingest_ref_s,
+                  "one_card_iterations": ingest_ref["iterations"]}}
     if problems:
         record["problems"] = problems
     emit(record)
@@ -1724,10 +2084,13 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
             "results": results}
 
 
-def cli_path(torch, routed, problem, small, main_out, params, dev):
+def cli_path(torch, routed, problem, small, main_out, params, dev,
+             keep_dir):
     """The user's front door, the port's CLIs, at the main path's
     size (see the module docstring, phase cli_path). Returns the phase's
-    record; its "problems" list is empty when every check held."""
+    record; its "problems" list is empty when every check held. The
+    100k-node .mps.gz it writes stays in `keep_dir` (shard_ingest_path
+    streams it)."""
     import dataclasses
     import gzip
     import os
@@ -1768,7 +2131,7 @@ def cli_path(torch, routed, problem, small, main_out, params, dev):
     with tempfile.TemporaryDirectory() as tmp:
         # The LP, written by the generator CLI with the edge count that
         # generate_pagerank_lp takes when it gets None (3 per node).
-        path = os.path.join(tmp, "pagerank.mps.gz")
+        path = os.path.join(keep_dir, "pagerank.mps.gz")
         t0 = time.time()
         gen_cli.main(["--num_nodes", str(NODES), "--approx_num_edges",
                       str(3 * NODES), "--output_filename", path])
@@ -2591,11 +2954,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         if not record["ok"]:
             raise SystemExit(1)
 
-    # 4b. the CLIs
+    # 4b. the CLIs; their 100k-node .mps.gz stays for shard_ingest_path
     small = generate_pagerank_lp(num_nodes=DET_NODES, seed=0)
-    record = cli_path(torch, routed, problem, small, out, params, dev)
-    emit(record)
-    if not record["ok"]:
+    lp_dir = tempfile.TemporaryDirectory()
+    cli_rec = cli_path(torch, routed, problem, small, out, params, dev,
+                       lp_dir.name)
+    emit(cli_rec)
+    if not cli_rec["ok"]:
         raise SystemExit(1)
 
     # 5. determinism
@@ -2841,15 +3206,25 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # 18-20. the multi-device solve
     sharded_rows = kernels_sharded(torch, dev, routed, probe,
                                    rescale_problem, problem)
-    path_launches = sharded_path(torch, dev, routed, problem, small, params,
-                                 make_mp_params(1e-4, 20_000), main,
-                                 warm_rec)
-    for r in sharded_rows:
-        key = r["name"].split(" ")[0]
-        r["launches"] = path_launches[(r["layout"],) + tuple(r["mesh"])][key]
+    path_launches, sharded_solves = sharded_path(
+        torch, dev, routed, problem, small, params,
+        make_mp_params(1e-4, 20_000), main, warm_rec)
     distributed_path(torch, dev, routed, problem, small, params)
 
-    # 21. kernel list
+    # 21. row-sharded ingest, streaming cli_path's file
+    ingest_launches = shard_ingest_path(
+        torch, dev, routed, rescale_problem, small, params,
+        os.path.join(lp_dir.name, "pagerank.mps.gz"), cli_rec,
+        sharded_solves)
+    lp_dir.cleanup()
+    for r in sharded_rows:
+        key = r["name"].split(" ")[0]
+        cell = (r["layout"],) + tuple(r["mesh"])
+        r["launches"] = path_launches[cell][key]
+        if cell in ingest_launches:
+            r["launches_shard_ingest"] = ingest_launches[cell][key]
+
+    # 22. kernel list
     results = (results + tiled + probes + lane_rows + block_rows
                + sharded_rows)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2867,7 +3242,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns",
              "variant", "lanes_a_thread", "unroll", "split_rows", "mesh",
              "layout", "single_device_ms", "max_abs_err_vs_single_device",
-             "launches_a_call")
+             "launches_a_call", "launches_shard_ingest")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

@@ -31,7 +31,12 @@ Design (what differs from the JAX package, and why):
   columns. The JAX package pads its layout further, to whole strips,
   so that one compiled Pallas kernel serves every block; here each
   block builds its own work items or tile plan and launches its own
-  kernel, so no more padding is needed.
+  kernel, so no more padding is needed (nor the JAX package's
+  pad_plan_block, which pads each block's plan to the shared chunk and
+  group counts).
+- Row-sharded ingest (parallel/shard_ingest.py) builds the operator
+  from the cells a process owns (build_sharded_op_from_blocks), cut
+  from its loaded row blocks; no process holds the whole matrix.
 - A block with no stored entry (common on a (4, 2) mesh of a small LP,
   or a padded strip) is None: its partial is exact zeros and it
   launches nothing.
@@ -47,6 +52,7 @@ Reference semantics: `problem.constraint_matrix * x` and `' * y`
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -137,7 +143,9 @@ class ShardedRoutedOp:
     num_cols: int
     format: str  # "routed", "sparse" or "dense": the blocks' layout
     tile_aligned: bool = False
-    # sha256 of the whole matrix's csr sparsity pattern (share_plan_with)
+    # sha256 of the whole matrix's csr sparsity pattern, or of the
+    # cells' (blocks_fingerprint) when no process holds the whole matrix
+    # (share_plan_with compares it)
     pattern_hash: str = ""
 
     @property
@@ -230,10 +238,6 @@ def build_sharded_routed_op(
     same sparsity pattern and plan; every block reuses its donor
     block's index tensors and transfers only the values. Raises
     ValueError on another mesh, layout or pattern."""
-    if format not in ("routed", "sparse", "dense"):
-        raise ValueError(f"unknown block format {format!r}")
-    if format == "routed" and dtype != torch.float32:
-        raise ValueError("routed layout computes in f32")
     csr = sp.csr_matrix(matrix, dtype=np.float64)
     csr.sum_duplicates()
     m, n = csr.shape
@@ -245,7 +249,73 @@ def build_sharded_routed_op(
             f"({plan.row_multiple}, {plan.col_multiple}) for the "
             f"{n_dual}x{n_primal} mesh (see parallel.sharded.pad_problem)"
         )
-    fingerprint = pattern_hash(csr)
+    row_len, col_len = m // n_dual, n // n_primal
+    cells = {}
+    for d in range(n_dual):
+        row_block = csr[d * row_len:(d + 1) * row_len]
+        for p in range(n_primal):
+            if mesh.owns(d, p):
+                cells[d, p] = row_block[:, p * col_len:(p + 1) * col_len]
+    return build_sharded_op_from_blocks(
+        cells, plan, (m, n), share_plan_with=share_plan_with, dtype=dtype,
+        format=format, fingerprint=pattern_hash(csr),
+    )
+
+
+def blocks_fingerprint(cells) -> str:
+    """sha256 of the (d, p) cells' shapes and sparsity patterns, in
+    cell order: the pattern hash of a matrix that no process holds
+    whole."""
+    h = hashlib.sha256()
+    for key in sorted(cells):
+        h.update(repr(key).encode())
+        h.update(pattern_hash(cells[key]).encode())
+    return h.hexdigest()
+
+
+def build_sharded_op_from_blocks(
+    cells,
+    plan: RoutedShardPlan,
+    shape: Tuple[int, int],
+    share_plan_with: "ShardedRoutedOp | None" = None,
+    dtype=torch.float32,
+    format: str = "routed",
+    fingerprint: Optional[str] = None,
+) -> ShardedRoutedOp:
+    """The (D, P) operator of an (m, n) `shape` matrix from the blocks
+    this process owns: `cells` maps (d, p) to block (d, p), an
+    (m/D, n/P) scipy matrix, for every cell the mesh lets this process
+    own (parallel/shard_ingest.py cuts them from its loaded row blocks;
+    no process holds the whole matrix). Each block is built on its
+    cell's device as build_sharded_routed_op builds it.
+
+    fingerprint: the operator's pattern_hash; default blocks_fingerprint
+    of the cells (share_plan_with compares it).
+    share_plan_with: a routed ShardedRoutedOp over the same cells'
+    patterns and plan; every block reuses its donor block's index
+    tensors (for example the unscaled copy of a rescaled operator)."""
+    if format not in ("routed", "sparse", "dense"):
+        raise ValueError(f"unknown block format {format!r}")
+    if format == "routed" and dtype != torch.float32:
+        raise ValueError("routed layout computes in f32")
+    m, n = shape
+    mesh = plan.mesh
+    n_dual, n_primal = mesh.shape
+    row_len, col_len = m // n_dual, n // n_primal
+    canonical = {}
+    for (d, p), block in cells.items():
+        if not mesh.owns(d, p):
+            raise ValueError(f"cell ({d}, {p}) belongs to another rank")
+        block = sp.csr_matrix(block, dtype=np.float64)
+        block.sum_duplicates()
+        if block.shape != (row_len, col_len):
+            raise ValueError(
+                f"block ({d}, {p}) has shape {block.shape}, want "
+                f"({row_len}, {col_len}) on the {n_dual}x{n_primal} mesh"
+            )
+        canonical[d, p] = block
+    if fingerprint is None:
+        fingerprint = blocks_fingerprint(canonical)
     donor = share_plan_with
     if donor is not None and format == "routed":
         if (
@@ -260,25 +330,18 @@ def build_sharded_routed_op(
             )
     else:
         donor = None
-    row_len, col_len = m // n_dual, n // n_primal
-    blocks = []
-    for d in range(n_dual):
-        row_block = csr[d * row_len:(d + 1) * row_len]
-        cells = []
-        for p in range(n_primal):
-            if not mesh.owns(d, p):
-                cells.append(None)
-                continue
-            block = sp.csr_matrix(
-                row_block[:, p * col_len:(p + 1) * col_len]
-            )
-            cells.append(_build_block(
-                block, format, dtype, mesh.devices[d][p],
+    blocks = tuple(
+        tuple(
+            None if (d, p) not in canonical else _build_block(
+                canonical[d, p], format, dtype, mesh.devices[d][p],
                 plan.tile_aligned, donor and donor.blocks[d][p],
-            ))
-        blocks.append(tuple(cells))
+            )
+            for p in range(n_primal)
+        )
+        for d in range(n_dual)
+    )
     return ShardedRoutedOp(
-        blocks=tuple(blocks),
+        blocks=blocks,
         mesh=mesh,
         num_rows=m,
         num_cols=n,

@@ -32,8 +32,9 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -171,3 +172,58 @@ def broadcast_seconds(seconds: float, device: torch.device) -> float:
     value = torch.tensor([seconds], dtype=torch.float64, device=where)
     dist.broadcast(value, src=0)
     return float(value.item())
+
+
+# ---------------------------------------------------------------------------
+# Ordered reductions over row blocks (parallel/shard_ingest.py)
+# ---------------------------------------------------------------------------
+
+
+def allmax_int(vec: np.ndarray, device=None) -> np.ndarray:
+    """Element-wise max of a small int64 vector over the ranks (the
+    vector itself with no process group). `device`: where the gather
+    runs under NCCL (this rank's CUDA device); gloo gathers host
+    memory."""
+    vec = np.asarray(vec, dtype=np.int64)
+    if not dist.is_initialized():
+        return vec
+    where = device if dist.get_backend() == "nccl" else "cpu"
+    part = torch.as_tensor(vec, device=where)
+    return gather_in_rank_order(part).amax(dim=0).cpu().numpy()
+
+
+def _row_block_parts(parts: Mapping[int, torch.Tensor],
+                     mesh: SolverMesh) -> List[torch.Tensor]:
+    """Row block d's tensor for every d of the mesh, in d order, on the
+    mesh's home device. `parts` maps a row block to its tensor: every
+    block in a single process; under a process group this rank's own
+    block, whose pieces are gathered from all ranks and only those of
+    the ranks (d, 0) kept (the ranks (d, p) all hold row block d)."""
+    home = mesh.home_device
+    if mesh.rank is None:
+        return [parts[d].to(home) for d in range(mesh.n_dual)]
+    (own,) = parts.values()
+    gathered = gather_in_rank_order(own.to(home))
+    return [gathered[mesh.owner(d, 0)] for d in range(mesh.n_dual)]
+
+
+def reduce_row_blocks(parts: Mapping[int, torch.Tensor], mesh: SolverMesh,
+                      op: str) -> torch.Tensor:
+    """The element-wise "max" or "sum" of the row blocks' tensors (for
+    example each block's column sums), folded in d order on the home
+    device: the same bits on every rank and in the single-process mesh
+    of the same shape. No all_reduce: its order is not fixed."""
+    if op not in ("max", "sum"):
+        raise ValueError(f"unknown reduction {op!r}")
+    pieces = _row_block_parts(parts, mesh)
+    total = pieces[0]
+    for piece in pieces[1:]:
+        total = torch.maximum(total, piece) if op == "max" else total + piece
+    return total
+
+
+def concat_row_blocks(parts: Mapping[int, torch.Tensor],
+                      mesh: SolverMesh) -> torch.Tensor:
+    """The row blocks' equal-length tensors (for example each block's
+    row scaling) concatenated in d order on the home device."""
+    return torch.cat(_row_block_parts(parts, mesh))

@@ -42,6 +42,27 @@ class SaddlePointOutput:
     iteration_stats: List[IterationStats]
 
 
+def fetch_global(x: torch.Tensor, mesh=None) -> np.ndarray:
+    """The global value of `x` as a host array (reference
+    saddle_point.py:51-66, which all-gathers a cross-process-sharded
+    jax.Array).
+
+    The port keeps vectors whole on each process's home device, so with
+    no `mesh`, or a single-process mesh, `x` is the whole value and this
+    is a host copy. Under a process group (`mesh.rank` set) `x` is this
+    rank's piece of a row-blocked vector, for example its row block's
+    constraint scaling: the pieces are gathered with
+    parallel.distributed.gather_in_rank_order and concatenated in rank
+    order, the pieces of ranks (d, 0) only on a 2-D mesh (ranks (d, p)
+    hold the same row block)."""
+    if mesh is None or mesh.rank is None:
+        return x.detach().cpu().numpy()
+    from .parallel.distributed import concat_row_blocks
+
+    return concat_row_blocks({mesh.rank // mesh.n_primal: x},
+                             mesh).cpu().numpy()
+
+
 def unscaled_saddle_point_output(
     scaled_problem,
     primal_solution,

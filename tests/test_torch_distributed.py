@@ -214,7 +214,8 @@ def test_multi_device_modules_import_no_jax():
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-c",
          "import firstorderlp_torch.parallel.distributed, "
-         "firstorderlp_torch.ops.routed_sharded"],
+         "firstorderlp_torch.ops.routed_sharded, "
+         "firstorderlp_torch.parallel.shard_ingest"],
         capture_output=True, text=True, cwd=REPO, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -223,5 +224,6 @@ def test_multi_device_modules_import_no_jax():
                for line in proc.stderr.splitlines()
                if line.startswith("import time:")]
     assert "firstorderlp_torch.parallel.distributed" in modules
+    assert "firstorderlp_torch.parallel.shard_ingest" in modules
     assert not [m for m in modules
                 if m.split(".")[0] in ("jax", "jaxlib", "firstorderlp_tpu")]
