@@ -16,9 +16,10 @@ Phases, each printing one JSON line:
    the bytes each call must move, the torch.sparse_csr_tensor product as
    the library yardstick, what the launch looks like (blocks, the
    largest and the mean number of stored entries per block, rows cut
-   into pieces), 20 launches bitwise equal with the tickets back at
-   zero, and each again with no row cut (`ms_without_row_split`,
-   `device_ms_without_row_split`);
+   into pieces; for B2 its own item table, stages, bytes staged, empty
+   rows and ptxas's registers and shared memory), 20 launches bitwise
+   equal with the tickets back at zero, and each again with no row cut
+   (`ms_without_row_split`, `device_ms_without_row_split`);
    kernels_tiled: the same for the tile-plan kernels (tile_aligned=True),
    each also held against the CSR kernel on the same vectors and
    launched twice for the same bits, with the device time of a call
@@ -45,9 +46,11 @@ Phases, each printing one JSON line:
    on the host and each kernel's launch count on that run;
    then the same solve warm (with --profile, under torch.profiler:
    device busy time and the ops that take it); with --parent DIR,
-   main_path_parent: the warm solve at six seeds by another version of
-   the package (DIR holds it as firstorderlp_torch_parent) and by this
-   one, in turns;
+   main_path_parent: the warm solve and mirror_prox_path's at six seeds
+   by another version of the package (DIR holds it as
+   firstorderlp_torch_parent) and by this one, in turns (ms an
+   iteration); hetero_parent: hetero_fleet's solve by both, in turns,
+   and once each under torch.profiler (B2's share of the device time);
    cli_path: the port's CLIs (firstorderlp_torch/cli) as a user
    runs them: generate_pagerank_lp writes that LP (3 edges a node, the
    generator's default) to an .mps.gz, which must read back with the
@@ -114,7 +117,7 @@ Phases, each printing one JSON line:
     launches bitwise equal with the tickets back at zero, times (events,
     device time and kernels a call in turns with the
     torch.sparse_csr_tensor product of the same block matrix), the bytes
-    bound, blocks and entries per block;
+    bound and B2's launch (compare_kernels.block_lanes_row);
 15. hetero_fleet: batch.solve_batch on 32 PageRank LPs of 10,000-40,000
     nodes (generate_pagerank_lp(nodes_i, seed=10+i)) by PDHG in f32 to
     1e-4 with a limit of 20,000 iterations a lane: every lane OPTIMAL
@@ -211,11 +214,6 @@ DET_FLEET_LANES = 16  # determinism_fleet's
 CKPT_FLEET_LANES = 8  # fleet_checkpoint's
 CKPT_LIMIT = 120  # its first run's iteration limit, a multiple of 40
 THROUGHPUT_ITERS = 600  # fleet_throughput's iterations per lane
-# The heterogeneous fleet: 32 PageRank LPs of 10k-40k nodes, seeds
-# 10-41 (the construction of tests/test_batch.py's mixed fleet at the
-# size docs/performance.md names for such fleets).
-HETERO_LANES = 32
-HETERO_NODES = (10_000, 40_000)
 # The QP fleet (a Tikhonov path lambda I over one 20k-node PageRank LP)
 # and the constant-step fleet (the damping sweep), 32 lanes each.
 SLOW_FLEET_LANES = 32
@@ -287,13 +285,15 @@ def make_params(tol, limit, dtype="float32", fmt="routed", pkg=None):
     )
 
 
-def make_mp_params(tol, limit, dtype="float32", fmt="routed"):
+def make_mp_params(tol, limit, dtype="float32", fmt="routed", pkg=None):
     """bench.py's make_mp_params settings with tolerances: make_params'
-    rescaling, restarts and evaluation frequency, the l2 mirror map."""
-    from firstorderlp_torch import MirrorProxParameters
+    rescaling, restarts and evaluation frequency, the l2 mirror map
+    (`pkg` as in make_params)."""
+    if pkg is None:
+        import firstorderlp_torch as pkg
 
-    p = make_params(tol, limit, dtype, fmt)
-    return MirrorProxParameters(
+    p = make_params(tol, limit, dtype, fmt, pkg=pkg)
+    return pkg.MirrorProxParameters(
         l_inf_ruiz_iterations=p.l_inf_ruiz_iterations,
         l2_norm_rescaling=p.l2_norm_rescaling,
         pock_chambolle_alpha=p.pock_chambolle_alpha,
@@ -785,78 +785,34 @@ def fleet_phases(args, torch, dev, compare, routed,
     return rows
 
 
-def block_lanes_rows(torch, routed, probe, compare, op):
+def block_lanes_rows(torch, compare, op):
     """B2 on the heterogeneous fleet's interleaved block-diagonal matrix
-    (ops/block_lanes.py), A and A': against its plain version on the
-    card and an f64 product on the host, 20 launches bitwise equal with
-    the tickets back at zero, times in turns with the library call on
-    the same block matrix, the bytes bound and the items' shape."""
-    import scipy.sparse as sp
-
-    from firstorderlp_torch.ops import block_lanes
-
+    (ops/block_lanes.py), A and A' (compare_kernels.block_lanes_row):
+    against its plain version on the card and an f64 product on the
+    host, 20 launches bitwise equal with the tickets back at zero, times
+    in turns with the library call on the same block matrix, the bytes
+    bound and what the launch looks like."""
     ph = "kernels_block_lanes"
     rng = np.random.default_rng(0)
     m, n = op.shape
-    nl = op.lanes
-    dev = op.a.device
     rows = []
-    for label, mat, dim, out_dim in (("A", op.a, n, m), ("AT", op.at, m, n)):
-        v_np = rng.standard_normal((dim, nl)).astype(np.float32)
-        v = torch.as_tensor(v_np, device=dev)
-        flat = v.reshape(-1)
-        got = routed.spmv_csr(mat, flat).reshape(out_dim, nl)
-        plain = block_lanes.block_lanes_spmv_plain(mat, v)
-        host = sp.csr_matrix(
-            (mat.vals.double().cpu().numpy(), mat.indices.cpu().numpy(),
-             mat.indptr.cpu().numpy()), shape=(mat.num_rows, mat.num_cols))
-        v64 = v_np.reshape(-1).astype(np.float64)
-        want = host @ v64
-        scale = abs(host) @ np.abs(v64)
-        got_np = got.double().cpu().numpy().reshape(-1)
-        err = np.abs(got_np - want)
-        err_plain = np.abs(got_np - plain.double().cpu().numpy().reshape(-1))
-        for what, e in (("f64", err), ("plain", err_plain)):
-            bad = e > TOL_ENTRY * scale + TOL_ABS
-            if bad.any():
-                i = int(np.argmax(e - TOL_ENTRY * scale))
-                fail(ph, f"spmv_csr:{label} (block lanes) against {what}: "
-                         f"entry {i} differs by {e[i]:.3e} (scale "
-                         f"{scale[i]:.3e})")
-        problem = compare.repeat_differs(lambda: routed.spmv_csr(mat, flat),
-                                         (mat.tickets,))
-        if problem:
-            fail(ph, f"spmv_csr:{label} (block lanes): {problem}")
-        lib = routed.library_spmv(mat)
-        timed = probe.in_turns({"kernel": lambda: routed.spmv_csr(mat, flat),
-                                "library": lambda: lib @ flat})
-        times = {}
-        for who, prefix in (("kernel", ""), ("library", "library_")):
-            times.update({prefix + k: val for k, val in
-                          probe.turn_summary(timed[who]).items()})
-        nbytes = (routed.csr_kernel_bytes(mat)
-                  + 4 * (mat.num_cols + mat.num_rows))
-        bound, bound_by = probe.bound_ms(nbytes, 2 * mat.nnz)
+    for label, mat, dim in (("A", op.a, n), ("AT", op.at, m)):
+        v = torch.as_tensor(
+            rng.standard_normal((dim, op.lanes)).astype(np.float32),
+            device=op.a.device)
+        try:
+            row = compare.block_lanes_row(label, mat, v)
+        except compare.KernelMismatch as exc:
+            fail(ph, str(exc))
         rows.append({
-            "name": f"spmv_csr:{label} (block lanes)",
+            **row,
             "route": "cuda",
             "source": "firstorderlp_torch/csrc/spmv_csr.cu",
             "replaces": "firstorderlp_tpu/ops/routed.py:160 (_make_expand)"
                         " + routed.py:188 (_make_reduce); the JAX package "
                         "runs this product as XLA gathers over aligned ELL "
                         "planes, firstorderlp_tpu/batch.py:1248",
-            "max_abs_err": float(err.max()),
-            "max_abs_err_vs_plain": float(err_plain.max()),
-            "plain_ms": probe.time_ms(
-                lambda: block_lanes.block_lanes_spmv_plain(mat, v)),
-            "bytes": nbytes, "flops": 2 * mat.nnz,
-            "bound_ms": bound, "bound_by": bound_by,
-            "repeats_bitwise": compare.REPEATS,
-            "lanes": nl, "nnz": mat.nnz, "rows": mat.num_rows,
-            **times,
-            **routed.csr_item_stats(mat),
         })
-        del lib, host
     return rows
 
 
@@ -961,15 +917,17 @@ def sharded_plain(torch, routed, sop, v, transpose):
     return torch.cat(pieces)
 
 
-def kernels_sharded(torch, dev, routed, probe, rescale_problem, problem):
+def kernels_sharded(torch, dev, routed, probe, compare, rescale_problem,
+                    problem):
     """B2 (CSR blocks) and B5 (tile-plan blocks) through the
     block-partitioned operator on (2, 2) and (4, 1) meshes of cuda:0, at
     the shapes sharded_optimize gives them: the 100k-node LP padded to
     the mesh and rescaled. Each product against the single-device
     RoutedOp of the same matrix and against the blocks' plain versions
-    (the f32 rounding class), two calls bitwise equal, launches a call
-    (one per non-empty block), CUDA-event ms a call beside the
-    single-device operator's."""
+    (the f32 rounding class), 20 calls bitwise equal with the blocks'
+    tickets back at zero, launches a call (one per non-empty block),
+    CUDA-event ms a call beside the single-device operator's, and B2's
+    launches over the blocks (stages, bytes staged, empty rows)."""
     from firstorderlp_torch.ops.routed_sharded import (
         build_sharded_routed_op, plan_routed_shards,
     )
@@ -1014,7 +972,6 @@ def kernels_sharded(torch, dev, routed, probe, rescale_problem, problem):
                 got = call()
                 torch.cuda.synchronize()
                 launches = routed.LAUNCHES[f"{kernel}:{label}"]
-                again = call()
                 want_single = one()
                 want_plain = sharded_plain(torch, routed, sop, vec, transpose)
                 torch.cuda.synchronize()
@@ -1029,12 +986,14 @@ def kernels_sharded(torch, dev, routed, probe, rescale_problem, problem):
                                  f"differs from the {what} product by "
                                  f"{err[i]:.3e}")
                     errs[what] = float(err.max())
-                if not torch.equal(got, again):
-                    fail(ph, f"{shape} {layout} {label}: two calls differ")
+                mats = [b.at if transpose else b.a for b in blocks]
+                differs = compare.repeat_differs(
+                    call, compare.tickets_of(*mats))
+                if differs:
+                    fail(ph, f"{shape} {layout} {label}: {differs}")
                 if launches != len(blocks):
                     fail(ph, f"{shape} {layout} {label}: {launches} launches "
                              f"a call for {len(blocks)} non-empty blocks")
-                mats = [b.at if transpose else b.a for b in blocks]
                 nbytes = (sum(routed.csr_kernel_bytes(mat) for mat in mats)
                           + 4 * m + 4 * n)
                 bound, bound_by = probe.bound_ms(nbytes, 2 * a.nnz)
@@ -1070,7 +1029,20 @@ def kernels_sharded(torch, dev, routed, probe, rescale_problem, problem):
                     "blocks": len(blocks),
                     "block_nnz": [mat.nnz for mat in mats],
                     "build_seconds": build_s,
+                    "repeats_bitwise": compare.REPEATS,
                 }
+                if not tile_aligned:  # B2's launches, summed over blocks
+                    launch = [compare.b2_launch_stats(mat) for mat in mats]
+                    row.update({
+                        "design": launch[0]["design"],
+                        "stages": sum(b["stages"] for b in launch),
+                        "bytes_staged": sum(b["bytes_staged"]
+                                            for b in launch),
+                        "empty_rows": sum(b["empty_rows"] for b in launch),
+                        "smem_bytes": max(b["smem_bytes"] for b in launch),
+                        "registers": launch[0]["registers"],
+                        "static_smem_bytes": launch[0]["static_smem_bytes"],
+                    })
                 rows.append(row)
             del sop, single
         del csr_single, lib
@@ -1807,20 +1779,18 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     from firstorderlp_torch.ops import lanes
 
     params = make_params(1e-4, 20_000, fmt="auto")
-    last = (0, HETERO_LANES - 1)
+    last = (0, compare.HETERO_LANES - 1)
 
     # 15. the heterogeneous fleet through B2
     t_phase = t0 = time.time()
-    nodes = np.rint(np.linspace(*HETERO_NODES, HETERO_LANES)).astype(int)
-    problems = [generators.generate_pagerank_lp(int(k), seed=10 + i)
-                for i, k in enumerate(nodes)]
+    problems = compare.hetero_fleet_problems()
     generate_s = time.time() - t0
     t0 = time.time()
     fleet = batch.prepare_batch(params, problems, device=dev)
     torch.cuda.synchronize()
     ingest_s = time.time() - t0
     op = fleet.bundle.scaled.constraint_matrix
-    rows = block_lanes_rows(torch, routed, probe, compare, op)
+    rows = block_lanes_rows(torch, compare, op)
     emit({"phase": "kernels_block_lanes", "ok": True, "lanes": op.lanes,
           "m": op.num_rows, "n": op.num_cols,
           "block_shape": [op.a.num_rows, op.a.num_cols],
@@ -1834,7 +1804,8 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     del fleet, op
     fields, found = lane_checks(problems, outs, params, single_optimize,
                                 last)
-    if fields["reasons"] != {"TERMINATION_REASON_OPTIMAL": HETERO_LANES}:
+    if fields["reasons"] != {
+            "TERMINATION_REASON_OPTIMAL": compare.HETERO_LANES}:
         found.append(f"not every lane OPTIMAL: {fields['reasons']}")
     if not (b2["spmv_csr:A"] > 0 and b2["spmv_csr:AT"] > 0):
         found.append(f"B2 was not launched: {b2}")
@@ -1845,8 +1816,9 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     for r in rows:
         r["launches"] = b2[r["name"].split(" ")[0]]
     emit_checked({
-        "phase": "hetero_fleet", "lanes": HETERO_LANES,
-        "nodes": [int(nodes[0]), int(nodes[-1])],
+        "phase": "hetero_fleet", "lanes": compare.HETERO_LANES,
+        "nodes": [problems[0].constraint_matrix.shape[1],
+                  problems[-1].constraint_matrix.shape[1]],
         "nnz_sum": int(sum(p.constraint_matrix.nnz for p in problems)),
         "generate_seconds": generate_s, "ingest_seconds": ingest_s,
         "solve_seconds": solve_s,
@@ -1945,7 +1917,7 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     return rows
 
 
-def kernels_tiled_large(torch, routed, probe, device_ms, dev):
+def kernels_tiled_large(torch, routed, probe, compare, device_ms, dev):
     """The three tile-plan kernels (tiled_spmv both ways,
     tiled_dual_step, tiled_rmv_stats) and the three CSR kernels
     (spmv_csr both ways, spmv_dual_step, spmv_rmv_stats), on the
@@ -2075,6 +2047,8 @@ def kernels_tiled_large(torch, routed, probe, device_ms, dev):
                         "strips": mat.nstrips,
                         "padding_share": mat.padding_share,
                         **routed.tile_plan_stats(mat)})
+        elif name.startswith("spmv_csr"):
+            row.update(compare.b2_launch_stats(mat))
         else:
             row.update(routed.csr_item_stats(mat))
         results.append(row)
@@ -2323,41 +2297,106 @@ def cli_path(torch, routed, problem, small, main_out, params, dev,
 
 
 def main_path_parent(torch, compare, parent_dir, dev):
-    """The main path's solve, warm, on the PageRank LPs of SOLVE_SEEDS by
-    another version of this package (`parent_dir` holds it as
-    `firstorderlp_torch_parent`) and by this one, in turns (parent,
-    this, this, parent): iterations, seconds (host clock up to a device
-    synchronize) and reason of each solve."""
+    """The main path's solve and mirror_prox_path's, warm, on the
+    PageRank LPs of SOLVE_SEEDS by another version of this package
+    (`parent_dir` holds it as `firstorderlp_torch_parent`) and by this
+    one, in turns (parent, this, this, parent): iterations, seconds
+    (host clock up to a device synchronize), ms an iteration and reason
+    of each solve."""
     dirs = {"parent": parent_dir, "this": None}
     mods = {who: {part: compare.package_module(part, where)
-                  for part in ("", "generators", "models.pdhg")}
+                  for part in ("", "generators", "models.pdhg",
+                               "models.mirror_prox")}
             for who, where in dirs.items()}
 
-    def solve(who, problem):
-        pkg, pdhg = mods[who][""], mods[who]["models.pdhg"]
-        params = make_params(1e-4, 20_000, pkg=pkg)
-        prepared = pdhg.prepare_problem(params, problem, device=dev)
+    def solve(who, solver, problem):
+        pkg = mods[who][""]
+        if solver == "pdhg":
+            params = make_params(1e-4, 20_000, pkg=pkg)
+        else:
+            params = make_mp_params(1e-4, 20_000, pkg=pkg)
+        module = mods[who][f"models.{solver}"]
+        prepared = module.prepare_problem(params, problem, device=dev)
         torch.cuda.synchronize()
         t0 = time.time()
-        out = pdhg.optimize(params, problem, prepared=prepared)
+        out = module.optimize(params, problem, prepared=prepared)
         torch.cuda.synchronize()
-        return {"package": who, "iterations": out.iteration_count,
-                "seconds": time.time() - t0,
+        seconds = time.time() - t0
+        return {"package": who, "solver": solver,
+                "iterations": out.iteration_count, "seconds": seconds,
+                "ms_per_iteration": 1e3 * seconds / max(
+                    out.iteration_count, 1),
                 "reason": out.termination_reason.name}
 
     for who in dirs:  # kernels built and modules loaded, untimed
-        solve(who, mods[who]["generators"].generate_pagerank_lp(
-            num_nodes=DET_NODES, seed=0))
+        for solver in ("pdhg", "mirror_prox"):
+            solve(who, solver, mods[who]["generators"].generate_pagerank_lp(
+                num_nodes=DET_NODES, seed=0))
     rows = []
     for seed in SOLVE_SEEDS:
         problems = {who: mods[who]["generators"].generate_pagerank_lp(
             num_nodes=NODES, seed=seed) for who in dirs}
-        for who in ("parent", "this", "this", "parent"):
-            rows.append({"seed": seed, **solve(who, problems[who])})
+        for solver in ("pdhg", "mirror_prox"):
+            for who in ("parent", "this", "this", "parent"):
+                rows.append({"seed": seed,
+                             **solve(who, solver, problems[who])})
     mine = [r for r in rows if r["package"] == "this"]
     ok = all(r["reason"] == "TERMINATION_REASON_OPTIMAL" for r in mine)
     return {"phase": "main_path_parent", "ok": ok, "nodes": NODES,
             "parent": parent_dir, "solves": rows}
+
+
+def hetero_parent(torch, compare, parent_dir, dev):
+    """hetero_fleet's solve (32 PageRank LPs, make_params at 1e-4) by
+    another version of this package (`parent_dir` holds it as
+    `firstorderlp_torch_parent`) and by this one: each fleet prepared
+    and solved once untimed, then in turns (parent, this, this, parent)
+    seconds, iterations a lane summed and reasons; then one solve each
+    under torch.profiler: the device time of every kernel and of B2's
+    (its kernels of the routed product: the parent's csr_item_kernel
+    with StoreRow, this package's spmv_stage_kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    for who, where in {"parent": parent_dir, "this": None}.items():
+        pkg, batch, generators = (compare.package_module(part, where)
+                                  for part in ("", "batch", "generators"))
+        params = make_params(1e-4, 20_000, fmt="auto", pkg=pkg)
+        problems = compare.hetero_fleet_problems(generators)
+        fleet = batch.prepare_batch(params, problems, device=dev)
+        batch.solve_batch(params, problems, fleet=fleet)
+        runs[who] = (batch, params, problems, fleet)
+    torch.cuda.synchronize()
+    rows = []
+    for who in ("parent", "this", "this", "parent"):
+        batch, params, problems, fleet = runs[who]
+        t0 = time.time()
+        outs = batch.solve_batch(params, problems, fleet=fleet)
+        torch.cuda.synchronize()
+        rows.append({"package": who, "seconds": time.time() - t0,
+                     "iterations_sum": sum(o.iteration_count for o in outs),
+                     "optimal": sum(o.termination_reason.name
+                                    == "TERMINATION_REASON_OPTIMAL"
+                                    for o in outs)})
+    profiles = {}
+    for who, (batch, params, problems, fleet) in runs.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            batch.solve_batch(params, problems, fleet=fleet)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        b2 = [e for e in device if "spmv_stage_kernel" in e.key
+              or ("csr_item_kernel" in e.key and "StoreRow" in e.key)]
+        total = sum(e.self_device_time_total for e in device)
+        b2_us = sum(e.self_device_time_total for e in b2)
+        profiles[who] = {"device_ms": total / 1e3, "b2_device_ms": b2_us / 1e3,
+                         "b2_share": b2_us / total if total else 0.0,
+                         "b2_kernels": sum(e.count for e in b2)}
+    ok = all(r["optimal"] == compare.HETERO_LANES for r in rows
+             if r["package"] == "this")
+    return {"phase": "hetero_parent", "ok": ok,
+            "lanes": compare.HETERO_LANES,
+            "parent": parent_dir, "solves": rows, "profiled": profiles}
 
 
 def main() -> int:
@@ -2368,10 +2407,13 @@ def main() -> int:
                              "torch.profiler")
     parser.add_argument("--parent", metavar="DIR",
                         help="also solve the main path's LP at other "
-                             "seeds and the fleet's throughput protocol "
-                             "by another version of the package, held in "
-                             "DIR as firstorderlp_torch_parent (phases "
-                             "main_path_parent, fleet_parent)")
+                             "seeds (PDHG and Mirror Prox), the "
+                             "heterogeneous fleet and the fleet's "
+                             "throughput protocol by another version of "
+                             "the package, held in DIR as "
+                             "firstorderlp_torch_parent (phases "
+                             "main_path_parent, hetero_parent, "
+                             "fleet_parent)")
     parser.add_argument("--multi-gpu", action="store_true",
                         help="only the multi-device solve across four "
                              "cards (phase multi_gpu_path), after the "
@@ -2520,17 +2562,20 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         table's shape, REPEATS launches bitwise equal with the tickets
         back at zero, and the times of the same call with no row cut
         into pieces."""
-        problem = compare.repeat_differs(lambda: call(mat), (mat.tickets,))
+        problem = compare.repeat_differs(lambda: call(mat),
+                                         compare.tickets_of(mat))
         if problem:
             fail("kernels", f"{name}: {problem}")
         dev_ms, per_call = device_profile(lambda: call(mat))
         whole = routed.csr_with_items(mat, split_rows=False)
+        stats = (compare.b2_launch_stats(mat) if name.startswith("spmv_csr")
+                 else routed.csr_item_stats(mat))
         return {"device_ms": dev_ms, "kernels_per_call": per_call,
                 "repeats_bitwise": compare.REPEATS,
                 "ms_without_row_split": time_ms(lambda: call(whole)),
                 "device_ms_without_row_split": device_ms(
                     lambda: call(whole)),
-                **routed.csr_item_stats(mat)}
+                **stats}
 
     # spmv_csr, both orientations
     for label, mat, vec, scale, lib in (
@@ -2766,7 +2811,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     del op, top, plan, mat, whole, lib, lib_a, lib_at
 
     # 3b'. B2-B7 again where the arrays are larger than the L2 cache
-    large = kernels_tiled_large(torch, routed, probe, device_ms, dev)
+    large = kernels_tiled_large(torch, routed, probe, compare, device_ms, dev)
     add_bounds(large["results"])
     emit(large)
     for r in results + tiled:
@@ -2949,10 +2994,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     warm_rec = record
     del prepared, warm
     if args.parent:
-        record = main_path_parent(torch, compare, args.parent, dev)
-        emit(record)
-        if not record["ok"]:
-            raise SystemExit(1)
+        for parent_phase in (main_path_parent, hetero_parent):
+            record = parent_phase(torch, compare, args.parent, dev)
+            emit(record)
+            if not record["ok"]:
+                raise SystemExit(1)
 
     # 4b. the CLIs; their 100k-node .mps.gz stays for shard_ingest_path
     small = generate_pagerank_lp(num_nodes=DET_NODES, seed=0)
@@ -3204,7 +3250,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     )
 
     # 18-20. the multi-device solve
-    sharded_rows = kernels_sharded(torch, dev, routed, probe,
+    sharded_rows = kernels_sharded(torch, dev, routed, probe, compare,
                                    rescale_problem, problem)
     path_launches, sharded_solves = sharded_path(
         torch, dev, routed, problem, small, params,
@@ -3242,7 +3288,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "max_abs_err_vs_plain", "lanes", "kernels_per_call_turns",
              "variant", "lanes_a_thread", "unroll", "split_rows", "mesh",
              "layout", "single_device_ms", "max_abs_err_vs_single_device",
-             "launches_a_call", "launches_shard_ingest")
+             "launches_a_call", "launches_shard_ingest", "design",
+             "stages", "empty_rows", "smem_bytes", "registers",
+             "static_smem_bytes")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

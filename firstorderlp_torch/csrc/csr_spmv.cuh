@@ -1,5 +1,6 @@
-// Shared device code of the CSR kernels (spmv_csr.cu, spmv_dual_step.cu,
-// spmv_rmv_stats.cu).
+// Shared device code of the fused CSR kernels (spmv_dual_step.cu,
+// spmv_rmv_stats.cu); B2, the plain product (spmv_csr.cu), has its own
+// walk and item table.
 //
 // A matrix is stored as CSR: int32 indptr (rows + 1), int32 indices and
 // f32 values (nnz). The host (ops/routed.py, csr_work_items) cuts it
@@ -34,8 +35,8 @@
 //   counter of the row's first item; the block that draws the last one
 //   adds the pieces' sums in item order and runs the epilogue on the
 //   complete sum;
-// - the epilogue's partial sums (kParts of them: 0 for A x, 1 for the
-//   dual step, 2 for the step control): each block adds its rows' terms
+// - the epilogue's partial sums (kParts of them: 1 for the dual step,
+//   2 for the step control): each block adds its rows' terms
 //   in the fixed order above and writes one partial per item to
 //   `scratch` (a cut row's terms to its first item's slot, whichever
 //   block finished it; 0 in its other pieces' slots); every block draws
@@ -72,7 +73,7 @@ struct CsrArgs {
 };
 
 // One block per item. `Epilogue` has kParts (the partial sums it adds
-// up, 0 to 2), a type In of the row's epilogue inputs, load(row), which
+// up, 1 or 2), a type In of the row's epilogue inputs, load(row), which
 // reads them (before a long row's walk, after a short row's), and
 // row(row, sum, in, part): called once for every output row with the
 // row's complete sum, by the thread that then holds part[] for the rows
@@ -88,7 +89,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   const int tid = threadIdx.x;
   const int4 item = reinterpret_cast<const int4*>(a.items)[blockIdx.x];
   const int4 next = reinterpret_cast<const int4*>(a.items)[blockIdx.x + 1];
-  float part[kParts > 0 ? kParts : 1] = {};
+  float part[kParts] = {};
   bool finishes = true;  // this block runs the epilogue of its rows
 
   if (item.w == 0) {
@@ -143,7 +144,6 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
     if (finishes && tid == 0) ep.row(item.y, sum, in, part);
   }
-  if (kParts == 0) return;
 
   // One partial per item. A cut row's terms go to the slot of its first
   // item, whichever block finished it, and the other pieces' slots hold
@@ -174,14 +174,13 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-// Launches csr_item_kernel on `stream`, one block per item. `sums`
-// (kParts floats) may be null when kParts is 0.
+// Launches csr_item_kernel on `stream`, one block per item, into `sums`
+// (kParts floats).
 template <class Epilogue>
 inline int launch_csr(const CsrArgs* a, const float* x, Epilogue ep,
                       float* sums, cudaStream_t stream) {
   if (a == nullptr) return (int)cudaErrorInvalidValue;
   if (a->nitems <= 0) {  // no rows: the sums are empty sums
-    if (Epilogue::kParts == 0) return 0;
     return (int)cudaMemsetAsync(sums, 0, sizeof(float) * Epilogue::kParts,
                                 stream);
   }

@@ -3,8 +3,8 @@ GPU, optionally beside those of another checkout of this package, in
 turns on the same card.
 
     python3 -m firstorderlp_torch.ops.compare_kernels
-        [--layout csr|tiled|probe|lanes] [--nodes N] [--lanes B]
-        [--parent DIR] [--bulk] [--sweep] [--out FILE]
+        [--layout csr|tiled|probe|lanes|block_lanes] [--nodes N]
+        [--lanes B] [--parent DIR] [--bulk] [--sweep] [--out FILE]
 
 --layout: the CSR kernels (spmv_csr, spmv_dual_step, spmv_rmv_stats;
   the default), the tile-plan kernels (tiled_spmv, tiled_dual_step,
@@ -14,7 +14,12 @@ turns on the same card.
   scaled value planes of a PageRank damping sweep of --lanes lanes
   (default 128) at --nodes nodes (default 20,000 for this layout;
   --bulk does not apply), beside the block-diagonal library SpMV
-  (ops/lanes.library_lanes_matrix).
+  (ops/lanes.library_lanes_matrix), or B2 (spmv_csr, A and A') on the
+  heterogeneous fleet's interleaved block matrix (ops/block_lanes.py)
+  of 32 PageRank LPs of 10,000-40,000 nodes (seeds 10-41), padded and
+  rescaled as batch.prepare_batch does, beside the library SpMV of the
+  same matrix
+  (--nodes, --lanes, --bulk and --sweep do not apply).
 --parent DIR: a directory that holds another version of this package
   under the name `firstorderlp_torch_parent` (for example
   `git archive <commit> firstorderlp_torch | tar -x -C DIR` and a
@@ -45,8 +50,11 @@ one-call library product (`library_*`); the bytes bound; csr: also the
 device time and events time of the product with no row cut into pieces
 (`*_without_row_split`); last (csr, tiled) the tails, turn by turn: the
 fused kernels' device time over the product's on the same matrix.
-Lanes: one "time" line per orientation (lanes_row, which chip_smoke.py
-shares) with the checks and the times in one. Kernels a call are counted
+Lanes and block_lanes: one "time" line per orientation (lanes_row,
+block_lanes_row, which chip_smoke.py shares) with the checks and the
+times in one. B2's rows carry what its launch looks like
+(b2_launch_stats: stages, bytes staged, empty rows, ptxas's registers
+and shared memory). Kernels a call are counted
 at their launches on the host, and the device time of the kernels the
 profiler kept is scaled to them (probe_routed.device_profile).
 """
@@ -61,6 +69,7 @@ import sys
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .. import generators
@@ -71,6 +80,11 @@ from .probe_routed import device_profile
 TOL_ENTRY, TOL_ABS, TOL_SUM = 1e-5, 1e-7, 1e-5
 BURST = 50
 REPEATS = 20
+# The heterogeneous fleet: 32 PageRank LPs of 10k-40k nodes, seeds
+# 10-41 (the construction of tests/test_batch.py's mixed fleet at the
+# size docs/performance.md names for such fleets).
+HETERO_LANES = 32
+HETERO_NODES = (10_000, 40_000)
 # layout -> its (product, dual step, rmv stats) kernels
 KERNELS = {"csr": ("spmv_csr", "spmv_dual_step", "spmv_rmv_stats"),
            "tiled": ("tiled_spmv", "tiled_dual_step", "tiled_rmv_stats")}
@@ -109,6 +123,29 @@ def burst_ms(fn, reps: int = 20) -> float:
 def device_ms(fn, calls: int = BURST) -> float:
     """Device time per call (device_profile)."""
     return device_profile(fn, calls)[0]
+
+
+def tickets_of(*mats):
+    """Every ticket tensor of `mats`, for repeat_differs: a tile plan's,
+    or both of a CSR matrix's (B3 and B4's table and B2's)."""
+    out = []
+    for mat in mats:
+        out.append(mat.tickets)
+        if isinstance(mat, routed.CsrKernelMatrix):
+            out.append(mat.stage_tickets)
+    return tuple(out)
+
+
+def b2_launch_stats(mat):
+    """What a launch of B2 (spmv_csr) over `mat` looks like: its item
+    table's shape (routed.stage_item_stats: blocks, one stage each; the
+    bytes staged; the empty rows, written without a gather), the
+    kernel's registers and static shared memory
+    (routed.spmv_csr_attributes) and what ptxas said of it in this
+    process's build ({} when the libraries came from the cache)."""
+    return {**routed.stage_item_stats(mat), "stages": mat.nstage,
+            **routed.spmv_csr_attributes(),
+            "ptxas": ptxas_usage("spmv_csr")}
 
 
 def repeat_differs(call, tickets=(), times: int = REPEATS):
@@ -210,7 +247,7 @@ def verify(layout, op, csr, v, scales):
         if inter > TOL_ENTRY * scales["inter"] + TOL_ABS:
             raise SystemExit(f"{stats} interaction vs {what}: {inter:.3e}")
     for name, call in products(routed, op, v, layout).items():
-        problem = repeat_differs(call, (op.a.tickets, op.at.tickets))
+        problem = repeat_differs(call, tickets_of(op.a, op.at))
         if problem:
             raise SystemExit(f"{name}: {problem}")
     return errs
@@ -481,6 +518,126 @@ def lanes_row(label, half, vals, v, parent_call=None):
     return row
 
 
+def block_lanes_row(label, mat, v, parent_call=None):
+    """B2 on one orientation of a heterogeneous fleet's block matrix
+    (`mat`, a routed.CsrKernelMatrix of ops/block_lanes.py; `v` the
+    (dim, lanes) lane vectors): against an f64 product on the host and
+    its plain version (TOL_ENTRY, TOL_ABS), REPEATS launches bitwise
+    equal with the tickets back at zero (raises KernelMismatch), then
+    timed in turns (probe_routed.in_turns) beside the library SpMV of
+    the same matrix and `parent_call`, another version's launch, if
+    given; with its plain version's time, its bound and its launch
+    (b2_launch_stats). The row of chip_smoke.py's kernels_block_lanes
+    and of --layout block_lanes."""
+    from . import block_lanes
+
+    name = f"spmv_csr:{label} (block lanes)"
+    flat = v.reshape(-1)
+    out_dim, nl = mat.num_rows // v.shape[1], v.shape[1]
+    got = routed.spmv_csr(mat, flat).reshape(out_dim, nl)
+    plain = block_lanes.block_lanes_spmv_plain(mat, v)
+    host = sp.csr_matrix(
+        (mat.vals.double().cpu().numpy(), mat.indices.cpu().numpy(),
+         mat.indptr.cpu().numpy()), shape=(mat.num_rows, mat.num_cols))
+    v64 = v.double().cpu().numpy().reshape(-1)
+    scale = abs(host) @ np.abs(v64)
+    got_np = got.double().cpu().numpy().reshape(-1)
+    err = np.abs(got_np - host @ v64)
+    err_plain = np.abs(got_np - plain.double().cpu().numpy().reshape(-1))
+    for what, e in (("f64", err), ("plain", err_plain)):
+        bad = e > TOL_ENTRY * scale + TOL_ABS
+        if bad.any():
+            i = int(np.argmax(e - TOL_ENTRY * scale))
+            raise KernelMismatch(
+                f"{name} against {what}: entry {i} differs by {e[i]:.3e} "
+                f"(scale {scale[i]:.3e})")
+    problem = repeat_differs(lambda: routed.spmv_csr(mat, flat),
+                             tickets_of(mat))
+    if problem:
+        raise KernelMismatch(f"{name}: {problem}")
+    lib = routed.library_spmv(mat)
+    turns = {"this": lambda: routed.spmv_csr(mat, flat),
+             "library": lambda: lib @ flat}
+    if parent_call is not None:
+        turns = {"parent": parent_call, **turns}
+    row = {"name": name, "max_abs_err": float(err.max()),
+           "max_abs_err_vs_plain": float(err_plain.max()),
+           "repeats_bitwise": REPEATS}
+    for who, timed in probe_routed.in_turns(turns).items():
+        prefix = "" if who == "this" else f"{who}_"
+        row.update({prefix + k: value for k, value in
+                    probe_routed.turn_summary(timed).items()})
+    nbytes = routed.csr_kernel_bytes(mat) + 4 * (mat.num_cols + mat.num_rows)
+    row.update({
+        "plain_ms": probe_routed.time_ms(
+            lambda: block_lanes.block_lanes_spmv_plain(mat, v)),
+        "bytes": nbytes, "flops": 2 * mat.nnz,
+        "lanes": nl, "nnz": mat.nnz, "rows": mat.num_rows,
+        **b2_launch_stats(mat),
+    })
+    row["bound_ms"], row["bound_by"] = probe_routed.bound_ms(nbytes,
+                                                             2 * mat.nnz)
+    return row
+
+
+def hetero_fleet_problems(gen=generators):
+    """The heterogeneous fleet's LPs (chip_smoke.py's hetero_fleet and
+    hetero_parent): HETERO_LANES PageRank LPs of HETERO_NODES nodes,
+    seeds 10 up, by the generators module `gen` (another version's, for
+    that version's problem types)."""
+    nodes = np.rint(np.linspace(*HETERO_NODES, HETERO_LANES)).astype(int)
+    return [gen.generate_pagerank_lp(int(k), seed=10 + i)
+            for i, k in enumerate(nodes)]
+
+
+def compare_block_lanes(args, dev, card, emit):
+    """--layout block_lanes: B2 on the heterogeneous fleet's rescaled
+    block matrix, A and A', checked, against the parent's bits and timed
+    in turns with the library SpMV and the parent (block_lanes_row)."""
+    from ..parallel import pad_problem
+    from .block_lanes import build_block_lanes
+
+    # batch.prepare_batch's ingest at chip_smoke.py's parameters: each LP
+    # padded to the largest and rescaled (10 Ruiz passes, Pock-Chambolle
+    # alpha 1)
+    problems = hetero_fleet_problems()
+    shape = (max(p.constraint_matrix.shape[0] for p in problems),
+             max(p.constraint_matrix.shape[1] for p in problems))
+    op = build_block_lanes(
+        [rescale_problem(10, False, 1.0, 0, pad_problem(p, *shape)[0])
+         .scaled_qp.constraint_matrix for p in problems], dev)
+    m, n = op.shape
+    nl = op.lanes
+    rng = np.random.default_rng(0)
+    vecs = {"A": torch.as_tensor(rng.standard_normal((n, nl)),
+                                 dtype=torch.float32, device=dev),
+            "AT": torch.as_tensor(rng.standard_normal((m, nl)),
+                                  dtype=torch.float32, device=dev)}
+    mats = {"A": op.a, "AT": op.at}
+    emit({"step": "fleet", "layout": "block_lanes", "card": card,
+          "lanes": nl, "m": m, "n": n,
+          "block_shape": [op.a.num_rows, op.a.num_cols], "nnz": op.a.nnz})
+    parent_calls = {}
+    if args.parent:
+        old = package_module("ops.routed", args.parent)
+        for label, mat in mats.items():
+            host = sp.csr_matrix(
+                (mat.vals.double().cpu().numpy(), mat.indices.cpu().numpy(),
+                 mat.indptr.cpu().numpy()), shape=(mat.num_rows, mat.num_cols))
+            twin = old.build_csr_kernel_matrix(host, dev, label)
+            flat = vecs[label].reshape(-1)
+            parent_calls[label] = (lambda t=twin, f=flat, o=old:
+                                   o.spmv_csr(t, f))
+        emit({"step": "bitwise_equal_to_parent", "equal": {
+            f"spmv_csr:{label}": bool(torch.equal(
+                routed.spmv_csr(mats[label], vecs[label].reshape(-1)),
+                parent_calls[label]())) for label in mats}})
+    for label, mat in mats.items():
+        row = block_lanes_row(label, mat, vecs[label],
+                              parent_calls.get(label))
+        emit({"step": "time", "card": card, **row})
+
+
 def compare_lanes(args, dev, card, emit):
     """--layout lanes: L1 on a fleet's scaled planes, checked, against
     the parent's bits, timed in turns with the block-diagonal library
@@ -568,7 +725,8 @@ def sweep_lanes(pat, dev, op, vecs, card, emit):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layout",
-                        choices=sorted(KERNELS) + ["probe", "lanes"],
+                        choices=sorted(KERNELS) + ["probe", "lanes",
+                                                   "block_lanes"],
                         default="csr")
     parser.add_argument("--nodes", type=int, default=None,
                         help="default 100,000 (20,000 for lanes)")
@@ -592,8 +750,8 @@ def main(argv=None) -> int:
     card = probe_routed.card_line()
     print(card, flush=True)
     kernels_build.build_kernels()
-    names = {"probe": probe_routed.LAUNCHES,
-             "lanes": ("lanes_spmv",)}.get(layout) or KERNELS[layout]
+    names = {"probe": probe_routed.LAUNCHES, "lanes": ("lanes_spmv",),
+             "block_lanes": ("spmv_csr",)}.get(layout) or KERNELS[layout]
     emit({"step": "build", "layout": layout,
           "seconds": kernels_build.last_build_seconds,
           "ptxas": {lib: [ln.strip() for ln in log.splitlines()
@@ -605,6 +763,9 @@ def main(argv=None) -> int:
         return finish(args, card, lines)
     if layout == "lanes":
         compare_lanes(args, dev, card, emit)
+        return finish(args, card, lines)
+    if layout == "block_lanes":
+        compare_block_lanes(args, dev, card, emit)
         return finish(args, card, lines)
     args.nodes = args.nodes or 100_000
 
@@ -648,7 +809,9 @@ def main(argv=None) -> int:
                                        op.at.padding_share]})
     else:
         step.update({"items_A": routed.csr_item_stats(op.a),
-                     "items_AT": routed.csr_item_stats(op.at)})
+                     "items_AT": routed.csr_item_stats(op.at),
+                     "spmv_csr_A": b2_launch_stats(op.a),
+                     "spmv_csr_AT": b2_launch_stats(op.at)})
     emit(step)
 
     parent_calls = whole_calls = None

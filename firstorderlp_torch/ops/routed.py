@@ -73,10 +73,17 @@ DEFAULT_TILE_ALIGNED = os.environ.get("FOLP_TILE_ALIGNED", "0") == "1"
 #   are no faster at a million (PERF.md). No smaller LP was measured.
 # One block per item; no item holds more than ITEM_ENTRIES plus one
 # short row's entries.
-ITEM_BLOCK_THREADS = 256  # kBlockThreads
+# B2 (csrc/spmv_csr.cu) has its own table of the same size
+# (csr_stage_items): every row of a run counts its entries plus one (its
+# store), an empty row one; one thread sums each row of a run, so a row
+# longer than STAGE_LONG_ROW entries is long (a whole block's): 256 was
+# faster than 64 at every shape the card measured (PERF.md).
+ITEM_BLOCK_THREADS = 256  # kBlockThreads, kStageThreads
 LONG_ROW_TRIPS = 16
 MAX_ITEM_ROWS = 1024  # kMaxItemRows
 ITEM_ENTRIES = 2048
+STAGE_LONG_ROW = 256
+STAGE_GATHER = 8  # kGather: B2's loads a thread has in flight
 
 # Launch counts per kernel wrapper (A x and A' y counted apart).
 LAUNCHES: Dict[str, int] = {
@@ -99,6 +106,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
 
 
+class _StageArgs(ctypes.Structure):
+    """csrc/spmv_csr.cu's StageArgs: B2's constant kernel arguments,
+    passed by address."""
+
+    _fields_ = [
+        ("indptr", ctypes.c_void_p),
+        ("indices", ctypes.c_void_p),
+        ("vals", ctypes.c_void_p),
+        ("items", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("tickets", ctypes.c_void_p),
+        ("nitems", ctypes.c_int),
+        ("stage", ctypes.c_int),
+        ("rows", ctypes.c_int),
+    ]
+
+
 class _CsrArgs(ctypes.Structure):
     """csrc/csr_spmv.cuh's CsrArgs: a matrix's constant kernel
     arguments, passed by address."""
@@ -118,11 +142,12 @@ class _CsrArgs(ctypes.Structure):
 @dataclasses.dataclass(frozen=True)
 class CsrKernelMatrix:
     """One orientation of the matrix, as the kernels take it: the CSR
-    arrays, the work items (csr_work_items) and the kernels' own
-    `scratch` (piece sums and per-item partial sums) and `tickets`
-    (integer counters, zero between launches). Matrices built with the
-    same index tensors share items, scratch and tickets, so they launch
-    on one stream."""
+    arrays, the work items of B3 and B4 (csr_work_items) and of B2
+    (csr_stage_items, the `stage_*` fields), each table with the
+    kernels' own `scratch` (piece sums and per-item partial sums) and
+    `tickets` (integer counters, zero between launches). Matrices built
+    with the same index tensors share items, scratch and tickets, so
+    they launch on one stream."""
 
     indptr: torch.Tensor  # (rows + 1,) int32
     indices: torch.Tensor  # (nnz,) int32
@@ -138,6 +163,12 @@ class CsrKernelMatrix:
     items: torch.Tensor
     scratch: torch.Tensor  # (3 max(nitems, 1),) f32
     tickets: torch.Tensor  # (nitems + 1,) int32
+    # B2's table (csr_stage_items), in the same format
+    stage_items: torch.Tensor
+    stage_scratch: torch.Tensor  # (max(nstage, 1),) f32
+    stage_tickets: torch.Tensor  # (max(nstage, 1),) int32
+    stage_entries: int  # entry slots of a block's stage (stage_slots)
+    stage_rows: int  # row-pointer slots
 
     @property
     def nnz(self) -> int:
@@ -146,6 +177,11 @@ class CsrKernelMatrix:
     @property
     def nitems(self) -> int:
         return int(self.items.shape[0]) - 1
+
+    @property
+    def nstage(self) -> int:
+        """B2's items (blocks a launch)."""
+        return int(self.stage_items.shape[0]) - 1
 
     @property
     def device(self) -> torch.device:
@@ -166,6 +202,20 @@ class CsrKernelMatrix:
     def kernel_args_address(self) -> int:
         return ctypes.addressof(self.kernel_args)
 
+    @functools.cached_property
+    def stage_args(self) -> _StageArgs:
+        """B2's constant arguments, built at its first launch."""
+        return _StageArgs(
+            self.indptr.data_ptr(), self.indices.data_ptr(),
+            self.vals.data_ptr(), self.stage_items.data_ptr(),
+            self.stage_scratch.data_ptr(), self.stage_tickets.data_ptr(),
+            self.nstage, self.stage_entries, self.stage_rows,
+        )
+
+    @functools.cached_property
+    def stage_args_address(self) -> int:
+        return ctypes.addressof(self.stage_args)
+
 
 def _threads_per_row(rows: int, nnz: int) -> int:
     """Lanes per short row: the power of two nearest the mean row length
@@ -177,33 +227,55 @@ def _threads_per_row(rows: int, nnz: int) -> int:
 
 def csr_work_items(indptr: np.ndarray, tpr: int, item_entries: int,
                    split_rows: bool = True) -> np.ndarray:
-    """The item table of a CSR matrix with row pointers `indptr`, in row
-    order: (nitems + 1, 4) int64 rows [first entry, first row, index of
-    the piece in its row, pieces of its row], and a last row [nnz, rows,
-    0, 0]. A row longer than LONG_ROW_TRIPS * tpr entries is long: its
-    own item (pieces 1), or, longer than `item_entries` and with
-    `split_rows`, ceil(len / item_entries) pieces of floor or ceil of
-    equal shares. The short rows between long rows are cut into runs
-    (pieces 0) at the rows where the run's work before the row (entries
-    plus rows, a row at least item_entries / MAX_ITEM_ROWS) passes a
-    multiple of `item_entries`: at most MAX_ITEM_ROWS rows and
-    item_entries plus one row's entries."""
+    """The item table of B3 and B4 (csr_spmv.cuh) for a CSR matrix with
+    row pointers `indptr`, in row order: (nitems + 1, 4) int64 rows
+    [first entry, first row, index of the piece in its row, pieces of
+    its row], and a last row [nnz, rows, 0, 0]. A row longer than
+    LONG_ROW_TRIPS * tpr entries is long: its own item (pieces 1), or,
+    longer than `item_entries` and with `split_rows`, ceil(len /
+    item_entries) pieces of floor or ceil of equal shares. The short
+    rows between long rows are cut into runs (pieces 0) at the rows
+    where the run's work before the row (entries plus rows, a row at
+    least item_entries / MAX_ITEM_ROWS) passes a multiple of
+    `item_entries`: at most MAX_ITEM_ROWS rows and item_entries plus one
+    row's entries."""
     indptr = np.asarray(indptr, dtype=np.int64)
+    long = np.diff(indptr) > LONG_ROW_TRIPS * int(tpr)
+    return _item_table(indptr, long, item_entries, split_rows,
+                       least=-(-int(item_entries) // MAX_ITEM_ROWS))
+
+
+def csr_stage_items(indptr: np.ndarray, item_entries: int,
+                    split_rows: bool = True) -> np.ndarray:
+    """B2's item table (csrc/spmv_csr.cu), in csr_work_items' format: a
+    row longer than STAGE_LONG_ROW entries is long (its own item, or
+    pieces of at most `item_entries`); the rows between long rows are
+    cut into runs where the run's work before the row passes a multiple
+    of `item_entries`, a row counting its entries plus one (its store;
+    an empty row costs that one only). So a run holds at most
+    item_entries plus one row's entries and at most item_entries + 1
+    rows; the kernel stages all of them (stage_slots)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    long = np.diff(indptr) > STAGE_LONG_ROW
+    return _item_table(indptr, long, item_entries, split_rows, least=1)
+
+
+def _item_table(indptr: np.ndarray, long: np.ndarray, item_entries: int,
+                split_rows: bool, least: int) -> np.ndarray:
+    """The item table of the rows `long` marks long and the short runs
+    between them, each row of a run counting max(len + 1, least) units
+    (csr_work_items, csr_stage_items)."""
     if item_entries < 1:
         raise ValueError("item_entries must be positive")
     row_len = np.diff(indptr)
     rows = len(row_len)
-    long = row_len > LONG_ROW_TRIPS * int(tpr)
 
     # runs of short rows: a new run where a row follows a long row, or
-    # where the run's work before it passes a multiple of item_entries;
-    # a row counts at least item_entries / MAX_ITEM_ROWS units, so no
-    # run holds more than MAX_ITEM_ROWS rows
+    # where the run's work before it passes a multiple of item_entries
     short = np.flatnonzero(~long)
     starts = np.ones(len(short), dtype=bool)
     starts[1:] = short[1:] != short[:-1] + 1
     seg_first = np.flatnonzero(starts)[np.cumsum(starts) - 1]
-    least = -(-int(item_entries) // MAX_ITEM_ROWS)
     work_before = _exclusive_cumsum(np.maximum(row_len[short] + 1, least))
     key = (work_before - work_before[seg_first]) // int(item_entries)
     cut = starts.copy()
@@ -234,6 +306,39 @@ def csr_work_items(indptr: np.ndarray, tpr: int, item_entries: int,
     return items
 
 
+def stage_slots(items: np.ndarray) -> Tuple[int, int]:
+    """(entry slots, row-pointer slots) of B2's shared memory for the
+    item table `items`: room for the largest run's entries plus the up
+    to three slots its first entry sits into its 16-byte word, and for
+    the largest run's row pointers; each a multiple of 4. Long rows and
+    their pieces are not staged."""
+    items = np.asarray(items, dtype=np.int64)
+    runs = items[:-1, 3] == 0
+    sizes = np.diff(items[:, 0])[runs]
+    nrows = np.diff(items[:, 1])[runs]
+    entries = int(sizes.max()) if len(sizes) else 0
+    rows = int(nrows.max()) if len(nrows) else 0
+    return 4 * ((entries + 3 + 3) // 4), 4 * ((rows + 1 + 3) // 4)
+
+
+def stage_copies(e0: int, e1: int, word: int) -> Dict[str, Tuple[int, int]]:
+    """How B2 stages entries [e0, e1) of one array whose entry 0 sits at
+    4-byte slot `word` (0-3) of its 16-byte word (csrc/spmv_csr.cu,
+    stage_array): the 16-byte-aligned `middle` by one bulk copy, the
+    `head` before it and the `tail` after it (fewer than four entries
+    each) by plain loads, as [start, stop) entry ranges (empty: start ==
+    stop); `lo`, the slot of entry e0, so entry e goes to slot e - e0 +
+    lo."""
+    lo = (word + e0) & 3
+    a0 = e0 + ((4 - lo) & 3)
+    a1 = e1 - ((word + e1) & 3)
+    head_end = min(a0, e1)
+    tail_start = max(a1, head_end)
+    middle = (a0, a1) if a1 > a0 else (head_end, head_end)
+    return {"head": (e0, head_end), "middle": middle,
+            "tail": (tail_start, e1), "lo": (lo, lo)}
+
+
 def _f32_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(
         np.ascontiguousarray(a, dtype=np.float32), device=device
@@ -248,13 +353,25 @@ def _i32_tensor(a, device) -> torch.Tensor:
 
 def _item_tensors(indptr: np.ndarray, tpr: int, item_entries: int,
                   split_rows: bool, device) -> Dict[str, torch.Tensor]:
+    """Both item tables of a matrix with row pointers `indptr`, with
+    their scratch and tickets (CsrKernelMatrix's fields)."""
     items = csr_work_items(indptr, tpr, item_entries, split_rows)
     nitems = len(items) - 1
+    stage = csr_stage_items(indptr, item_entries, split_rows)
+    nstage = max(len(stage) - 1, 1)
+    entries, rows = stage_slots(stage)
     return {
         "items": _i32_tensor(items, device),
         "scratch": torch.empty(3 * max(nitems, 1), dtype=torch.float32,
                                device=device),
         "tickets": torch.zeros(nitems + 1, dtype=torch.int32, device=device),
+        "stage_items": _i32_tensor(stage, device),
+        "stage_scratch": torch.empty(nstage, dtype=torch.float32,
+                                     device=device),
+        "stage_tickets": torch.zeros(nstage, dtype=torch.int32,
+                                     device=device),
+        "stage_entries": entries,
+        "stage_rows": rows,
     }
 
 
@@ -269,8 +386,9 @@ def build_csr_kernel_matrix(
     pattern; its index tensors, items, scratch and tickets are reused on
     the device and only the values are transferred."""
     rows, cols = csr.shape
-    # a block's int32 walk steps up to ITEM_BLOCK_THREADS past its end
-    if csr.nnz >= 2**31 - ITEM_BLOCK_THREADS:
+    # B2's int32 walk of a long row steps up to STAGE_GATHER times
+    # ITEM_BLOCK_THREADS past its end
+    if csr.nnz >= 2**31 - STAGE_GATHER * ITEM_BLOCK_THREADS:
         raise ValueError("int32 CSR indices cannot hold this matrix")
     if index_from is not None:
         return dataclasses.replace(
@@ -293,10 +411,10 @@ def build_csr_kernel_matrix(
 def csr_with_items(mat: CsrKernelMatrix, item_entries: Optional[int] = None,
                    split_rows: bool = True,
                    tpr: Optional[int] = None) -> CsrKernelMatrix:
-    """`mat` with items of another size or another group width, or with
-    no row cut into pieces (split_rows=False: a long row is one block
-    however long); new scratch and tickets. A timing and testing
-    yardstick."""
+    """`mat` with items of another size or another group width (B3 and
+    B4's only), or with no row cut into pieces (split_rows=False: a long
+    row is one block however long), in both tables; new scratch and
+    tickets. A timing and testing yardstick."""
     item_entries = int(item_entries or mat.item_entries)
     tpr = int(tpr or mat.tpr)
     return dataclasses.replace(
@@ -325,6 +443,38 @@ def csr_item_stats(mat: CsrKernelMatrix) -> Dict[str, float]:
         "split_rows": int(np.sum((items[:-1, 3] > 1) & (items[:-1, 2] == 0))),
         "matrix_bytes": csr_kernel_bytes(mat),
         "item_table_bytes": int(mat.items.numel()) * 4,
+    }
+
+
+def stage_item_stats(mat: CsrKernelMatrix) -> Dict[str, float]:
+    """What a launch of B2 over `mat` looks like: blocks (one per item of
+    csr_stage_items), stored entries of the largest and of the mean
+    block, the stage's slots and the dynamic shared memory a block takes
+    for them, the bytes staged (each run's indices, values and row
+    pointers; long rows are walked from device memory), the empty rows
+    (a store of 0 each: no gather, no trip), rows walked by a whole
+    block and rows cut into pieces."""
+    items = mat.stage_items.cpu().numpy().astype(np.int64)
+    sizes = np.diff(items[:, 0])
+    runs = items[:-1, 3] == 0
+    block = ~runs
+    lengths = np.diff(mat.indptr.cpu().numpy().astype(np.int64))
+    return {
+        "design": "staged entries, a thread a row (csr_stage_items)",
+        "blocks": mat.nstage,
+        "item_entries": mat.item_entries,
+        "entries_per_block_max": int(sizes.max()) if len(sizes) else 0,
+        "entries_per_block_mean": float(sizes.mean()) if len(sizes) else 0.0,
+        "stage_entries": mat.stage_entries,
+        "stage_rows": mat.stage_rows,
+        "smem_bytes": 4 * (2 * mat.stage_entries + mat.stage_rows),
+        "bytes_staged": int(np.sum(8 * sizes[runs]
+                                   + 4 * (np.diff(items[:, 1])[runs] + 1))),
+        "empty_rows": int(np.sum(lengths == 0)),
+        "long_rows": int(np.sum(block & (items[:-1, 2] == 0))),
+        "split_rows": int(np.sum((items[:-1, 3] > 1) & (items[:-1, 2] == 0))),
+        "matrix_bytes": csr_kernel_bytes(mat),
+        "item_table_bytes": int(mat.stage_items.numel()) * 4,
     }
 
 
@@ -389,14 +539,16 @@ def _on_cpu(plan_or_mat, vec: torch.Tensor) -> bool:
 def _launch(lib: str, mat: CsrKernelMatrix, *args) -> None:
     """One launch of `lib` on the matrix's device and its current stream
     (whichever device is current: a mesh's blocks lie on several): the
-    matrix's constant arguments by address (built once), then the
-    call's own."""
+    matrix's constant arguments by address (built once; B2's own for
+    spmv_csr), then the call's own."""
     if mat.device.type != "cuda":
         raise ValueError(f"{lib}: the matrix is not on a CUDA device")
     fn = kernels_build.kernel_function(lib)
+    address = (mat.stage_args_address if lib == "spmv_csr"
+               else mat.kernel_args_address)
     with torch.cuda.device(mat.device):
         stream = torch.cuda.current_stream(mat.device).cuda_stream
-        err = fn(mat.kernel_args_address, *args, stream)
+        err = fn(address, *args, stream)
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
 
@@ -411,6 +563,19 @@ def spmv_csr(mat: CsrKernelMatrix, x: torch.Tensor) -> torch.Tensor:
     _launch("spmv_csr", mat, x.data_ptr(), y.data_ptr())
     LAUNCHES[f"spmv_csr:{mat.label}"] += 1
     return y
+
+
+def spmv_csr_attributes() -> Dict[str, int]:
+    """B2's kernel as the compiler gave it (cudaFuncGetAttributes):
+    registers a thread and static shared memory a block; its dynamic
+    shared memory is the matrix's (stage_item_stats' smem_bytes)."""
+    lib = kernels_build.build_kernels()["spmv_csr"]
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    err = lib.folp_spmv_csr_attributes(ctypes.byref(regs),
+                                       ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"spmv_csr attributes: CUDA error {err}")
+    return {"registers": regs.value, "static_smem_bytes": smem.value}
 
 
 def spmv_dual_step(mat, z, y, b, is_eq, sigma):

@@ -14,7 +14,11 @@ cut), empty rows and columns, more items than a block has threads. The
 CSR kernels also launch 20 times for the same bits with their tickets
 back at zero, are one launch a call (counted at the host's launch
 calls; the records torch.profiler keeps name only the port's kernels),
-return sums that outlive the next launch, and reject bad inputs. The
+return sums that outlive the next launch, and reject bad inputs; B2's
+staged walk is held to its plain version, 20 launches bitwise and one
+launch a call on 40% empty rows, items at every entry offset in a
+16-byte word (indices and values each moved off their word), rows past
+a stage and a row cut across items. The
 tile-plan kernels are held against their plain versions and against the
 CSR kernels, at the card's own strip sizes and at small ones that force
 ragged and empty strips and runs of one row across many steps, and on
@@ -54,7 +58,7 @@ import torch
 from firstorderlp_torch.generators import generate_pagerank_lp
 from firstorderlp_torch.ops import lanes as lane_ops
 from firstorderlp_torch.ops import routed
-from firstorderlp_torch.ops.compare_kernels import repeat_differs
+from firstorderlp_torch.ops.compare_kernels import repeat_differs, tickets_of
 
 pytestmark = pytest.mark.cuda
 
@@ -194,8 +198,88 @@ def test_csr_kernels_repeat_bitwise(cuda, name, split):
     zero after every launch."""
     a, op = csr_op(cuda, name, split)
     for key, call in csr_calls(op, cuda, *a.shape).items():
-        problem = repeat_differs(call, (op.a.tickets, op.at.tickets), 20)
+        problem = repeat_differs(call, tickets_of(op.a, op.at), 20)
         assert problem is None, (key, problem)
+
+
+def staged_matrix(case):
+    """B2's cases (csrc/spmv_csr.cu): 40% empty rows between short rows;
+    rows of many lengths, so small items start at every entry offset in
+    a 16-byte word; a row longer than a stage (5,000 entries: pieces of
+    at most 2,048) and rows past STAGE_LONG_ROW (walked by a whole
+    block) among short rows; the hub matrix's dense row cut across
+    items."""
+    rng = np.random.default_rng(11)
+    if case == "cut_row":
+        return hub_matrix(3000, 2500, 6000, 0)
+    if case == "empty40":
+        lengths = rng.integers(1, 12, 4000) * (rng.random(4000) >= 0.4)
+    elif case == "offsets":
+        lengths = rng.integers(0, 40, 3000)
+    else:  # long_rows
+        lengths = rng.integers(0, 9, 3000)
+        lengths[[10, 1500]] = (routed.STAGE_LONG_ROW + 44, 5000)
+    n = 6000
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, size=k, replace=False)) for k in lengths])
+    return sp.csr_matrix((rng.normal(size=indptr[-1]), indices, indptr),
+                         shape=(len(lengths), n))
+
+
+def misaligned(mat, cuda, shift_idx, shift_val):
+    """`mat` with its indices and values moved `shift_*` 4-byte slots
+    into a 16-byte word (views at a storage offset), so the bulk copies
+    of the two arrays start at other entries."""
+    def moved(t, shift):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+        view = buf[shift:shift + t.numel()]
+        view.copy_(t)
+        return view
+
+    return dataclasses.replace(mat, indices=moved(mat.indices, shift_idx),
+                               vals=moved(mat.vals, shift_val))
+
+
+@pytest.mark.parametrize("entries", [16, 256, routed.ITEM_ENTRIES])
+@pytest.mark.parametrize("case", ["empty40", "offsets", "long_rows",
+                                  "cut_row"])
+def test_spmv_csr_staged_walk_matches_plain_and_repeats(cuda, case,
+                                                        entries):
+    """B2 against its plain version on the card (the f32 rounding
+    class), 20 launches bitwise equal with its tickets back at zero, and
+    one launch a call, on each case of staged_matrix at items of 16, 256
+    and 2,048 units, both orientations, with the indices and the values
+    at every offset in their 16-byte words."""
+    a = sp.csr_matrix(staged_matrix(case))
+    a.sum_duplicates()
+    for label, csr in (("A", a), ("AT", sp.csr_matrix(a.T))):
+        mat = routed.csr_with_items(
+            routed.build_csr_kernel_matrix(csr, cuda, label), entries)
+        starts = mat.stage_items[:-1, 0].cpu().numpy() % 4
+        if entries == 16:
+            assert set(starts.tolist()) == {0, 1, 2, 3}
+        if case == "long_rows" and label == "A":
+            stats = routed.stage_item_stats(mat)
+            assert stats["long_rows"] == 2
+            assert stats["split_rows"] == (2 if entries < 300 else 1)
+        x = torch.randn(csr.shape[1], device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+        scale = abs(csr) @ np.abs(x.cpu().numpy().astype(np.float64))
+        want = routed.spmv_csr_plain(mat, x)
+        for shift in range(4):
+            moved = misaligned(mat, cuda, shift, (shift + 1) % 4)
+            check(routed.spmv_csr(moved, x), want, scale)
+        routed.reset_launch_counts()
+        problem = repeat_differs(lambda: routed.spmv_csr(mat, x),
+                                 tickets_of(mat), 20)
+        assert problem is None, (label, problem)
+        assert routed.LAUNCHES[f"spmv_csr:{label}"] == 20
+        if case == "empty40" and label == "A":
+            got = routed.spmv_csr(mat, x)
+            empty = torch.as_tensor(np.diff(csr.indptr) == 0, device=cuda)
+            assert float(empty.float().mean()) > 0.35
+            assert not got[empty].any()
 
 
 def test_csr_kernels_are_one_launch_a_call(cuda):
@@ -901,7 +985,7 @@ def test_block_lanes_spmv_matches_plain_and_repeats(cuda, item_entries):
         assert torch.all((got - want).abs() <= 1e-5 * scale + 1e-7)
         problem = repeat_differs(
             lambda mat=mat, v=v: routed.spmv_csr(mat, v.reshape(-1)),
-            (mat.tickets,))
+            tickets_of(mat))
         assert problem is None, problem
     routed.reset_launch_counts()
     op.mv(x)

@@ -83,15 +83,16 @@ def c_struct_fields(name: str):
     return fields
 
 
-@pytest.mark.parametrize("struct", ["CsrArgs", "LanesArgs"])
+@pytest.mark.parametrize("struct", ["CsrArgs", "LanesArgs", "StageArgs"])
 def test_argument_structs_match_the_c_structs(struct):
     """The ctypes structures the wrappers pass by address (routed's
-    CsrArgs, lanes' LanesArgs) have the C structure's members, in order
-    and of the same kind, so a kernel reads each argument where the
-    wrapper put it."""
+    CsrArgs and B2's StageArgs, lanes' LanesArgs) have the C structure's
+    members, in order and of the same kind, so a kernel reads each
+    argument where the wrapper put it."""
     from firstorderlp_torch.ops import lanes, routed
 
-    cls = {"CsrArgs": routed._CsrArgs, "LanesArgs": lanes._LanesArgs}[struct]
+    cls = {"CsrArgs": routed._CsrArgs, "LanesArgs": lanes._LanesArgs,
+           "StageArgs": routed._StageArgs}[struct]
     kind = {ctypes.c_void_p: "p", ctypes.c_int: "i"}
     assert [(n, kind[t]) for n, t in cls._fields_] == c_struct_fields(struct)
 
