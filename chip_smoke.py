@@ -43,9 +43,18 @@ Phases, each printing one JSON line:
    kernel's launch count on that run;
 4. main_path: firstorderlp_torch.optimize on that LP in f32 with the
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
-   on the host and each kernel's launch count on that run;
+   on the host, each kernel's launch count on that run (the graph
+   replays credited) and what its segments did (ops/graphs.COUNTS:
+   steps, read-backs a segment, replays, the capture and its seconds,
+   which the solve's seconds include); every trial must be a replay;
    then the same solve warm (with --profile, under torch.profiler:
-   device busy time and the ops that take it); with --parent DIR,
+   device busy time and idle share, the ops that take it);
+   segment_graph: one segment's steps replayed from the bundle's CUDA
+   graph against the same steps run eagerly, from one state at
+   iteration 81, PDHG on CSR and on the tile plan and Mirror Prox on
+   CSR: every field bitwise equal, the same launches, read-backs a
+   segment, replays, the capture's seconds, the host's launch calls a
+   step and seconds in turns; with --parent DIR,
    main_path_parent: the warm solve and mirror_prox_path's at six seeds
    by another version of the package (DIR holds it as
    firstorderlp_torch_parent) and by this one, in turns (ms an
@@ -63,7 +72,8 @@ Phases, each printing one JSON line:
    launched (iterations, seconds); solve_lp_external with HiGHS on a
    2,000-node LP, residuals evaluated on the card; a traced optimize
    (profiler_trace_dir) on the 20k-node LP between two untraced ones,
-   whose Chrome trace must name the port's folp:: kernels; the build
+   bitwise equal to them, whose Chrome trace must name the port's
+   folp:: kernels; the build
    phase prints compile_meter's split;
 5. determinism: the 20k-node LP solved twice, both OPTIMAL with
    bitwise-equal results;
@@ -71,14 +81,16 @@ Phases, each printing one JSON line:
    100k-node LP to OPTIMAL at 1e-8 with the f32 phases on the tile-plan
    kernels (ops.routed.DEFAULT_TILE_ALIGNED set for the phase),
    residuals and gap recomputed in f64 here, the tile-plan kernels'
-   launch counts above 0 and the CSR kernels' at 0;
+   launch counts above 0 and the CSR kernels' at 0, what the segments
+   did (each shifted sub-solve's bundle captures its own graph);
 7. determinism_tiled: the 20k-node LP solved twice on the tile plan;
 8. mirror_prox_path: firstorderlp_torch.optimize with
    MirrorProxParameters on the 100k-node LP in f32 with the kernel
    operator (CSR layout, l2 mirror map), to OPTIMAL at 1e-4, residuals
    and gap recomputed in f64 here, spmv_csr launched at least twice per
-   iteration for A and for A', every other kernel of ops/routed.py at 0
-   (with --profile the same solve again under torch.profiler);
+   iteration for A and for A', every other kernel of ops/routed.py at 0,
+   every iteration a replay and no read-back in the steps (with
+   --profile the same solve again under torch.profiler);
 9. determinism_mp: the 20k-node LP solved twice by Mirror Prox on the
    tile plan, tiled_spmv launched and the CSR kernels not;
 10. kernels_lanes: the lane kernel L1 (ops/lanes.py) on the 128-lane
@@ -1246,6 +1258,172 @@ def distributed_worker(argv) -> int:
     return 0
 
 
+def segment_counts(graphs):
+    """What the solvers' segments did in the run just made
+    (ops/graphs.COUNTS): segments, steps, read-backs a segment, graph
+    replays, captures and their seconds (warm-up included)."""
+    c = graphs.COUNTS
+    return {"segments": c["segments"], "steps": c["steps"],
+            "read_backs": c["read_backs"],
+            "read_backs_per_segment": c["read_backs"] / max(
+                c["segments"], 1),
+            "replays": c["replays"], "captures": c["captures"],
+            "capture_seconds": c["capture_seconds"]}
+
+
+def states_equal(a, b) -> bool:
+    """Every field of two solver states equal: tensors bitwise (NaN
+    payloads too), host values by ==, a host number against a 0-d tensor
+    by value."""
+    import torch
+
+    if dataclasses.is_dataclass(a):
+        return all(states_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype in ints:
+            a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+        return bool(torch.equal(a, b))
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return float(a) == float(b)
+    return a == b
+
+
+# segment_graph's first segments: iterations 1-9 one each, 10 -> 41,
+# 41 -> 81; the compared segment starts at 81
+SEGMENT_WARMUP = 11
+
+
+def segment_graph(torch, routed, problem, params, mp_params, dev):
+    """One segment's steps on the 100k-node LP, from the state its
+    evaluation at iteration 81 left (the first SEGMENT_WARMUP segments
+    run as optimize runs them, the graph captured in the first),
+    replayed from the bundle's CUDA graph and run eagerly (the solvers'
+    private `_eager`): PDHG on CSR and on the tile plan, Mirror Prox on
+    CSR. Both must give every field of the state bitwise and the same
+    kernel launches; PDHG reads back once a round (so at most once more
+    than its rejected trials), Mirror Prox never. Reported: steps,
+    accepted steps, read-backs, replays, the graph captured and its
+    seconds, the host's launch calls a step (torch.profiler: kernel
+    launches, copies and memsets, and cudaGraphLaunch) and the seconds
+    of the steps untraced, in turns (eager, replayed, replayed,
+    eager)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from firstorderlp_torch.models import mirror_prox, pdhg
+    from firstorderlp_torch.models.common import next_eval_iteration
+    from firstorderlp_torch.ops import graphs
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+
+    calls_of = LAUNCH_CALLS | {"cudaGraphLaunch"}
+
+    def host_calls(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, sum(e.count for e in prof.key_averages()
+                        if e.key in calls_of)
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    rows, problems = [], []
+    for label, solver, tile in (("pdhg_csr", pdhg, False),
+                                ("pdhg_tiled", pdhg, True),
+                                ("mirror_prox_csr", mirror_prox, False)):
+        p = params if solver is pdhg else mp_params
+        routed.DEFAULT_TILE_ALIGNED = tile
+        try:
+            prepared = solver.prepare_problem(p, problem, device=dev)
+        finally:
+            routed.DEFAULT_TILE_ALIGNED = False
+        bundle, config = prepared.bundle, solver._make_config(p)
+        graphs.reset_counts()
+        state = prepared.initial_state
+        for _ in range(SEGMENT_WARMUP):
+            state, _ = solver._segment_core(bundle, state, 0.0, config)
+        captured = segment_counts(graphs)
+        state, result = solver._eval_block(bundle, state, 0.0, config)
+        start = result.iteration + 1
+        if solver is pdhg:
+            def run(eager):
+                return pdhg._run_trials(bundle, state, config, _eager=eager)
+        else:
+            steps = next_eval_iteration(start, config) - start
+
+            def run(eager):
+                return mirror_prox._run_iterations(bundle, state, steps,
+                                                   _eager=eager)
+        runs = {}
+        for mode in ("eager", "graphed"):
+            graphs.reset_counts()
+            routed.reset_launch_counts()
+            out, calls = host_calls(lambda: run(mode == "eager"))
+            runs[mode] = (out, calls, dict(routed.LAUNCHES),
+                          segment_counts(graphs))
+        (eager, eager_calls, eager_launches, eager_counts) = runs["eager"]
+        (graphed, graph_calls, graph_launches, graph_counts) = runs["graphed"]
+        steps_run = graph_counts["steps"]
+        if solver is pdhg:
+            accepted = graphed.iteration - start
+            rejected = steps_run - accepted
+        else:
+            accepted = int(graphed.accepted_iterations) - int(
+                state.accepted_iterations)
+            rejected = None
+        row = {
+            "label": label, "iteration": start, "steps": steps_run,
+            "accepted": accepted, "rejected_trials": rejected,
+            "bitwise_equal": states_equal(graphed, eager),
+            "launches_equal": graph_launches == eager_launches,
+            "launches": graph_launches,
+            "read_backs": {"eager": eager_counts["read_backs"],
+                           "graphed": graph_counts["read_backs"]},
+            "replays": graph_counts["replays"],
+            "captures": captured["captures"],
+            "capture_seconds": captured["capture_seconds"],
+            "host_launch_calls_per_step": {
+                "eager": eager_calls / max(steps_run, 1),
+                "graphed": graph_calls / max(steps_run, 1)},
+        }
+        # untraced, in turns: eager, replayed, replayed, eager
+        row["seconds"] = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            row["seconds"][mode].append(
+                seconds(lambda: run(mode == "eager")))
+        rows.append(row)
+        if not row["bitwise_equal"]:
+            problems.append(f"{label}: replayed and eager states differ")
+        if not row["launches_equal"]:
+            problems.append(f"{label}: launches {graph_launches} against "
+                            f"{eager_launches}")
+        if row["replays"] != steps_run or captured["captures"] != 1:
+            problems.append(f"{label}: {row['replays']} replays for "
+                            f"{steps_run} steps, {captured['captures']} "
+                            "captures")
+        if solver is pdhg:
+            most = 1 + rejected
+            if not (1 <= graph_counts["read_backs"] <= most
+                    and eager_counts["read_backs"]
+                    == graph_counts["read_backs"]):
+                problems.append(f"{label}: read-backs {row['read_backs']}")
+        elif graph_counts["read_backs"] or eager_counts["read_backs"]:
+            problems.append(f"{label}: Mirror Prox read back")
+        del prepared, bundle, state, eager, graphed
+    return {"phase": "segment_graph", "ok": not problems,
+            "nodes": NODES, "rows": rows,
+            **({"problems": problems} if problems else {})}
+
+
 def free_port() -> int:
     import socket
 
@@ -2264,7 +2442,7 @@ def cli_path(torch, routed, problem, small, main_out, params, dev,
         trace_dir = os.path.join(tmp, "trace")
         traced_params = dataclasses.replace(params,
                                             profiler_trace_dir=trace_dir)
-        solves = {}
+        solves, traced_bits = {}, {}
         for label, p in (("untraced", params), ("traced", traced_params),
                          ("untraced_again", params)):
             torch.cuda.synchronize()
@@ -2274,6 +2452,7 @@ def cli_path(torch, routed, problem, small, main_out, params, dev,
             solves[label] = {"seconds": time.time() - t0,
                              "iterations": o.iteration_count,
                              "reason": o.termination_reason.name}
+            traced_bits[label] = as_record(o)
         trace_path = os.path.join(trace_dir, PROFILER_TRACE_FILE)
         with open(trace_path) as f:
             events = json.load(f)["traceEvents"]
@@ -2290,6 +2469,13 @@ def cli_path(torch, routed, problem, small, main_out, params, dev,
         if any(v["reason"] != "TERMINATION_REASON_OPTIMAL"
                for v in solves.values()):
             problems.append(f"traced or untraced solve: {solves}")
+        # the traced solve (its steps replayed from a graph captured
+        # under the profiler) is bitwise the untraced ones
+        rec["trace"]["bitwise_equal"] = all(
+            same_bits(traced_bits["untraced"], traced_bits[label])
+            for label in ("traced", "untraced_again"))
+        if not rec["trace"]["bitwise_equal"]:
+            problems.append("the traced solve differs from the untraced")
     rec["ok"] = not problems
     if problems:
         rec["problems"] = problems
@@ -2454,6 +2640,8 @@ def main() -> int:
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         prepare_problem, kernels_build, routed, refine, mirror_prox,
         probe, compare) -> int:
+    from firstorderlp_torch.ops import graphs
+
     dev = torch.device("cuda")
     time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
     device_ms = compare.device_ms  # torch.profiler, per call
@@ -2936,11 +3124,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     torch.cuda.synchronize()
     prepare_s = time.time() - t0
     routed.reset_launch_counts()
+    graphs.reset_counts()
     t0 = time.time()
     out = optimize(params, problem, prepared=prepared)
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     launches = dict(routed.LAUNCHES)
+    main_segments = segment_counts(graphs)
     reason = out.termination_reason.name
     stats = out.iteration_stats[-1] if out.iteration_stats else None
     res = host_residuals(problem, out.primal_solution, out.dual_solution)
@@ -2951,6 +3141,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "prepare_seconds": prepare_s, "solve_seconds": solve_s,
         "iterations_per_second": out.iteration_count / solve_s,
         "host_f64": res, "launches": launches,
+        # the solve's seconds include the capture's
+        "segments": main_segments,
         "finite": bool(np.all(np.isfinite(out.primal_solution))
                        and np.all(np.isfinite(out.dual_solution))),
     }
@@ -2966,6 +3158,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     csr_names = [r["name"] for r in results]
     if any(launches[k] <= 0 for k in csr_names):
         problems.append(f"a kernel was not launched: {launches}")
+    if main_segments["replays"] != main_segments["steps"]:
+        problems.append(f"not every trial was replayed: {main_segments}")
     main["ok"] = not problems
     if problems:
         main["problems"] = problems
@@ -2981,18 +3175,27 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # loaded), optionally under torch.profiler for the device busy time.
     warm = prepare_problem(params, problem, device=dev)
     torch.cuda.synchronize()
+    graphs.reset_counts()
     with timed(torch, args.profile) as warm_run:
         out2 = optimize(params, problem, prepared=warm)
     warm_s = warm_run["seconds"]
     record = {"phase": "main_path_warm", "ok": True,
               "iterations": out2.iteration_count,
               "solve_seconds": warm_s,
-              "iterations_per_second": out2.iteration_count / warm_s}
+              "iterations_per_second": out2.iteration_count / warm_s,
+              "segments": segment_counts(graphs)}
     if args.profile:
         record["profile"] = warm_run["profile"]
     emit(record)
     warm_rec = record
     del prepared, warm
+
+    # 4a. one segment's steps replayed from a CUDA graph and run eagerly
+    record = segment_graph(torch, routed, problem, params,
+                           make_mp_params(1e-4, 20_000), dev)
+    emit(record)
+    if not record["ok"]:
+        raise SystemExit(1)
     if args.parent:
         for parent_phase in (main_path_parent, hetero_parent):
             record = parent_phase(torch, compare, args.parent, dev)
@@ -3055,6 +3258,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         refine._optimize = logged_optimize
         try:
             routed.reset_launch_counts()
+            graphs.reset_counts()
             with timed(torch, profile_on) as run:
                 result = refine.optimize_iterative_refinement(
                     refine_params, problem, device=dev
@@ -3062,12 +3266,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             for stage in stages:
                 stage["begin"] -= run["t0"]
             return (result, run["seconds"], dict(routed.LAUNCHES),
-                    run.get("profile"))
+                    run.get("profile"), segment_counts(graphs))
         finally:
             refine._optimize = inner_optimize
             routed.DEFAULT_TILE_ALIGNED = False
 
-    (rout, used_fallback), refine_s, refine_launches, _ = run_refine()
+    (rout, used_fallback), refine_s, refine_launches, _, refine_segments = (
+        run_refine())
     rstats = rout.iteration_stats[-1] if rout.iteration_stats else None
     rres = host_residuals(problem, rout.primal_solution, rout.dual_solution)
     rounds = (
@@ -3083,6 +3288,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "kkt_passes": rstats.cumulative_kkt_matrix_passes if rstats else None,
         "seconds": refine_s, "host_f64": rres,
         "launches": refine_launches,
+        # each shifted sub-solve's bundle is new: its own capture
+        "segments": refine_segments,
     }
     problems = []
     if rec["reason"] != "TERMINATION_REASON_OPTIMAL":
@@ -3109,7 +3316,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if args.profile:
         # The same path again under torch.profiler (operators built anew,
         # kernels loaded): where its wall time goes.
-        (pout, _), profiled_s, _, summary = run_refine(profile_on=True)
+        (pout, _), profiled_s, _, summary, _ = run_refine(profile_on=True)
         emit({"phase": "refine_path_profiled", "ok": True,
               "iterations": pout.iteration_count,
               "stages": list(stages), "seconds": profiled_s,
@@ -3145,11 +3352,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     mp_params = make_mp_params(1e-4, 20_000)
     routed.reset_launch_counts()
+    graphs.reset_counts()
     t0 = time.time()
     mout = package_optimize(mp_params, problem, device=dev)
     torch.cuda.synchronize()
     mp_s = time.time() - t0
     mp_launches = dict(routed.LAUNCHES)
+    mp_segments = segment_counts(graphs)
     mstats = mout.iteration_stats[-1] if mout.iteration_stats else None
     mres = host_residuals(problem, mout.primal_solution, mout.dual_solution)
     iters = max(mout.iteration_count, 1)
@@ -3159,6 +3368,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         "iterations": mout.iteration_count,
         "kkt_passes": mstats.cumulative_kkt_matrix_passes if mstats else None,
         "seconds": mp_s, "host_f64": mres, "launches": mp_launches,
+        "segments": mp_segments,
         "spmv_launches_per_iteration": (
             mp_launches["spmv_csr:A"] + mp_launches["spmv_csr:AT"]
         ) / iters,
@@ -3178,6 +3388,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     others = [k for k in mp_launches if not k.startswith("spmv_csr:")]
     if any(mp_launches[k] != 0 for k in others):
         problems.append(f"another kernel was launched: {mp_launches}")
+    if (mp_segments["replays"] != mp_segments["steps"]
+            or mp_segments["read_backs"] != 0):
+        problems.append(f"iterations not replayed or read back: "
+                        f"{mp_segments}")
     rec["ok"] = not problems
     if problems:
         rec["problems"] = problems
@@ -3193,11 +3407,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     mp_warm = mirror_prox.prepare_problem(mp_params, problem, device=dev)
     torch.cuda.synchronize()
     mp_prepare_s = time.time() - t0
+    graphs.reset_counts()
     with timed(torch, args.profile) as mp_run:
         pout = mirror_prox.optimize(mp_params, problem, prepared=mp_warm)
     record = {"phase": "mirror_prox_path_warm", "ok": True,
               "iterations": pout.iteration_count,
               "prepare_seconds": mp_prepare_s,
+              "segments": segment_counts(graphs),
               "solve_seconds": mp_run["seconds"],
               "iterations_per_second": (
                   pout.iteration_count / mp_run["seconds"])}

@@ -78,6 +78,7 @@ from .models.common import (
     evaluate_unscaled_stats,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
+    next_eval_iteration,
     torch_dtype,
 )
 from .ops.block_lanes import build_block_lanes
@@ -1525,16 +1526,6 @@ def _is_eval_iteration(iteration, config):
             | (iteration <= 10))
 
 
-def next_eval_iteration(iteration: int, config) -> int:
-    """The first evaluation iteration after `iteration` (host ints)."""
-    if iteration + 1 <= 10:
-        return iteration + 1
-    freq = config.termination_evaluation_frequency
-    following = iteration + freq - (iteration - 1) % freq
-    limit = int(config.criteria.iteration_limit) + 1
-    return min(following, limit) if limit > iteration else following
-
-
 class SegmentCounts(NamedTuple):
     running: bool  # some lane runs after the evaluation
     trials: int  # step trials launched
@@ -1586,15 +1577,8 @@ def run_segment(bundle, state, elapsed_time, config):
 
 
 def _config(params):
-    need = bool(params.record_iteration_stats or params.verbosity > 0)
     if _is_mp(params):
-        return _mp._MpConfig(
-            criteria=params.termination_criteria,
-            restart_params=params.restart_params,
-            termination_evaluation_frequency=int(
-                params.termination_evaluation_frequency),
-            need_bound_estimates=need,
-        )
+        return _mp._make_config(params)
     return _pdhg._make_config(params)
 
 

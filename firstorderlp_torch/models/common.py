@@ -9,6 +9,7 @@ evaluation are read back to the host in one transfer.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -176,6 +177,26 @@ def initial_primal_weight_host(
     if verbosity >= 6:
         print(f"Initial primal weight = {primal_weight}")
     return float(primal_weight)
+
+
+def next_eval_iteration(iteration: int, config) -> int:
+    """The first evaluation iteration after `iteration` (host ints): the
+    iteration at which a segment that starts at `iteration` ends."""
+    if iteration + 1 <= 10:
+        return iteration + 1
+    freq = config.termination_evaluation_frequency
+    following = iteration + freq - (iteration - 1) % freq
+    limit = int(config.criteria.iteration_limit) + 1
+    return min(following, limit) if limit > iteration else following
+
+
+def select_average(cond, a, b):
+    """SolutionWeightedAverage `a` where the 0-d bool `cond`, else `b`,
+    field by field."""
+    return type(a)(*(
+        torch.where(cond, getattr(a, f.name), getattr(b, f.name))
+        for f in dataclasses.fields(a)
+    ))
 
 
 def torch_dtype(name: str) -> torch.dtype:

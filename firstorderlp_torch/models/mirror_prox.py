@@ -12,19 +12,22 @@ iteration. The pseudo-gradient is computed with one A and one A' product
 (c + Qx - A'y, Ax - b); with the kernel operator these are the plain
 `mv`/`rmv` kernels of ops/routed.py.
 
-Execution model: eager PyTorch, a host loop over segments (one
-termination/restart evaluation, then the steps up to the next evaluation
-iteration). An iteration has no retry loop, so it is written without any
-read-back: accept/reject and the zero-movement case are `torch.where`s
-on 0-d tensors, and the counters that they steer (iteration, KKT passes,
+Execution model: a host loop over segments (one termination/restart
+evaluation, then the steps up to the next evaluation iteration). An
+iteration has no retry loop, so it is written without any read-back:
+accept/reject and the zero-movement case are `torch.where`s on 0-d
+tensors, and the counters that they steer (iteration, KKT passes,
 average counts, the numerical-error flag) live on the device. The host
-knows which iterations evaluate, and reads the flag, the counters and the
-termination reason only there.
+knows how many iterations a segment runs, and reads the flag, the
+counters and the termination reason only at evaluations. On the f32
+kernel operator on a CUDA device, each iteration is a replay of a CUDA
+graph captured once on the device bundle (ops/graphs.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -37,6 +40,7 @@ from ..iteration_stats import (
     print_to_screen_this_iteration,
     to_host_stats,
 )
+from ..ops import graphs
 from ..ops.device import resolve_device
 from ..ops.device_problem import DeviceScaledQp, to_device_scaled
 from ..ops.routed_sharded import agreed_seconds
@@ -66,6 +70,8 @@ from .common import (
     evaluate_unscaled_stats,
     host_floats,
     matrix_inf_norm_entrywise,
+    next_eval_iteration,
+    select_average,
     torch_dtype,
 )
 
@@ -169,37 +175,21 @@ def _bregman(primal_scaling, dual_scaling, dx, dy):
     )
 
 
-def _step_size_factors(iteration: int, dtype):
-    """(1 - (iteration + 1)^-0.3, 1 + (iteration + 1)^-0.6), computed on
-    the host in the working precision (numpy's pow; the JAX package uses
-    XLA's, which can differ in the last bit)."""
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    it1 = np_dtype(iteration) + np_dtype(1.0)
-    shrink = np_dtype(1) - it1 ** np_dtype(-0.3)
-    grow = np_dtype(1) + it1 ** np_dtype(-0.6)
-    return float(shrink), float(grow)
+def _step_size_factors(iteration, dtype):
+    """(1 - (iteration + 1)^-0.3, 1 + (iteration + 1)^-0.6) from the
+    device counter `iteration` (a 0-d int64 tensor), on its device in
+    the working precision, as batch._mp_step_size_factors (the JAX
+    package uses XLA's pow, which can differ in the last bit)."""
+    it1 = iteration.to(dtype) + 1.0
+    return 1 - it1 ** (-0.3), 1 + it1 ** (-0.6)
 
 
-def _select(cond, a: SolutionWeightedAverage, b: SolutionWeightedAverage):
-    return SolutionWeightedAverage(
-        *(
-            torch.where(cond, getattr(a, f.name), getattr(b, f.name))
-            for f in dataclasses.fields(SolutionWeightedAverage)
-        )
-    )
-
-
-def _take_step(problem, state: MirrorProxState,
-               iteration: Optional[int] = None) -> MirrorProxState:
+def _take_step(problem, state: MirrorProxState) -> MirrorProxState:
     """One extragradient iteration (reference mirror_prox.jl:855-917),
-    with no read-back from the device.
-
-    `iteration`: the state's iteration as the host loop knows it, for the
-    step-size rule's factors; read from the state (one read-back) when
-    None. A state whose numerical-error flag is already set stays as it
-    is: the host loop learns of the flag only at the next evaluation."""
-    if iteration is None:
-        iteration = int(state.iteration)
+    with no read-back from the device: the step-size rule's factors come
+    from the state's own `iteration` on the device. A state whose
+    numerical-error flag is already set stays bitwise as it is: the host
+    loop learns of the flag only at the next evaluation."""
     x, y = state.current_primal, state.current_dual
     gx, gy = _pseudo_gradient(problem, x, y)
     test_x, test_y = _proximal_step(
@@ -232,7 +222,7 @@ def _take_step(problem, state: MirrorProxState,
 
     new_x = torch.where(accept, cand_x, x)
     new_y = torch.where(accept, cand_y, y)
-    new_avg = _select(
+    new_avg = select_average(
         accept,
         add_to_solution_weighted_average(
             state.avg, test_x, test_y, state.step_size
@@ -240,7 +230,8 @@ def _take_step(problem, state: MirrorProxState,
         state.avg,
     )
 
-    shrink, grow = _step_size_factors(iteration, state.step_size.dtype)
+    shrink, grow = _step_size_factors(state.iteration,
+                                      state.step_size.dtype)
     new_step = torch.minimum(
         shrink / torch.abs(inv_stepsize_required), grow * state.step_size
     )
@@ -256,7 +247,7 @@ def _take_step(problem, state: MirrorProxState,
         state,
         current_primal=unless_frozen(new_x, x),
         current_dual=unless_frozen(new_y, y),
-        avg=_select(frozen, state.avg, new_avg),
+        avg=select_average(frozen, state.avg, new_avg),
         step_size=unless_frozen(new_step, state.step_size),
         accepted_iterations=unless_frozen(
             state.accepted_iterations + accept.to(torch.int64),
@@ -270,15 +261,6 @@ def _take_step(problem, state: MirrorProxState,
             state.cumulative_kkt_passes,
         ),
         numerical_error=frozen,
-    )
-
-
-def _is_eval_iteration(iteration: int, config: _MpConfig) -> bool:
-    freq = config.termination_evaluation_frequency
-    return (
-        (iteration - 1) % freq == 0
-        or iteration == config.criteria.iteration_limit + 1
-        or iteration <= 10
     )
 
 
@@ -414,27 +396,82 @@ def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
     return new_state, result
 
 
+# The MirrorProxState fields an iteration reads or writes
+# (ops/graphs.StepGraph).
+ITERATION_FIELDS = (
+    "current_primal", "current_dual", "primal_scaling", "dual_scaling",
+    "avg", "step_size", "numerical_error", "cumulative_kkt_passes",
+    "iteration", "iterations_completed", "accepted_iterations",
+)
+
+
+def _iterate(problem, state: MirrorProxState) -> MirrorProxState:
+    """One iteration of a segment: _take_step, and the iteration counter
+    one on unless the numerical-error flag was already set (the device's
+    counter stops one past the failing iteration, as the reference's
+    does)."""
+    running = ~state.numerical_error
+    state = _take_step(problem, state)
+    return dataclasses.replace(
+        state, iteration=state.iteration + running.to(torch.int64)
+    )
+
+
+def _counts_on_device(state: MirrorProxState) -> MirrorProxState:
+    """The state with its average's counts as 0-d int64 tensors on its
+    device, as an iteration leaves them (an evaluation leaves host
+    ints)."""
+    device = state.step_size.device
+
+    def count(value):
+        if isinstance(value, torch.Tensor):
+            return value
+        return torch.full((), value, dtype=torch.int64, device=device)
+
+    avg = state.avg
+    return dataclasses.replace(state, avg=dataclasses.replace(
+        avg,
+        sum_primal_solutions_count=count(avg.sum_primal_solutions_count),
+        sum_dual_solutions_count=count(avg.sum_dual_solutions_count),
+    ))
+
+
+def _run_iterations(bundle: DeviceScaledQp, state: MirrorProxState,
+                    iterations: int,
+                    _eager: bool = False) -> MirrorProxState:
+    """`iterations` iterations with no read-back. On the f32 kernel
+    operator on a CUDA device (ops/graphs.graphable) each is a replay of
+    the bundle's captured iteration; everything else runs them eagerly.
+    `_eager` runs them eagerly there too, for the smoke's parity phase
+    only."""
+    problem = bundle.scaled
+    state = _counts_on_device(state)
+    graphs.COUNTS["segments"] += 1
+    graphs.COUNTS["steps"] += iterations
+    if not graphs.graphable(problem) or _eager:
+        for _ in range(iterations):
+            state = _iterate(problem, state)
+        return state
+    graph = graphs.cached(bundle, ("mirror_prox",), lambda: graphs.StepGraph(
+        functools.partial(_iterate, problem), state, ITERATION_FIELDS))
+    graph.load(state)
+    graph.replay(iterations)
+    return graph.unload(state)
+
+
 def _segment_core(bundle: DeviceScaledQp, state: MirrorProxState,
-                  elapsed_time, config: _MpConfig):
-    """One evaluation + the iterations up to the next evaluation point.
-    No step reads anything back: should the numerical-error flag come up
-    on the way, the remaining steps leave the state as it is (and the
-    device's iteration counter stops one past the failing iteration, as
-    the reference's does), and the next evaluation reports it."""
+                  elapsed_time, config: _MpConfig, _eager: bool = False):
+    """One evaluation + the iterations up to the next evaluation point,
+    whose count the host knows. No iteration reads anything back: should
+    the numerical-error flag come up on the way, the remaining
+    iterations leave the state as it is, and the next evaluation reports
+    it."""
     state, result = _eval_block(bundle, state, elapsed_time, config)
-    start_iteration = result.iteration + 1
-    iteration = start_iteration
-    while state.termination_reason == 0 and (
-        iteration == start_iteration
-        or not _is_eval_iteration(iteration, config)
-    ):
-        running = ~state.numerical_error
-        state = _take_step(bundle.scaled, state, iteration)
-        state = dataclasses.replace(
-            state, iteration=state.iteration + running.to(torch.int64)
-        )
-        iteration += 1
-    return state, result
+    if state.termination_reason != 0:
+        return state, result
+    start = result.iteration + 1
+    iterations = next_eval_iteration(start, config) - start
+    return _run_iterations(bundle, state, iterations, _eager), result
 
 
 def _final_bound_estimates(bundle, avg_primal, avg_dual, primal_scaling,
@@ -657,6 +694,19 @@ def prepare_problem(
     )
 
 
+def _make_config(params: MirrorProxParameters) -> _MpConfig:
+    return _MpConfig(
+        criteria=params.termination_criteria,
+        restart_params=params.restart_params,
+        termination_evaluation_frequency=int(
+            params.termination_evaluation_frequency
+        ),
+        need_bound_estimates=bool(
+            params.record_iteration_stats or params.verbosity > 0
+        ),
+    )
+
+
 def optimize(
     params: MirrorProxParameters,
     original_problem: QuadraticProgrammingProblem,
@@ -684,16 +734,7 @@ def optimize(
     bundle = prepared.bundle
     state = prepared.initial_state
 
-    config = _MpConfig(
-        criteria=params.termination_criteria,
-        restart_params=params.restart_params,
-        termination_evaluation_frequency=int(
-            params.termination_evaluation_frequency
-        ),
-        need_bound_estimates=bool(
-            params.record_iteration_stats or params.verbosity > 0
-        ),
-    )
+    config = _make_config(params)
 
     display_iteration_stats_heading(params.verbosity)
 

@@ -5,11 +5,17 @@ JAX package's models/pdhg.py. The step rules, restart machinery and
 KKT-pass accounting are the same; the execution model is eager PyTorch:
 
 - the problem and the solver state are dataclasses of tensors on one
-  device; loop counters and flags are Python values on the host,
-- each *segment* (one termination/restart evaluation + the steps up to
-  the next evaluation iteration) is a Python loop over step trials,
+  device; between segments the loop counters and flags are Python
+  values on the host,
+- each *segment* is one termination/restart evaluation, then the step
+  trials up to the next evaluation iteration on the device, as the JAX
+  package's while_loop runs them: masked trials (torch.where over the
+  state, the counters 0-d tensors) in rounds with one read-back a round
+  (_run_trials); Malitsky-Pock's line search keeps a host loop,
 - on the f32 LP path with the kernel operator, each adaptive trial runs
-  the fused CUDA kernels of ops/routed.py (mv_dual_step, rmv_stats).
+  the fused CUDA kernels of ops/routed.py (mv_dual_step, rmv_stats), and
+  on a CUDA device each trial is a replay of a CUDA graph captured once
+  on the device bundle (ops/graphs.py).
 
 Step rules (tau = step/omega, sigma = step*omega; reference pdhg.jl:100-107):
     x+ = proj_[l,u](x - tau (Qx + c - A'y))
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional, Union
@@ -35,6 +42,7 @@ from ..iteration_stats import (
     print_to_screen_this_iteration,
     to_host_stats,
 )
+from ..ops import graphs
 from ..ops.device import resolve_device
 from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
 from ..ops.routed import RoutedOp
@@ -69,6 +77,8 @@ from .common import (
     host_floats,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
+    next_eval_iteration,
+    select_average,
     torch_dtype,
 )
 
@@ -196,7 +206,9 @@ def _profiler_trace(trace_dir: Optional[str], device: torch.device):
 @dataclasses.dataclass(frozen=True)
 class PdhgState:
     """Reference: PdhgSolverState (pdhg.jl:201-258) + loop bookkeeping.
-    Field names follow the JAX package's PdhgState."""
+    Field names follow the JAX package's PdhgState. The counters, the
+    flag and the average's counts are host values between segments and
+    0-d tensors in a segment's trials (_device_counters)."""
 
     current_primal_solution: torch.Tensor
     current_dual_solution: torch.Tensor
@@ -314,28 +326,51 @@ def _interaction_and_movement(problem, state, next_x, next_y, next_aty):
     return interaction, movement
 
 
-def _step_size_factors(total: int, params: AdaptiveStepsizeParams, dtype):
-    """(1 - (total + 1)^-reduction, 1 + (total + 1)^-growth), computed on
-    the host in the working precision (numpy's pow; the JAX package uses
-    XLA's, which can differ in the last bit)."""
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    total_f1 = np_dtype(total) + np_dtype(1.0)
-    shrink = np_dtype(1) - total_f1 ** np_dtype(-params.reduction_exponent)
-    grow = np_dtype(1) + total_f1 ** np_dtype(-params.growth_exponent)
-    return float(shrink), float(grow)
+def _step_size_factors(total, params: AdaptiveStepsizeParams, dtype):
+    """(1 - (total + 1)^-reduction, 1 + (total + 1)^-growth) from the
+    device counter `total` (a 0-d int64 tensor), on its device in the
+    working precision, as batch._pdhg_step_size_factors (the JAX package
+    uses XLA's pow, which can differ in the last bit)."""
+    t1 = total.to(dtype) + 1.0
+    return (1 - t1 ** (-params.reduction_exponent),
+            1 + t1 ** (-params.growth_exponent))
+
+
+def _accepted_where(take, state: PdhgState, next_x, next_y,
+                    next_aty) -> PdhgState:
+    """The state after an accepted step (_accept_solution, `iteration`
+    one on) where the 0-d bool `take`, else `state` bitwise: the JAX
+    package's tree_map(jnp.where) over the fields a step moves."""
+    accepted = _accept_solution(state, next_x, next_y, next_aty)
+    return dataclasses.replace(
+        state,
+        **{
+            name: torch.where(take, getattr(accepted, name),
+                              getattr(state, name))
+            for name in ("delta_primal", "delta_dual",
+                         "current_primal_solution", "current_dual_solution",
+                         "current_dual_product")
+        },
+        avg=select_average(take, accepted.avg, state.avg),
+        iteration=torch.where(take, state.iteration + 1, state.iteration),
+    )
 
 
 def _take_step_adaptive(
-    problem, state: PdhgState, params: AdaptiveStepsizeParams
+    problem, state: PdhgState, params: AdaptiveStepsizeParams, active
 ) -> PdhgState:
     """ONE accept/reject trial of the PDLP adaptive step-size rule
-    (reference pdhg.jl:649-731). Each trial costs one KKT pass. Accept
-    iff step_size <= movement / interaction; on accept the iterate and
-    `iteration` advance, on reject only the step size shrinks and the
-    caller's loop retries. The KKT-pass and total_number_iterations
-    accounting is the reference's inner loop's.
+    (reference pdhg.jl:649-731), with no read-back. Each trial costs one
+    KKT pass. Accept iff step_size <= movement / interaction; on accept
+    the iterate and `iteration` advance, on reject only the step size
+    shrinks. The KKT-pass and total_number_iterations accounting is the
+    reference's inner loop's.
 
-    The decision is read back to the host once per trial."""
+    Every field is chosen by torch.where: a trial where the 0-d bool
+    `active` is false leaves the state bitwise as it was. The counters
+    (`iteration`, `total_number_iterations`, `cumulative_kkt_passes`,
+    the average's counts) and `numerical_error` are 0-d tensors on the
+    device (_device_counters)."""
     step_size = state.step_size
     x = state.current_primal_solution
     total = state.total_number_iterations + 1
@@ -393,25 +428,27 @@ def _take_step_adaptive(
             shrink * step_size_limit, grow * step_size
         ),
     )
-    code = int((accept.to(torch.int32) + 2 * numerical_error).item())
-    if code & 1:
-        state = dataclasses.replace(
-            _accept_solution(state, next_x, next_y, next_aty),
-            iteration=state.iteration + 1,
-        )
+    state = _accepted_where(active & accept, state, next_x, next_y,
+                            next_aty)
     return dataclasses.replace(
         state,
-        step_size=new_step_size,
-        numerical_error=bool(code & 2),
-        total_number_iterations=total,
-        cumulative_kkt_passes=state.cumulative_kkt_passes + 1.0,
+        step_size=torch.where(active, new_step_size, step_size),
+        numerical_error=torch.where(active, numerical_error,
+                                    state.numerical_error),
+        total_number_iterations=torch.where(
+            active, total, state.total_number_iterations),
+        cumulative_kkt_passes=torch.where(
+            active, state.cumulative_kkt_passes + 1.0,
+            state.cumulative_kkt_passes),
     )
 
 
 def _take_step_constant(
-    problem, state: PdhgState, params: ConstantStepsizeParams
+    problem, state: PdhgState, params: ConstantStepsizeParams, active
 ) -> PdhgState:
-    """Reference: pdhg.jl:733-767."""
+    """Reference: pdhg.jl:733-767: always accepted, one KKT pass; a step
+    where the 0-d bool `active` is false leaves the state bitwise as it
+    was (counters on the device, as in _take_step_adaptive)."""
     next_x = _compute_next_primal(
         problem, state.current_primal_solution, state.current_dual_product,
         state.step_size, state.primal_weight,
@@ -420,12 +457,15 @@ def _take_step_constant(
         problem, state.current_primal_solution, next_x,
         state.current_dual_solution, state.step_size, state.primal_weight,
     )
-    state = _accept_solution(state, next_x, next_y, next_aty)
+    stepped = _accepted_where(active, state, next_x, next_y, next_aty)
     return dataclasses.replace(
-        state,
-        iteration=state.iteration + 1,
-        cumulative_kkt_passes=state.cumulative_kkt_passes + 1.0,
-        total_number_iterations=state.total_number_iterations + 1,
+        stepped,
+        cumulative_kkt_passes=torch.where(
+            active, state.cumulative_kkt_passes + 1.0,
+            state.cumulative_kkt_passes),
+        total_number_iterations=torch.where(
+            active, state.total_number_iterations + 1,
+            state.total_number_iterations),
     )
 
 
@@ -504,12 +544,11 @@ def _take_step_malitsky_pock(
     )
 
 
-def _take_step(problem, state: PdhgState, policy) -> PdhgState:
+def _trial(problem, state: PdhgState, policy, active) -> PdhgState:
+    """One masked trial of the adaptive or the constant step rule."""
     if isinstance(policy, AdaptiveStepsizeParams):
-        return _take_step_adaptive(problem, state, policy)
-    if isinstance(policy, MalitskyPockStepsizeParameters):
-        return _take_step_malitsky_pock(problem, state, policy)
-    return _take_step_constant(problem, state, policy)
+        return _take_step_adaptive(problem, state, policy, active)
+    return _take_step_constant(problem, state, policy, active)
 
 
 # ---------------------------------------------------------------------------
@@ -519,12 +558,13 @@ def _take_step(problem, state: PdhgState, policy) -> PdhgState:
 KKT_PASSES_PER_TERMINATION_EVALUATION = 2.0
 
 
-def _is_eval_iteration(iteration: int, config: _PdhgConfig) -> bool:
+def _is_eval_iteration(iteration, config: _PdhgConfig):
+    """Host ints or 0-d tensors alike."""
     freq = config.termination_evaluation_frequency
     return (
-        (iteration - 1) % freq == 0
-        or iteration == config.criteria.iteration_limit + 1
-        or iteration <= 10
+        ((iteration - 1) % freq == 0)
+        | (iteration == config.criteria.iteration_limit + 1)
+        | (iteration <= 10)
     )
 
 
@@ -650,22 +690,153 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
     return new_state, result
 
 
+# The PdhgState fields a trial reads or writes (ops/graphs.StepGraph).
+TRIAL_FIELDS = (
+    "current_primal_solution", "current_dual_solution", "delta_primal",
+    "delta_dual", "current_dual_product", "avg", "step_size",
+    "primal_weight", "numerical_error", "cumulative_kkt_passes",
+    "total_number_iterations", "iteration",
+)
+
+
+def _device_counters(state: PdhgState) -> PdhgState:
+    """The state with its counters and flag as 0-d tensors on its
+    device, for the masked trials."""
+    device = state.step_size.device
+    avg = state.avg
+
+    def scalar(value, dtype):
+        return torch.full((), value, dtype=dtype, device=device)
+
+    return dataclasses.replace(
+        state,
+        avg=dataclasses.replace(
+            avg,
+            sum_primal_solutions_count=scalar(
+                int(avg.sum_primal_solutions_count), torch.int64),
+            sum_dual_solutions_count=scalar(
+                int(avg.sum_dual_solutions_count), torch.int64),
+        ),
+        numerical_error=scalar(bool(state.numerical_error), torch.bool),
+        cumulative_kkt_passes=scalar(float(state.cumulative_kkt_passes),
+                                     torch.float64),
+        total_number_iterations=scalar(int(state.total_number_iterations),
+                                       torch.int64),
+        iteration=scalar(int(state.iteration), torch.int64),
+    )
+
+
+def _trial_active(state: PdhgState, start, config: _PdhgConfig):
+    """The JAX package's while predicate over a segment's trials, on the
+    device; its termination_reason term is the host's (trials run only
+    while the reason is 0)."""
+    return ~state.numerical_error & (
+        (state.iteration == start)
+        | ~_is_eval_iteration(state.iteration, config)
+    )
+
+
+def _masked_trial(problem, config: _PdhgConfig, state: PdhgState, start):
+    return _trial(problem, state, config.step_policy,
+                  _trial_active(state, start, config))
+
+
+def _read_back(state: PdhgState, start, target: int, config: _PdhgConfig):
+    """One transfer: (active, accepted steps still needed, iteration,
+    total_number_iterations, cumulative_kkt_passes, numerical_error,
+    the average's two counts). f64 holds every counter exactly."""
+    avg = state.avg
+    values = (
+        _trial_active(state, start, config), target - state.iteration,
+        state.iteration, state.total_number_iterations,
+        state.cumulative_kkt_passes, state.numerical_error,
+        avg.sum_primal_solutions_count, avg.sum_dual_solutions_count,
+    )
+    return torch.stack([v.to(torch.float64) for v in values]).tolist()
+
+
+def _run_trials(bundle: DeviceScaledQp, state: PdhgState,
+                config: _PdhgConfig, _eager: bool = False) -> PdhgState:
+    """The step trials of one segment, from its evaluation iteration to
+    the next (the JAX package's while_loop in _segment_core), in rounds
+    as batch.run_segment: `need` masked trials back to back with no
+    read-back, `need` being the accepted steps still needed (the whole
+    segment at first), then one read-back of the predicate, `need` and
+    the counters. A segment with no rejection makes one read-back.
+
+    On the f32 kernel operator on a CUDA device (ops/graphs.graphable)
+    each trial is a replay of the bundle's captured trial; everything
+    else runs the same masked trials eagerly. `_eager` runs them eagerly
+    there too, for the smoke's parity phase only. The state comes back
+    with host counters, as it came in."""
+    problem = bundle.scaled
+    start = state.iteration
+    target = next_eval_iteration(start, config)
+    dstate = _device_counters(state)
+    start_t = torch.full((), start, dtype=torch.int64,
+                         device=dstate.step_size.device)
+    graph = None
+    if graphs.graphable(problem) and not _eager:
+        key = ("pdhg", config.step_policy,
+               config.termination_evaluation_frequency,
+               int(config.criteria.iteration_limit))
+        graph = graphs.cached(bundle, key, lambda: graphs.StepGraph(
+            functools.partial(_masked_trial, problem, config), dstate,
+            TRIAL_FIELDS, (start_t,)))
+        graph.load(dstate, start_t)
+    need, read_backs = target - start, 0
+    while True:
+        if graph is not None:
+            graph.replay(need)
+            current = graph.view(dstate)
+        else:
+            for _ in range(need):
+                dstate = _masked_trial(problem, config, dstate, start_t)
+            current = dstate
+        graphs.COUNTS["steps"] += need
+        values = _read_back(current, start_t, target, config)
+        read_backs += 1
+        if not values[0]:
+            break
+        need = int(values[1])
+    graphs.COUNTS["segments"] += 1
+    graphs.COUNTS["read_backs"] += read_backs
+    if graph is not None:
+        dstate = graph.unload(dstate)
+    (_, _, iteration, total, kkt, error, count_primal,
+     count_dual) = values
+    return dataclasses.replace(
+        dstate,
+        avg=dataclasses.replace(
+            dstate.avg,
+            sum_primal_solutions_count=int(count_primal),
+            sum_dual_solutions_count=int(count_dual),
+        ),
+        numerical_error=bool(error),
+        cumulative_kkt_passes=kkt,
+        total_number_iterations=int(total),
+        iteration=int(iteration),
+    )
+
+
 def _segment_core(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
-                  config: _PdhgConfig):
-    """One evaluation + the step trials up to the next evaluation point.
-    The loop runs until at least one accepted step, since the segment
-    begins at an evaluation iteration."""
+                  config: _PdhgConfig, _eager: bool = False):
+    """One evaluation + the step trials up to the next evaluation point:
+    at least one accepted step, since the segment begins at an
+    evaluation iteration. Malitsky-Pock's line search keeps its host
+    loop (a read-back a trial); the other rules run _run_trials."""
     state, result = _eval_block(bundle, state, elapsed_time, config)
+    if state.termination_reason != 0 or state.numerical_error:
+        return state, result
+    if not isinstance(config.step_policy, MalitskyPockStepsizeParameters):
+        return _run_trials(bundle, state, config, _eager), result
     start_iteration = state.iteration
-    while (
-        state.termination_reason == 0
-        and not state.numerical_error
-        and (
-            state.iteration == start_iteration
-            or not _is_eval_iteration(state.iteration, config)
-        )
+    while not state.numerical_error and (
+        state.iteration == start_iteration
+        or not _is_eval_iteration(state.iteration, config)
     ):
-        state = _take_step(bundle.scaled, state, config.step_policy)
+        state = _take_step_malitsky_pock(bundle.scaled, state,
+                                         config.step_policy)
     return state, result
 
 

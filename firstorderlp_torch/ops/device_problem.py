@@ -75,6 +75,12 @@ class DeviceScaledQp:
     constraint_rescaling: torch.Tensor  # (m,)
     variable_rescaling: torch.Tensor  # (n,)
     qp_cache: DeviceQpCache
+    # CUDA graphs of the solvers' steps on this bundle's tensors
+    # (ops/graphs.py); a bundle made by dataclasses.replace starts with
+    # none.
+    graphs: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
 
 def to_device(

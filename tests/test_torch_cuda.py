@@ -49,6 +49,7 @@ on the card is within 1e-5 of the CPU's.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -1173,3 +1174,135 @@ def test_host_sharded_solve_on_the_card(cuda, tile_aligned):
         rescaled[dev.type] = torch.cat([got.values[0], got.values[1]]).cpu()
     torch.testing.assert_close(rescaled["cuda"], rescaled["cpu"],
                                rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The on-device segment: graph replays against the eager masked steps
+# ---------------------------------------------------------------------------
+
+INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
+def assert_same_bits(got, want, path="state"):
+    """Every field equal: tensors bitwise (NaN payloads too), other values
+    by ==; a host number against a 0-d tensor by value."""
+    if dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            assert_same_bits(getattr(got, f.name), getattr(want, f.name),
+                             f"{path}.{f.name}")
+    elif isinstance(want, torch.Tensor) and isinstance(got, torch.Tensor):
+        assert got.dtype == want.dtype, path
+
+        def bits(t):
+            t = t.cpu()
+            return t.view(INT_OF[t.dtype]) if t.dtype in INT_OF else t
+
+        assert torch.equal(bits(got), bits(want)), path
+    elif isinstance(want, torch.Tensor) or isinstance(got, torch.Tensor):
+        assert float(got) == float(want), path
+    else:
+        assert got == want, path
+
+
+def segment_case(cuda, solver, tile_aligned, monkeypatch):
+    """(solver module, bundle, config, state at iteration 81) of the
+    2,000-node PageRank LP in f32 on the kernel operator, the first 11
+    segments run eagerly."""
+    import firstorderlp_torch as tx
+    from firstorderlp_torch.models import mirror_prox, pdhg
+
+    monkeypatch.setattr(routed, "DEFAULT_TILE_ALIGNED", tile_aligned)
+    problem = generate_pagerank_lp(2000, seed=0)
+    params = dataclasses.replace(card_params(), matrix_format="routed")
+    if solver == "pdhg_constant":
+        params = dataclasses.replace(
+            params, step_size_policy_params=tx.ConstantStepsizeParams())
+    if solver == "mirror_prox":
+        module = mirror_prox
+        params = tx.MirrorProxParameters(
+            l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+            pock_chambolle_alpha=1.0, primal_importance=1.0,
+            scale_invariant_initial_primal_weight=True,
+            diagonal_scaling="l2", verbosity=0, record_iteration_stats=False,
+            termination_evaluation_frequency=40,
+            termination_criteria=params.termination_criteria,
+            restart_params=params.restart_params, dtype="float32",
+            matrix_format="routed")
+        config = mirror_prox._MpConfig(
+            criteria=params.termination_criteria,
+            restart_params=params.restart_params,
+            termination_evaluation_frequency=40)
+    else:
+        module = pdhg
+        config = pdhg._make_config(params)
+    prepared = module.prepare_problem(params, problem, device=cuda)
+    state = prepared.initial_state
+    for _ in range(11):
+        state, _ = module._segment_core(prepared.bundle, state, 0.0, config,
+                                        _eager=True)
+    return module, prepared.bundle, config, state
+
+
+@pytest.mark.parametrize("tile_aligned", [False, True])
+@pytest.mark.parametrize("solver", ["pdhg", "pdhg_constant", "mirror_prox"])
+def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
+                                                     tile_aligned,
+                                                     monkeypatch):
+    """Up to three segments from the same state (fewer when an
+    evaluation ends the solve), replayed from the bundle's graph
+    (captured once) and run eagerly: every field bitwise equal,
+    the same launch counts (the replays credited; the capture's warm-up
+    step apart), one replay a trial, and the kernels' tickets back at
+    zero after the replays."""
+    from firstorderlp_torch.ops import graphs
+
+    module, bundle, config, state = segment_case(cuda, solver,
+                                                 tile_aligned, monkeypatch)
+    eager = graphed = state
+    graphs.reset_counts()
+    for _ in range(3):
+        routed.reset_launch_counts()
+        eager, eres = module._segment_core(bundle, eager, 0.0, config,
+                                           _eager=True)
+        eager_launches = dict(routed.LAUNCHES)
+        routed.reset_launch_counts()
+        replays = graphs.COUNTS["replays"]
+        captured = dict(bundle.graphs)
+        graphed, gres = module._segment_core(bundle, graphed, 0.0, config)
+        for key, graph in bundle.graphs.items():
+            if key not in captured:  # the capture's warm-up step
+                for name, count in graph.warmup_launches.items():
+                    routed.LAUNCHES[name] -= count
+        assert dict(routed.LAUNCHES) == eager_launches
+        assert gres.termination_reason == eres.termination_reason
+        assert_same_bits(graphed, eager)
+        if gres.termination_reason != 0:  # the evaluation ended the solve
+            break
+        assert graphs.COUNTS["replays"] > replays
+    assert len(bundle.graphs) == graphs.COUNTS["captures"] == 1
+    assert 2 * graphs.COUNTS["replays"] == graphs.COUNTS["steps"]
+    torch.cuda.synchronize()
+    op = bundle.scaled.constraint_matrix
+    for tickets in tickets_of(op.a, op.at):
+        assert not bool(tickets.any())
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A step that reads a value back cannot be captured: the capture
+    raises, and nothing is cached or replayed in its place."""
+    from firstorderlp_torch.ops import graphs
+
+    @dataclasses.dataclass(frozen=True)
+    class Carry:
+        x: torch.Tensor
+
+    def syncing_step(carry):
+        return Carry(x=carry.x + carry.x.sum().item())
+
+    bundle = types.SimpleNamespace(graphs={})
+    with pytest.raises(RuntimeError):
+        graphs.cached(bundle, "step", lambda: graphs.StepGraph(
+            syncing_step, Carry(x=torch.ones(8, device=cuda)), ("x",)))
+    assert bundle.graphs == {}
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0

@@ -221,9 +221,10 @@ def test_take_step_from_jax_state_f64(case, monkeypatch):
     got = tx_mp._take_step(tprep.bundle.scaled, tstate)
     assert not bool(got.numerical_error)
     assert_states_close(got, want, 1e-10)
-    # given the iteration, the step reads nothing back and gives the same
-    again = tx_mp._take_step(tprep.bundle.scaled, tstate,
-                             int(state.iteration))
+    # the step's factors come from the state's own counter, a tensor:
+    # the step reads nothing back, and gives the same bits again
+    assert isinstance(tstate.iteration, torch.Tensor)
+    again = tx_mp._take_step(tprep.bundle.scaled, tstate)
     assert torch.equal(again.current_primal, got.current_primal)
     assert torch.equal(again.step_size, got.step_size)
 
