@@ -44,21 +44,25 @@ Phases, each printing one JSON line:
 4. main_path: firstorderlp_torch.optimize on that LP in f32 with the
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
    on the host, each kernel's launch count on that run (the graph
-   replays credited) and what its segments did (ops/graphs.COUNTS:
-   steps, read-backs a segment, replays, the capture and its seconds,
-   which the solve's seconds include); every trial must be a replay;
-   then the same solve warm (with --profile, under torch.profiler:
-   device busy time and idle share, the ops that take it);
-   segment_graph: one segment's steps replayed from the bundle's CUDA
-   graph against the same steps run eagerly, from one state at
-   iteration 81, PDHG on CSR and on the tile plan and Mirror Prox on
-   CSR: every field bitwise equal, the same launches, read-backs a
-   segment, replays, the capture's seconds, the host's launch calls a
-   step and seconds in turns; with --parent DIR,
+   replays credited, exactly one eager evaluation's and step's times
+   their counts) and what its segments did (ops/graphs.COUNTS:
+   evaluations, steps, read-backs a segment, replays, loads and
+   unloads, the capture and its seconds, which the solve's seconds
+   include); every trial and evaluation must be a replay; then the
+   same solve warm (with --profile, under torch.profiler: device busy
+   time and idle share, the ops that take it);
+   segment_graph: the evaluation and a dispatch of three segments
+   replayed from the bundle's CUDA graphs against the same run
+   eagerly, from one state at iteration 81, PDHG on CSR and on the tile
+   plan and Mirror Prox on CSR: state and result bitwise equal, the
+   same launches, read-backs a segment, replays, the capture's
+   seconds, the host's launch calls an evaluation, a segment and a
+   step, and seconds in turns; with --parent DIR,
    main_path_parent: the warm solve and mirror_prox_path's at six seeds
    by another version of the package (DIR holds it as
    firstorderlp_torch_parent) and by this one, in turns (ms an
-   iteration); hetero_parent: hetero_fleet's solve by both, in turns,
+   iteration; every solve of a seed and solver with the same
+   iterations and the same bits of x and y); hetero_parent: hetero_fleet's solve by both, in turns,
    and once each under torch.profiler (B2's share of the device time);
    cli_path: the port's CLIs (firstorderlp_torch/cli) as a user
    runs them: generate_pagerank_lp writes that LP (3 edges a node, the
@@ -203,6 +207,7 @@ any phase fails. Imports nothing of JAX or of the JAX package.
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -1260,26 +1265,35 @@ def distributed_worker(argv) -> int:
 
 def segment_counts(graphs):
     """What the solvers' segments did in the run just made
-    (ops/graphs.COUNTS): segments, steps, read-backs a segment, graph
-    replays, captures and their seconds (warm-up included)."""
+    (ops/graphs.COUNTS): segments, evaluations, steps, read-backs (the
+    evaluations' included) and read-backs a segment, graph replays of
+    steps and of evaluations, loads into and unloads out of the graphs'
+    buffers, steps masked after a terminating evaluation, captures and
+    their seconds (warm-up included)."""
     c = graphs.COUNTS
-    return {"segments": c["segments"], "steps": c["steps"],
-            "read_backs": c["read_backs"],
+    return {"segments": c["segments"], "evaluations": c["evaluations"],
+            "steps": c["steps"], "read_backs": c["read_backs"],
             "read_backs_per_segment": c["read_backs"] / max(
                 c["segments"], 1),
-            "replays": c["replays"], "captures": c["captures"],
+            "replays": c["replays"], "eval_replays": c["eval_replays"],
+            "loads": c["loads"], "unloads": c["unloads"],
+            "masked_steps": c["masked_steps"],
+            "captures": c["captures"],
             "capture_seconds": c["capture_seconds"]}
 
 
 def states_equal(a, b) -> bool:
-    """Every field of two solver states equal: tensors bitwise (NaN
-    payloads too), host values by ==, a host number against a 0-d tensor
-    by value."""
+    """Every field of two solver states or evaluation results equal:
+    tensors bitwise (NaN payloads too), host values by ==, a host number
+    against a 0-d tensor by value."""
     import torch
 
     if dataclasses.is_dataclass(a):
         return all(states_equal(getattr(a, f.name), getattr(b, f.name))
                    for f in dataclasses.fields(a))
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(
+            states_equal(u, v) for u, v in zip(a, b))
     if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
         ints = {torch.float32: torch.int32, torch.float64: torch.int64}
         if a.dtype != b.dtype or a.shape != b.shape:
@@ -1292,29 +1306,97 @@ def states_equal(a, b) -> bool:
     return a == b
 
 
+def exact_launches(torch, routed, module, bundle, state, config, counts,
+                   launches):
+    """The B2-B7 launches a solve must have made, from the launches of
+    one eager evaluation, step and final bound estimate on `bundle`
+    (`module` is models.pdhg or models.mirror_prox): each evaluation's
+    and each step's, the replays credited, plus one evaluation and one
+    step for each capture's warm-up, plus the final bound estimate.
+    Returns the problems found against `launches`."""
+    def measure(fn):
+        torch.cuda.synchronize()
+        routed.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return dict(routed.LAUNCHES)
+
+    state = module._device_counters(state)
+    per_eval = measure(lambda: module._eval_block(bundle, state, 0.0,
+                                                  config))
+    if module.__name__.endswith("pdhg"):
+        start = state.iteration.clone()
+        per_step = measure(lambda: module._masked_trial(
+            bundle.scaled, config, state, start))
+        final = measure(lambda: module._final_bound_estimates(
+            bundle, state.current_primal_solution,
+            state.current_dual_solution, state.step_size,
+            state.primal_weight))
+    else:
+        per_step = measure(lambda: module._iterate(bundle.scaled, state))
+        final = measure(lambda: module._final_bound_estimates(
+            bundle, state.current_primal, state.current_dual,
+            state.primal_scaling, state.dual_scaling))
+    if config.need_bound_estimates:  # then the loop computed them
+        final = {k: 0 for k in final}
+    evals = counts["evaluations"] + counts["captures"]
+    steps = counts["steps"] + counts["captures"]
+    want = {k: per_eval[k] * evals + per_step[k] * steps + final[k]
+            for k in launches}
+    if want != launches:
+        return [f"launches {launches} against {want} from "
+                f"{evals} evaluations and {steps} steps"]
+    return []
+
+
+def eval_host_calls(torch, module, bundle, state, config) -> int:
+    """The host's launch calls (torch.profiler: kernel launches, copies,
+    memsets and cudaGraphLaunch) of one evaluation on `bundle` as the
+    solve runs it (a replay of the bundle's graph where it has one), the
+    runner's load and unload left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+
+    runner = module._runner(bundle, module._device_counters(state), 0.0,
+                            config, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.evaluate()
+        torch.cuda.synchronize()
+    runner.unload()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in LAUNCH_CALLS | {"cudaGraphLaunch"})
+
+
 # segment_graph's first segments: iterations 1-9 one each, 10 -> 41,
-# 41 -> 81; the compared segment starts at 81
+# 41 -> 81; the compared segments start at 81
 SEGMENT_WARMUP = 11
+SEGMENT_COMPARED = 3  # segments in the compared dispatch
 
 
 def segment_graph(torch, routed, problem, params, mp_params, dev):
-    """One segment's steps on the 100k-node LP, from the state its
-    evaluation at iteration 81 left (the first SEGMENT_WARMUP segments
-    run as optimize runs them, the graph captured in the first),
-    replayed from the bundle's CUDA graph and run eagerly (the solvers'
-    private `_eager`): PDHG on CSR and on the tile plan, Mirror Prox on
-    CSR. Both must give every field of the state bitwise and the same
-    kernel launches; PDHG reads back once a round (so at most once more
-    than its rejected trials), Mirror Prox never. Reported: steps,
-    accepted steps, read-backs, replays, the graph captured and its
-    seconds, the host's launch calls a step (torch.profiler: kernel
-    launches, copies and memsets, and cudaGraphLaunch) and the seconds
-    of the steps untraced, in turns (eager, replayed, replayed,
-    eager)."""
+    """The evaluation and a dispatch of SEGMENT_COMPARED segments on the
+    100k-node LP, from the state at iteration 81 (the first
+    SEGMENT_WARMUP segments run as optimize runs them, the graphs
+    captured in the first), replayed from the bundle's CUDA graphs and
+    run eagerly (the solvers' private `_eager`): PDHG on CSR and on the
+    tile plan, Mirror Prox on CSR. The evaluation alone (on a runner
+    loaded outside the count) and the dispatch must each give every
+    field of the state and of the evaluation's result bitwise and the
+    same kernel launches (the replays credited); the dispatch reads back
+    the same number of times either way, PDHG once a round (so at most
+    once more a segment than its rejected trials), Mirror Prox once a
+    segment. Reported: the host's launch calls an evaluation and a
+    segment (torch.profiler: kernel launches, copies and memsets, and
+    cudaGraphLaunch), steps, read-backs, replays, the captures and
+    their seconds, the device ms of a replayed evaluation and step (CUDA
+    events around 5 and 40 replays), and the dispatch's seconds
+    untraced, in turns (eager, replayed, replayed, eager)."""
     from torch.profiler import ProfilerActivity, profile
 
     from firstorderlp_torch.models import mirror_prox, pdhg
-    from firstorderlp_torch.models.common import next_eval_iteration
     from firstorderlp_torch.ops import graphs
     from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
 
@@ -1347,78 +1429,144 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
         finally:
             routed.DEFAULT_TILE_ALIGNED = False
         bundle, config = prepared.bundle, solver._make_config(p)
-        graphs.reset_counts()
-        state = prepared.initial_state
-        for _ in range(SEGMENT_WARMUP):
-            state, _ = solver._segment_core(bundle, state, 0.0, config)
-        captured = segment_counts(graphs)
-        state, result = solver._eval_block(bundle, state, 0.0, config)
-        start = result.iteration + 1
-        if solver is pdhg:
-            def run(eager):
-                return pdhg._run_trials(bundle, state, config, _eager=eager)
-        else:
-            steps = next_eval_iteration(start, config) - start
 
-            def run(eager):
-                return mirror_prox._run_iterations(bundle, state, steps,
-                                                   _eager=eager)
-        runs = {}
-        for mode in ("eager", "graphed"):
+        def dispatch(state, count, eager=False):
+            if solver is pdhg:
+                out, result, _, reason = pdhg._run_segments(
+                    bundle, state, 0.0, config, count,
+                    int(state.iteration), _eager=eager)
+            else:
+                out, result, reason = mirror_prox._run_segments(
+                    bundle, state, 0.0, config, count, _eager=eager)
+            return out, result, reason
+
+        graphs.reset_counts()
+        state = solver._device_counters(prepared.initial_state)
+        state, _, reason = dispatch(state, SEGMENT_WARMUP)
+        captured = segment_counts(graphs)
+        start = int(state.iteration)
+        if reason != 0 or start != 81:
+            problems.append(f"{label}: warm-up ended at {start}, "
+                            f"reason {reason}")
+            continue
+
+        def evaluation(eager):
+            runner = solver._runner(bundle, state, 0.0, config, eager)
             graphs.reset_counts()
             routed.reset_launch_counts()
-            out, calls = host_calls(lambda: run(mode == "eager"))
-            runs[mode] = (out, calls, dict(routed.LAUNCHES),
-                          segment_counts(graphs))
-        (eager, eager_calls, eager_launches, eager_counts) = runs["eager"]
-        (graphed, graph_calls, graph_launches, graph_counts) = runs["graphed"]
-        steps_run = graph_counts["steps"]
+            result, calls = host_calls(runner.evaluate)
+            launches = dict(routed.LAUNCHES)
+            return (runner.unload(), runner.detach(result), calls,
+                    launches)
+
+        def segments(eager):
+            graphs.reset_counts()
+            routed.reset_launch_counts()
+            (out, result, _), calls = host_calls(
+                lambda: dispatch(state, SEGMENT_COMPARED, eager))
+            return (out, result, calls, dict(routed.LAUNCHES),
+                    segment_counts(graphs))
+
+        ev = {mode: evaluation(mode == "eager")
+              for mode in ("eager", "graphed")}
+        sg = {mode: segments(mode == "eager")
+              for mode in ("eager", "graphed")}
+        counts = sg["graphed"][4]
+        n_seg = max(counts["segments"], 1)
+        steps_run = counts["steps"]
         if solver is pdhg:
-            accepted = graphed.iteration - start
+            accepted = int(sg["graphed"][0].iteration) - start
             rejected = steps_run - accepted
         else:
-            accepted = int(graphed.accepted_iterations) - int(
+            accepted = int(sg["graphed"][0].accepted_iterations) - int(
                 state.accepted_iterations)
             rejected = None
         row = {
-            "label": label, "iteration": start, "steps": steps_run,
+            "label": label, "iteration": start,
+            "segments": counts["segments"], "steps": steps_run,
             "accepted": accepted, "rejected_trials": rejected,
-            "bitwise_equal": states_equal(graphed, eager),
-            "launches_equal": graph_launches == eager_launches,
-            "launches": graph_launches,
-            "read_backs": {"eager": eager_counts["read_backs"],
-                           "graphed": graph_counts["read_backs"]},
-            "replays": graph_counts["replays"],
+            "evaluation": {
+                "bitwise_equal": states_equal(ev["graphed"][0],
+                                              ev["eager"][0])
+                and states_equal(ev["graphed"][1], ev["eager"][1]),
+                "launches_equal": ev["graphed"][3] == ev["eager"][3],
+                "launches": ev["graphed"][3],
+                "host_launch_calls": {"eager": ev["eager"][2],
+                                      "graphed": ev["graphed"][2]},
+            },
+            "bitwise_equal": states_equal(sg["graphed"][0], sg["eager"][0])
+            and states_equal(sg["graphed"][1], sg["eager"][1]),
+            "launches_equal": sg["graphed"][3] == sg["eager"][3],
+            "launches": sg["graphed"][3],
+            "read_backs": {"eager": sg["eager"][4]["read_backs"],
+                           "graphed": counts["read_backs"]},
+            "read_backs_per_segment": counts["read_backs"] / n_seg,
+            "replays": counts["replays"],
+            "eval_replays": counts["eval_replays"],
+            "loads": counts["loads"], "unloads": counts["unloads"],
             "captures": captured["captures"],
             "capture_seconds": captured["capture_seconds"],
+            "host_launch_calls_per_segment": {
+                "eager": sg["eager"][2] / n_seg,
+                "graphed": sg["graphed"][2] / n_seg},
             "host_launch_calls_per_step": {
-                "eager": eager_calls / max(steps_run, 1),
-                "graphed": graph_calls / max(steps_run, 1)},
+                mode: (sg[mode][2] / n_seg - ev[mode][2])
+                * n_seg / max(steps_run, 1)
+                for mode in ("eager", "graphed")},
         }
+        # device time of replayed evaluations and steps (CUDA events; a
+        # sleeping kernel first holds the card while the host enqueues
+        # them; a masked step runs every kernel of an active one)
+        runner = solver._runner(bundle, state, 0.0, config, False)
+        for name, fn, count in (
+                ("device_ms_per_evaluation", runner.evaluate, 5),
+                ("device_ms_per_step", lambda: runner.steps(1), 40)):
+            start_event = torch.cuda.Event(enable_timing=True)
+            end_event = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)  # about 0.1 s
+            start_event.record()
+            for _ in range(count):
+                fn()
+            end_event.record()
+            torch.cuda.synchronize()
+            row[name] = start_event.elapsed_time(end_event) / count
+        runner.unload()
         # untraced, in turns: eager, replayed, replayed, eager
         row["seconds"] = {"eager": [], "graphed": []}
         for mode in ("eager", "graphed", "graphed", "eager"):
-            row["seconds"][mode].append(
-                seconds(lambda: run(mode == "eager")))
+            row["seconds"][mode].append(seconds(
+                lambda: dispatch(state, SEGMENT_COMPARED, mode == "eager")))
         rows.append(row)
+        if not row["evaluation"]["bitwise_equal"]:
+            problems.append(f"{label}: replayed and eager evaluations "
+                            "differ")
+        if not row["evaluation"]["launches_equal"]:
+            problems.append(f"{label}: evaluation launches "
+                            f"{ev['graphed'][3]} against {ev['eager'][3]}")
+        if not row["evaluation"]["host_launch_calls"]["graphed"] < 10:
+            problems.append(f"{label}: {ev['graphed'][2]} host launch "
+                            "calls for a replayed evaluation")
         if not row["bitwise_equal"]:
             problems.append(f"{label}: replayed and eager states differ")
         if not row["launches_equal"]:
-            problems.append(f"{label}: launches {graph_launches} against "
-                            f"{eager_launches}")
-        if row["replays"] != steps_run or captured["captures"] != 1:
-            problems.append(f"{label}: {row['replays']} replays for "
-                            f"{steps_run} steps, {captured['captures']} "
-                            "captures")
+            problems.append(f"{label}: launches {sg['graphed'][3]} against "
+                            f"{sg['eager'][3]}")
+        if (row["replays"] != steps_run
+                or row["eval_replays"] != counts["evaluations"]
+                or captured["captures"] != 1
+                or row["loads"] != 1 or row["unloads"] != 1):
+            problems.append(f"{label}: {counts} after {captured} captured")
+        if row["read_backs"]["eager"] != row["read_backs"]["graphed"]:
+            problems.append(f"{label}: read-backs {row['read_backs']}")
         if solver is pdhg:
-            most = 1 + rejected
-            if not (1 <= graph_counts["read_backs"] <= most
-                    and eager_counts["read_backs"]
-                    == graph_counts["read_backs"]):
+            if not n_seg <= counts["read_backs"] <= n_seg + rejected:
                 problems.append(f"{label}: read-backs {row['read_backs']}")
-        elif graph_counts["read_backs"] or eager_counts["read_backs"]:
-            problems.append(f"{label}: Mirror Prox read back")
-        del prepared, bundle, state, eager, graphed
+        elif counts["read_backs"] != n_seg:
+            problems.append(f"{label}: Mirror Prox read back "
+                            f"{counts['read_backs']} times in {n_seg} "
+                            "segments")
+        del prepared, bundle, state, ev, sg
     return {"phase": "segment_graph", "ok": not problems,
             "nodes": NODES, "rows": rows,
             **({"problems": problems} if problems else {})}
@@ -2512,7 +2660,10 @@ def main_path_parent(torch, compare, parent_dir, dev):
                 "iterations": out.iteration_count, "seconds": seconds,
                 "ms_per_iteration": 1e3 * seconds / max(
                     out.iteration_count, 1),
-                "reason": out.termination_reason.name}
+                "reason": out.termination_reason.name,
+                "solution_sha256": hashlib.sha256(
+                    out.primal_solution.tobytes()
+                    + out.dual_solution.tobytes()).hexdigest()}
 
     for who in dirs:  # kernels built and modules loaded, untimed
         for solver in ("pdhg", "mirror_prox"):
@@ -2527,9 +2678,20 @@ def main_path_parent(torch, compare, parent_dir, dev):
                 rows.append({"seed": seed,
                              **solve(who, solver, problems[who])})
     mine = [r for r in rows if r["package"] == "this"]
-    ok = all(r["reason"] == "TERMINATION_REASON_OPTIMAL" for r in mine)
-    return {"phase": "main_path_parent", "ok": ok, "nodes": NODES,
-            "parent": parent_dir, "solves": rows}
+    problems = [f"seed {r['seed']} {r['solver']}: {r['reason']}"
+                for r in mine if r["reason"] != "TERMINATION_REASON_OPTIMAL"]
+    # every solve of a seed and solver, by either version: the same
+    # iterations and the same bits of x and y
+    for seed in SOLVE_SEEDS:
+        for solver in ("pdhg", "mirror_prox"):
+            runs = {(r["iterations"], r["solution_sha256"]) for r in rows
+                    if r["seed"] == seed and r["solver"] == solver}
+            if len(runs) != 1:
+                problems.append(f"seed {seed} {solver}: the versions' "
+                                f"solves differ: {sorted(runs)}")
+    return {"phase": "main_path_parent", "ok": not problems,
+            "nodes": NODES, "parent": parent_dir, "solves": rows,
+            **({"problems": problems} if problems else {})}
 
 
 def hetero_parent(torch, compare, parent_dir, dev):
@@ -2640,6 +2802,7 @@ def main() -> int:
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         prepare_problem, kernels_build, routed, refine, mirror_prox,
         probe, compare) -> int:
+    from firstorderlp_torch.models import pdhg
     from firstorderlp_torch.ops import graphs
 
     dev = torch.device("cuda")
@@ -3158,8 +3321,20 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     csr_names = [r["name"] for r in results]
     if any(launches[k] <= 0 for k in csr_names):
         problems.append(f"a kernel was not launched: {launches}")
-    if main_segments["replays"] != main_segments["steps"]:
-        problems.append(f"not every trial was replayed: {main_segments}")
+    if (main_segments["replays"] != main_segments["steps"]
+            or main_segments["eval_replays"]
+            != main_segments["evaluations"]):
+        problems.append(f"not every trial and evaluation was replayed: "
+                        f"{main_segments}")
+    if main_segments["loads"] != main_segments["unloads"]:
+        problems.append(f"loads and unloads differ: {main_segments}")
+    problems += exact_launches(torch, routed, pdhg, prepared.bundle,
+                               prepared.initial_state,
+                               pdhg._make_config(params), main_segments,
+                               launches)
+    main["host_launch_calls_per_evaluation"] = eval_host_calls(
+        torch, pdhg, prepared.bundle, prepared.initial_state,
+        pdhg._make_config(params))
     main["ok"] = not problems
     if problems:
         main["problems"] = problems
@@ -3190,7 +3365,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     warm_rec = record
     del prepared, warm
 
-    # 4a. one segment's steps replayed from a CUDA graph and run eagerly
+    # 4a. the evaluation and three segments replayed from CUDA graphs and
+    # run eagerly
     record = segment_graph(torch, routed, problem, params,
                            make_mp_params(1e-4, 20_000), dev)
     emit(record)
@@ -3389,9 +3565,19 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if any(mp_launches[k] != 0 for k in others):
         problems.append(f"another kernel was launched: {mp_launches}")
     if (mp_segments["replays"] != mp_segments["steps"]
-            or mp_segments["read_backs"] != 0):
-        problems.append(f"iterations not replayed or read back: "
-                        f"{mp_segments}")
+            or mp_segments["eval_replays"] != mp_segments["evaluations"]
+            or mp_segments["read_backs"] != mp_segments["segments"]):
+        problems.append(f"iterations or evaluations not replayed, or read "
+                        f"back more than once a segment: {mp_segments}")
+    measured = mirror_prox.prepare_problem(mp_params, problem, device=dev)
+    problems += exact_launches(torch, routed, mirror_prox, measured.bundle,
+                               measured.initial_state,
+                               mirror_prox._make_config(mp_params),
+                               mp_segments, mp_launches)
+    rec["host_launch_calls_per_evaluation"] = eval_host_calls(
+        torch, mirror_prox, measured.bundle, measured.initial_state,
+        mirror_prox._make_config(mp_params))
+    del measured
     rec["ok"] = not problems
     if problems:
         rec["problems"] = problems

@@ -76,6 +76,7 @@ from .models.common import (
     EvalResult,
     estimate_maximum_singular_value,
     evaluate_unscaled_stats,
+    evaluation_point,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
     next_eval_iteration,
@@ -101,8 +102,11 @@ from .saddle_point import (
     compute_new_primal_weight,
     compute_primal_gradient,
     compute_primal_gradient_from_dual_product,
+    distance_last_restart,
     project_dual,
     project_primal,
+    reset_solution_weighted_average,
+    select_fields,
     should_reset_to_average,
     unscaled_saddle_point_output,
     weighted_norm,
@@ -170,20 +174,6 @@ class SharedPatternFleet:
 
 def _is_mp(params) -> bool:
     return isinstance(params, _mp.MirrorProxParameters)
-
-
-def _select(cond, a, b):
-    """Per lane: `a` where `cond` (B,), else `b`, leaf by leaf (nested
-    dataclasses and named tuples walked). A (B,) condition broadcasts
-    over a (dim, B) leaf's trailing axis."""
-    if dataclasses.is_dataclass(a):
-        return dataclasses.replace(a, **{
-            f.name: _select(cond, getattr(a, f.name), getattr(b, f.name))
-            for f in dataclasses.fields(a)
-        })
-    if isinstance(a, tuple):
-        return type(a)(*(_select(cond, u, v) for u, v in zip(a, b)))
-    return torch.where(cond, a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -990,22 +980,6 @@ class LaneRestart(NamedTuple):
     restart_info: RestartInfo
 
 
-def _reset_average(avg: SolutionWeightedAverage) -> SolutionWeightedAverage:
-    return SolutionWeightedAverage(*(
-        torch.zeros_like(getattr(avg, f.name))
-        for f in dataclasses.fields(SolutionWeightedAverage)
-    ))
-
-
-def _distance_last_restart(restart_info, primal_weight):
-    return torch.sqrt(
-        restart_info.primal_distance_moved_last_restart_period ** 2
-        * primal_weight
-        + restart_info.dual_distance_moved_last_restart_period ** 2
-        / primal_weight
-    )
-
-
 def lane_restart_scheme(problem, avg, current_primal, current_dual,
                         restart_info, iterations_completed,
                         primal_norm_params, dual_norm_params, primal_weight,
@@ -1045,7 +1019,7 @@ def lane_restart_scheme(problem, avg, current_primal, current_dual,
         points = [(safe_avg_primal, safe_avg_dual, dist_avg),
                   (current_primal, current_dual, dist_cur)]
         if scheme == RestartScheme.ADAPTIVE_NORMALIZED:
-            dist_last_restart = _distance_last_restart(restart_info,
+            dist_last_restart = distance_last_restart(restart_info,
                                                        primal_weight)
             points.append((restart_info.primal_solution,
                            restart_info.dual_solution, dist_last_restart))
@@ -1088,7 +1062,7 @@ def lane_restart_scheme(problem, avg, current_primal, current_dual,
         else:
             new_potential = candidate_distance / restart_length
             old_potential = (
-                _distance_last_restart(restart_info, primal_weight)
+                distance_last_restart(restart_info, primal_weight)
                 / restart_info.last_restart_length)
         scheme_restart = (new_potential / old_potential
                           < restart_params.necessary_reduction_for_restart)
@@ -1136,8 +1110,9 @@ def lane_restart_scheme(problem, avg, current_primal, current_dual,
         restart_choice=choice,
         primal_solution=new_primal,
         dual_solution=new_dual,
-        avg=_select(do_restart, _reset_average(avg), avg),
-        restart_info=_select(do_restart, updated_info, kept_info),
+        avg=select_fields(do_restart, reset_solution_weighted_average(avg),
+                          avg),
+        restart_info=select_fields(do_restart, updated_info, kept_info),
     )
     # no average at all: nothing happens (reference l.703-709)
     no_restart = LaneRestart(
@@ -1148,19 +1123,7 @@ def lane_restart_scheme(problem, avg, current_primal, current_dual,
         avg=avg,
         restart_info=restart_info,
     )
-    return _select(has_average, result, no_restart)
-
-
-def _averages(state, primal, dual):
-    """The evaluation's candidate per lane: the weighted average where
-    there is one (and no numerical error), else the current iterate."""
-    avg = state.avg
-    has_avg = (~state.numerical_error
-               & (avg.sum_primal_solutions_count > 0)
-               & (avg.sum_dual_solutions_count > 0))
-    avg_primal, avg_dual = compute_average(avg)
-    return (torch.where(has_avg, avg_primal, primal),
-            torch.where(has_avg, avg_dual, dual))
+    return select_fields(has_average, result, no_restart)
 
 
 def _bound_estimates(config, problem, avg_primal, avg_dual, primal_norm,
@@ -1185,7 +1148,7 @@ def _frozen_result(state, entry, already, reason, terminated, restart,
         avg_primal_out=avg_primal,
         avg_dual_out=avg_dual,
     )
-    new_state = _select(already, entry, new_state)
+    new_state = select_fields(already, entry, new_state)
     conv, infeas = stats
     lagrangian, est_lb, est_ub = bounds
     result = EvalResult(
@@ -1280,7 +1243,7 @@ def pdhg_lane_step(problem, state, active, policy):
         current_primal_solution=torch.where(take, next_x, x),
         current_dual_solution=torch.where(take, next_y, y),
         current_dual_product=torch.where(take, next_aty, aty),
-        avg=_select(
+        avg=select_fields(
             take,
             add_to_solution_weighted_average(state.avg, next_x, next_y, step),
             state.avg,
@@ -1313,7 +1276,7 @@ def pdhg_lane_step_constant(problem, state, active):
         current_dual_solution=torch.where(active, next_y, y),
         current_dual_product=torch.where(active, next_aty,
                                          state.current_dual_product),
-        avg=_select(
+        avg=select_fields(
             active,
             add_to_solution_weighted_average(state.avg, next_x, next_y,
                                              state.step_size),
@@ -1337,7 +1300,7 @@ def pdhg_eval_block(bundle, state, elapsed_time, config):
     already = state.termination_reason != 0
     kkt = state.cumulative_kkt_passes + _pdhg.KKT_PASSES_PER_TERMINATION_EVALUATION
     x, y = state.current_primal_solution, state.current_dual_solution
-    avg_primal, avg_dual = _averages(state, x, y)
+    avg_primal, avg_dual = evaluation_point(state, x, y)
     conv, infeas, reason = _lane_stats(
         bundle, config.criteria, avg_primal, avg_dual, state.numerical_error,
         state.iteration - 1, kkt, elapsed_time,
@@ -1381,7 +1344,7 @@ def pdhg_eval_block(bundle, state, elapsed_time, config):
             state.current_dual_product,
         ),
     )
-    state = _select(terminated, state, post_restart)
+    state = select_fields(terminated, state, post_restart)
     return _frozen_result(state, entry, already, reason, terminated,
                           restart, kkt, avg_primal, avg_dual,
                           (conv, infeas), bounds)
@@ -1444,7 +1407,7 @@ def mp_lane_step(problem, state, active):
         state,
         current_primal=torch.where(take, cand_x, x),
         current_dual=torch.where(take, cand_y, y),
-        avg=_select(
+        avg=select_fields(
             take,
             add_to_solution_weighted_average(state.avg, test_x, test_y, step),
             state.avg,
@@ -1472,7 +1435,7 @@ def mp_eval_block(bundle, state, elapsed_time, config):
     already = state.termination_reason != 0
     kkt = state.cumulative_kkt_passes + _mp.KKT_PASSES_PER_TERMINATION_EVALUATION
     x, y = state.current_primal, state.current_dual
-    avg_primal, avg_dual = _averages(state, x, y)
+    avg_primal, avg_dual = evaluation_point(state, x, y)
     conv, infeas, reason = _lane_stats(
         bundle, config.criteria, avg_primal, avg_dual, state.numerical_error,
         state.iteration - 1, kkt, elapsed_time,
@@ -1507,7 +1470,7 @@ def mp_eval_block(bundle, state, elapsed_time, config):
         primal_scaling=state.primal_scaling * ratio,
         dual_scaling=state.dual_scaling / ratio,
     )
-    state = _select(terminated, state, post_restart)
+    state = select_fields(terminated, state, post_restart)
     return _frozen_result(state, entry, already, reason, terminated,
                           restart, kkt, avg_primal, avg_dual,
                           (conv, infeas), bounds)

@@ -16,7 +16,7 @@ import scipy.sparse as sp
 import torch
 
 from .models.mirror_prox import MirrorProxState
-from .models.pdhg import PdhgState
+from .models.pdhg import COUNTER_DTYPES as PDHG_COUNTERS, PdhgState
 from .problem import QuadraticProgrammingProblem
 from .saddle_point import RestartInfo, SolutionWeightedAverage
 
@@ -48,28 +48,26 @@ def _tensor(leaves, key, device) -> torch.Tensor:
     return torch.as_tensor(np.array(leaves[key]), device=device)
 
 
-def _int(leaves, key) -> int:
-    return int(np.asarray(leaves[key]))
-
-
-def _bool(leaves, key) -> bool:
-    return bool(np.asarray(leaves[key]))
+def _scalar(leaves, key, device, dtype) -> torch.Tensor:
+    """A counter or flag as a 0-d tensor of the port's dtype."""
+    return _tensor(leaves, key, device).reshape(()).to(dtype)
 
 
 def _avg_and_restart_info(leaves: Dict[str, np.ndarray], device):
     """The two nested dataclasses both solvers' states share; the
-    average's counts and the restart info's flag and length become
-    Python values."""
+    average's counts and the restart info's length become 0-d int64
+    tensors, its flag a 0-d bool."""
     def tensor(key):
         return _tensor(leaves, key, device)
+
+    def count(key):
+        return _scalar(leaves, key, device, torch.int64)
 
     avg = SolutionWeightedAverage(
         sum_primal_solutions=tensor("avg.sum_primal_solutions"),
         sum_dual_solutions=tensor("avg.sum_dual_solutions"),
-        sum_primal_solutions_count=_int(
-            leaves, "avg.sum_primal_solutions_count"
-        ),
-        sum_dual_solutions_count=_int(leaves, "avg.sum_dual_solutions_count"),
+        sum_primal_solutions_count=count("avg.sum_primal_solutions_count"),
+        sum_dual_solutions_count=count("avg.sum_dual_solutions_count"),
         sum_primal_solution_weights=tensor(
             "avg.sum_primal_solution_weights"
         ),
@@ -78,9 +76,9 @@ def _avg_and_restart_info(leaves: Dict[str, np.ndarray], device):
     info = RestartInfo(
         primal_solution=tensor("restart_info.primal_solution"),
         dual_solution=tensor("restart_info.dual_solution"),
-        has_gap=_bool(leaves, "restart_info.has_gap"),
+        has_gap=_scalar(leaves, "restart_info.has_gap", device, torch.bool),
         gap=tensor("restart_info.gap"),
-        last_restart_length=_int(leaves, "restart_info.last_restart_length"),
+        last_restart_length=count("restart_info.last_restart_length"),
         primal_distance_moved_last_restart_period=tensor(
             "restart_info.primal_distance_moved_last_restart_period"
         ),
@@ -100,12 +98,16 @@ def state_from_arrays(
     """The port's PdhgState from the leaves of a JAX PdhgState, given as
     {field: array}; nested `avg` and `restart_info` fields use dotted
     keys ("avg.sum_primal_solutions"). Floating leaves keep their dtype;
-    counters and flags become Python values."""
+    counters and flags become 0-d tensors of the port's dtypes
+    (pdhg.COUNTER_DTYPES)."""
     device = torch.device(device)
     avg, info = _avg_and_restart_info(leaves, device)
 
     def tensor(key):
         return _tensor(leaves, key, device)
+
+    def counter(key):
+        return _scalar(leaves, key, device, PDHG_COUNTERS[key])
 
     return PdhgState(
         current_primal_solution=tensor("current_primal_solution"),
@@ -117,12 +119,12 @@ def state_from_arrays(
         restart_info=info,
         step_size=tensor("step_size"),
         primal_weight=tensor("primal_weight"),
-        numerical_error=_bool(leaves, "numerical_error"),
-        cumulative_kkt_passes=float(np.asarray(leaves["cumulative_kkt_passes"])),
-        total_number_iterations=_int(leaves, "total_number_iterations"),
+        numerical_error=counter("numerical_error"),
+        cumulative_kkt_passes=counter("cumulative_kkt_passes"),
+        total_number_iterations=counter("total_number_iterations"),
         ratio_step_sizes=tensor("ratio_step_sizes"),
-        iteration=_int(leaves, "iteration"),
-        termination_reason=_int(leaves, "termination_reason"),
+        iteration=counter("iteration"),
+        termination_reason=counter("termination_reason"),
         avg_primal_out=tensor("avg_primal_out"),
         avg_dual_out=tensor("avg_dual_out"),
     )
@@ -134,8 +136,8 @@ def mp_state_from_arrays(
     """The port's MirrorProxState from the leaves of a JAX
     MirrorProxState, keyed as for state_from_arrays. Floating leaves
     keep their dtype, or take `dtype` when given; the flag, the KKT
-    passes and the counters stay 0-d tensors (bool, float64, int64), as
-    a step needs them; the termination reason becomes a Python int."""
+    passes, the counters and the termination reason are 0-d tensors of
+    the port's dtypes (mirror_prox.COUNTER_DTYPES)."""
     device = torch.device(device)
     avg, info = _avg_and_restart_info(leaves, device)
 
@@ -150,7 +152,7 @@ def mp_state_from_arrays(
         return dataclasses.replace(obj, **{
             f.name: getattr(obj, f.name).to(dtype)
             for f in dataclasses.fields(obj)
-            if isinstance(getattr(obj, f.name), torch.Tensor)
+            if getattr(obj, f.name).is_floating_point()
         })
 
     if dtype is not None:
@@ -169,7 +171,7 @@ def mp_state_from_arrays(
         iteration=tensor("iteration", torch.int64),
         iterations_completed=tensor("iterations_completed", torch.int64),
         accepted_iterations=tensor("accepted_iterations", torch.int64),
-        termination_reason=_int(leaves, "termination_reason"),
+        termination_reason=tensor("termination_reason", torch.int32),
         avg_primal_out=floating("avg_primal_out"),
         avg_dual_out=floating("avg_dual_out"),
     )

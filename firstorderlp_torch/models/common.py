@@ -1,10 +1,12 @@
 """Shared pieces of the PDHG / Mirror Prox solve loops.
 
-The solvers run as a host loop over *segments*: each segment performs one
+The solvers run as a host loop over *dispatches* of up to
+`evaluations_per_dispatch` segments: each segment performs one
 termination/restart evaluation followed by the steps up to the next
 evaluation point (reference loop structure,
-src/primal_dual_hybrid_gradient.jl:885-1048). The stats scalars of an
-evaluation are read back to the host in one transfer.
+src/primal_dual_hybrid_gradient.jl:885-1048). An evaluation runs on the
+device and reads nothing back; the host reads its scalars in one
+transfer once a dispatch (host_floats), when it needs them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..iteration_stats import (
     compute_convergence_information,
     compute_infeasibility_information,
 )
+from ..saddle_point import compute_average
 from ..solve_log import TerminationReason
 from ..termination import (
     TerminationCriteria,
@@ -30,17 +33,18 @@ from ..termination import (
 
 
 class EvalResult(NamedTuple):
-    """Per-evaluation scalars shipped to the host."""
+    """Per-evaluation scalars: 0-d device tensors, or host numbers after
+    host_floats."""
 
     conv: DeviceConvergenceInfo
     infeas: DeviceInfeasibilityInfo
     lagrangian_value: torch.Tensor
     estimated_lower_bound: torch.Tensor
     estimated_upper_bound: torch.Tensor
-    termination_reason: int  # 0 = keep going
-    restart_used: int  # RestartChoice code
-    iteration: int  # the iteration evaluated (ref: iter - 1)
-    cumulative_kkt_passes: float
+    termination_reason: torch.Tensor  # int32, 0 = keep going
+    restart_used: torch.Tensor  # int32 RestartChoice code
+    iteration: torch.Tensor  # int64, the iteration evaluated (ref: iter - 1)
+    cumulative_kkt_passes: torch.Tensor  # float64
     step_size: torch.Tensor
     primal_weight: torch.Tensor
 
@@ -57,7 +61,9 @@ def evaluate_unscaled_stats(
 ):
     """Unscales the iterates and evaluates stats + termination on the
     ORIGINAL problem (reference src/iteration_stats_utils.jl:408-451 and
-    the termination block of the solve loops)."""
+    the termination block of the solve loops). `numerical_error`, the
+    iteration, the KKT passes and `elapsed_time` may be 0-d device
+    tensors; nothing is read back."""
     original_primal = avg_primal / bundle.variable_rescaling
     original_dual = avg_dual / bundle.constraint_rescaling
     # Julia division semantics: 0/0 -> NaN, x/0 -> Inf (not an exception).
@@ -100,12 +106,11 @@ def evaluate_unscaled_stats(
         cumulative_kkt_passes,
         elapsed_time,
     )
-    if numerical_error:
-        reason = torch.where(
-            reason == 0,
-            int(TerminationReason.TERMINATION_REASON_NUMERICAL_ERROR),
-            reason,
-        )
+    reason = torch.where(
+        (reason == 0) & numerical_error,
+        int(TerminationReason.TERMINATION_REASON_NUMERICAL_ERROR),
+        reason,
+    ).to(torch.int32)
     return conv, infeas, reason
 
 
@@ -190,6 +195,63 @@ def next_eval_iteration(iteration: int, config) -> int:
     return min(following, limit) if limit > iteration else following
 
 
+def evaluation_point(state, primal, dual):
+    """The point an evaluation judges: the state's weighted average
+    where it has one (and no numerical error), else (`primal`, `dual`),
+    its current iterate; per lane for a fleet's state."""
+    avg = state.avg
+    has_avg = (~state.numerical_error
+               & (avg.sum_primal_solutions_count > 0)
+               & (avg.sum_dual_solutions_count > 0))
+    avg_primal, avg_dual = compute_average(avg)
+    return (torch.where(has_avg, avg_primal, primal),
+            torch.where(has_avg, avg_dual, dual))
+
+
+def graph_key(solver: str, config) -> tuple:
+    """A solver's config as the key of the CUDA graphs captured for it
+    (ops/graphs.cached): every number a graph bakes in (the criteria,
+    the restart parameters, the step rule, the evaluation frequency)."""
+    return (solver, dataclasses.astuple(config.criteria),
+            config.restart_params, getattr(config, "step_policy", None),
+            config.termination_evaluation_frequency,
+            config.need_bound_estimates)
+
+
+def device_counters(state, counter_dtypes):
+    """`state` (a solver state) with every counter and flag a 0-d tensor
+    of its dtype on the state's device: the fields named in
+    `counter_dtypes`, the average's counts and the restart info's flag
+    and length. Host numbers, as a caller or an old checkpoint may give
+    them, are filled in on the device. Runs once a solve."""
+    device = state.step_size.device
+
+    def scalar(value, dtype):
+        if isinstance(value, torch.Tensor):
+            return value.to(device=device, dtype=dtype)
+        return torch.full((), value, dtype=dtype, device=device)
+
+    avg, info = state.avg, state.restart_info
+    return dataclasses.replace(
+        state,
+        avg=dataclasses.replace(
+            avg,
+            sum_primal_solutions_count=scalar(
+                avg.sum_primal_solutions_count, torch.int64),
+            sum_dual_solutions_count=scalar(
+                avg.sum_dual_solutions_count, torch.int64),
+        ),
+        restart_info=dataclasses.replace(
+            info,
+            has_gap=scalar(info.has_gap, torch.bool),
+            last_restart_length=scalar(info.last_restart_length,
+                                       torch.int64),
+        ),
+        **{name: scalar(getattr(state, name), dtype)
+           for name, dtype in counter_dtypes.items()},
+    )
+
+
 def select_average(cond, a, b):
     """SolutionWeightedAverage `a` where the 0-d bool `cond`, else `b`,
     field by field."""
@@ -208,20 +270,28 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def host_floats(result: EvalResult):
-    """The evaluation's float scalars, read back in one transfer."""
+    """The evaluation's scalars on the host, read back in one transfer:
+    floats, and ints for the reason, the restart and the iteration."""
     values = [*result.conv, *result.infeas, result.lagrangian_value,
               result.estimated_lower_bound, result.estimated_upper_bound,
-              result.step_size, result.primal_weight]
+              result.step_size, result.primal_weight,
+              result.cumulative_kkt_passes, result.termination_reason,
+              result.restart_used, result.iteration]
     host = torch.stack(
-        [v.reshape(()).to(torch.float64) for v in values]
+        [torch.as_tensor(v).reshape(()).to(torch.float64) for v in values]
     ).tolist()
     nc, ni = len(result.conv), len(result.infeas)
+    k = nc + ni
     return result._replace(
         conv=DeviceConvergenceInfo(*host[:nc]),
-        infeas=DeviceInfeasibilityInfo(*host[nc:nc + ni]),
-        lagrangian_value=host[nc + ni],
-        estimated_lower_bound=host[nc + ni + 1],
-        estimated_upper_bound=host[nc + ni + 2],
-        step_size=host[nc + ni + 3],
-        primal_weight=host[nc + ni + 4],
+        infeas=DeviceInfeasibilityInfo(*host[nc:k]),
+        lagrangian_value=host[k],
+        estimated_lower_bound=host[k + 1],
+        estimated_upper_bound=host[k + 2],
+        step_size=host[k + 3],
+        primal_weight=host[k + 4],
+        cumulative_kkt_passes=host[k + 5],
+        termination_reason=int(host[k + 6]),
+        restart_used=int(host[k + 7]),
+        iteration=int(host[k + 8]),
     )

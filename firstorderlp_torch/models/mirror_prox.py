@@ -12,22 +12,26 @@ iteration. The pseudo-gradient is computed with one A and one A' product
 (c + Qx - A'y, Ax - b); with the kernel operator these are the plain
 `mv`/`rmv` kernels of ops/routed.py.
 
-Execution model: a host loop over segments (one termination/restart
-evaluation, then the steps up to the next evaluation iteration). An
-iteration has no retry loop, so it is written without any read-back:
-accept/reject and the zero-movement case are `torch.where`s on 0-d
-tensors, and the counters that they steer (iteration, KKT passes,
-average counts, the numerical-error flag) live on the device. The host
-knows how many iterations a segment runs, and reads the flag, the
-counters and the termination reason only at evaluations. On the f32
-kernel operator on a CUDA device, each iteration is a replay of a CUDA
-graph captured once on the device bundle (ops/graphs.py).
+Execution model: a host loop over dispatches of up to
+`evaluations_per_dispatch` segments (one termination/restart evaluation,
+then the iterations up to the next evaluation iteration), as the JAX
+package's _run_segments. The evaluation is the JAX package's, every
+decision a torch.where on the device; an iteration has no retry loop, so
+it is written without any read-back either: accept/reject and the
+zero-movement case are `torch.where`s on 0-d tensors, and the counters
+that they steer (iteration, KKT passes, average counts, the
+numerical-error flag) live on the device. A segment reads back once,
+after its evaluation: the termination reason and the iteration, from
+which the host knows how many iterations the segment runs. On the f32
+kernel operator on a CUDA device, the evaluation and each iteration are
+replays of two CUDA graphs captured once on the device bundle, on one
+set of buffers that holds the state for the whole dispatch
+(ops/graphs.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -52,7 +56,6 @@ from ..saddle_point import (
     SaddlePointOutput,
     SolutionWeightedAverage,
     add_to_solution_weighted_average,
-    compute_average,
     compute_new_primal_weight,
     compute_primal_gradient,
     create_last_restart_info,
@@ -60,6 +63,7 @@ from ..saddle_point import (
     project_dual,
     project_primal,
     run_restart_scheme,
+    select_fields,
     unscaled_saddle_point_output,
     update_objective_bound_estimates,
 )
@@ -67,7 +71,10 @@ from ..solve_log import PointType, RestartChoice, TerminationReason
 from ..termination import TerminationCriteria, validate_termination_criteria
 from .common import (
     EvalResult,
+    device_counters,
     evaluate_unscaled_stats,
+    evaluation_point,
+    graph_key,
     host_floats,
     matrix_inf_norm_entrywise,
     next_eval_iteration,
@@ -127,10 +134,10 @@ class _MpConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MirrorProxState:
-    """Field names follow the JAX package's MirrorProxState. Everything
-    a step changes is a tensor, 0-d for scalars, so that a step needs no
-    read-back; `avg`'s counts are 0-d int64 tensors between evaluations
-    and Python ints after one."""
+    """Field names follow the JAX package's MirrorProxState. Every field
+    is a tensor on the state's device, 0-d for scalars, counters and
+    flags, so that neither a step nor an evaluation reads anything
+    back."""
 
     current_primal: torch.Tensor
     current_dual: torch.Tensor
@@ -145,7 +152,7 @@ class MirrorProxState:
     iteration: torch.Tensor  # 0-d int64, outer iteration due for processing
     iterations_completed: torch.Tensor  # 0-d int64
     accepted_iterations: torch.Tensor  # 0-d int64
-    termination_reason: int  # 0 = running
+    termination_reason: torch.Tensor  # 0-d int32, 0 = running
     avg_primal_out: torch.Tensor
     avg_dual_out: torch.Tensor
 
@@ -264,54 +271,27 @@ def _take_step(problem, state: MirrorProxState) -> MirrorProxState:
     )
 
 
-def _host_counters(state: MirrorProxState):
-    """What an evaluation needs on the host, in one read-back:
-    (numerical_error, average counts, iteration, iterations_completed,
-    cumulative_kkt_passes). f64 holds every counter exactly."""
-    avg = state.avg
-    values = torch.stack([
-        torch.as_tensor(v, device=state.step_size.device).to(torch.float64)
-        for v in (
-            state.numerical_error, avg.sum_primal_solutions_count,
-            avg.sum_dual_solutions_count, state.iteration,
-            state.iterations_completed, state.cumulative_kkt_passes,
-        )
-    ]).tolist()
-    return (bool(values[0]), int(values[1]), int(values[2]), int(values[3]),
-            int(values[4]), values[5])
-
-
 def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
                 config: _MpConfig):
+    """The JAX package's _eval_block (mirror_prox.py:238-368 there) line
+    for line: statistics, termination, bound estimates and restart on the
+    device, every decision a torch.where, nothing read back."""
     # Idempotence (the JAX package's guard, there for batching): a state
     # that terminated in a previous segment accumulates no KKT passes and
     # keeps its termination reason.
     entry_state = state
     already_terminated = state.termination_reason != 0
-    (numerical_error, count_primal, count_dual, iteration,
-     iterations_completed, kkt_before) = _host_counters(state)
-    kkt = kkt_before + KKT_PASSES_PER_TERMINATION_EVALUATION
-    avg = dataclasses.replace(
-        state.avg,
-        sum_primal_solutions_count=count_primal,
-        sum_dual_solutions_count=count_dual,
-    )
-    state = dataclasses.replace(state, avg=avg)
+    kkt = state.cumulative_kkt_passes + KKT_PASSES_PER_TERMINATION_EVALUATION
+    avg_primal, avg_dual = evaluation_point(
+        state, state.current_primal, state.current_dual)
 
-    has_avg = not numerical_error and count_primal > 0 and count_dual > 0
-    if has_avg:
-        avg_primal, avg_dual = compute_average(avg)
-    else:
-        avg_primal = state.current_primal
-        avg_dual = state.current_dual
-
-    conv, infeas, reason_t = evaluate_unscaled_stats(
+    conv, infeas, reason = evaluate_unscaled_stats(
         bundle,
         config.criteria,
         avg_primal,
         avg_dual,
-        numerical_error,
-        iteration - 1,
+        state.numerical_error,
+        state.iteration - 1,
         kkt,
         elapsed_time,
     )
@@ -327,82 +307,71 @@ def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
         )
         lagrangian, est_lb, est_ub = zero, zero, zero
 
-    reason = int(reason_t.item())
-    restart_used = int(RestartChoice.RESTART_CHOICE_UNSPECIFIED)
-    new_state = state
-    if reason == 0 and not already_terminated:
-        restart = run_restart_scheme(
-            bundle.scaled,
-            avg,
-            state.current_primal,
-            state.current_dual,
-            state.restart_info,
-            iterations_completed,
-            state.primal_scaling,
-            state.dual_scaling,
+    terminated = reason != 0
+    restart = run_restart_scheme(
+        bundle.scaled,
+        state.avg,
+        state.current_primal,
+        state.current_dual,
+        state.restart_info,
+        state.iterations_completed,
+        state.primal_scaling,
+        state.dual_scaling,
+        state.primal_weight,
+        config.restart_params,
+    )
+    restarted = restart.restart_choice != int(
+        RestartChoice.RESTART_CHOICE_NO_RESTART
+    )
+    new_primal_weight = torch.where(
+        restarted,
+        compute_new_primal_weight(
+            restart.restart_info,
             state.primal_weight,
-            config.restart_params,
-        )
-        restart_used = restart.restart_choice
-        new_state = dataclasses.replace(
-            state,
-            current_primal=restart.primal_solution,
-            current_dual=restart.dual_solution,
-            avg=restart.avg,
-            restart_info=restart.restart_info,
-        )
-        if restart.restart_choice != RestartChoice.RESTART_CHOICE_NO_RESTART:
-            new_primal_weight = compute_new_primal_weight(
-                restart.restart_info,
-                state.primal_weight,
-                config.restart_params.primal_weight_update_smoothing,
-            )
-            # update_mirror_prox_norms (reference mirror_prox.jl:552-571):
-            # the mirror-map scalings absorb the primal weight ratio.
-            ratio = new_primal_weight / state.primal_weight
-            new_state = dataclasses.replace(
-                new_state,
-                primal_weight=new_primal_weight,
-                primal_scaling=state.primal_scaling * ratio,
-                dual_scaling=state.dual_scaling / ratio,
-            )
-    if already_terminated:
-        new_state = entry_state
-        reason = entry_state.termination_reason
-        kkt = kkt_before
-    else:
-        new_state = dataclasses.replace(
-            new_state,
-            cumulative_kkt_passes=torch.full_like(
-                state.cumulative_kkt_passes, kkt
-            ),
-            termination_reason=reason,
-            avg_primal_out=avg_primal,
-            avg_dual_out=avg_dual,
-        )
+            config.restart_params.primal_weight_update_smoothing,
+        ),
+        state.primal_weight,
+    )
+    # update_mirror_prox_norms (reference mirror_prox.jl:552-571): the
+    # mirror-map scalings absorb the primal weight ratio.
+    ratio = new_primal_weight / state.primal_weight
+    post_restart = dataclasses.replace(
+        state,
+        current_primal=restart.primal_solution,
+        current_dual=restart.dual_solution,
+        avg=restart.avg,
+        restart_info=restart.restart_info,
+        primal_weight=new_primal_weight,
+        primal_scaling=state.primal_scaling * ratio,
+        dual_scaling=state.dual_scaling / ratio,
+    )
+    new_state = select_fields(terminated, state, post_restart)
+    new_state = dataclasses.replace(
+        new_state,
+        cumulative_kkt_passes=kkt,
+        termination_reason=reason,
+        avg_primal_out=avg_primal,
+        avg_dual_out=avg_dual,
+    )
+    new_state = select_fields(already_terminated, entry_state, new_state)
     result = EvalResult(
         conv=conv,
         infeas=infeas,
         lagrangian_value=lagrangian,
         estimated_lower_bound=est_lb,
         estimated_upper_bound=est_ub,
-        termination_reason=reason,
-        restart_used=restart_used,
-        iteration=iteration - 1,
-        cumulative_kkt_passes=kkt,
+        termination_reason=new_state.termination_reason,
+        restart_used=torch.where(
+            terminated | already_terminated,
+            int(RestartChoice.RESTART_CHOICE_UNSPECIFIED),
+            restart.restart_choice,
+        ).to(torch.int32),
+        iteration=state.iteration - 1,
+        cumulative_kkt_passes=new_state.cumulative_kkt_passes,
         step_size=state.step_size,
         primal_weight=state.primal_weight,
     )
     return new_state, result
-
-
-# The MirrorProxState fields an iteration reads or writes
-# (ops/graphs.StepGraph).
-ITERATION_FIELDS = (
-    "current_primal", "current_dual", "primal_scaling", "dual_scaling",
-    "avg", "step_size", "numerical_error", "cumulative_kkt_passes",
-    "iteration", "iterations_completed", "accepted_iterations",
-)
 
 
 def _iterate(problem, state: MirrorProxState) -> MirrorProxState:
@@ -417,61 +386,78 @@ def _iterate(problem, state: MirrorProxState) -> MirrorProxState:
     )
 
 
-def _counts_on_device(state: MirrorProxState) -> MirrorProxState:
-    """The state with its average's counts as 0-d int64 tensors on its
-    device, as an iteration leaves them (an evaluation leaves host
-    ints)."""
-    device = state.step_size.device
-
-    def count(value):
-        if isinstance(value, torch.Tensor):
-            return value
-        return torch.full((), value, dtype=torch.int64, device=device)
-
-    avg = state.avg
-    return dataclasses.replace(state, avg=dataclasses.replace(
-        avg,
-        sum_primal_solutions_count=count(avg.sum_primal_solutions_count),
-        sum_dual_solutions_count=count(avg.sum_dual_solutions_count),
-    ))
+# The counters and flags of a MirrorProxState and their dtypes on the
+# device.
+COUNTER_DTYPES = {
+    "numerical_error": torch.bool,
+    "cumulative_kkt_passes": torch.float64,
+    "iteration": torch.int64,
+    "iterations_completed": torch.int64,
+    "accepted_iterations": torch.int64,
+    "termination_reason": torch.int32,
+}
 
 
-def _run_iterations(bundle: DeviceScaledQp, state: MirrorProxState,
-                    iterations: int,
-                    _eager: bool = False) -> MirrorProxState:
-    """`iterations` iterations with no read-back. On the f32 kernel
-    operator on a CUDA device (ops/graphs.graphable) each is a replay of
-    the bundle's captured iteration; everything else runs them eagerly.
-    `_eager` runs them eagerly there too, for the smoke's parity phase
-    only."""
+def _device_counters(state: MirrorProxState) -> MirrorProxState:
+    """The state with its counters and flags on the device
+    (common.device_counters)."""
+    return device_counters(state, COUNTER_DTYPES)
+
+
+def _runner(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
+            config: _MpConfig, _eager: bool) -> graphs.SegmentRunner:
+    """The dispatch's evaluation and iteration on `state`: replayed from
+    the bundle's graphs on the f32 kernel operator on a CUDA device
+    (ops/graphs.bundle_graphable), else eager; `_eager` runs them eagerly
+    there too, for the parity checks only."""
     problem = bundle.scaled
-    state = _counts_on_device(state)
-    graphs.COUNTS["segments"] += 1
-    graphs.COUNTS["steps"] += iterations
-    if not graphs.graphable(problem) or _eager:
-        for _ in range(iterations):
-            state = _iterate(problem, state)
-        return state
-    graph = graphs.cached(bundle, ("mirror_prox",), lambda: graphs.StepGraph(
-        functools.partial(_iterate, problem), state, ITERATION_FIELDS))
-    graph.load(state)
-    graph.replay(iterations)
-    return graph.unload(state)
+
+    def evaluate(state, elapsed, start):
+        return _eval_block(bundle, state, elapsed, config)
+
+    def iterate(state, elapsed, start):
+        return _iterate(problem, state)
+
+    return graphs.SegmentRunner(
+        bundle, graph_key("mirror_prox", config), state, evaluate, iterate,
+        elapsed_time, graphs.bundle_graphable(bundle) and not _eager)
+
+
+def _run_segments(bundle: DeviceScaledQp, state: MirrorProxState,
+                  elapsed_time, config: _MpConfig, num_segments: int,
+                  _eager: bool = False):
+    """Up to `num_segments` [evaluate -> iterations] segments in one
+    dispatch (the JAX package's _run_segments), stopping at the first
+    nonzero termination reason. The state stays on the runner's buffers
+    for the whole dispatch (one load, one unload). Each segment reads
+    back once, after its evaluation: the reason and the iteration; then
+    the host launches the segment's known count of iterations, with no
+    read-back (so no iteration runs after a terminating evaluation).
+    Returns (state, the last EvalResult as device tensors, the last
+    termination reason as a host int)."""
+    runner = _runner(bundle, state, elapsed_time, config, _eager)
+    for _ in range(num_segments):
+        result = runner.evaluate()
+        reason, iteration = [int(v) for v in torch.stack([
+            runner.state.termination_reason.to(torch.int64),
+            runner.state.iteration]).tolist()]
+        graphs.COUNTS["read_backs"] += 1
+        graphs.COUNTS["segments"] += 1
+        if reason != 0:
+            break
+        runner.steps(next_eval_iteration(iteration, config) - iteration)
+    return runner.unload(), runner.detach(result), reason
 
 
 def _segment_core(bundle: DeviceScaledQp, state: MirrorProxState,
                   elapsed_time, config: _MpConfig, _eager: bool = False):
-    """One evaluation + the iterations up to the next evaluation point,
-    whose count the host knows. No iteration reads anything back: should
-    the numerical-error flag come up on the way, the remaining
-    iterations leave the state as it is, and the next evaluation reports
-    it."""
-    state, result = _eval_block(bundle, state, elapsed_time, config)
-    if state.termination_reason != 0:
-        return state, result
-    start = result.iteration + 1
-    iterations = next_eval_iteration(start, config) - start
-    return _run_iterations(bundle, state, iterations, _eager), result
+    """One evaluation + the iterations up to the next evaluation point
+    (a dispatch of one segment). No iteration reads anything back: should
+    the numerical-error flag come up on the way, the remaining iterations
+    leave the state as it is, and the next evaluation reports it."""
+    state, result, _ = _run_segments(bundle, _device_counters(state),
+                                     elapsed_time, config, 1, _eager)
+    return state, result
 
 
 def _final_bound_estimates(bundle, avg_primal, avg_dual, primal_scaling,
@@ -594,7 +580,7 @@ def make_initial_state(
         iteration=scalar(1, torch.int64),
         iterations_completed=scalar(0, torch.int64),
         accepted_iterations=scalar(0, torch.int64),
-        termination_reason=0,
+        termination_reason=scalar(0, torch.int32),
         avg_primal_out=zeros(n),
         avg_dual_out=zeros(m),
     )
@@ -752,7 +738,9 @@ def optimize(
         )
         # The previous run's termination (e.g. its iteration limit) does
         # not apply to this run's criteria; re-evaluate from scratch.
-        state = dataclasses.replace(state, termination_reason=0)
+        state = dataclasses.replace(
+            state,
+            termination_reason=torch.zeros_like(state.termination_reason))
     if _placement is not None:
         bundle, state = _placement(bundle, state)
 
@@ -773,17 +761,15 @@ def optimize(
     evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
     checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
     dispatch_count = 0
+    state = _device_counters(state)
     while True:
         elapsed = agreed_seconds(
             bundle.scaled.constraint_matrix, time.time() - start_time
         )
         segment_start = time.time()
-        state, result = _segment_core(bundle, state, elapsed, config)
-        k = 1
-        while result.termination_reason == 0 and k < evals_per_dispatch:
-            state, result = _segment_core(bundle, state, elapsed, config)
-            k += 1
-        terminated = result.termination_reason != 0
+        state, result, reason = _run_segments(
+            bundle, state, elapsed, config, evals_per_dispatch)
+        terminated = reason != 0
         basic_algorithm_time += time.time() - segment_start
         dispatch_count += 1
         if not (

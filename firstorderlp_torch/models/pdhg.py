@@ -5,17 +5,19 @@ JAX package's models/pdhg.py. The step rules, restart machinery and
 KKT-pass accounting are the same; the execution model is eager PyTorch:
 
 - the problem and the solver state are dataclasses of tensors on one
-  device; between segments the loop counters and flags are Python
-  values on the host,
-- each *segment* is one termination/restart evaluation, then the step
-  trials up to the next evaluation iteration on the device, as the JAX
-  package's while_loop runs them: masked trials (torch.where over the
-  state, the counters 0-d tensors) in rounds with one read-back a round
-  (_run_trials); Malitsky-Pock's line search keeps a host loop,
+  device; the loop counters and flags are 0-d tensors there too,
+- a *dispatch* runs up to `evaluations_per_dispatch` segments, as the
+  JAX package's _run_segments does: each segment is one termination /
+  restart evaluation (_eval_block, every decision a torch.where), then
+  the masked step trials up to the next evaluation iteration in rounds
+  (_run_trials), with one read-back a round that also carries the
+  evaluation's termination reason; Malitsky-Pock's line search keeps a
+  host loop,
 - on the f32 LP path with the kernel operator, each adaptive trial runs
   the fused CUDA kernels of ops/routed.py (mv_dual_step, rmv_stats), and
-  on a CUDA device each trial is a replay of a CUDA graph captured once
-  on the device bundle (ops/graphs.py).
+  on a CUDA device the evaluation and each trial are replays of two CUDA
+  graphs captured once on the device bundle, on one set of buffers that
+  holds the state for the whole dispatch (ops/graphs.py).
 
 Step rules (tau = step/omega, sigma = step*omega; reference pdhg.jl:100-107):
     x+ = proj_[l,u](x - tau (Qx + c - A'y))
@@ -26,7 +28,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import os
 import time
 from typing import Optional, Union
@@ -35,8 +36,6 @@ import numpy as np
 import torch
 
 from ..iteration_stats import (
-    DeviceConvergenceInfo,
-    DeviceInfeasibilityInfo,
     display_iteration_stats,
     display_iteration_stats_heading,
     print_to_screen_this_iteration,
@@ -56,7 +55,6 @@ from ..saddle_point import (
     SolutionWeightedAverage,
     add_to_primal_solution_weighted_average,
     add_to_solution_weighted_average,
-    compute_average,
     compute_dual_gradient,
     compute_new_primal_weight,
     compute_primal_gradient_from_dual_product,
@@ -65,6 +63,7 @@ from ..saddle_point import (
     project_dual,
     project_primal,
     run_restart_scheme,
+    select_fields,
     unscaled_saddle_point_output,
     update_objective_bound_estimates,
 )
@@ -73,7 +72,10 @@ from ..termination import TerminationCriteria, validate_termination_criteria
 from .common import (
     EvalResult,
     estimate_maximum_singular_value,
+    device_counters,
     evaluate_unscaled_stats,
+    evaluation_point,
+    graph_key,
     host_floats,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
@@ -207,8 +209,8 @@ def _profiler_trace(trace_dir: Optional[str], device: torch.device):
 class PdhgState:
     """Reference: PdhgSolverState (pdhg.jl:201-258) + loop bookkeeping.
     Field names follow the JAX package's PdhgState. The counters, the
-    flag and the average's counts are host values between segments and
-    0-d tensors in a segment's trials (_device_counters)."""
+    flags and the average's counts are 0-d tensors on the state's device
+    (_device_counters)."""
 
     current_primal_solution: torch.Tensor
     current_dual_solution: torch.Tensor
@@ -219,12 +221,12 @@ class PdhgState:
     restart_info: RestartInfo
     step_size: torch.Tensor  # 0-d
     primal_weight: torch.Tensor  # 0-d
-    numerical_error: bool
-    cumulative_kkt_passes: float
-    total_number_iterations: int  # includes rejected trials
+    numerical_error: torch.Tensor  # 0-d bool
+    cumulative_kkt_passes: torch.Tensor  # 0-d float64
+    total_number_iterations: torch.Tensor  # 0-d int64, rejected trials too
     ratio_step_sizes: torch.Tensor  # 0-d, Malitsky-Pock only
-    iteration: int  # outer iteration due for processing
-    termination_reason: int  # 0 = running
+    iteration: torch.Tensor  # 0-d int64, outer iteration due for processing
+    termination_reason: torch.Tensor  # 0-d int32, 0 = running
     avg_primal_out: torch.Tensor  # scaled-space candidate at last eval
     avg_dual_out: torch.Tensor
 
@@ -236,8 +238,8 @@ def _initial_state(bundle: DeviceScaledQp, dtype, device) -> PdhgState:
     def zeros(size):
         return torch.zeros(size, dtype=dtype, device=device)
 
-    def scalar(v):
-        return torch.full((), v, dtype=dtype, device=device)
+    def scalar(v, kind=dtype):
+        return torch.full((), v, dtype=kind, device=device)
 
     return PdhgState(
         current_primal_solution=zeros(n),
@@ -249,12 +251,12 @@ def _initial_state(bundle: DeviceScaledQp, dtype, device) -> PdhgState:
         restart_info=create_last_restart_info(zeros(n), zeros(m)),
         step_size=scalar(0.0),
         primal_weight=scalar(1.0),
-        numerical_error=False,
-        cumulative_kkt_passes=0.0,
-        total_number_iterations=0,
+        numerical_error=scalar(False, torch.bool),
+        cumulative_kkt_passes=scalar(0.0, torch.float64),
+        total_number_iterations=scalar(0, torch.int64),
         ratio_step_sizes=scalar(1.0),
-        iteration=1,
-        termination_reason=0,
+        iteration=scalar(1, torch.int64),
+        termination_reason=scalar(0, torch.int32),
         avg_primal_out=zeros(n),
         avg_dual_out=zeros(m),
     )
@@ -472,16 +474,17 @@ def _take_step_constant(
 MALITSKY_POCK_MAX_TRIALS = 60
 
 
-def _take_step_malitsky_pock(
+def _malitsky_pock_step(
     problem, state: PdhgState, params: MalitskyPockStepsizeParameters
-) -> PdhgState:
+):
     """Malitsky-Pock linesearch, LP only (reference pdhg.jl:551-647).
 
     The dual-side linesearch accepts iff
     step_size ||A'(y+ - y)|| <= breaking_factor ||y+ - y||; at most 60
     inner trials (half a KKT pass each, after half a pass for the primal
     step), otherwise a numerical error is flagged. Each trial's decision
-    is read back to the host, as in the adaptive rule."""
+    is read back to the host. Returns (state, accepted) with `accepted`
+    a host bool; the counters stay 0-d device tensors."""
     entry_step = state.step_size
     x = state.current_primal_solution
     y = state.current_dual_solution
@@ -496,8 +499,8 @@ def _take_step_malitsky_pock(
     ) * entry_step
     accepted = False
     for _ in range(MALITSKY_POCK_MAX_TRIALS):
-        total += 1
-        kkt += 0.5
+        total = total + 1
+        kkt = kkt + 0.5
         ratio = step_size / entry_step
         next_y, next_aty = _compute_next_dual(
             problem, x, next_x, y, step_size, state.primal_weight,
@@ -520,20 +523,22 @@ def _take_step_malitsky_pock(
         # pdhg.jl:640-643).
         return dataclasses.replace(
             state,
-            numerical_error=True,
+            numerical_error=torch.ones_like(state.numerical_error),
             total_number_iterations=total,
             cumulative_kkt_passes=kkt,
-        )
-    if state.avg.sum_primal_solutions_count == 0:
-        # Nonsymmetric averaging: the very first accepted step also adds
-        # the pre-step primal iterate with weight step_size * ratio
-        # (reference pdhg.jl:617-627).
-        state = dataclasses.replace(
-            state,
-            avg=add_to_primal_solution_weighted_average(
-                state.avg, x, step_size * ratio
-            ),
-        )
+        ), False
+    # Nonsymmetric averaging: the very first accepted step also adds the
+    # pre-step primal iterate with weight step_size * ratio (reference
+    # pdhg.jl:617-627).
+    state = dataclasses.replace(
+        state,
+        avg=select_average(
+            state.avg.sum_primal_solutions_count == 0,
+            add_to_primal_solution_weighted_average(
+                state.avg, x, step_size * ratio),
+            state.avg,
+        ),
+    )
     return dataclasses.replace(
         _accept_solution(state, next_x, next_y, next_aty),
         step_size=step_size,
@@ -541,7 +546,14 @@ def _take_step_malitsky_pock(
         iteration=state.iteration + 1,
         total_number_iterations=total,
         cumulative_kkt_passes=kkt,
-    )
+    ), True
+
+
+def _take_step_malitsky_pock(
+    problem, state: PdhgState, params: MalitskyPockStepsizeParameters
+) -> PdhgState:
+    """One Malitsky-Pock step (_malitsky_pock_step), the state only."""
+    return _malitsky_pock_step(problem, state, params)[0]
 
 
 def _trial(problem, state: PdhgState, policy, active) -> PdhgState:
@@ -585,20 +597,23 @@ def _norm_params(state: PdhgState):
 
 def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
                 config: _PdhgConfig):
+    """The JAX package's _eval_block (pdhg.py:577-721 there) line for
+    line: the statistics, the termination check, the bound estimates and
+    the restart scheme on the device, every decision a torch.where
+    (`terminated`, `restarted`, `reset_to_avg`, and the freeze of a state
+    that had already terminated), so nothing is read back. A'y of the
+    restarted dual is computed every evaluation and kept where the
+    restart goes to the average. `elapsed_time`: seconds, a number or a
+    0-d f64 tensor."""
+    # Idempotence: a state that terminated in a previous segment must not
+    # accumulate KKT passes or flip its reason.
+    entry_state = state
+    already_terminated = state.termination_reason != 0
     kkt = state.cumulative_kkt_passes + KKT_PASSES_PER_TERMINATION_EVALUATION
-    avg = state.avg
-    has_avg = (
-        not state.numerical_error
-        and avg.sum_primal_solutions_count > 0
-        and avg.sum_dual_solutions_count > 0
-    )
-    if has_avg:
-        avg_primal, avg_dual = compute_average(avg)
-    else:
-        avg_primal = state.current_primal_solution
-        avg_dual = state.current_dual_solution
+    avg_primal, avg_dual = evaluation_point(
+        state, state.current_primal_solution, state.current_dual_solution)
 
-    conv, infeas, reason_t = evaluate_unscaled_stats(
+    conv, infeas, reason = evaluate_unscaled_stats(
         bundle,
         config.criteria,
         avg_primal,
@@ -618,55 +633,51 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
         zero = torch.zeros((), dtype=avg_primal.dtype, device=avg_primal.device)
         lagrangian, est_lb, est_ub = zero, zero, zero
 
-    reason = int(reason_t.item())
-    if reason != 0:
-        new_state = state
-        restart_used = int(RestartChoice.RESTART_CHOICE_UNSPECIFIED)
-    else:
-        restart = run_restart_scheme(
-            bundle.scaled,
-            state.avg,
-            state.current_primal_solution,
-            state.current_dual_solution,
-            state.restart_info,
-            state.iteration - 1,
-            primal_norm_params,
-            dual_norm_params,
+    terminated = reason != 0
+    restart = run_restart_scheme(
+        bundle.scaled,
+        state.avg,
+        state.current_primal_solution,
+        state.current_dual_solution,
+        state.restart_info,
+        state.iteration - 1,
+        primal_norm_params,
+        dual_norm_params,
+        state.primal_weight,
+        config.restart_params,
+    )
+    restarted = restart.restart_choice != int(
+        RestartChoice.RESTART_CHOICE_NO_RESTART
+    )
+    new_primal_weight = torch.where(
+        restarted,
+        compute_new_primal_weight(
+            restart.restart_info,
             state.primal_weight,
-            config.restart_params,
-        )
-        restart_used = restart.restart_choice
-        restarted = (
-            restart.restart_choice
-            != RestartChoice.RESTART_CHOICE_NO_RESTART
-        )
-        new_state = dataclasses.replace(
-            state,
-            current_primal_solution=restart.primal_solution,
-            current_dual_solution=restart.dual_solution,
-            avg=restart.avg,
-            restart_info=restart.restart_info,
-        )
-        if restarted:
-            new_state = dataclasses.replace(
-                new_state,
-                primal_weight=compute_new_primal_weight(
-                    restart.restart_info,
-                    state.primal_weight,
-                    config.restart_params.primal_weight_update_smoothing,
-                ),
-                ratio_step_sizes=torch.ones_like(state.ratio_step_sizes),
-            )
-        if (
-            restart.restart_choice
-            == RestartChoice.RESTART_CHOICE_RESTART_TO_AVERAGE
-        ):
-            new_state = dataclasses.replace(
-                new_state,
-                current_dual_product=bundle.scaled.aty(
-                    restart.dual_solution
-                ),
-            )
+            config.restart_params.primal_weight_update_smoothing,
+        ),
+        state.primal_weight,
+    )
+    new_ratio = torch.where(restarted, 1.0, state.ratio_step_sizes)
+    reset_to_avg = restart.restart_choice == int(
+        RestartChoice.RESTART_CHOICE_RESTART_TO_AVERAGE
+    )
+    new_dual_product = torch.where(
+        reset_to_avg,
+        bundle.scaled.aty(restart.dual_solution),
+        state.current_dual_product,
+    )
+    post_restart = dataclasses.replace(
+        state,
+        current_primal_solution=restart.primal_solution,
+        current_dual_solution=restart.dual_solution,
+        avg=restart.avg,
+        restart_info=restart.restart_info,
+        primal_weight=new_primal_weight,
+        ratio_step_sizes=new_ratio,
+        current_dual_product=new_dual_product,
+    )
+    new_state = select_fields(terminated, state, post_restart)
     new_state = dataclasses.replace(
         new_state,
         cumulative_kkt_passes=kkt,
@@ -674,65 +685,52 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
         avg_primal_out=avg_primal,
         avg_dual_out=avg_dual,
     )
+    new_state = select_fields(already_terminated, entry_state, new_state)
     result = EvalResult(
         conv=conv,
         infeas=infeas,
         lagrangian_value=lagrangian,
         estimated_lower_bound=est_lb,
         estimated_upper_bound=est_ub,
-        termination_reason=reason,
-        restart_used=restart_used,
+        termination_reason=new_state.termination_reason,
+        restart_used=torch.where(
+            terminated | already_terminated,
+            int(RestartChoice.RESTART_CHOICE_UNSPECIFIED),
+            restart.restart_choice,
+        ).to(torch.int32),
         iteration=state.iteration - 1,
-        cumulative_kkt_passes=kkt,
+        cumulative_kkt_passes=new_state.cumulative_kkt_passes,
         step_size=state.step_size,
         primal_weight=state.primal_weight,
     )
     return new_state, result
 
 
-# The PdhgState fields a trial reads or writes (ops/graphs.StepGraph).
-TRIAL_FIELDS = (
-    "current_primal_solution", "current_dual_solution", "delta_primal",
-    "delta_dual", "current_dual_product", "avg", "step_size",
-    "primal_weight", "numerical_error", "cumulative_kkt_passes",
-    "total_number_iterations", "iteration",
-)
+# The counters and flags of a PdhgState and their dtypes on the device.
+COUNTER_DTYPES = {
+    "numerical_error": torch.bool,
+    "cumulative_kkt_passes": torch.float64,
+    "total_number_iterations": torch.int64,
+    "iteration": torch.int64,
+    "termination_reason": torch.int32,
+}
 
 
 def _device_counters(state: PdhgState) -> PdhgState:
-    """The state with its counters and flag as 0-d tensors on its
-    device, for the masked trials."""
-    device = state.step_size.device
-    avg = state.avg
-
-    def scalar(value, dtype):
-        return torch.full((), value, dtype=dtype, device=device)
-
-    return dataclasses.replace(
-        state,
-        avg=dataclasses.replace(
-            avg,
-            sum_primal_solutions_count=scalar(
-                int(avg.sum_primal_solutions_count), torch.int64),
-            sum_dual_solutions_count=scalar(
-                int(avg.sum_dual_solutions_count), torch.int64),
-        ),
-        numerical_error=scalar(bool(state.numerical_error), torch.bool),
-        cumulative_kkt_passes=scalar(float(state.cumulative_kkt_passes),
-                                     torch.float64),
-        total_number_iterations=scalar(int(state.total_number_iterations),
-                                       torch.int64),
-        iteration=scalar(int(state.iteration), torch.int64),
-    )
+    """The state with its counters and flags on the device
+    (common.device_counters)."""
+    return device_counters(state, COUNTER_DTYPES)
 
 
 def _trial_active(state: PdhgState, start, config: _PdhgConfig):
     """The JAX package's while predicate over a segment's trials, on the
-    device; its termination_reason term is the host's (trials run only
-    while the reason is 0)."""
-    return ~state.numerical_error & (
-        (state.iteration == start)
-        | ~_is_eval_iteration(state.iteration, config)
+    device: no trial runs once the evaluation has set a termination
+    reason."""
+    return (
+        (state.termination_reason == 0)
+        & ~state.numerical_error
+        & ((state.iteration == start)
+           | ~_is_eval_iteration(state.iteration, config))
     )
 
 
@@ -743,100 +741,121 @@ def _masked_trial(problem, config: _PdhgConfig, state: PdhgState, start):
 
 def _read_back(state: PdhgState, start, target: int, config: _PdhgConfig):
     """One transfer: (active, accepted steps still needed, iteration,
-    total_number_iterations, cumulative_kkt_passes, numerical_error,
-    the average's two counts). f64 holds every counter exactly."""
-    avg = state.avg
+    termination_reason), host ints."""
     values = (
         _trial_active(state, start, config), target - state.iteration,
-        state.iteration, state.total_number_iterations,
-        state.cumulative_kkt_passes, state.numerical_error,
-        avg.sum_primal_solutions_count, avg.sum_dual_solutions_count,
+        state.iteration, state.termination_reason,
     )
-    return torch.stack([v.to(torch.float64) for v in values]).tolist()
+    return [int(v) for v in
+            torch.stack([v.to(torch.int64) for v in values]).tolist()]
 
 
-def _run_trials(bundle: DeviceScaledQp, state: PdhgState,
-                config: _PdhgConfig, _eager: bool = False) -> PdhgState:
-    """The step trials of one segment, from its evaluation iteration to
-    the next (the JAX package's while_loop in _segment_core), in rounds
-    as batch.run_segment: `need` masked trials back to back with no
-    read-back, `need` being the accepted steps still needed (the whole
-    segment at first), then one read-back of the predicate, `need` and
-    the counters. A segment with no rejection makes one read-back.
-
-    On the f32 kernel operator on a CUDA device (ops/graphs.graphable)
-    each trial is a replay of the bundle's captured trial; everything
-    else runs the same masked trials eagerly. `_eager` runs them eagerly
-    there too, for the smoke's parity phase only. The state comes back
-    with host counters, as it came in."""
+def _runner(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
+            config: _PdhgConfig, _eager: bool) -> graphs.SegmentRunner:
+    """The dispatch's evaluation and masked trial on `state`: replayed
+    from the bundle's graphs on the f32 kernel operator on a CUDA device
+    (ops/graphs.bundle_graphable), else eager. `_eager` runs them eagerly
+    there too, for the parity checks only."""
     problem = bundle.scaled
-    start = state.iteration
-    target = next_eval_iteration(start, config)
-    dstate = _device_counters(state)
-    start_t = torch.full((), start, dtype=torch.int64,
-                         device=dstate.step_size.device)
-    graph = None
-    if graphs.graphable(problem) and not _eager:
-        key = ("pdhg", config.step_policy,
-               config.termination_evaluation_frequency,
-               int(config.criteria.iteration_limit))
-        graph = graphs.cached(bundle, key, lambda: graphs.StepGraph(
-            functools.partial(_masked_trial, problem, config), dstate,
-            TRIAL_FIELDS, (start_t,)))
-        graph.load(dstate, start_t)
-    need, read_backs = target - start, 0
+
+    def evaluate(state, elapsed, start):
+        state, result = _eval_block(bundle, state, elapsed, config)
+        start.copy_(state.iteration)
+        return state, result
+
+    def trial(state, elapsed, start):
+        return _masked_trial(problem, config, state, start)
+
+    return graphs.SegmentRunner(
+        bundle, graph_key("pdhg", config), state, evaluate, trial,
+        elapsed_time, graphs.bundle_graphable(bundle) and not _eager)
+
+
+def _run_trials(runner: graphs.SegmentRunner, config: _PdhgConfig,
+                iteration: int):
+    """The step trials of one segment, after its evaluation, from its
+    evaluation iteration `iteration` (known on the host) to the next:
+    the JAX package's while_loop in _segment_core, in rounds as
+    batch.run_segment: `need` masked trials back to back with no
+    read-back, `need` being the accepted steps still needed (the whole
+    segment at first), then one read-back of the predicate, `need`, the
+    iteration and the evaluation's termination reason. A segment with no
+    rejection makes one read-back, its evaluation included; after a
+    terminating evaluation its trials change nothing. Returns
+    (termination_reason, iteration), host ints."""
+    target = next_eval_iteration(iteration, config)
+    need = target - iteration
     while True:
-        if graph is not None:
-            graph.replay(need)
-            current = graph.view(dstate)
-        else:
-            for _ in range(need):
-                dstate = _masked_trial(problem, config, dstate, start_t)
-            current = dstate
-        graphs.COUNTS["steps"] += need
-        values = _read_back(current, start_t, target, config)
-        read_backs += 1
-        if not values[0]:
+        runner.steps(need)
+        active, left, iteration, reason = _read_back(
+            runner.state, runner.start, target, config)
+        graphs.COUNTS["read_backs"] += 1
+        if reason != 0:
+            graphs.COUNTS["masked_steps"] += need
+        if not active:
+            return reason, iteration
+        need = left
+
+
+def _malitsky_pock_segment(problem, state: PdhgState, config: _PdhgConfig,
+                           iteration: int):
+    """The Malitsky-Pock steps of one segment from its evaluation
+    iteration: a host loop, one read-back a line-search trial."""
+    while True:
+        state, accepted = _malitsky_pock_step(problem, state,
+                                              config.step_policy)
+        if not accepted:
+            return state, iteration
+        iteration += 1
+        if _is_eval_iteration(iteration, config):
+            return state, iteration
+
+
+def _run_segments(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
+                  config: _PdhgConfig, num_segments: int, iteration: int,
+                  _eager: bool = False):
+    """Up to `num_segments` [evaluate -> trials] segments in one dispatch
+    (the JAX package's _run_segments), stopping at the first nonzero
+    termination reason. `iteration` is the state's iteration, known on
+    the host. The state stays on the runner's buffers for the whole
+    dispatch (one load, one unload); each segment reads back once a round
+    of trials. Returns (state, the last EvalResult as device tensors, the
+    iteration and the last termination reason as host ints)."""
+    if isinstance(config.step_policy, MalitskyPockStepsizeParameters):
+        elapsed = torch.full((), float(elapsed_time), dtype=torch.float64,
+                             device=state.step_size.device)
+        for _ in range(num_segments):
+            state, result = _eval_block(bundle, state, elapsed, config)
+            graphs.COUNTS["evaluations"] += 1
+            graphs.COUNTS["segments"] += 1
+            graphs.COUNTS["read_backs"] += 1
+            reason, iteration = [int(v) for v in torch.stack([
+                state.termination_reason.to(torch.int64),
+                state.iteration]).tolist()]
+            if reason != 0:
+                break
+            state, iteration = _malitsky_pock_segment(
+                bundle.scaled, state, config, iteration)
+        return state, result, iteration, reason
+    runner = _runner(bundle, state, elapsed_time, config, _eager)
+    for _ in range(num_segments):
+        result = runner.evaluate()
+        reason, iteration = _run_trials(runner, config, iteration)
+        graphs.COUNTS["segments"] += 1
+        if reason != 0:
             break
-        need = int(values[1])
-    graphs.COUNTS["segments"] += 1
-    graphs.COUNTS["read_backs"] += read_backs
-    if graph is not None:
-        dstate = graph.unload(dstate)
-    (_, _, iteration, total, kkt, error, count_primal,
-     count_dual) = values
-    return dataclasses.replace(
-        dstate,
-        avg=dataclasses.replace(
-            dstate.avg,
-            sum_primal_solutions_count=int(count_primal),
-            sum_dual_solutions_count=int(count_dual),
-        ),
-        numerical_error=bool(error),
-        cumulative_kkt_passes=kkt,
-        total_number_iterations=int(total),
-        iteration=int(iteration),
-    )
+    return runner.unload(), runner.detach(result), iteration, reason
 
 
 def _segment_core(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
                   config: _PdhgConfig, _eager: bool = False):
     """One evaluation + the step trials up to the next evaluation point:
-    at least one accepted step, since the segment begins at an
-    evaluation iteration. Malitsky-Pock's line search keeps its host
-    loop (a read-back a trial); the other rules run _run_trials."""
-    state, result = _eval_block(bundle, state, elapsed_time, config)
-    if state.termination_reason != 0 or state.numerical_error:
-        return state, result
-    if not isinstance(config.step_policy, MalitskyPockStepsizeParameters):
-        return _run_trials(bundle, state, config, _eager), result
-    start_iteration = state.iteration
-    while not state.numerical_error and (
-        state.iteration == start_iteration
-        or not _is_eval_iteration(state.iteration, config)
-    ):
-        state = _take_step_malitsky_pock(bundle.scaled, state,
-                                         config.step_policy)
+    a dispatch of one segment from the state's own iteration (read back
+    here). Returns (state, EvalResult)."""
+    state = _device_counters(state)
+    state, result, _, _ = _run_segments(
+        bundle, state, elapsed_time, config, 1, int(state.iteration),
+        _eager)
     return state, result
 
 
@@ -978,7 +997,8 @@ def prepare_problem(
                              device=device),
         primal_weight=torch.full((), float(primal_weight), dtype=dtype,
                                  device=device),
-        cumulative_kkt_passes=float(cumulative_kkt_passes),
+        cumulative_kkt_passes=torch.full((), float(cumulative_kkt_passes),
+                                         dtype=torch.float64, device=device),
     )
     if warm_start is not None:
         primal0, dual0 = warm_start
@@ -1073,7 +1093,9 @@ def optimize(
         )
         # The previous run's termination (e.g. its iteration limit) does
         # not apply to this run's criteria; re-evaluate from scratch.
-        state = dataclasses.replace(state, termination_reason=0)
+        state = dataclasses.replace(
+            state,
+            termination_reason=torch.zeros_like(state.termination_reason))
     if _placement is not None:
         bundle, state = _placement(bundle, state)
 
@@ -1097,17 +1119,16 @@ def optimize(
         evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
         checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
         dispatch_count = 0
+        state = _device_counters(state)
+        iteration = int(state.iteration)
         while True:
             elapsed = agreed_seconds(
                 bundle.scaled.constraint_matrix, time.time() - start_time
             )
             segment_start = time.time()
-            state, result = _segment_core(bundle, state, elapsed, config)
-            k = 1
-            while result.termination_reason == 0 and k < evals_per_dispatch:
-                state, result = _segment_core(bundle, state, elapsed, config)
-                k += 1
-            terminated = result.termination_reason != 0
+            state, result, iteration, reason = _run_segments(
+                bundle, state, elapsed, config, evals_per_dispatch, iteration)
+            terminated = reason != 0
             basic_algorithm_time += time.time() - segment_start
             dispatch_count += 1
             if not (

@@ -1,48 +1,59 @@
-"""CUDA graphs of the solvers' steps: the port's counterpart of the JAX
-package's `jit` + `lax.while_loop` over a segment's step trials.
+"""CUDA graphs of the solvers' segments: the port's counterpart of the
+JAX package's `jit` + `lax.while_loop` over a dispatch of segments
+(`_run_segments` there).
 
-A `StepGraph` captures one step (a masked PDHG trial, or one Mirror
-Prox iteration) on static buffers: the state's fields that the step
-reads or writes. The graph ends by copying the step's new values into
-the buffers it read, so replays chain on the current stream with no
-host work between them. The solvers load a segment's state into the
-buffers, replay the graph as many times as the segment's trials, and
-take the state back out as copies (models/pdhg._run_trials,
-models/mirror_prox._run_iterations).
+A segment is one evaluation (termination check and restart) and the
+steps up to the next evaluation iteration. `SegmentGraphs` captures both
+on one set of static buffers: the state's tensors, and two extra 0-d
+buffers, the elapsed time the evaluation reads and the segment's first
+iteration, which the evaluation writes and the step reads. Each graph
+ends by copying its new values into the buffers it read, so replays
+chain on the current stream with no host work between them, and the
+state stays in the buffers for a whole dispatch: it is loaded once and
+copied back out once (`SegmentRunner`).
 
-Which problems are replayed is decided by type, in `graphable`: the f32
-kernel operator (`RoutedOp`) on a CUDA device and an LP. Everything
-else runs the same steps eagerly. A capture that fails raises; nothing
-falls back to the eager steps.
+Which bundles are replayed is decided by type, in `graphable`: the f32
+kernel operator (`RoutedOp`) on a CUDA device and an LP, for the scaled
+copy (the step) and the original copy (the evaluation's statistics).
+Everything else runs the same evaluation and steps eagerly, on the same
+kind of buffers (`StaticState`). A capture that fails raises; nothing
+falls back to the eager path.
 
 A graph belongs to the tensors it captured: it is cached on the device
 bundle (`DeviceScaledQp.graphs`), which a bundle made by
 `dataclasses.replace` (refine's shifted sub-solves) does not share.
 Each replay credits the launches the capture recorded to
 `ops/routed.LAUNCHES`, so the launch counts stay those of the eager
-steps, plus the one step a capture's warm-up runs (real launches, on
-buffers that the first `load` overwrites).
+path, plus one evaluation and one step that a capture's warm-up runs
+(real launches, on buffers that the first `load` overwrites).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from . import routed
 
-# What the solvers' segments did, counted at the host: segments that
-# ran steps, steps (trials or iterations) launched, read-backs the step
-# loops made (the evaluations' own are not counted), graph replays,
-# captures and the seconds the captures took (warm-up included).
+# What the solvers' segments did, counted at the host: segments,
+# evaluations, steps (trials or iterations) launched, of them the steps
+# masked off by a terminating evaluation before them, read-backs (every
+# host wait on a segment's values, the evaluation's included), graph
+# replays of steps and of evaluations, loads into and unloads out of the
+# buffers, captures and the seconds they took (warm-up included).
 COUNTS: Dict[str, float] = {
     "segments": 0,
+    "evaluations": 0,
     "steps": 0,
+    "masked_steps": 0,
     "read_backs": 0,
     "replays": 0,
+    "eval_replays": 0,
+    "loads": 0,
+    "unloads": 0,
     "captures": 0,
     "capture_seconds": 0.0,
 }
@@ -54,12 +65,11 @@ def reset_counts() -> None:
 
 
 def graphable(problem) -> bool:
-    """Whether the steps of `problem` (a DeviceQp) are replayed from a
-    CUDA graph: its constraint operator is a RoutedOp on a CUDA device,
-    it is an LP and its working precision is f32 (the fused trial's
-    condition in models/pdhg._take_step_adaptive). The CPU, CsrOp and
-    DenseOp (f64), QPs and ShardedRoutedOp (meshes, process groups) run
-    the same steps eagerly."""
+    """Whether `problem` (a DeviceQp) runs inside a CUDA graph: its
+    constraint operator is a RoutedOp on a CUDA device, it is an LP and
+    its precision is f32 (the fused trial's condition in
+    models/pdhg._take_step_adaptive). The CPU, CsrOp and DenseOp (f64),
+    QPs and ShardedRoutedOp (meshes, process groups) run eagerly."""
     op = problem.constraint_matrix
     return (
         isinstance(op, routed.RoutedOp)
@@ -69,6 +79,12 @@ def graphable(problem) -> bool:
     )
 
 
+def bundle_graphable(bundle) -> bool:
+    """Whether a solver's segments on `bundle` (a DeviceScaledQp) are
+    replayed: the step's copy and the evaluation's copy both graphable."""
+    return graphable(bundle.scaled) and graphable(bundle.original)
+
+
 def _delta(before: Dict[str, int]) -> Dict[str, int]:
     """ops/routed.LAUNCHES less `before`, the kernels that moved only."""
     return {k: routed.LAUNCHES[k] - n for k, n in before.items()
@@ -76,117 +92,206 @@ def _delta(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def _leaves(value) -> list:
-    """The tensors of a field's value, through nested dataclasses."""
+    """The tensors of a value, through nested dataclasses and tuples."""
     if isinstance(value, torch.Tensor):
         return [value]
     if dataclasses.is_dataclass(value):
         return [t for f in dataclasses.fields(value)
                 for t in _leaves(getattr(value, f.name))]
-    raise TypeError(f"a graphed step carries tensors only, got {value!r}")
+    if isinstance(value, tuple):
+        return [t for v in value for t in _leaves(v)]
+    raise TypeError(f"a graphed segment carries tensors only, got {value!r}")
 
 
 def _rebuild(value, tensors):
     """`value` with its tensors taken in order from the iterator."""
     if isinstance(value, torch.Tensor):
         return next(tensors)
-    return dataclasses.replace(value, **{
-        f.name: _rebuild(getattr(value, f.name), tensors)
-        for f in dataclasses.fields(value)
-    })
+    if dataclasses.is_dataclass(value):
+        return dataclasses.replace(value, **{
+            f.name: _rebuild(getattr(value, f.name), tensors)
+            for f in dataclasses.fields(value)
+        })
+    return type(value)(*(_rebuild(v, tensors) for v in value))
 
 
-class StepGraph:
-    """`step(state, *consts) -> state` captured once as a CUDA graph.
+class StaticState:
+    """A state's tensors and the extra buffers as static tensors, and
+    the evaluation and the step applied to them in place: the part of
+    the graphs that runs the same on any device (the capture and its
+    warm-up call `apply`).
 
-    `fields` names the state's fields the step reads or writes (their
-    values: tensors, or dataclasses of tensors); the step must read no
-    other field. `consts` are tensors the step reads and never writes
-    (a segment's first iteration). The warm-up runs on a side stream,
-    then the capture; the buffers hold nothing of use until `load`."""
+    `evaluate(state, *extras) -> (state, result)` and
+    `step(state, *extras) -> state` read the state and the extras and
+    return new tensors; `apply` copies the new state into the buffers.
+    A new tensor must have its buffer's dtype and must not be another
+    field's buffer (sequential copies would read it overwritten). The
+    evaluation's result is kept; its tensors that are buffers are
+    cloned, since a later step changes the buffers."""
 
-    def __init__(self, step: Callable, state, fields: Sequence[str],
-                 consts: Sequence[torch.Tensor] = ()):
+    def __init__(self, state, extras: Sequence[torch.Tensor]):
+        self.buffers = [t.clone() for t in _leaves(state)]
+        self.extras = [e.clone() for e in extras]
+        self.state = _rebuild(state, iter(self.buffers))
+
+    def apply(self, fn: Callable, evaluation: bool = False):
+        out = fn(self.state, *self.extras)
+        new, result = out if evaluation else (out, None)
+        ids = {id(b) for b in self.buffers}
+        for buf, t in zip(self.buffers, _leaves(new)):
+            if t is buf:
+                continue
+            if id(t) in ids or t.dtype != buf.dtype:
+                raise RuntimeError(
+                    "a graphed segment must return new tensors of its "
+                    "fields' types")
+            buf.copy_(t)
+        if result is None:
+            return None
+        return _rebuild(result, iter([
+            t.clone() if id(t) in ids else t for t in _leaves(result)
+        ]))
+
+    def load(self, state) -> None:
+        """Copies `state`'s tensors into the buffers."""
+        for buf, t in zip(self.buffers, _leaves(state)):
+            buf.copy_(t)
+
+    def unload(self):
+        """The state copied out of the buffers."""
+        return _rebuild(self.state, iter([t.clone() for t in self.buffers]))
+
+
+class SegmentGraphs:
+    """A solver's evaluation and step (see StaticState) captured once as
+    two CUDA graphs on one StaticState. The warm-up (one evaluation, one
+    step) runs on a side stream, then the captures; the buffers hold
+    nothing of use until `load`. `result` is the evaluation graph's
+    output, rewritten by each evaluation replay."""
+
+    def __init__(self, evaluate: Callable, step: Callable, state,
+                 extras: Sequence[torch.Tensor]):
         t0 = time.perf_counter()
-        self._fields = tuple(fields)
-        self._static = [t.clone() for t in self._state_leaves(state)]
-        self._consts = [c.clone() for c in consts]
-        device = self._static[0].device
+        self.static = StaticState(state, extras)
+        device = self.static.buffers[0].device
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         before = dict(routed.LAUNCHES)
         with torch.cuda.stream(side):
             # kernels loaded, pool primed
-            self._step_into_buffers(step, state)
+            self.static.apply(evaluate, evaluation=True)
+            self.static.apply(step)
         torch.cuda.current_stream(device).wait_stream(side)
         # the warm-up's launches are real and stay counted
         self.warmup_launches = _delta(before)
-        before = dict(routed.LAUNCHES)
-        self._graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self._graph, stream=side):
-                self._step_into_buffers(step, state)
-        finally:
-            # the capture recorded launches, it made none
-            self.launches = _delta(before)
-            routed.LAUNCHES.update(before)
+        self.eval_graph, self.eval_launches, self.result = self._capture(
+            side, evaluate, evaluation=True)
+        self.step_graph, self.step_launches, _ = self._capture(side, step)
         self.capture_seconds = time.perf_counter() - t0
         COUNTS["captures"] += 1
         COUNTS["capture_seconds"] += self.capture_seconds
 
-    def _state_leaves(self, state) -> list:
-        return [t for name in self._fields
-                for t in _leaves(getattr(state, name))]
+    def _capture(self, side, fn, evaluation=False):
+        before = dict(routed.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                out = self.static.apply(fn, evaluation)
+        finally:
+            # the capture recorded launches, it made none
+            launches = _delta(before)
+            routed.LAUNCHES.update(before)
+        return graph, launches, out
 
-    def _over(self, state, tensors):
-        it = iter(tensors)
-        return dataclasses.replace(state, **{
-            name: _rebuild(getattr(state, name), it)
-            for name in self._fields
-        })
-
-    def _step_into_buffers(self, step, state) -> None:
-        new = step(self._over(state, self._static), *self._consts)
-        out = self._state_leaves(new)
-        buffers = {id(b) for b in self._static}
-        for buf, t in zip(self._static, out):
-            if t is buf:
-                continue
-            if id(t) in buffers or t.dtype != buf.dtype:
-                raise RuntimeError(
-                    "a graphed step must return new tensors of its "
-                    "fields' types")
-            buf.copy_(t)
-
-    def load(self, state, *consts) -> None:
-        """Copies `state`'s fields and the constants into the buffers."""
-        for buf, t in zip(self._static, self._state_leaves(state)):
-            buf.copy_(t)
-        for buf, t in zip(self._consts, consts):
-            buf.copy_(t)
-
-    def replay(self, times: int) -> None:
-        """`times` steps on the current stream, their launches credited
-        to ops/routed.LAUNCHES."""
+    @staticmethod
+    def _replay(graph, launches, times: int) -> None:
         for _ in range(times):
-            self._graph.replay()
-        for key, count in self.launches.items():
+            graph.replay()
+        for key, count in launches.items():
             routed.LAUNCHES[key] += count * times
+
+    def evaluate(self):
+        """One evaluation on the current stream; its result (the graph's
+        output tensors)."""
+        self._replay(self.eval_graph, self.eval_launches, 1)
+        COUNTS["eval_replays"] += 1
+        return self.result
+
+    def steps(self, times: int) -> None:
+        """`times` steps on the current stream."""
+        self._replay(self.step_graph, self.step_launches, times)
         COUNTS["replays"] += times
 
-    def view(self, state):
-        """`state` with the graphed fields on the buffers (no copy: the
-        next replay changes them)."""
-        return self._over(state, self._static)
 
-    def unload(self, state):
-        """`state` with the graphed fields copied out of the buffers."""
-        return self._over(state, [t.clone() for t in self._static])
-
-
-def cached(bundle, key, make: Callable[[], StepGraph]) -> StepGraph:
-    """The bundle's graph under `key`, captured by `make` the first
+def cached(bundle, key, make: Callable[[], SegmentGraphs]) -> SegmentGraphs:
+    """The bundle's graphs under `key`, captured by `make` the first
     time."""
-    graph = bundle.graphs.get(key)
-    if graph is None:
-        graph = bundle.graphs[key] = make()
-    return graph
+    graphs = bundle.graphs.get(key)
+    if graphs is None:
+        graphs = bundle.graphs[key] = make()
+    return graphs
+
+
+class SegmentRunner:
+    """One dispatch's segments on one state: the state is loaded into
+    the static buffers once, the evaluation and the steps run on them
+    (replayed from the bundle's SegmentGraphs under `key`, or eagerly
+    when `graphed` is false), and the state is copied out once by
+    `unload`. The extras are the elapsed time (0-d f64, filled by
+    `fill_`: a kernel argument, no host transfer) and the segment's
+    first iteration (0-d int64, written by the evaluation)."""
+
+    def __init__(self, bundle, key, state, evaluate: Callable,
+                 step: Callable, elapsed_time: float, graphed: bool):
+        device = _leaves(state)[0].device
+        extras = (torch.zeros((), dtype=torch.float64, device=device),
+                  torch.zeros((), dtype=torch.int64, device=device))
+        self._evaluate, self._step = evaluate, step
+        self.graphs: Optional[SegmentGraphs] = None
+        if graphed:
+            self.graphs = cached(bundle, key, lambda: SegmentGraphs(
+                evaluate, step, state, extras))
+            self.static = self.graphs.static
+            self.static.load(state)
+        else:
+            self.static = StaticState(state, extras)
+        self.static.extras[0].fill_(float(elapsed_time))
+        COUNTS["loads"] += 1
+
+    @property
+    def state(self):
+        """The state on the buffers (no copy: the next evaluation or step
+        changes them)."""
+        return self.static.state
+
+    @property
+    def start(self) -> torch.Tensor:
+        """The segment's first iteration, as the last evaluation left
+        it."""
+        return self.static.extras[1]
+
+    def evaluate(self):
+        COUNTS["evaluations"] += 1
+        if self.graphs is not None:
+            return self.graphs.evaluate()
+        return self.static.apply(self._evaluate, evaluation=True)
+
+    def steps(self, times: int) -> None:
+        COUNTS["steps"] += times
+        if self.graphs is not None:
+            self.graphs.steps(times)
+            return
+        for _ in range(times):
+            self.static.apply(self._step)
+
+    def detach(self, result):
+        """`result` copied off the evaluation graph's output tensors,
+        which a later evaluation replay rewrites; an eager result as it
+        is."""
+        if self.graphs is None:
+            return result
+        return _rebuild(result, iter([t.clone() for t in _leaves(result)]))
+
+    def unload(self):
+        COUNTS["unloads"] += 1
+        return self.static.unload()

@@ -986,24 +986,30 @@ def tile_plan_coordinates(plan: TilePlan):
     return rows, cols
 
 
-def _strip_sums(plan: TilePlan, per_row: torch.Tensor) -> torch.Tensor:
-    """One partial per output strip, as the kernels' epilogues give."""
+def _strip_total(plan: TilePlan, per_row: torch.Tensor) -> torch.Tensor:
+    """The sum of `per_row` over the plan's output strips, one partial a
+    strip as the kernels' epilogues give, accumulated in f64 and rounded
+    once to `per_row`'s dtype: on the card index_add_'s atomics add in
+    no fixed order, and in f32 that order moves the sum."""
     strip_of = torch.arange(
         plan.num_rows, device=per_row.device
     ) // plan.out_strip
-    return torch.zeros(
-        plan.nstrips, dtype=per_row.dtype, device=per_row.device
-    ).index_add_(0, strip_of, per_row)
+    partials = torch.zeros(
+        plan.nstrips, dtype=torch.float64, device=per_row.device
+    ).index_add_(0, strip_of, per_row.to(torch.float64))
+    return torch.sum(partials).to(per_row.dtype)
 
 
 def tiled_spmv_plain(plan: TilePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A x on the plan's tensors: unpack, gather, multiply and add
-    into the padded strips, in f32."""
+    into the padded strips in f64 (each f32 product exact there, and the
+    sum free of index_add_'s order on the card), rounded once to f32."""
     rows, cols = tile_plan_coordinates(plan)
     y = torch.zeros(
-        plan.nstrips * plan.out_strip, dtype=torch.float32, device=x.device
-    ).index_add_(0, rows, plan.vals * x[cols])
-    return y[: plan.num_rows]
+        plan.nstrips * plan.out_strip, dtype=torch.float64, device=x.device
+    ).index_add_(0, rows, plan.vals.to(torch.float64)
+                 * x[cols].to(torch.float64))
+    return y[: plan.num_rows].to(torch.float32)
 
 
 def tiled_dual_step_plain(plan, z, y, b, is_eq, sigma):
@@ -1013,7 +1019,7 @@ def tiled_dual_step_plain(plan, z, y, b, is_eq, sigma):
     cand = y + sigma * (b - az)
     y_next = torch.where(is_eq != 0, cand, torch.clamp_min(cand, 0.0))
     dy = y_next - y
-    return y_next, torch.sum(_strip_sums(plan, dy * dy))
+    return y_next, _strip_total(plan, dy * dy)
 
 
 def tiled_rmv_stats_plain(plan, y, dx, aty_old):
@@ -1022,8 +1028,8 @@ def tiled_rmv_stats_plain(plan, y, dx, aty_old):
     aty = tiled_spmv_plain(plan, y)
     return (
         aty,
-        torch.sum(_strip_sums(plan, dx * (aty - aty_old))),
-        torch.sum(_strip_sums(plan, dx * dx)),
+        _strip_total(plan, dx * (aty - aty_old)),
+        _strip_total(plan, dx * dx),
     )
 
 

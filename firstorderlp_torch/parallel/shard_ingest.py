@@ -791,7 +791,8 @@ def _host_sharded_solve(params, spec: RowShardSpec, mesh, layout: str,
         pdhg._initial_state(bundle, dtype, home),
         step_size=scaled.step_size.to(dtype),
         primal_weight=primal_weight,
-        cumulative_kkt_passes=0.5,
+        cumulative_kkt_passes=torch.full((), 0.5, dtype=torch.float64,
+                                         device=home),
     )
     scaled_problem = ScaledQpProblem(
         original_qp=None,

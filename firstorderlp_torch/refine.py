@@ -552,7 +552,8 @@ def _prepare_shifted_fast(prepared, params, c_hat, b_hat, lo, hi,
         # same scaled A as phase 1 => same 1/max|A| initial step
         step_size=prepared.initial_state.step_size.to(f32),
         primal_weight=torch.full((), float(pw), dtype=f32, device=device),
-        cumulative_kkt_passes=0.5,
+        cumulative_kkt_passes=torch.full((), 0.5, dtype=torch.float64,
+                                         device=device),
     )
     return _pdhg.PreparedProblem(
         scaled_problem=sp_prob,

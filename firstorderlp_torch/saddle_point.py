@@ -1,11 +1,11 @@
 """Shared saddle-point runtime: projections, iterate averaging, restart
 schemes and primal-weight balancing.
 
-Reference semantics: src/saddle_point.jl. Vectors and floating scalars
-are tensors on the solve's device; counters and flags that steer the
-host loop (average counts, restart lengths, `has_gap`) are Python
-values, and each restart decision is read back to the host once per
-evaluation.
+Reference semantics: src/saddle_point.jl. Every value is a tensor on
+the solve's device: vectors, floating scalars, and the counters and
+flags (average counts, restart lengths, `has_gap`) as 0-d tensors. The
+restart decision is a device select, as in the JAX package, so an
+evaluation reads nothing back.
 """
 
 from __future__ import annotations
@@ -122,8 +122,8 @@ class SolutionWeightedAverage:
 
     sum_primal_solutions: torch.Tensor
     sum_dual_solutions: torch.Tensor
-    sum_primal_solutions_count: int
-    sum_dual_solutions_count: int
+    sum_primal_solutions_count: torch.Tensor  # 0-d int64
+    sum_dual_solutions_count: torch.Tensor  # 0-d int64
     sum_primal_solution_weights: torch.Tensor  # 0-d
     sum_dual_solution_weights: torch.Tensor  # 0-d
 
@@ -135,8 +135,10 @@ def initialize_solution_weighted_average(
         sum_primal_solutions=torch.zeros(primal_size, dtype=dtype,
                                          device=device),
         sum_dual_solutions=torch.zeros(dual_size, dtype=dtype, device=device),
-        sum_primal_solutions_count=0,
-        sum_dual_solutions_count=0,
+        sum_primal_solutions_count=torch.zeros((), dtype=torch.int64,
+                                               device=device),
+        sum_dual_solutions_count=torch.zeros((), dtype=torch.int64,
+                                             device=device),
         sum_primal_solution_weights=torch.zeros((), dtype=dtype,
                                                 device=device),
         sum_dual_solution_weights=torch.zeros((), dtype=dtype, device=device),
@@ -146,18 +148,11 @@ def initialize_solution_weighted_average(
 def reset_solution_weighted_average(
     avg: SolutionWeightedAverage,
 ) -> SolutionWeightedAverage:
-    return SolutionWeightedAverage(
-        sum_primal_solutions=torch.zeros_like(avg.sum_primal_solutions),
-        sum_dual_solutions=torch.zeros_like(avg.sum_dual_solutions),
-        sum_primal_solutions_count=0,
-        sum_dual_solutions_count=0,
-        sum_primal_solution_weights=torch.zeros_like(
-            avg.sum_primal_solution_weights
-        ),
-        sum_dual_solution_weights=torch.zeros_like(
-            avg.sum_dual_solution_weights
-        ),
-    )
+    """Every field zero, a fleet's per lane."""
+    return SolutionWeightedAverage(*(
+        torch.zeros_like(getattr(avg, f.name))
+        for f in dataclasses.fields(SolutionWeightedAverage)
+    ))
 
 
 def add_to_primal_solution_weighted_average(
@@ -286,9 +281,9 @@ class RestartInfo:
 
     primal_solution: torch.Tensor
     dual_solution: torch.Tensor
-    has_gap: bool
+    has_gap: torch.Tensor  # 0-d bool
     gap: torch.Tensor  # 0-d
-    last_restart_length: int
+    last_restart_length: torch.Tensor  # 0-d int64
     primal_distance_moved_last_restart_period: torch.Tensor  # 0-d
     dual_distance_moved_last_restart_period: torch.Tensor  # 0-d
     gap_reduction_ratio_last_trial: torch.Tensor  # 0-d
@@ -301,9 +296,10 @@ def create_last_restart_info(primal, dual) -> RestartInfo:
     return RestartInfo(
         primal_solution=primal,
         dual_solution=dual,
-        has_gap=False,
+        has_gap=torch.zeros((), dtype=torch.bool, device=primal.device),
         gap=scalar(0.0),
-        last_restart_length=1,
+        last_restart_length=torch.ones((), dtype=torch.int64,
+                                       device=primal.device),
         primal_distance_moved_last_restart_period=scalar(0.0),
         dual_distance_moved_last_restart_period=scalar(0.0),
         gap_reduction_ratio_last_trial=scalar(1.0),
@@ -399,11 +395,38 @@ def should_reset_to_average(
 
 
 class RestartSchemeResult(NamedTuple):
-    restart_choice: int  # RestartChoice code
+    restart_choice: torch.Tensor  # 0-d int32 RestartChoice code
     primal_solution: torch.Tensor
     dual_solution: torch.Tensor
     avg: SolutionWeightedAverage
     restart_info: RestartInfo
+
+
+def select_fields(cond, a, b):
+    """`a` where the bool `cond`, else `b`, leaf by leaf through
+    dataclasses and named tuples (the JAX package's tree_map of
+    jnp.where); a fleet's (B,) condition broadcasts over a (dim, B)
+    leaf's trailing axis."""
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: select_fields(cond, getattr(a, f.name),
+                                  getattr(b, f.name))
+            for f in dataclasses.fields(a)
+        })
+    if isinstance(a, tuple):
+        return type(a)(*(select_fields(cond, u, v) for u, v in zip(a, b)))
+    return torch.where(cond, a, b)
+
+
+def distance_last_restart(restart_info: RestartInfo, primal_weight):
+    """The weighted distance the last restart period moved (per lane
+    for a fleet)."""
+    return torch.sqrt(
+        restart_info.primal_distance_moved_last_restart_period**2
+        * primal_weight
+        + restart_info.dual_distance_moved_last_restart_period**2
+        / primal_weight
+    )
 
 
 def run_restart_scheme(
@@ -412,7 +435,7 @@ def run_restart_scheme(
     current_primal,
     current_dual,
     restart_info: RestartInfo,
-    iterations_completed: int,
+    iterations_completed,
     primal_norm_params,
     dual_norm_params,
     primal_weight,
@@ -420,31 +443,34 @@ def run_restart_scheme(
 ) -> RestartSchemeResult:
     """Decides whether to restart and applies the restart.
 
-    Reference: src/saddle_point.jl:651-846; the same arithmetic as the
-    JAX package's run_restart_scheme, with its decisions read back to the
-    host (one transfer) instead of selected on the device.
+    Reference: src/saddle_point.jl:651-846; the JAX package's
+    run_restart_scheme (saddle_point.py:423-689 there): the scheme and
+    the metric are static, every decision is a 0-d device tensor and the
+    results are chosen by torch.where, so nothing is read back.
+    `iterations_completed` and the average's counts are 0-d int64
+    tensors.
     """
+    device = current_primal.device
     no_restart = RestartSchemeResult(
-        restart_choice=int(RestartChoice.RESTART_CHOICE_NO_RESTART),
+        restart_choice=torch.full(
+            (), int(RestartChoice.RESTART_CHOICE_NO_RESTART),
+            dtype=torch.int32, device=device),
         primal_solution=current_primal,
         dual_solution=current_dual,
         avg=avg,
         restart_info=restart_info,
     )
-    # If there is no average at all, nothing happens (reference l.703-709).
-    if not (
-        avg.sum_primal_solutions_count > 0
-        and avg.sum_dual_solutions_count > 0
-    ):
-        return no_restart
+    has_average = (avg.sum_primal_solutions_count > 0) & (
+        avg.sum_dual_solutions_count > 0
+    )
+    # An empty average divides by 1 (its result is not used then).
     safe_avg_primal, safe_avg_dual = compute_average(avg)
 
     restart_length = avg.sum_primal_solutions_count
-    artificial_restart = (
-        restart_length
-        >= restart_params.artificial_restart_threshold * iterations_completed
+    do_restart = restart_length.to(torch.float64) >= (
+        restart_params.artificial_restart_threshold
+        * iterations_completed.to(torch.float64)
     )
-    device = current_primal.device
     false = torch.zeros((), dtype=torch.bool, device=device)
 
     scheme = restart_params.restart_scheme
@@ -469,12 +495,8 @@ def run_restart_scheme(
         batch_duals = [safe_avg_dual, current_dual]
         batch_radii = [dist_avg, dist_cur]
         if scheme == RestartScheme.ADAPTIVE_NORMALIZED:
-            dist_last_restart = torch.sqrt(
-                restart_info.primal_distance_moved_last_restart_period**2
-                * primal_weight
-                + restart_info.dual_distance_moved_last_restart_period**2
-                / primal_weight
-            )
+            dist_last_restart = distance_last_restart(restart_info,
+                                                       primal_weight)
             batch_primals.append(restart_info.primal_solution)
             batch_duals.append(restart_info.dual_solution)
             batch_radii.append(dist_last_restart)
@@ -509,21 +531,23 @@ def run_restart_scheme(
         candidate_distance = torch.where(reset_to_average, dist_avg, dist_cur)
 
     gap_ratio_update = restart_info.gap_reduction_ratio_last_trial
-    scheme_restart = false
     if scheme == RestartScheme.ADAPTIVE_NORMALIZED:
         last_restart_gap = bound_row(2)
         normalized_candidate = candidate_gap.gap / candidate_distance
         normalized_last = last_restart_gap.gap / dist_last_restart
         gap_reduction_ratio = normalized_candidate / normalized_last
-        scheme_restart = (
-            gap_reduction_ratio
-            < restart_params.necessary_reduction_for_restart
-        ) & (
+        do_restart = do_restart | (
             (
                 gap_reduction_ratio
-                < restart_params.sufficient_reduction_for_restart
+                < restart_params.necessary_reduction_for_restart
+            ) & (
+                (
+                    gap_reduction_ratio
+                    < restart_params.sufficient_reduction_for_restart
+                )
+                | (gap_reduction_ratio
+                   > restart_info.gap_reduction_ratio_last_trial)
             )
-            | (gap_reduction_ratio > restart_info.gap_reduction_ratio_last_trial)
         )
         gap_ratio_update = gap_reduction_ratio
     elif scheme in (
@@ -534,48 +558,34 @@ def run_restart_scheme(
             new_potential = candidate_gap.gap / restart_length
             old_potential = restart_info.gap / restart_info.last_restart_length
         else:
-            dist_last_restart = torch.sqrt(
-                restart_info.primal_distance_moved_last_restart_period**2
-                * primal_weight
-                + restart_info.dual_distance_moved_last_restart_period**2
-                / primal_weight
-            )
             new_potential = candidate_distance / restart_length
             old_potential = (
-                dist_last_restart / restart_info.last_restart_length
+                distance_last_restart(restart_info, primal_weight)
+                / restart_info.last_restart_length
             )
         scheme_restart = (
             new_potential / old_potential
             < restart_params.necessary_reduction_for_restart
         )
         # Automatically restart if no restart has occurred yet.
-        if not restart_info.has_gap:
-            scheme_restart = ~false
+        do_restart = do_restart | torch.where(
+            restart_info.has_gap, scheme_restart, ~false
+        )
     elif scheme == RestartScheme.FIXED_FREQUENCY:
-        artificial_restart = artificial_restart or (
+        do_restart = do_restart | (
             restart_params.restart_frequency_if_fixed <= restart_length
         )
+    do_restart = do_restart & has_average
 
-    scheme_flag, reset_flag = (
-        torch.stack([scheme_restart, reset_to_average]).tolist()
-    )
-    do_restart = artificial_restart or scheme_flag
-    if not do_restart:
-        # gap_reduction_ratio_last_trial is updated on every
-        # ADAPTIVE_NORMALIZED trial, restart or not (reference l.590).
-        return no_restart._replace(
-            restart_info=dataclasses.replace(
-                restart_info, gap_reduction_ratio_last_trial=gap_ratio_update
-            )
-        )
-
-    new_primal = safe_avg_primal if reset_flag else current_primal
-    new_dual = safe_avg_dual if reset_flag else current_dual
+    to_average = do_restart & reset_to_average
+    new_primal = torch.where(to_average, safe_avg_primal, current_primal)
+    new_dual = torch.where(to_average, safe_avg_dual, current_dual)
     sqrt_weight = torch.sqrt(primal_weight)
-    new_info = RestartInfo(
+    updated_info = RestartInfo(
         primal_solution=new_primal,
         dual_solution=new_dual,
-        has_gap=scheme != RestartScheme.NO_RESTARTS,
+        has_gap=torch.full((), scheme != RestartScheme.NO_RESTARTS,
+                           dtype=torch.bool, device=device),
         gap=candidate_gap.gap,
         last_restart_length=restart_length,
         primal_distance_moved_last_restart_period=weighted_norm(
@@ -588,18 +598,31 @@ def run_restart_scheme(
         * sqrt_weight,
         gap_reduction_ratio_last_trial=gap_ratio_update,
     )
-    choice = (
-        RestartChoice.RESTART_CHOICE_RESTART_TO_AVERAGE
-        if reset_flag
-        else RestartChoice.RESTART_CHOICE_WEIGHTED_AVERAGE_RESET
+    # gap_reduction_ratio_last_trial is updated on every
+    # ADAPTIVE_NORMALIZED trial, restart or not (reference l.590); the
+    # other fields change only on a restart.
+    kept_info = dataclasses.replace(
+        restart_info, gap_reduction_ratio_last_trial=gap_ratio_update
     )
-    return RestartSchemeResult(
-        restart_choice=int(choice),
+    restart_choice = torch.where(
+        ~do_restart,
+        int(RestartChoice.RESTART_CHOICE_NO_RESTART),
+        torch.where(
+            reset_to_average,
+            int(RestartChoice.RESTART_CHOICE_RESTART_TO_AVERAGE),
+            int(RestartChoice.RESTART_CHOICE_WEIGHTED_AVERAGE_RESET),
+        ),
+    ).to(torch.int32)
+    result = RestartSchemeResult(
+        restart_choice=restart_choice,
         primal_solution=new_primal,
         dual_solution=new_dual,
-        avg=reset_solution_weighted_average(avg),
-        restart_info=new_info,
+        avg=select_fields(do_restart, reset_solution_weighted_average(avg),
+                          avg),
+        restart_info=select_fields(do_restart, updated_info, kept_info),
     )
+    # If there is no average at all, nothing happens (reference l.703-709).
+    return select_fields(has_average, result, no_restart)
 
 
 def compute_new_primal_weight(

@@ -878,18 +878,9 @@ def test_lane_restart_scheme_matches_single_instance(scheme, metric):
         fleet.bundle.scaled, state.avg, x, y, info, iterations, primal_norm,
         dual_norm, state.primal_weight, params)
     for i in range(len(DAMPING)):
-        avg = lane_of(state.avg, i)
-        avg = dataclasses.replace(
-            avg,
-            sum_primal_solutions_count=int(avg.sum_primal_solutions_count),
-            sum_dual_solutions_count=int(avg.sum_dual_solutions_count))
-        single_info = lane_of(info, i)
-        single_info = dataclasses.replace(
-            single_info, has_gap=bool(single_info.has_gap),
-            last_restart_length=int(single_info.last_restart_length))
         want = saddle_point.run_restart_scheme(
-            single_lane_problem(fleet, i), avg, x[:, i], y[:, i],
-            single_info, int(iterations[i]), primal_norm[:, i],
+            single_lane_problem(fleet, i), lane_of(state.avg, i), x[:, i],
+            y[:, i], lane_of(info, i), iterations[i], primal_norm[:, i],
             dual_norm[:, i], state.primal_weight[i], params)
         assert int(got.restart_choice[i]) == want.restart_choice
         for name, mine, theirs in (

@@ -1190,6 +1190,9 @@ def assert_same_bits(got, want, path="state"):
         for f in dataclasses.fields(want):
             assert_same_bits(getattr(got, f.name), getattr(want, f.name),
                              f"{path}.{f.name}")
+    elif isinstance(want, tuple):
+        for name, u, v in zip(want._fields, got, want):
+            assert_same_bits(u, v, f"{path}.{name}")
     elif isinstance(want, torch.Tensor) and isinstance(got, torch.Tensor):
         assert got.dtype == want.dtype, path
 
@@ -1249,11 +1252,12 @@ def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
                                                      tile_aligned,
                                                      monkeypatch):
     """Up to three segments from the same state (fewer when an
-    evaluation ends the solve), replayed from the bundle's graph
-    (captured once) and run eagerly: every field bitwise equal,
-    the same launch counts (the replays credited; the capture's warm-up
-    step apart), one replay a trial, and the kernels' tickets back at
-    zero after the replays."""
+    evaluation ends the solve), the evaluation and the steps replayed
+    from the bundle's graphs (captured once) and run eagerly: every
+    field of the state and of the evaluation's result bitwise equal, the
+    same launch counts (the replays credited; the capture's warm-up
+    evaluation and step apart), one replay a trial and an evaluation,
+    and the kernels' tickets back at zero after the replays."""
     from firstorderlp_torch.ops import graphs
 
     module, bundle, config, state = segment_case(cuda, solver,
@@ -1276,11 +1280,13 @@ def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
         assert dict(routed.LAUNCHES) == eager_launches
         assert gres.termination_reason == eres.termination_reason
         assert_same_bits(graphed, eager)
+        assert_same_bits(gres, eres, "result")
         if gres.termination_reason != 0:  # the evaluation ended the solve
             break
         assert graphs.COUNTS["replays"] > replays
     assert len(bundle.graphs) == graphs.COUNTS["captures"] == 1
     assert 2 * graphs.COUNTS["replays"] == graphs.COUNTS["steps"]
+    assert 2 * graphs.COUNTS["eval_replays"] == graphs.COUNTS["evaluations"]
     torch.cuda.synchronize()
     op = bundle.scaled.constraint_matrix
     for tickets in tickets_of(op.a, op.at):
@@ -1288,21 +1294,68 @@ def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
 
 
 def test_a_capture_that_fails_raises(cuda):
-    """A step that reads a value back cannot be captured: the capture
-    raises, and nothing is cached or replayed in its place."""
+    """An evaluation that reads a value back cannot be captured: the
+    capture raises, and nothing is cached or replayed in its place."""
     from firstorderlp_torch.ops import graphs
 
     @dataclasses.dataclass(frozen=True)
     class Carry:
         x: torch.Tensor
 
-    def syncing_step(carry):
-        return Carry(x=carry.x + carry.x.sum().item())
+    def syncing_evaluation(carry):
+        return Carry(x=carry.x + carry.x.sum().item()), carry.x.sum()
+
+    def step(carry):
+        return Carry(x=carry.x + 1.0)
 
     bundle = types.SimpleNamespace(graphs={})
     with pytest.raises(RuntimeError):
-        graphs.cached(bundle, "step", lambda: graphs.StepGraph(
-            syncing_step, Carry(x=torch.ones(8, device=cuda)), ("x",)))
+        graphs.cached(bundle, "segment", lambda: graphs.SegmentGraphs(
+            syncing_evaluation, step, Carry(x=torch.ones(8, device=cuda)),
+            ()))
     assert bundle.graphs == {}
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=cuda).sum()) == 2.0
+
+
+@pytest.mark.parametrize("layout", ["routed", "sparse"])
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_an_eager_evaluation_does_not_synchronize(cuda, solver, layout):
+    """The device evaluation (statistics, termination, bound estimates,
+    restart) on the card makes no host synchronization at all, under
+    torch.cuda.set_sync_debug_mode("error"): on the kernel operator in
+    f32, and on the f64 CsrOp that runs it eagerly."""
+    import firstorderlp_torch as tx
+    from firstorderlp_torch.models import mirror_prox, pdhg
+
+    problem = generate_pagerank_lp(2000, seed=0)
+    dtype = "float32" if layout == "routed" else "float64"
+    params = dataclasses.replace(card_params(), matrix_format=layout,
+                                 dtype=dtype, record_iteration_stats=True)
+    module = pdhg
+    if solver == "mirror_prox":
+        module = mirror_prox
+        params = tx.MirrorProxParameters(
+            l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+            pock_chambolle_alpha=1.0, primal_importance=1.0,
+            scale_invariant_initial_primal_weight=True,
+            diagonal_scaling="l2", verbosity=0, record_iteration_stats=True,
+            termination_evaluation_frequency=40,
+            termination_criteria=params.termination_criteria,
+            restart_params=params.restart_params, dtype=dtype,
+            matrix_format=layout)
+    prepared = module.prepare_problem(params, problem, device=cuda)
+    config = module._make_config(params)
+    state = module._device_counters(prepared.initial_state)
+    for _ in range(11):  # to iteration 81, with an average and restarts
+        state, _ = module._segment_core(prepared.bundle, state, 0.0, config)
+    elapsed = torch.zeros((), dtype=torch.float64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, result = module._eval_block(prepared.bundle, state, elapsed,
+                                         config)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(result.iteration) == 80
+    assert int(new.termination_reason) == 0

@@ -192,6 +192,17 @@ COUNTERS = ("iteration", "iterations_completed", "accepted_iterations",
             "numerical_error", "termination_reason")
 
 
+def leaves_of(state, prefix=""):
+    """(path, tensor) of every leaf of a state, nested dataclasses
+    walked."""
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if dataclasses.is_dataclass(value):
+            yield from leaves_of(value, prefix + f.name + ".")
+        else:
+            yield prefix + f.name, value
+
+
 def assert_states_close(tstate, jstate, rtol):
     for name in COUNTERS:
         assert int(getattr(tstate, name)) == int(getattr(jstate, name)), name
@@ -292,9 +303,11 @@ def test_eval_block_from_jax_state_f64(case):
             rtol=1e-8, atol=1e-10, err_msg=field,
         )
     # an already terminated state is left alone: no passes, same reason
-    done = dataclasses.replace(tstate, termination_reason=3)
+    done = dataclasses.replace(
+        tstate, termination_reason=torch.tensor(3, dtype=torch.int32))
     kept, res = tx_mp._eval_block(tprep.bundle, done, 0.0, tcfg)
-    assert kept is done
+    for (name, a), (_, b) in zip(leaves_of(kept), leaves_of(done)):
+        assert torch.equal(a, b), name
     assert res.termination_reason == 3
     assert res.cumulative_kkt_passes == float(done.cumulative_kkt_passes)
 
@@ -348,7 +361,7 @@ def test_numerical_error_stops_the_iteration_counter():
     assert bool(tstate.numerical_error)
     assert_states_close(tstate, jstate, 1e-10)
     tstate, tres = tx_mp._segment_core(tprep.bundle, tstate, 0.0, tcfg)
-    assert tx.TerminationReason(tres.termination_reason) == (
+    assert tx.TerminationReason(int(tres.termination_reason)) == (
         tx.TerminationReason.TERMINATION_REASON_NUMERICAL_ERROR
     )
     assert int(tstate.iteration) == start + 1

@@ -786,8 +786,8 @@ def restart_states(got, seed, has_gap):
         jnp.asarray(v["wy"]),
     )
     t_avg = tx_sp.SolutionWeightedAverage(
-        t(v["avg_x"] * v["wx"]), t(v["avg_y"] * v["wy"]), 17, 17,
-        s64(v["wx"]), s64(v["wy"]),
+        t(v["avg_x"] * v["wx"]), t(v["avg_y"] * v["wy"]), torch.tensor(17),
+        torch.tensor(17), s64(v["wx"]), s64(v["wy"]),
     )
     j_info = jx_sp.RestartInfo(
         jnp.asarray(v["rx"]), jnp.asarray(v["ry"]), jnp.asarray(has_gap),
@@ -795,7 +795,8 @@ def restart_states(got, seed, has_gap):
         jnp.asarray(v["dd"]), jnp.asarray(v["ratio"]),
     )
     t_info = tx_sp.RestartInfo(
-        t(v["rx"]), t(v["ry"]), has_gap, s64(v["gap"]), 9,
+        t(v["rx"]), t(v["ry"]), torch.tensor(has_gap), s64(v["gap"]),
+        torch.tensor(9),
         s64(v["pd"]), s64(v["dd"]),
         s64(v["ratio"]),
     )
@@ -825,7 +826,8 @@ def test_run_restart_scheme_matches(scheme, metric, seed, iters, has_gap):
         jnp.asarray(pw), params_j,
     )
     rt = tx_sp.run_restart_scheme(
-        got.scaled, t_avg, t(v["cur_x"]), t(v["cur_y"]), t_info, iters,
+        got.scaled, t_avg, t(v["cur_x"]), t(v["cur_y"]), t_info,
+        torch.tensor(iters),
         t(pnorm), t(dnorm), s64(pw), params_t,
     )
     assert rt.restart_choice == int(rj.restart_choice)

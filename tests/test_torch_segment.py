@@ -1,6 +1,6 @@
-"""The port's on-device segment (models/pdhg._run_trials,
-models/mirror_prox._run_iterations) on the CPU, against the JAX
-package's _run_segment and against one masked trial at a time.
+"""The port's on-device segment (models/pdhg._run_trials and
+_run_segments, models/mirror_prox._run_segments) on the CPU, against the
+JAX package's _run_segment and against one masked trial at a time.
 
 - A trial (adaptive, constant) or a Mirror Prox iteration that is not
   active changes no bit of the state.
@@ -8,8 +8,9 @@ package's _run_segment and against one masked trial at a time.
   the state of the masked trial run one at a time with a read-back each,
   and the counters of the JAX package's _run_segment exactly.
 - Read-backs are counted at the host: a segment makes one read-back a
-  round (one when nothing is rejected) and nothing else; a Mirror Prox
-  segment makes none.
+  round (one when nothing is rejected), its evaluation included, and
+  nothing else; a Mirror Prox segment makes one, after its evaluation,
+  and its iterations none.
 - The step-size factors on the device equal the host's pow in f64 to
   1 ulp.
 - The graph decision is made by type (ops/graphs.graphable), and a
@@ -157,7 +158,7 @@ def test_inactive_mirror_prox_iteration_changes_no_bit(case):
     """A Mirror Prox iteration is inactive when the numerical-error flag
     is already up: every field, the iteration counter too, stays."""
     _, state, _, tprep, _ = mid_solve(case)
-    tstate = tx_mp._counts_on_device(
+    tstate = tx_mp._device_counters(
         convert.mp_state_from_arrays(state_leaves(state), device="cpu"))
     frozen = dataclasses.replace(tstate, numerical_error=torch.tensor(True))
     after = tx_mp._iterate(tprep.bundle.scaled, frozen)
@@ -184,7 +185,7 @@ def trial_by_trial(bundle, state, config):
     """The evaluation, then the masked trial one at a time, with a
     read-back of the predicate before each."""
     state, _ = tx_pdhg._eval_block(bundle, state, 0.0, config)
-    start = torch.tensor(state.iteration)
+    start = state.iteration.clone()
     dstate = tx_pdhg._device_counters(state)
     trials = 0
     while bool(tx_pdhg._trial_active(dstate, start, config)):
@@ -212,12 +213,11 @@ def test_rounds_equal_trial_by_trial_and_the_jax_counters(name,
     want, one_by_one = trial_by_trial(tprep.bundle, tstate, tcfg)
     assert one_by_one == trials == graphs.COUNTS["steps"]
     assert_same_bits(rounds, want)
-    # the state leaves the segment with host counters, as it came in
-    assert type(rounds.iteration) is int
-    assert type(rounds.total_number_iterations) is int
-    assert type(rounds.cumulative_kkt_passes) is float
-    assert type(rounds.numerical_error) is bool
-    assert type(rounds.avg.sum_primal_solutions_count) is int
+    # the state leaves the segment with its counters on the device
+    for name, dtype in tx_pdhg.COUNTER_DTYPES.items():
+        value = getattr(rounds, name)
+        assert value.dim() == 0 and value.dtype == dtype, name
+    assert rounds.avg.sum_primal_solutions_count.dtype == torch.int64
     assert rounds.iteration == int(jnext.iteration)
     assert rounds.total_number_iterations == int(
         jnext.total_number_iterations)
@@ -232,38 +232,47 @@ def test_rounds_equal_trial_by_trial_and_the_jax_counters(name,
 
 @pytest.mark.parametrize("rule", ["adaptive", "constant"])
 def test_segment_reads_back_once_a_round(rule, monkeypatch):
-    """Counted at the host's tensor methods: the trials make exactly the
-    rounds' read-backs, all one .tolist() each; a segment with no
-    rejection (the constant rule, or an adaptive one that accepts every
-    trial) makes one."""
+    """Counted at the host's tensor methods: a segment, its evaluation
+    included, makes exactly the rounds' read-backs, all one .tolist()
+    each; a segment with no rejection (the constant rule, or an adaptive
+    one that accepts every trial) makes one."""
     policy = jx.ConstantStepsizeParams() if rule == "constant" else None
     tprep, tcfg, tstate, *_ = port_state("random_lp", 81, policy)
-    state, _ = tx_pdhg._eval_block(tprep.bundle, tstate, 0.0, tcfg)
+    state = tx_pdhg._device_counters(tstate)
     graphs.reset_counts()
     with host_reads(monkeypatch) as calls:
-        after = tx_pdhg._run_trials(tprep.bundle, state, tcfg)
+        after, _, iteration, reason = tx_pdhg._run_segments(
+            tprep.bundle, state, 0.0, tcfg, 1, 81)
+    assert reason == 0 and iteration == int(after.iteration)
     assert calls == ["tolist"] * graphs.COUNTS["read_backs"]
     trials = after.total_number_iterations - state.total_number_iterations
     accepted = after.iteration - state.iteration
-    assert accepted == tx_pdhg.next_eval_iteration(state.iteration,
-                                                   tcfg) - state.iteration
+    assert accepted == tx_pdhg.next_eval_iteration(81, tcfg) - 81
     if trials == accepted:
         assert graphs.COUNTS["read_backs"] == 1
     else:
         assert graphs.COUNTS["read_backs"] <= 1 + trials - accepted
-    assert graphs.COUNTS["segments"] == 1
+    assert graphs.COUNTS["segments"] == graphs.COUNTS["evaluations"] == 1
+    assert graphs.COUNTS["loads"] == graphs.COUNTS["unloads"] == 1
     assert graphs.COUNTS["replays"] == 0  # the CPU runs them eagerly
 
 
 def test_mirror_prox_segment_reads_nothing_back(monkeypatch):
+    """The iterations read nothing back: a segment's one read-back is
+    its evaluation's (the reason and the iteration, one .tolist())."""
     _, state, _, tprep, tcfg = mid_solve("pagerank300_l1")
-    tstate = convert.mp_state_from_arrays(state_leaves(state), device="cpu")
-    tstate, result = tx_mp._eval_block(tprep.bundle, tstate, 0.0, tcfg)
-    start = result.iteration + 1
+    tstate = tx_mp._device_counters(
+        convert.mp_state_from_arrays(state_leaves(state), device="cpu"))
+    start = int(tstate.iteration)
     iterations = tx_mp.next_eval_iteration(start, tcfg) - start
+    graphs.reset_counts()
     with host_reads(monkeypatch) as calls:
-        after = tx_mp._run_iterations(tprep.bundle, tstate, iterations)
-    assert calls == []
+        after, _, reason = tx_mp._run_segments(tprep.bundle, tstate, 0.0,
+                                               tcfg, 1)
+    assert reason == 0
+    assert calls == ["tolist"]
+    assert graphs.COUNTS["read_backs"] == 1
+    assert graphs.COUNTS["steps"] == iterations
     assert int(after.iteration) == start + iterations
 
 
