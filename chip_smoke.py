@@ -26,6 +26,13 @@ Phases, each printing one JSON line:
    from torch.profiler and what the launch looks like (blocks, the
    largest and the mean number of stored entries per block, tiles staged
    and gathered, bytes staged);
+   kernels_trial: the step trial's two kernels around B3/B4 (B6/B7),
+   F1a primal_step and F1b trial_epilogue (ops/pdhg_step.py), on the
+   scaled LP's data and a state made with numpy from a seed, on CSR and
+   the tile plan, three step sizes, the mask on and off, adaptive and
+   constant: each bitwise equal to its plain version, with times (CUDA
+   events, device time and kernels a call, the plain version's) and the
+   bytes bound;
    kernels_tiled_large: the three tile-plan kernels and the three CSR
    kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
@@ -57,12 +64,18 @@ Phases, each printing one JSON line:
    plan and Mirror Prox on CSR: state and result bitwise equal, the
    same launches, read-backs a segment, replays, the capture's
    seconds, the host's launch calls an evaluation, a segment and a
-   step, and seconds in turns; with --parent DIR,
+   step, and seconds in turns; for PDHG also the trial alone
+   (`trial`): the device ms of a replayed trial, the host's
+   cudaGraphLaunch time a replay, the trial graph's nodes, and an eager
+   trial's host launch calls and kernels, which must be F1a, B3/B6,
+   B4/B7 and F1b and nothing else; with --parent DIR,
    main_path_parent: the warm solve and mirror_prox_path's at six seeds
    by another version of the package (DIR holds it as
    firstorderlp_torch_parent) and by this one, in turns (ms an
    iteration; every solve of a seed and solver with the same
-   iterations and the same bits of x and y); hetero_parent: hetero_fleet's solve by both, in turns,
+   iterations and the same bits of x and y; then each version's PDHG
+   trial from the state at iteration 81, in turns, measured as
+   segment_graph's `trial`); hetero_parent: hetero_fleet's solve by both, in turns,
    and once each under torch.profiler (B2's share of the device time);
    cli_path: the port's CLIs (firstorderlp_torch/cli) as a user
    runs them: generate_pagerank_lp writes that LP (3 edges a node, the
@@ -1308,8 +1321,9 @@ def states_equal(a, b) -> bool:
 
 def exact_launches(torch, routed, module, bundle, state, config, counts,
                    launches):
-    """The B2-B7 launches a solve must have made, from the launches of
-    one eager evaluation, step and final bound estimate on `bundle`
+    """The B2-B7, F1a and F1b launches a solve must have made, from the
+    launches of one eager evaluation, step and final bound estimate on
+    `bundle`
     (`module` is models.pdhg or models.mirror_prox): each evaluation's
     and each step's, the replays credited, plus one evaluation and one
     step for each capture's warm-up, plus the final bound estimate.
@@ -1368,6 +1382,99 @@ def eval_host_calls(torch, module, bundle, state, config) -> int:
     runner.unload()
     return sum(e.count for e in prof.key_averages()
                if e.key in LAUNCH_CALLS | {"cudaGraphLaunch"})
+
+
+def graph_nodes(torch, graph) -> int:
+    """The nodes of a CUDA graph captured with keep_graph=True
+    (cuGraphGetNodes on its cudaGraph_t)."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                  None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return int(count.value)
+
+
+TRIAL_REPLAYS = 40  # replays a device time of a trial is taken over
+
+
+def trial_measures(torch, pdhg_mod, graphs_mod, routed_mod, bundle, config,
+                   state):
+    """A PDHG trial of one version of the package (`pdhg_mod`, its
+    ops.graphs and ops.routed) from `state` on `bundle`, as the solver
+    replays it: the device ms of a replayed trial (CUDA events around
+    TRIAL_REPLAYS replays of the bundle's step graph, a sleeping kernel
+    first), the host's cudaGraphLaunch time a replay (torch.profiler),
+    the nodes of the trial's graph (the trial and its copy-back into the
+    buffers, captured again with keep_graph=True), and the host's launch
+    calls of one eager trial alone (no copy-back) with the kernels it
+    launched (routed.LAUNCHES and the profiler's device records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+
+    state = pdhg_mod._device_counters(state)
+    start = state.iteration.clone()
+    runner = pdhg_mod._runner(bundle, state, 0.0, config, False)
+    start_event = torch.cuda.Event(enable_timing=True)
+    end_event = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s: the host runs ahead
+    start_event.record()
+    runner.steps(TRIAL_REPLAYS)
+    end_event.record()
+    torch.cuda.synchronize()
+    out = {"device_ms_per_trial":
+           start_event.elapsed_time(end_event) / TRIAL_REPLAYS}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.steps(TRIAL_REPLAYS)
+        torch.cuda.synchronize()
+    launch = [e for e in prof.key_averages() if e.key == "cudaGraphLaunch"]
+    out["graph_launch_host_us"] = (
+        launch[0].self_cpu_time_total / launch[0].count if launch else None)
+    runner.unload()
+
+    saved = dict(routed_mod.LAUNCHES)
+    static = graphs_mod.StaticState(state, (
+        torch.zeros((), dtype=torch.float64, device=start.device), start))
+
+    def trial(s, elapsed, first):
+        return pdhg_mod._masked_trial(bundle.scaled, config, s, first)
+
+    side = torch.cuda.Stream(start.device)
+    side.wait_stream(torch.cuda.current_stream(start.device))
+    with torch.cuda.stream(side):
+        static.apply(trial)  # warm-up, as SegmentGraphs does
+    torch.cuda.current_stream(start.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        static.apply(trial)
+    out["graph_nodes"] = graph_nodes(torch, graph)
+    del graph, static
+
+    pdhg_mod._masked_trial(bundle.scaled, config, state, start)
+    torch.cuda.synchronize()
+    routed_mod.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pdhg_mod._masked_trial(bundle.scaled, config, state, start)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out["host_launch_calls_per_eager_trial"] = sum(
+        e.count for e in events if e.key in LAUNCH_CALLS)
+    out["eager_trial_launches"] = {
+        k: v for k, v in routed_mod.LAUNCHES.items() if v}
+    device_events = [e for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["eager_trial_device_records"] = sum(e.count for e in device_events)
+    out["eager_trial_device_kernels"] = sorted(e.key[:60]
+                                               for e in device_events)
+    routed_mod.LAUNCHES.update(saved)
+    return out
 
 
 # segment_graph's first segments: iterations 1-9 one each, 10 -> 41,
@@ -1532,6 +1639,25 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
             torch.cuda.synchronize()
             row[name] = start_event.elapsed_time(end_event) / count
         runner.unload()
+        if solver is pdhg:
+            # the trial alone: F1a, B3/B6, B4/B7 and F1b eagerly
+            row["trial"] = trial = trial_measures(
+                torch, pdhg, graphs, routed, bundle, config, state)
+            dual = (("tiled_dual_step", "tiled_rmv_stats") if tile else
+                    ("spmv_dual_step", "spmv_rmv_stats"))
+            want = dict.fromkeys(("primal_step", *dual, "trial_epilogue"),
+                                 1)
+            # the profiler may drop device records (PERF.md): every one
+            # it keeps must be a kernel of the port
+            kernels = trial["eager_trial_device_kernels"]
+            if (trial["eager_trial_launches"] != want
+                    or trial["host_launch_calls_per_eager_trial"] != 4
+                    or not 0 < len(kernels) <= 4
+                    or not all("folp::" in k for k in kernels)):
+                problems.append(f"{label}: an eager trial launched "
+                                f"{trial['eager_trial_launches']}, "
+                                f"{trial['host_launch_calls_per_eager_trial']}"
+                                f" host launch calls, kernels {kernels}")
         # untraced, in turns: eager, replayed, replayed, eager
         row["seconds"] = {"eager": [], "graphed": []}
         for mode in ("eager", "graphed", "graphed", "eager"):
@@ -2243,6 +2369,141 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     return rows
 
 
+TRIAL_VARIANTS = {  # step size (times 1 / max|A_ij|), primal weight
+    "small_step": (1e-3, 1.0),
+    "unit_step": (1.0, 1.0),
+    "large_step": (3.0, 0.01),
+}
+
+
+def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile):
+    """F1a (primal_step) and F1b (trial_epilogue) of ops/pdhg_step.py at
+    the main path's shapes, on the scaled LP's c, bounds and b and a
+    state made with numpy from seed 1 (x inside the bounds, y >= 0 on
+    the inequalities, A'y by B2): on the CSR and the tile-plan operator
+    (`ops`), for each TRIAL_VARIANTS step size and with the mask off,
+    adaptive and constant, F1a's outputs and then F1b's (on B3/B4's or
+    B6/B7's outputs) must equal their plain versions' bitwise. Times on
+    CSR, small_step: CUDA-event ms (median of 100), device ms and
+    kernels a call (torch.profiler), the plain version's ms; the bytes
+    bound counts what the call must move (F1b: the side of each select
+    that `take` chooses)."""
+    from firstorderlp_torch.ops import pdhg_step
+
+    rng = np.random.default_rng(1)
+    m, n = ops["csr"].shape
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    lower = scaled.variable_lower_bound
+    upper = scaled.variable_upper_bound
+    eq = np.arange(m) < scaled.num_equalities
+    y_np = rng.standard_normal(m)
+    y = f32(np.where(eq, y_np, np.abs(y_np)))
+    x = f32(np.clip(rng.standard_normal(n), lower, upper))
+    aty = routed.spmv_csr(ops["csr"].at, y)
+    c, b = f32(scaled.objective_vector), f32(scaled.right_hand_side)
+    lo, hi, eq32 = f32(lower), f32(upper), f32(eq)
+    step0 = 1.0 / float(abs(scaled.constraint_matrix).max())
+    fields = pdhg_step.TrialFields(
+        x=x, y=y, delta_x=f32(rng.standard_normal(n)),
+        delta_y=f32(rng.standard_normal(m)), aty=aty,
+        sum_x=f32(rng.standard_normal(n)), sum_y=f32(rng.standard_normal(m)),
+        count_x=scalar(37, torch.int64), count_y=scalar(37, torch.int64),
+        weight_x=scalar(1.5, torch.float32),
+        weight_y=scalar(1.5, torch.float32),
+        step_size=scalar(step0, torch.float32),
+        primal_weight=scalar(1.0, torch.float32),
+        numerical_error=scalar(False, torch.bool),
+        total=scalar(61, torch.int64), iteration=scalar(57, torch.int64),
+        kkt=scalar(123.5, torch.float64))
+    variants, timed_args = [], None
+    for layout, op in ops.items():
+        for name, (scale, weight) in TRIAL_VARIANTS.items():
+            for masked in (False, True):
+                for constant in (False, True):
+                    f = dataclasses.replace(
+                        fields, step_size=scalar(step0 * scale,
+                                                 torch.float32),
+                        primal_weight=scalar(weight, torch.float32),
+                        iteration=scalar(81 if masked else 57, torch.int64))
+                    start = scalar(80 if masked else 57, torch.int64)
+                    args = (x, c, aty, lo, hi, f.step_size, f.primal_weight,
+                            scalar(0, torch.int32), f.numerical_error,
+                            f.iteration, start, 40, 20_000, constant)
+                    got = pdhg_step.primal_step(*args)
+                    same_primal = states_equal(
+                        got, pdhg_step.primal_step_plain(*args))
+                    x_next, z, dx, sigma, active = got
+                    y_next, y_layout, dy2 = op.mv_dual_step(
+                        z, y, b, eq32, sigma)
+                    aty_next, inter, dx2 = op.rmv_stats(y_layout, dx, aty)
+                    tail = (x_next, dx, y_next, aty_next,
+                            *((None,) * 3 if constant
+                              else (dy2, inter, dx2)),
+                            active, 0.3, 0.6, constant)
+                    after = pdhg_step.trial_epilogue(f, *tail)
+                    same_epilogue = states_equal(
+                        after, pdhg_step.trial_epilogue_plain(f, *tail))
+                    torch.cuda.synchronize()
+                    variants.append({
+                        "layout": layout, "variant": name, "masked": masked,
+                        "constant": constant,
+                        "active": bool(active),
+                        "accepted": int(after.iteration) > int(f.iteration),
+                        "primal_step_bitwise": same_primal,
+                        "trial_epilogue_bitwise": same_epilogue})
+                    if (layout, name, masked, constant) == (
+                            "csr", "small_step", False, False):
+                        timed_args = (args, f, tail)
+    bad = [v for v in variants if not (v["primal_step_bitwise"]
+                                       and v["trial_epilogue_bitwise"])]
+    if bad:
+        fail("kernels_trial", f"kernel and plain version differ: {bad}")
+    args, f, tail = timed_args
+    accepted = [v["accepted"] for v in variants
+                if (v["layout"], v["variant"], v["masked"],
+                    v["constant"]) == ("csr", "small_step", False, False)]
+    rows = []
+    for name, kernel, plain, nbytes, flops, replaces in (
+        ("primal_step", lambda: pdhg_step.primal_step(*args),
+         lambda: pdhg_step.primal_step_plain(*args),
+         # x, c, A'y, l, u read; x+, z, dx written; the 0-d inputs and
+         # outputs
+         4 * 8 * n + 4 + 4 + 4 + 1 + 8 + 8 + 4 + 1, 8 * n,
+         "none (no pl.pallas_call): XLA's fusion in "
+         "firstorderlp_tpu/models/pdhg.py:303 (_take_step_adaptive) of "
+         ":246 (_compute_next_primal), :343 (z) and :354 (dx)"),
+        ("trial_epilogue", lambda: pdhg_step.trial_epilogue(f, *tail),
+         lambda: pdhg_step.trial_epilogue_plain(f, *tail),
+         # each select reads the side `take` chooses (and the sums, and
+         # y for dy): 4 n + 3 m floats read, as many written; the 0-d
+         # inputs and outputs
+         4 * (8 * n + 6 * m) + 150, 2 * n + 3 * m + 30,
+         "none (no pl.pallas_call): XLA's fusion in "
+         "firstorderlp_tpu/models/pdhg.py:303 (_take_step_adaptive) of "
+         ":355-410 (movement, limit, accept, step size, selects, "
+         "average) and :412 (_take_step_constant)"),
+    ):
+        kernel()
+        torch.cuda.synchronize()
+        dev_ms, per_call = device_profile(kernel)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "firstorderlp_torch/csrc/pdhg_step.cu",
+            "replaces": replaces, "max_abs_err": 0.0,
+            "bitwise_equal": True, "accepted": accepted[0],
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "device_ms": dev_ms, "kernels_per_call": per_call,
+            "bytes": nbytes, "flops": flops, "library_ms": None,
+        })
+    return rows, variants
+
+
 def kernels_tiled_large(torch, routed, probe, compare, device_ms, dev):
     """The three tile-plan kernels (tiled_spmv both ways,
     tiled_dual_step, tiled_rmv_stats) and the three CSR kernels
@@ -2636,11 +2897,13 @@ def main_path_parent(torch, compare, parent_dir, dev):
     (`parent_dir` holds it as `firstorderlp_torch_parent`) and by this
     one, in turns (parent, this, this, parent): iterations, seconds
     (host clock up to a device synchronize), ms an iteration and reason
-    of each solve."""
+    of each solve; then a PDHG trial of each version from the state at
+    iteration 81 of seed 0 (trial_measures), in turns."""
     dirs = {"parent": parent_dir, "this": None}
     mods = {who: {part: compare.package_module(part, where)
                   for part in ("", "generators", "models.pdhg",
-                               "models.mirror_prox")}
+                               "models.mirror_prox", "ops.graphs",
+                               "ops.routed")}
             for who, where in dirs.items()}
 
     def solve(who, solver, problem):
@@ -2689,8 +2952,30 @@ def main_path_parent(torch, compare, parent_dir, dev):
             if len(runs) != 1:
                 problems.append(f"seed {seed} {solver}: the versions' "
                                 f"solves differ: {sorted(runs)}")
+    trials = []
+    cases = {}
+    for who in dirs:
+        pkg, module = mods[who][""], mods[who]["models.pdhg"]
+        params = make_params(1e-4, 20_000, pkg=pkg)
+        prepared = module.prepare_problem(
+            params, mods[who]["generators"].generate_pagerank_lp(
+                num_nodes=NODES, seed=0), device=dev)
+        config = module._make_config(params)
+        state, _, _, _ = module._run_segments(
+            prepared.bundle, module._device_counters(prepared.initial_state),
+            0.0, config, SEGMENT_WARMUP, 1)
+        cases[who] = (module, prepared.bundle, config, state)
+    for who in ("parent", "this", "this", "parent"):
+        module, bundle, config, state = cases[who]
+        trials.append({"package": who, **trial_measures(
+            torch, module, mods[who]["ops.graphs"], mods[who]["ops.routed"],
+            bundle, config, state)})
+    for t in trials:
+        del t["eager_trial_device_kernels"]
+    del cases
     return {"phase": "main_path_parent", "ok": not problems,
             "nodes": NODES, "parent": parent_dir, "solves": rows,
+            "trials": trials,
             **({"problems": problems} if problems else {})}
 
 
@@ -3159,6 +3444,15 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit({"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
           "plan_setup_seconds": plan_setup_s, "tolerance": tolerance,
           "results": tiled})
+
+    # 3b. the trial's kernels around B3/B4 (B6/B7): F1a and F1b
+    trial_rows, trial_variants = kernels_trial(
+        torch, routed, {"csr": op, "tiled": top}, scaled, dev, time_ms,
+        device_profile)
+    add_bounds(trial_rows)
+    emit({"phase": "kernels_trial", "ok": True, "m": m, "n": n,
+          "tolerance": "bitwise equal to the plain versions",
+          "variants": trial_variants, "results": trial_rows})
     del op, top, plan, mat, whole, lib, lib_a, lib_at
 
     # 3b'. B2-B7 again where the arrays are larger than the L2 cache
@@ -3319,7 +3613,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if any(v > 1e-4 for v in res.values()):
         problems.append(f"host residuals {res}")
     csr_names = [r["name"] for r in results]
-    if any(launches[k] <= 0 for k in csr_names):
+    trial_names = [r["name"] for r in trial_rows]
+    if any(launches[k] <= 0 for k in csr_names + trial_names):
         problems.append(f"a kernel was not launched: {launches}")
     if (main_segments["replays"] != main_segments["steps"]
             or main_segments["eval_replays"]
@@ -3341,7 +3636,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit(main)
     if problems:
         raise SystemExit(1)
-    for r in results:
+    for r in results + trial_rows:
         key = r["name"]
         r["launches"] = launches[key]
         r["launches_per_iteration"] = launches[key] / out.iteration_count
@@ -3473,8 +3768,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if any(not v <= 1e-8 for v in rres.values()):
         problems.append(f"host residuals {rres}")
     tiled_names = [r["name"] for r in tiled]
-    if any(refine_launches[k] <= 0 for k in tiled_names):
-        problems.append(f"a tile-plan kernel was not launched: "
+    if any(refine_launches[k] <= 0 for k in tiled_names + trial_names):
+        problems.append(f"a tile-plan or trial kernel was not launched: "
                         f"{refine_launches}")
     if any(refine_launches[k] != 0 for k in csr_names):
         problems.append(f"a CSR kernel was launched: {refine_launches}")
@@ -3489,6 +3784,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         r["launches_per_iteration"] = (
             refine_launches[r["name"]] / rout.iteration_count
         )
+    for r in trial_rows:
+        r["launches_refine_path"] = refine_launches[r["name"]]
     if args.profile:
         # The same path again under torch.profiler (operators built anew,
         # kernels loaded): where its wall time goes.
@@ -3673,8 +3970,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             r["launches_shard_ingest"] = ingest_launches[cell][key]
 
     # 22. kernel list
-    results = (results + tiled + probes + lane_rows + block_rows
-               + sharded_rows)
+    results = (results + tiled + trial_rows + probes + lane_rows
+               + block_rows + sharded_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3692,7 +3989,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "layout", "single_device_ms", "max_abs_err_vs_single_device",
              "launches_a_call", "launches_shard_ingest", "design",
              "stages", "empty_rows", "smem_bytes", "registers",
-             "static_smem_bytes")
+             "static_smem_bytes", "bitwise_equal", "accepted",
+             "launches_refine_path")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

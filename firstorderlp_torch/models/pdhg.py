@@ -13,11 +13,13 @@ KKT-pass accounting are the same; the execution model is eager PyTorch:
   (_run_trials), with one read-back a round that also carries the
   evaluation's termination reason; Malitsky-Pock's line search keeps a
   host loop,
-- on the f32 LP path with the kernel operator, each adaptive trial runs
-  the fused CUDA kernels of ops/routed.py (mv_dual_step, rmv_stats), and
-  on a CUDA device the evaluation and each trial are replays of two CUDA
-  graphs captured once on the device bundle, on one set of buffers that
-  holds the state for the whole dispatch (ops/graphs.py).
+- on the f32 LP path with the kernel operator, each trial is four
+  CUDA kernels: F1a (ops/pdhg_step.primal_step), the fused dual step
+  and A'y+ with the step-control sums (ops/routed.py: mv_dual_step,
+  rmv_stats), and F1b (ops/pdhg_step.trial_epilogue); on a CUDA device
+  the evaluation and each trial are replays of two CUDA graphs captured
+  once on the device bundle, on one set of buffers that holds the state
+  for the whole dispatch (ops/graphs.py).
 
 Step rules (tau = step/omega, sigma = step*omega; reference pdhg.jl:100-107):
     x+ = proj_[l,u](x - tau (Qx + c - A'y))
@@ -41,7 +43,7 @@ from ..iteration_stats import (
     print_to_screen_this_iteration,
     to_host_stats,
 )
-from ..ops import graphs
+from ..ops import graphs, pdhg_step
 from ..ops.device import resolve_device
 from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
 from ..ops.routed import RoutedOp
@@ -283,9 +285,14 @@ def _compute_next_dual(problem, x, next_x, y, step_size, primal_weight,
         extrapolated = next_x + (next_x - x)
     else:
         extrapolated = next_x + extrapolation_coefficient * (next_x - x)
-    gradient = compute_dual_gradient(problem, extrapolated)
+    return _next_dual_at(problem, extrapolated, y,
+                         primal_weight * step_size)
+
+
+def _next_dual_at(problem, extrapolated, y, sigma):
+    """(y+, A'y+) with y+ = proj(y + sigma (b - A extrapolated))."""
     next_y = project_dual(
-        y + (primal_weight * step_size) * gradient, problem
+        y + sigma * compute_dual_gradient(problem, extrapolated), problem
     )
     return next_y, problem.aty(next_y)
 
@@ -333,9 +340,8 @@ def _step_size_factors(total, params: AdaptiveStepsizeParams, dtype):
     device counter `total` (a 0-d int64 tensor), on its device in the
     working precision, as batch._pdhg_step_size_factors (the JAX package
     uses XLA's pow, which can differ in the last bit)."""
-    t1 = total.to(dtype) + 1.0
-    return (1 - t1 ** (-params.reduction_exponent),
-            1 + t1 ** (-params.growth_exponent))
+    return pdhg_step.step_size_factors(total, params.reduction_exponent,
+                                       params.growth_exponent, dtype)
 
 
 def _accepted_where(take, state: PdhgState, next_x, next_y,
@@ -362,11 +368,12 @@ def _take_step_adaptive(
     problem, state: PdhgState, params: AdaptiveStepsizeParams, active
 ) -> PdhgState:
     """ONE accept/reject trial of the PDLP adaptive step-size rule
-    (reference pdhg.jl:649-731), with no read-back. Each trial costs one
-    KKT pass. Accept iff step_size <= movement / interaction; on accept
-    the iterate and `iteration` advance, on reject only the step size
-    shrinks. The KKT-pass and total_number_iterations accounting is the
-    reference's inner loop's.
+    (reference pdhg.jl:649-731), with no read-back, on the eager paths
+    (the f32 kernel operator's LP trial is _fused_trial). Each trial
+    costs one KKT pass. Accept iff step_size <= movement / interaction;
+    on accept the iterate and `iteration` advance, on reject only the
+    step size shrinks. The KKT-pass and total_number_iterations
+    accounting is the reference's inner loop's.
 
     Every field is chosen by torch.where: a trial where the 0-d bool
     `active` is false leaves the state bitwise as it was. The counters
@@ -380,40 +387,13 @@ def _take_step_adaptive(
         problem, x, state.current_dual_product, step_size,
         state.primal_weight,
     )
-    use_fused = (
-        isinstance(problem.constraint_matrix, RoutedOp)
-        and problem.objective_matrix is None
-        and x.dtype == torch.float32
+    next_y, next_aty = _compute_next_dual(
+        problem, x, next_x, state.current_dual_solution, step_size,
+        state.primal_weight,
     )
-    if use_fused:
-        # Fused hot path: the dual step's projection and the
-        # interaction/movement reductions run inside the kernels.
-        op = problem.constraint_matrix
-        z = 2.0 * next_x - x
-        sigma = state.primal_weight * step_size
-        next_y, y_next_layout, dy2 = op.mv_dual_step(
-            z,
-            state.current_dual_solution,
-            problem.right_hand_side,
-            problem.is_equality_f32,
-            sigma,
-        )
-        dx = next_x - x
-        next_aty, pd_interaction, dx2 = op.rmv_stats(
-            y_next_layout, dx, state.current_dual_product
-        )
-        interaction = torch.abs(pd_interaction)
-        movement = 0.5 * state.primal_weight * dx2 + (
-            0.5 / state.primal_weight
-        ) * dy2
-    else:
-        next_y, next_aty = _compute_next_dual(
-            problem, x, next_x, state.current_dual_solution, step_size,
-            state.primal_weight,
-        )
-        interaction, movement = _interaction_and_movement(
-            problem, state, next_x, next_y, next_aty
-        )
+    interaction, movement = _interaction_and_movement(
+        problem, state, next_x, next_y, next_aty
+    )
     numerical_error = movement == 0.0
     step_size_limit = torch.where(
         interaction > 0,
@@ -557,10 +537,94 @@ def _take_step_malitsky_pock(
 
 
 def _trial(problem, state: PdhgState, policy, active) -> PdhgState:
-    """One masked trial of the adaptive or the constant step rule."""
+    """One masked trial of the adaptive or the constant step rule, on
+    the eager paths."""
     if isinstance(policy, AdaptiveStepsizeParams):
         return _take_step_adaptive(problem, state, policy, active)
     return _take_step_constant(problem, state, policy, active)
+
+
+def _fused(problem, state: PdhgState) -> bool:
+    """Whether a trial on `problem` runs _fused_trial: the kernel
+    operator (RoutedOp, CSR or tile plan), an LP, f32."""
+    return (
+        isinstance(problem.constraint_matrix, RoutedOp)
+        and problem.objective_matrix is None
+        and state.current_primal_solution.dtype == torch.float32
+    )
+
+
+def _trial_fields(state: PdhgState) -> pdhg_step.TrialFields:
+    avg = state.avg
+    return pdhg_step.TrialFields(
+        x=state.current_primal_solution, y=state.current_dual_solution,
+        delta_x=state.delta_primal, delta_y=state.delta_dual,
+        aty=state.current_dual_product, sum_x=avg.sum_primal_solutions,
+        sum_y=avg.sum_dual_solutions,
+        count_x=avg.sum_primal_solutions_count,
+        count_y=avg.sum_dual_solutions_count,
+        weight_x=avg.sum_primal_solution_weights,
+        weight_y=avg.sum_dual_solution_weights, step_size=state.step_size,
+        primal_weight=state.primal_weight,
+        numerical_error=state.numerical_error,
+        total=state.total_number_iterations, iteration=state.iteration,
+        kkt=state.cumulative_kkt_passes,
+    )
+
+
+def _fused_trial(problem, config: _PdhgConfig, state: PdhgState,
+                 start) -> PdhgState:
+    """The segment's masked trial on the f32 kernel operator (_fused):
+    F1a (the primal step, the extrapolation, sigma and the mask
+    _trial_active), then for adaptive steps the fused dual step and A'y+
+    with the step-control sums (B3 and B4, or B6 and B7 on the tile
+    plan), for constant steps the dual step on two B2 products as in
+    _take_step_constant, then F1b (the accept test, the step size, the
+    counters and the selected state). The bits of _take_step_adaptive
+    with the fused dual step, and of _take_step_constant."""
+    policy = config.step_policy
+    constant = isinstance(policy, ConstantStepsizeParams)
+    next_x, z, dx, sigma, active = pdhg_step.primal_step(
+        state.current_primal_solution, problem.objective_vector,
+        state.current_dual_product, problem.variable_lower_bound,
+        problem.variable_upper_bound, state.step_size, state.primal_weight,
+        state.termination_reason, state.numerical_error, state.iteration,
+        start, config.termination_evaluation_frequency,
+        config.criteria.iteration_limit, constant,
+    )
+    if constant:
+        next_y, next_aty = _next_dual_at(
+            problem, z, state.current_dual_solution, sigma)
+        sums, exponents = (None, None, None), (0.0, 0.0)
+    else:
+        op = problem.constraint_matrix
+        next_y, y_next_layout, dy2 = op.mv_dual_step(
+            z, state.current_dual_solution, problem.right_hand_side,
+            problem.is_equality_f32, sigma,
+        )
+        next_aty, interaction, dx2 = op.rmv_stats(
+            y_next_layout, dx, state.current_dual_product)
+        sums = (dy2, interaction, dx2)
+        exponents = (policy.reduction_exponent, policy.growth_exponent)
+    f = pdhg_step.trial_epilogue(
+        _trial_fields(state), next_x, dx, next_y, next_aty, *sums, active,
+        *exponents, constant,
+    )
+    return dataclasses.replace(
+        state,
+        current_primal_solution=f.x,
+        current_dual_solution=f.y,
+        delta_primal=f.delta_x,
+        delta_dual=f.delta_y,
+        current_dual_product=f.aty,
+        avg=SolutionWeightedAverage(
+            f.sum_x, f.sum_y, f.count_x, f.count_y, f.weight_x, f.weight_y),
+        step_size=f.step_size,
+        numerical_error=f.numerical_error,
+        total_number_iterations=f.total,
+        iteration=f.iteration,
+        cumulative_kkt_passes=f.kkt,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +799,8 @@ def _trial_active(state: PdhgState, start, config: _PdhgConfig):
 
 
 def _masked_trial(problem, config: _PdhgConfig, state: PdhgState, start):
+    if _fused(problem, state):
+        return _fused_trial(problem, config, state, start)
     return _trial(problem, state, config.step_policy,
                   _trial_active(state, start, config))
 

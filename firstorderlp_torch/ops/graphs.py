@@ -67,8 +67,8 @@ def reset_counts() -> None:
 def graphable(problem) -> bool:
     """Whether `problem` (a DeviceQp) runs inside a CUDA graph: its
     constraint operator is a RoutedOp on a CUDA device, it is an LP and
-    its precision is f32 (the fused trial's condition in
-    models/pdhg._take_step_adaptive). The CPU, CsrOp and DenseOp (f64),
+    its precision is f32 (the fused trial's condition,
+    models/pdhg._fused). The CPU, CsrOp and DenseOp (f64),
     QPs and ShardedRoutedOp (meshes, process groups) run eagerly."""
     op = problem.constraint_matrix
     return (

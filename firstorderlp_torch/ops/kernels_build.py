@@ -38,6 +38,9 @@ KERNEL_SOURCES = {
     "probe_expand": "probe_expand.cu",
     "probe_reduce": "probe_reduce.cu",
     "lanes_spmv": "lanes_spmv.cu",
+    # F1a and F1b, one source: each library holds both entry points
+    "primal_step": "pdhg_step.cu",
+    "trial_epilogue": "pdhg_step.cu",
 }
 
 NVCC_FLAGS = [
@@ -143,6 +146,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
     # the half's LanesArgs (ops/lanes._LanesArgs), vals, x, y
     lanes_spmv = [p, p, p, p]
+    # PrimalStepArgs or EpilogueArgs (ops/pdhg_step.py)
+    pdhg_step = [p]
     arguments = {
         "spmv_csr": csr + spmv,
         "spmv_dual_step": csr + dual_step,
@@ -153,6 +158,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "probe_expand": probe_expand,
         "probe_reduce": probe_reduce,
         "lanes_spmv": lanes_spmv,
+        "primal_step": pdhg_step,
+        "trial_epilogue": pdhg_step,
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
     fn.argtypes = arguments + [p]  # trailing: the CUDA stream

@@ -98,6 +98,9 @@ LAUNCHES: Dict[str, int] = {
     "tiled_spmv:AT": 0,
     "tiled_dual_step": 0,
     "tiled_rmv_stats": 0,
+    # PDLP's step trial around B3/B4 or B6/B7 (ops/pdhg_step.py)
+    "primal_step": 0,
+    "trial_epilogue": 0,
 }
 
 

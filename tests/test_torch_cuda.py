@@ -45,7 +45,17 @@ blocks with an empty block, against its blocks' plain versions, one
 launch a non-empty block; sharded_optimize on that mesh ends OPTIMAL
 with the same bits twice, and so does the row-sharded ingest
 (parallel/shard_ingest.py) with CSR and tile-plan cells, whose rescale
-on the card is within 1e-5 of the CPU's.
+on the card is within 1e-5 of the CPU's. The step trial's kernels
+(ops/pdhg_step.py: F1a primal_step, F1b trial_epilogue) are each held
+bitwise to their plain versions on the states of tests/trial_cases.py
+(accept, reject, numerical error, interaction 0, inactive, the first
+step, the mask off for each reason), on CSR and the tile plan, adaptive
+and constant, over sums with signed zeros, infinities and NaN and every
+route of PyTorch's pow, and over inputs that hold NaN and crossed
+bounds; a replayed trial is bitwise the eager one with the same
+launches, and a trial is captured under
+torch.cuda.set_sync_debug_mode("error"), four host launch calls
+eagerly.
 """
 
 import dataclasses
@@ -1359,3 +1369,260 @@ def test_an_eager_evaluation_does_not_synchronize(cuda, solver, layout):
         torch.cuda.set_sync_debug_mode("default")
     assert int(result.iteration) == 80
     assert int(new.termination_reason) == 0
+
+
+# ---------------------------------------------------------------------------
+# PDLP's step trial: F1a and F1b (ops/pdhg_step.py) around B3/B4 or B6/B7
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ["csr", "tiled"]
+RULES = ["adaptive", "constant"]
+
+
+def trial_case_states(cuda, problem, rule, layout):
+    """(prepared, config, [(label, state, start)]) of tests/trial_cases.py
+    on the card, every case of the problem, and each also with the mask
+    off for a termination reason and for a numerical error."""
+    import trial_cases as tc
+
+    prep, config = tc.prepared(problem, rule, cuda,
+                               tile_aligned=layout == "tiled")
+    states = []
+    for case in tc.CASES:
+        if (problem, case) not in tc.PROBLEM_CASES:
+            continue
+        state, start = tc.case_state(prep, case)
+        states.append((case, state, start))
+        states.append((f"{case}+terminated", dataclasses.replace(
+            state, termination_reason=torch.tensor(
+                2, dtype=torch.int32, device=cuda)), start))
+        states.append((f"{case}+numerical_error", dataclasses.replace(
+            state, numerical_error=torch.tensor(True, device=cuda)), start))
+    return prep, config, states
+
+
+def primal_step_inputs(problem, config, state, start, rule):
+    return (state.current_primal_solution, problem.objective_vector,
+            state.current_dual_product, problem.variable_lower_bound,
+            problem.variable_upper_bound, state.step_size,
+            state.primal_weight, state.termination_reason,
+            state.numerical_error, state.iteration, start,
+            config.termination_evaluation_frequency,
+            config.criteria.iteration_limit, rule == "constant")
+
+
+def assert_bitwise_tuple(got, want, label):
+    for i, (u, v) in enumerate(zip(got, want)):
+        assert_same_bits(u, v, f"{label}[{i}]")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("problem", ["bounded", "pagerank"])
+def test_pdhg_step_kernels_are_bitwise_their_plain_versions(
+        cuda, problem, rule, layout):
+    """F1a and F1b, each against its plain version on the card from the
+    same inputs, over every case (accept, reject, numerical error,
+    interaction 0, inactive, the first step with an empty average) and
+    the mask off for each reason: every output bitwise, one launch a
+    call. F1b's inputs are B3/B4's (B6/B7's) outputs on F1a's."""
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops import pdhg_step
+
+    prep, config, states = trial_case_states(cuda, problem, rule, layout)
+    p = prep.bundle.scaled
+    policy = config.step_policy
+    exponents = ((0.0, 0.0) if rule == "constant" else
+                 (policy.reduction_exponent, policy.growth_exponent))
+    for label, state, start in states:
+        args = primal_step_inputs(p, config, state, start, rule)
+        routed.reset_launch_counts()
+        got = pdhg_step.primal_step(*args)
+        assert routed.LAUNCHES["primal_step"] == 1
+        assert_bitwise_tuple(got, pdhg_step.primal_step_plain(*args),
+                             f"{label}: primal_step")
+        x_next, z, dx, sigma, active = got
+        if rule == "constant":
+            y_next, aty_next = pdhg._next_dual_at(
+                p, z, state.current_dual_solution, sigma)
+            sums = (None, None, None)
+        else:
+            op = p.constraint_matrix
+            y_next, layout_y, dy2 = op.mv_dual_step(
+                z, state.current_dual_solution, p.right_hand_side,
+                p.is_equality_f32, sigma)
+            aty_next, inter, dx2 = op.rmv_stats(
+                layout_y, dx, state.current_dual_product)
+            sums = (dy2, inter, dx2)
+        fields = pdhg._trial_fields(state)
+        tail = (x_next, dx, y_next, aty_next, *sums, active, *exponents,
+                rule == "constant")
+        routed.reset_launch_counts()
+        got = pdhg_step.trial_epilogue(fields, *tail)
+        assert routed.LAUNCHES["trial_epilogue"] == 1
+        assert_same_bits(got, pdhg_step.trial_epilogue_plain(fields, *tail),
+                         f"{label}: trial_epilogue")
+
+
+# (reduction, growth) exponents whose negatives take every route of
+# PyTorch's pow(tensor, scalar): powf, reciprocal and rsqrt, 1 / (t t)
+# and t t, fill and copy, t t t and sqrt
+POW_EXPONENTS = [(0.3, 0.6), (1.0, 0.5), (2.0, -2.0), (0.0, -1.0),
+                 (-3.0, -0.5)]
+EPILOGUE_SUMS = [0.0, -0.0, 1e-30, 1e-3, 0.7, 3.0, 1e30, float("inf"),
+                 float("-inf"), float("nan")]
+
+
+@pytest.mark.parametrize("exponents", POW_EXPONENTS)
+def test_trial_epilogue_scalars_are_bitwise_their_plain_version(cuda,
+                                                                exponents):
+    """F1b's scalar part against its plain version over sums with zeros
+    of both signs, tiny and huge values, infinities and NaN (the NaN
+    rules of torch.clamp and torch.minimum), counters from 0 to 2^40 and
+    both masks: the new step size, flag, counters and weights bitwise."""
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops import pdhg_step
+    import trial_cases as tc
+
+    prep, config = tc.prepared("bounded", "adaptive", cuda)
+    state, _ = tc.case_state(prep, "accept")
+    vec = state.current_primal_solution
+    yvec = state.current_dual_solution
+    rng = np.random.default_rng(7)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=cuda)
+
+    for total in (0, 1, 7, 12345, 2 ** 40):
+        fields = dataclasses.replace(
+            pdhg._trial_fields(state),
+            total=torch.tensor(total, device=cuda))
+        for _ in range(40):
+            dy2, inter, dx2 = rng.choice(EPILOGUE_SUMS, 3)
+            active = torch.tensor(bool(rng.random() < 0.8), device=cuda)
+            tail = (vec, vec, yvec, vec, f32(dy2), f32(inter), f32(dx2),
+                    active, *exponents, False)
+            assert_same_bits(
+                pdhg_step.trial_epilogue(fields, *tail),
+                pdhg_step.trial_epilogue_plain(fields, *tail),
+                f"total {total}, sums {(dy2, inter, dx2)}")
+
+
+def test_primal_step_keeps_torch_clamp_nan_rules(cuda):
+    """F1a against its plain version where x, the bounds, c and A'y hold
+    NaN, infinities and signed zeros, and where the bounds cross: x+, z
+    and dx bitwise."""
+    from firstorderlp_torch.ops import pdhg_step
+
+    rng = np.random.default_rng(11)
+    special = np.array([0.0, -0.0, 1.0, -1.0, 1e30, np.inf, -np.inf, np.nan],
+                       np.float32)
+    n = 4096
+
+    def pick():
+        v = rng.normal(size=n).astype(np.float32)
+        mask = rng.random(n) < 0.3
+        v[mask] = rng.choice(special, int(mask.sum()))
+        return torch.as_tensor(v, device=cuda)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=cuda)
+
+    for step, weight in ((0.5, 2.0), (0.0, 1.0), (3.0, 1e-30)):
+        args = (pick(), pick(), pick(), pick(), pick(),
+                scalar(step, torch.float32), scalar(weight, torch.float32),
+                scalar(0, torch.int32), scalar(False, torch.bool),
+                scalar(57, torch.int64), scalar(57, torch.int64), 40, 100)
+        for constant in (False, True):
+            assert_bitwise_tuple(
+                pdhg_step.primal_step(*args, constant),
+                pdhg_step.primal_step_plain(*args, constant),
+                f"step {step}, weight {weight}, constant {constant}")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rule", RULES)
+def test_replayed_trial_is_bitwise_the_eager_trial(cuda, rule, layout):
+    """One trial captured as a CUDA graph (ops/graphs.SegmentGraphs, the
+    solver's own capture) and replayed from each case's state gives
+    every field of the eager trial's state bitwise and the same launches
+    (the replay credited): F1a, B3 and B4 (B6 and B7) and F1b for
+    adaptive steps, F1a, two B2 products and F1b for constant ones, and
+    no other kernel of the port."""
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops import graphs
+
+    prep, config, states = trial_case_states(cuda, "pagerank", rule, layout)
+    problem = prep.bundle.scaled
+
+    def evaluate(state, start):
+        return state, ()
+
+    def step(state, start):
+        return pdhg._masked_trial(problem, config, state, start)
+
+    captured = graphs.SegmentGraphs(evaluate, step, states[0][1],
+                                    (states[0][2],))
+    dual = ("tiled_dual_step", "tiled_rmv_stats") if layout == "tiled" \
+        else ("spmv_dual_step", "spmv_rmv_stats")
+    products = ({"tiled_spmv:A": 1, "tiled_spmv:AT": 1} if layout == "tiled"
+                else {"spmv_csr:A": 1, "spmv_csr:AT": 1})
+    want = {"primal_step": 1, "trial_epilogue": 1, **(
+        products if rule == "constant" else dict.fromkeys(dual, 1))}
+    for label, state, start in states:
+        routed.reset_launch_counts()
+        eager = step(state, start)
+        eager_launches = {k: v for k, v in routed.LAUNCHES.items() if v}
+        assert eager_launches == want, label
+        captured.static.load(state)
+        captured.static.extras[0].copy_(start)
+        routed.reset_launch_counts()
+        captured.steps(1)
+        assert {k: v for k, v in routed.LAUNCHES.items() if v} == want
+        assert_same_bits(captured.static.unload(), eager, label)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rule", RULES)
+def test_a_trial_is_captured_without_synchronizing(cuda, rule, layout):
+    """The fused trial reads nothing back: run eagerly and captured into
+    a CUDA graph under torch.cuda.set_sync_debug_mode("error"), the
+    replay gives the eager trial's bits; eagerly, an adaptive trial is
+    four host launch calls (torch.profiler): F1a, B3, B4 and F1b (B6 and
+    B7 on the tile plan)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+    import trial_cases as tc
+
+    prep, config = tc.prepared("pagerank", rule, cuda,
+                               tile_aligned=layout == "tiled")
+    state, start = tc.case_state(prep, "accept")
+    problem = prep.bundle.scaled
+    pdhg._masked_trial(problem, config, state, start)  # kernels built
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pdhg._masked_trial(problem, config, state, start)
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    if rule == "adaptive":
+        assert calls == 4, calls
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = pdhg._masked_trial(problem, config, state, start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.graph(graph, stream=side):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pdhg._masked_trial(problem, config, state, start)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_same_bits(out, eager)
