@@ -4,6 +4,8 @@
 Run from the root of the repository:
 
     python3 chip_smoke.py [--out FILE] [--profile] [--parent DIR]
+    python3 chip_smoke.py --only evaluation_split,kernels_trust_region \
+        [--parent DIR]   # the device and build phases and these alone
 
 Phases, each printing one JSON line:
 
@@ -33,11 +35,22 @@ Phases, each printing one JSON line:
    constant: each bitwise equal to its plain version, with times (CUDA
    events, device time and kernels a call, the plain version's) and the
    bytes bound;
+   kernels_trust_region: the f32 exact trust region's kernels
+   (ops/trust_region_search.py), F2b tr_search (the prologue F2a and the
+   31-trip knot search, one launch) and F2c tr_solution, at the restart
+   scheme's shape (3 rows over the scaled LP's primal and dual bounds)
+   and the 128-lane fleet's (384 rows of 40,001, bounds a row), inputs
+   made with numpy: t*, the solution and the split sums bitwise equal
+   to the plain versions' and to a second launch, the launch plan
+   (cluster, staged or not, shared memory), times (CUDA events, device
+   time and kernels a call, the plain versions') and the bytes bound;
    kernels_tiled_large: the three tile-plan kernels and the three CSR
    kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
    in bulk with numpy: the generator's graph is a Python loop over the
-   nodes), whose arrays are larger than the L2 cache;
+   nodes), whose arrays are larger than the L2 cache; F1a and F1b at its
+   shapes on vectors made with numpy (bitwise their plain versions,
+   device ms beside a one-element fill_'s, the floor of any launch);
    kernels_probe: the two probe kernels (ops/probe_routed.py) at 819,200
    entries, seed 0: the expand bitwise equal to its plain version and to
    numpy, the reduce against its plain version in f64, twice bitwise
@@ -68,14 +81,23 @@ Phases, each printing one JSON line:
    (`trial`): the device ms of a replayed trial, the host's
    cudaGraphLaunch time a replay, the trial graph's nodes, and an eager
    trial's host launch calls and kernels, which must be F1a, B3/B6,
-   B4/B7 and F1b and nothing else; with --parent DIR,
+   B4/B7 and F1b and nothing else; the evaluation's graph nodes;
+   evaluation_split: one eager PDHG and one eager Mirror Prox
+   evaluation from the state at iteration 81, split by function
+   (evaluation_point, the statistics, the restart scheme, its bounds,
+   the trust region and its knot search and solution), each range's
+   device ms (CUDA events) and host launch calls (torch.profiler), and
+   the replayed evaluation's device ms and graph nodes, for the
+   version in --parent DIR too; this version's trust region must be
+   two launches, its knot search one; with --parent DIR,
    main_path_parent: the warm solve and mirror_prox_path's at six seeds
    by another version of the package (DIR holds it as
    firstorderlp_torch_parent) and by this one, in turns (ms an
-   iteration; every solve of a seed and solver with the same
-   iterations and the same bits of x and y; then each version's PDHG
-   trial from the state at iteration 81, in turns, measured as
-   segment_graph's `trial`); hetero_parent: hetero_fleet's solve by both, in turns,
+   iteration; every solve OPTIMAL with host-f64 residuals under 1e-4,
+   each version's two solves of a seed and solver with the same
+   iterations and the same bits of x and y, the versions' iterations
+   side by side; then each version's PDHG trial from the state at
+   iteration 81, in turns, measured as segment_graph's `trial`); hetero_parent: hetero_fleet's solve by both, in turns,
    and once each under torch.profiler (B2's share of the device time);
    cli_path: the port's CLIs (firstorderlp_torch/cli) as a user
    runs them: generate_pagerank_lp writes that LP (3 edges a node, the
@@ -247,6 +269,11 @@ THROUGHPUT_ITERS = 600  # fleet_throughput's iterations per lane
 # The QP fleet (a Tikhonov path lambda I over one 20k-node PageRank LP)
 # and the constant-step fleet (the damping sweep), 32 lanes each.
 SLOW_FLEET_LANES = 32
+# The f32 exact trust region's kernels (ops/trust_region_search.py): every
+# f32 solve on the card runs them in its evaluations, fleets and meshes
+# too; their launches on each path, for the kernel list.
+TR_KERNELS = ("tr_search", "tr_solution")
+_tr_launches = {}
 
 _lines = []
 
@@ -510,7 +537,9 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     launches = dict(lanes.LAUNCHES)
-    single_kernels = {k: v for k, v in routed.LAUNCHES.items() if v}
+    _tr_launches[ph] = {k: routed.LAUNCHES[k] for k in TR_KERNELS}
+    single_kernels = {k: v for k, v in routed.LAUNCHES.items()
+                      if v and k not in TR_KERNELS}
     reasons = [o.termination_reason.name for o in outs]
     iterations = [o.iteration_count for o in outs]
     kkt = [o.iteration_stats[-1].cumulative_kkt_matrix_passes
@@ -541,6 +570,9 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
             problems_found.append(f"lane {i}: host residuals {res}")
     if not (launches["lanes_spmv:A"] > 0 and launches["lanes_spmv:AT"] > 0):
         problems_found.append(f"L1 was not launched: {launches}")
+    if not all(_tr_launches[ph].values()):
+        problems_found.append(f"a trust-region kernel was not launched: "
+                              f"{_tr_launches[ph]}")
     if single_kernels:
         problems_found.append(f"a single-instance kernel was launched: "
                               f"{single_kernels}")
@@ -1162,8 +1194,8 @@ def sharded_path(torch, dev, routed, problem, small, params, mp_params,
         finally:
             restore()
         got = rec["launches"]
-        if any(got[k] <= 0 for k in csr_keys) or any(
-                v for k, v in got.items() if k not in csr_keys):
+        if any(got[k] <= 0 for k in csr_keys + TR_KERNELS) or any(
+                v for k, v in got.items() if k not in csr_keys + TR_KERNELS):
             bad.append(f"pdhg {shape}: launches {got}")
         rec["mesh"] = list(shape)
         solves.append(rec)
@@ -1183,8 +1215,9 @@ def sharded_path(torch, dev, routed, problem, small, params, mp_params,
             restore()
             routed.DEFAULT_TILE_ALIGNED = False
         got = rec["launches"]
-        if any(got[k] <= 0 for k in tiled_keys) or any(
-                v for k, v in got.items() if k not in tiled_keys):
+        if any(got[k] <= 0 for k in tiled_keys + TR_KERNELS) or any(
+                v for k, v in got.items()
+                if k not in tiled_keys + TR_KERNELS):
             bad.append(f"mirror_prox {shape}: launches {got}")
         rec.update(mesh=list(shape), nodes=DET_NODES)
         solves.append(rec)
@@ -1639,6 +1672,9 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
             torch.cuda.synchronize()
             row[name] = start_event.elapsed_time(end_event) / count
         runner.unload()
+        row["evaluation"]["graph_nodes"] = eval_graph_measures(
+            torch, solver, routed, bundle, config, state)[
+                "evaluation_graph_nodes"]
         if solver is pdhg:
             # the trial alone: F1a, B3/B6, B4/B7 and F1b eagerly
             row["trial"] = trial = trial_measures(
@@ -1901,7 +1937,10 @@ def ingest_solve(torch, routed, problem, label, solve, layout="csr"):
     cells = report["nonempty_cells"]
     for key, count in launches.items():
         own = count - report["rescale_sums"].get(key, 0)
-        if key in own_keys and (own <= 0 or own % cells):
+        if key in TR_KERNELS and own_keys:
+            if own <= 0:
+                problems.append(f"{label}: {key} was not launched")
+        elif key in own_keys and (own <= 0 or own % cells):
             problems.append(f"{label}: {own} {key} launches of the solve "
                             f"for {cells} non-empty cells")
         elif key not in own_keys and own != 0:
@@ -2262,8 +2301,10 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
     if not (b2["spmv_csr:A"] > 0 and b2["spmv_csr:AT"] > 0):
         found.append(f"B2 was not launched: {b2}")
     others = {k: v for k, v in b2.items()
-              if v and k not in ("spmv_csr:A", "spmv_csr:AT")}
-    if others or any(l1.values()):
+              if v and k not in ("spmv_csr:A", "spmv_csr:AT") + TR_KERNELS}
+    _tr_launches["hetero_fleet"] = {k: b2[k] for k in TR_KERNELS}
+    if others or any(l1.values()) or not all(
+            _tr_launches["hetero_fleet"].values()):
         found.append(f"another kernel was launched: {others} {l1}")
     for r in rows:
         r["launches"] = b2[r["name"].split(" ")[0]]
@@ -2320,7 +2361,7 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
                                        "lanes_spmv:Q")):
             found.append(f"{solver}: L1 was not launched for A, A' and "
                          f"Q: {l1}")
-        if any(b2.values()):
+        if any(v for k, v in b2.items() if k not in TR_KERNELS):
             found.append(f"{solver}: a routed kernel was launched: {b2}")
         record[solver] = {
             "ingest_seconds": ingest_s, "solve_seconds": solve_s,
@@ -2355,7 +2396,7 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
                                 last)
     if not (l1["lanes_spmv:A"] > 0 and l1["lanes_spmv:AT"] > 0):
         found.append(f"L1 was not launched: {l1}")
-    if any(b2.values()):
+    if any(v for k, v in b2.items() if k not in TR_KERNELS):
         found.append(f"a routed kernel was launched: {b2}")
     emit_checked({
         "phase": "constant_step_fleet", "lanes": SLOW_FLEET_LANES,
@@ -2639,10 +2680,14 @@ def kernels_tiled_large(torch, routed, probe, compare, device_ms, dev):
         else:
             row.update(routed.csr_item_stats(mat))
         results.append(row)
+    trial = trial_kernels_large(torch, n, m, dev, probe.time_ms,
+                                compare.device_profile)
+    for r in trial:
+        r["bound_ms"], r["bound_by"] = probe.bound_ms(r["bytes"], r["flops"])
     return {"phase": ph, "ok": True, "m": m, "n": n, "nnz": int(a64.nnz),
             "matrix": "generators.pagerank_like_matrix(1_000_000, seed=0)",
             "matrix_seconds": make_s, "setup_seconds": setup_s,
-            "results": results}
+            "results": results, "trial_kernels": trial}
 
 
 def cli_path(torch, routed, problem, small, main_out, params, dev,
@@ -2921,6 +2966,8 @@ def main_path_parent(torch, compare, parent_dir, dev):
         seconds = time.time() - t0
         return {"package": who, "solver": solver,
                 "iterations": out.iteration_count, "seconds": seconds,
+                "host_f64": host_residuals(problem, out.primal_solution,
+                                           out.dual_solution),
                 "ms_per_iteration": 1e3 * seconds / max(
                     out.iteration_count, 1),
                 "reason": out.termination_reason.name,
@@ -2940,18 +2987,29 @@ def main_path_parent(torch, compare, parent_dir, dev):
             for who in ("parent", "this", "this", "parent"):
                 rows.append({"seed": seed,
                              **solve(who, solver, problems[who])})
-    mine = [r for r in rows if r["package"] == "this"]
-    problems = [f"seed {r['seed']} {r['solver']}: {r['reason']}"
-                for r in mine if r["reason"] != "TERMINATION_REASON_OPTIMAL"]
-    # every solve of a seed and solver, by either version: the same
-    # iterations and the same bits of x and y
+    # every solve OPTIMAL with host-f64 residuals under 1e-4, each
+    # version's two solves of a seed and solver bitwise equal; the
+    # versions' iterations side by side (the trust region's f64 sums
+    # moved the trajectory: whole solves are held to their reason and
+    # residuals, never to equal iterations)
+    problems = [f"seed {r['seed']} {r['solver']} {r['package']}: "
+                f"{r['reason']}, host residuals {r['host_f64']}"
+                for r in rows if r["reason"] != "TERMINATION_REASON_OPTIMAL"
+                or any(not v <= 1e-4 for v in r["host_f64"].values())]
+    side_by_side = []
     for seed in SOLVE_SEEDS:
         for solver in ("pdhg", "mirror_prox"):
-            runs = {(r["iterations"], r["solution_sha256"]) for r in rows
-                    if r["seed"] == seed and r["solver"] == solver}
-            if len(runs) != 1:
-                problems.append(f"seed {seed} {solver}: the versions' "
-                                f"solves differ: {sorted(runs)}")
+            iterations = {}
+            for who in dirs:
+                runs = {(r["iterations"], r["solution_sha256"]) for r in rows
+                        if (r["seed"], r["solver"], r["package"])
+                        == (seed, solver, who)}
+                if len(runs) != 1:
+                    problems.append(f"seed {seed} {solver} {who}: two "
+                                    f"solves differ: {sorted(runs)}")
+                iterations[who] = sorted(runs)[0][0]
+            side_by_side.append({"seed": seed, "solver": solver,
+                                 **iterations})
     trials = []
     cases = {}
     for who in dirs:
@@ -2975,7 +3033,7 @@ def main_path_parent(torch, compare, parent_dir, dev):
     del cases
     return {"phase": "main_path_parent", "ok": not problems,
             "nodes": NODES, "parent": parent_dir, "solves": rows,
-            "trials": trials,
+            "iterations": side_by_side, "trials": trials,
             **({"problems": problems} if problems else {})}
 
 
@@ -3032,6 +3090,429 @@ def hetero_parent(torch, compare, parent_dir, dev):
             "parent": parent_dir, "solves": rows, "profiled": profiles}
 
 
+# The evaluation's split by function (evaluation_split): the ranges that
+# wrap module functions of a version of the package, by the name each
+# module binds (outermost first); nested calls name their range by the
+# path of ranges around them.
+SPLIT_TARGETS = (
+    ("solver", "evaluation_point", "evaluation_point"),
+    ("solver", "evaluate_unscaled_stats", "statistics"),
+    ("solver", "update_objective_bound_estimates", "bound_estimates"),
+    ("solver", "run_restart_scheme", "restart_scheme"),
+    ("saddle_point", "bound_optimal_objective_euclidean_batched",
+     "restart_bounds"),
+    ("trust_region", "solve_bound_constrained_trust_region", "trust_region"),
+    # the knot search: the previous release's _t_star_bisect (its totals
+    # included), or F2b (the prologue fused) and F2c
+    ("trust_region", "_t_star_bisect", "knot_search"),
+    ("ops.trust_region_search", "tr_search", "knot_search"),
+    ("ops.trust_region_search", "tr_solution", "tr_solution"),
+)
+SPLIT_SLEEP_CYCLES = 400_000_000  # about 0.2 s: the host enqueues ahead
+SPLIT_RUNS = 3  # eager evaluations timed a version and solver
+TR_PATH = "restart_scheme/restart_bounds/trust_region"
+
+
+@contextlib.contextmanager
+def split_ranges(torch, modules, marks):
+    """Wraps each SPLIT_TARGETS function that `modules` (name -> module)
+    hold: a torch.profiler range "split:<path>" and CUDA events around
+    each call, appended to `marks` as (path, start, end)."""
+    from torch.profiler import record_function
+
+    stack, saved = [], []
+
+    def wrap(fn, label):
+        def ranged(*args, **kwargs):
+            stack.append(label)
+            path = "/".join(stack)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                with record_function(f"split:{path}"):
+                    return fn(*args, **kwargs)
+            finally:
+                end.record()
+                marks.append((path, start, end))
+                stack.pop()
+        return ranged
+
+    try:
+        for part, name, label in SPLIT_TARGETS:
+            module = modules.get(part)
+            if module is not None and hasattr(module, name):
+                saved.append((module, name, getattr(module, name)))
+                setattr(module, name, wrap(getattr(module, name), label))
+        yield
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+def launches_under(prof):
+    """Host launch calls (kernels, copies, memsets) under each
+    "split:<path>" range of a torch.profiler run, summed by path."""
+    from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
+
+    def count(event):
+        launch = event.name in LAUNCH_CALLS or event.name.startswith(
+            ("cudaLaunch", "cuLaunch"))
+        return int(launch) + sum(count(c) for c in event.cpu_children)
+
+    out = {}
+    for e in prof.events():
+        if e.name.startswith("split:"):
+            key = e.name[len("split:"):]
+            out[key] = out.get(key, 0) + count(e)
+    return out
+
+
+def derived_split(ms):
+    """The evaluation's parts from the ranges' device ms (by path): the
+    restart scheme's products and gradients (its bounds less the trust
+    region), its scalars and selects, the trust region less its knot
+    search (the previous release's prologue and solution; F2c and the
+    glue around the kernels here), and the state selects, A'y and the
+    rest of _eval_block."""
+    def get(path):
+        return ms.get(path, 0.0)
+
+    top = ("evaluation_point", "statistics", "bound_estimates",
+           "restart_scheme")
+    return {
+        "restart_products": get("restart_scheme/restart_bounds")
+        - get(TR_PATH),
+        "restart_scalars_and_selects": get("restart_scheme")
+        - get("restart_scheme/restart_bounds"),
+        "trust_region_less_knot_search": get(TR_PATH)
+        - get(TR_PATH + "/knot_search"),
+        "state_selects_and_rest": get("evaluation")
+        - sum(get(p) for p in top),
+    }
+
+
+def eval_graph_measures(torch, module, routed_mod, bundle, config, state):
+    """The replayed evaluation of one version on `state`: device ms (CUDA
+    events around 5 replays, a sleeping kernel first) and the nodes of
+    its graph (the evaluation and its copy-back into the buffers,
+    captured again with keep_graph=True on the runner's buffers)."""
+    runner = module._runner(bundle, state, 0.0, config, False)
+    start_event = torch.cuda.Event(enable_timing=True)
+    end_event = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start_event.record()
+    for _ in range(5):
+        runner.evaluate()
+    end_event.record()
+    torch.cuda.synchronize()
+    out = {"device_ms_per_replayed_evaluation":
+           start_event.elapsed_time(end_event) / 5}
+    saved = dict(routed_mod.LAUNCHES)
+    device = bundle.scaled.objective_vector.device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        runner.static.apply(runner._evaluate, evaluation=True)
+    routed_mod.LAUNCHES.update(saved)
+    out["evaluation_graph_nodes"] = graph_nodes(torch, graph)
+    del graph
+    runner.unload()
+    return out
+
+
+def evaluation_split(torch, compare, parent_dir, dev):
+    """One eager PDHG evaluation and one eager Mirror Prox evaluation on
+    the 100k-node LP from the state at iteration 81 (SEGMENT_WARMUP
+    segments as optimize runs them), by the version in `parent_dir` (if
+    given) and by this one, split by function (SPLIT_TARGETS): for each
+    range its device ms (CUDA events, median of SPLIT_RUNS evaluations,
+    a sleeping kernel first so the host enqueues ahead of the card: the
+    span, gaps between launches included) and its host launch calls
+    (one evaluation under torch.profiler), then the derived parts
+    (derived_split); and the replayed evaluation's
+    device ms and graph nodes (eval_graph_measures). This version's
+    trust region must be two launches, its knot search one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    versions = {"parent": parent_dir} if parent_dir else {}
+    versions["this"] = None
+    rows, problems = [], []
+    for who, where in versions.items():
+        mods = {part: compare.package_module(part, where) for part in (
+            "", "generators", "models.pdhg", "models.mirror_prox",
+            "saddle_point", "trust_region", "ops.routed")}
+        try:
+            mods["ops.trust_region_search"] = compare.package_module(
+                "ops.trust_region_search", where)
+        except ImportError:
+            pass
+        problem = mods["generators"].generate_pagerank_lp(num_nodes=NODES,
+                                                          seed=0)
+        for solver in ("pdhg", "mirror_prox"):
+            module = mods[f"models.{solver}"]
+            make = make_params if solver == "pdhg" else make_mp_params
+            params = make(1e-4, 20_000, pkg=mods[""])
+            prepared = module.prepare_problem(params, problem, device=dev)
+            config = module._make_config(params)
+            state = module._device_counters(prepared.initial_state)
+            if solver == "pdhg":
+                state = module._run_segments(
+                    prepared.bundle, state, 0.0, config, SEGMENT_WARMUP,
+                    int(state.iteration))[0]
+            else:
+                state = module._run_segments(
+                    prepared.bundle, state, 0.0, config, SEGMENT_WARMUP)[0]
+            modules = dict(mods, solver=module)
+            elapsed = torch.zeros((), dtype=torch.float64, device=dev)
+
+            def evaluate():
+                return module._eval_block(prepared.bundle, state, elapsed,
+                                          config)
+
+            evaluate()  # modules loaded, kernels built
+            runs = []
+            for _ in range(SPLIT_RUNS):
+                marks = []
+                with split_ranges(torch, modules, marks):
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    evaluate()
+                    end.record()
+                    torch.cuda.synchronize()
+                ms = {"evaluation": start.elapsed_time(end)}
+                for path, s, e in marks:
+                    ms[path] = ms.get(path, 0.0) + s.elapsed_time(e)
+                runs.append(ms)
+            device_ms = {k: float(np.median([r[k] for r in runs]))
+                         for k in runs[0]}
+            with split_ranges(torch, modules, []):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    with torch.profiler.record_function("split:evaluation"):
+                        evaluate()
+                    torch.cuda.synchronize()
+            launches = launches_under(prof)
+            row = {"package": who, "solver": solver, "nodes": NODES,
+                   "iteration": int(state.iteration),
+                   "device_ms": device_ms,
+                   "device_ms_runs": [r["evaluation"] for r in runs],
+                   "launches": launches,
+                   "derived_device_ms": derived_split(device_ms),
+                   **eval_graph_measures(torch, module, mods["ops.routed"],
+                                         prepared.bundle, config, state)}
+            rows.append(row)
+            if who == "this" and (
+                    launches.get(TR_PATH) != 2
+                    or launches.get(TR_PATH + "/knot_search") != 1):
+                problems.append(f"{solver}: the trust region launched "
+                                f"{launches.get(TR_PATH)} kernels, its "
+                                f"knot search "
+                                f"{launches.get(TR_PATH + '/knot_search')};"
+                                " want 2 and 1")
+            del prepared, state
+    return {"phase": "evaluation_split", "ok": not problems,
+            "method": "device ms: CUDA events around each range, median "
+                      f"of {SPLIT_RUNS} eager evaluations; launches: host "
+                      "launch calls under each range (torch.profiler)",
+            "rows": rows, **({"problems": problems} if problems else {})}
+
+
+TR_RADII = (0.05, 0.7, 5.0)  # kernels_trust_region's restart-like radii
+
+
+def tr_inputs(torch, rng, rows, lower, upper, dev, radii=TR_RADII):
+    """A trust-region batch made with numpy from `rng`: `rows` rows over
+    the bounds (N,) or (rows, N), c inside them (a tenth at a finite
+    bound), g and the weights normal and uniform in [0.5, 2]; f32 on the
+    card."""
+    n = lower.shape[-1]
+    lo = np.broadcast_to(lower, (rows, n))
+    hi = np.broadcast_to(upper, (rows, n))
+    c = np.clip(rng.standard_normal((rows, n)), lo, hi)
+    at = (rng.random((rows, n)) < 0.1) & np.isfinite(lo)
+    c = np.where(at, lo, c)
+    g = rng.standard_normal((rows, n))
+    weight = rng.uniform(0.5, 2.0, lower.shape)
+    radius = np.resize(np.asarray(radii), rows)
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    return tuple(f32(v) for v in (c, g, lower, upper, weight, radius))
+
+
+def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
+    """F2b (tr_search, with the prologue F2a) and F2c (tr_solution) of
+    ops/trust_region_search.py at the main path's shape (the restart
+    scheme's 3 rows over the scaled 100k-node LP's primal and dual
+    bounds, N = n + m, bounds (N,)) and the 128-lane fleet's (384 rows
+    of 40,001, bounds (B, N)), inputs made with numpy from seed 2: t*,
+    the solution and the sums bitwise the plain versions', twice the
+    same bits; at the main path's shape their times (CUDA events, device
+    ms and kernels a call, the plain versions'), the bytes bound and the
+    launch plan."""
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    rng = np.random.default_rng(2)
+    m = scaled.constraint_matrix.shape[0]
+    eq = np.arange(m) < scaled.num_equalities
+    main_lower = np.concatenate([scaled.variable_lower_bound,
+                                 np.where(eq, -np.inf, 0.0)])
+    main_upper = np.concatenate([scaled.variable_upper_bound,
+                                 np.full(m, np.inf)])
+    fleet_n = 2 * FLEET_NODES + 1
+    fleet_lower = np.where(rng.random((384, fleet_n)) < 0.5, -np.inf, 0.0)
+    fleet_upper = np.where(rng.random((384, fleet_n)) < 0.5, np.inf, 1.0)
+    shapes = {
+        "main_path": tr_inputs(torch, rng, 3, main_lower, main_upper, dev),
+        "fleet": tr_inputs(torch, rng, 384, fleet_lower, fleet_upper, dev),
+    }
+    variants, timed_args = [], None
+    for label, (c, g, lower, upper, weight, radius) in shapes.items():
+        n = c.shape[1]
+        split = scaled.constraint_matrix.shape[1] if label == "main_path" \
+            else FLEET_NODES
+        outs = []
+        for _ in range(2):
+            t_star = trs.tr_search(c, g, lower, upper, weight, radius)
+            outs.append((t_star, *trs.tr_solution(c, g, lower, upper,
+                                                  weight, t_star, split)))
+        plain_t = trs.tr_search_plain(
+            trs.tr_prologue_plain(c, g, lower, upper, weight), radius)
+        plain = (plain_t, *trs.tr_solution_plain(c, g, lower, upper, weight,
+                                                 plain_t, split))
+        torch.cuda.synchronize()
+        plan = trs.search_plan(*c.shape)
+        variants.append({
+            "shape": label, "rows": c.shape[0], "n": n,
+            "bounds": list(lower.shape),
+            "search_bitwise": states_equal(outs[0][0], plain[0]),
+            "solution_bitwise": states_equal(outs[0][1:], plain[1:]),
+            "repeat_bitwise": states_equal(outs[0], outs[1]),
+            "cluster": plan.cluster, "staged": plan.staged,
+            "smem_bytes": plan.smem_bytes,
+            "solution_cluster": trs.solution_cluster(c.shape[0]),
+        })
+        if label == "main_path":
+            timed_args = (c, g, lower, upper, weight, radius, outs[0][0],
+                          split)
+    bad = [v for v in variants if not (v["search_bitwise"]
+                                       and v["solution_bitwise"]
+                                       and v["repeat_bitwise"])]
+    if bad:
+        fail("kernels_trust_region", f"kernel and plain version differ, or "
+                                     f"two launches: {bad}")
+    c, g, lower, upper, weight, radius, t_star, split = timed_args
+    rows, n = c.shape
+    inputs = 4 * (2 * rows * n + 3 * n + rows)  # c, g a row; l, u, w once
+    rows_out = []
+    for name, kernel, plain, nbytes, flops, replaces in (
+        ("tr_search",
+         lambda: trs.tr_search(c, g, lower, upper, weight, radius),
+         lambda: trs.tr_search_plain(trs.tr_prologue_plain(
+             c, g, lower, upper, weight), radius),
+         # the inputs once, t* written; two multiplies and an add an entry
+         # in each of the 33 passes (the totals, 31 trips, the parts)
+         inputs + 4 * rows, 33 * 3 * rows * n,
+         "none (no pl.pallas_call): XLA's fusion of "
+         "firstorderlp_tpu/trust_region.py:42 "
+         "(solve_bound_constrained_trust_region: frozen, direction, knots) "
+         "and :112 (_t_star_bisect), vmapped at :401"),
+        ("tr_solution",
+         lambda: trs.tr_solution(c, g, lower, upper, weight, t_star, split),
+         lambda: trs.tr_solution_plain(c, g, lower, upper, weight, t_star,
+                                       split),
+         # the inputs and t* once, the solution and the sums written
+         inputs + 4 * rows + 4 * rows * n + 12 * rows, 6 * rows * n,
+         "none (no pl.pallas_call): XLA's fusion of "
+         "firstorderlp_tpu/trust_region.py:107-108 (the solution and "
+         "its value) and :406-416 (the lower and upper values)"),
+    ):
+        kernel()
+        torch.cuda.synchronize()
+        dev_ms, per_call = device_profile(kernel)
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": "firstorderlp_torch/csrc/trust_region_search.cu",
+            "replaces": replaces, "max_abs_err": 0.0,
+            "bitwise_equal": True,
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=10,
+                                                       warmup=1),
+            "device_ms": dev_ms, "kernels_per_call": per_call,
+            "bytes": nbytes, "flops": flops, "library_ms": None,
+        })
+    return rows_out, variants
+
+
+def trial_kernels_large(torch, n, m, dev, time_ms, device_profile):
+    """F1a and F1b at the million-node matrix's shapes (n columns, m
+    rows), on vectors made with numpy from seed 3 (a state whose trial is
+    active and accepted), each bitwise its plain version, with device ms
+    and CUDA-event ms beside a one-element fill_'s device time (the
+    floor of any launch) and the bytes bound."""
+    from firstorderlp_torch.ops import pdhg_step
+
+    rng = np.random.default_rng(3)
+
+    def vec(size):
+        return torch.as_tensor(rng.standard_normal(size).astype(np.float32),
+                               device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    x, c, aty = vec(n), vec(n), vec(n)
+    lower = torch.full((n,), -1.0, device=dev)
+    upper = torch.full((n,), 1.0, device=dev)
+    f = pdhg_step.TrialFields(
+        x=x, y=vec(m), delta_x=vec(n), delta_y=vec(m), aty=aty,
+        sum_x=vec(n), sum_y=vec(m), count_x=scalar(37, torch.int64),
+        count_y=scalar(37, torch.int64), weight_x=scalar(1.5, torch.float32),
+        weight_y=scalar(1.5, torch.float32),
+        step_size=scalar(1e-3, torch.float32),
+        primal_weight=scalar(1.0, torch.float32),
+        numerical_error=scalar(False, torch.bool),
+        total=scalar(61, torch.int64), iteration=scalar(57, torch.int64),
+        kkt=scalar(123.5, torch.float64))
+    args = (x, c, aty, lower, upper, f.step_size, f.primal_weight,
+            scalar(0, torch.int32), f.numerical_error, f.iteration,
+            scalar(57, torch.int64), 40, 20_000, False)
+    x_next, _, dx, _, active = pdhg_step.primal_step(*args)
+    tail = (x_next, dx, vec(m), vec(n), scalar(1.0, torch.float32),
+            scalar(1e-6, torch.float32), scalar(1.0, torch.float32), active,
+            0.3, 0.6, False)
+    one = torch.zeros(1, device=dev)
+    empty_ms, _ = device_profile(lambda: one.fill_(0.0))
+    rows = []
+    for name, kernel, plain, nbytes, flops in (
+        ("primal_step", lambda: pdhg_step.primal_step(*args),
+         lambda: pdhg_step.primal_step_plain(*args),
+         4 * 8 * n + 38, 8 * n),
+        ("trial_epilogue", lambda: pdhg_step.trial_epilogue(f, *tail),
+         lambda: pdhg_step.trial_epilogue_plain(f, *tail),
+         4 * (8 * n + 6 * m) + 150, 2 * n + 3 * m + 30),
+    ):
+        same = states_equal(kernel(), plain())
+        torch.cuda.synchronize()
+        if not same:
+            fail("kernels_tiled_large", f"{name}: kernel and plain version "
+                                        "differ at the million-node shape")
+        dev_ms, per_call = device_profile(kernel)
+        rows.append({"name": name, "n": n, "m": m, "bitwise_equal": same,
+                     "ms": time_ms(kernel), "device_ms": dev_ms,
+                     "kernels_per_call": per_call,
+                     "empty_kernel_device_ms": empty_ms,
+                     "bytes": nbytes, "flops": flops})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines here")
@@ -3047,6 +3528,10 @@ def main() -> int:
                              "firstorderlp_torch_parent (phases "
                              "main_path_parent, hetero_parent, "
                              "fleet_parent)")
+    parser.add_argument("--only", metavar="PHASES",
+                        help="only the device and build phases and these "
+                             "(comma-separated: evaluation_split, "
+                             "kernels_trust_region), then the last lines")
     parser.add_argument("--multi-gpu", action="store_true",
                         help="only the multi-device solve across four "
                              "cards (phase multi_gpu_path), after the "
@@ -3124,6 +3609,33 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
           "compile_meter": {"seconds": build_window.seconds,
                             "backend_seconds": build_window.backend_seconds},
           "ptxas": ptxas})
+
+    if args.only:
+        for phase in args.only.split(","):
+            if phase == "evaluation_split":
+                record = evaluation_split(torch, compare, args.parent, dev)
+            elif phase == "kernels_trust_region":
+                scaled = rescale_problem(
+                    10, False, 1.0, 0,
+                    generate_pagerank_lp(num_nodes=NODES, seed=0)).scaled_qp
+                rows, variants = kernels_trust_region(
+                    torch, scaled, dev, time_ms, device_profile)
+                for r in rows:
+                    r["bound_ms"], r["bound_by"] = probe.bound_ms(
+                        r["bytes"], r["flops"])
+                record = {"phase": phase, "ok": True, "variants": variants,
+                          "results": rows}
+            else:
+                fail("only", f"no phase {phase} runs alone")
+            emit(record)
+            if not record["ok"]:
+                raise SystemExit(1)
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     if args.multi_gpu:
         multi_gpu_path(torch, routed,
@@ -3453,6 +3965,15 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit({"phase": "kernels_trial", "ok": True, "m": m, "n": n,
           "tolerance": "bitwise equal to the plain versions",
           "variants": trial_variants, "results": trial_rows})
+
+    # 3b. the exact trust region's kernels: F2b (with F2a) and F2c
+    tr_rows, tr_variants = kernels_trust_region(torch, scaled, dev, time_ms,
+                                                device_profile)
+    add_bounds(tr_rows)
+    emit({"phase": "kernels_trust_region", "ok": True,
+          "tolerance": "bitwise equal to the plain versions, and to a "
+                       "second launch",
+          "variants": tr_variants, "results": tr_rows})
     del op, top, plan, mat, whole, lib, lib_a, lib_at
 
     # 3b'. B2-B7 again where the arrays are larger than the L2 cache
@@ -3465,6 +3986,12 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                 r["large"] = {k: big[k] for k in (
                     "ms", "device_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms", "plain_ms", "max_abs_err")}
+    for r in trial_rows:
+        for big in large["trial_kernels"]:
+            if big["name"] == r["name"]:
+                r["large"] = {k: big[k] for k in (
+                    "ms", "device_ms", "bound_ms", "bound_by",
+                    "empty_kernel_device_ms")}
 
     # 3c. the probe kernels, at the probe's default size
     ph = "kernels_probe"
@@ -3614,7 +4141,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         problems.append(f"host residuals {res}")
     csr_names = [r["name"] for r in results]
     trial_names = [r["name"] for r in trial_rows]
-    if any(launches[k] <= 0 for k in csr_names + trial_names):
+    if any(launches[k] <= 0 for k in csr_names + trial_names + list(
+            TR_KERNELS)):
         problems.append(f"a kernel was not launched: {launches}")
     if (main_segments["replays"] != main_segments["steps"]
             or main_segments["eval_replays"]
@@ -3636,7 +4164,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit(main)
     if problems:
         raise SystemExit(1)
-    for r in results + trial_rows:
+    for r in results + trial_rows + tr_rows:
         key = r["name"]
         r["launches"] = launches[key]
         r["launches_per_iteration"] = launches[key] / out.iteration_count
@@ -3664,6 +4192,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # run eagerly
     record = segment_graph(torch, routed, problem, params,
                            make_mp_params(1e-4, 20_000), dev)
+    emit(record)
+    if not record["ok"]:
+        raise SystemExit(1)
+    # 4a'. the evaluation split by function, the parent's too
+    record = evaluation_split(torch, compare, args.parent, dev)
     emit(record)
     if not record["ok"]:
         raise SystemExit(1)
@@ -3768,7 +4301,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if any(not v <= 1e-8 for v in rres.values()):
         problems.append(f"host residuals {rres}")
     tiled_names = [r["name"] for r in tiled]
-    if any(refine_launches[k] <= 0 for k in tiled_names + trial_names):
+    if any(refine_launches[k] <= 0
+           for k in tiled_names + trial_names + list(TR_KERNELS)):
         problems.append(f"a tile-plan or trial kernel was not launched: "
                         f"{refine_launches}")
     if any(refine_launches[k] != 0 for k in csr_names):
@@ -3784,7 +4318,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         r["launches_per_iteration"] = (
             refine_launches[r["name"]] / rout.iteration_count
         )
-    for r in trial_rows:
+    for r in trial_rows + tr_rows:
         r["launches_refine_path"] = refine_launches[r["name"]]
     if args.profile:
         # The same path again under torch.profiler (operators built anew,
@@ -3858,8 +4392,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         if mp_launches[key] < 2 * mout.iteration_count:
             problems.append(f"{key} launched {mp_launches[key]} times in "
                             f"{mout.iteration_count} iterations")
-    others = [k for k in mp_launches if not k.startswith("spmv_csr:")]
-    if any(mp_launches[k] != 0 for k in others):
+    others = [k for k in mp_launches
+              if not k.startswith("spmv_csr:") and k not in TR_KERNELS]
+    if any(mp_launches[k] != 0 for k in others) or not all(
+            mp_launches[k] > 0 for k in TR_KERNELS):
         problems.append(f"another kernel was launched: {mp_launches}")
     if (mp_segments["replays"] != mp_segments["steps"]
             or mp_segments["eval_replays"] != mp_segments["evaluations"]
@@ -3884,6 +4420,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     for r in results:
         if r["name"] in ("spmv_csr:A", "spmv_csr:AT"):
             r["launches_mirror_prox"] = mp_launches[r["name"]]
+    for r in tr_rows:
+        r["launches_mirror_prox"] = mp_launches[r["name"]]
     # The same solve again without ingest (with --profile under
     # torch.profiler: device busy time, launches per iteration).
     t0 = time.time()
@@ -3928,7 +4466,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         and all(det_launches[k] > 0
                 for k in ("tiled_spmv:A", "tiled_spmv:AT"))
         and all(det_launches[k] == 0 for k in det_launches
-                if not k.startswith("tiled_spmv:"))
+                if not k.startswith("tiled_spmv:") and k not in TR_KERNELS)
     )
     emit({"phase": "determinism_mp", "ok": bool(same), "nodes": DET_NODES,
           "iterations": [r.iteration_count for r in runs],
@@ -3970,7 +4508,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             r["launches_shard_ingest"] = ingest_launches[cell][key]
 
     # 22. kernel list
-    results = (results + tiled + trial_rows + probes + lane_rows
+    for r in tr_rows:
+        r["launches_fleet"] = {ph: counts[r["name"]]
+                               for ph, counts in _tr_launches.items()}
+    results = (results + tiled + trial_rows + tr_rows + probes + lane_rows
                + block_rows + sharded_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3990,7 +4531,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
              "launches_a_call", "launches_shard_ingest", "design",
              "stages", "empty_rows", "smem_bytes", "registers",
              "static_smem_bytes", "bitwise_equal", "accepted",
-             "launches_refine_path")
+             "launches_refine_path", "launches_fleet")
     emit({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results
     ], "card": smi_line})

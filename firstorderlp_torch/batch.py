@@ -932,11 +932,20 @@ def lane_euclidean_bounds(problem, points, primal_norm_weights,
         ]),
         lb.repeat(k, 1), ub.repeat(k, 1), weights.repeat(k, 1),
         torch.cat([r for _, _, r in points]),
-        solve_approximately,
+        solve_approximately, split=n,
     )
     bounds = []
     for i, ((x, y, _), (_, ax, pg, lagrangian)) in enumerate(
             zip(points, parts)):
+        if result.parts is not None:
+            # the dual part's terms are the negation of the dual bound's
+            rows = result.parts[i * lanes:(i + 1) * lanes]
+            bounds.append(ObjectiveBound(
+                lagrangian_value=lagrangian,
+                lower_bound_value=lagrangian + rows[:, 0],
+                upper_bound_value=lagrangian - rows[:, 1],
+            ))
+            continue
         sol = result.solution[i * lanes:(i + 1) * lanes]
         dual_gradient = compute_dual_gradient(problem, x, ax)
         bounds.append(ObjectiveBound(

@@ -41,6 +41,9 @@ KERNEL_SOURCES = {
     # F1a and F1b, one source: each library holds both entry points
     "primal_step": "pdhg_step.cu",
     "trial_epilogue": "pdhg_step.cu",
+    # F2b and F2c, the exact trust region's two launches, one source
+    "tr_search": "trust_region_search.cu",
+    "tr_solution": "trust_region_search.cu",
 }
 
 NVCC_FLAGS = [
@@ -148,6 +151,10 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     lanes_spmv = [p, p, p, p]
     # PrimalStepArgs or EpilogueArgs (ops/pdhg_step.py)
     pdhg_step = [p]
+    # TrustRegionArgs (ops/trust_region_search.py); tr_search: then the
+    # staged slice's shared memory
+    tr_search = [p, i]
+    tr_solution = [p]
     arguments = {
         "spmv_csr": csr + spmv,
         "spmv_dual_step": csr + dual_step,
@@ -160,6 +167,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "lanes_spmv": lanes_spmv,
         "primal_step": pdhg_step,
         "trial_epilogue": pdhg_step,
+        "tr_search": tr_search,
+        "tr_solution": tr_solution,
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
     fn.argtypes = arguments + [p]  # trailing: the CUDA stream

@@ -101,6 +101,9 @@ LAUNCHES: Dict[str, int] = {
     # PDLP's step trial around B3/B4 or B6/B7 (ops/pdhg_step.py)
     "primal_step": 0,
     "trial_epilogue": 0,
+    # the f32 exact trust region (ops/trust_region_search.py)
+    "tr_search": 0,
+    "tr_solution": 0,
 }
 
 

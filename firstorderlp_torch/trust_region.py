@@ -15,8 +15,10 @@ which component i hits its bound; radius^2 is nondecreasing in t and
 piecewise quadratic with knots at the tau. Two exact knot searches, by
 dtype, as in the JAX package's trust_region.py:
 
-- f32: 31 bisection steps on the float bit pattern of t
-  (``tensor.view(torch.int32)``), two masked reductions each;
+- f32: 31 bisection steps on the float bit pattern of t, two masked
+  sums each, every per-row sum accumulated in f64 and rounded once to
+  f32 (ops/trust_region_search.py: two kernels on CUDA, F2b tr_search
+  and F2c tr_solution, their plain versions on the CPU);
 - f64: a sort, prefix sums and a first-true search.
 
 Every function takes a batch: vectors are (B, N) and radii (B,).
@@ -25,9 +27,11 @@ Reference: src/trust_region_utils.jl:68-192.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from .ops import trust_region_search
 
 
 def _scalar_tensor(value, like: torch.Tensor) -> torch.Tensor:
@@ -41,6 +45,9 @@ def _scalar_tensor(value, like: torch.Tensor) -> torch.Tensor:
 class TrustRegionResult(NamedTuple):
     solution: torch.Tensor
     value: torch.Tensor  # g' (solution - center)
+    # (B, 2): g' (solution - center) over the columns [0, split) and
+    # [split, N), from the f32 exact solve when a split was asked for
+    parts: Optional[torch.Tensor] = None
 
 
 def solve_bound_constrained_trust_region(
@@ -51,9 +58,11 @@ def solve_bound_constrained_trust_region(
     norm_weights,
     target_radius,
     solve_approximately: bool = False,
+    split: Optional[int] = None,
 ) -> TrustRegionResult:
     """1-D vectors with a scalar radius, or (B, N) with radii (B,); the
-    bounds and weights may be (N,) for a batch."""
+    bounds and weights may be (N,) for a batch. With `split`, the f32
+    exact solve also returns the value's two parts (`parts`)."""
     single = center_point.dim() == 1
     if single:
         center_point = center_point[None]
@@ -67,14 +76,25 @@ def solve_bound_constrained_trust_region(
     else:
         result = _exact_trust_region(
             center_point, objective_vector, variable_lower_bounds,
-            variable_upper_bounds, norm_weights, radius,
+            variable_upper_bounds, norm_weights, radius, split,
         )
     if single:
-        return TrustRegionResult(result.solution[0], result.value[0])
+        return TrustRegionResult(
+            result.solution[0], result.value[0],
+            None if result.parts is None else result.parts[0])
     return result
 
 
-def _exact_trust_region(c, g, lb, ub, w, target_radius) -> TrustRegionResult:
+def _exact_trust_region(c, g, lb, ub, w, target_radius,
+                        split=None) -> TrustRegionResult:
+    if all(v.dtype == torch.float32 for v in (c, g, lb, ub, w)):
+        # The knot search and the solution (F2b, F2c on CUDA).
+        t_star = trust_region_search.tr_search(c, g, lb, ub, w,
+                                               target_radius)
+        solution, parts, value = trust_region_search.tr_solution(
+            c, g, lb, ub, w, t_star, c.shape[-1] if split is None else split)
+        return TrustRegionResult(solution=solution, value=value,
+                                 parts=None if split is None else parts)
     # Components already at a bound with the objective pushing outward do
     # not move (reference l.95-102).
     frozen = ((c >= ub) & (g <= 0.0)) | ((c <= lb) & (g >= 0.0))
@@ -93,11 +113,7 @@ def _exact_trust_region(c, g, lb, ub, w, target_radius) -> TrustRegionResult:
     )
     a = w * direction * direction
     target_r2 = target_radius * target_radius
-
-    if tau.dtype == torch.float32:
-        t_star = _t_star_bisect(tau, a, target_r2)
-    else:
-        t_star = _t_star_sorted(tau, a, target_r2)
+    t_star = _t_star_sorted(tau, a, target_r2)
 
     # Degenerate cases: zero radius or zero objective -> stay at center
     # (reference l.88-91).
@@ -107,62 +123,6 @@ def _exact_trust_region(c, g, lb, ub, w, target_radius) -> TrustRegionResult:
     solution = torch.clamp(c + t_star[:, None] * direction, lb, ub)
     value = torch.sum(g * (solution - c), dim=-1)
     return TrustRegionResult(solution=solution, value=value)
-
-
-def _t_star_bisect(tau, a, target_r2):
-    """Exact knot search by bisection on the float bits of t. For
-    nonnegative floats the IEEE bit pattern orders like the value, so
-    integer bisection over [0, bits(max finite tau)] isolates the exact
-    segment [tau_(k-1), tau_k) containing the target radius (the JAX
-    package's _t_star_bisect, trust_region.py:112-150)."""
-    tau = torch.clamp_min(tau, 0.0)  # normalize -0.0 so bit ordering holds
-    finite = torch.isfinite(tau)
-    a_tau2 = torch.where(finite, a * tau * tau, 0.0)
-    a_total = torch.sum(a, dim=-1)
-    a_finite_total = torch.sum(torch.where(finite, a, 0.0), dim=-1)
-    s_total = torch.sum(a_tau2, dim=-1)
-    h_infinite = a_total - a_finite_total
-    tau_max = torch.clamp_min(
-        torch.amax(torch.where(finite, tau, 0.0), dim=-1), 0.0
-    )
-
-    def r2_parts(t):
-        clamped = finite & (tau <= t[:, None])
-        s = torch.sum(torch.where(clamped, a_tau2, 0.0), dim=-1)
-        h = a_total - torch.sum(torch.where(clamped, a, 0.0), dim=-1)
-        return s, h
-
-    lo = torch.zeros_like(tau_max, dtype=torch.int32)
-    hi = tau_max.contiguous().view(torch.int32)
-    for _ in range(31):
-        mid = lo + ((hi - lo + 1) >> 1)
-        t = mid.view(torch.float32)
-        s, h = r2_parts(t)
-        below = s + t * t * h < target_r2
-        lo = torch.where(below, mid, lo)
-        hi = torch.where(below, hi, mid - 1)
-    v_star = lo.view(torch.float32)
-    low_before, high_before = r2_parts(v_star)
-
-    # Does any finite knot reach r^2?  r^2 at the LAST finite knot is
-    # s_total + tau_max^2 * h_infinite.
-    any_hit = s_total + tau_max * tau_max * h_infinite >= target_r2
-    t_interior = torch.sqrt(
-        torch.clamp_min(target_r2 - low_before, 0.0)
-        / torch.where(high_before > 0, high_before, 1.0)
-    )
-    # No finite knot reaches r^2: either unbounded components keep moving
-    # (solve on the last segment) or all bounds are hit first (t = max tau,
-    # reference l.175-181).
-    t_beyond = torch.where(
-        h_infinite > 0,
-        torch.sqrt(
-            torch.clamp_min(target_r2 - s_total, 0.0)
-            / torch.where(h_infinite > 0, h_infinite, 1.0)
-        ),
-        tau_max,
-    )
-    return torch.where(any_hit, t_interior, t_beyond)
 
 
 def _t_star_sorted(tau, a, target_r2):
@@ -357,10 +317,18 @@ def bound_optimal_objective_euclidean_batched(
     z_ub = torch.cat([problem.variable_upper_bound, dual_ub])
     weights = torch.cat([primal_norm_weights, dual_norm_weights])
 
-    result = solve_bound_constrained_trust_region(
-        z, z_gradient, z_lb, z_ub, weights, radii, solve_approximately
-    )
     n = primal_solutions.shape[1]
+    result = solve_bound_constrained_trust_region(
+        z, z_gradient, z_lb, z_ub, weights, radii, solve_approximately,
+        split=n,
+    )
+    if result.parts is not None:
+        # the dual part's terms are the negation of the dual bound's
+        return ObjectiveBound(
+            lagrangian_value=lagrangian_value,
+            lower_bound_value=lagrangian_value + result.parts[:, 0],
+            upper_bound_value=lagrangian_value - result.parts[:, 1],
+        )
     primal_tr = result.solution[:, :n]
     dual_tr = result.solution[:, n:]
     return ObjectiveBound(

@@ -55,7 +55,14 @@ route of PyTorch's pow, and over inputs that hold NaN and crossed
 bounds; a replayed trial is bitwise the eager one with the same
 launches, and a trial is captured under
 torch.cuda.set_sync_debug_mode("error"), four host launch calls
-eagerly.
+eagerly. The f32 exact trust region's kernels (ops/trust_region_search.py:
+F2b tr_search, F2c tr_solution) are each bitwise their plain versions
+over the cases of tests/trust_region_cases.py with bounds (N,) and
+(B, N), at the main path's (3 x 200,001), the fleet's (384 x 40,001)
+and an unstaged row's shapes, one launch each, the same bits on every
+launch; a replayed PDHG and Mirror Prox evaluation is bitwise the eager
+one with the same launches, and an evaluation is captured under
+torch.cuda.set_sync_debug_mode("error").
 """
 
 import dataclasses
@@ -1626,3 +1633,176 @@ def test_a_trial_is_captured_without_synchronizing(cuda, rule, layout):
     graph.replay()
     torch.cuda.synchronize()
     assert_same_bits(out, eager)
+
+
+# ---------------------------------------------------------------------------
+# The f32 exact trust region: F2b tr_search and F2c tr_solution
+# (ops/trust_region_search.py)
+# ---------------------------------------------------------------------------
+
+# (rows, n, bounds): the 100k-node LP's restart scheme (3 x 200,001,
+# bounds (N,)), the 128-lane fleet's (384 x 40,001, bounds (B, N)), and
+# rows too long to stage (read from device memory every trip)
+TR_SHAPES = {"main_path": (3, 200_001, "shared"),
+             "fleet": (384, 40_001, "rows"),
+             "unstaged": (2, 250_000, "shared")}
+
+
+def tr_on_card(args, cuda, split):
+    """(t*, solution, parts, value) of the kernels and of the plain
+    versions on the same CUDA tensors."""
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    c, g, lower, upper, weight, radius = (torch.as_tensor(v, device=cuda)
+                                          for v in args)
+    t_star = trs.tr_search(c, g, lower, upper, weight, radius)
+    got = (t_star, *trs.tr_solution(c, g, lower, upper, weight, t_star,
+                                    split))
+    plain_t = trs.tr_search_plain(
+        trs.tr_prologue_plain(c, g, lower, upper, weight), radius)
+    want = (plain_t, *trs.tr_solution_plain(c, g, lower, upper, weight,
+                                            plain_t, split))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("bounds", ["shared", "rows"])
+@pytest.mark.parametrize("case", ["mixed", "radius_zero", "g_zero",
+                                  "all_frozen", "infinite_bounds",
+                                  "beyond_every_knot", "duplicate_knots",
+                                  "negative_zero_tau"])
+def test_trust_region_kernels_are_bitwise_their_plain_versions(cuda, case,
+                                                               bounds):
+    """F2b and F2c on the trust-region cases (tests/trust_region_cases.py),
+    at N = 400 and 2,000: t*, the solution, the split sums and the value
+    bitwise those of the plain versions, and one launch each."""
+    import trust_region_cases as tc
+
+    for n in (400, 2000):
+        args = tc.case_inputs(case, bounds, n=n, seed=n)
+        routed.reset_launch_counts()
+        got, want = tr_on_card(args, cuda, n // 3)
+        assert routed.LAUNCHES["tr_search"] == 1
+        assert routed.LAUNCHES["tr_solution"] == 1
+        assert_bitwise_tuple(got, want, f"{case} n={n}")
+
+
+@pytest.mark.parametrize("shape", sorted(TR_SHAPES))
+def test_trust_region_kernels_at_the_paths_shapes(cuda, shape):
+    """The main path's, the fleet's and an unstaged row's shapes: bitwise
+    the plain versions, and the same bits again on a second launch."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    rows, n, bounds = TR_SHAPES[shape]
+    plan = trs.search_plan(rows, n)
+    assert plan.staged == (shape != "unstaged")
+    args = tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
+    got, want = tr_on_card(args, cuda, n // 2)
+    assert_bitwise_tuple(got, want, shape)
+    again, _ = tr_on_card(args, cuda, n // 2)
+    assert_bitwise_tuple(again, got, f"{shape} again")
+
+
+@pytest.mark.parametrize("case", ["mixed", "duplicate_knots",
+                                  "infinite_bounds"])
+def test_trust_region_kernels_repeat_bitwise(cuda, case):
+    import trust_region_cases as tc
+
+    args = tc.case_inputs(case, "rows", rows=7, n=3001, seed=5)
+    first, _ = tr_on_card(args, cuda, 1000)
+    for _ in range(10):
+        again, _ = tr_on_card(args, cuda, 1000)
+        assert_bitwise_tuple(again, first, case)
+
+
+def test_trust_region_kernels_take_strided_inputs(cuda):
+    """A fleet's lane bound estimates hand the solve transposed (n, B)
+    state: the wrappers copy what the kernels cannot read by rows and
+    give the contiguous inputs' bits."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    c, g, lower, upper, weight, radius = (
+        torch.as_tensor(v, device=cuda)
+        for v in tc.case_inputs("mixed", "rows", rows=5, n=700, seed=4))
+    strided = [t.T.contiguous().T for t in (c, g, lower, upper, weight)]
+    t_star = trs.tr_search(*strided, radius)
+    assert_bitwise_tuple(
+        (t_star, *trs.tr_solution(*strided, t_star, 300)),
+        (trs.tr_search(c, g, lower, upper, weight, radius),
+         *trs.tr_solution(c, g, lower, upper, weight, t_star, 300)),
+        "strided")
+
+
+def test_trust_region_wrappers_reject_bad_inputs(cuda):
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    c = torch.zeros(3, 50, device=cuda)
+    bounds = torch.zeros(50, device=cuda)
+    radius = torch.ones(3, device=cuda)
+    with pytest.raises(TypeError):
+        trs.tr_search(c.double(), c, bounds, bounds, bounds, radius)
+    with pytest.raises(ValueError):
+        trs.tr_search(c, c, bounds[:49], bounds, bounds, radius)
+    with pytest.raises(ValueError):
+        trs.tr_search(c, c, bounds, bounds, bounds, radius[:2])
+    with pytest.raises(ValueError):
+        trs.tr_search(c, c, bounds.cpu(), bounds, bounds, radius)
+    with pytest.raises(ValueError):
+        trs.tr_solution(c, c, bounds, bounds, bounds, radius, 51)
+
+
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_replayed_evaluation_is_bitwise_the_eager_one(cuda, solver,
+                                                      monkeypatch):
+    """One evaluation from the state at iteration 81, replayed from the
+    bundle's graph and run eagerly: every field of the state and of the
+    result bitwise equal, the same launches, each exact trust region
+    (the restart scheme's, and the bound estimates' where the config
+    asks for them) one tr_search and one tr_solution."""
+    module, bundle, config, state = segment_case(cuda, solver, False,
+                                                 monkeypatch)
+    state = module._device_counters(state)
+    out = {}
+    for mode in ("graphed", "eager"):
+        runner = module._runner(bundle, state, 0.0, config, mode == "eager")
+        routed.reset_launch_counts()
+        result = runner.detach(runner.evaluate())
+        launches = dict(routed.LAUNCHES)
+        out[mode] = (runner.unload(), result, launches)
+    assert out["graphed"][2] == out["eager"][2]
+    assert out["eager"][2]["tr_search"] >= 1  # Mirror Prox: bounds too
+    assert out["eager"][2]["tr_solution"] == out["eager"][2]["tr_search"]
+    assert_same_bits(out["graphed"][0], out["eager"][0])
+    assert_same_bits(out["graphed"][1], out["eager"][1], "result")
+
+
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_an_evaluation_is_captured_without_synchronizing(cuda, solver,
+                                                         monkeypatch):
+    """The evaluation, trust-region kernels included, captured into a
+    CUDA graph under torch.cuda.set_sync_debug_mode("error"); its replay
+    gives the eager evaluation's bits."""
+    module, bundle, config, state = segment_case(cuda, solver, False,
+                                                 monkeypatch)
+    state = module._device_counters(state)
+    elapsed = torch.zeros((), dtype=torch.float64, device=cuda)
+    eager = module._eval_block(bundle, state, elapsed, config)
+    module._eval_block(bundle, state, elapsed, config)  # pool primed
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.graph(graph, stream=side):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = module._eval_block(bundle, state, elapsed, config)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_same_bits(out[0], eager[0])
+    assert_same_bits(out[1], eager[1], "result")
