@@ -935,25 +935,13 @@ def lane_euclidean_bounds(problem, points, primal_norm_weights,
         solve_approximately, split=n,
     )
     bounds = []
-    for i, ((x, y, _), (_, ax, pg, lagrangian)) in enumerate(
-            zip(points, parts)):
-        if result.parts is not None:
-            # the dual part's terms are the negation of the dual bound's
-            rows = result.parts[i * lanes:(i + 1) * lanes]
-            bounds.append(ObjectiveBound(
-                lagrangian_value=lagrangian,
-                lower_bound_value=lagrangian + rows[:, 0],
-                upper_bound_value=lagrangian - rows[:, 1],
-            ))
-            continue
-        sol = result.solution[i * lanes:(i + 1) * lanes]
-        dual_gradient = compute_dual_gradient(problem, x, ax)
+    for i, (_, _, _, lagrangian) in enumerate(parts):
+        # the dual part's terms are the negation of the dual bound's
+        rows = result.parts[i * lanes:(i + 1) * lanes]
         bounds.append(ObjectiveBound(
             lagrangian_value=lagrangian,
-            lower_bound_value=lagrangian + torch.sum(
-                (sol[:, :n] - x.T) * pg.T, dim=1),
-            upper_bound_value=lagrangian + torch.sum(
-                (sol[:, n:] - y.T) * dual_gradient.T, dim=1),
+            lower_bound_value=lagrangian + rows[:, 0],
+            upper_bound_value=lagrangian - rows[:, 1],
         ))
     return bounds
 

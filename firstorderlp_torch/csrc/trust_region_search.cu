@@ -24,13 +24,20 @@
 // Bits: every per-row sum is accumulated in f64 and rounded once to f32,
 // in one fixed order: each thread its entries in column order, a shuffle
 // tree in each warp, one over the warps, one over the blocks of the
-// row's cluster. The f32 rounding of an f64 sum of these terms (f32
-// values, all of one sign) does not depend on the order unless the exact
-// sum lies within an f64 rounding error of an f32 midpoint, so the
-// kernels give the plain versions' bits. The elementwise work rounds
-// each operation once in PyTorch's order (__fdiv_rn, __fmul_rn, __fadd_rn,
-// __fsub_rn: never a contracted multiply-add), torch.clamp keeps its NaN
-// rules, and a knot below zero (or -0) is +0.
+// row's cluster. The terms of a sum are f32 values of one sign, so an
+// order whose longest chain of additions is D gives an f64 result within
+// D 2^-53 |S| of the exact sum S (here D is a thread's entries, at most
+// ceil(n / (blocks x threads)), plus 15 levels of trees). Two orders
+// round to different f32 values only where an f32 rounding midpoint lies
+// between their f64 results; the midpoints lie at least 2^-24 |S| apart,
+// so the odds are at most about (D1 + D2) 2^-29 a sum: about 2e-6 where
+// D1 + D2 is 2^10. The kernels therefore give the plain versions'
+// bits, bar a one-ulp difference at those odds that comes from the order
+// of addition, not from a fault, and repeats at every run on that input.
+// The elementwise work rounds each operation once in PyTorch's order
+// (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn: never a contracted
+// multiply-add), torch.clamp keeps its NaN rules, and a knot below zero
+// (or -0) is +0.
 //
 // Design for Hopper: one thread-block cluster a row (cudaLaunchKernelEx,
 // at most 8 blocks, the portable size). Each block takes a contiguous
@@ -78,9 +85,19 @@ struct TrustRegionArgs {
   float* t_star;
   float* solution;
   float* sums;
-  int lower_stride;   // 0: one (n,) vector for every row; n: (rows, n)
-  int upper_stride;
-  int weight_stride;
+  // Each input's element (row, j) at row * row_stride + j * col_stride:
+  // a row stride of 0 gives every row one (n,) vector, and a transposed
+  // (n, rows) view is read where it lies.
+  int c_row_stride;
+  int c_col_stride;
+  int g_row_stride;
+  int g_col_stride;
+  int lower_row_stride;
+  int lower_col_stride;
+  int upper_row_stride;
+  int upper_col_stride;
+  int weight_row_stride;
+  int weight_col_stride;
   int rows;
   int n;
   int split;
@@ -102,13 +119,19 @@ struct Inputs {
   float c, g, lower, upper, weight;
 };
 
+__device__ __forceinline__ float load_at(const float* v, int row_stride,
+                                         int col_stride, int row, int j) {
+  return __ldg(v + (long long)row * row_stride + (long long)j * col_stride);
+}
+
 __device__ __forceinline__ Inputs load_inputs(const TrustRegionArgs& p,
                                               int row, int j) {
-  const long long at = (long long)row * p.n + j;
-  return {__ldg(p.c + at), __ldg(p.g + at),
-          __ldg(p.lower + (long long)row * p.lower_stride + j),
-          __ldg(p.upper + (long long)row * p.upper_stride + j),
-          __ldg(p.weight + (long long)row * p.weight_stride + j)};
+  return {load_at(p.c, p.c_row_stride, p.c_col_stride, row, j),
+          load_at(p.g, p.g_row_stride, p.g_col_stride, row, j),
+          load_at(p.lower, p.lower_row_stride, p.lower_col_stride, row, j),
+          load_at(p.upper, p.upper_row_stride, p.upper_col_stride, row, j),
+          load_at(p.weight, p.weight_row_stride, p.weight_col_stride, row,
+                  j)};
 }
 
 // The movement direction: 0 for a component at a bound that the
@@ -410,13 +433,12 @@ int launch_clusters(Kernel kernel, const TrustRegionArgs* a, int threads,
 extern "C" int folp_tr_search(const folp::TrustRegionArgs* a, int smem_bytes,
                               void* stream_ptr) {
   using namespace folp;
-  static int allowed = 0;  // the dynamic shared memory the kernel may take
-  if (smem_bytes > allowed) {
+  // Set on every launch: the attribute holds for the current device only.
+  if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         tr_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    allowed = smem_bytes;
   }
   return launch_clusters(tr_search_kernel, a, kSearchThreads,
                          (size_t)smem_bytes, (cudaStream_t)stream_ptr);

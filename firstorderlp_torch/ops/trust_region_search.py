@@ -12,10 +12,16 @@ about 620 PyTorch kernels a solve of the restart scheme's three rows.
 The contract, fixed by the plain versions below: every per-row sum is
 accumulated in f64 and rounded once to f32 (S(t), H(t), the totals and
 the value sums); the elementwise work rounds each operation once in the
-order written here; a knot below zero, or -0, is +0. An f32 rounding of
-an f64 sum does not depend on the order of the terms unless the exact
-sum lies within an f64 rounding error of an f32 midpoint, so the
-kernels, which add in one fixed order with no atomics, give these bits.
+order written here; a knot below zero, or -0, is +0. The kernels add in
+one fixed order with no atomics, and the plain versions in torch.sum's.
+The terms of a sum are of one sign, so an order whose longest chain of
+additions is D lands within D 2^-53 |S| of the exact sum S; two orders
+round to different f32 values only where an f32 rounding midpoint
+(these lie at least 2^-24 |S| apart) falls between their f64 results,
+at odds of at most about (D1 + D2) 2^-29 a sum, about 2e-6 where
+D1 + D2 is 2^10. So the kernels give these bits, bar a one-ulp
+difference at those odds that comes from the order of addition and
+repeats at every run on that input.
 
 Each wrapper takes the plain version only when its tensors are on the
 CPU; for CUDA tensors it launches its kernel or raises, and any other
@@ -172,6 +178,9 @@ def tr_solution_plain(c, g, lower, upper, weight, t_star, split: int):
 # ---------------------------------------------------------------------------
 
 
+_INPUTS = ("c", "g", "lower", "upper", "weight")
+
+
 class _TrustRegionArgs(ctypes.Structure):
     """csrc/trust_region_search.cu's TrustRegionArgs, passed by
     address."""
@@ -179,8 +188,8 @@ class _TrustRegionArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "c", "g", "lower", "upper", "weight", "radius", "t_star",
         "solution", "sums")] + [(name, ctypes.c_int) for name in (
-            "lower_stride", "upper_stride", "weight_stride", "rows", "n",
-            "split", "cluster", "staged")]
+            *(f"{v}_{k}_stride" for v in _INPUTS for k in ("row", "col")),
+            "rows", "n", "split", "cluster", "staged")]
 
 
 class SearchPlan(NamedTuple):
@@ -208,22 +217,26 @@ def search_plan(rows: int, n: int) -> SearchPlan:
     return SearchPlan(cluster, True, 8 * (-(-n // cluster)))
 
 
-def _rows_of(name: str, t: torch.Tensor, rows: int, n: int):
-    """(tensor, row stride) of a bound or weight: (N,) or a (B, N)
-    whose rows are contiguous, else a contiguous copy."""
+def _strided(name: str, t: torch.Tensor, rows: int, n: int):
+    """(tensor, row stride, column stride) of an input as it lies: c and
+    g (B, N), the bounds and weights (N,) (row stride 0) or (B, N), any
+    strides (a transposed view, an expanded vector), never a copy."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.dim() == 1:
+    if t.dim() == 1 and name not in ("c", "g"):
         if t.shape[0] != n:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
                              f"({n},) or ({rows}, {n})")
-        return t.contiguous(), 0
-    if tuple(t.shape) != (rows, n):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
-                         f"({n},) or ({rows}, {n})")
-    if t.stride(-1) == 1 and (t.stride(0) in (0, n) or rows == 1):
-        return t, t.stride(0) if rows > 1 else 0
-    return t.contiguous(), n
+        strides = (0, t.stride(0))
+    elif tuple(t.shape) != (rows, n):
+        want = f"({rows}, {n})" if name in ("c", "g") else (
+            f"({n},) or ({rows}, {n})")
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
+    else:
+        strides = t.stride()
+    if max(strides) >= 2 ** 31:
+        raise ValueError(f"{name}'s strides {strides} exceed an int")
+    return t, *strides
 
 
 def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
@@ -231,15 +244,8 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
     rows, n = c.shape
     if not 0 < rows <= 65535:
         raise ValueError(f"{rows} rows: 1 to 65535 a launch")
-    for name, t in (("c", c), ("g", g)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != (rows, n):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
-                             f"({rows}, {n})")
-    c, g = c.contiguous(), g.contiguous()
-    bounds = [_rows_of(name, t, rows, n) for name, t in (
-        ("lower", lower), ("upper", upper), ("weight", weight))]
+    inputs = [_strided(name, t, rows, n) for name, t in zip(
+        _INPUTS, (c, g, lower, upper, weight))]
     for name, t in (("radius", radius), ("t_star", t_star)):
         if t is not None and (t.dtype != torch.float32
                               or tuple(t.shape) != (rows,)):
@@ -252,12 +258,12 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
         return 0 if t is None else t.data_ptr()
 
     args = _TrustRegionArgs(
-        ptr(c), ptr(g), *(ptr(t) for t, _ in bounds), ptr(radius),
-        ptr(t_star), ptr(solution), ptr(sums),
-        *(stride for _, stride in bounds), rows, n, split, cluster,
-        int(staged))
+        *(ptr(t) for t, _, _ in inputs), ptr(radius), ptr(t_star),
+        ptr(solution), ptr(sums),
+        *(stride for _, *strides in inputs for stride in strides),
+        rows, n, split, cluster, int(staged))
     # the tensors the arguments point into, alive until the launch
-    return args, (c, g, radius, t_star, *(t for t, _ in bounds))
+    return args, (radius, t_star, *(t for t, _, _ in inputs))
 
 
 def _launch(lib: str, args: ctypes.Structure, device, *extra) -> None:

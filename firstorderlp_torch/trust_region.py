@@ -46,7 +46,7 @@ class TrustRegionResult(NamedTuple):
     solution: torch.Tensor
     value: torch.Tensor  # g' (solution - center)
     # (B, 2): g' (solution - center) over the columns [0, split) and
-    # [split, N), from the f32 exact solve when a split was asked for
+    # [split, N), when a split was asked for
     parts: Optional[torch.Tensor] = None
 
 
@@ -61,8 +61,8 @@ def solve_bound_constrained_trust_region(
     split: Optional[int] = None,
 ) -> TrustRegionResult:
     """1-D vectors with a scalar radius, or (B, N) with radii (B,); the
-    bounds and weights may be (N,) for a batch. With `split`, the f32
-    exact solve also returns the value's two parts (`parts`)."""
+    bounds and weights may be (N,) for a batch. With `split`, every
+    route also returns the value's two parts (`parts`)."""
     single = center_point.dim() == 1
     if single:
         center_point = center_point[None]
@@ -71,7 +71,7 @@ def solve_bound_constrained_trust_region(
     if solve_approximately:
         result = _approximate_trust_region(
             center_point, objective_vector, variable_lower_bounds,
-            variable_upper_bounds, norm_weights, radius,
+            variable_upper_bounds, norm_weights, radius, split,
         )
     else:
         result = _exact_trust_region(
@@ -121,8 +121,19 @@ def _exact_trust_region(c, g, lb, ub, w, target_radius,
     t_star = torch.where(degenerate, 0.0, t_star)
 
     solution = torch.clamp(c + t_star[:, None] * direction, lb, ub)
-    value = torch.sum(g * (solution - c), dim=-1)
-    return TrustRegionResult(solution=solution, value=value)
+    terms = g * (solution - c)
+    return TrustRegionResult(solution=solution,
+                             value=torch.sum(terms, dim=-1),
+                             parts=_split_sums(terms, split))
+
+
+def _split_sums(terms, split):
+    """(B, 2) sums of `terms` over the columns [0, split) and [split, N),
+    or None without a split."""
+    if split is None:
+        return None
+    return torch.stack([torch.sum(terms[:, :split], dim=-1),
+                        torch.sum(terms[:, split:], dim=-1)], dim=-1)
 
 
 def _t_star_sorted(tau, a, target_r2):
@@ -176,7 +187,7 @@ def _t_star_sorted(tau, a, target_r2):
     return torch.where(any_hit, t_interior, t_beyond)
 
 
-def _approximate_trust_region(c, g, lb, ub, w, target_radius):
+def _approximate_trust_region(c, g, lb, ub, w, target_radius, split=None):
     """Scaled projected-gradient approximation (reference l.194-224)."""
     frozen = ((c >= ub) & (g <= 0.0)) | ((c <= lb) & (g >= 0.0))
     direction = torch.where(frozen, 0.0, -g / w)
@@ -185,8 +196,10 @@ def _approximate_trust_region(c, g, lb, ub, w, target_radius):
     direction = torch.where(
         (norm > 0)[:, None], direction * scale[:, None], direction
     )
+    solution = c + direction
     return TrustRegionResult(
-        solution=c + direction, value=torch.sum(g * direction, dim=-1)
+        solution=solution, value=torch.sum(g * direction, dim=-1),
+        parts=_split_sums(g * (solution - c), split),
     )
 
 
@@ -322,19 +335,9 @@ def bound_optimal_objective_euclidean_batched(
         z, z_gradient, z_lb, z_ub, weights, radii, solve_approximately,
         split=n,
     )
-    if result.parts is not None:
-        # the dual part's terms are the negation of the dual bound's
-        return ObjectiveBound(
-            lagrangian_value=lagrangian_value,
-            lower_bound_value=lagrangian_value + result.parts[:, 0],
-            upper_bound_value=lagrangian_value - result.parts[:, 1],
-        )
-    primal_tr = result.solution[:, :n]
-    dual_tr = result.solution[:, n:]
+    # the dual part's terms are the negation of the dual bound's
     return ObjectiveBound(
         lagrangian_value=lagrangian_value,
-        lower_bound_value=lagrangian_value
-        + torch.sum((primal_tr - primal_solutions) * primal_gradient, dim=1),
-        upper_bound_value=lagrangian_value
-        + torch.sum((dual_tr - dual_solutions) * dual_gradient, dim=1),
+        lower_bound_value=lagrangian_value + result.parts[:, 0],
+        upper_bound_value=lagrangian_value - result.parts[:, 1],
     )

@@ -1719,8 +1719,8 @@ def test_trust_region_kernels_repeat_bitwise(cuda, case):
 
 def test_trust_region_kernels_take_strided_inputs(cuda):
     """A fleet's lane bound estimates hand the solve transposed (n, B)
-    state: the wrappers copy what the kernels cannot read by rows and
-    give the contiguous inputs' bits."""
+    state: the kernels read it in place through its row and column
+    strides and give the contiguous inputs' bits."""
     import trust_region_cases as tc
 
     from firstorderlp_torch.ops import trust_region_search as trs
@@ -1735,6 +1735,23 @@ def test_trust_region_kernels_take_strided_inputs(cuda):
         (trs.tr_search(c, g, lower, upper, weight, radius),
          *trs.tr_solution(c, g, lower, upper, weight, t_star, 300)),
         "strided")
+
+
+def test_trust_region_kernels_launch_on_a_second_card(cuda):
+    """The staged search at the main path's shape takes about 200 KB of
+    shared memory a block, which each device must allow: launches on
+    cuda:0, cuda:1 and cuda:0 again in one process give the plain
+    versions' bits on each card."""
+    import trust_region_cases as tc
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rows, n, bounds = TR_SHAPES["main_path"]
+    args = tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
+    for index in (0, 1, 0):
+        got, want = tr_on_card(args, torch.device("cuda", index), n // 2)
+        assert got[0].device.index == index
+        assert_bitwise_tuple(got, want, f"cuda:{index}")
 
 
 def test_trust_region_wrappers_reject_bad_inputs(cuda):

@@ -245,13 +245,20 @@ def test_one_row_and_no_split():
 
 
 def test_f64_and_approximate_routes_return_no_parts():
+    """Without a split no route returns parts; with one, the f64 exact
+    and the approximate routes return the sums of g (solution - c) over
+    the two slices, as the f32 route does."""
     args = [torch.as_tensor(v, dtype=torch.float64)
             for v in case_inputs("mixed", "shared", seed=7)]
-    assert tx_tr.solve_bound_constrained_trust_region(
-        *args, split=10).parts is None
     f32 = torch_args(case_inputs("mixed", "shared", seed=7))
-    assert tx_tr.solve_bound_constrained_trust_region(
-        *f32, solve_approximately=True, split=10).parts is None
+    for inputs, approx in ((args, False), (args, True), (f32, True)):
+        assert tx_tr.solve_bound_constrained_trust_region(
+            *inputs, solve_approximately=approx).parts is None
+        got = tx_tr.solve_bound_constrained_trust_region(
+            *inputs, solve_approximately=approx, split=10)
+        terms = inputs[1] * (got.solution - inputs[0])
+        assert torch.equal(got.parts, torch.stack(
+            [terms[:, :10].sum(-1), terms[:, 10:].sum(-1)], -1))
 
 
 def lp_bundles(nodes=300):
@@ -312,6 +319,90 @@ def test_euclidean_batched_bounds_match_the_jax_package(radii):
                                rtol=RTOL, atol=RTOL * slice_scale)
 
 
+@pytest.mark.parametrize("dtype,approx", [
+    (torch.float64, False), (torch.float64, True), (torch.float32, True)])
+def test_other_routes_give_the_previous_slice_sums(dtype, approx):
+    """The f64 exact and the approximate routes' lower and upper values,
+    now taken from the solve's split sums, are bitwise the previous
+    release's sums over the solution's primal and dual slices: the terms
+    are the same products, and the dual one's negation is exact."""
+    got = tx_dev.to_device_scaled(
+        tx.rescale_problem(3, True, 1.0, 0, generate_pagerank_lp(300,
+                                                                 seed=0)),
+        dtype, "dense", CPU).scaled
+    n, m = got.num_variables, got.num_constraints
+    rng = np.random.default_rng(12)
+    x, y, pw, dw, r = (torch.as_tensor(v, dtype=dtype) for v in (
+        rng.normal(size=(3, n)), np.abs(rng.normal(size=(3, m))),
+        rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, m),
+        np.array([0.0, 0.3, 2.0])))
+    bounds = tx_tr.bound_optimal_objective_euclidean_batched(
+        got, x, y, pw, dw, r, approx)
+    pg = (torch.stack([got.qx(v) for v in x]) + got.objective_vector[None]
+          - torch.stack([got.aty(v) for v in y]))
+    dg = got.right_hand_side[None] - torch.stack([got.ax(v) for v in x])
+    res = tx_tr.solve_bound_constrained_trust_region(
+        torch.cat([x, y], 1), torch.cat([pg, -dg], 1),
+        torch.cat([got.variable_lower_bound,
+                   torch.where(got.is_equality, -torch.inf, 0.0).to(dtype)]),
+        torch.cat([got.variable_upper_bound,
+                   torch.full((m,), torch.inf, dtype=dtype)]),
+        torch.cat([pw, dw]), r, approx)
+    lagrangian = bounds.lagrangian_value
+    assert torch.equal(bounds.lower_bound_value, lagrangian + torch.sum(
+        (res.solution[:, :n] - x) * pg, dim=1))
+    assert torch.equal(bounds.upper_bound_value, lagrangian + torch.sum(
+        (res.solution[:, n:] - y) * dg, dim=1))
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_lane_bounds_give_the_previous_slice_sums(monkeypatch, approx):
+    """An f64 fleet's lane_euclidean_bounds at two points of every lane,
+    exact and approximate: the lower and upper values from the split
+    sums are bitwise the previous release's sums over the solution's
+    slices, against the primal gradient and b - A x."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.saddle_point import compute_dual_gradient
+
+    from test_torch_batch import fleet_pdhg_params, pagerank_fleet, port_fleet
+    from utils import optimality_criteria
+
+    problem = port_fleet(fleet_pdhg_params(optimality_criteria(1e-6)),
+                         pagerank_fleet()).bundle.scaled
+    n, lanes = problem.objective_vector.shape
+    m = problem.right_hand_side.shape[0]
+    rng = np.random.default_rng(13)
+
+    assert problem.objective_vector.dtype == torch.float64
+
+    def lane_tensor(v):
+        return torch.as_tensor(v, dtype=torch.float64)
+
+    points = [(lane_tensor(rng.normal(size=(n, lanes))),
+               lane_tensor(np.abs(rng.normal(size=(m, lanes)))),
+               lane_tensor(rng.uniform(0.1, 2.0, lanes))) for _ in range(2)]
+    weights = (lane_tensor(rng.uniform(0.5, 2.0, (n, lanes))),
+               lane_tensor(rng.uniform(0.5, 2.0, (m, lanes))))
+    solves = []
+
+    def keep(*args, **kwargs):
+        solves.append(tx_tr.solve_bound_constrained_trust_region(*args,
+                                                                  **kwargs))
+        return solves[-1]
+
+    monkeypatch.setattr(batch, "solve_bound_constrained_trust_region", keep)
+    bounds = batch.lane_euclidean_bounds(problem, points, *weights,
+                                         solve_approximately=approx)
+    for i, ((x, y, _), got) in enumerate(zip(points, bounds)):
+        sol = solves[0].solution[i * lanes:(i + 1) * lanes]
+        _, ax, pg, lagrangian = batch._lp_parts(problem, x, y)
+        dual_gradient = compute_dual_gradient(problem, x, ax)
+        assert torch.equal(got.lower_bound_value, lagrangian + torch.sum(
+            (sol[:, :n] - x.T) * pg.T, dim=1))
+        assert torch.equal(got.upper_bound_value, lagrangian + torch.sum(
+            (sol[:, n:] - y.T) * dual_gradient.T, dim=1))
+
+
 def test_the_cpu_route_launches_nothing():
     routed.reset_launch_counts()
     args = torch_args(case_inputs("mixed", "rows", seed=8))
@@ -337,21 +428,26 @@ def test_search_plans(rows, n, want):
 
 
 def test_bound_strides_copy_only_what_the_kernel_cannot_read():
+    """The kernels read every input through a row and a column stride,
+    so nothing is copied: a shared (N,) vector, a (B, N) one, an
+    expanded vector and a fleet's transposed (n, B) state."""
     rows, n = 3, 10
     shared = torch.zeros(n)
-    assert trs._rows_of("lower", shared, rows, n) == (shared, 0)
+    assert trs._strided("lower", shared, rows, n) == (shared, 0, 1)
     full = torch.zeros(rows, n)
-    assert trs._rows_of("lower", full, rows, n) == (full, n)
+    assert trs._strided("lower", full, rows, n) == (full, n, 1)
     expanded = shared.expand(rows, n)
-    got, stride = trs._rows_of("lower", expanded, rows, n)
-    assert got is expanded and stride == 0
+    assert trs._strided("lower", expanded, rows, n) == (expanded, 0, 1)
     transposed = torch.zeros(n, rows).T
-    got, stride = trs._rows_of("lower", transposed, rows, n)
-    assert got.is_contiguous() and stride == n
+    for name in ("c", "weight"):
+        got = trs._strided(name, transposed, rows, n)
+        assert got[0] is transposed and got[1:] == (1, rows)
     with pytest.raises(ValueError):
-        trs._rows_of("lower", torch.zeros(n + 1), rows, n)
+        trs._strided("lower", torch.zeros(n + 1), rows, n)
+    with pytest.raises(ValueError):
+        trs._strided("c", shared, rows, n)  # c and g are (B, N)
     with pytest.raises(TypeError):
-        trs._rows_of("lower", torch.zeros(n, dtype=torch.float64), rows, n)
+        trs._strided("lower", torch.zeros(n, dtype=torch.float64), rows, n)
 
 
 def test_wrappers_refuse_other_devices():
