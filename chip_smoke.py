@@ -4,8 +4,9 @@
 Run from the root of the repository:
 
     python3 chip_smoke.py [--out FILE] [--profile] [--parent DIR]
-    python3 chip_smoke.py --only evaluation_split,kernels_trust_region \
-        [--parent DIR]   # the device and build phases and these alone
+    python3 chip_smoke.py --only PHASES [--parent DIR]
+        # the device and build phases and PHASES alone (comma-separated:
+        # evaluation_split, kernels_trust_region, kernels_eval_stats)
 
 Phases, each printing one JSON line:
 
@@ -44,6 +45,16 @@ Phases, each printing one JSON line:
    to the plain versions' and to a second launch, the launch plan
    (cluster, staged or not, shared memory), times (CUDA events, device
    time and kernels a call, the plain versions') and the bytes bound;
+   kernels_eval_stats: an evaluation's statistics kernels
+   (ops/eval_stats.py), F2d stats_point, F2e stats_primal and F2f
+   stats_dual (the finalize in its last block), on the LP as optimize
+   prepares it, a point and an average made with numpy, the products by
+   B2 on the original operator, infeasibility detection off (the main
+   path's criteria) and on: the points, the ray, every maximum and flag
+   and the finalize bitwise the plain versions', each f64 sum within
+   2^-40 sum|t| of the plain one, a second launch bitwise with the
+   tickets at zero; times (CUDA events, device time and kernels a call,
+   the plain versions'), the bytes bound and ptxas's registers;
    kernels_tiled_large: the three tile-plan kernels and the three CSR
    kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
@@ -89,7 +100,8 @@ Phases, each printing one JSON line:
    device ms (CUDA events) and host launch calls (torch.profiler), and
    the replayed evaluation's device ms and graph nodes, for the
    version in --parent DIR too; this version's trust region must be
-   two launches, its knot search one; with --parent DIR,
+   two launches, its knot search one, its statistics (the evaluation
+   point folded in) at most seven; with --parent DIR,
    main_path_parent: the warm solve and mirror_prox_path's at six seeds
    by another version of the package (DIR holds it as
    firstorderlp_torch_parent) and by this one, in turns (ms an
@@ -274,6 +286,10 @@ SLOW_FLEET_LANES = 32
 # too; their launches on each path, for the kernel list.
 TR_KERNELS = ("tr_search", "tr_solution")
 _tr_launches = {}
+# An evaluation's statistics kernels (ops/eval_stats.py): every f32
+# single-instance evaluation on the kernel operator runs them, meshes and
+# fleets do not.
+STATS_KERNELS = ("stats_point", "stats_primal", "stats_dual")
 
 _lines = []
 
@@ -3097,6 +3113,12 @@ def hetero_parent(torch, compare, parent_dir, dev):
 SPLIT_TARGETS = (
     ("solver", "evaluation_point", "evaluation_point"),
     ("solver", "evaluate_unscaled_stats", "statistics"),
+    # the point and the statistics in one call (the kernels' route folds
+    # the point in), and the statistics' three kernels
+    ("solver", "evaluate_statistics", "statistics"),
+    ("ops.eval_stats", "stats_point", "stats_point"),
+    ("ops.eval_stats", "stats_primal", "stats_primal"),
+    ("ops.eval_stats", "stats_dual", "stats_dual"),
     ("solver", "update_objective_bound_estimates", "bound_estimates"),
     ("solver", "run_restart_scheme", "restart_scheme"),
     ("saddle_point", "bound_optimal_objective_euclidean_batched",
@@ -3111,6 +3133,7 @@ SPLIT_TARGETS = (
 SPLIT_SLEEP_CYCLES = 400_000_000  # about 0.2 s: the host enqueues ahead
 SPLIT_RUNS = 3  # eager evaluations timed a version and solver
 TR_PATH = "restart_scheme/restart_bounds/trust_region"
+STATS_MAX_LAUNCHES = 7  # three B2 products and at most four kernels
 
 
 @contextlib.contextmanager
@@ -3234,7 +3257,9 @@ def evaluation_split(torch, compare, parent_dir, dev):
     (one evaluation under torch.profiler), then the derived parts
     (derived_split); and the replayed evaluation's
     device ms and graph nodes (eval_graph_measures). This version's
-    trust region must be two launches, its knot search one."""
+    trust region must be two launches, its knot search one, and its
+    statistics (the evaluation point folded in) at most
+    STATS_MAX_LAUNCHES."""
     from torch.profiler import ProfilerActivity, profile
 
     versions = {"parent": parent_dir} if parent_dir else {}
@@ -3244,11 +3269,11 @@ def evaluation_split(torch, compare, parent_dir, dev):
         mods = {part: compare.package_module(part, where) for part in (
             "", "generators", "models.pdhg", "models.mirror_prox",
             "saddle_point", "trust_region", "ops.routed")}
-        try:
-            mods["ops.trust_region_search"] = compare.package_module(
-                "ops.trust_region_search", where)
-        except ImportError:
-            pass
+        for part in ("ops.trust_region_search", "ops.eval_stats"):
+            try:
+                mods[part] = compare.package_module(part, where)
+            except ImportError:
+                pass
         problem = mods["generators"].generate_pagerank_lp(num_nodes=NODES,
                                                           seed=0)
         for solver in ("pdhg", "mirror_prox"):
@@ -3316,6 +3341,11 @@ def evaluation_split(torch, compare, parent_dir, dev):
                                 f"knot search "
                                 f"{launches.get(TR_PATH + '/knot_search')};"
                                 " want 2 and 1")
+            if who == "this" and not (
+                    0 < launches.get("statistics", 0) <= STATS_MAX_LAUNCHES):
+                problems.append(f"{solver}: the statistics launched "
+                                f"{launches.get('statistics')} kernels; "
+                                f"want at most {STATS_MAX_LAUNCHES}")
             del prepared, state
     return {"phase": "evaluation_split", "ok": not problems,
             "method": "device ms: CUDA events around each range, median "
@@ -3451,6 +3481,209 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
     return rows_out, variants
 
 
+STATS_REPLACES = {
+    "stats_point": "none (no pl.pallas_call): XLA's fusion of the "
+                   "evaluation point inline in _eval_block "
+                   "(firstorderlp_tpu/models/pdhg.py:577, mirror_prox.py:238) "
+                   "and the unscaling in firstorderlp_tpu/models/common.py:50",
+    "stats_primal": "none (no pl.pallas_call): XLA's fusion of "
+                    "firstorderlp_tpu/iteration_stats.py:62-262 over the "
+                    "variables (evaluate_unscaled_stats, "
+                    "firstorderlp_tpu/models/common.py:50)",
+    "stats_dual": "none (no pl.pallas_call): XLA's fusion of "
+                  "firstorderlp_tpu/iteration_stats.py:62-262 over the rows "
+                  "and firstorderlp_tpu/termination.py:98-190",
+}
+STATS_SUM_BOUND = 2.0 ** -40  # times sum|t|: chains of at most 2^12 adds
+
+
+def kernels_eval_stats(torch, problem, dev, time_ms, device_profile):
+    """F2d stats_point, F2e stats_primal and F2f stats_dual
+    (ops/eval_stats.py) on the main path's LP as optimize prepares it
+    (the original copy's vectors, rescaling, norm cache and kernel
+    operator), a scaled point and an average made with numpy from seed
+    3, the products by B2 on the original operator, with infeasibility
+    detection off (the main path's criteria) and on: the points, the ray
+    and every maximum and flag bitwise the plain versions', each f64 sum
+    within 2^-40 sum|t| of the plain one (the order of addition), the
+    reason and every field bitwise the plain finalize of the kernels'
+    totals, and a second launch bitwise the first with the tickets at
+    zero. At the main path's criteria: times (CUDA events, device ms and
+    kernels a call, the plain versions'), the bytes bound and ptxas's
+    registers."""
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops import compare_kernels, eval_stats as es
+
+    params = make_params(1e-4, 20_000)
+    bundle = pdhg.prepare_problem(params, problem, device=dev).bundle
+    original = bundle.original
+    op = original.constraint_matrix
+    n = original.objective_vector.shape[0]
+    m = original.right_hand_side.shape[0]
+    rng = np.random.default_rng(3)
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    x, y = f32(rng.normal(size=n)), f32(rng.normal(size=m))
+    average = es.Average(f32(rng.normal(size=n) * 4.0),
+                         f32(rng.normal(size=m) * 4.0),
+                         scalar(40, torch.int64), scalar(40, torch.int64),
+                         scalar(4.0, torch.float32),
+                         scalar(4.0, torch.float32), scalar(False, torch.bool))
+    cache = bundle.qp_cache
+    scalars = es.Scalars(
+        original.objective_constant, cache.l_inf_norm_primal_linear_objective,
+        cache.l_inf_norm_primal_right_hand_side,
+        cache.l2_norm_primal_linear_objective,
+        cache.l2_norm_primal_right_hand_side, scalar(False, torch.bool),
+        scalar(80, torch.int64), scalar(164.0, torch.float64),
+        scalar(0.0, torch.float64))
+    path_rules = es.criteria_of(params.termination_criteria)
+    rules = {"main_path": path_rules,
+             "infeasibility_on": dataclasses.replace(path_rules, ray=True)}
+    vectors = (original.objective_vector, original.variable_lower_bound,
+               original.variable_upper_bound)
+
+    def run(rules):
+        point = es.stats_point(x, y, bundle.variable_rescaling,
+                               bundle.constraint_rescaling, average)
+        ax, aty = op.mv(point.primal), op.rmv(point.dual)
+        ray, primal_totals = es.stats_primal(
+            point.primal, aty, *vectors, point.primal_norm, rules.ray)
+        aray = op.mv(ray) if rules.ray else None
+        dual = es.stats_dual(point.dual, ax, aray, original.right_hand_side,
+                             original.is_equality, primal_totals,
+                             point.primal_norm, scalars, rules)
+        return point, ax, aty, ray, aray, primal_totals, dual
+
+    def err(got, want):
+        d = (got.double() - want.double()).abs()
+        d = torch.where((got == want) | (torch.isnan(got) & torch.isnan(want)),
+                        0.0, d)
+        return float(d.max()) if d.numel() else 0.0
+
+    def same(got, want):
+        return err(got, want) == 0.0
+
+    variants, errors, timed = [], {k: 0.0 for k in STATS_KERNELS}, None
+    for label, r in rules.items():
+        out = run(r)
+        again = run(r)
+        torch.cuda.synchronize()
+        point, ax, aty, ray, aray, ptot, (dtot, conv, infeas, reason) = out
+        plain_point = es.stats_point_plain(
+            x, y, bundle.variable_rescaling, bundle.constraint_rescaling,
+            average)
+        plain_ray, sums, other = es.primal_terms(
+            point.primal, aty, *vectors, point.primal_norm, r.ray)
+        dsums, dother = es.dual_terms(point.dual, ax, aray,
+                                      original.right_hand_side,
+                                      original.is_equality)
+        want_p = es.totals_from_terms(es.PRIMAL_TOTALS, sums, other,
+                                      point.primal)
+        want_d = es.totals_from_terms(es.DUAL_TOTALS, dsums, dother,
+                                      point.dual)
+        fin = es.stats_finalize_plain(ptot, dtot, point.primal_norm,
+                                      scalars, r)
+
+        def totals_ok(got, want, names, sums):
+            for i, name in enumerate(names):
+                if name in sums:
+                    bound = STATS_SUM_BOUND * float(sums[name].double().abs()
+                                                    .sum())
+                    if not err(got[i], want[i]) <= bound:
+                        return False
+                elif not same(got[i], want[i]):
+                    return False
+            return True
+
+        checks = {
+            "point_bitwise": all(same(g, w) for g, w in zip(
+                point, plain_point)),
+            "ray_bitwise": ray is None or same(ray, plain_ray),
+            "primal_totals_within_bound": totals_ok(
+                ptot, want_p, es.PRIMAL_TOTALS, sums),
+            "dual_totals_within_bound": totals_ok(
+                dtot, want_d, es.DUAL_TOTALS, dsums),
+            "finalize_bitwise": (same(conv, fin[0]) and same(infeas, fin[1])
+                                 and int(reason) == int(fin[2])),
+            "repeat_bitwise": all(
+                same(g, w) for g, w in zip(*(
+                    [t for t in (*o[0], *o[3:6], *o[6]) if t is not None]
+                    for o in (out, again)))),
+            "tickets_at_zero": not bool(es.tickets(dev).any()),
+        }
+        errors["stats_point"] = max(errors["stats_point"], max(
+            err(g, w) for g, w in zip(point, plain_point)))
+        errors["stats_primal"] = max(errors["stats_primal"], err(ptot, want_p))
+        errors["stats_dual"] = max(errors["stats_dual"], err(dtot, want_d),
+                                   err(conv, fin[0]), err(infeas, fin[1]))
+        variants.append({"criteria": label, "ray": r.ray,
+                         "reason": int(reason), **checks})
+        if label == "main_path":
+            timed = point, ax, aty, ptot
+    bad = [v for v in variants if not all(
+        v[k] for k in v if k.endswith(("bitwise", "bound", "zero")))]
+    if bad:
+        fail("kernels_eval_stats", f"a kernel and its plain version differ: "
+                                   f"{bad}")
+    point, ax, aty, ptot = timed
+    r = rules["main_path"]
+    calls = {
+        "stats_point": (
+            lambda: es.stats_point(x, y, bundle.variable_rescaling,
+                                   bundle.constraint_rescaling, average),
+            lambda: es.stats_point_plain(x, y, bundle.variable_rescaling,
+                                         bundle.constraint_rescaling,
+                                         average),
+            # the sums and the rescaling read, both points written
+            16 * (n + m), 3 * (n + m)),
+        "stats_primal": (
+            lambda: es.stats_primal(point.primal, aty, *vectors,
+                                    point.primal_norm, False),
+            lambda: es.stats_primal_plain(point.primal, aty, *vectors,
+                                          point.primal_norm, False),
+            # x, A'y, c, l, u read
+            20 * n, 25 * n),
+        "stats_dual": (
+            lambda: es.stats_dual(point.dual, ax, None,
+                                  original.right_hand_side,
+                                  original.is_equality, ptot,
+                                  point.primal_norm, scalars, r),
+            lambda: es.stats_dual_plain(point.dual, ax, None,
+                                        original.right_hand_side,
+                                        original.is_equality, ptot,
+                                        point.primal_norm, scalars, r),
+            # y, A x, b read and a byte a row
+            13 * m, 15 * m),
+    }
+    usage = compare_kernels.ptxas_usage("stats_point")
+    rows = []
+    for name, (kernel, plain, nbytes, flops) in calls.items():
+        kernel()
+        torch.cuda.synchronize()
+        dev_ms, per_call = device_profile(kernel)
+        found = [u for k, u in usage.items() if f"{name}_kernel" in k]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "firstorderlp_torch/csrc/eval_stats.cu",
+            "replaces": STATS_REPLACES[name],
+            "max_abs_err": errors[name],
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, reps=10, warmup=1),
+            "device_ms": dev_ms, "kernels_per_call": per_call,
+            "bytes": nbytes, "flops": flops, "library_ms": None,
+            "blocks": es.blocks(n + m if name == "stats_point" else
+                                n if name == "stats_primal" else m),
+            **({"registers": found[0].get("registers")} if found else {}),
+        })
+    return rows, variants
+
+
 def trial_kernels_large(torch, n, m, dev, time_ms, device_profile):
     """F1a and F1b at the million-node matrix's shapes (n columns, m
     rows), on vectors made with numpy from seed 3 (a state whose trial is
@@ -3531,7 +3764,8 @@ def main() -> int:
     parser.add_argument("--only", metavar="PHASES",
                         help="only the device and build phases and these "
                              "(comma-separated: evaluation_split, "
-                             "kernels_trust_region), then the last lines")
+                             "kernels_trust_region, kernels_eval_stats), "
+                             "then the last lines")
     parser.add_argument("--multi-gpu", action="store_true",
                         help="only the multi-device solve across four "
                              "cards (phase multi_gpu_path), after the "
@@ -3620,6 +3854,15 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                     generate_pagerank_lp(num_nodes=NODES, seed=0)).scaled_qp
                 rows, variants = kernels_trust_region(
                     torch, scaled, dev, time_ms, device_profile)
+                for r in rows:
+                    r["bound_ms"], r["bound_by"] = probe.bound_ms(
+                        r["bytes"], r["flops"])
+                record = {"phase": phase, "ok": True, "variants": variants,
+                          "results": rows}
+            elif phase == "kernels_eval_stats":
+                rows, variants = kernels_eval_stats(
+                    torch, generate_pagerank_lp(num_nodes=NODES, seed=0),
+                    dev, time_ms, device_profile)
                 for r in rows:
                     r["bound_ms"], r["bound_by"] = probe.bound_ms(
                         r["bytes"], r["flops"])
@@ -3974,6 +4217,17 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
           "tolerance": "bitwise equal to the plain versions, and to a "
                        "second launch",
           "variants": tr_variants, "results": tr_rows})
+
+    # 3b. the evaluation's statistics kernels: F2d, F2e and F2f
+    stats_rows, stats_variants = kernels_eval_stats(
+        torch, problem, dev, time_ms, device_profile)
+    add_bounds(stats_rows)
+    emit({"phase": "kernels_eval_stats", "ok": True,
+          "tolerance": "points, ray, maxima, flags and the finalize "
+                       "bitwise the plain versions'; each f64 sum within "
+                       "2^-40 sum|t| of the plain one; a second launch "
+                       "bitwise",
+          "variants": stats_variants, "results": stats_rows})
     del op, top, plan, mat, whole, lib, lib_a, lib_at
 
     # 3b'. B2-B7 again where the arrays are larger than the L2 cache
@@ -4142,7 +4396,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     csr_names = [r["name"] for r in results]
     trial_names = [r["name"] for r in trial_rows]
     if any(launches[k] <= 0 for k in csr_names + trial_names + list(
-            TR_KERNELS)):
+            TR_KERNELS + STATS_KERNELS)):
         problems.append(f"a kernel was not launched: {launches}")
     if (main_segments["replays"] != main_segments["steps"]
             or main_segments["eval_replays"]
@@ -4164,7 +4418,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     emit(main)
     if problems:
         raise SystemExit(1)
-    for r in results + trial_rows + tr_rows:
+    for r in results + trial_rows + tr_rows + stats_rows:
         key = r["name"]
         r["launches"] = launches[key]
         r["launches_per_iteration"] = launches[key] / out.iteration_count
@@ -4302,7 +4556,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         problems.append(f"host residuals {rres}")
     tiled_names = [r["name"] for r in tiled]
     if any(refine_launches[k] <= 0
-           for k in tiled_names + trial_names + list(TR_KERNELS)):
+           for k in tiled_names + trial_names + list(TR_KERNELS
+                                                     + STATS_KERNELS)):
         problems.append(f"a tile-plan or trial kernel was not launched: "
                         f"{refine_launches}")
     if any(refine_launches[k] != 0 for k in csr_names):
@@ -4318,7 +4573,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         r["launches_per_iteration"] = (
             refine_launches[r["name"]] / rout.iteration_count
         )
-    for r in trial_rows + tr_rows:
+    for r in trial_rows + tr_rows + stats_rows:
         r["launches_refine_path"] = refine_launches[r["name"]]
     if args.profile:
         # The same path again under torch.profiler (operators built anew,
@@ -4392,10 +4647,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         if mp_launches[key] < 2 * mout.iteration_count:
             problems.append(f"{key} launched {mp_launches[key]} times in "
                             f"{mout.iteration_count} iterations")
-    others = [k for k in mp_launches
-              if not k.startswith("spmv_csr:") and k not in TR_KERNELS]
+    others = [k for k in mp_launches if not k.startswith("spmv_csr:")
+              and k not in TR_KERNELS + STATS_KERNELS]
     if any(mp_launches[k] != 0 for k in others) or not all(
-            mp_launches[k] > 0 for k in TR_KERNELS):
+            mp_launches[k] > 0 for k in TR_KERNELS + STATS_KERNELS):
         problems.append(f"another kernel was launched: {mp_launches}")
     if (mp_segments["replays"] != mp_segments["steps"]
             or mp_segments["eval_replays"] != mp_segments["evaluations"]
@@ -4420,7 +4675,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     for r in results:
         if r["name"] in ("spmv_csr:A", "spmv_csr:AT"):
             r["launches_mirror_prox"] = mp_launches[r["name"]]
-    for r in tr_rows:
+    for r in tr_rows + stats_rows:
         r["launches_mirror_prox"] = mp_launches[r["name"]]
     # The same solve again without ingest (with --profile under
     # torch.profiler: device busy time, launches per iteration).
@@ -4466,7 +4721,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         and all(det_launches[k] > 0
                 for k in ("tiled_spmv:A", "tiled_spmv:AT"))
         and all(det_launches[k] == 0 for k in det_launches
-                if not k.startswith("tiled_spmv:") and k not in TR_KERNELS)
+                if not k.startswith("tiled_spmv:")
+                and k not in TR_KERNELS + STATS_KERNELS)
     )
     emit({"phase": "determinism_mp", "ok": bool(same), "nodes": DET_NODES,
           "iterations": [r.iteration_count for r in runs],
@@ -4511,8 +4767,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     for r in tr_rows:
         r["launches_fleet"] = {ph: counts[r["name"]]
                                for ph, counts in _tr_launches.items()}
-    results = (results + tiled + trial_rows + tr_rows + probes + lane_rows
-               + block_rows + sharded_rows)
+    results = (results + tiled + trial_rows + tr_rows + stats_rows + probes
+               + lane_rows + block_rows + sharded_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

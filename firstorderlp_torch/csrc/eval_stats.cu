@@ -1,0 +1,651 @@
+// eval_stats: an evaluation's statistics and termination check on the
+// original (unscaled) LP, in f32 on the kernel operator, as three
+// launches around the B2 products (ops/eval_stats.py holds the
+// contracts and the plain versions):
+//
+//   F2d stats_point, over n + m: the evaluation point (the weighted
+//     average where it has one and there is no numerical error, else the
+//     current iterate), divided by the variable and constraint
+//     rescaling: the scaled and the original points, and max |x| of the
+//     original primal (the ray's norm);
+//   B2: A x and A'y of the original point;
+//   F2e stats_primal, over n: c.x, x.x, the bound violations, the primal
+//     gradient c - A'y, the reduced costs, their violation and their
+//     dual-objective contribution (with "needs an infinite bound"), a
+//     non-finite x (x'Qx = sum(x * 0) is then NaN); and, where
+//     infeasibility is detected, the ray x / max|x| (written out for
+//     B2), its bound violations, c.ray and the homogeneous reduced costs
+//     of -A'y;
+//   B2: A ray;
+//   F2f stats_dual, over m: the equality and inequality violations of
+//     b - A x and of -A ray, b.y, the dual sign violation, y.y, max |y|;
+//     then its last block finalizes: every convergence and infeasibility
+//     field, the relative residuals and gap, and the termination reason
+//     in check_termination_criteria's precedence (optimal, primal
+//     infeasible, dual infeasible, iteration, KKT passes, time), a
+//     numerical error last.
+//
+// Replaces XLA's fusion of the JAX package's evaluate_unscaled_stats
+// (firstorderlp_tpu/models/common.py:50: iteration_stats.py:62-262,
+// termination.py:98-190, and the evaluation point inline in _eval_block,
+// models/pdhg.py:577 and models/mirror_prox.py:238): no pl.pallas_call.
+// Every state value (the iterates, the average, the flag, the
+// iteration, the KKT passes, the elapsed time) is read by pointer or
+// given as a host number when the caller has one; the criteria are
+// kernel arguments, so a CUDA graph of an evaluation bakes in only
+// them and the shapes.
+//
+// Bits: every sum is accumulated in f64 over f32 terms and rounded once
+// to f32 (the four-part l2 norms add their parts in f64 first), in one
+// fixed order: each thread its entries in index order, a shuffle tree in
+// each warp, the warps in order, then the blocks' partials in the last
+// block (the one that draws the last integer ticket) by the same tree.
+// The plain versions sum in torch.sum's order; two orders whose longest
+// chains of additions are D1 and D2 give f64 results within
+// (D1 + D2) 2^-53 sum|t| of each other, so they round to the same f32
+// value bar one ulp, at odds of about (D1 + D2) 2^-29 sum|t| / |S| (the
+// terms of b.y, c.x and the contributions may cancel; those of the
+// squares may not). Maxima are exact in any order: the largest bits of
+// |v| (a NaN's above an infinity's). Each elementwise operation and each
+// step of the finalize rounds once in PyTorch's order (__fadd_rn,
+// __fmul_rn, __fdiv_rn, __fsub_rn: never a contracted multiply-add),
+// torch.clamp_min keeps a NaN, and every threshold is the f32 value that
+// PyTorch rounds a Python float to against an f32 tensor (computed on
+// the host).
+//
+// Bound on an H100 SXM: bytes. F2d reads 2 (n + m) floats (4 (n + m)
+// with an average) and writes 2 (n + m) (4 with the scaled point); F2e
+// reads five n-vectors and writes the ray; F2f reads four m-vectors and
+// a byte a row. Each is one grid-stride pass with 256 threads a block.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "fixed_order.cuh"
+
+namespace folp {
+
+constexpr int kStatsThreads = 256;
+constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kStatsMaxBlocks = 132 * 4;  // the H100's SMs, 4 blocks each
+
+// stats_primal's totals: f64 sums, then maxima and flags (as f32 values
+// and 0/1 in the f64 totals).
+enum PrimalTotal : int {
+  kCx = 0,         // sum c x
+  kXx,             // sum x x
+  kLower2,         // sum of the squared lower-bound violations
+  kUpper2,         // sum of the squared upper-bound violations
+  kRcViolation2,   // sum (g - rc)^2, g = c - A'y
+  kContribution,   // sum of the reduced costs' objective terms
+  kRayC,           // sum c ray
+  kContributionH,  // the homogeneous reduced costs' terms
+  kPrimalSums,     // (count)
+  kBoundMax = kPrimalSums,  // max of both bound violations
+  kRcMax,          // max |rc|
+  kRcViolationMax, // max |g - rc|
+  kRayBoundMax,    // max of the ray's homogeneous bound violations
+  kRcHMax,         // max |rc| of -A'y
+  kRcViolationHMax,
+  kNonFinite,      // some x is infinite or NaN
+  kNeedsInfinite,  // some reduced cost needs an infinite bound
+  kNeedsInfiniteH,
+  kPrimalTotals    // (count)
+};
+
+// stats_dual's totals, likewise.
+enum DualTotal : int {
+  kEq2 = 0,        // sum of the squared equality violations of b - A x
+  kIneq2,          // ... inequality violations
+  kSign2,          // sum of the squared dual sign violations
+  kBy,             // sum b y
+  kYy,             // sum y y
+  kDualSums,
+  kRowMax = kDualSums,  // max of the row violations of b - A x
+  kSignMax,        // max of the dual sign violations
+  kYMax,           // max |y|
+  kRayRowMax,      // max of the row violations of -A ray
+  kDualTotals
+};
+
+// the convergence fields, in iteration_stats.DeviceConvergenceInfo's order
+enum Conv : int {
+  kPrimalObjective = 0, kDualObjective, kCorrectedDualObjective,
+  kLInfPrimalResidual, kL2PrimalResidual, kLInfDualResidual,
+  kL2DualResidual, kRelLInfPrimalResidual, kRelL2PrimalResidual,
+  kRelLInfDualResidual, kRelL2DualResidual, kRelGap,
+  kLInfPrimalVariable, kL2PrimalVariable, kLInfDualVariable,
+  kL2DualVariable, kConvFields
+};
+
+// and DeviceInfeasibilityInfo's
+enum Infeas : int {
+  kMaxPrimalRayInfeasibility = 0, kPrimalRayLinearObjective,
+  kPrimalRayQuadraticNorm, kMaxDualRayInfeasibility, kDualRayObjective,
+  kInfeasFields
+};
+
+struct PointArgs {
+  const float* x;
+  const float* y;
+  const float* sum_x;  // the average's sums, or null: the point is (x, y)
+  const float* sum_y;
+  const long long* count_x;
+  const long long* count_y;
+  const float* weight_x;
+  const float* weight_y;
+  const bool* numerical_error;
+  const float* variable_rescaling;
+  const float* constraint_rescaling;
+  float* scaled_x;  // or null: not written
+  float* scaled_y;
+  float* primal;
+  float* dual;
+  float* primal_norm;
+  double* partials;
+  int* ticket;
+  int n;
+  int m;
+};
+
+struct PrimalArgs {
+  const float* primal;
+  const float* aty;
+  const float* objective;
+  const float* lower;
+  const float* upper;
+  const float* primal_norm;
+  float* ray;  // or null: no infeasibility detection
+  double* partials;
+  double* totals;
+  int* ticket;
+  int n;
+};
+
+struct DualArgs {
+  const float* dual;
+  const float* ax;
+  const float* aray;  // or null: no infeasibility detection
+  const float* rhs;
+  const bool* is_equality;
+  const double* primal_totals;
+  const float* primal_norm;
+  const float* objective_constant;
+  const float* norm_c_inf;  // the norm cache of the original c and b
+  const float* norm_b_inf;
+  const float* norm_c_2;
+  const float* norm_b_2;
+  const bool* numerical_error;  // each of these four may be null: the
+  const long long* iteration;   // host value below stands in
+  const double* kkt_passes;
+  const double* elapsed;
+  double* partials;
+  double* totals;
+  float* conv;
+  float* infeas;
+  int* reason;
+  int* ticket;
+  long long iteration_value;
+  long long iteration_limit;
+  double kkt_value;
+  double kkt_limit;
+  double elapsed_value;
+  double time_limit;
+  float eps_ratio;  // f32 values of the criteria's Python floats
+  float abs_tol;
+  float rel_tol;
+  float eps_primal_infeasible;
+  float eps_dual_infeasible;
+  int numerical_error_value;
+  int l_inf;  // 1: the optimality norm is l_inf, 0: l2
+  int m;
+};
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(fabsf(v));
+}
+
+__device__ __forceinline__ bool is_finite(float v) { return isfinite(v); }
+
+// torch.clamp_min(v, 0): a NaN stays (the sign of a zero does not
+// matter here: every result is squared or taken absolute).
+__device__ __forceinline__ float clamp_min0(float v) {
+  return v != v ? v : fmaxf(v, 0.f);
+}
+
+__device__ __forceinline__ double square(float v) {
+  return static_cast<double>(__fmul_rn(v, v));
+}
+
+// torch.maximum on f32: a NaN propagates.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+
+// Sums (S f64 values) and maxima (M bits) of a block in one fixed order:
+// a shuffle tree in each warp, then lane k of warp 0 adds value k of the
+// warps in warp order into total[k] (a maximum as its bits). Ends with a
+// barrier, so every thread may read total.
+template <int S, int M>
+__device__ __forceinline__ void block_totals(double (&s)[S],
+                                             unsigned (&mx)[M],
+                                             double* red, double* total) {
+  static_assert(S + M <= 32, "one lane of warp 0 a value");
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s[k] += __shfl_down_sync(kFullMask, s[k], off);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < M; ++k) mx[k] = __reduce_max_sync(kFullMask, mx[k]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) red[warp * (S + M) + k] = s[k];
+#pragma unroll
+    for (int k = 0; k < M; ++k) red[warp * (S + M) + S + k] = mx[k];
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k < S) {
+    double acc = 0.0;
+#pragma unroll
+    for (int w = 0; w < kStatsWarps; ++w) acc += red[w * (S + M) + k];
+    total[k] = acc;
+  } else if (k < S + M) {
+    unsigned acc = 0u;
+#pragma unroll
+    for (int w = 0; w < kStatsWarps; ++w) {
+      acc = max(acc, static_cast<unsigned>(red[w * (S + M) + k]));
+    }
+    total[k] = static_cast<double>(acc);
+  }
+  __syncthreads();
+}
+
+// The block's totals to its partials, then the last block to draw a
+// ticket adds every block's partials, each thread the blocks t, t + 256,
+// ... in order, by block_totals again. True in every thread of the last
+// block, where `total` (shared, S + M) then holds the launch's totals.
+template <int S, int M>
+__device__ __forceinline__ bool grid_totals(double (&s)[S], unsigned (&mx)[M],
+                                            double* partials, int* ticket,
+                                            double* total) {
+  __shared__ double red[kStatsWarps * (S + M)];
+  __shared__ int last;
+  block_totals(s, mx, red, total);
+  if (threadIdx.x < S + M) {
+    __stcg(partials + blockIdx.x * (S + M) + threadIdx.x, total[threadIdx.x]);
+  }
+  if (!last_ticket(ticket, gridDim.x, &last)) return false;
+#pragma unroll
+  for (int k = 0; k < S; ++k) s[k] = 0.0;
+#pragma unroll
+  for (int k = 0; k < M; ++k) mx[k] = 0u;
+  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
+    const double* in = partials + b * (S + M);
+#pragma unroll
+    for (int k = 0; k < S; ++k) s[k] += __ldcg(in + k);
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      mx[k] = max(mx[k], static_cast<unsigned>(__ldcg(in + S + k)));
+    }
+  }
+  block_totals(s, mx, red, total);
+  return true;
+}
+
+// A launch total as the f64 totals hold it: a sum as it is, a maximum as
+// the f32 value of its bits, a flag as 0 or 1.
+__device__ __forceinline__ double total_value(const double* total, int k,
+                                              int sums, int maxima) {
+  if (k < sums) return total[k];
+  const unsigned bits = static_cast<unsigned>(total[k]);
+  return k < sums + maxima ? static_cast<double>(__uint_as_float(bits))
+                           : static_cast<double>(bits);
+}
+
+// ---------------------------------------------------------------------------
+// F2d stats_point
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kStatsThreads)
+    stats_point_kernel(const PointArgs a) {
+  // evaluation_point: the average where it exists and there is no
+  // numerical error; compute_average divides by the weight, 1 for an
+  // empty average.
+  bool has_avg = false;
+  float wx = 1.f, wy = 1.f;
+  if (a.sum_x != nullptr) {
+    has_avg = !*a.numerical_error && *a.count_x > 0 && *a.count_y > 0;
+    const float w0 = *a.weight_x, w1 = *a.weight_y;
+    wx = w0 > 0.f ? w0 : 1.f;
+    wy = w1 > 0.f ? w1 : 1.f;
+  }
+  double none[1] = {0.0};
+  unsigned mx[1] = {0u};
+  const int items = a.n + a.m;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += gridDim.x * blockDim.x) {
+    if (i < a.n) {
+      const float p =
+          has_avg ? __fdiv_rn(__ldg(a.sum_x + i), wx) : __ldg(a.x + i);
+      if (a.scaled_x != nullptr) a.scaled_x[i] = p;
+      const float o = __fdiv_rn(p, __ldg(a.variable_rescaling + i));
+      a.primal[i] = o;
+      mx[0] = max(mx[0], abs_bits(o));
+    } else {
+      const int j = i - a.n;
+      const float p =
+          has_avg ? __fdiv_rn(__ldg(a.sum_y + j), wy) : __ldg(a.y + j);
+      if (a.scaled_y != nullptr) a.scaled_y[j] = p;
+      a.dual[j] = __fdiv_rn(p, __ldg(a.constraint_rescaling + j));
+    }
+  }
+  __shared__ double total[2];
+  if (grid_totals(none, mx, a.partials, a.ticket, total) &&
+      threadIdx.x == 0) {
+    *a.primal_norm = __uint_as_float(static_cast<unsigned>(total[1]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// F2e stats_primal
+// ---------------------------------------------------------------------------
+
+// reduced_costs_from_primal_gradient and the terms of
+// reduced_costs_dual_objective_contribution for one component: rc, and
+// (term, needs an infinite bound).
+struct ReducedCost {
+  float rc, term;
+  bool needs_infinite;
+};
+
+__device__ __forceinline__ ReducedCost reduced_cost(float g, float l,
+                                                    float u) {
+  const float rc = is_finite(g > 0.f ? l : u) ? g : 0.f;
+  const float bound = rc > 0.f ? l : u;
+  const bool active = rc != 0.f;  // a NaN too
+  const float safe = active && is_finite(bound) ? bound : 0.f;
+  return {rc, __fmul_rn(safe, active ? rc : 0.f),
+          active && !is_finite(bound)};
+}
+
+constexpr int kPS = kPrimalSums;
+constexpr int kPM = kPrimalTotals - kPrimalSums;
+
+__global__ void __launch_bounds__(kStatsThreads)
+    stats_primal_kernel(const PrimalArgs a) {
+  double s[kPS];
+  unsigned mx[kPM];
+#pragma unroll
+  for (int k = 0; k < kPS; ++k) s[k] = 0.0;
+#pragma unroll
+  for (int k = 0; k < kPM; ++k) mx[k] = 0u;
+  const float norm = *a.primal_norm;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
+       i += gridDim.x * blockDim.x) {
+    const float x = __ldg(a.primal + i);
+    const float c = __ldg(a.objective + i);
+    const float l = __ldg(a.lower + i);
+    const float u = __ldg(a.upper + i);
+    const float aty = __ldg(a.aty + i);
+    s[kCx] += static_cast<double>(__fmul_rn(c, x));
+    s[kXx] += square(x);
+    const float lo = clamp_min0(__fsub_rn(l, x));
+    const float up = clamp_min0(__fsub_rn(x, u));
+    s[kLower2] += square(lo);
+    s[kUpper2] += square(up);
+    mx[kBoundMax - kPS] =
+        max(mx[kBoundMax - kPS], max(abs_bits(lo), abs_bits(up)));
+    if (!is_finite(x)) mx[kNonFinite - kPS] = 1u;
+    const float g = __fsub_rn(c, aty);
+    const ReducedCost r = reduced_cost(g, l, u);
+    const float violation = __fsub_rn(g, r.rc);
+    s[kRcViolation2] += square(violation);
+    s[kContribution] += static_cast<double>(r.term);
+    mx[kRcMax - kPS] = max(mx[kRcMax - kPS], abs_bits(r.rc));
+    mx[kRcViolationMax - kPS] =
+        max(mx[kRcViolationMax - kPS], abs_bits(violation));
+    if (r.needs_infinite) mx[kNeedsInfinite - kPS] = 1u;
+    if (a.ray != nullptr) {
+      const float ray = norm == 0.f ? x : __fdiv_rn(x, norm);
+      a.ray[i] = ray;
+      // the homogeneous primal: finite bounds at 0, infinite ones kept
+      const float hl = is_finite(l) ? 0.f : -INFINITY;
+      const float hu = is_finite(u) ? 0.f : INFINITY;
+      mx[kRayBoundMax - kPS] = max(
+          mx[kRayBoundMax - kPS],
+          max(abs_bits(clamp_min0(__fsub_rn(hl, ray))),
+              abs_bits(clamp_min0(__fsub_rn(ray, hu)))));
+      s[kRayC] += static_cast<double>(__fmul_rn(c, ray));
+      // the homogeneous dual: the objective at 0, so g = -A'y
+      const float gh = -aty;
+      const ReducedCost h = reduced_cost(gh, l, u);
+      s[kContributionH] += static_cast<double>(h.term);
+      mx[kRcHMax - kPS] = max(mx[kRcHMax - kPS], abs_bits(h.rc));
+      mx[kRcViolationHMax - kPS] = max(mx[kRcViolationHMax - kPS],
+                                       abs_bits(__fsub_rn(gh, h.rc)));
+      if (h.needs_infinite) mx[kNeedsInfiniteH - kPS] = 1u;
+    }
+  }
+  __shared__ double total[kPrimalTotals];
+  if (grid_totals(s, mx, a.partials, a.ticket, total) &&
+      threadIdx.x < kPrimalTotals) {
+    a.totals[threadIdx.x] =
+        total_value(total, threadIdx.x, kPS, kNonFinite - kPS);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// F2f stats_dual and the finalize
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(double v) {
+  return __double2float_rn(v);
+}
+
+// The last block's thread 0: every field and the reason from the two
+// launches' totals (iteration_stats.compute_convergence_information,
+// compute_infeasibility_information and termination.
+// check_termination_criteria, as models/common.evaluate_unscaled_stats
+// composes them).
+__device__ void finalize(const DualArgs& a, const double* d) {
+  const double* p = a.primal_totals;
+  const float nan = __int_as_float(0x7fffffff);
+  const float constant = *a.objective_constant;
+  // x'Qx of an LP, sum(x * 0): NaN where some x is not finite
+  const float qx_dot_x = p[kNonFinite] != 0.0 ? nan : 0.f;
+  const float half_q = __fmul_rn(0.5f, qx_dot_x);
+  float* conv = a.conv;
+  const float linf_pr =
+      nan_max(to_f32(d[kRowMax]), to_f32(p[kBoundMax]));
+  const float l2_pr = sqrtf(to_f32(
+      __dadd_rn(__dadd_rn(__dadd_rn(d[kEq2], d[kIneq2]), p[kLower2]),
+                p[kUpper2])));
+  const float pobj =
+      __fadd_rn(__fadd_rn(constant, to_f32(p[kCx])), half_q);
+  const float linf_dr =
+      nan_max(to_f32(d[kSignMax]), to_f32(p[kRcViolationMax]));
+  const float l2_dr =
+      sqrtf(to_f32(__dadd_rn(d[kSign2], p[kRcViolation2])));
+  const float by = to_f32(d[kBy]);
+  const float base = __fsub_rn(__fadd_rn(by, constant), half_q);
+  const float contribution =
+      p[kNeedsInfinite] != 0.0 ? -INFINITY : to_f32(p[kContribution]);
+  const float dobj = __fadd_rn(base, contribution);
+  const float gap = fabsf(__fsub_rn(pobj, dobj));
+  const float abs_obj = __fadd_rn(fabsf(pobj), fabsf(dobj));
+  const float norm_c_inf = *a.norm_c_inf, norm_b_inf = *a.norm_b_inf;
+  const float norm_c_2 = *a.norm_c_2, norm_b_2 = *a.norm_b_2;
+  conv[kPrimalObjective] = pobj;
+  conv[kDualObjective] = dobj;
+  conv[kCorrectedDualObjective] = linf_dr == 0.f ? dobj : -INFINITY;
+  conv[kLInfPrimalResidual] = linf_pr;
+  conv[kL2PrimalResidual] = l2_pr;
+  conv[kLInfDualResidual] = linf_dr;
+  conv[kL2DualResidual] = l2_dr;
+  conv[kRelLInfPrimalResidual] =
+      __fdiv_rn(linf_pr, __fadd_rn(a.eps_ratio, norm_b_inf));
+  conv[kRelL2PrimalResidual] =
+      __fdiv_rn(l2_pr, __fadd_rn(a.eps_ratio, norm_b_2));
+  conv[kRelLInfDualResidual] =
+      __fdiv_rn(linf_dr, __fadd_rn(a.eps_ratio, norm_c_inf));
+  conv[kRelL2DualResidual] =
+      __fdiv_rn(l2_dr, __fadd_rn(a.eps_ratio, norm_c_2));
+  conv[kRelGap] = __fdiv_rn(gap, __fadd_rn(a.eps_ratio, abs_obj));
+  conv[kLInfPrimalVariable] = *a.primal_norm;
+  conv[kL2PrimalVariable] = sqrtf(to_f32(p[kXx]));
+  conv[kLInfDualVariable] = to_f32(d[kYMax]);
+  conv[kL2DualVariable] = sqrtf(to_f32(d[kYy]));
+
+  float f[kInfeasFields] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  if (a.aray != nullptr) {
+    f[kMaxPrimalRayInfeasibility] =
+        nan_max(to_f32(d[kRayRowMax]), to_f32(p[kRayBoundMax]));
+    f[kPrimalRayLinearObjective] = to_f32(p[kRayC]);
+    f[kPrimalRayQuadraticNorm] = 0.f;  // max |Q ray| of an LP
+    const float linf_h =
+        nan_max(to_f32(d[kSignMax]), to_f32(p[kRcViolationHMax]));
+    const float contribution_h =
+        p[kNeedsInfiniteH] != 0.0 ? -INFINITY : to_f32(p[kContributionH]);
+    const float dobj_h =
+        __fadd_rn(__fsub_rn(__fadd_rn(by, 0.f), 0.f), contribution_h);
+    const float scale = nan_max(to_f32(d[kYMax]), to_f32(p[kRcHMax]));
+    const float safe = scale == 0.f ? 1.f : scale;
+    const float linf_dual_res = sqrtf(__fmul_rn(linf_h, linf_h));
+    f[kMaxDualRayInfeasibility] =
+        scale == 0.f ? 0.f : __fdiv_rn(linf_dual_res, safe);
+    f[kDualRayObjective] = scale == 0.f ? 0.f : __fdiv_rn(dobj_h, safe);
+  }
+#pragma unroll
+  for (int k = 0; k < kInfeasFields; ++k) a.infeas[k] = f[k];
+
+  // check_termination_criteria, its precedence kept
+  const float primal_err = a.l_inf ? linf_pr : l2_pr;
+  const float dual_err = a.l_inf ? linf_dr : l2_dr;
+  const float primal_base = a.l_inf ? norm_b_inf : norm_b_2;
+  const float dual_base = a.l_inf ? norm_c_inf : norm_c_2;
+  const bool optimal =
+      dual_err < __fadd_rn(a.abs_tol, __fmul_rn(a.rel_tol, dual_base)) &&
+      primal_err < __fadd_rn(a.abs_tol, __fmul_rn(a.rel_tol, primal_base)) &&
+      gap < __fadd_rn(a.abs_tol, __fmul_rn(a.rel_tol, abs_obj));
+  const float dro = f[kDualRayObjective];
+  const bool primal_infeasible =
+      dro > 0.f &&
+      __fdiv_rn(f[kMaxDualRayInfeasibility], dro) <= a.eps_primal_infeasible;
+  const float prlo = f[kPrimalRayLinearObjective];
+  const float neg = -prlo;
+  const bool dual_infeasible =
+      prlo < 0.f &&
+      __fdiv_rn(f[kMaxPrimalRayInfeasibility], neg) <=
+          a.eps_dual_infeasible &&
+      __fdiv_rn(f[kPrimalRayQuadraticNorm], neg) <= a.eps_dual_infeasible;
+  const long long iteration =
+      a.iteration != nullptr ? *a.iteration : a.iteration_value;
+  const double kkt = a.kkt_passes != nullptr ? *a.kkt_passes : a.kkt_value;
+  const double elapsed = a.elapsed != nullptr ? *a.elapsed : a.elapsed_value;
+  const bool numerical_error = a.numerical_error != nullptr
+                                   ? *a.numerical_error
+                                   : a.numerical_error_value != 0;
+  int reason = 0;
+  if (optimal) {
+    reason = 1;  // TERMINATION_REASON_OPTIMAL
+  } else if (primal_infeasible) {
+    reason = 2;  // PRIMAL_INFEASIBLE
+  } else if (dual_infeasible) {
+    reason = 3;  // DUAL_INFEASIBLE
+  } else if (iteration >= a.iteration_limit) {
+    reason = 5;  // ITERATION_LIMIT
+  } else if (kkt >= a.kkt_limit) {
+    reason = 6;  // KKT_MATRIX_PASS_LIMIT
+  } else if (elapsed >= a.time_limit) {
+    reason = 4;  // TIME_LIMIT
+  } else if (numerical_error) {
+    reason = 7;  // NUMERICAL_ERROR
+  }
+  *a.reason = reason;
+}
+
+constexpr int kDS = kDualSums;
+constexpr int kDM = kDualTotals - kDualSums;
+
+__global__ void __launch_bounds__(kStatsThreads)
+    stats_dual_kernel(const DualArgs a) {
+  double s[kDS];
+  unsigned mx[kDM];
+#pragma unroll
+  for (int k = 0; k < kDS; ++k) s[k] = 0.0;
+#pragma unroll
+  for (int k = 0; k < kDM; ++k) mx[k] = 0u;
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < a.m;
+       j += gridDim.x * blockDim.x) {
+    const float y = __ldg(a.dual + j);
+    const float b = __ldg(a.rhs + j);
+    const bool eq = a.is_equality[j];
+    const float r = __fsub_rn(b, __ldg(a.ax + j));
+    const float eq_v = eq ? r : 0.f;
+    const float ineq_v = eq ? 0.f : clamp_min0(r);
+    s[kEq2] += square(eq_v);
+    s[kIneq2] += square(ineq_v);
+    mx[kRowMax - kDS] =
+        max(mx[kRowMax - kDS], max(abs_bits(eq_v), abs_bits(ineq_v)));
+    const float sign = eq ? 0.f : clamp_min0(-y);
+    s[kSign2] += square(sign);
+    mx[kSignMax - kDS] = max(mx[kSignMax - kDS], abs_bits(sign));
+    s[kBy] += static_cast<double>(__fmul_rn(b, y));
+    s[kYy] += square(y);
+    mx[kYMax - kDS] = max(mx[kYMax - kDS], abs_bits(y));
+    if (a.aray != nullptr) {
+      const float ra = -__ldg(a.aray + j);
+      mx[kRayRowMax - kDS] =
+          max(mx[kRayRowMax - kDS], max(abs_bits(eq ? ra : 0.f),
+                                        abs_bits(eq ? 0.f : clamp_min0(ra))));
+    }
+  }
+  __shared__ double total[kDualTotals];
+  __shared__ double d[kDualTotals];
+  if (!grid_totals(s, mx, a.partials, a.ticket, total)) return;
+  if (threadIdx.x < kDualTotals) {
+    d[threadIdx.x] = a.totals[threadIdx.x] =
+        total_value(total, threadIdx.x, kDS, kDM);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) finalize(a, d);
+}
+
+inline int stats_blocks(int items) {
+  const int blocks = (items + kStatsThreads - 1) / kStatsThreads;
+  return blocks < 1 ? 1 : (blocks > kStatsMaxBlocks ? kStatsMaxBlocks
+                                                     : blocks);
+}
+
+}  // namespace folp
+
+// Each entry point launches stats_blocks(items) blocks; the caller's
+// partials hold (sums + maxima) doubles a block.
+extern "C" int folp_stats_point(const folp::PointArgs* a, void* stream_ptr) {
+  using namespace folp;
+  stats_point_kernel<<<stats_blocks(a->n + a->m), kStatsThreads, 0,
+                       (cudaStream_t)stream_ptr>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int folp_stats_primal(const folp::PrimalArgs* a,
+                                 void* stream_ptr) {
+  using namespace folp;
+  stats_primal_kernel<<<stats_blocks(a->n), kStatsThreads, 0,
+                        (cudaStream_t)stream_ptr>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int folp_stats_dual(const folp::DualArgs* a, void* stream_ptr) {
+  using namespace folp;
+  stats_dual_kernel<<<stats_blocks(a->m), kStatsThreads, 0,
+                      (cudaStream_t)stream_ptr>>>(*a);
+  return (int)cudaGetLastError();
+}

@@ -24,6 +24,8 @@ from ..iteration_stats import (
     compute_convergence_information,
     compute_infeasibility_information,
 )
+from ..ops import eval_stats
+from ..ops.routed import RoutedOp
 from ..saddle_point import compute_average
 from ..solve_log import TerminationReason
 from ..termination import (
@@ -63,7 +65,12 @@ def evaluate_unscaled_stats(
     ORIGINAL problem (reference src/iteration_stats_utils.jl:408-451 and
     the termination block of the solve loops). `numerical_error`, the
     iteration, the KKT passes and `elapsed_time` may be 0-d device
-    tensors; nothing is read back."""
+    tensors; nothing is read back. On the f32 kernel operator
+    (fused_statistics) the work is evaluate_fused_statistics'."""
+    if fused_statistics(bundle, avg_primal):
+        return evaluate_fused_statistics(
+            bundle, criteria, avg_primal, avg_dual, None, numerical_error,
+            iteration_number, cumulative_kkt_passes, elapsed_time)[2:]
     original_primal = avg_primal / bundle.variable_rescaling
     original_dual = avg_dual / bundle.constraint_rescaling
     # Julia division semantics: 0/0 -> NaN, x/0 -> Inf (not an exception).
@@ -112,6 +119,91 @@ def evaluate_unscaled_stats(
         reason,
     ).to(torch.int32)
     return conv, infeas, reason
+
+
+def evaluate_statistics(bundle, criteria: TerminationCriteria, state,
+                        primal, dual, iteration_number,
+                        cumulative_kkt_passes, elapsed_time):
+    """An evaluation's point and statistics, as the solvers' _eval_block
+    take them: (avg_primal, avg_dual) = evaluation_point(state, primal,
+    dual) and evaluate_unscaled_stats' (conv, infeas, reason) there,
+    with the state's numerical-error flag; on the f32 kernel operator
+    (fused_statistics) both are evaluate_fused_statistics' kernels."""
+    if fused_statistics(bundle, primal):
+        return evaluate_fused_statistics(
+            bundle, criteria, primal, dual, state.avg, state.numerical_error,
+            iteration_number, cumulative_kkt_passes, elapsed_time)
+    avg_primal, avg_dual = evaluation_point(state, primal, dual)
+    return (avg_primal, avg_dual, *evaluate_unscaled_stats(
+        bundle, criteria, avg_primal, avg_dual, state.numerical_error,
+        iteration_number, cumulative_kkt_passes, elapsed_time))
+
+
+def fused_statistics(bundle, primal) -> bool:
+    """Whether an evaluation of the point `primal` on `bundle` runs
+    evaluate_fused_statistics: the original copy's constraint operator is
+    the kernel operator (RoutedOp, CSR or tile plan), it is an LP, its
+    vectors and the rescaling are f32, and the point is one f32 vector.
+    f64, QPs, meshes (ShardedRoutedOp) and fleets run the eager
+    statistics."""
+    original = bundle.original
+    return (
+        isinstance(original.constraint_matrix, RoutedOp)
+        and original.objective_matrix is None
+        and original.objective_vector.dtype == torch.float32
+        and bundle.variable_rescaling.dtype == torch.float32
+        and primal.dtype == torch.float32
+        and primal.dim() == 1
+    )
+
+
+def evaluate_fused_statistics(bundle, criteria: TerminationCriteria, primal,
+                              dual, average, numerical_error,
+                              iteration_number, cumulative_kkt_passes,
+                              elapsed_time):
+    """evaluation_point and evaluate_unscaled_stats on the f32 kernel
+    operator (fused_statistics) as three kernels around three products
+    of the original operator (ops/eval_stats.py): F2d (the point: the
+    `average`, a SolutionWeightedAverage, where it has one and
+    `numerical_error` is not set, else (`primal`, `dual`); with `average`
+    None, the point given), A x and A'y, F2e, A ray (where infeasibility
+    is detected), F2f. Returns (the scaled point, None without an
+    average, conv, infeas, reason); nothing is read back."""
+    original = bundle.original
+    op = original.constraint_matrix
+    rules = eval_stats.criteria_of(criteria)
+    if average is not None:
+        average = eval_stats.Average(
+            average.sum_primal_solutions, average.sum_dual_solutions,
+            average.sum_primal_solutions_count,
+            average.sum_dual_solutions_count,
+            average.sum_primal_solution_weights,
+            average.sum_dual_solution_weights, numerical_error)
+    point = eval_stats.stats_point(primal, dual, bundle.variable_rescaling,
+                                   bundle.constraint_rescaling, average)
+    ax = op.mv(point.primal)
+    aty = op.rmv(point.dual)
+    ray, primal_totals = eval_stats.stats_primal(
+        point.primal, aty, original.objective_vector,
+        original.variable_lower_bound, original.variable_upper_bound,
+        point.primal_norm, rules.ray)
+    aray = op.mv(ray) if rules.ray else None
+    cache = bundle.qp_cache
+    scalars = eval_stats.Scalars(
+        objective_constant=original.objective_constant,
+        norm_c_inf=cache.l_inf_norm_primal_linear_objective,
+        norm_b_inf=cache.l_inf_norm_primal_right_hand_side,
+        norm_c_2=cache.l2_norm_primal_linear_objective,
+        norm_b_2=cache.l2_norm_primal_right_hand_side,
+        numerical_error=numerical_error, iteration=iteration_number,
+        kkt_passes=cumulative_kkt_passes, elapsed=elapsed_time)
+    _, conv, infeas, reason = eval_stats.stats_dual(
+        point.dual, ax, aray, original.right_hand_side,
+        original.is_equality, primal_totals, point.primal_norm, scalars,
+        rules)
+    return (point.scaled_primal, point.scaled_dual,
+            DeviceConvergenceInfo(*conv.unbind()),
+            DeviceInfeasibilityInfo(*infeas.unbind()), reason)
 
 
 def matrix_inf_norm_entrywise(matrix: sp.spmatrix) -> float:

@@ -72,8 +72,7 @@ from ..termination import TerminationCriteria, validate_termination_criteria
 from .common import (
     EvalResult,
     device_counters,
-    evaluate_unscaled_stats,
-    evaluation_point,
+    evaluate_statistics,
     graph_key,
     host_floats,
     matrix_inf_norm_entrywise,
@@ -282,19 +281,10 @@ def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
     entry_state = state
     already_terminated = state.termination_reason != 0
     kkt = state.cumulative_kkt_passes + KKT_PASSES_PER_TERMINATION_EVALUATION
-    avg_primal, avg_dual = evaluation_point(
-        state, state.current_primal, state.current_dual)
-
-    conv, infeas, reason = evaluate_unscaled_stats(
-        bundle,
-        config.criteria,
-        avg_primal,
-        avg_dual,
-        state.numerical_error,
-        state.iteration - 1,
-        kkt,
-        elapsed_time,
-    )
+    iteration = state.iteration - 1
+    avg_primal, avg_dual, conv, infeas, reason = evaluate_statistics(
+        bundle, config.criteria, state, state.current_primal,
+        state.current_dual, iteration, kkt, elapsed_time)
 
     if config.need_bound_estimates:
         lagrangian, est_lb, est_ub = update_objective_bound_estimates(
@@ -366,7 +356,7 @@ def _eval_block(bundle: DeviceScaledQp, state: MirrorProxState, elapsed_time,
             int(RestartChoice.RESTART_CHOICE_UNSPECIFIED),
             restart.restart_choice,
         ).to(torch.int32),
-        iteration=state.iteration - 1,
+        iteration=iteration,
         cumulative_kkt_passes=new_state.cumulative_kkt_passes,
         step_size=state.step_size,
         primal_weight=state.primal_weight,

@@ -75,8 +75,7 @@ from .common import (
     EvalResult,
     estimate_maximum_singular_value,
     device_counters,
-    evaluate_unscaled_stats,
-    evaluation_point,
+    evaluate_statistics,
     graph_key,
     host_floats,
     initial_primal_weight_host,
@@ -674,19 +673,10 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
     entry_state = state
     already_terminated = state.termination_reason != 0
     kkt = state.cumulative_kkt_passes + KKT_PASSES_PER_TERMINATION_EVALUATION
-    avg_primal, avg_dual = evaluation_point(
-        state, state.current_primal_solution, state.current_dual_solution)
-
-    conv, infeas, reason = evaluate_unscaled_stats(
-        bundle,
-        config.criteria,
-        avg_primal,
-        avg_dual,
-        state.numerical_error,
-        state.iteration - 1,
-        kkt,
-        elapsed_time,
-    )
+    iteration = state.iteration - 1
+    avg_primal, avg_dual, conv, infeas, reason = evaluate_statistics(
+        bundle, config.criteria, state, state.current_primal_solution,
+        state.current_dual_solution, iteration, kkt, elapsed_time)
     primal_norm_params, dual_norm_params = _norm_params(state)
     if config.need_bound_estimates:
         lagrangian, est_lb, est_ub = update_objective_bound_estimates(
@@ -704,7 +694,7 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
         state.current_primal_solution,
         state.current_dual_solution,
         state.restart_info,
-        state.iteration - 1,
+        iteration,
         primal_norm_params,
         dual_norm_params,
         state.primal_weight,
@@ -762,7 +752,7 @@ def _eval_block(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
             int(RestartChoice.RESTART_CHOICE_UNSPECIFIED),
             restart.restart_choice,
         ).to(torch.int32),
-        iteration=state.iteration - 1,
+        iteration=iteration,
         cumulative_kkt_passes=new_state.cumulative_kkt_passes,
         step_size=state.step_size,
         primal_weight=state.primal_weight,

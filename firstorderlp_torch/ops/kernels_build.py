@@ -44,6 +44,11 @@ KERNEL_SOURCES = {
     # F2b and F2c, the exact trust region's two launches, one source
     "tr_search": "trust_region_search.cu",
     "tr_solution": "trust_region_search.cu",
+    # F2d-F2f, an evaluation's statistics and termination check, one
+    # source
+    "stats_point": "eval_stats.cu",
+    "stats_primal": "eval_stats.cu",
+    "stats_dual": "eval_stats.cu",
 }
 
 NVCC_FLAGS = [
@@ -155,6 +160,8 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     # staged slice's shared memory
     tr_search = [p, i]
     tr_solution = [p]
+    # PointArgs, PrimalArgs or DualArgs (ops/eval_stats.py)
+    eval_stats = [p]
     arguments = {
         "spmv_csr": csr + spmv,
         "spmv_dual_step": csr + dual_step,
@@ -169,6 +176,9 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "trial_epilogue": pdhg_step,
         "tr_search": tr_search,
         "tr_solution": tr_solution,
+        "stats_point": eval_stats,
+        "stats_primal": eval_stats,
+        "stats_dual": eval_stats,
     }[lib]
     fn = getattr(dll, f"folp_{lib}")
     fn.argtypes = arguments + [p]  # trailing: the CUDA stream

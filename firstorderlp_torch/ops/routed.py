@@ -104,6 +104,10 @@ LAUNCHES: Dict[str, int] = {
     # the f32 exact trust region (ops/trust_region_search.py)
     "tr_search": 0,
     "tr_solution": 0,
+    # an evaluation's statistics (ops/eval_stats.py)
+    "stats_point": 0,
+    "stats_primal": 0,
+    "stats_dual": 0,
 }
 
 

@@ -62,7 +62,17 @@ over the cases of tests/trust_region_cases.py with bounds (N,) and
 and an unstaged row's shapes, one launch each, the same bits on every
 launch; a replayed PDHG and Mirror Prox evaluation is bitwise the eager
 one with the same launches, and an evaluation is captured under
-torch.cuda.set_sync_debug_mode("error").
+torch.cuda.set_sync_debug_mode("error"). The evaluation's statistics
+kernels (ops/eval_stats.py: F2d stats_point, F2e stats_primal, F2f
+stats_dual) are each held to their plain versions over the cases of
+tests/eval_stats_cases.py at the 100k-node and the million-node LP's
+shapes: the points, the ray and every maximum and flag bitwise, each
+sum within the order bound of its terms, the finalize bitwise the plain
+finalize of the kernels' own totals, the same bits on a second launch
+with the tickets back at zero; a replayed PDHG (CSR and tile plan) and
+Mirror Prox evaluation runs each once and is bitwise the eager one; and
+at iteration 81 the fused statistics give the eager route's reason and
+maxima, with infeasibility detection off and on.
 """
 
 import dataclasses
@@ -1823,3 +1833,177 @@ def test_an_evaluation_is_captured_without_synchronizing(cuda, solver,
     torch.cuda.synchronize()
     assert_same_bits(out[0], eager[0])
     assert_same_bits(out[1], eager[1], "result")
+
+
+# ---------------------------------------------------------------------------
+# An evaluation's statistics: F2d, F2e, F2f (ops/eval_stats.py)
+# ---------------------------------------------------------------------------
+
+STATS_KERNELS = ("stats_point", "stats_primal", "stats_dual")
+# (n, m) of the 100k-node and the million-node PageRank LP
+STATS_SHAPES = {"100k": (100_000, 100_001), "1M": (1_000_000, 1_000_001)}
+# the reason each case of tests/eval_stats_cases.py reaches
+STATS_REASONS = {"numerical_error": 7, "optimal_linf": 1, "limits": 5}
+
+
+def assert_equal_or_nan(got, want, label):
+    """Equal values, a NaN against a NaN (the finalize's NaN payloads
+    follow the operations that made them)."""
+    g, w = got.detach().cpu(), want.detach().cpu()
+    assert g.dtype == w.dtype and g.shape == w.shape, label
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    assert bool(same.all()), f"{label}: {g} against {w}"
+
+
+def stats_launches(inp):
+    """One pass of the three kernels on `inp` (eval_stats_cases)."""
+    from firstorderlp_torch.ops import eval_stats as es
+
+    rules = inp["criteria"]
+    point = es.stats_point(inp["x"], inp["y"], inp["variable_rescaling"],
+                           inp["constraint_rescaling"], inp["average"])
+    ray, primal_totals = es.stats_primal(
+        point.primal, inp["aty"], inp["objective"], inp["lower"],
+        inp["upper"], point.primal_norm, rules.ray)
+    dual = es.stats_dual(point.dual, inp["ax"],
+                         inp["aray"] if rules.ray else None, inp["rhs"],
+                         inp["is_equality"], primal_totals,
+                         point.primal_norm, inp["scalars"], rules)
+    return point, ray, primal_totals, dual
+
+
+@pytest.mark.parametrize("case", ["mixed", "empty_average",
+                                  "numerical_error", "non_finite", "zero",
+                                  "no_ray", "optimal_linf", "limits"])
+@pytest.mark.parametrize("shape", sorted(STATS_SHAPES))
+def test_eval_stats_kernels_are_bitwise_their_plain_versions(cuda, shape,
+                                                             case):
+    import eval_stats_cases as esc
+    from firstorderlp_torch.ops import eval_stats as es
+
+    n, m = STATS_SHAPES[shape]
+    inp = esc.kernel_inputs(n, m, case, seed=5, device=cuda)
+    rules = inp["criteria"]
+    routed.reset_launch_counts()
+    first = stats_launches(inp)
+    second = stats_launches(inp)
+    torch.cuda.synchronize()
+    assert {k: routed.LAUNCHES[k] for k in STATS_KERNELS} == dict.fromkeys(
+        STATS_KERNELS, 2)
+    assert not bool(es.tickets(cuda).any())
+    point, ray, primal_totals, (dual_totals, conv, infeas, reason) = first
+    for label, got, again in zip(("point", "ray", "primal totals", "dual"),
+                                 first, second):
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        for i, (u, v) in enumerate(zip(got, again)):
+            assert (u is None) == (v is None), label
+            if u is not None:
+                assert_same_bits(u, v, f"second launch: {label}[{i}]")
+    assert_same_bits(point, es.stats_point_plain(
+        inp["x"], inp["y"], inp["variable_rescaling"],
+        inp["constraint_rescaling"], inp["average"]), "point")
+    plain_ray, sums, other = es.primal_terms(
+        point.primal, inp["aty"], inp["objective"], inp["lower"],
+        inp["upper"], point.primal_norm, rules.ray)
+    if rules.ray:
+        assert_same_bits(ray, plain_ray, "ray")
+    else:
+        assert ray is None
+    esc.assert_totals_match(
+        primal_totals, es.totals_from_terms(es.PRIMAL_TOTALS, sums, other,
+                                            point.primal),
+        sums, es.PRIMAL_TOTALS, "primal")
+    dual_sums, dual_other = es.dual_terms(
+        point.dual, inp["ax"], inp["aray"] if rules.ray else None,
+        inp["rhs"], inp["is_equality"])
+    esc.assert_totals_match(
+        dual_totals, es.totals_from_terms(es.DUAL_TOTALS, dual_sums,
+                                          dual_other, point.dual),
+        dual_sums, es.DUAL_TOTALS, "dual")
+    want = es.stats_finalize_plain(primal_totals, dual_totals,
+                                   point.primal_norm, inp["scalars"], rules)
+    assert_equal_or_nan(conv, want[0], "conv")
+    assert_equal_or_nan(infeas, want[1], "infeas")
+    assert int(reason) == int(want[2]) == STATS_REASONS.get(case, 0)
+
+
+def statistics_case(cuda, solver, monkeypatch):
+    """(module, bundle, config, state, evaluation point) at iteration 81
+    of segment_case, the point as evaluation_point gives it."""
+    from firstorderlp_torch.models import common
+
+    module, bundle, config, state = segment_case(cuda, solver, False,
+                                                 monkeypatch)
+    state = module._device_counters(state)
+    if solver == "mirror_prox":
+        current = state.current_primal, state.current_dual
+    else:
+        current = state.current_primal_solution, state.current_dual_solution
+    return (module, bundle, config, state,
+            common.evaluation_point(state, *current))
+
+
+@pytest.mark.parametrize("tile_aligned", [False, True])
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_replayed_evaluation_runs_the_fused_statistics(cuda, solver,
+                                                       tile_aligned,
+                                                       monkeypatch):
+    """One evaluation from the state at iteration 81, replayed and run
+    eagerly, on CSR and on the tile plan: each statistics kernel launched
+    once, the same launches, every field bitwise equal."""
+    module, bundle, config, state = segment_case(cuda, solver, tile_aligned,
+                                                 monkeypatch)
+    state = module._device_counters(state)
+    out = {}
+    for mode in ("graphed", "eager"):
+        runner = module._runner(bundle, state, 0.0, config, mode == "eager")
+        routed.reset_launch_counts()
+        result = runner.detach(runner.evaluate())
+        out[mode] = (runner.unload(), result, dict(routed.LAUNCHES))
+    assert out["graphed"][2] == out["eager"][2]
+    assert all(out["eager"][2][k] == 1 for k in STATS_KERNELS)
+    assert_same_bits(out["graphed"][0], out["eager"][0])
+    assert_same_bits(out["graphed"][1], out["eager"][1], "result")
+
+
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+def test_fused_statistics_match_the_eager_ones_on_the_card(cuda, solver,
+                                                          monkeypatch):
+    """The kernels against the eager statistics (the previous release's
+    route) on the card at iteration 81, with infeasibility detection off
+    (the path's criteria) and on: the same reason, the maxima bitwise,
+    every other field within 1e-5 of its magnitude."""
+    from firstorderlp_torch.iteration_stats import DeviceConvergenceInfo
+    from firstorderlp_torch.models import common
+
+    module, bundle, config, state, (x, y) = statistics_case(
+        cuda, solver, monkeypatch)
+    kkt = state.cumulative_kkt_passes + 2.0
+    iteration = state.iteration - 1
+    elapsed = torch.zeros((), dtype=torch.float64, device=cuda)
+    maxima = ("l_inf_primal_residual", "l_inf_dual_residual",
+              "l_inf_primal_variable", "l_inf_dual_variable",
+              "max_primal_ray_infeasibility", "max_dual_ray_infeasibility")
+    for criteria in (config.criteria, dataclasses.replace(
+            config.criteria, eps_primal_infeasible=1e-8,
+            eps_dual_infeasible=1e-8)):
+        args = (bundle, criteria, x, y, state.numerical_error, iteration,
+                kkt, elapsed)
+        assert common.fused_statistics(bundle, x)
+        routed.reset_launch_counts()
+        fused = common.evaluate_unscaled_stats(*args)
+        assert all(routed.LAUNCHES[k] == 1 for k in STATS_KERNELS)
+        with monkeypatch.context() as patch:
+            patch.setattr(common, "fused_statistics", lambda *a: False)
+            eager = common.evaluate_unscaled_stats(*args)
+        assert int(fused[2]) == int(eager[2])
+        for part in (0, 1):
+            for name, g, w in zip(fused[part]._fields, fused[part],
+                                  eager[part]):
+                g, w = float(g), float(w)
+                if name in maxima:
+                    assert g == w, name
+                elif not (np.isinf(w) and g == w):
+                    assert abs(g - w) <= 1e-5 * abs(w) + 1e-7, name
+        assert isinstance(fused[0], DeviceConvergenceInfo)
