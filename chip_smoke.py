@@ -6,7 +6,8 @@ Run from the root of the repository:
     python3 chip_smoke.py [--out FILE] [--profile] [--parent DIR]
     python3 chip_smoke.py --only PHASES [--parent DIR]
         # the device and build phases and PHASES alone (comma-separated:
-        # evaluation_split, kernels_trust_region, kernels_eval_stats)
+        # evaluation_split, kernels_trust_region, kernels_eval_stats,
+        # kernels_trial)
 
 Phases, each printing one JSON line:
 
@@ -34,17 +35,24 @@ Phases, each printing one JSON line:
    scaled LP's data and a state made with numpy from a seed, on CSR and
    the tile plan, three step sizes, the mask on and off, adaptive and
    constant: each bitwise equal to its plain version, with times (CUDA
-   events, device time and kernels a call, the plain version's) and the
-   bytes bound;
+   events, device time and kernels a call, the plain version's; F1b's
+   also for a trial that does not take its step) and the bytes bound;
+   given --parent, both kernels and the parent's in turns;
    kernels_trust_region: the f32 exact trust region's kernels
    (ops/trust_region_search.py), F2b tr_search (the prologue F2a and the
-   31-trip knot search, one launch) and F2c tr_solution, at the restart
-   scheme's shape (3 rows over the scaled LP's primal and dual bounds)
-   and the 128-lane fleet's (384 rows of 40,001, bounds a row), inputs
-   made with numpy: t*, the solution and the split sums bitwise equal
-   to the plain versions' and to a second launch, the launch plan
-   (cluster, staged or not, shared memory), times (CUDA events, device
-   time and kernels a call, the plain versions') and the bytes bound;
+   knot search, 8 trips of 15 test points, one launch) and F2c
+   tr_solution, at the restart scheme's shape (3 rows over the scaled
+   LP's primal and dual bounds), the 128-lane fleet's (384 rows of
+   40,001, bounds a row) and one row of 300,000 (past what 8-block
+   clusters stage), inputs made with numpy: t*, the solution and the
+   split sums bitwise equal to the plain versions' and to a second
+   launch, the launch plan (cluster, staged or not, shared memory, bits
+   a trip, threads) and F2b's device time at each shape, every tr_search
+   kernel under 8- and 16-block plans timed in turns (with the
+   parent's, given --parent), times (CUDA events, device time and
+   kernels a call, the plain versions') and the bytes bound; the line
+   before it (kernels_trust_region_plan) prints the search's bits, K,
+   threads, the card's cluster limit and its co-resident clusters;
    kernels_eval_stats: an evaluation's statistics kernels
    (ops/eval_stats.py), F2d stats_point, F2e stats_primal and F2f
    stats_dual (the finalize in its last block), on the LP as optimize
@@ -2433,7 +2441,8 @@ TRIAL_VARIANTS = {  # step size (times 1 / max|A_ij|), primal weight
 }
 
 
-def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile):
+def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile,
+                  compare, parent_dir=None):
     """F1a (primal_step) and F1b (trial_epilogue) of ops/pdhg_step.py at
     the main path's shapes, on the scaled LP's c, bounds and b and a
     state made with numpy from seed 1 (x inside the bounds, y >= 0 on
@@ -2444,8 +2453,11 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile):
     CSR, small_step: CUDA-event ms (median of 100), device ms and
     kernels a call (torch.profiler), the plain version's ms; the bytes
     bound counts what the call must move (F1b: the side of each select
-    that `take` chooses)."""
-    from firstorderlp_torch.ops import pdhg_step
+    that `take` chooses). F1b's device time also on a trial that does not
+    take its step (the mask off: it reads both sides). With `parent_dir`,
+    both kernels and that version's in turns (this, parent, parent,
+    this, ...), and whether the parent's give the same bits."""
+    from firstorderlp_torch.ops import pdhg_step, probe_routed
 
     rng = np.random.default_rng(1)
     m, n = ops["csr"].shape
@@ -2517,6 +2529,9 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile):
                     if (layout, name, masked, constant) == (
                             "csr", "small_step", False, False):
                         timed_args = (args, f, tail)
+                    if (layout, name, masked, constant) == (
+                            "csr", "small_step", True, False):
+                        not_taken = (f, tail)
     bad = [v for v in variants if not (v["primal_step_bitwise"]
                                        and v["trial_epilogue_bitwise"])]
     if bad:
@@ -2558,6 +2573,29 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile):
             "device_ms": dev_ms, "kernels_per_call": per_call,
             "bytes": nbytes, "flops": flops, "library_ms": None,
         })
+    f_off, tail_off = not_taken
+    rows[1]["device_ms_not_taken"] = device_profile(
+        lambda: pdhg_step.trial_epilogue(f_off, *tail_off))[0]
+    if parent_dir:
+        parent = compare.package_module("ops.pdhg_step", parent_dir)
+        pf = parent.TrialFields(**{fl.name: getattr(f, fl.name)
+                                   for fl in dataclasses.fields(f)})
+        calls = {
+            "primal_step": lambda: pdhg_step.primal_step(*args),
+            "parent_primal_step": lambda: parent.primal_step(*args),
+            "trial_epilogue": lambda: pdhg_step.trial_epilogue(f, *tail),
+            "parent_trial_epilogue": lambda: parent.trial_epilogue(pf,
+                                                                   *tail),
+        }
+        turns = {key: probe_routed.turn_summary(got) for key, got in
+                 probe_routed.in_turns(calls).items()}
+        for row in rows:
+            name = row["name"]
+            theirs = calls[f"parent_{name}"]()
+            ours = calls[name]()
+            row["turns"] = turns[name]
+            row["parent"] = {**turns[f"parent_{name}"],
+                             "bitwise_equal": states_equal(ours, theirs)}
     return rows, variants
 
 
@@ -3378,16 +3416,34 @@ def tr_inputs(torch, rng, rows, lower, upper, dev, radii=TR_RADII):
     return tuple(f32(v) for v in (c, g, lower, upper, weight, radius))
 
 
-def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
+TR_SEARCH_REPLACES = (
+    "none (no pl.pallas_call): XLA's fusion of "
+    "firstorderlp_tpu/trust_region.py:42 "
+    "(solve_bound_constrained_trust_region: frozen, direction, knots) "
+    "and :112 (_t_star_bisect), vmapped at :401")
+
+
+def tr_search_bytes(rows, n, bounds_rows):
+    """F2b's bytes bound: c and g a row, the bounds and weights once (or a
+    row each), the radius read and t* written."""
+    return 4 * (2 * rows * n + 3 * n * bounds_rows + 2 * rows)
+
+
+def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
+                         compare, parent_dir=None):
     """F2b (tr_search, with the prologue F2a) and F2c (tr_solution) of
     ops/trust_region_search.py at the main path's shape (the restart
     scheme's 3 rows over the scaled 100k-node LP's primal and dual
-    bounds, N = n + m, bounds (N,)) and the 128-lane fleet's (384 rows
-    of 40,001, bounds (B, N)), inputs made with numpy from seed 2: t*,
-    the solution and the sums bitwise the plain versions', twice the
-    same bits; at the main path's shape their times (CUDA events, device
-    ms and kernels a call, the plain versions'), the bytes bound and the
-    launch plan."""
+    bounds, N = n + m, bounds (N,)), the 128-lane fleet's (384 rows of
+    40,001, bounds (B, N)) and one row of 300,000 (past the 230,400
+    entries that 8-block clusters stage), inputs made with numpy from
+    seed 2: t*, the solution and the sums bitwise the plain versions',
+    twice the same bits, F2b's device time and plan at each shape; at
+    the main path's shape every tr_search kernel (bits a trip, threads)
+    under 8- and 16-block plans, bitwise the plain version and timed in
+    turns, with `parent_dir`'s tr_search beside them, and F2c's and
+    the plain versions' times and the bytes bounds."""
+    from firstorderlp_torch.ops import probe_routed
     from firstorderlp_torch.ops import trust_region_search as trs
 
     rng = np.random.default_rng(2)
@@ -3400,15 +3456,27 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
     fleet_n = 2 * FLEET_NODES + 1
     fleet_lower = np.where(rng.random((384, fleet_n)) < 0.5, -np.inf, 0.0)
     fleet_upper = np.where(rng.random((384, fleet_n)) < 0.5, np.inf, 1.0)
+    long_n = 300_000
+    long_lower = np.where(rng.random(long_n) < 0.3, -np.inf, -rng.random(
+        long_n))
+    long_upper = np.where(rng.random(long_n) < 0.3, np.inf, rng.random(
+        long_n))
     shapes = {
         "main_path": tr_inputs(torch, rng, 3, main_lower, main_upper, dev),
         "fleet": tr_inputs(torch, rng, 384, fleet_lower, fleet_upper, dev),
+        "past_eight_blocks": tr_inputs(torch, rng, 1, long_lower,
+                                       long_upper, dev, radii=(0.7,)),
     }
-    variants, timed_args = [], None
+    search = {"bits": trs.SEARCH_BITS, "K": 2 ** trs.SEARCH_BITS - 1,
+              "threads": trs.SEARCH_THREADS,
+              "cluster_limit": trs.search_cluster_limit(dev),
+              "active_clusters": trs.active_clusters(dev)}
+    emit({"phase": "kernels_trust_region_plan", "ok": True, **search})
+    variants, shape_times, timed_args = [], {}, None
     for label, (c, g, lower, upper, weight, radius) in shapes.items():
-        n = c.shape[1]
+        rows, n = c.shape
         split = scaled.constraint_matrix.shape[1] if label == "main_path" \
-            else FLEET_NODES
+            else n // 2
         outs = []
         for _ in range(2):
             t_star = trs.tr_search(c, g, lower, upper, weight, radius)
@@ -3419,16 +3487,27 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
         plain = (plain_t, *trs.tr_solution_plain(c, g, lower, upper, weight,
                                                  plain_t, split))
         torch.cuda.synchronize()
-        plan = trs.search_plan(*c.shape)
+        plan = trs.device_search_plan(rows, n, dev)
+        call = (lambda c=c, g=g, lower=lower, upper=upper, weight=weight,
+                radius=radius: trs.tr_search(c, g, lower, upper, weight,
+                                             radius))
+        dev_ms, per_call = device_profile(call)
+        shape_times[label] = {
+            "device_ms": dev_ms, "kernels_per_call": per_call,
+            "ms": time_ms(call),
+            "bytes": tr_search_bytes(rows, n, lower.shape[0]
+                                     if lower.dim() == 2 else 1)}
         variants.append({
-            "shape": label, "rows": c.shape[0], "n": n,
+            "shape": label, "rows": rows, "n": n,
             "bounds": list(lower.shape),
             "search_bitwise": states_equal(outs[0][0], plain[0]),
             "solution_bitwise": states_equal(outs[0][1:], plain[1:]),
             "repeat_bitwise": states_equal(outs[0], outs[1]),
             "cluster": plan.cluster, "staged": plan.staged,
-            "smem_bytes": plan.smem_bytes,
-            "solution_cluster": trs.solution_cluster(c.shape[0]),
+            "smem_bytes": plan.smem_bytes, "bits": plan.bits,
+            "threads": plan.threads, "trips": plan.trips,
+            "solution_cluster": trs.solution_cluster(rows),
+            "tr_search_device_ms": dev_ms,
         })
         if label == "main_path":
             timed_args = (c, g, lower, upper, weight, radius, outs[0][0],
@@ -3441,6 +3520,34 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
                                      f"two launches: {bad}")
     c, g, lower, upper, weight, radius, t_star, split = timed_args
     rows, n = c.shape
+    tries, calls = [], {}
+    want = trs.tr_search_plain(trs.tr_prologue_plain(
+        c, g, lower, upper, weight), radius)
+    for bits, threads in trs.SEARCH_VARIANTS:
+        for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
+            if trs.active_clusters(dev, bits, threads)[limit] < 1:
+                continue
+            plan = trs.search_plan(rows, n, limit, bits, threads)
+            key = f"bits{bits}_threads{threads}_cluster{plan.cluster}"
+            calls[key] = (lambda plan=plan: trs.tr_search(
+                c, g, lower, upper, weight, radius, plan=plan))
+            tries.append({"key": key, **plan._asdict(),
+                          "bitwise": states_equal(calls[key](), want),
+                          "active_clusters": trs.active_clusters(
+                              dev, bits, threads)})
+    if not all(t["bitwise"] for t in tries):
+        fail("kernels_trust_region", f"a tr_search plan differs from the "
+                                     f"plain version: {tries}")
+    parent_bits = None
+    if parent_dir:
+        ptrs = compare.package_module("ops.trust_region_search", parent_dir)
+        calls["parent"] = lambda: ptrs.tr_search(c, g, lower, upper, weight,
+                                                 radius)
+        parent_bits = states_equal(calls["parent"](), want)
+    turns = {key: probe_routed.turn_summary(got) for key, got in
+             probe_routed.in_turns(calls).items()}
+    for t in tries:
+        t.update(turns[t["key"]])
     inputs = 4 * (2 * rows * n + 3 * n + rows)  # c, g a row; l, u, w once
     rows_out = []
     for name, kernel, plain, nbytes, flops, replaces in (
@@ -3449,12 +3556,9 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
          lambda: trs.tr_search_plain(trs.tr_prologue_plain(
              c, g, lower, upper, weight), radius),
          # the inputs once, t* written; two multiplies and an add an entry
-         # in each of the 33 passes (the totals, 31 trips, the parts)
-         inputs + 4 * rows, 33 * 3 * rows * n,
-         "none (no pl.pallas_call): XLA's fusion of "
-         "firstorderlp_tpu/trust_region.py:42 "
-         "(solve_bound_constrained_trust_region: frozen, direction, knots) "
-         "and :112 (_t_star_bisect), vmapped at :401"),
+         # in each of the bisection's 33 passes (the totals, 31 trips, the
+         # parts): the plain version's work
+         inputs + 4 * rows, 33 * 3 * rows * n, TR_SEARCH_REPLACES),
         ("tr_solution",
          lambda: trs.tr_solution(c, g, lower, upper, weight, t_star, split),
          lambda: trs.tr_solution_plain(c, g, lower, upper, weight, t_star,
@@ -3468,7 +3572,7 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
         kernel()
         torch.cuda.synchronize()
         dev_ms, per_call = device_profile(kernel)
-        rows_out.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "firstorderlp_torch/csrc/trust_region_search.cu",
             "replaces": replaces, "max_abs_err": 0.0,
@@ -3477,7 +3581,14 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile):
                                                        warmup=1),
             "device_ms": dev_ms, "kernels_per_call": per_call,
             "bytes": nbytes, "flops": flops, "library_ms": None,
-        })
+        }
+        if name == "tr_search":
+            row.update({"search": search, "shapes": shape_times,
+                        "tries": tries})
+            if parent_dir:
+                row["parent"] = {**turns["parent"],
+                                 "bitwise_equal": parent_bits}
+        rows_out.append(row)
     return rows_out, variants
 
 
@@ -3764,8 +3875,8 @@ def main() -> int:
     parser.add_argument("--only", metavar="PHASES",
                         help="only the device and build phases and these "
                              "(comma-separated: evaluation_split, "
-                             "kernels_trust_region, kernels_eval_stats), "
-                             "then the last lines")
+                             "kernels_trust_region, kernels_eval_stats, "
+                             "kernels_trial), then the last lines")
     parser.add_argument("--multi-gpu", action="store_true",
                         help="only the multi-device solve across four "
                              "cards (phase multi_gpu_path), after the "
@@ -3853,7 +3964,24 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                     10, False, 1.0, 0,
                     generate_pagerank_lp(num_nodes=NODES, seed=0)).scaled_qp
                 rows, variants = kernels_trust_region(
-                    torch, scaled, dev, time_ms, device_profile)
+                    torch, scaled, dev, time_ms, device_profile, compare,
+                    args.parent)
+                for r in rows:
+                    r["bound_ms"], r["bound_by"] = probe.bound_ms(
+                        r["bytes"], r["flops"])
+                record = {"phase": phase, "ok": True, "variants": variants,
+                          "results": rows}
+            elif phase == "kernels_trial":
+                scaled = rescale_problem(
+                    10, False, 1.0, 0,
+                    generate_pagerank_lp(num_nodes=NODES, seed=0)).scaled_qp
+                a64 = scaled.constraint_matrix.tocsr()
+                ops = {"csr": routed.build_routed_op(a64, dev),
+                       "tiled": routed.build_routed_op(a64, dev,
+                                                       tile_aligned=True)}
+                rows, variants = kernels_trial(
+                    torch, routed, ops, scaled, dev, time_ms,
+                    device_profile, compare, args.parent)
                 for r in rows:
                     r["bound_ms"], r["bound_by"] = probe.bound_ms(
                         r["bytes"], r["flops"])
@@ -4203,7 +4331,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # 3b. the trial's kernels around B3/B4 (B6/B7): F1a and F1b
     trial_rows, trial_variants = kernels_trial(
         torch, routed, {"csr": op, "tiled": top}, scaled, dev, time_ms,
-        device_profile)
+        device_profile, compare, args.parent)
     add_bounds(trial_rows)
     emit({"phase": "kernels_trial", "ok": True, "m": m, "n": n,
           "tolerance": "bitwise equal to the plain versions",
@@ -4211,7 +4339,8 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 3b. the exact trust region's kernels: F2b (with F2a) and F2c
     tr_rows, tr_variants = kernels_trust_region(torch, scaled, dev, time_ms,
-                                                device_profile)
+                                                device_profile, compare,
+                                                args.parent)
     add_bounds(tr_rows)
     emit({"phase": "kernels_trust_region", "ok": True,
           "tolerance": "bitwise equal to the plain versions, and to a "

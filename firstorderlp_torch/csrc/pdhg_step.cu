@@ -38,6 +38,21 @@
 // one grid-stride pass with no shared memory; block 0 writes the 0-d
 // results, every block works the scalars out again from the 0-d inputs,
 // so the trial needs no other launch.
+//
+// F1b's design: at 100k nodes its 5.6 MB take about one latency of the
+// card's memory and the verdict's chain (the 0-d loads, then the pow),
+// so what counts is what waits on what. A thread takes one 16-byte slot
+// of one group's vectors (4 n-vectors or 3 m-vectors, so every SM has
+// blocks: 391 of 128 threads at 100k nodes) and issues the 0-d loads,
+// then its slot's: the sums and y, which both branches read, and the
+// accepted side. It stores the accepted side at once, before the verdict
+// is known (most trials take their step: the stores wait only on the
+// loads and the step size); a trial that does not take its step then
+// loads the state's side and stores it over them, so the result is the
+// selects' either way. The outputs are the wrapper's, 16-byte aligned;
+// an input whose address is not (a view at an odd offset) is read 4
+// bytes at a time in the same pass (`aligned`), and the grid's last 8
+// threads take the n mod 4 and m mod 4 entries left over.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,6 +143,7 @@ struct EpilogueArgs {
   int n;
   int m;
   int constant;
+  int aligned;  // bit i: input vector i (x_next ... sum_y) 16-byte aligned
 };
 
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
@@ -202,54 +218,150 @@ struct Verdict {
   float step;
 };
 
-// The trial's scalar part, from the 0-d inputs (every thread alike).
-__device__ __forceinline__ Verdict verdict(const EpilogueArgs& a) {
-  const bool active = *a.active;
-  const float step = *a.step;
-  if (a.constant) return {active, active, *a.numerical_error, step};
-  const float weight = *a.primal_weight;
-  const float interaction = fabsf(*a.interaction);
+// The trial's 0-d inputs (every thread alike), their loads issued
+// together and ahead of the vectors'.
+struct TrialScalars {
+  bool active, numerical_error;
+  float step, weight, interaction, dx2, dy2;
+  long long total;
+};
+
+__device__ __forceinline__ TrialScalars load_scalars(const EpilogueArgs& a) {
+  TrialScalars s = {*a.active, *a.numerical_error, *a.step, 0.f, 0.f, 0.f,
+                    0.f, *a.total};
+  if (!a.constant) {
+    s.weight = *a.primal_weight;
+    s.interaction = *a.interaction;
+    s.dx2 = *a.dx2;
+    s.dy2 = *a.dy2;
+  }
+  return s;
+}
+
+// The 0-d state that the trial only counts up or carries over.
+struct EpilogueCounters {
+  long long iteration, count_x, count_y;
+  float weight_x, weight_y;
+  double kkt;
+};
+
+// The trial's scalar part.
+__device__ __forceinline__ Verdict verdict(const EpilogueArgs& a,
+                                          const TrialScalars& s) {
+  if (a.constant) return {s.active, s.active, s.numerical_error, s.step};
+  const float interaction = fabsf(s.interaction);
   const float movement =
-      __fadd_rn(__fmul_rn(__fmul_rn(0.5f, weight), *a.dx2),
-                __fmul_rn(__fmul_rn(__fdiv_rn(1.f, weight), 0.5f), *a.dy2));
+      __fadd_rn(__fmul_rn(__fmul_rn(0.5f, s.weight), s.dx2),
+                __fmul_rn(__fmul_rn(__fdiv_rn(1.f, s.weight), 0.5f), s.dy2));
   const bool numerical_error = movement == 0.f;
   const float limit = interaction > 0.f ? __fdiv_rn(movement, interaction)
                                         : INFINITY;
-  const bool accept = step <= limit && !numerical_error;
-  const float t1 = __fadd_rn(__ll2float_rn(*a.total + 1), 1.f);
+  const bool accept = s.step <= limit && !numerical_error;
+  const float t1 = __fadd_rn(__ll2float_rn(s.total + 1), 1.f);
   const float shrink =
       __fsub_rn(1.f, torch_pow(t1, a.shrink_exponent, a.shrink_route));
   const float grow =
       __fadd_rn(torch_pow(t1, a.grow_exponent, a.grow_route), 1.f);
   const float next = numerical_error
-                         ? step
+                         ? s.step
                          : torch_minimum(__fmul_rn(shrink, limit),
-                                         __fmul_rn(grow, step));
-  return {active, active && accept, numerical_error, next};
+                                         __fmul_rn(grow, s.step));
+  return {s.active, s.active && accept, numerical_error, next};
 }
 
-__global__ void trial_epilogue_kernel(const EpilogueArgs a) {
-  const Verdict v = verdict(a);
-  const float step = *a.step;  // the averaging weight: the entry step
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const long long total = *a.total, iteration = *a.iteration;
-    a.counters_out[0] = v.active ? total + 1 : total;
-    a.counters_out[1] = v.take ? iteration + 1 : iteration;
-    a.counters_out[2] = v.take ? *a.count_x + 1 : *a.count_x;
-    a.counters_out[3] = v.take ? *a.count_y + 1 : *a.count_y;
-    a.scalars_out[1] = v.take ? __fadd_rn(*a.weight_x, step) : *a.weight_x;
-    a.scalars_out[2] = v.take ? __fadd_rn(*a.weight_y, step) : *a.weight_y;
-    *a.kkt_out = v.active ? __dadd_rn(*a.kkt, 1.0) : *a.kkt;
-    if (!a.constant) {
-      a.scalars_out[0] = v.active ? v.step : step;
-      *a.numerical_error_out =
-          v.active ? v.numerical_error : *a.numerical_error;
-    }
+// EpilogueArgs' input vectors, by their bit in `aligned`.
+enum EpilogueInput : int {
+  kXNext, kDx, kYNext, kAtyNext, kX, kY, kDeltaX, kDeltaY, kAty, kSumX,
+  kSumY
+};
+
+// Entries 4q to 4q + 3 of v: one 16-byte load where v is 16-byte aligned
+// (bit `input` of `aligned`), else four 4-byte loads.
+__device__ __forceinline__ float4 load4(const float* v, int q, int aligned,
+                                        int input) {
+  if ((aligned >> input) & 1) {
+    return __ldg(reinterpret_cast<const float4*>(v) + q);
   }
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
+  const float* e = v + 4 * q;
+  return make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), __ldg(e + 3));
+}
+
+__device__ __forceinline__ void store4(float* v, int q, float4 value) {
+  reinterpret_cast<float4*>(v)[q] = value;
+}
+
+// s + x step, each entry rounded as PyTorch's sum + x * step.
+__device__ __forceinline__ float4 add_scaled(float4 s, float4 x, float step) {
+  return make_float4(__fadd_rn(s.x, __fmul_rn(x.x, step)),
+                     __fadd_rn(s.y, __fmul_rn(x.y, step)),
+                     __fadd_rn(s.z, __fmul_rn(x.z, step)),
+                     __fadd_rn(s.w, __fmul_rn(x.w, step)));
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
+                     __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+}
+
+// A thread's slot: 16 bytes of each vector of one group. Slot q < nq is
+// the n-vectors' (sum x, then x, dx, A'y of the side loaded), a later
+// one the m-vectors' (sum y, y, and y+ or delta y; `side` unused).
+struct EpilogueSlot {
+  float4 sum, first, second, side;
+};
+
+// The loads of slot q that do not wait for the verdict: the sums and y,
+// which both branches read, and the accepted side.
+__device__ __forceinline__ void load_taken(const EpilogueArgs& a, int q,
+                                           int nq, EpilogueSlot* v) {
+  if (q < nq) {
+    v->sum = load4(a.sum_x, q, a.aligned, kSumX);
+    v->first = load4(a.x_next, q, a.aligned, kXNext);
+    v->second = load4(a.dx, q, a.aligned, kDx);
+    v->side = load4(a.aty_next, q, a.aligned, kAtyNext);
+  } else {
+    q -= nq;
+    v->sum = load4(a.sum_y, q, a.aligned, kSumY);
+    v->first = load4(a.y, q, a.aligned, kY);
+    v->second = load4(a.y_next, q, a.aligned, kYNext);
+  }
+}
+
+// The state's side of slot q, for a trial that does not take its step.
+__device__ __forceinline__ void load_kept(const EpilogueArgs& a, int q,
+                                          int nq, EpilogueSlot* v) {
+  if (q < nq) {
+    v->first = load4(a.x, q, a.aligned, kX);
+    v->second = load4(a.delta_x, q, a.aligned, kDeltaX);
+    v->side = load4(a.aty, q, a.aligned, kAty);
+  } else {
+    v->second = load4(a.delta_y, q - nq, a.aligned, kDeltaY);
+  }
+}
+
+__device__ __forceinline__ void store_slot(const EpilogueArgs& a, int q,
+                                           int nq, bool take, float step,
+                                           const EpilogueSlot& v) {
+  if (q < nq) {
+    store4(a.x_out, q, v.first);
+    store4(a.delta_x_out, q, v.second);
+    store4(a.aty_out, q, v.side);
+    store4(a.sum_x_out, q, take ? add_scaled(v.sum, v.first, step) : v.sum);
+  } else {
+    q -= nq;
+    store4(a.y_out, q, take ? v.second : v.first);
+    store4(a.delta_y_out, q, take ? sub4(v.second, v.first) : v.second);
+    store4(a.sum_y_out, q, take ? add_scaled(v.sum, v.second, step) : v.sum);
+  }
+}
+
+// One of the last n mod 4 (primal) or m mod 4 (dual) entries, index i
+// of its vectors: the accepted side (`take`) or the state's.
+__device__ __forceinline__ void store_tail(const EpilogueArgs& a, bool primal,
+                                           int i, bool take, float step) {
+  if (primal) {
     const float sx = __ldg(a.sum_x + i);
-    if (v.take) {
+    if (take) {
       const float xn = __ldg(a.x_next + i);
       a.x_out[i] = xn;
       a.delta_x_out[i] = __ldg(a.dx + i);
@@ -261,10 +373,9 @@ __global__ void trial_epilogue_kernel(const EpilogueArgs a) {
       a.aty_out[i] = __ldg(a.aty + i);
       a.sum_x_out[i] = sx;
     }
-  }
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.m; i += stride) {
+  } else {
     const float sy = __ldg(a.sum_y + i);
-    if (v.take) {
+    if (take) {
       const float yn = __ldg(a.y_next + i);
       a.y_out[i] = yn;
       a.delta_y_out[i] = __fsub_rn(yn, __ldg(a.y + i));
@@ -277,7 +388,70 @@ __global__ void trial_epilogue_kernel(const EpilogueArgs a) {
   }
 }
 
+// Thread t < slots takes slot t (and t + stride, ...); the grid's last 8
+// threads (past the slots, but where the grid is capped) the tails,
+// entries 4 (n / 4) + j and 4 (m / 4) + j.
+__global__ void trial_epilogue_kernel(const EpilogueArgs a) {
+  const int nq = a.n >> 2, mq = a.m >> 2, slots = nq + mq;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tail = first - (stride - 8);
+  const bool primal_tail = tail >= 0 && tail < 4 && 4 * nq + tail < a.n;
+  const bool dual_tail = tail >= 4 && tail < 8 && 4 * mq + tail - 4 < a.m;
+  const int tail_at = primal_tail ? 4 * nq + tail : 4 * mq + tail - 4;
+  const TrialScalars s = load_scalars(a);
+  // The 0-d inputs only thread 0 writes out again, loaded with the rest.
+  EpilogueCounters rest = {};
+  if (first == 0) {
+    rest = {*a.iteration, *a.count_x, *a.count_y, *a.weight_x,
+            *a.weight_y, *a.kkt};
+  }
+  const float step = s.step;  // the averaging weight: the entry step
+  // The accepted side, stored before the verdict is known (most trials
+  // take their step); a trial that does not stores the state's over it.
+  EpilogueSlot slot;
+  if (first < slots) {
+    load_taken(a, first, nq, &slot);
+    store_slot(a, first, nq, true, step, slot);
+  }
+  if (primal_tail || dual_tail) {
+    store_tail(a, primal_tail, tail_at, true, step);
+  }
+  const Verdict v = verdict(a, s);
+  if (first == 0) {
+    a.counters_out[0] = v.active ? s.total + 1 : s.total;
+    a.counters_out[1] = v.take ? rest.iteration + 1 : rest.iteration;
+    a.counters_out[2] = v.take ? rest.count_x + 1 : rest.count_x;
+    a.counters_out[3] = v.take ? rest.count_y + 1 : rest.count_y;
+    a.scalars_out[1] =
+        v.take ? __fadd_rn(rest.weight_x, step) : rest.weight_x;
+    a.scalars_out[2] =
+        v.take ? __fadd_rn(rest.weight_y, step) : rest.weight_y;
+    *a.kkt_out = v.active ? __dadd_rn(rest.kkt, 1.0) : rest.kkt;
+    if (!a.constant) {
+      a.scalars_out[0] = v.active ? v.step : step;
+      *a.numerical_error_out = v.active ? v.numerical_error
+                                        : s.numerical_error;
+    }
+  }
+  if (!v.take) {
+    if (first < slots) {
+      load_kept(a, first, nq, &slot);
+      store_slot(a, first, nq, false, step, slot);
+    }
+    if (primal_tail || dual_tail) {
+      store_tail(a, primal_tail, tail_at, false, step);
+    }
+  }
+  for (int q = first + stride; q < slots; q += stride) {
+    load_taken(a, q, nq, &slot);
+    if (!v.take) load_kept(a, q, nq, &slot);
+    store_slot(a, q, nq, v.take, step, slot);
+  }
+}
+
 constexpr int kThreads = 256;
+constexpr int kEpilogueThreads = 128;
 constexpr int kMaxBlocks = 4 * 132 * 8;  // a few waves of the H100's SMs
 
 inline int blocks_for(int items) {
@@ -295,10 +469,15 @@ extern "C" int folp_primal_step(const folp::PrimalStepArgs* a,
   return (int)cudaGetLastError();
 }
 
+// F1b: one thread a 16-byte slot of one group's vectors (the outputs
+// must be 16-byte aligned: the wrapper allocates them so).
 extern "C" int folp_trial_epilogue(const folp::EpilogueArgs* a,
                                    void* stream_ptr) {
   using namespace folp;
-  trial_epilogue_kernel<<<blocks_for(a->n > a->m ? a->n : a->m), kThreads,
-                          0, (cudaStream_t)stream_ptr>>>(*a);
+  const int threads = (a->n >> 2) + (a->m >> 2) + 8;  // slots, tails
+  const int blocks = (threads + kEpilogueThreads - 1) / kEpilogueThreads;
+  trial_epilogue_kernel<<<blocks < kMaxBlocks ? blocks : kMaxBlocks,
+                          kEpilogueThreads, 0,
+                          (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
 }

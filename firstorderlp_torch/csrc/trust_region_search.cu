@@ -8,11 +8,11 @@
 //   F2b tr_search (F2a, the prologue, fused into it): frozen components,
 //     direction d = -g / w, the knots tau (where each component meets its
 //     bound, +0 for one that does not move) and a = (w d) d, computed
-//     once from c, g, l, u, w; the row's totals; the 31-trip bisection on
-//     the float bits of t for the segment that holds r^2, where
+//     once from c, g, l, u, w; the row's totals; the 31-level bisection
+//     on the float bits of t for the segment that holds r^2, where
 //     r^2(t) = S(t) + t^2 H(t), S(t) = sum over tau <= t of (a tau) tau
-//     and H(t) = sum of a over the rest; then t* on that segment, 0 for
-//     a zero radius or g = 0;
+//     and H(t) = sum of a over the rest, taken BITS levels a trip; then
+//     t* on that segment, 0 for a zero radius or g = 0;
 //   F2c tr_solution: x = clamp(c + t* d, l, u) and the sums of
 //     g (x - c) over the columns [0, split), [split, n) and all.
 //
@@ -22,47 +22,74 @@
 // versions and the contract are ops/trust_region_search.py's.
 //
 // Bits: every per-row sum is accumulated in f64 and rounded once to f32,
-// in one fixed order: each thread its entries in column order, a shuffle
-// tree in each warp, one over the warps, one over the blocks of the
-// row's cluster. The terms of a sum are f32 values of one sign, so an
-// order whose longest chain of additions is D gives an f64 result within
-// D 2^-53 |S| of the exact sum S (here D is a thread's entries, at most
-// ceil(n / (blocks x threads)), plus 15 levels of trees). Two orders
-// round to different f32 values only where an f32 rounding midpoint lies
-// between their f64 results; the midpoints lie at least 2^-24 |S| apart,
-// so the odds are at most about (D1 + D2) 2^-29 a sum: about 2e-6 where
-// D1 + D2 is 2^10. The kernels therefore give the plain versions'
-// bits, bar a one-ulp difference at those odds that comes from the order
-// of addition, not from a fault, and repeats at every run on that input.
-// The elementwise work rounds each operation once in PyTorch's order
-// (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn: never a contracted
-// multiply-add), torch.clamp keeps its NaN rules, and a knot below zero
-// (or -0) is +0.
+// in one fixed order: each thread its entries in column order (in
+// tr_search, the knots that left the bracket before the ones still in
+// it), then the warp, the warps and the blocks of the row's cluster,
+// each in a fixed tree. The terms of a sum are f32 values of one sign,
+// so an order whose longest chain of additions is D gives an f64 result
+// within D 2^-53 |S| of the exact sum S (here D is a thread's entries,
+// at most ceil(n / (blocks x threads)), plus at most 15 levels of trees).
+// Two orders round to different f32 values only where an f32 rounding
+// midpoint lies between their f64 results; the midpoints lie at least
+// 2^-24 |S| apart, so the odds are at most about (D1 + D2) 2^-29 a sum:
+// about 2e-6 where D1 + D2 is 2^10. The kernels therefore give the plain
+// versions' bits, bar a one-ulp difference at those odds that comes from
+// the order of addition, not from a fault, and repeats at every run on
+// that input. The order changes with a launch plan's cluster size and
+// threads a block, and the same rule covers that. The elementwise work
+// rounds each operation once in PyTorch's order (__fdiv_rn, __fmul_rn,
+// __fadd_rn, __fsub_rn: never a contracted multiply-add), torch.clamp
+// keeps its NaN rules, and a knot below zero (or -0) is +0.
 //
-// Design for Hopper: one thread-block cluster a row (cudaLaunchKernelEx,
-// at most 8 blocks, the portable size). Each block takes a contiguous
-// slice of the row. In tr_search it stages its slice's (tau, a) in shared
-// memory once (8 bytes an entry: 200,008 bytes a block for 200,001
-// entries over 8 blocks), or, for a row too long for that, works them out
-// again from the inputs every trip. Every t a trip tries lies in the
-// bracket (lo, hi] of the trips before it, so a staged knot at or below
-// lo stays clamped and one above hi never is: each trip adds those to
-// the thread's running sums and keeps only the bracket's knots, in
+// The search: the plain version bisects (lo, hi] 31 times, one test
+// point a trip. A trip here tests K = 2^BITS - 1 points at once: the
+// test points of the bisection's next BITS levels, its decision tree
+// from (lo, hi] (root: lo + (hi - lo + 1) / 2; a point's left child
+// the midpoint below it, its right child the one above). The sums of
+// all K come from one pass over the knots, each knot one compare and a
+// predicated add for each point (no atomics, no histogram). Then the
+// walk down the tree with the K predicates is the bisection's own path,
+// so the trips end on the bisection's lo whether or not rounding makes
+// the predicate monotone in t. Levels past the 31st change nothing (the
+// bracket holds one point, or none, by then), so ceil(31 / BITS) trips:
+// 11 for BITS = 3, 8 for BITS = 4. S and H at the final lo are those of
+// the last point the walk went above (or the prologue's S(+0), H(+0)),
+// so no pass follows the trips.
+//
+// Design for Hopper: one thread-block cluster a row (cudaLaunchKernelEx;
+// up to 16 blocks, the non-portable size, when the card co-schedules
+// such clusters, else 8). Each block takes a contiguous slice of the row.
+// In tr_search it stages its slice's (tau, a) in shared memory once (8
+// bytes an entry: about 100 KB a block for 200,001 entries over 16
+// blocks), or, for a row too long for that, works them out again from
+// the inputs every trip; the prologue loads a round of entries ahead.
+// Every point a trip tests lies in [lo, hi + 1], so a staged knot at or
+// below lo stays clamped and one above hi never is: each trip adds those
+// to the thread's running sums and keeps only the bracket's knots, in
 // order, so the passes shrink once the bracket is inside the knots'
-// range. Every trip each block sums its slice
-// in f64 and writes its partial to its own shared memory; after
-// cluster.sync() every warp of every block reads the cluster's partials
-// through distributed shared memory and adds them in the same tree, so
-// every thread derives the same lo and hi with no device-memory round
-// trip: the 31 trips and the final parts are one launch. The radius and
-// every input are read from device memory, so nothing is read back and
-// a CUDA graph bakes in only the shapes.
+// range. Each trip reduces a warp's 2K sums by a butterfly that halves
+// the values exchanged at each level, then the warps' in a pairwise
+// tree; warp b sends the block's sums into block b's inbox (distributed
+// shared memory), one cluster barrier, and warp 0 of every block adds
+// its inbox's blocks in a pairwise tree, walks the K answers and hands
+// its block the new bracket and test points. So a launch takes the
+// prologue's barrier and one a trip (12 for BITS = 3, where one test
+// point a trip took 33), and none at the exit: no block reads another's
+// shared memory. The radius and every input are read from device
+// memory, so nothing is read back and a CUDA graph bakes in only the
+// shapes.
+//
+// Registers: a thread holds the 2K sums in f64 and the K test points,
+// and the compiler computes both adds of a point and selects, so a trip
+// costs a knot about 2K f64 adds. Both kernels run 512 threads (at most
+// 128 registers: BITS = 4 holds 30 sums); BITS = 3 was the faster, and
+// at 512 threads faster than at 1,024 (PERF.md).
 //
 // Bound on an H100 SXM: bytes for F2c (c, g read and x written a row, l,
 // u, w once: about 9.6 MB, 2.9 us, for 3 rows of 200,001 at 3.35 TB/s);
-// F2b reads the same inputs but x (7.2 MB, 2.1 us) and then runs 32
-// passes over shared memory with a cluster barrier each: its floor on
-// the card is the trips' barriers and f64 adds, not its bytes.
+// F2b reads the same inputs but x (7.2 MB, 2.1 us) and then runs its
+// trips over shared memory with a cluster barrier each: its floor on
+// the card is the trips' chain of barriers and f64 adds, not its bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,7 +100,9 @@ namespace cg = cooperative_groups;
 namespace folp {
 
 constexpr unsigned kTrMask = 0xffffffffu;
-constexpr int kTrips = 31;  // bisection trips on the bits of t
+constexpr int kLevels = 31;  // the bisection's levels on the bits of t
+constexpr int kPortableCluster = 8;
+constexpr int kMaxCluster = 16;  // tr_search's non-portable cluster
 
 struct TrustRegionArgs {
   const float* c;
@@ -103,6 +132,8 @@ struct TrustRegionArgs {
   int split;
   int cluster;        // blocks a row
   int staged;         // 1: (tau, a) kept in shared memory
+  int bits;           // tr_search: bisection levels a trip
+  int threads;        // tr_search: threads a block
 };
 
 // torch.clamp(v, lower, upper) on CUDA: a NaN value, then a NaN bound,
@@ -143,14 +174,20 @@ __device__ __forceinline__ float direction_of(const Inputs& v) {
 }
 
 // (tau, a) of one component: the knot, +0 where it does not move or
-// would be below zero (NaN kept), and a = (w d) d.
+// would be below zero (NaN kept), and a = (w d) d. An infinite bound
+// over a finite direction is the signed infinity that the division
+// rounds to, given without it: the division's slow path for an infinite
+// operand cost the prologue about a third of its time.
 __device__ __forceinline__ float2 knot_of(const Inputs& v) {
   const float d = direction_of(v);
   float tau = 0.f;
-  if (d > 0.f) {
-    tau = __fdiv_rn(__fsub_rn(v.upper, v.c), d);
-  } else if (d < 0.f) {
-    tau = __fdiv_rn(__fsub_rn(v.lower, v.c), d);
+  if (d > 0.f || d < 0.f) {
+    const float gap = __fsub_rn(d > 0.f ? v.upper : v.lower, v.c);
+    if (isinf(gap) && isfinite(d)) {
+      tau = signbit(gap) != signbit(d) ? -INFINITY : INFINITY;
+    } else {
+      tau = __fdiv_rn(gap, d);
+    }
   }
   if (tau <= 0.f) tau = 0.f;
   return make_float2(tau, __fmul_rn(__fmul_rn(v.weight, d), d));
@@ -236,124 +273,353 @@ __device__ __forceinline__ void slice_of(const TrustRegionArgs& p,
   *end = (int)(e < p.n ? e : p.n);
 }
 
-__global__ void __launch_bounds__(1024)
+// The bisection's test point in [lo, hi]: lo itself once the bracket
+// holds one point or none.
+__device__ __forceinline__ int test_point(int lo, int hi) {
+  return lo + ((hi - lo + 1) >> 1);
+}
+
+// The test point of node `node` (1-based, heap order: node i's children
+// 2i, the bracket below its point, and 2i + 1, the one from its point
+// up) of the bisection's decision tree from [lo, hi].
+__device__ __forceinline__ int node_point(int lo, int hi, int node) {
+  for (int b = 30 - __clz(node); b >= 0; --b) {
+    const int mid = test_point(lo, hi);
+    if ((node >> b) & 1) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return test_point(lo, hi);
+}
+
+// One level of the warp's butterfly over v[0, 2 HALF): each lane sends
+// the half it does not keep to the lane OFFSET away and adds that lane's
+// to the half it keeps, so it holds HALF values after it.
+template <int HALF, int OFFSET, int N>
+__device__ __forceinline__ void halve(double (&v)[N]) {
+  const bool upper = (threadIdx.x & OFFSET) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const double send = upper ? v[i] : v[i + HALF];
+    const double keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kTrMask, send, OFFSET);
+  }
+}
+
+// The warp's sums of P values (16 or 32) a lane, every value added in
+// one fixed tree: lane i returns the sum of value i * P / 32 (P = 16:
+// lanes 2i and 2i + 1 both hold value i).
+template <int P>
+__device__ __forceinline__ double warp_butterfly(double (&v)[P]) {
+  if constexpr (P == 32) {
+    halve<16, 16>(v);
+    halve<8, 8>(v);
+    halve<4, 4>(v);
+    halve<2, 2>(v);
+    halve<1, 1>(v);
+  } else {
+    halve<8, 16>(v);
+    halve<4, 8>(v);
+    halve<2, 4>(v);
+    halve<1, 2>(v);
+    v[0] += __shfl_xor_sync(kTrMask, v[0], 1);
+  }
+  return v[0];
+}
+
+// The sum of v[0, N) (N a power of two) in a fixed pairwise tree: log2 N
+// dependent adds where a running sum takes N.
+template <int N>
+__device__ __forceinline__ double tree_sum(double (&v)[N]) {
+#pragma unroll
+  for (int span = 1; span < N; span *= 2) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2 * span) v[i] += v[i + span];
+  }
+  return v[0];
+}
+
+// A trip's decision, from warp 0 to its block: the new bracket and
+// S, H at its lo.
+struct TripDecision {
+  int lo, hi;
+  float s_lo, h_lo;
+};
+
+template <int BITS, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 tr_search_kernel(const TrustRegionArgs p) {
+  constexpr int K = (1 << BITS) - 1;  // test points a trip
+  constexpr int V = 2 * K;            // S, then H, of each
+  constexpr int P = V <= 16 ? 16 : 32;
+  constexpr int W = THREADS / 32;
+  constexpr int TRIPS = (kLevels + BITS - 1) / BITS;
+  constexpr int UNROLL = 4;  // entries a round; a round's loads in flight
+  static_assert(P >= 6, "the prologue's six totals share warp_buf");
+  static_assert(W >= kMaxCluster, "a warp sends each block its sums");
+
   extern __shared__ float2 knots[];  // the slice's (tau, a), when staged
-  __shared__ double warp_buf[32 * 4];
-  __shared__ double totals_slot[4];
-  __shared__ double trip_slot[2][2];
+  __shared__ double warp_buf[W * P];
+  __shared__ double totals_slot[6];
+  // What every block of the cluster sends this one: its totals, and a
+  // trip's V sums (two trips' apart, so a block may send the next trip's
+  // while this one still reads the last).
+  __shared__ double totals_inbox[kMaxCluster][6];
+  __shared__ double totals[6];  // the cluster's, from warp 0
+  __shared__ double inbox[2][kMaxCluster][V];
+  __shared__ float points[K];  // the next trip's test points, from warp 0
+  __shared__ TripDecision decision;
 
   cg::cluster_group cl = cg::this_cluster();
   const unsigned rank = cl.block_rank();
   const int row = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int begin, end;
   slice_of(p, rank, &begin, &end);
 
   // The prologue: (tau, a) staged, and the row's totals: S over every
-  // finite knot, H over the infinite (or NaN) ones, the largest finite
-  // knot, and whether any g^2 is not zero.
-  double tot[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int j = begin + threadIdx.x; j < end; j += blockDim.x) {
-    const Inputs in = load_inputs(p, row, j);
-    const float2 k = knot_of(in);
-    if (p.staged) knots[j - begin] = k;
-    if (k.x < INFINITY) {
-      tot[0] += (double)__fmul_rn(__fmul_rn(k.y, k.x), k.x);
-      tot[2] = fmax(tot[2], (double)k.x);
-    } else {
-      tot[1] += (double)k.y;
-    }
-    if (__fmul_rn(in.g, in.g) != 0.f) tot[3] = 1.0;
+  // finite knot, H over the infinite (or NaN) ones, S and H at t = +0,
+  // the largest finite knot, and whether any g^2 is not zero.
+  double tot[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  Inputs next[UNROLL];  // the next round's, loaded a round ahead
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int j = begin + threadIdx.x + u * THREADS;
+    if (j < end) next[u] = load_inputs(p, row, j);
   }
-  block_to_slot<4, 2>(tot, warp_buf, totals_slot);
+  for (int j0 = begin + threadIdx.x; j0 < end; j0 += UNROLL * THREADS) {
+    Inputs in[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) in[u] = next[u];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + (UNROLL + u) * THREADS;
+      if (j < end) next[u] = load_inputs(p, row, j);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + u * THREADS;
+      if (j >= end) break;
+      const float2 k = knot_of(in[u]);
+      if (p.staged) knots[j - begin] = k;
+      const double clamped = (double)__fmul_rn(__fmul_rn(k.y, k.x), k.x);
+      if (k.x < INFINITY) {
+        tot[0] += clamped;
+        tot[4] = fmax(tot[4], (double)k.x);
+      } else {
+        tot[1] += (double)k.y;
+      }
+      if (k.x <= 0.f) {
+        tot[2] += clamped;
+      } else {
+        tot[3] += (double)k.y;
+      }
+      if (__fmul_rn(in[u].g, in[u].g) != 0.f) tot[5] = 1.0;
+    }
+  }
+  // The block's totals (block_to_slot: in totals_slot, from lane 0 of
+  // warp 0), sent to every block of the cluster by lanes 0-5; after the
+  // barrier warp 0 combines the blocks' from its own inbox in one tree
+  // and hands them to the block.
+  block_to_slot<6, 4>(tot, warp_buf, totals_slot);
+  const int blocks = (int)cl.num_blocks();
+  if (warp == 0) {
+    __syncwarp();
+    if (lane < 6) {
+      const double mine = totals_slot[lane];
+      for (int b = 0; b < blocks; ++b) {
+        cl.map_shared_rank(&totals_inbox[rank][0], b)[lane] = mine;
+      }
+    }
+  }
   cl.sync();
-  cluster_values<4, 2>(tot, totals_slot, cl);
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      tot[k] = lane < blocks ? totals_inbox[lane][k] : 0.0;
+    }
+    warp_tree<6, 4>(tot);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) totals[k] = tot[k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 6; ++k) tot[k] = totals[k];
 
   const float r = __ldg(p.radius + row);
   const float r2 = __fmul_rn(r, r);
   const float s_total = __double2float_rn(tot[0]);
   const float h_infinite = __double2float_rn(tot[1]);
-  const float tau_max = (float)tot[2];  // an f32 value, exactly
-  const bool moving = tot[3] != 0.0;
+  const float tau_max = (float)tot[4];  // an f32 value, exactly
+  const bool moving = tot[5] != 0.0;
 
-  // 31 trips on the bits of t, then the parts at the last t below r^2.
-  // Every t still to come lies in (lo, hi]: a staged knot at or below
-  // lo is clamped for good and one above hi (or not finite) never is, so
-  // each trip moves those into the thread's `base` sums and keeps the
-  // rest, in order, in the thread's slots (slot k of thread i at
-  // i + k * blockDim.x). Rows read from device memory every trip take
-  // every entry every trip.
+  // The trips. Every point still to come lies in [lo, hi + 1]: a staged
+  // knot at or below lo is clamped for good and one above hi (or not
+  // finite) never is, so each trip moves those into the thread's `base`
+  // sums and keeps the rest, in order, in the thread's slots (slot k of
+  // thread i at i + k * THREADS). Rows read from device memory every
+  // trip take every entry every trip.
   int lo = 0, hi = __float_as_int(tau_max);
-  float low_before = 0.f, high_before = 0.f;
+  float s_lo = __double2float_rn(tot[2]), h_lo = __double2float_rn(tot[3]);
   const int count = end - begin;
   int active = count > (int)threadIdx.x
-                   ? (count - (int)threadIdx.x + blockDim.x - 1) / blockDim.x
+                   ? (count - (int)threadIdx.x + THREADS - 1) / THREADS
                    : 0;
   double base[2] = {0.0, 0.0};
-  for (int trip = 0; trip <= kTrips; ++trip) {
-    const int mid = lo + ((hi - lo + 1) >> 1);
-    const float t = __int_as_float(trip < kTrips ? mid : lo);
-    double part[2] = {0.0, 0.0};
+  for (int trip = 0; trip < TRIPS; ++trip) {
+    float point[K];
+    if (trip == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        point[k] = __int_as_float(node_point(lo, hi, k + 1));
+      }
+      if (warp == 0 && lane < K) {
+        points[lane] = __int_as_float(node_point(lo, hi, lane + 1));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) point[k] = points[k];
+    }
+    double part[P];  // S of point k at k, H at K + k; zeros past V
+#pragma unroll
+    for (int v = 0; v < P; ++v) part[v] = 0.0;
     if (p.staged) {
       const float lo_t = __int_as_float(lo), hi_t = __int_as_float(hi);
       int kept = 0;
       for (int k = 0; k < active; ++k) {
-        const float2 e = knots[threadIdx.x + k * blockDim.x];
+        const float2 e = knots[threadIdx.x + k * THREADS];
         const double clamped = (double)__fmul_rn(__fmul_rn(e.y, e.x), e.x);
         if (e.x <= lo_t) {
           base[0] += clamped;
         } else if (!(e.x <= hi_t)) {
           base[1] += (double)e.y;
         } else {
-          knots[threadIdx.x + kept * blockDim.x] = e;
+          knots[threadIdx.x + kept * THREADS] = e;
           ++kept;
-          if (e.x <= t) {
-            part[0] += clamped;
-          } else {
-            part[1] += (double)e.y;
+          const double a = (double)e.y;
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            if (e.x <= point[q]) {
+              part[q] += clamped;
+            } else {
+              part[K + q] += a;
+            }
           }
         }
       }
       active = kept;
-      part[0] += base[0];
-      part[1] += base[1];
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        part[q] += base[0];
+        part[K + q] += base[1];
+      }
     } else {
-      for (int j = begin + threadIdx.x; j < end; j += blockDim.x) {
-        const float2 k = knot_of(load_inputs(p, row, j));
-        if (k.x <= t) {
-          part[0] += (double)__fmul_rn(__fmul_rn(k.y, k.x), k.x);
-        } else {
-          part[1] += (double)k.y;
+      for (int j0 = begin + threadIdx.x; j0 < end; j0 += 2 * THREADS) {
+        Inputs in[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = j0 + u * THREADS;
+          if (j < end) in[u] = load_inputs(p, row, j);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (j0 + u * THREADS >= end) break;
+          const float2 e = knot_of(in[u]);
+          const double clamped =
+              (double)__fmul_rn(__fmul_rn(e.y, e.x), e.x);
+          const double a = (double)e.y;
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            if (e.x <= point[q]) {
+              part[q] += clamped;
+            } else {
+              part[K + q] += a;
+            }
+          }
         }
       }
     }
-    double* slot = trip_slot[trip & 1];
-    block_to_slot<2, 2>(part, warp_buf, slot);
-    cl.sync();
-    cluster_values<2, 2>(part, slot, cl);
-    const float s = __double2float_rn(part[0]);
-    const float h = __double2float_rn(part[1]);
-    if (trip < kTrips) {
-      const bool below = __fadd_rn(s, __fmul_rn(__fmul_rn(t, t), h)) < r2;
-      if (below) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    } else {
-      low_before = s;
-      high_before = h;
+
+    // The block's sums: the warp's butterfly, then in warp b lane v adds
+    // value v of every warp in one pairwise tree and sends the sum to
+    // block b's inbox (every warp adds alike).
+    const double mine = warp_butterfly<P>(part);
+    constexpr int SPREAD = 32 / P;  // lanes a value
+    if (lane % SPREAD == 0) warp_buf[warp * P + lane / SPREAD] = mine;
+    __syncthreads();
+    if (warp < blocks && lane < V) {
+      double of_warps[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) of_warps[w] = warp_buf[w * P + lane];
+      cl.map_shared_rank(&inbox[trip & 1][rank][0], warp)[lane] =
+          tree_sum(of_warps);
     }
+    cl.sync();
+
+    // Warp 0: lane q < K adds point q's S and H over the cluster's
+    // blocks (its inbox, in one pairwise tree) and tests it; then every
+    // lane walks the tree down the K answers, as the bisection would one
+    // level at a time.
+    if (warp == 0) {
+      float s = 0.f, h = 0.f;
+      bool below = false;
+      if (lane < K) {
+        double of_s[kMaxCluster], of_h[kMaxCluster];
+#pragma unroll
+        for (int b = 0; b < kMaxCluster; ++b) {
+          of_s[b] = b < blocks ? inbox[trip & 1][b][lane] : 0.0;
+          of_h[b] = b < blocks ? inbox[trip & 1][b][K + lane] : 0.0;
+        }
+        s = __double2float_rn(tree_sum(of_s));
+        h = __double2float_rn(tree_sum(of_h));
+        const float t = points[lane];
+        below = __fadd_rn(s, __fmul_rn(__fmul_rn(t, t), h)) < r2;
+      }
+      const unsigned answers = __ballot_sync(kTrMask, below);
+      int node = 1, last = -1, new_lo = lo, new_hi = hi;
+#pragma unroll
+      for (int level = 0; level < BITS; ++level) {
+        const int mid = test_point(new_lo, new_hi);
+        const int up = (answers >> (node - 1)) & 1;
+        if (up) {
+          new_lo = mid;
+          last = node - 1;
+        } else {
+          new_hi = mid - 1;
+        }
+        node = 2 * node + up;
+      }
+      const float s_at = __shfl_sync(kTrMask, s, last < 0 ? 0 : last);
+      const float h_at = __shfl_sync(kTrMask, h, last < 0 ? 0 : last);
+      if (lane == 0) {
+        decision.lo = new_lo;
+        decision.hi = new_hi;
+        decision.s_lo = last < 0 ? s_lo : s_at;
+        decision.h_lo = last < 0 ? h_lo : h_at;
+      }
+      if (lane < K) {
+        points[lane] = __int_as_float(node_point(new_lo, new_hi, lane + 1));
+      }
+    }
+    __syncthreads();
+    lo = decision.lo;
+    hi = decision.hi;
+    s_lo = decision.s_lo;
+    h_lo = decision.h_lo;
   }
 
   if (rank == 0 && threadIdx.x == 0) {
     const bool any_hit =
         __fadd_rn(s_total, __fmul_rn(__fmul_rn(tau_max, tau_max),
                                      h_infinite)) >= r2;
-    float room = __fsub_rn(r2, low_before);
+    float room = __fsub_rn(r2, s_lo);
     if (room < 0.f) room = 0.f;
-    const float t_interior = sqrtf(
-        __fdiv_rn(room, high_before > 0.f ? high_before : 1.f));
+    const float t_interior =
+        sqrtf(__fdiv_rn(room, h_lo > 0.f ? h_lo : 1.f));
     float beyond = __fsub_rn(r2, s_total);
     if (beyond < 0.f) beyond = 0.f;
     const float t_beyond =
@@ -361,7 +627,8 @@ tr_search_kernel(const TrustRegionArgs p) {
     const bool degenerate = r <= 0.f || !moving;
     p.t_star[row] = degenerate ? 0.f : (any_hit ? t_interior : t_beyond);
   }
-  cl.sync();  // no block leaves while another may read its slots
+  // No barrier here: blocks write into each other's inboxes only before
+  // the last trip's barrier, and read their own.
 }
 
 __global__ void __launch_bounds__(512)
@@ -404,7 +671,6 @@ tr_solution_kernel(const TrustRegionArgs p) {
   cl.sync();  // no block leaves while rank 0 may read its slot
 }
 
-constexpr int kSearchThreads = 1024;
 constexpr int kSolutionThreads = 512;
 
 template <typename Kernel>
@@ -427,21 +693,67 @@ int launch_clusters(Kernel kernel, const TrustRegionArgs* a, int threads,
   return (int)cudaGetLastError();
 }
 
+// tr_search's kernel for a plan's bits and threads; null for another.
+using SearchKernel = void (*)(const TrustRegionArgs);
+
+inline SearchKernel search_kernel(int bits, int threads) {
+  if (bits == 3 && threads == 512) return tr_search_kernel<3, 512>;
+  if (bits == 4 && threads == 512) return tr_search_kernel<4, 512>;
+  return nullptr;
+}
+
+// The attributes a launch of `kernel` needs, set on every launch: each
+// holds for the current device only.
+inline cudaError_t search_attributes(SearchKernel kernel, int cluster,
+                                     int smem_bytes) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  if (cluster > kPortableCluster) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return cudaSuccess;
+}
+
 }  // namespace folp
 
 // F2b. `smem_bytes`: the staged slice's, 0 when not staged.
 extern "C" int folp_tr_search(const folp::TrustRegionArgs* a, int smem_bytes,
                               void* stream_ptr) {
   using namespace folp;
-  // Set on every launch: the attribute holds for the current device only.
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tr_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch_clusters(tr_search_kernel, a, kSearchThreads,
-                         (size_t)smem_bytes, (cudaStream_t)stream_ptr);
+  const SearchKernel kernel = search_kernel(a->bits, a->threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = search_attributes(kernel, a->cluster, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return launch_clusters(kernel, a, a->threads, (size_t)smem_bytes,
+                         (cudaStream_t)stream_ptr);
+}
+
+// How many clusters of `cluster` blocks of tr_search's (bits, threads)
+// kernel, each with `smem_bytes` of dynamic shared memory, the current
+// device runs at once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int folp_tr_search_clusters(int bits, int threads, int cluster,
+                                       int smem_bytes, int* clusters) {
+  using namespace folp;
+  const SearchKernel kernel = search_kernel(bits, threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = search_attributes(kernel, cluster, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 // F2c.

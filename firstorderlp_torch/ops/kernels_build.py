@@ -186,7 +186,12 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     return dll
 
 
+def library(lib: str) -> ctypes.CDLL:
+    """The loaded library `lib` (builds on first use), for an entry point
+    other than ``folp_<lib>``."""
+    return (_libs if lib in _libs else build_kernels())[lib]
+
+
 def kernel_function(lib: str):
     """The C entry point ``folp_<lib>`` (builds on first use)."""
-    libs = _libs if lib in _libs else build_kernels()
-    return getattr(libs[lib], f"folp_{lib}")
+    return getattr(library(lib), f"folp_{lib}")

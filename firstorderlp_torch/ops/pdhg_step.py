@@ -206,6 +206,7 @@ class _EpilogueArgs(ctypes.Structure):
         ("n", ctypes.c_int),
         ("m", ctypes.c_int),
         ("constant", ctypes.c_int),
+        ("aligned", ctypes.c_int),
     ]
 
 
@@ -230,6 +231,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned_mask(vectors) -> int:
+    """F1b's `aligned` argument: bit i set where vectors[i] starts at a
+    16-byte boundary (the kernel reads it 16 bytes at a time there, 4
+    elsewhere)."""
+    return sum(1 << i for i, t in enumerate(vectors)
+               if t.data_ptr() % 16 == 0)
 
 
 def _launch(lib: str, args: ctypes.Structure, device) -> None:
@@ -315,25 +324,30 @@ def trial_epilogue(f: TrialFields, x_next, dx, y_next, aty_next, dy2,
               zip(("dy2", "interaction", "dx2"), sums))):
         _check(name, t, dtype, ())
     device = f.x.device
-    vec = torch.empty(4 * n + 3 * m + 3, dtype=torch.float32, device=device)
+    # each output vector at a multiple of 4 floats: 16-byte aligned
+    sizes = (n, m, n, m, n, n, m, 3)
+    starts = np.cumsum([0, *(-(-s // 4) * 4 for s in sizes[:-1])])
+    vec = torch.empty(int(starts[-1]) + 3, dtype=torch.float32,
+                      device=device)
     counters = torch.empty(4, dtype=torch.int64, device=device)
     kkt = torch.empty((), dtype=torch.float64, device=device)
     flag = torch.empty((), dtype=torch.bool, device=device)
-    cuts = np.cumsum([0, n, m, n, m, n, n, m, 3])
     x_o, y_o, dx_o, dy_o, aty_o, sx_o, sy_o, scal = (
-        vec[a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+        vec[a:a + s] for a, s in zip(starts, sizes))
 
     def ptr(t: Optional[torch.Tensor]) -> int:
         return 0 if t is None else t.data_ptr()
 
     shrink, grow = -float(reduction_exponent), -float(growth_exponent)
+    inputs = (x_next, dx, y_next, aty_next, f.x, f.y, f.delta_x, f.delta_y,
+              f.aty, f.sum_x, f.sum_y)
     args = _EpilogueArgs(
         *(ptr(t) for t in (
             x_next, dx, y_next, aty_next,
             *((None,) * 3 if constant else sums), active, *fields, x_o,
             y_o, dx_o, dy_o, aty_o, sx_o, sy_o, counters, scal, kkt, flag)),
         shrink, grow, pow_route(shrink), pow_route(grow), n, m,
-        int(constant))
+        int(constant), aligned_mask(inputs))
     _launch("trial_epilogue", args, device)
     return dataclasses.replace(
         f, x=x_o, y=y_o, delta_x=dx_o, delta_y=dy_o, aty=aty_o, sum_x=sx_o,

@@ -1,7 +1,8 @@
 """The f32 exact trust-region solve (trust_region._exact_trust_region)
 as two kernels, ``csrc/trust_region_search.cu``: F2b ``tr_search``, the
-prologue (F2a) and the 31-trip knot search in one launch, and F2c
-``tr_solution``, the solution and its value sums.
+prologue (F2a) and the knot search in one launch (the 31-level
+bisection, SEARCH_BITS levels a trip), and F2c ``tr_solution``, the
+solution and its value sums.
 
 The JAX package has no Pallas kernel here: under ``jit`` XLA fuses its
 trust region (``firstorderlp_tpu/trust_region.py:42``
@@ -32,7 +33,7 @@ device raises. Every launch adds one to the wrapper's entry in
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,11 +42,20 @@ from .pdhg_step import _on_cpu
 
 KNOT_TRIPS = 31  # bisection trips on the float bits of t
 MAX_CLUSTER = 8  # blocks a row: the portable cluster size
+WIDE_CLUSTER = 16  # tr_search's non-portable size, where the card runs it
 # Dynamic shared memory a tr_search block may stage (tau, a) in: 227 KB
-# less room for the kernel's static arrays.
-STAGE_BYTES = 227 * 1024 - 2048
+# less room for the kernel's static arrays (under 13 KB: the warps' and
+# the cluster's blocks' 2K sums of a trip, BITS = 4).
+STAGE_BYTES = 227 * 1024 - 14 * 1024
 # A block count that fills the card's 132 SMs about twice over.
 TARGET_BLOCKS = 264
+# tr_search's bisection levels a trip (K = 2^BITS - 1 test points) and
+# threads a block, as csrc/trust_region_search.cu instantiates them
+# (the 2K f64 sums a thread holds bound the threads: registers), and the
+# one the plans take, the fastest measured (PERF.md).
+SEARCH_VARIANTS = ((3, 512), (4, 512))
+SEARCH_BITS = 3
+SEARCH_THREADS = 512
 
 
 class Prologue(NamedTuple):
@@ -137,6 +147,13 @@ def tr_search_plain(p: Prologue, radius) -> torch.Tensor:
         lo = torch.where(below, mid, lo)
         hi = torch.where(below, hi, mid - 1)
     low_before, high_before = _r2_parts(p, lo.view(torch.float32))
+    return t_star_from(p, radius, low_before, high_before)
+
+
+def t_star_from(p: Prologue, radius, low_before, high_before):
+    """t* from the prologue and (S, H) at the search's last t below r^2:
+    the tail of tr_search_plain, which the kernel computes alike."""
+    target_r2 = radius * radius
     # Does any finite knot reach r^2?  r^2 at the last finite knot is
     # s_total + tau_max^2 h_infinite.
     any_hit = (p.s_total + p.tau_max * p.tau_max * p.h_infinite
@@ -189,13 +206,20 @@ class _TrustRegionArgs(ctypes.Structure):
         "c", "g", "lower", "upper", "weight", "radius", "t_star",
         "solution", "sums")] + [(name, ctypes.c_int) for name in (
             *(f"{v}_{k}_stride" for v in _INPUTS for k in ("row", "col")),
-            "rows", "n", "split", "cluster", "staged")]
+            "rows", "n", "split", "cluster", "staged", "bits", "threads")]
 
 
 class SearchPlan(NamedTuple):
     cluster: int  # blocks a row
     staged: bool  # the slice's (tau, a) in shared memory
     smem_bytes: int
+    bits: int = SEARCH_BITS  # bisection levels a trip
+    threads: int = SEARCH_THREADS  # a block
+
+    @property
+    def trips(self) -> int:
+        """The trips: ceil(31 / bits)."""
+        return -(-KNOT_TRIPS // self.bits)
 
 
 def solution_cluster(rows: int) -> int:
@@ -204,17 +228,73 @@ def solution_cluster(rows: int) -> int:
     return min(MAX_CLUSTER, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
 
 
-def search_plan(rows: int, n: int) -> SearchPlan:
-    """tr_search's launch for `rows` rows of `n` entries: the fewest
-    blocks a row whose slices fit in shared memory (8 bytes an entry),
-    raised to tr_solution's count for few rows; a row longer than
-    MAX_CLUSTER slices can stage is read from device memory every
-    trip."""
+def search_plan(rows: int, n: int, max_cluster: int = MAX_CLUSTER,
+                bits: int = SEARCH_BITS,
+                threads: int = SEARCH_THREADS) -> SearchPlan:
+    """tr_search's launch for `rows` rows of `n` entries with clusters of
+    at most `max_cluster` blocks (search_cluster_limit: 16 where the
+    card runs them, else 8): the fewest blocks a row whose slices fit in
+    shared memory (8 bytes an entry), raised to TARGET_BLOCKS blocks in
+    all for few rows; a row longer than `max_cluster` slices can stage
+    is read from device memory every trip."""
+    if (bits, threads) not in SEARCH_VARIANTS:
+        raise ValueError(f"no tr_search kernel for {bits} bits a trip and "
+                         f"{threads} threads; have {SEARCH_VARIANTS}")
     need = max(1, -(-8 * n // STAGE_BYTES))
-    if need > MAX_CLUSTER:
-        return SearchPlan(MAX_CLUSTER, False, 0)
-    cluster = max(solution_cluster(rows), need)
-    return SearchPlan(cluster, True, 8 * (-(-n // cluster)))
+    if need > max_cluster:
+        return SearchPlan(max_cluster, False, 0, bits, threads)
+    wanted = min(max_cluster, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
+    cluster = max(wanted, need)
+    return SearchPlan(cluster, True, 8 * (-(-n // cluster)), bits, threads)
+
+
+# (device index, bits, threads) -> {cluster size: clusters co-resident}
+_ACTIVE_CLUSTERS: dict = {}
+
+
+def active_clusters(device, bits: int = SEARCH_BITS,
+                    threads: int = SEARCH_THREADS) -> dict:
+    """{8: a, 16: b}: how many clusters of 8 and of 16 tr_search blocks
+    (the `bits`, `threads` kernel, each block staging STAGE_BYTES) the
+    CUDA `device` runs at once, by cudaOccupancyMaxActiveClusters;
+    queried once per device and kernel, and cached. Raises when the
+    query fails."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        index = torch.cuda.current_device()
+        key = (index, bits, threads)
+        if key not in _ACTIVE_CLUSTERS:
+            query = kernels_build.library("tr_search").folp_tr_search_clusters
+            query.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            query.restype = ctypes.c_int
+            found = {}
+            for cluster in (MAX_CLUSTER, WIDE_CLUSTER):
+                count = ctypes.c_int(0)
+                err = query(bits, threads, cluster, STAGE_BYTES,
+                            ctypes.byref(count))
+                if err != 0:
+                    raise RuntimeError(
+                        f"tr_search cluster query ({cluster} blocks) "
+                        f"failed: CUDA error {err}")
+                found[cluster] = count.value
+            _ACTIVE_CLUSTERS[key] = found
+    return dict(_ACTIVE_CLUSTERS[key])
+
+
+def search_cluster_limit(device, bits: int = SEARCH_BITS,
+                         threads: int = SEARCH_THREADS) -> int:
+    """WIDE_CLUSTER where `device` co-schedules a cluster of that many
+    tr_search blocks, else MAX_CLUSTER (the portable size)."""
+    wide = active_clusters(device, bits, threads)[WIDE_CLUSTER] >= 1
+    return WIDE_CLUSTER if wide else MAX_CLUSTER
+
+
+def device_search_plan(rows: int, n: int, device, bits: int = SEARCH_BITS,
+                       threads: int = SEARCH_THREADS) -> SearchPlan:
+    """search_plan with the CUDA `device`'s cluster limit: tr_search's
+    plan on that card."""
+    return search_plan(rows, n, search_cluster_limit(device, bits, threads),
+                       bits, threads)
 
 
 def _strided(name: str, t: torch.Tensor, rows: int, n: int):
@@ -240,7 +320,7 @@ def _strided(name: str, t: torch.Tensor, rows: int, n: int):
 
 
 def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
-          split, cluster, staged):
+          split, cluster, staged, bits=0, threads=0):
     rows, n = c.shape
     if not 0 < rows <= 65535:
         raise ValueError(f"{rows} rows: 1 to 65535 a launch")
@@ -261,7 +341,7 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
         *(ptr(t) for t, _, _ in inputs), ptr(radius), ptr(t_star),
         ptr(solution), ptr(sums),
         *(stride for _, *strides in inputs for stride in strides),
-        rows, n, split, cluster, int(staged))
+        rows, n, split, cluster, int(staged), bits, threads)
     # the tensors the arguments point into, alive until the launch
     return args, (radius, t_star, *(t for t, _, _ in inputs))
 
@@ -276,17 +356,24 @@ def _launch(lib: str, args: ctypes.Structure, device, *extra) -> None:
     routed.LAUNCHES[lib] += 1
 
 
-def tr_search(c, g, lower, upper, weight, radius) -> torch.Tensor:
+def tr_search(c, g, lower, upper, weight, radius,
+              plan: Optional[SearchPlan] = None) -> torch.Tensor:
     """F2b (with F2a): tr_search_plain(tr_prologue_plain(...), radius)'s
-    contract; on CUDA one launch, t* a new (B,) tensor."""
+    contract; on CUDA one launch, t* a new (B,) tensor. `plan` defaults
+    to device_search_plan's (another one, for a test or a timing, must
+    stage no more than its clusters hold)."""
     if _on_cpu(c, g, lower, upper, weight, radius):
         return tr_search_plain(tr_prologue_plain(c, g, lower, upper, weight),
                                radius)
     rows, n = c.shape
-    plan = search_plan(rows, n)
+    if plan is None:
+        plan = device_search_plan(rows, n, c.device)
+    elif plan.staged and plan.cluster * plan.smem_bytes < 8 * n:
+        raise ValueError(f"{plan} stages fewer than the row's {n} entries")
     t_star = torch.empty(rows, dtype=torch.float32, device=c.device)
     args, keep = _args(c, g, lower, upper, weight, radius, t_star, None,
-                       None, n, plan.cluster, plan.staged)
+                       None, n, plan.cluster, plan.staged, plan.bits,
+                       plan.threads)
     _launch("tr_search", args, c.device, plan.smem_bytes)
     del keep
     return t_star

@@ -87,6 +87,7 @@ from firstorderlp_torch.generators import generate_pagerank_lp
 from firstorderlp_torch.ops import lanes as lane_ops
 from firstorderlp_torch.ops import routed
 from firstorderlp_torch.ops.compare_kernels import repeat_differs, tickets_of
+from firstorderlp_torch.ops.trust_region_search import SEARCH_VARIANTS
 
 pytestmark = pytest.mark.cuda
 
@@ -1525,6 +1526,68 @@ def test_trial_epilogue_scalars_are_bitwise_their_plain_version(cuda,
                 f"total {total}, sums {(dy2, inter, dx2)}")
 
 
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("problem", ["bounded", "pagerank"])
+def test_trial_epilogue_reads_views_at_any_offset(cuda, problem, rule):
+    """F1b reads 16 bytes at a time from an input that starts on a
+    16-byte boundary and 4 at a time from one that does not, and the
+    last n mod 4 and m mod 4 entries alone (pagerank: m = 1,001). Over
+    the states of tests/trial_cases.py, with its eleven input vectors
+    copied into views at element offsets 1-3 (each vector its own, so
+    aligned and unaligned inputs mix): bitwise the plain version on the
+    same views and the contiguous inputs' result, and every output
+    vector 16-byte aligned."""
+    from firstorderlp_torch.models import pdhg
+    from firstorderlp_torch.ops import pdhg_step
+
+    prep, config, states = trial_case_states(cuda, problem, rule, "csr")
+    p = prep.bundle.scaled
+    policy = config.step_policy
+    exponents = ((0.0, 0.0) if rule == "constant" else
+                 (policy.reduction_exponent, policy.growth_exponent))
+    names = ("x", "y", "delta_x", "delta_y", "aty", "sum_x", "sum_y")
+
+    def at_offset(t, offset):
+        buf = torch.full((t.numel() + 4,), float("nan"), device=cuda)
+        view = buf[offset:offset + t.numel()]
+        view.copy_(t)
+        return view
+
+    for label, state, start in states:
+        x_next, z, dx, sigma, active = pdhg_step.primal_step(
+            *primal_step_inputs(p, config, state, start, rule))
+        if rule == "constant":
+            y_next, aty_next = pdhg._next_dual_at(
+                p, z, state.current_dual_solution, sigma)
+            sums = (None, None, None)
+        else:
+            op = p.constraint_matrix
+            y_next, layout_y, dy2 = op.mv_dual_step(
+                z, state.current_dual_solution, p.right_hand_side,
+                p.is_equality_f32, sigma)
+            aty_next, inter, dx2 = op.rmv_stats(
+                layout_y, dx, state.current_dual_product)
+            sums = (dy2, inter, dx2)
+        fields = pdhg._trial_fields(state)
+        tail = (*sums, active, *exponents, rule == "constant")
+        whole = pdhg_step.trial_epilogue(fields, x_next, dx, y_next,
+                                         aty_next, *tail)
+        for shift in (1, 2, 3):
+            vectors = [at_offset(t, (shift + i) % 4) for i, t in enumerate(
+                (x_next, dx, y_next, aty_next,
+                 *(getattr(fields, name) for name in names)))]
+            moved = dataclasses.replace(fields, **dict(zip(names,
+                                                           vectors[4:])))
+            mask = pdhg_step.aligned_mask(vectors)
+            assert 0 < mask < 2 ** 11 - 1, mask
+            got = pdhg_step.trial_epilogue(moved, *vectors[:4], *tail)
+            assert_same_bits(got, pdhg_step.trial_epilogue_plain(
+                moved, *vectors[:4], *tail), f"{label} shift {shift}")
+            assert_same_bits(got, whole, f"{label} shift {shift}: whole")
+            for name in names:
+                assert getattr(got, name).data_ptr() % 16 == 0, name
+
+
 def test_primal_step_keeps_torch_clamp_nan_rules(cuda):
     """F1a against its plain version where x, the bounds, c and A'y hold
     NaN, infinities and signed zeros, and where the bounds cross: x+, z
@@ -1651,11 +1714,13 @@ def test_a_trial_is_captured_without_synchronizing(cuda, rule, layout):
 # ---------------------------------------------------------------------------
 
 # (rows, n, bounds): the 100k-node LP's restart scheme (3 x 200,001,
-# bounds (N,)), the 128-lane fleet's (384 x 40,001, bounds (B, N)), and
-# rows too long to stage (read from device memory every trip)
+# bounds (N,)), the 128-lane fleet's (384 x 40,001, bounds (B, N)), rows
+# past what 8 blocks stage (staged by 16-block clusters), and a row too
+# long to stage (read from device memory every trip)
 TR_SHAPES = {"main_path": (3, 200_001, "shared"),
              "fleet": (384, 40_001, "rows"),
-             "unstaged": (2, 250_000, "shared")}
+             "past_eight_blocks": (2, 250_000, "shared"),
+             "unstaged": (1, 500_000, "shared")}
 
 
 def tr_on_card(args, cuda, split):
@@ -1706,13 +1771,60 @@ def test_trust_region_kernels_at_the_paths_shapes(cuda, shape):
     from firstorderlp_torch.ops import trust_region_search as trs
 
     rows, n, bounds = TR_SHAPES[shape]
-    plan = trs.search_plan(rows, n)
-    assert plan.staged == (shape != "unstaged")
+    plan = trs.device_search_plan(rows, n, cuda)
+    wide = plan.cluster == trs.WIDE_CLUSTER
+    assert plan.staged == (shape != "unstaged" and (
+        wide or shape != "past_eight_blocks"))
     args = tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
     got, want = tr_on_card(args, cuda, n // 2)
     assert_bitwise_tuple(got, want, shape)
     again, _ = tr_on_card(args, cuda, n // 2)
     assert_bitwise_tuple(again, got, f"{shape} again")
+
+
+@pytest.mark.parametrize("variant", SEARCH_VARIANTS)
+def test_tr_search_plans_give_the_plain_bits(cuda, variant):
+    """Every tr_search kernel (bits a trip, threads a block) under 8- and
+    16-block plans, staged and not, at the main path's shape and on the
+    cases with repeated knots and infinite bounds: t* bitwise the plain
+    version's, the same bits on a second launch. The card co-schedules
+    16-block clusters (cudaOccupancyMaxActiveClusters, cached per
+    device)."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    bits, threads = variant
+    clusters = trs.active_clusters(cuda, bits, threads)
+    assert clusters[trs.MAX_CLUSTER] >= 1
+    assert trs.search_cluster_limit(cuda, bits, threads) == (
+        trs.WIDE_CLUSTER if clusters[trs.WIDE_CLUSTER] >= 1
+        else trs.MAX_CLUSTER)
+    assert trs.active_clusters(cuda, bits, threads) == clusters
+    for case, rows, n in (("mixed", 3, 200_001),
+                          ("duplicate_knots", 3, 20_000),
+                          ("infinite_bounds", 3, 20_000)):
+        c, g, lower, upper, weight, radius = (
+            torch.as_tensor(v, device=cuda)
+            for v in tc.case_inputs(case, "shared", rows=rows, n=n, seed=9))
+        want = trs.tr_search_plain(
+            trs.tr_prologue_plain(c, g, lower, upper, weight), radius)
+        for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
+            if clusters[limit] < 1:
+                continue
+            staged = trs.search_plan(rows, n, limit, bits, threads)
+            assert staged.staged and staged.cluster == limit
+            for plan in (staged, staged._replace(staged=False,
+                                                 smem_bytes=0)):
+                routed.reset_launch_counts()
+                got = trs.tr_search(c, g, lower, upper, weight, radius,
+                                    plan=plan)
+                again = trs.tr_search(c, g, lower, upper, weight, radius,
+                                      plan=plan)
+                assert routed.LAUNCHES["tr_search"] == 2
+                label = f"{case} {plan}"
+                assert_same_bits(got, want, label)
+                assert_same_bits(again, got, f"{label} again")
 
 
 @pytest.mark.parametrize("case", ["mixed", "duplicate_knots",
@@ -1748,20 +1860,30 @@ def test_trust_region_kernels_take_strided_inputs(cuda):
 
 
 def test_trust_region_kernels_launch_on_a_second_card(cuda):
-    """The staged search at the main path's shape takes about 200 KB of
-    shared memory a block, which each device must allow: launches on
-    cuda:0, cuda:1 and cuda:0 again in one process give the plain
-    versions' bits on each card."""
+    """The staged search at the main path's shape takes about 100 KB of
+    shared memory a block (200 KB with 8-block clusters) and 16-block
+    clusters, which each device must allow (both attributes hold per
+    device, so they are set on every launch, and the cluster query is
+    cached per device): launches on cuda:0, cuda:1 and cuda:0 again in
+    one process give the plain versions' bits on each card, with the
+    plan of each card's own query."""
     import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
 
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     rows, n, bounds = TR_SHAPES["main_path"]
     args = tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
     for index in (0, 1, 0):
-        got, want = tr_on_card(args, torch.device("cuda", index), n // 2)
+        device = torch.device("cuda", index)
+        plan = trs.device_search_plan(rows, n, device)
+        assert plan.staged and plan.cluster == trs.search_cluster_limit(
+            device)
+        got, want = tr_on_card(args, device, n // 2)
         assert got[0].device.index == index
-        assert_bitwise_tuple(got, want, f"cuda:{index}")
+        assert_bitwise_tuple(got, want, f"cuda:{index} {plan}")
+    assert {key[0] for key in trs._ACTIVE_CLUSTERS} >= {0, 1}
 
 
 def test_trust_region_wrappers_reject_bad_inputs(cuda):

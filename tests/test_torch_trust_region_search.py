@@ -410,21 +410,122 @@ def test_the_cpu_route_launches_nothing():
     assert not any(routed.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("rows,n,want", [
-    (3, 200_001, trs.SearchPlan(8, True, 8 * 25_001)),  # 100k nodes
-    (384, 40_001, trs.SearchPlan(2, True, 8 * 20_001)),  # the fleet
-    (2, 50, trs.SearchPlan(8, True, 8 * 7)),
-    (3, 2_000_001, trs.SearchPlan(8, False, 0)),  # 1M nodes
-    (1, 0, trs.SearchPlan(8, True, 0)),
+def plan(cluster, staged, smem_bytes):
+    return trs.SearchPlan(cluster, staged, smem_bytes, trs.SEARCH_BITS,
+                          trs.SEARCH_THREADS)
+
+
+@pytest.mark.parametrize("rows,n,max_cluster,want", [
+    (3, 200_001, 16, plan(16, True, 8 * 12_501)),  # 100k nodes
+    (3, 200_001, 8, plan(8, True, 8 * 25_001)),
+    (384, 40_001, 16, plan(2, True, 8 * 20_001)),  # the fleet
+    (384, 40_001, 8, plan(2, True, 8 * 20_001)),
+    (2, 250_000, 16, plan(16, True, 8 * 15_625)),  # past 8 blocks' stage
+    (2, 250_000, 8, plan(8, False, 0)),
+    (1, 436_224, 16, plan(16, True, 8 * 27_264)),  # 16 full slices
+    (1, 436_225, 16, plan(16, False, 0)),
+    (2, 50, 16, plan(16, True, 8 * 4)),
+    (2, 50, 8, plan(8, True, 8 * 7)),
+    (3, 2_000_001, 16, plan(16, False, 0)),  # 1M nodes
+    (3, 2_000_001, 8, plan(8, False, 0)),
+    (1, 0, 16, plan(16, True, 0)),
 ])
-def test_search_plans(rows, n, want):
-    plan = trs.search_plan(rows, n)
-    assert plan == want
-    if plan.staged:
-        assert plan.smem_bytes <= trs.STAGE_BYTES
-        assert plan.cluster * plan.smem_bytes >= 8 * n
-    assert 1 <= plan.cluster <= trs.MAX_CLUSTER
+def test_search_plans(rows, n, max_cluster, want):
+    got = trs.search_plan(rows, n, max_cluster)
+    assert got == want
+    if got.staged:
+        assert got.smem_bytes <= trs.STAGE_BYTES
+        assert got.cluster * got.smem_bytes >= 8 * n
+    assert 1 <= got.cluster <= max_cluster <= trs.WIDE_CLUSTER
     assert trs.solution_cluster(rows) <= trs.MAX_CLUSTER
+    assert got.trips == -(-31 // got.bits)
+    for bits, threads in trs.SEARCH_VARIANTS:
+        other = trs.search_plan(rows, n, max_cluster, bits, threads)
+        assert other == want._replace(bits=bits, threads=threads)
+    with pytest.raises(ValueError):
+        trs.search_plan(rows, n, max_cluster, 5, 512)
+
+
+def heap_points(lo, hi, bits):
+    """The test points of the bisection's next `bits` levels from
+    [lo, hi] in heap order (node i's children 2i, below its point, and
+    2i + 1, from its point up), as the kernel's node_point gives them."""
+    points = []
+    for node in range(1, 2 ** bits):
+        a, b = lo, hi
+        for bit in bin(node)[3:]:
+            mid = a + ((b - a + 1) >> 1)
+            a, b = (mid, b) if bit == "1" else (a, mid - 1)
+        points.append(a + ((b - a + 1) >> 1))
+    return points
+
+
+def k_way_t_star(p, radius, bits):
+    """A torch model of tr_search's K-way search (K = 2^bits - 1) with
+    the plain version's f64 sums: ceil(31 / bits) trips, each testing the
+    K heap points at once, then walking down their answers; S and H at
+    the final lo are those of the last point the walk went above, or
+    S(+0) and H(+0); t* from them as the plain version's tail."""
+    target = radius * radius
+    lo = torch.zeros_like(p.tau_max, dtype=torch.int32)
+    hi = p.tau_max.contiguous().view(torch.int32)
+    s_lo, h_lo = trs._r2_parts(p, torch.zeros_like(p.tau_max))
+    rows = torch.arange(lo.shape[0])
+    for _ in range(-(-trs.KNOT_TRIPS // bits)):
+        points = heap_points(lo, hi, bits)
+        sums = [trs._r2_parts(p, q.view(torch.float32)) for q in points]
+        s = torch.stack([s for s, _ in sums])
+        h = torch.stack([h for _, h in sums])
+        t = torch.stack(points).view(torch.float32)
+        below = s + t * t * h < target
+        node = torch.ones_like(lo, dtype=torch.int64)
+        for _ in range(bits):
+            mid = lo + ((hi - lo + 1) >> 1)
+            up = below[node - 1, rows]
+            s_lo = torch.where(up, s[node - 1, rows], s_lo)
+            h_lo = torch.where(up, h[node - 1, rows], h_lo)
+            lo = torch.where(up, mid, lo)
+            hi = torch.where(up, hi, mid - 1)
+            node = 2 * node + up.long()
+    return trs.t_star_from(p, radius, s_lo, h_lo)
+
+
+def repeated_knot_rows(seed, rows=6, n=300):
+    """Rows whose knots repeat (bounds and steps from small sets), with
+    frozen components (+0 knots), infinite bounds and radii from 0 to
+    past every knot."""
+    rng = np.random.default_rng(seed)
+    lower = -rng.choice([0.5, 1.0, 2.0, np.inf], (rows, n))
+    upper = rng.choice([0.5, 1.0, 2.0, np.inf], (rows, n))
+    c = np.where(rng.random((rows, n)) < 0.2, lower, 0.0)
+    c = np.where(np.isinf(c), 0.0, c)
+    g = rng.choice([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], (rows, n))
+    weight = rng.choice([0.5, 1.0, 2.0], (rows, n))
+    radius = np.concatenate([[0.0, 1e-6], rng.uniform(0.01, 30.0, rows - 3),
+                             [1e6]])
+    return [torch.as_tensor(np.asarray(v, np.float32))
+            for v in (c, g, lower, upper, weight, radius)]
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", sorted({b for b, _ in trs.SEARCH_VARIANTS}))
+def test_k_way_search_gives_the_bisection_bits(bits):
+    """The kernel's search, modelled with the plain version's sums, ends
+    on the bisection's lo with its S and H, so t* is tr_search_plain's
+    bit for bit: on every case of tests/trust_region_cases.py with both
+    bound shapes, and on seeded rows with repeated knots, +0 knots and
+    infinite bounds."""
+    inputs = [case_inputs(case, bounds, seed=20 + CASES.index(case))
+              for case in CASES for bounds in BOUNDS]
+    inputs = [torch_args(args) for args in inputs]
+    inputs += [repeated_knot_rows(seed) for seed in range(8)]
+    for args in inputs:
+        p = trs.tr_prologue_plain(*args[:5])
+        assert same_bits(k_way_t_star(p, args[5], bits),
+                         trs.tr_search_plain(p, args[5]))
 
 
 def test_bound_strides_copy_only_what_the_kernel_cannot_read():
