@@ -40,18 +40,18 @@ Phases, each printing one JSON line:
    given --parent, both kernels and the parent's in turns;
    kernels_trust_region: the f32 exact trust region's kernels
    (ops/trust_region_search.py), F2b tr_search (the prologue F2a and the
-   knot search, 8 trips of 15 test points, one launch) and F2c
-   tr_solution, at the restart scheme's shape (3 rows over the scaled
+   knot search, 11 trips of 7 test points, SEARCH_BITS = 3: one launch)
+   and F2c tr_solution, at the restart scheme's shape (3 rows over the scaled
    LP's primal and dual bounds), the 128-lane fleet's (384 rows of
    40,001, bounds a row) and one row of 300,000 (past what 8-block
    clusters stage), inputs made with numpy: t*, the solution and the
    split sums bitwise equal to the plain versions' and to a second
-   launch, the launch plan (cluster, staged or not, shared memory, bits
-   a trip, threads) and F2b's device time at each shape, every tr_search
-   kernel under 8- and 16-block plans timed in turns (with the
-   parent's, given --parent), times (CUDA events, device time and
-   kernels a call, the plain versions') and the bytes bound; the line
-   before it (kernels_trust_region_plan) prints the search's bits, K,
+   launch, the launch plan (cluster, staged or not, shared memory) and
+   F2b's device time at each shape (given --parent, beside the parent's
+   tr_search in turns at each shape), tr_search under 8- and 16-block
+   plans timed in turns, times (CUDA events, device time and kernels a
+   call, the plain versions') and the bytes bound; the line before it
+   (kernels_trust_region_plan) prints the search's bits, K, trips,
    threads, the card's cluster limit and its co-resident clusters;
    kernels_eval_stats: an evaluation's statistics kernels
    (ops/eval_stats.py), F2d stats_point, F2e stats_primal and F2f
@@ -3438,11 +3438,11 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
     40,001, bounds (B, N)) and one row of 300,000 (past the 230,400
     entries that 8-block clusters stage), inputs made with numpy from
     seed 2: t*, the solution and the sums bitwise the plain versions',
-    twice the same bits, F2b's device time and plan at each shape; at
-    the main path's shape every tr_search kernel (bits a trip, threads)
-    under 8- and 16-block plans, bitwise the plain version and timed in
-    turns, with `parent_dir`'s tr_search beside them, and F2c's and
-    the plain versions' times and the bytes bounds."""
+    twice the same bits, F2b's device time and plan at each shape, and
+    `parent_dir`'s tr_search beside it in turns; at the main path's
+    shape tr_search under 8- and 16-block plans, bitwise the plain
+    version and timed in turns, and F2c's and the plain versions' times
+    and the bytes bounds."""
     from firstorderlp_torch.ops import probe_routed
     from firstorderlp_torch.ops import trust_region_search as trs
 
@@ -3468,10 +3468,12 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                                        long_upper, dev, radii=(0.7,)),
     }
     search = {"bits": trs.SEARCH_BITS, "K": 2 ** trs.SEARCH_BITS - 1,
-              "threads": trs.SEARCH_THREADS,
+              "trips": trs.SEARCH_TRIPS, "threads": trs.SEARCH_THREADS,
               "cluster_limit": trs.search_cluster_limit(dev),
               "active_clusters": trs.active_clusters(dev)}
     emit({"phase": "kernels_trust_region_plan", "ok": True, **search})
+    ptrs = (compare.package_module("ops.trust_region_search", parent_dir)
+            if parent_dir else None)
     variants, shape_times, timed_args = [], {}, None
     for label, (c, g, lower, upper, weight, radius) in shapes.items():
         rows, n = c.shape
@@ -3497,6 +3499,17 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
             "ms": time_ms(call),
             "bytes": tr_search_bytes(rows, n, lower.shape[0]
                                      if lower.dim() == 2 else 1)}
+        if ptrs is not None:
+            parent_call = (lambda c=c, g=g, lower=lower, upper=upper,
+                           weight=weight, radius=radius: ptrs.tr_search(
+                               c, g, lower, upper, weight, radius))
+            parent_bits = states_equal(parent_call(), plain_t)
+            turns = probe_routed.in_turns({"this": call,
+                                           "parent": parent_call})
+            shape_times[label]["in_turns"] = {
+                "this": probe_routed.turn_summary(turns["this"]),
+                "parent": {**probe_routed.turn_summary(turns["parent"]),
+                           "bitwise_equal": parent_bits}}
         variants.append({
             "shape": label, "rows": rows, "n": n,
             "bounds": list(lower.shape),
@@ -3504,8 +3517,7 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
             "solution_bitwise": states_equal(outs[0][1:], plain[1:]),
             "repeat_bitwise": states_equal(outs[0], outs[1]),
             "cluster": plan.cluster, "staged": plan.staged,
-            "smem_bytes": plan.smem_bytes, "bits": plan.bits,
-            "threads": plan.threads, "trips": plan.trips,
+            "smem_bytes": plan.smem_bytes,
             "solution_cluster": trs.solution_cluster(rows),
             "tr_search_device_ms": dev_ms,
         })
@@ -3523,27 +3535,18 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
     tries, calls = [], {}
     want = trs.tr_search_plain(trs.tr_prologue_plain(
         c, g, lower, upper, weight), radius)
-    for bits, threads in trs.SEARCH_VARIANTS:
-        for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
-            if trs.active_clusters(dev, bits, threads)[limit] < 1:
-                continue
-            plan = trs.search_plan(rows, n, limit, bits, threads)
-            key = f"bits{bits}_threads{threads}_cluster{plan.cluster}"
-            calls[key] = (lambda plan=plan: trs.tr_search(
-                c, g, lower, upper, weight, radius, plan=plan))
-            tries.append({"key": key, **plan._asdict(),
-                          "bitwise": states_equal(calls[key](), want),
-                          "active_clusters": trs.active_clusters(
-                              dev, bits, threads)})
+    for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
+        if trs.active_clusters(dev)[limit] < 1:
+            continue
+        plan = trs.search_plan(rows, n, limit)
+        key = f"cluster{plan.cluster}"
+        calls[key] = (lambda plan=plan: trs.tr_search(
+            c, g, lower, upper, weight, radius, plan=plan))
+        tries.append({"key": key, **plan._asdict(),
+                      "bitwise": states_equal(calls[key](), want)})
     if not all(t["bitwise"] for t in tries):
         fail("kernels_trust_region", f"a tr_search plan differs from the "
                                      f"plain version: {tries}")
-    parent_bits = None
-    if parent_dir:
-        ptrs = compare.package_module("ops.trust_region_search", parent_dir)
-        calls["parent"] = lambda: ptrs.tr_search(c, g, lower, upper, weight,
-                                                 radius)
-        parent_bits = states_equal(calls["parent"](), want)
     turns = {key: probe_routed.turn_summary(got) for key, got in
              probe_routed.in_turns(calls).items()}
     for t in tries:
@@ -3586,8 +3589,8 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
             row.update({"search": search, "shapes": shape_times,
                         "tries": tries})
             if parent_dir:
-                row["parent"] = {**turns["parent"],
-                                 "bitwise_equal": parent_bits}
+                row["parent"] = shape_times["main_path"]["in_turns"][
+                    "parent"]
         rows_out.append(row)
     return rows_out, variants
 

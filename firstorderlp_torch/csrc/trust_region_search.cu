@@ -11,8 +11,8 @@
 //     once from c, g, l, u, w; the row's totals; the 31-level bisection
 //     on the float bits of t for the segment that holds r^2, where
 //     r^2(t) = S(t) + t^2 H(t), S(t) = sum over tau <= t of (a tau) tau
-//     and H(t) = sum of a over the rest, taken BITS levels a trip; then
-//     t* on that segment, 0 for a zero radius or g = 0;
+//     and H(t) = sum of a over the rest, taken kSearchBits levels a trip;
+//     then t* on that segment, 0 for a zero radius or g = 0;
 //   F2c tr_solution: x = clamp(c + t* d, l, u) and the sums of
 //     g (x - c) over the columns [0, split), [split, n) and all.
 //
@@ -35,15 +35,15 @@
 // about 2e-6 where D1 + D2 is 2^10. The kernels therefore give the plain
 // versions' bits, bar a one-ulp difference at those odds that comes from
 // the order of addition, not from a fault, and repeats at every run on
-// that input. The order changes with a launch plan's cluster size and
-// threads a block, and the same rule covers that. The elementwise work
-// rounds each operation once in PyTorch's order (__fdiv_rn, __fmul_rn,
-// __fadd_rn, __fsub_rn: never a contracted multiply-add), torch.clamp
-// keeps its NaN rules, and a knot below zero (or -0) is +0.
+// that input. The order changes with a launch plan's cluster size, and
+// the same rule covers that. The elementwise work rounds each operation
+// once in PyTorch's order (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn:
+// never a contracted multiply-add), torch.clamp keeps its NaN rules, and
+// a knot below zero (or -0) is +0.
 //
 // The search: the plain version bisects (lo, hi] 31 times, one test
-// point a trip. A trip here tests K = 2^BITS - 1 points at once: the
-// test points of the bisection's next BITS levels, its decision tree
+// point a trip. A trip here tests K = 2^3 - 1 = 7 points at once: the
+// test points of the bisection's next 3 levels, its decision tree
 // from (lo, hi] (root: lo + (hi - lo + 1) / 2; a point's left child
 // the midpoint below it, its right child the one above). The sums of
 // all K come from one pass over the knots, each knot one compare and a
@@ -51,10 +51,9 @@
 // walk down the tree with the K predicates is the bisection's own path,
 // so the trips end on the bisection's lo whether or not rounding makes
 // the predicate monotone in t. Levels past the 31st change nothing (the
-// bracket holds one point, or none, by then), so ceil(31 / BITS) trips:
-// 11 for BITS = 3, 8 for BITS = 4. S and H at the final lo are those of
-// the last point the walk went above (or the prologue's S(+0), H(+0)),
-// so no pass follows the trips.
+// bracket holds one point, or none, by then), so ceil(31 / 3) = 11 trips.
+// S and H at the final lo are those of the last point the walk went
+// above (or the prologue's S(+0), H(+0)), so no pass follows the trips.
 //
 // Design for Hopper: one thread-block cluster a row (cudaLaunchKernelEx;
 // up to 16 blocks, the non-portable size, when the card co-schedules
@@ -73,17 +72,17 @@
 // shared memory), one cluster barrier, and warp 0 of every block adds
 // its inbox's blocks in a pairwise tree, walks the K answers and hands
 // its block the new bracket and test points. So a launch takes the
-// prologue's barrier and one a trip (12 for BITS = 3, where one test
-// point a trip took 33), and none at the exit: no block reads another's
-// shared memory. The radius and every input are read from device
+// prologue's barrier and one a trip (12, where one test point a trip
+// took 33), and none at the exit: no block reads another's shared
+// memory. The radius and every input are read from device
 // memory, so nothing is read back and a CUDA graph bakes in only the
 // shapes.
 //
 // Registers: a thread holds the 2K sums in f64 and the K test points,
 // and the compiler computes both adds of a point and selects, so a trip
-// costs a knot about 2K f64 adds. Both kernels run 512 threads (at most
-// 128 registers: BITS = 4 holds 30 sums); BITS = 3 was the faster, and
-// at 512 threads faster than at 1,024 (PERF.md).
+// costs a knot about 2K f64 adds. 512 threads a block (at most 128
+// registers a thread). K = 7 at 512 threads was the fastest of the tries
+// (K = 15, 1,024 threads: PERF.md).
 //
 // Bound on an H100 SXM: bytes for F2c (c, g read and x written a row, l,
 // u, w once: about 9.6 MB, 2.9 us, for 3 rows of 200,001 at 3.35 TB/s);
@@ -103,6 +102,8 @@ constexpr unsigned kTrMask = 0xffffffffu;
 constexpr int kLevels = 31;  // the bisection's levels on the bits of t
 constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;  // tr_search's non-portable cluster
+constexpr int kSearchBits = 3;     // tr_search: bisection levels a trip
+constexpr int kSearchThreads = 512;  // tr_search: threads a block
 
 struct TrustRegionArgs {
   const float* c;
@@ -132,8 +133,6 @@ struct TrustRegionArgs {
   int split;
   int cluster;        // blocks a row
   int staged;         // 1: (tau, a) kept in shared memory
-  int bits;           // tr_search: bisection levels a trip
-  int threads;        // tr_search: threads a block
 };
 
 // torch.clamp(v, lower, upper) on CUDA: a NaN value, then a NaN bound,
@@ -308,24 +307,14 @@ __device__ __forceinline__ void halve(double (&v)[N]) {
   }
 }
 
-// The warp's sums of P values (16 or 32) a lane, every value added in
-// one fixed tree: lane i returns the sum of value i * P / 32 (P = 16:
-// lanes 2i and 2i + 1 both hold value i).
-template <int P>
-__device__ __forceinline__ double warp_butterfly(double (&v)[P]) {
-  if constexpr (P == 32) {
-    halve<16, 16>(v);
-    halve<8, 8>(v);
-    halve<4, 4>(v);
-    halve<2, 2>(v);
-    halve<1, 1>(v);
-  } else {
-    halve<8, 16>(v);
-    halve<4, 8>(v);
-    halve<2, 4>(v);
-    halve<1, 2>(v);
-    v[0] += __shfl_xor_sync(kTrMask, v[0], 1);
-  }
+// The warp's sums of 16 values a lane, every value added in one fixed
+// tree: lanes 2i and 2i + 1 both return the sum of value i.
+__device__ __forceinline__ double warp_butterfly(double (&v)[16]) {
+  halve<8, 16>(v);
+  halve<4, 8>(v);
+  halve<2, 4>(v);
+  halve<1, 2>(v);
+  v[0] += __shfl_xor_sync(kTrMask, v[0], 1);
   return v[0];
 }
 
@@ -348,16 +337,17 @@ struct TripDecision {
   float s_lo, h_lo;
 };
 
-template <int BITS, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(kSearchThreads)
 tr_search_kernel(const TrustRegionArgs p) {
+  constexpr int BITS = kSearchBits;
+  constexpr int THREADS = kSearchThreads;
   constexpr int K = (1 << BITS) - 1;  // test points a trip
   constexpr int V = 2 * K;            // S, then H, of each
-  constexpr int P = V <= 16 ? 16 : 32;
+  constexpr int P = 16;               // a lane's values in the butterfly
   constexpr int W = THREADS / 32;
   constexpr int TRIPS = (kLevels + BITS - 1) / BITS;
   constexpr int UNROLL = 4;  // entries a round; a round's loads in flight
-  static_assert(P >= 6, "the prologue's six totals share warp_buf");
+  static_assert(V <= P && P >= 6, "the sums and the six totals fit P");
   static_assert(W >= kMaxCluster, "a warp sends each block its sums");
 
   extern __shared__ float2 knots[];  // the slice's (tau, a), when staged
@@ -547,7 +537,7 @@ tr_search_kernel(const TrustRegionArgs p) {
     // The block's sums: the warp's butterfly, then in warp b lane v adds
     // value v of every warp in one pairwise tree and sends the sum to
     // block b's inbox (every warp adds alike).
-    const double mine = warp_butterfly<P>(part);
+    const double mine = warp_butterfly(part);
     constexpr int SPREAD = 32 / P;  // lanes a value
     if (lane % SPREAD == 0) warp_buf[warp * P + lane / SPREAD] = mine;
     __syncthreads();
@@ -693,27 +683,18 @@ int launch_clusters(Kernel kernel, const TrustRegionArgs* a, int threads,
   return (int)cudaGetLastError();
 }
 
-// tr_search's kernel for a plan's bits and threads; null for another.
-using SearchKernel = void (*)(const TrustRegionArgs);
-
-inline SearchKernel search_kernel(int bits, int threads) {
-  if (bits == 3 && threads == 512) return tr_search_kernel<3, 512>;
-  if (bits == 4 && threads == 512) return tr_search_kernel<4, 512>;
-  return nullptr;
-}
-
-// The attributes a launch of `kernel` needs, set on every launch: each
+// The attributes a launch of tr_search needs, set on every launch: each
 // holds for the current device only.
-inline cudaError_t search_attributes(SearchKernel kernel, int cluster,
-                                     int smem_bytes) {
+inline cudaError_t search_attributes(int cluster, int smem_bytes) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        tr_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
     if (err != cudaSuccess) return err;
   }
   if (cluster > kPortableCluster) {
     return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        tr_search_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   return cudaSuccess;
 }
@@ -724,27 +705,23 @@ inline cudaError_t search_attributes(SearchKernel kernel, int cluster,
 extern "C" int folp_tr_search(const folp::TrustRegionArgs* a, int smem_bytes,
                               void* stream_ptr) {
   using namespace folp;
-  const SearchKernel kernel = search_kernel(a->bits, a->threads);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = search_attributes(kernel, a->cluster, smem_bytes);
+  const cudaError_t err = search_attributes(a->cluster, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return launch_clusters(kernel, a, a->threads, (size_t)smem_bytes,
-                         (cudaStream_t)stream_ptr);
+  return launch_clusters(tr_search_kernel, a, kSearchThreads,
+                         (size_t)smem_bytes, (cudaStream_t)stream_ptr);
 }
 
-// How many clusters of `cluster` blocks of tr_search's (bits, threads)
-// kernel, each with `smem_bytes` of dynamic shared memory, the current
-// device runs at once (cudaOccupancyMaxActiveClusters), into *clusters.
-extern "C" int folp_tr_search_clusters(int bits, int threads, int cluster,
-                                       int smem_bytes, int* clusters) {
+// How many clusters of `cluster` tr_search blocks, each with `smem_bytes`
+// of dynamic shared memory, the current device runs at once
+// (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int folp_tr_search_clusters(int cluster, int smem_bytes,
+                                       int* clusters) {
   using namespace folp;
-  const SearchKernel kernel = search_kernel(bits, threads);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = search_attributes(kernel, cluster, smem_bytes);
+  const cudaError_t err = search_attributes(cluster, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.blockDim = dim3(kSearchThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem_bytes;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -753,7 +730,8 @@ extern "C" int folp_tr_search_clusters(int bits, int threads, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, tr_search_kernel,
+                                             &cfg);
 }
 
 // F2c.

@@ -44,17 +44,16 @@ KNOT_TRIPS = 31  # bisection trips on the float bits of t
 MAX_CLUSTER = 8  # blocks a row: the portable cluster size
 WIDE_CLUSTER = 16  # tr_search's non-portable size, where the card runs it
 # Dynamic shared memory a tr_search block may stage (tau, a) in: 227 KB
-# less room for the kernel's static arrays (under 13 KB: the warps' and
-# the cluster's blocks' 2K sums of a trip, BITS = 4).
+# less room for the kernel's static arrays (about 7 KB: the warps' and
+# the cluster's blocks' 2K sums of a trip) and a margin.
 STAGE_BYTES = 227 * 1024 - 14 * 1024
 # A block count that fills the card's 132 SMs about twice over.
 TARGET_BLOCKS = 264
-# tr_search's bisection levels a trip (K = 2^BITS - 1 test points) and
-# threads a block, as csrc/trust_region_search.cu instantiates them
-# (the 2K f64 sums a thread holds bound the threads: registers), and the
-# one the plans take, the fastest measured (PERF.md).
-SEARCH_VARIANTS = ((3, 512), (4, 512))
+# tr_search's bisection levels a trip (K = 2^SEARCH_BITS - 1 test points),
+# its trips and its threads a block: csrc/trust_region_search.cu's
+# kSearchBits and kSearchThreads.
 SEARCH_BITS = 3
+SEARCH_TRIPS = -(-KNOT_TRIPS // SEARCH_BITS)
 SEARCH_THREADS = 512
 
 
@@ -206,20 +205,13 @@ class _TrustRegionArgs(ctypes.Structure):
         "c", "g", "lower", "upper", "weight", "radius", "t_star",
         "solution", "sums")] + [(name, ctypes.c_int) for name in (
             *(f"{v}_{k}_stride" for v in _INPUTS for k in ("row", "col")),
-            "rows", "n", "split", "cluster", "staged", "bits", "threads")]
+            "rows", "n", "split", "cluster", "staged")]
 
 
 class SearchPlan(NamedTuple):
     cluster: int  # blocks a row
     staged: bool  # the slice's (tau, a) in shared memory
     smem_bytes: int
-    bits: int = SEARCH_BITS  # bisection levels a trip
-    threads: int = SEARCH_THREADS  # a block
-
-    @property
-    def trips(self) -> int:
-        """The trips: ceil(31 / bits)."""
-        return -(-KNOT_TRIPS // self.bits)
 
 
 def solution_cluster(rows: int) -> int:
@@ -228,50 +220,42 @@ def solution_cluster(rows: int) -> int:
     return min(MAX_CLUSTER, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
 
 
-def search_plan(rows: int, n: int, max_cluster: int = MAX_CLUSTER,
-                bits: int = SEARCH_BITS,
-                threads: int = SEARCH_THREADS) -> SearchPlan:
+def search_plan(rows: int, n: int,
+                max_cluster: int = MAX_CLUSTER) -> SearchPlan:
     """tr_search's launch for `rows` rows of `n` entries with clusters of
     at most `max_cluster` blocks (search_cluster_limit: 16 where the
     card runs them, else 8): the fewest blocks a row whose slices fit in
     shared memory (8 bytes an entry), raised to TARGET_BLOCKS blocks in
     all for few rows; a row longer than `max_cluster` slices can stage
     is read from device memory every trip."""
-    if (bits, threads) not in SEARCH_VARIANTS:
-        raise ValueError(f"no tr_search kernel for {bits} bits a trip and "
-                         f"{threads} threads; have {SEARCH_VARIANTS}")
     need = max(1, -(-8 * n // STAGE_BYTES))
     if need > max_cluster:
-        return SearchPlan(max_cluster, False, 0, bits, threads)
+        return SearchPlan(max_cluster, False, 0)
     wanted = min(max_cluster, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
     cluster = max(wanted, need)
-    return SearchPlan(cluster, True, 8 * (-(-n // cluster)), bits, threads)
+    return SearchPlan(cluster, True, 8 * (-(-n // cluster)))
 
 
-# (device index, bits, threads) -> {cluster size: clusters co-resident}
+# device index -> {cluster size: clusters co-resident}
 _ACTIVE_CLUSTERS: dict = {}
 
 
-def active_clusters(device, bits: int = SEARCH_BITS,
-                    threads: int = SEARCH_THREADS) -> dict:
+def active_clusters(device) -> dict:
     """{8: a, 16: b}: how many clusters of 8 and of 16 tr_search blocks
-    (the `bits`, `threads` kernel, each block staging STAGE_BYTES) the
-    CUDA `device` runs at once, by cudaOccupancyMaxActiveClusters;
-    queried once per device and kernel, and cached. Raises when the
-    query fails."""
+    (each block staging STAGE_BYTES) the CUDA `device` runs at once, by
+    cudaOccupancyMaxActiveClusters; queried once per device, and cached.
+    Raises when the query fails."""
     device = torch.device(device)
     with torch.cuda.device(device):
-        index = torch.cuda.current_device()
-        key = (index, bits, threads)
+        key = torch.cuda.current_device()
         if key not in _ACTIVE_CLUSTERS:
             query = kernels_build.library("tr_search").folp_tr_search_clusters
-            query.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            query.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
             query.restype = ctypes.c_int
             found = {}
             for cluster in (MAX_CLUSTER, WIDE_CLUSTER):
                 count = ctypes.c_int(0)
-                err = query(bits, threads, cluster, STAGE_BYTES,
-                            ctypes.byref(count))
+                err = query(cluster, STAGE_BYTES, ctypes.byref(count))
                 if err != 0:
                     raise RuntimeError(
                         f"tr_search cluster query ({cluster} blocks) "
@@ -281,20 +265,17 @@ def active_clusters(device, bits: int = SEARCH_BITS,
     return dict(_ACTIVE_CLUSTERS[key])
 
 
-def search_cluster_limit(device, bits: int = SEARCH_BITS,
-                         threads: int = SEARCH_THREADS) -> int:
+def search_cluster_limit(device) -> int:
     """WIDE_CLUSTER where `device` co-schedules a cluster of that many
     tr_search blocks, else MAX_CLUSTER (the portable size)."""
-    wide = active_clusters(device, bits, threads)[WIDE_CLUSTER] >= 1
+    wide = active_clusters(device)[WIDE_CLUSTER] >= 1
     return WIDE_CLUSTER if wide else MAX_CLUSTER
 
 
-def device_search_plan(rows: int, n: int, device, bits: int = SEARCH_BITS,
-                       threads: int = SEARCH_THREADS) -> SearchPlan:
+def device_search_plan(rows: int, n: int, device) -> SearchPlan:
     """search_plan with the CUDA `device`'s cluster limit: tr_search's
     plan on that card."""
-    return search_plan(rows, n, search_cluster_limit(device, bits, threads),
-                       bits, threads)
+    return search_plan(rows, n, search_cluster_limit(device))
 
 
 def _strided(name: str, t: torch.Tensor, rows: int, n: int):
@@ -320,7 +301,7 @@ def _strided(name: str, t: torch.Tensor, rows: int, n: int):
 
 
 def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
-          split, cluster, staged, bits=0, threads=0):
+          split, cluster, staged):
     rows, n = c.shape
     if not 0 < rows <= 65535:
         raise ValueError(f"{rows} rows: 1 to 65535 a launch")
@@ -341,7 +322,7 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
         *(ptr(t) for t, _, _ in inputs), ptr(radius), ptr(t_star),
         ptr(solution), ptr(sums),
         *(stride for _, *strides in inputs for stride in strides),
-        rows, n, split, cluster, int(staged), bits, threads)
+        rows, n, split, cluster, int(staged))
     # the tensors the arguments point into, alive until the launch
     return args, (radius, t_star, *(t for t, _, _ in inputs))
 
@@ -360,8 +341,8 @@ def tr_search(c, g, lower, upper, weight, radius,
               plan: Optional[SearchPlan] = None) -> torch.Tensor:
     """F2b (with F2a): tr_search_plain(tr_prologue_plain(...), radius)'s
     contract; on CUDA one launch, t* a new (B,) tensor. `plan` defaults
-    to device_search_plan's (another one, for a test or a timing, must
-    stage no more than its clusters hold)."""
+    to device_search_plan's (another cluster size or staging, for a test
+    or a timing, must stage no more than its clusters hold)."""
     if _on_cpu(c, g, lower, upper, weight, radius):
         return tr_search_plain(tr_prologue_plain(c, g, lower, upper, weight),
                                radius)
@@ -372,8 +353,7 @@ def tr_search(c, g, lower, upper, weight, radius,
         raise ValueError(f"{plan} stages fewer than the row's {n} entries")
     t_star = torch.empty(rows, dtype=torch.float32, device=c.device)
     args, keep = _args(c, g, lower, upper, weight, radius, t_star, None,
-                       None, n, plan.cluster, plan.staged, plan.bits,
-                       plan.threads)
+                       None, n, plan.cluster, plan.staged)
     _launch("tr_search", args, c.device, plan.smem_bytes)
     del keep
     return t_star

@@ -87,7 +87,6 @@ from firstorderlp_torch.generators import generate_pagerank_lp
 from firstorderlp_torch.ops import lanes as lane_ops
 from firstorderlp_torch.ops import routed
 from firstorderlp_torch.ops.compare_kernels import repeat_differs, tickets_of
-from firstorderlp_torch.ops.trust_region_search import SEARCH_VARIANTS
 
 pytestmark = pytest.mark.cuda
 
@@ -1782,25 +1781,22 @@ def test_trust_region_kernels_at_the_paths_shapes(cuda, shape):
     assert_bitwise_tuple(again, got, f"{shape} again")
 
 
-@pytest.mark.parametrize("variant", SEARCH_VARIANTS)
-def test_tr_search_plans_give_the_plain_bits(cuda, variant):
-    """Every tr_search kernel (bits a trip, threads a block) under 8- and
-    16-block plans, staged and not, at the main path's shape and on the
-    cases with repeated knots and infinite bounds: t* bitwise the plain
-    version's, the same bits on a second launch. The card co-schedules
-    16-block clusters (cudaOccupancyMaxActiveClusters, cached per
-    device)."""
+def test_tr_search_plans_give_the_plain_bits(cuda):
+    """tr_search under 8- and 16-block plans, staged and not, at the
+    main path's shape and on the cases with repeated knots and infinite
+    bounds: t* bitwise the plain version's, the same bits on a second
+    launch. The card's co-scheduled clusters of 8 and 16 blocks
+    (cudaOccupancyMaxActiveClusters) are cached per device."""
     import trust_region_cases as tc
 
     from firstorderlp_torch.ops import trust_region_search as trs
 
-    bits, threads = variant
-    clusters = trs.active_clusters(cuda, bits, threads)
+    clusters = trs.active_clusters(cuda)
     assert clusters[trs.MAX_CLUSTER] >= 1
-    assert trs.search_cluster_limit(cuda, bits, threads) == (
+    assert trs.search_cluster_limit(cuda) == (
         trs.WIDE_CLUSTER if clusters[trs.WIDE_CLUSTER] >= 1
         else trs.MAX_CLUSTER)
-    assert trs.active_clusters(cuda, bits, threads) == clusters
+    assert trs.active_clusters(cuda) == clusters
     for case, rows, n in (("mixed", 3, 200_001),
                           ("duplicate_knots", 3, 20_000),
                           ("infinite_bounds", 3, 20_000)):
@@ -1812,7 +1808,7 @@ def test_tr_search_plans_give_the_plain_bits(cuda, variant):
         for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
             if clusters[limit] < 1:
                 continue
-            staged = trs.search_plan(rows, n, limit, bits, threads)
+            staged = trs.search_plan(rows, n, limit)
             assert staged.staged and staged.cluster == limit
             for plan in (staged, staged._replace(staged=False,
                                                  smem_bytes=0)):
@@ -1883,7 +1879,7 @@ def test_trust_region_kernels_launch_on_a_second_card(cuda):
         got, want = tr_on_card(args, device, n // 2)
         assert got[0].device.index == index
         assert_bitwise_tuple(got, want, f"cuda:{index} {plan}")
-    assert {key[0] for key in trs._ACTIVE_CLUSTERS} >= {0, 1}
+    assert set(trs._ACTIVE_CLUSTERS) >= {0, 1}
 
 
 def test_trust_region_wrappers_reject_bad_inputs(cuda):

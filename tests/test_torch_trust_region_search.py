@@ -411,8 +411,7 @@ def test_the_cpu_route_launches_nothing():
 
 
 def plan(cluster, staged, smem_bytes):
-    return trs.SearchPlan(cluster, staged, smem_bytes, trs.SEARCH_BITS,
-                          trs.SEARCH_THREADS)
+    return trs.SearchPlan(cluster, staged, smem_bytes)
 
 
 @pytest.mark.parametrize("rows,n,max_cluster,want", [
@@ -438,12 +437,19 @@ def test_search_plans(rows, n, max_cluster, want):
         assert got.cluster * got.smem_bytes >= 8 * n
     assert 1 <= got.cluster <= max_cluster <= trs.WIDE_CLUSTER
     assert trs.solution_cluster(rows) <= trs.MAX_CLUSTER
-    assert got.trips == -(-31 // got.bits)
-    for bits, threads in trs.SEARCH_VARIANTS:
-        other = trs.search_plan(rows, n, max_cluster, bits, threads)
-        assert other == want._replace(bits=bits, threads=threads)
-    with pytest.raises(ValueError):
-        trs.search_plan(rows, n, max_cluster, 5, 512)
+    assert trs.SEARCH_TRIPS == -(-trs.KNOT_TRIPS // trs.SEARCH_BITS)
+    # the search's constants are the kernel's
+    import os
+    import re
+
+    from firstorderlp_torch.ops import kernels_build
+
+    with open(os.path.join(kernels_build.CSRC_DIR,
+                           "trust_region_search.cu")) as f:
+        source = f.read()
+    for name, value in (("kSearchBits", trs.SEARCH_BITS),
+                        ("kSearchThreads", trs.SEARCH_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", source), name
 
 
 def heap_points(lo, hi, bits):
@@ -511,20 +517,22 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.parametrize("bits", sorted({b for b, _ in trs.SEARCH_VARIANTS}))
-def test_k_way_search_gives_the_bisection_bits(bits):
-    """The kernel's search, modelled with the plain version's sums, ends
-    on the bisection's lo with its S and H, so t* is tr_search_plain's
-    bit for bit: on every case of tests/trust_region_cases.py with both
-    bound shapes, and on seeded rows with repeated knots, +0 knots and
-    infinite bounds."""
-    inputs = [case_inputs(case, bounds, seed=20 + CASES.index(case))
-              for case in CASES for bounds in BOUNDS]
-    inputs = [torch_args(args) for args in inputs]
-    inputs += [repeated_knot_rows(seed) for seed in range(8)]
-    for args in inputs:
+@pytest.mark.parametrize("inputs", ["cases", "repeated_knots"])
+def test_k_way_search_gives_the_bisection_bits(inputs):
+    """The kernel's search (SEARCH_BITS levels a trip), modelled with
+    the plain version's sums, ends on the bisection's lo with its S and
+    H, so t* is tr_search_plain's bit for bit: on every case of
+    tests/trust_region_cases.py with both bound shapes, and on seeded
+    rows with repeated knots, +0 knots and infinite bounds."""
+    if inputs == "cases":
+        rows = [torch_args(case_inputs(case, bounds,
+                                       seed=20 + CASES.index(case)))
+                for case in CASES for bounds in BOUNDS]
+    else:
+        rows = [repeated_knot_rows(seed) for seed in range(8)]
+    for args in rows:
         p = trs.tr_prologue_plain(*args[:5])
-        assert same_bits(k_way_t_star(p, args[5], bits),
+        assert same_bits(k_way_t_star(p, args[5], trs.SEARCH_BITS),
                          trs.tr_search_plain(p, args[5]))
 
 
