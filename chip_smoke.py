@@ -37,7 +37,9 @@ Phases, each printing one JSON line:
    constant: each bitwise equal to its plain version, with times (CUDA
    events, device time and kernels a call, the plain version's; F1b's
    also for a trial that does not take its step) and the bytes bound;
-   given --parent, both kernels and the parent's in turns;
+   F1a's grid, its time on inputs that are views at an odd offset in
+   turns with aligned ones, and on a million entries; given --parent, both kernels and the parent's in
+   turns, F1a at a million entries too;
    kernels_trust_region: the f32 exact trust region's kernels
    (ops/trust_region_search.py), F2b tr_search (the prologue F2a and the
    knot search, 11 trips of 7 test points, SEARCH_BITS = 3: one launch)
@@ -47,12 +49,14 @@ Phases, each printing one JSON line:
    clusters stage), inputs made with numpy: t*, the solution and the
    split sums bitwise equal to the plain versions' and to a second
    launch, the launch plan (cluster, staged or not, shared memory) and
-   F2b's device time at each shape (given --parent, beside the parent's
-   tr_search in turns at each shape), tr_search under 8- and 16-block
-   plans timed in turns, times (CUDA events, device time and kernels a
-   call, the plain versions') and the bytes bound; the line before it
+   F2b's device time at each shape, F2c's grid (blocks a row, blocks)
+   and device time at each shape (given --parent, beside the parent's
+   tr_search and tr_solution in turns at each shape), tr_search under 8-
+   and 16-block plans timed in turns, times (CUDA events, device time
+   and kernels a call, the plain versions') and the bytes bound; the line before it
    (kernels_trust_region_plan) prints the search's bits, K, trips,
-   threads, the card's cluster limit and its co-resident clusters;
+   threads, the card's cluster limit and its co-resident clusters, and
+   tr_solution's wave (the card's SMs, the blocks an SM holds);
    kernels_eval_stats: an evaluation's statistics kernels
    (ops/eval_stats.py), F2d stats_point, F2e stats_primal and F2f
    stats_dual (the finalize in its last block), on the LP as optimize
@@ -2454,9 +2458,11 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile,
     kernels a call (torch.profiler), the plain version's ms; the bytes
     bound counts what the call must move (F1b: the side of each select
     that `take` chooses). F1b's device time also on a trial that does not
-    take its step (the mask off: it reads both sides). With `parent_dir`,
-    both kernels and that version's in turns (this, parent, parent,
-    this, ...), and whether the parent's give the same bits."""
+    take its step (the mask off: it reads both sides). F1a's grid, a
+    view at an odd offset and a million entries (primal_step_views,
+    primal_step_million). With `parent_dir`, both
+    kernels and that version's in turns (this, parent, parent, this,
+    ...), and whether the parent's give the same bits."""
     from firstorderlp_torch.ops import pdhg_step, probe_routed
 
     rng = np.random.default_rng(1)
@@ -2576,8 +2582,12 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile,
     f_off, tail_off = not_taken
     rows[1]["device_ms_not_taken"] = device_profile(
         lambda: pdhg_step.trial_epilogue(f_off, *tail_off))[0]
+    rows[0].update(primal_step_views(torch, pdhg_step, probe_routed, args))
+    parent = (compare.package_module("ops.pdhg_step", parent_dir)
+              if parent_dir else None)
+    rows[0]["million"] = primal_step_million(torch, pdhg_step, probe_routed,
+                                             parent, dev)
     if parent_dir:
-        parent = compare.package_module("ops.pdhg_step", parent_dir)
         pf = parent.TrialFields(**{fl.name: getattr(f, fl.name)
                                    for fl in dataclasses.fields(f)})
         calls = {
@@ -2597,6 +2607,75 @@ def kernels_trial(torch, routed, ops, scaled, dev, time_ms, device_profile,
             row["parent"] = {**turns[f"parent_{name}"],
                              "bitwise_equal": states_equal(ours, theirs)}
     return rows, variants
+
+
+def primal_step_views(torch, pdhg_step, probe_routed, args):
+    """F1a's grid, and its inputs as views at an offset of one float
+    (read 4 bytes at a time) in turns with the aligned inputs, each
+    bitwise the plain version; beside them PyTorch's copy of one n-vector
+    (a floor of a kernel that reads and writes device memory)."""
+    n = args[0].shape[0]
+    plain = pdhg_step.primal_step_plain(*args)
+    views = []
+    for t in args[:5]:
+        buf = torch.empty(n + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t)
+        views.append(buf[1:])
+    view_args = (*views, *args[5:])
+    calls = {"aligned": lambda: pdhg_step.primal_step(*args),
+             "not_aligned": lambda: pdhg_step.primal_step(*view_args)}
+    bits = {key: states_equal(call(), plain) for key, call in calls.items()}
+    # a yardstick of a kernel's floor here: PyTorch's copy of one n-vector
+    calls["copy"] = lambda: torch.empty_like(args[0]).copy_(args[0])
+    torch.cuda.synchronize()
+    if not all(bits.values()):
+        fail("kernels_trial", f"primal_step on views differs from the "
+                              f"plain version: {bits}")
+    turns = {key: probe_routed.turn_summary(got) for key, got in
+             probe_routed.in_turns(calls).items()}
+    return {
+        "grid": {"blocks": pdhg_step.primal_grid(n),
+                 "threads": pdhg_step.PRIMAL_THREADS, "slots": 1},
+        "aligned": turns["aligned"],
+        "not_aligned": {"aligned_mask": pdhg_step.aligned_mask(views),
+                        **turns["not_aligned"]},
+        "copy_one_vector": turns["copy"],
+    }
+
+
+def primal_step_million(torch, pdhg_step, probe_routed, parent, dev):
+    """F1a on a million entries made with numpy (seed 4), bitwise its
+    plain version; beside `parent`'s primal_step in turns when given."""
+    rng = np.random.default_rng(4)
+    n = 1_000_000
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    lower = np.where(rng.random(n) < 0.3, -np.inf, -rng.random(n))
+    upper = np.where(rng.random(n) < 0.3, np.inf, rng.random(n))
+    args = (vec(np.clip(rng.standard_normal(n), lower, upper)),
+            vec(rng.standard_normal(n)), vec(rng.standard_normal(n)),
+            vec(lower), vec(upper), scalar(1e-3, torch.float32),
+            scalar(1.0, torch.float32), scalar(0, torch.int32),
+            scalar(False, torch.bool), scalar(57, torch.int64),
+            scalar(57, torch.int64), 40, 20_000, False)
+    calls = {"this": lambda: pdhg_step.primal_step(*args)}
+    if parent is not None:
+        calls["parent"] = lambda: parent.primal_step(*args)
+    bits = {key: states_equal(call(), pdhg_step.primal_step_plain(*args))
+            for key, call in calls.items()}
+    torch.cuda.synchronize()
+    if not bits["this"]:
+        fail("kernels_trial", "primal_step differs from its plain version "
+                              "at a million entries")
+    turns = probe_routed.in_turns(calls)
+    return {"n": n, "bytes": 4 * 8 * n + 38,
+            **{key: {**probe_routed.turn_summary(turns[key]),
+                     "bitwise_equal": bits[key]} for key in calls}}
 
 
 def kernels_tiled_large(torch, routed, probe, compare, device_ms, dev):
@@ -3254,22 +3333,26 @@ def derived_split(ms):
 
 
 def eval_graph_measures(torch, module, routed_mod, bundle, config, state):
-    """The replayed evaluation of one version on `state`: device ms (CUDA
-    events around 5 replays, a sleeping kernel first) and the nodes of
-    its graph (the evaluation and its copy-back into the buffers,
-    captured again with keep_graph=True on the runner's buffers)."""
+    """The replayed evaluation of one version on `state`: device ms (the
+    median of three samples, each CUDA events around 20 replays queued
+    behind a sleeping kernel) and the nodes of its graph (the evaluation
+    and its copy-back into the buffers, captured again with
+    keep_graph=True on the runner's buffers)."""
     runner = module._runner(bundle, state, 0.0, config, False)
     start_event = torch.cuda.Event(enable_timing=True)
     end_event = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    start_event.record()
-    for _ in range(5):
-        runner.evaluate()
-    end_event.record()
-    torch.cuda.synchronize()
-    out = {"device_ms_per_replayed_evaluation":
-           start_event.elapsed_time(end_event) / 5}
+    samples = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        start_event.record()
+        for _ in range(20):
+            runner.evaluate()
+        end_event.record()
+        torch.cuda.synchronize()
+        samples.append(start_event.elapsed_time(end_event) / 20)
+    out = {"device_ms_per_replayed_evaluation": float(np.median(samples)),
+           "device_ms_per_replayed_evaluation_samples": samples}
     saved = dict(routed_mod.LAUNCHES)
     device = bundle.scaled.objective_vector.device
     side = torch.cuda.Stream(device)
@@ -3429,6 +3512,13 @@ def tr_search_bytes(rows, n, bounds_rows):
     return 4 * (2 * rows * n + 3 * n * bounds_rows + 2 * rows)
 
 
+def tr_solution_bytes(rows, n, bounds_rows):
+    """F2c's bytes bound: c and g read and the solution written a row,
+    the bounds and weights once (or a row each), t* read and the sums
+    written."""
+    return 4 * (3 * rows * n + 3 * n * bounds_rows + rows + 3 * rows)
+
+
 def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                          compare, parent_dir=None):
     """F2b (tr_search, with the prologue F2a) and F2c (tr_solution) of
@@ -3438,11 +3528,12 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
     40,001, bounds (B, N)) and one row of 300,000 (past the 230,400
     entries that 8-block clusters stage), inputs made with numpy from
     seed 2: t*, the solution and the sums bitwise the plain versions',
-    twice the same bits, F2b's device time and plan at each shape, and
-    `parent_dir`'s tr_search beside it in turns; at the main path's
-    shape tr_search under 8- and 16-block plans, bitwise the plain
-    version and timed in turns, and F2c's and the plain versions' times
-    and the bytes bounds."""
+    twice the same bits, F2b's device time and plan and F2c's grid and
+    device time at each shape, and `parent_dir`'s tr_search and
+    tr_solution beside them in turns; at the main path's shape tr_search
+    under 8- and 16-block plans, bitwise the plain version and timed in
+    turns, and F2c's and the plain versions' times and the bytes
+    bounds."""
     from firstorderlp_torch.ops import probe_routed
     from firstorderlp_torch.ops import trust_region_search as trs
 
@@ -3470,7 +3561,9 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
     search = {"bits": trs.SEARCH_BITS, "K": 2 ** trs.SEARCH_BITS - 1,
               "trips": trs.SEARCH_TRIPS, "threads": trs.SEARCH_THREADS,
               "cluster_limit": trs.search_cluster_limit(dev),
-              "active_clusters": trs.active_clusters(dev)}
+              "active_clusters": trs.active_clusters(dev),
+              "solution_wave": dict(zip(("sms", "blocks_an_sm"),
+                                        trs.solution_wave(dev)))}
     emit({"phase": "kernels_trust_region_plan", "ok": True, **search})
     ptrs = (compare.package_module("ops.trust_region_search", parent_dir)
             if parent_dir else None)
@@ -3494,11 +3587,22 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                 radius=radius: trs.tr_search(c, g, lower, upper, weight,
                                              radius))
         dev_ms, per_call = device_profile(call)
+        bounds_rows = lower.shape[0] if lower.dim() == 2 else 1
+        t_this = outs[0][0]
+        solution_call = (lambda c=c, g=g, lower=lower, upper=upper,
+                         weight=weight, t=t_this, split=split:
+                         trs.tr_solution(c, g, lower, upper, weight, t,
+                                         split))
+        solution_ms, _ = device_profile(solution_call)
+        blocks = trs.solution_blocks(rows, n, *trs.solution_wave(dev))
         shape_times[label] = {
             "device_ms": dev_ms, "kernels_per_call": per_call,
             "ms": time_ms(call),
-            "bytes": tr_search_bytes(rows, n, lower.shape[0]
-                                     if lower.dim() == 2 else 1)}
+            "bytes": tr_search_bytes(rows, n, bounds_rows),
+            "tr_solution": {
+                "device_ms": solution_ms,
+                "blocks_a_row": blocks, "blocks": rows * blocks,
+                "bytes": tr_solution_bytes(rows, n, bounds_rows)}}
         if ptrs is not None:
             parent_call = (lambda c=c, g=g, lower=lower, upper=upper,
                            weight=weight, radius=radius: ptrs.tr_search(
@@ -3510,6 +3614,17 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                 "this": probe_routed.turn_summary(turns["this"]),
                 "parent": {**probe_routed.turn_summary(turns["parent"]),
                            "bitwise_equal": parent_bits}}
+            parent_solution = (lambda c=c, g=g, lower=lower, upper=upper,
+                               weight=weight, t=t_this, split=split:
+                               ptrs.tr_solution(c, g, lower, upper, weight,
+                                                t, split))
+            parent_bits = states_equal(parent_solution(), solution_call())
+            turns = probe_routed.in_turns({"this": solution_call,
+                                           "parent": parent_solution})
+            shape_times[label]["tr_solution"]["in_turns"] = {
+                "this": probe_routed.turn_summary(turns["this"]),
+                "parent": {**probe_routed.turn_summary(turns["parent"]),
+                           "bitwise_equal": parent_bits}}
         variants.append({
             "shape": label, "rows": rows, "n": n,
             "bounds": list(lower.shape),
@@ -3518,8 +3633,10 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
             "repeat_bitwise": states_equal(outs[0], outs[1]),
             "cluster": plan.cluster, "staged": plan.staged,
             "smem_bytes": plan.smem_bytes,
-            "solution_cluster": trs.solution_cluster(rows),
+            "solution_blocks_a_row": blocks,
+            "solution_blocks": rows * blocks,
             "tr_search_device_ms": dev_ms,
+            "tr_solution_device_ms": solution_ms,
         })
         if label == "main_path":
             timed_args = (c, g, lower, upper, weight, radius, outs[0][0],
@@ -3566,8 +3683,7 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
          lambda: trs.tr_solution(c, g, lower, upper, weight, t_star, split),
          lambda: trs.tr_solution_plain(c, g, lower, upper, weight, t_star,
                                        split),
-         # the inputs and t* once, the solution and the sums written
-         inputs + 4 * rows + 4 * rows * n + 12 * rows, 6 * rows * n,
+         tr_solution_bytes(rows, n, 1), 6 * rows * n,
          "none (no pl.pallas_call): XLA's fusion of "
          "firstorderlp_tpu/trust_region.py:107-108 (the solution and "
          "its value) and :406-416 (the lower and upper values)"),
@@ -3591,6 +3707,12 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
             if parent_dir:
                 row["parent"] = shape_times["main_path"]["in_turns"][
                     "parent"]
+        else:
+            row.update({"shapes": {key: times["tr_solution"] for key, times
+                                   in shape_times.items()}})
+            if parent_dir:
+                row["parent"] = shape_times["main_path"]["tr_solution"][
+                    "in_turns"]["parent"]
         rows_out.append(row)
     return rows_out, variants
 

@@ -34,25 +34,43 @@
 // Bound on an H100 SXM: bytes. F1a reads five n-vectors and writes
 // three (32 n B, about 1 us at 100k nodes and 3.35 TB/s); F1b reads and
 // writes 4 n + 3 m floats each way on either branch (the selects read
-// only the chosen side: `take` is the same for every thread). Both are
-// one grid-stride pass with no shared memory; block 0 writes the 0-d
-// results, every block works the scalars out again from the 0-d inputs,
-// so the trial needs no other launch.
+// only the chosen side: `take` is the same for every thread). Neither
+// uses shared memory; every thread works the scalars it needs out again
+// from the 0-d inputs, so the trial needs no other launch.
 //
-// F1b's design: at 100k nodes its 5.6 MB take about one latency of the
-// card's memory and the verdict's chain (the 0-d loads, then the pow),
-// so what counts is what waits on what. A thread takes one 16-byte slot
-// of one group's vectors (4 n-vectors or 3 m-vectors, so every SM has
-// blocks: 391 of 128 threads at 100k nodes) and issues the 0-d loads,
-// then its slot's: the sums and y, which both branches read, and the
-// accepted side. It stores the accepted side at once, before the verdict
-// is known (most trials take their step: the stores wait only on the
-// loads and the step size); a trial that does not take its step then
-// loads the state's side and stores it over them, so the result is the
-// selects' either way. The outputs are the wrapper's, 16-byte aligned;
-// an input whose address is not (a view at an odd offset) is read 4
-// bytes at a time in the same pass (`aligned`), and the grid's last 8
-// threads take the n mod 4 and m mod 4 entries left over.
+// At 100k nodes both kernels' bytes take about one latency of the card's
+// memory, so what counts is what waits on what, and the shape of both
+// follows from that: a thread takes one 16-byte slot (four entries) of
+// each vector it reads, and issues the 0-d loads and its slot's loads
+// before any arithmetic. The outputs are the wrappers', each vector
+// 16-byte aligned for any length; an input whose address is not (a view
+// at an odd offset) is read 4 bytes at a time in the same pass
+// (`aligned`), and a few threads past the slots take the n mod 4 (and
+// m mod 4) entries left over.
+//
+// F1a's design: the slot threads load step and weight, then their slot
+// of x, c, A'y, l and u, and compute tau = step / weight while those are
+// in flight; sigma and the mask (four more 0-d loads and an int64
+// modulo, a software routine) go to a thread past the slots and the
+// tails, in the grid's last block, off every slot's path. The launch is
+// 256 threads a block and one slot a thread (kPrimalThreads): 98 blocks
+// at 100k nodes; 128 threads (196 blocks), two slots a thread and 512 or
+// 1,024 threads were 4-19% slower (PERF.md). At 100k nodes the
+// kernel sits near the floor of any kernel that reads and writes device
+// memory here (PyTorch's copy of one n-vector takes about half its
+// time): the parent (a grid-stride loop of 4-byte loads, 391 blocks of
+// 256, block 0's thread 0 also working out the mask before its first
+// entry) was within 6% of it; at a million entries it is 16% faster.
+//
+// F1b's design: the verdict's chain (the 0-d loads, then the pow) sits in
+// front of no store. A thread takes one slot of one group's vectors (4
+// n-vectors or 3 m-vectors; blocks of 128, so every SM has blocks: 391
+// at 100k nodes) and issues the 0-d loads, then its slot's:
+// the sums and y, which both branches read, and the accepted side. It
+// stores the accepted side at once, before the verdict is known (most
+// trials take their step: the stores wait only on the loads and the step
+// size); a trial that does not take its step then loads the state's side
+// and stores it over them, so the result is the selects' either way.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,6 +90,9 @@ enum PowRoute : int {
   kPowCube = 7,     // t t t
   kPowInvSquare = 8 // 1.0 / (t t), the division in double
 };
+
+constexpr int kPrimalThreads = 256;    // F1a: threads a block, a slot each
+constexpr int kEpilogueThreads = 128;  // F1b: threads a block
 
 struct PrimalStepArgs {
   const float* x;
@@ -94,6 +115,7 @@ struct PrimalStepArgs {
   long long limit;
   int n;
   int constant;
+  int aligned;  // bit i: input i (x, c, aty, lower, upper) 16-byte aligned
 };
 
 struct EpilogueArgs {
@@ -181,6 +203,21 @@ __device__ __forceinline__ float torch_pow(float t, float e, int route) {
   }
 }
 
+// Entries 4q to 4q + 3 of v: one 16-byte load where v is 16-byte aligned
+// (bit `input` of `aligned`), else four 4-byte loads.
+__device__ __forceinline__ float4 load4(const float* v, int q, int aligned,
+                                        int input) {
+  if ((aligned >> input) & 1) {
+    return __ldg(reinterpret_cast<const float4*>(v) + q);
+  }
+  const float* e = v + 4 * q;
+  return make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), __ldg(e + 3));
+}
+
+__device__ __forceinline__ void store4(float* v, int q, float4 value) {
+  reinterpret_cast<float4*>(v)[q] = value;
+}
+
 // pdhg._trial_active: (iteration - 1) % frequency == 0, the iteration
 // after the limit and the first ten iterations are evaluation
 // iterations.
@@ -192,24 +229,85 @@ __device__ __forceinline__ bool trial_active(const PrimalStepArgs& a) {
          (it == *a.start || !evaluation);
 }
 
-__global__ void primal_step_kernel(const PrimalStepArgs a) {
-  const float step = *a.step, weight = *a.weight;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+// F1a's inputs, by their bit in `aligned`.
+enum PrimalInput : int { kPX, kPC, kPAty, kPLower, kPUpper };
+
+// One entry of F1a: x+ = clamp(x - tau (c - A'y), l, u), dx = x+ - x and
+// z = x+ + dx (constant steps) or 2 x+ - x, each rounded as PyTorch.
+struct PrimalEntry {
+  float x_next, z, dx;
+};
+
+__device__ __forceinline__ PrimalEntry primal_entry(float x, float c,
+                                                    float aty, float lower,
+                                                    float upper, float tau,
+                                                    int constant) {
+  const float gradient = __fsub_rn(c, aty);
+  const float xn =
+      torch_clamp(__fsub_rn(x, __fmul_rn(tau, gradient)), lower, upper);
+  const float d = __fsub_rn(xn, x);
+  return {xn, constant ? __fadd_rn(xn, d) : __fsub_rn(__fmul_rn(2.f, xn), x),
+          d};
+}
+
+// A thread's slot of F1a's five inputs.
+struct PrimalSlot {
+  float4 x, c, aty, lower, upper;
+};
+
+__device__ __forceinline__ PrimalSlot load_primal_slot(
+    const PrimalStepArgs& a, int q) {
+  return {load4(a.x, q, a.aligned, kPX), load4(a.c, q, a.aligned, kPC),
+          load4(a.aty, q, a.aligned, kPAty),
+          load4(a.lower, q, a.aligned, kPLower),
+          load4(a.upper, q, a.aligned, kPUpper)};
+}
+
+__device__ __forceinline__ void store_primal_slot(const PrimalStepArgs& a,
+                                                  int q, const PrimalSlot& v,
+                                                  float tau) {
+  const PrimalEntry e0 = primal_entry(v.x.x, v.c.x, v.aty.x, v.lower.x,
+                                      v.upper.x, tau, a.constant);
+  const PrimalEntry e1 = primal_entry(v.x.y, v.c.y, v.aty.y, v.lower.y,
+                                      v.upper.y, tau, a.constant);
+  const PrimalEntry e2 = primal_entry(v.x.z, v.c.z, v.aty.z, v.lower.z,
+                                      v.upper.z, tau, a.constant);
+  const PrimalEntry e3 = primal_entry(v.x.w, v.c.w, v.aty.w, v.lower.w,
+                                      v.upper.w, tau, a.constant);
+  store4(a.x_next, q, make_float4(e0.x_next, e1.x_next, e2.x_next,
+                                  e3.x_next));
+  store4(a.z, q, make_float4(e0.z, e1.z, e2.z, e3.z));
+  store4(a.dx, q, make_float4(e0.dx, e1.dx, e2.dx, e3.dx));
+}
+
+// Thread t < n / 4 takes slot t; the next three threads the entries
+// 4 (n / 4) + j left over, and the one after them sigma and the mask.
+__global__ void __launch_bounds__(kPrimalThreads)
+primal_step_kernel(const PrimalStepArgs a) {
+  const float step = __ldg(a.step), weight = __ldg(a.weight);
+  const int workers = a.n >> 2;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < workers) {
+    const PrimalSlot v = load_primal_slot(a, t);
+    const float tau = __fdiv_rn(step, weight);
+    store_primal_slot(a, t, v, tau);
+    return;
+  }
+  const int extra = t - workers;
+  if (extra < 3) {
+    const int i = 4 * workers + extra;
+    if (i < a.n) {
+      const PrimalEntry e = primal_entry(
+          __ldg(a.x + i), __ldg(a.c + i), __ldg(a.aty + i),
+          __ldg(a.lower + i), __ldg(a.upper + i), __fdiv_rn(step, weight),
+          a.constant);
+      a.x_next[i] = e.x_next;
+      a.z[i] = e.z;
+      a.dx[i] = e.dx;
+    }
+  } else if (extra == 3) {
     *a.sigma = __fmul_rn(weight, step);
     *a.active = trial_active(a);
-  }
-  const float tau = __fdiv_rn(step, weight);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
-       i += gridDim.x * blockDim.x) {
-    const float x = __ldg(a.x + i);
-    const float gradient = __fsub_rn(__ldg(a.c + i), __ldg(a.aty + i));
-    const float xn = torch_clamp(__fsub_rn(x, __fmul_rn(tau, gradient)),
-                                 __ldg(a.lower + i), __ldg(a.upper + i));
-    const float d = __fsub_rn(xn, x);
-    a.x_next[i] = xn;
-    a.dx[i] = d;
-    a.z[i] = a.constant ? __fadd_rn(xn, d)
-                        : __fsub_rn(__fmul_rn(2.f, xn), x);
   }
 }
 
@@ -274,21 +372,6 @@ enum EpilogueInput : int {
   kXNext, kDx, kYNext, kAtyNext, kX, kY, kDeltaX, kDeltaY, kAty, kSumX,
   kSumY
 };
-
-// Entries 4q to 4q + 3 of v: one 16-byte load where v is 16-byte aligned
-// (bit `input` of `aligned`), else four 4-byte loads.
-__device__ __forceinline__ float4 load4(const float* v, int q, int aligned,
-                                        int input) {
-  if ((aligned >> input) & 1) {
-    return __ldg(reinterpret_cast<const float4*>(v) + q);
-  }
-  const float* e = v + 4 * q;
-  return make_float4(__ldg(e), __ldg(e + 1), __ldg(e + 2), __ldg(e + 3));
-}
-
-__device__ __forceinline__ void store4(float* v, int q, float4 value) {
-  reinterpret_cast<float4*>(v)[q] = value;
-}
 
 // s + x step, each entry rounded as PyTorch's sum + x * step.
 __device__ __forceinline__ float4 add_scaled(float4 s, float4 x, float step) {
@@ -450,21 +533,18 @@ __global__ void trial_epilogue_kernel(const EpilogueArgs a) {
   }
 }
 
-constexpr int kThreads = 256;
-constexpr int kEpilogueThreads = 128;
 constexpr int kMaxBlocks = 4 * 132 * 8;  // a few waves of the H100's SMs
-
-inline int blocks_for(int items) {
-  const int blocks = (items + kThreads - 1) / kThreads;
-  return blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-}
 
 }  // namespace folp
 
+// F1a: a thread for each of the n / 4 slots, three for the tail and one
+// for sigma and the mask. The outputs must be 16-byte aligned (the
+// wrapper allocates them so).
 extern "C" int folp_primal_step(const folp::PrimalStepArgs* a,
                                 void* stream_ptr) {
   using namespace folp;
-  primal_step_kernel<<<blocks_for(a->n), kThreads, 0,
+  const int blocks = ((a->n >> 2) + 4 + kPrimalThreads - 1) / kPrimalThreads;
+  primal_step_kernel<<<blocks, kPrimalThreads, 0,
                        (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
 }

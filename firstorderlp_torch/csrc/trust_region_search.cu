@@ -24,11 +24,13 @@
 // Bits: every per-row sum is accumulated in f64 and rounded once to f32,
 // in one fixed order: each thread its entries in column order (in
 // tr_search, the knots that left the bracket before the ones still in
-// it), then the warp, the warps and the blocks of the row's cluster,
-// each in a fixed tree. The terms of a sum are f32 values of one sign,
-// so an order whose longest chain of additions is D gives an f64 result
-// within D 2^-53 |S| of the exact sum S (here D is a thread's entries,
-// at most ceil(n / (blocks x threads)), plus at most 15 levels of trees).
+// it), then the warp, the warps and the row's blocks (tr_search: its
+// cluster; tr_solution: the blocks' slots, added by the row's last
+// block), each in a fixed tree. The terms of a sum are f32 values of one
+// sign, so an order whose longest chain of additions is D gives an f64
+// result within D 2^-53 |S| of the exact sum S (here D is a thread's
+// entries, at most ceil(n / (blocks x threads)), plus at most 24 levels
+// of trees).
 // Two orders round to different f32 values only where an f32 rounding
 // midpoint lies between their f64 results; the midpoints lie at least
 // 2^-24 |S| apart, so the odds are at most about (D1 + D2) 2^-29 a sum:
@@ -89,10 +91,35 @@
 // F2b reads the same inputs but x (7.2 MB, 2.1 us) and then runs its
 // trips over shared memory with a cluster barrier each: its floor on
 // the card is the trips' chain of barriers and f64 adds, not its bytes.
+//
+// F2c's design: its bytes are a few memory latencies' worth for the
+// whole card, so it needs every SM busy and every load in flight, in one
+// wave. Its grid is sized from the card and not the search's clusters
+// (ops/trust_region_search.solution_blocks: as many blocks as the card's
+// SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor: 3 of
+// 256 threads at 74 registers), spread over the rows, at most one block
+// a 256-slot run of a row; 2 and 4 blocks an SM, and 8, were slower: a
+// second partial wave costs a memory latency); a block takes a
+// contiguous run of its row's 16-byte slots, and a thread issues the
+// loads of kSolutionSlots slots (four entries of each of the five
+// inputs) before any of their arithmetic: one 16-byte load for an input
+// whose row starts on a 16-byte boundary with a column stride of 1 (the
+// main path's shared (N,) bounds), four 4-byte loads otherwise (c and g
+// rows at an odd offset, a fleet's transposed views, read in place).
+// Each entry goes to its own part of the split, so a slot may straddle
+// it. A block's two f64 sums go to its (row, block) slot of `partials`;
+// the row's last block, behind an integer ticket (fixed_order.cuh, set
+// back to zero by that block, so a replayed graph starts from zero),
+// adds the slots in one fixed tree in block order and rounds once. The
+// parent took the search's cluster plan (8 blocks of 512 threads a row:
+// 24 blocks at the main path's 3 rows) and walked about 49 entries a
+// thread one dependent scalar load at a time: 9.5 times its bound.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "fixed_order.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,6 +131,8 @@ constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;  // tr_search's non-portable cluster
 constexpr int kSearchBits = 3;     // tr_search: bisection levels a trip
 constexpr int kSearchThreads = 512;  // tr_search: threads a block
+constexpr int kSolutionThreads = 256;  // tr_solution: threads a block
+constexpr int kSolutionSlots = 2;  // tr_solution: slots a thread loads at once
 
 struct TrustRegionArgs {
   const float* c;
@@ -115,6 +144,8 @@ struct TrustRegionArgs {
   float* t_star;
   float* solution;
   float* sums;
+  double* partials;  // tr_solution: (rows, blocks) pairs of block sums
+  int* tickets;      // tr_solution: one a row, zero between launches
   // Each input's element (row, j) at row * row_stride + j * col_stride:
   // a row stride of 0 gives every row one (n,) vector, and a transposed
   // (n, rows) view is read where it lies.
@@ -131,7 +162,7 @@ struct TrustRegionArgs {
   int rows;
   int n;
   int split;
-  int cluster;        // blocks a row
+  int blocks;         // blocks a row (tr_search: its cluster)
   int staged;         // 1: (tau, a) kept in shared memory
 };
 
@@ -239,33 +270,11 @@ __device__ __forceinline__ void block_to_slot(double (&v)[K],
   }
 }
 
-// After cluster.sync(): the cluster's values in every thread of the
-// calling warp, the blocks' slots read through distributed shared
-// memory (lane r reads rank r's) and combined in one tree.
-template <int K, int SUMS>
-__device__ __forceinline__ void cluster_values(double (&v)[K],
-                                               double* slot,
-                                               const cg::cluster_group& cl) {
-  const unsigned lane = threadIdx.x & 31;
-  double w[K];
-  if (lane < cl.num_blocks()) {
-    const double* remote = cl.map_shared_rank(slot, lane);
-#pragma unroll
-    for (int k = 0; k < K; ++k) w[k] = remote[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) w[k] = 0.0;
-  }
-  warp_tree<K, SUMS>(w);
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = __shfl_sync(kTrMask, w[k], 0);
-}
-
 // The block's slice of its row: [begin, end).
 __device__ __forceinline__ void slice_of(const TrustRegionArgs& p,
                                          unsigned rank, int* begin,
                                          int* end) {
-  const int per = (p.n + p.cluster - 1) / p.cluster;
+  const int per = (p.n + p.blocks - 1) / p.blocks;
   const long long b = (long long)rank * per;
   const long long e = b + per;
   *begin = (int)(b < p.n ? b : p.n);
@@ -621,59 +630,142 @@ tr_search_kernel(const TrustRegionArgs p) {
   // the last trip's barrier, and read their own.
 }
 
-__global__ void __launch_bounds__(512)
-tr_solution_kernel(const TrustRegionArgs p) {
-  __shared__ double warp_buf[32 * 2];
-  __shared__ double slot[2];
-
-  cg::cluster_group cl = cg::this_cluster();
-  const unsigned rank = cl.block_rank();
-  const int row = blockIdx.y;
-  int begin, end;
-  slice_of(p, rank, &begin, &end);
-  const float t = __ldg(p.t_star + row);
-  const long long base = (long long)row * p.n;
-
-  double part[2] = {0.0, 0.0};  // [0, split), [split, n)
-  for (int j = begin + threadIdx.x; j < end; j += blockDim.x) {
-    const Inputs in = load_inputs(p, row, j);
-    const float d = direction_of(in);
-    const float x =
-        tr_clamp(__fadd_rn(in.c, __fmul_rn(t, d)), in.lower, in.upper);
-    p.solution[base + j] = x;
-    const double term = (double)__fmul_rn(in.g, __fsub_rn(x, in.c));
-    if (j < p.split) {
-      part[0] += term;
-    } else {
-      part[1] += term;
-    }
+// Entries 4q to 4q + 3 of one row of an input (`v` at the row's start,
+// column stride `col`): one 16-byte load where `vec` (col 1 and `v` on a
+// 16-byte boundary) and the slot is whole, else 4-byte loads of the
+// entries below n.
+__device__ __forceinline__ float4 row_slot(const float* v, int col,
+                                           bool vec, int q, int n) {
+  if (vec && 4 * q + 4 <= n) {
+    return __ldg(reinterpret_cast<const float4*>(v) + q);
   }
-  block_to_slot<2, 2>(part, warp_buf, slot);
-  cl.sync();
-  if (rank == 0 && threadIdx.x < 32) {
-    cluster_values<2, 2>(part, slot, cl);
-    if (threadIdx.x == 0) {
-      p.sums[3 * row] = __double2float_rn(part[0]);
-      p.sums[3 * row + 1] = __double2float_rn(part[1]);
-      p.sums[3 * row + 2] = __double2float_rn(part[0] + part[1]);
-    }
+  float e[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * q + k;
+    e[k] = j < n ? __ldg(v + (long long)j * col) : 0.f;
   }
-  cl.sync();  // no block leaves while rank 0 may read its slot
+  return make_float4(e[0], e[1], e[2], e[3]);
 }
 
-constexpr int kSolutionThreads = 512;
+__device__ __forceinline__ float entry_of(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ bool on_16_bytes(const void* v) {
+  return (reinterpret_cast<size_t>(v) & 15) == 0;
+}
+
+// Grid (blocks, rows): block b of a row takes its run of the row's
+// ceil(n / 4) slots; thread i the slots i, i + T, ... of the run,
+// kSolutionSlots at a time, their loads issued first.
+__global__ void __launch_bounds__(kSolutionThreads)
+tr_solution_kernel(const TrustRegionArgs p) {
+  constexpr int T = kSolutionThreads;
+  constexpr int U = kSolutionSlots;
+  constexpr int kInputs = 5;  // c, g, lower, upper, weight
+  __shared__ double warp_buf[(T / 32) * 2];
+  __shared__ double total_slot[2];
+  __shared__ int last;
+
+  const int row = blockIdx.y;
+  const float t = __ldg(p.t_star + row);
+  const float* in[kInputs] = {
+      p.c + (long long)row * p.c_row_stride,
+      p.g + (long long)row * p.g_row_stride,
+      p.lower + (long long)row * p.lower_row_stride,
+      p.upper + (long long)row * p.upper_row_stride,
+      p.weight + (long long)row * p.weight_row_stride};
+  const int col[kInputs] = {p.c_col_stride, p.g_col_stride,
+                            p.lower_col_stride, p.upper_col_stride,
+                            p.weight_col_stride};
+  bool vec[kInputs];
+#pragma unroll
+  for (int i = 0; i < kInputs; ++i) {
+    vec[i] = col[i] == 1 && on_16_bytes(in[i]);
+  }
+  float* out = p.solution + (long long)row * p.n;
+  const bool out_vec = on_16_bytes(out);
+  const int slots = (p.n + 3) >> 2;
+  const int per = (slots + p.blocks - 1) / p.blocks;
+  const int begin = blockIdx.x * per;
+  const int end = begin + per < slots ? begin + per : slots;
+
+  double part[2] = {0.0, 0.0};  // [0, split), [split, n)
+  for (int q0 = begin + (int)threadIdx.x; q0 < end; q0 += U * T) {
+    float4 v[U][kInputs];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (q0 + u * T < end) {
+#pragma unroll
+        for (int i = 0; i < kInputs; ++i) {
+          v[u][i] = row_slot(in[i], col[i], vec[i], q0 + u * T, p.n);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * T;
+      if (q >= end) break;
+      float x[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * q + k;
+        const Inputs e = {entry_of(v[u][0], k), entry_of(v[u][1], k),
+                          entry_of(v[u][2], k), entry_of(v[u][3], k),
+                          entry_of(v[u][4], k)};
+        const float d = direction_of(e);
+        x[k] = tr_clamp(__fadd_rn(e.c, __fmul_rn(t, d)), e.lower, e.upper);
+        if (j < p.n) {
+          const double term = (double)__fmul_rn(e.g, __fsub_rn(x[k], e.c));
+          if (j < p.split) {
+            part[0] += term;
+          } else {
+            part[1] += term;
+          }
+        }
+      }
+      if (out_vec && 4 * q + 4 <= p.n) {
+        reinterpret_cast<float4*>(out)[q] =
+            make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (4 * q + k < p.n) out[4 * q + k] = x[k];
+        }
+      }
+    }
+  }
+  // The block's sums into its slot (thread 0 writes them); then the row's
+  // last block adds the row's slots: thread i those of blocks i, i + T,
+  // ... in order, then one tree over the threads.
+  double* row_partials = p.partials + 2LL * row * p.blocks;
+  block_to_slot<2, 2>(part, warp_buf, row_partials + 2 * blockIdx.x);
+  if (!last_ticket(p.tickets + row, p.blocks, &last)) return;
+  double total[2] = {0.0, 0.0};
+  for (int b = threadIdx.x; b < p.blocks; b += T) {
+    total[0] += __ldcg(row_partials + 2 * b);
+    total[1] += __ldcg(row_partials + 2 * b + 1);
+  }
+  block_to_slot<2, 2>(total, warp_buf, total_slot);
+  if (threadIdx.x == 0) {
+    p.sums[3 * row] = __double2float_rn(total_slot[0]);
+    p.sums[3 * row + 1] = __double2float_rn(total_slot[1]);
+    p.sums[3 * row + 2] = __double2float_rn(total_slot[0] + total_slot[1]);
+  }
+}
 
 template <typename Kernel>
 int launch_clusters(Kernel kernel, const TrustRegionArgs* a, int threads,
                     size_t smem, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a->cluster, a->rows, 1);
+  cfg.gridDim = dim3(a->blocks, a->rows, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a->cluster;
+  attr[0].val.clusterDim.x = a->blocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -705,7 +797,7 @@ inline cudaError_t search_attributes(int cluster, int smem_bytes) {
 extern "C" int folp_tr_search(const folp::TrustRegionArgs* a, int smem_bytes,
                               void* stream_ptr) {
   using namespace folp;
-  const cudaError_t err = search_attributes(a->cluster, smem_bytes);
+  const cudaError_t err = search_attributes(a->blocks, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return launch_clusters(tr_search_kernel, a, kSearchThreads,
                          (size_t)smem_bytes, (cudaStream_t)stream_ptr);
@@ -734,10 +826,21 @@ extern "C" int folp_tr_search_clusters(int cluster, int smem_bytes,
                                              &cfg);
 }
 
-// F2c.
+// How many tr_solution blocks an SM of the current device holds at once,
+// into *blocks.
+extern "C" int folp_tr_solution_occupancy(int* blocks) {
+  using namespace folp;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, tr_solution_kernel, kSolutionThreads, 0);
+}
+
+// F2c: a grid of (blocks, rows) blocks; `partials` holds 2 rows x blocks
+// doubles, `tickets` one zero int a row.
 extern "C" int folp_tr_solution(const folp::TrustRegionArgs* a,
                                 void* stream_ptr) {
   using namespace folp;
-  return launch_clusters(tr_solution_kernel, a, kSolutionThreads, 0,
-                         (cudaStream_t)stream_ptr);
+  if (a->blocks < 1) return (int)cudaErrorInvalidValue;
+  tr_solution_kernel<<<dim3(a->blocks, a->rows, 1), kSolutionThreads, 0,
+                       (cudaStream_t)stream_ptr>>>(*a);
+  return (int)cudaGetLastError();
 }

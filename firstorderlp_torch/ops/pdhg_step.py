@@ -185,6 +185,7 @@ class _PrimalStepArgs(ctypes.Structure):
         ("limit", ctypes.c_longlong),
         ("n", ctypes.c_int),
         ("constant", ctypes.c_int),
+        ("aligned", ctypes.c_int),
     ]
 
 
@@ -234,11 +235,30 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 
 def aligned_mask(vectors) -> int:
-    """F1b's `aligned` argument: bit i set where vectors[i] starts at a
-    16-byte boundary (the kernel reads it 16 bytes at a time there, 4
-    elsewhere)."""
+    """F1a's and F1b's `aligned` argument: bit i set where vectors[i]
+    starts at a 16-byte boundary (the kernel reads it 16 bytes at a time
+    there, 4 elsewhere)."""
     return sum(1 << i for i, t in enumerate(vectors)
                if t.data_ptr() % 16 == 0)
+
+
+# F1a's threads a block (csrc/pdhg_step.cu's kPrimalThreads), one
+# 16-byte slot a thread: the fastest of the launches timed (PERF.md)
+PRIMAL_THREADS = 256
+
+
+def primal_grid(n: int) -> int:
+    """F1a's blocks for n entries: a thread each n // 4 slots, three for
+    the n mod 4 tail, one for sigma and the mask."""
+    return -(-(n // 4 + 4) // PRIMAL_THREADS)
+
+
+def primal_layout(n: int):
+    """(x+, z, dx, sigma)'s offsets in F1a's output buffer, in floats,
+    and the buffer's length: each vector starts at a multiple of 4 floats
+    (16 bytes), so the kernels after it read whole 16-byte slots."""
+    stride = -(-n // 4) * 4
+    return (0, stride, 2 * stride, 3 * stride), 3 * stride + 1
 
 
 def _launch(lib: str, args: ctypes.Structure, device) -> None:
@@ -255,7 +275,8 @@ def primal_step(x, c, aty, lower, upper, step, weight, reason,
                 numerical_error, iteration, start, frequency: int,
                 limit: int, constant: bool):
     """F1a: primal_step_plain's contract; on CUDA one launch, the three
-    vectors in one new tensor, sigma and the mask new 0-d tensors."""
+    vectors in one new tensor (primal_layout: each 16-byte aligned),
+    sigma and the mask new 0-d tensors."""
     vectors = (x, c, aty, lower, upper)
     scalars = (step, weight, reason, numerical_error, iteration, start)
     if _on_cpu(*vectors, *scalars):
@@ -274,13 +295,15 @@ def primal_step(x, c, aty, lower, upper, step, weight, reason,
         _check(name, t, dtype, ())
     if frequency <= 0:
         raise ValueError(f"evaluation frequency {frequency} must be positive")
-    out = torch.empty(3 * n + 1, dtype=torch.float32, device=x.device)
+    (x_at, z_at, dx_at, sigma_at), size = primal_layout(n)
+    out = torch.empty(size, dtype=torch.float32, device=x.device)
     active = torch.empty((), dtype=torch.bool, device=x.device)
-    x_next, z, dx, sigma = out[:n], out[n:2 * n], out[2 * n:3 * n], out[3 * n]
+    x_next, z, dx = (out[a:a + n] for a in (x_at, z_at, dx_at))
+    sigma = out[sigma_at]
     args = _PrimalStepArgs(
         *(t.data_ptr() for t in (*vectors, *scalars, x_next, z, dx, sigma,
                                  active)),
-        frequency, limit, n, int(constant))
+        frequency, limit, n, int(constant), aligned_mask(vectors))
     _launch("primal_step", args, x.device)
     return x_next, z, dx, sigma, active
 

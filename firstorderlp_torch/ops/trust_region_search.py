@@ -14,7 +14,10 @@ The contract, fixed by the plain versions below: every per-row sum is
 accumulated in f64 and rounded once to f32 (S(t), H(t), the totals and
 the value sums); the elementwise work rounds each operation once in the
 order written here; a knot below zero, or -0, is +0. The kernels add in
-one fixed order with no atomics, and the plain versions in torch.sum's.
+one fixed order with no floating-point atomics (F2c's row sums: each
+block's into a scratch slot, the row's last block, behind an integer
+ticket, adding the slots in block order), and the plain versions in
+torch.sum's.
 The terms of a sum are of one sign, so an order whose longest chain of
 additions is D lands within D 2^-53 |S| of the exact sum S; two orders
 round to different f32 values only where an f32 rounding midpoint
@@ -55,6 +58,9 @@ TARGET_BLOCKS = 264
 SEARCH_BITS = 3
 SEARCH_TRIPS = -(-KNOT_TRIPS // SEARCH_BITS)
 SEARCH_THREADS = 512
+# tr_solution's threads a block (csrc kSolutionThreads)
+SOLUTION_THREADS = 256
+MAX_ROWS = 65535  # rows a launch: the grid's y extent
 
 
 class Prologue(NamedTuple):
@@ -203,9 +209,11 @@ class _TrustRegionArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "c", "g", "lower", "upper", "weight", "radius", "t_star",
-        "solution", "sums")] + [(name, ctypes.c_int) for name in (
-            *(f"{v}_{k}_stride" for v in _INPUTS for k in ("row", "col")),
-            "rows", "n", "split", "cluster", "staged")]
+        "solution", "sums", "partials", "tickets")] + [
+            (name, ctypes.c_int) for name in (
+                *(f"{v}_{k}_stride" for v in _INPUTS
+                  for k in ("row", "col")),
+                "rows", "n", "split", "blocks", "staged")]
 
 
 class SearchPlan(NamedTuple):
@@ -214,10 +222,14 @@ class SearchPlan(NamedTuple):
     smem_bytes: int
 
 
-def solution_cluster(rows: int) -> int:
-    """tr_solution's blocks a row: TARGET_BLOCKS blocks in all, at most
-    MAX_CLUSTER a row."""
-    return min(MAX_CLUSTER, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
+def solution_blocks(rows: int, n: int, sms: int, depth: int) -> int:
+    """tr_solution's blocks a row on a card of `sms` SMs that each hold
+    `depth` of its blocks at once (solution_wave): one wave over all
+    rows, at most one block a SOLUTION_THREADS-slot run of the row's
+    ceil(n / 4) 16-byte slots, at least one."""
+    wanted = -(-depth * sms // max(rows, 1))
+    slots = -(-n // 4)
+    return max(1, min(wanted, -(-slots // SOLUTION_THREADS)))
 
 
 def search_plan(rows: int, n: int,
@@ -301,10 +313,10 @@ def _strided(name: str, t: torch.Tensor, rows: int, n: int):
 
 
 def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
-          split, cluster, staged):
+          split, blocks, staged, partials=None, tickets=None):
     rows, n = c.shape
-    if not 0 < rows <= 65535:
-        raise ValueError(f"{rows} rows: 1 to 65535 a launch")
+    if not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"{rows} rows: 1 to {MAX_ROWS} a launch")
     inputs = [_strided(name, t, rows, n) for name, t in zip(
         _INPUTS, (c, g, lower, upper, weight))]
     for name, t in (("radius", radius), ("t_star", t_star)):
@@ -320,9 +332,9 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
 
     args = _TrustRegionArgs(
         *(ptr(t) for t, _, _ in inputs), ptr(radius), ptr(t_star),
-        ptr(solution), ptr(sums),
+        ptr(solution), ptr(sums), ptr(partials), ptr(tickets),
         *(stride for _, *strides in inputs for stride in strides),
-        rows, n, split, cluster, int(staged))
+        rows, n, split, blocks, int(staged))
     # the tensors the arguments point into, alive until the launch
     return args, (radius, t_star, *(t for t, _, _ in inputs))
 
@@ -359,19 +371,72 @@ def tr_search(c, g, lower, upper, weight, radius,
     return t_star
 
 
-def tr_solution(c, g, lower, upper, weight, t_star, split: int):
+# device index -> (SMs, tr_solution blocks an SM holds); -> tr_solution's
+# tickets (MAX_ROWS int32, zero between launches)
+_WAVE: dict = {}
+_TICKETS: dict = {}
+
+
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def solution_wave(device) -> tuple:
+    """(SMs, tr_solution blocks an SM holds at once) of the CUDA
+    `device`: its multiprocessor count and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once per
+    device and cached. Raises when the query fails."""
+    index = _index(device)
+    if index not in _WAVE:
+        query = kernels_build.library(
+            "tr_solution").folp_tr_solution_occupancy
+        query.argtypes = [ctypes.c_void_p]
+        query.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = query(ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"tr_solution occupancy query failed: CUDA "
+                               f"error {err}, {blocks.value} blocks")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _WAVE[index] = (sms, blocks.value)
+    return _WAVE[index]
+
+
+def solution_tickets(device) -> torch.Tensor:
+    """The CUDA `device`'s tr_solution tickets, one a row: made (zeroed)
+    by the first launch there (an eager evaluation or a capture's
+    warm-up), each set back to zero by the row's last block, so one
+    device's trust regions run on one stream at a time."""
+    index = _index(device)
+    if index not in _TICKETS:
+        _TICKETS[index] = torch.zeros(MAX_ROWS, dtype=torch.int32,
+                                      device=torch.device("cuda", index))
+    return _TICKETS[index]
+
+
+def tr_solution(c, g, lower, upper, weight, t_star, split: int,
+                blocks: Optional[int] = None):
     """F2c: tr_solution_plain's contract; on CUDA one launch, the
-    solution (B, N) and the sums in new tensors."""
+    solution (B, N) and the sums in new tensors. `blocks` (blocks a row)
+    defaults to solution_blocks for the card's wave (the card tests give
+    others: the same bits at any grid)."""
     if _on_cpu(c, g, lower, upper, weight, t_star):
         return tr_solution_plain(c, g, lower, upper, weight, t_star, split)
     rows, n = c.shape
     if not 0 <= split <= n:
         raise ValueError(f"split {split} outside [0, {n}]")
+    if blocks is None:
+        blocks = solution_blocks(rows, n, *solution_wave(c.device))
     t_star = t_star.contiguous()
     solution = torch.empty((rows, n), dtype=torch.float32, device=c.device)
     sums = torch.empty((rows, 3), dtype=torch.float32, device=c.device)
+    partials = torch.empty(2 * rows * blocks, dtype=torch.float64,
+                           device=c.device)
     args, keep = _args(c, g, lower, upper, weight, None, t_star, solution,
-                       sums, split, solution_cluster(rows), False)
+                       sums, split, blocks, False, partials,
+                       solution_tickets(c.device))
     _launch("tr_solution", args, c.device)
     del keep
     return solution, sums[:, :2], sums[:, 2]

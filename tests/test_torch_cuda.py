@@ -60,7 +60,11 @@ F2b tr_search, F2c tr_solution) are each bitwise their plain versions
 over the cases of tests/trust_region_cases.py with bounds (N,) and
 (B, N), at the main path's (3 x 200,001), the fleet's (384 x 40,001)
 and an unstaged row's shapes, one launch each, the same bits on every
-launch; a replayed PDHG and Mirror Prox evaluation is bitwise the eager
+launch; F2c also at 1, 3 and 384 rows with the split at 0, at n and
+inside a 16-byte slot, on transposed views, and replayed from a CUDA
+graph bitwise the eager call, its tickets back at zero; F1a also on
+views at odd offsets at every n mod 4 under each launch plan; a
+replayed PDHG and Mirror Prox evaluation is bitwise the eager
 one with the same launches, and an evaluation is captured under
 torch.cuda.set_sync_debug_mode("error"). The evaluation's statistics
 kernels (ops/eval_stats.py: F2d stats_point, F2e stats_primal, F2f
@@ -1619,6 +1623,54 @@ def test_primal_step_keeps_torch_clamp_nan_rules(cuda):
                 f"step {step}, weight {weight}, constant {constant}")
 
 
+@pytest.mark.parametrize("n", [4096, 4097, 4098, 4099])
+def test_primal_step_reads_views_at_odd_offsets(cuda, n):
+    """F1a at every n mod 4, its five inputs each a view at its own
+    offset 0-3 (16 bytes at a time where a view starts on a 16-byte
+    boundary, 4 elsewhere), constant and adaptive, the mask on and
+    off: bitwise its plain version and the contiguous inputs'
+    result; x+, z and dx each 16-byte aligned; one launch a call."""
+    from firstorderlp_torch.ops import pdhg_step
+
+    rng = np.random.default_rng(n)
+
+    def at_offset(v, offset):
+        buf = torch.full((n + 4,), float("nan"), device=cuda)
+        view = buf[offset:offset + n]
+        view.copy_(torch.as_tensor(v, device=cuda))
+        return view
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=cuda)
+
+    lower = np.where(rng.random(n) < 0.3, -np.inf, -rng.random(n))
+    upper = np.where(rng.random(n) < 0.3, np.inf, rng.random(n))
+    x = np.clip(rng.standard_normal(n), lower, upper)
+    vectors = [np.asarray(v, np.float32) for v in (
+        x, rng.standard_normal(n), rng.standard_normal(n), lower, upper)]
+    whole = [torch.as_tensor(v, device=cuda) for v in vectors]
+    for shift in (1, 2, 3):
+        views = [at_offset(v, (shift + i) % 4) for i, v in enumerate(
+            vectors)]
+        assert 0 < pdhg_step.aligned_mask(views) < 2 ** 5 - 1
+        for iteration, constant in ((57, False), (57, True), (81, False)):
+            tail = (scalar(0.7, torch.float32), scalar(1.3, torch.float32),
+                    scalar(0, torch.int32), scalar(False, torch.bool),
+                    scalar(iteration, torch.int64), scalar(57, torch.int64),
+                    40, 100, constant)
+            want = pdhg_step.primal_step_plain(*views, *tail)
+            assert bool(want[4]) == (iteration == 57)
+            contiguous = pdhg_step.primal_step(*whole, *tail)
+            routed.reset_launch_counts()
+            got = pdhg_step.primal_step(*views, *tail)
+            assert routed.LAUNCHES["primal_step"] == 1
+            label = f"n {n} shift {shift} {iteration} {constant}"
+            assert_bitwise_tuple(got, want, label)
+            assert_bitwise_tuple(got, contiguous, f"{label}: whole")
+            for t in got[:3]:
+                assert t.data_ptr() % 16 == 0, label
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("rule", RULES)
 def test_replayed_trial_is_bitwise_the_eager_trial(cuda, rule, layout):
@@ -1855,6 +1907,86 @@ def test_trust_region_kernels_take_strided_inputs(cuda):
         "strided")
 
 
+@pytest.mark.parametrize("rows,n", [(1, 2_003), (3, 200_001),
+                                    (384, 4_001)])
+def test_tr_solution_splits_and_strides(cuda, rows, n):
+    """F2c at 1, 3 and 384 rows, on the knot search's t*: the solution
+    bitwise its plain version's and the split sums and the value equal
+    to them, with the split at 0, at n and inside a 16-byte slot, on
+    contiguous inputs (c and g rows at odd offsets, bounds (N,)) and on
+    a fleet's transposed (n, B) views, read in place; at more and fewer
+    blocks a row than solution_blocks gives, the same bits."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    for bounds in ("shared", "rows"):
+        c, g, lower, upper, weight, radius = (
+            torch.as_tensor(v, device=cuda) for v in tc.case_inputs(
+                "mixed", bounds, rows=rows, n=n, seed=rows + n))
+        inputs = (c, g, lower, upper, weight)
+        t_star = trs.tr_search(*inputs, radius)
+        strided = [t.T.contiguous().T if t.dim() == 2 else t
+                   for t in inputs]
+        sms, depth = trs.solution_wave(cuda)
+        assert sms == torch.cuda.get_device_properties(
+            cuda).multi_processor_count and depth >= 1
+        assert trs.solution_wave(cuda) == (sms, depth)  # cached
+        blocks = trs.solution_blocks(rows, n, sms, depth)
+        for split in (0, n, 4 * (n // 8) + 2):
+            want = trs.tr_solution_plain(*inputs, t_star, split)
+            for label, args, b in (("contiguous", inputs, None),
+                                   ("strided", strided, None),
+                                   ("one block", inputs, 1),
+                                   ("more blocks", inputs, 4 * blocks)):
+                routed.reset_launch_counts()
+                got = trs.tr_solution(*args, t_star, split, blocks=b)
+                assert routed.LAUNCHES["tr_solution"] == 1
+                assert_bitwise_tuple(got, want,
+                                     f"{bounds} split {split} {label}")
+    torch.cuda.synchronize()
+    assert not trs.solution_tickets(cuda).any()
+
+
+def test_tr_solution_repeats_and_replays(cuda):
+    """F2c at the main path's shape: two launches bitwise equal, and a
+    CUDA graph of one launch replayed on new inputs (copied into the
+    captured ones) bitwise the eager call on them, the tickets back at
+    zero after each."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    rows, n = 3, 200_001
+
+    def inputs(seed):
+        c, g, lower, upper, weight, radius = (
+            torch.as_tensor(v, device=cuda) for v in tc.case_inputs(
+                "mixed", "shared", rows=rows, n=n, seed=seed))
+        return (c, g, lower, upper, weight,
+                trs.tr_search(c, g, lower, upper, weight, radius))
+
+    first = inputs(1)
+    got = trs.tr_solution(*first, n // 2)
+    assert_bitwise_tuple(trs.tr_solution(*first, n // 2), got, "again")
+    static = [t.clone() for t in first]
+    trs.tr_solution(*static, n // 2)  # warm-up before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trs.tr_solution(*static, n // 2)
+    for seed in (2, 3):
+        new = inputs(seed)
+        for t, v in zip(static, new):
+            t.copy_(v)
+        routed.reset_launch_counts()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_bitwise_tuple(out, trs.tr_solution(*new, n // 2),
+                             f"replay {seed}")
+        assert not trs.solution_tickets(cuda).any()
+
+
 def test_trust_region_kernels_launch_on_a_second_card(cuda):
     """The staged search at the main path's shape takes about 100 KB of
     shared memory a block (200 KB with 8-block clusters) and 16-block
@@ -1862,7 +1994,9 @@ def test_trust_region_kernels_launch_on_a_second_card(cuda):
     device, so they are set on every launch, and the cluster query is
     cached per device): launches on cuda:0, cuda:1 and cuda:0 again in
     one process give the plain versions' bits on each card, with the
-    plan of each card's own query."""
+    plan of each card's own query. The solution's wave (SMs and blocks an
+    SM) and tickets are each card's own too, and every card's tickets
+    are back at zero after its launch."""
     import trust_region_cases as tc
 
     from firstorderlp_torch.ops import trust_region_search as trs
@@ -1879,7 +2013,17 @@ def test_trust_region_kernels_launch_on_a_second_card(cuda):
         got, want = tr_on_card(args, device, n // 2)
         assert got[0].device.index == index
         assert_bitwise_tuple(got, want, f"cuda:{index} {plan}")
+        sms, depth = trs.solution_wave(device)
+        assert sms == torch.cuda.get_device_properties(
+            index).multi_processor_count and depth >= 1
+        tickets = trs.solution_tickets(device)
+        assert tickets.device == device
+        torch.cuda.synchronize(device)
+        assert not tickets.any(), f"cuda:{index} tickets"
     assert set(trs._ACTIVE_CLUSTERS) >= {0, 1}
+    assert set(trs._WAVE) >= {0, 1}
+    assert trs.solution_tickets("cuda:0").data_ptr() != \
+        trs.solution_tickets("cuda:1").data_ptr()
 
 
 def test_trust_region_wrappers_reject_bad_inputs(cuda):

@@ -17,9 +17,11 @@ versions.
   previous release (held here as `eager_trial`), on CSR and the tile
   plan, adaptive and constant, with the mask off for every reason.
 - The wrappers' contracts: F1a's mask against pdhg._trial_active, the
-  pow routes, the argument structures against the C source, devices
-  other than the CPU and CUDA refused, and which problems take the
-  fused trial.
+  pow routes, the argument structures against the C source, F1a's
+  output buffer (each vector 16-byte aligned for every n mod 4) and its
+  grid (every entry one thread's, sigma and the mask a thread's of the
+  last block) under each plan, devices other than the CPU and CUDA
+  refused, and which problems take the fused trial.
 """
 
 import ctypes
@@ -368,6 +370,62 @@ def test_argument_structs_match_the_source(name):
     assert [(n, kind[t]) for n, t in cls._fields_] == c_struct(name)
     assert kernels_build.KERNEL_SOURCES["primal_step"] == "pdhg_step.cu"
     assert kernels_build.KERNEL_SOURCES["trial_epilogue"] == "pdhg_step.cu"
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 6, 7, 1001, 100_000,
+                               100_001, 100_002, 100_003])
+def test_primal_layout_aligns_every_output(n):
+    """F1a's output buffer: x+, z and dx each start at a multiple of 4
+    floats (16 bytes) for every n mod 4, in order, without overlap, and
+    sigma after dx, the buffer's last float."""
+    (x_at, z_at, dx_at, sigma_at), size = pdhg_step.primal_layout(n)
+    assert [a % 4 for a in (x_at, z_at, dx_at)] == [0, 0, 0]
+    assert x_at == 0 and x_at + n <= z_at and z_at + n <= dx_at
+    assert dx_at + n <= sigma_at == size - 1
+    assert z_at - n < 4 and sigma_at - dx_at - n < 4
+
+
+def primal_entries(n):
+    """The entries each thread of F1a's grid writes (a model of
+    primal_step_kernel's indexing), and the thread that writes sigma and
+    the mask."""
+    nq = n // 4
+    threads = pdhg_step.primal_grid(n) * pdhg_step.PRIMAL_THREADS
+    owner, scalar = {}, []
+    for t in range(threads):
+        if t < nq:
+            mine = [4 * t + k for k in range(4)]
+        elif t - nq < 3:
+            i = 4 * nq + t - nq
+            mine = [i] if i < n else []
+        else:
+            mine = []
+            if t - nq == 3:
+                scalar.append(t)
+        for i in mine:
+            assert i not in owner, (i, t)
+            owner[i] = t
+    return owner, scalar, threads
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 255, 1016, 1017, 1020, 1030,
+                               4097, 100_000, 100_001, 100_002, 100_003,
+                               1_000_000])
+def test_primal_grid_writes_every_entry_once(n):
+    """Every entry of x+, z and dx has one thread, for every n mod 4 and
+    at the edges of a block; one thread, in the grid's last block and
+    past every entry's, writes sigma and the mask; no block is without
+    work; the block is the kernel's."""
+    owner, scalar, threads = primal_entries(n)
+    block = pdhg_step.PRIMAL_THREADS
+    assert sorted(owner) == list(range(n))
+    assert len(scalar) == 1 and all(t < scalar[0] for t in owner.values())
+    assert threads - block <= scalar[0] < threads
+    path = os.path.join(kernels_build.CSRC_DIR, "pdhg_step.cu")
+    with open(path) as f:
+        threads_in_source = int(re.search(
+            r"constexpr int kPrimalThreads = (\d+);", f.read()).group(1))
+    assert block == threads_in_source
 
 
 def test_wrappers_refuse_other_devices():

@@ -23,7 +23,8 @@ bounds of shape (N,) and (B, N).
   integers (a tau^2 = (u - c)^2 and a = d^2 with d in {1, 2, 4}), so
   every partial sum of a row is an integer below 2^24, exact in f32 in
   any order, and the f32 and the f64 sums are the same number;
-- the launch plans and the wrappers' input checks.
+- the launch plans (F2b's clusters, F2c's blocks a row from the card's
+  SMs and a model of its slot runs) and the wrappers' input checks.
 """
 
 import jax.numpy as jnp
@@ -436,7 +437,8 @@ def test_search_plans(rows, n, max_cluster, want):
         assert got.smem_bytes <= trs.STAGE_BYTES
         assert got.cluster * got.smem_bytes >= 8 * n
     assert 1 <= got.cluster <= max_cluster <= trs.WIDE_CLUSTER
-    assert trs.solution_cluster(rows) <= trs.MAX_CLUSTER
+    blocks = trs.solution_blocks(rows, n, 132, 3)
+    assert 1 <= blocks and (blocks - 1) * trs.SOLUTION_THREADS < max(n, 1)
     assert trs.SEARCH_TRIPS == -(-trs.KNOT_TRIPS // trs.SEARCH_BITS)
     # the search's constants are the kernel's
     import os
@@ -448,8 +450,50 @@ def test_search_plans(rows, n, max_cluster, want):
                            "trust_region_search.cu")) as f:
         source = f.read()
     for name, value in (("kSearchBits", trs.SEARCH_BITS),
-                        ("kSearchThreads", trs.SEARCH_THREADS)):
+                        ("kSearchThreads", trs.SEARCH_THREADS),
+                        ("kSolutionThreads", trs.SOLUTION_THREADS)):
         assert re.search(rf"constexpr int {name} = {value};", source), name
+
+
+@pytest.mark.parametrize("rows,n,sms,depth,want", [
+    (3, 200_001, 132, 3, 132),  # the main path: one wave of 3 x 132
+    (384, 40_001, 132, 3, 2),  # the fleet
+    (1, 300_000, 132, 3, 293),  # a long row: a block a 256-slot run
+    (3, 200_001, 114, 3, 114),  # a card of 114 SMs
+    (3, 200_001, 132, 4, 176),  # an SM that holds 4 blocks
+    (3, 2_000_001, 132, 3, 132),  # 1M nodes
+    (2, 50, 132, 3, 1),
+    (1, 0, 132, 3, 1),
+    (65_535, 10, 132, 3, 1),
+])
+def test_solution_blocks(rows, n, sms, depth, want):
+    """F2c's grid: one wave (the blocks the card's SMs hold at once) over
+    all rows, at most one block a run of SOLUTION_THREADS slots of a row,
+    at least one."""
+    assert trs.solution_blocks(rows, n, sms, depth) == want
+    assert trs.solution_blocks(rows, n, sms, 2 * depth) >= want
+
+
+@pytest.mark.parametrize("n,blocks", [(0, 1), (1, 1), (7, 1), (1_029, 2),
+                                      (200_001, 132), (40_001, 2),
+                                      (300_000, 293), (10, 6)])
+def test_solution_runs_cover_every_slot_once(n, blocks):
+    """A model of tr_solution_kernel's indexing: block b of a row takes
+    slots [b per, (b + 1) per) of the row's ceil(n / 4) (per = ceil(slots
+    / blocks)), thread i the slots i, i + T, ... of its run; each entry
+    below n is one thread's, and no thread takes more than ceil(per / T)
+    slots."""
+    slots = -(-n // 4)
+    per = -(-slots // blocks)
+    seen = []
+    for b in range(blocks):
+        begin, end = b * per, min(b * per + per, slots)
+        for i in range(trs.SOLUTION_THREADS):
+            mine = list(range(begin + i, end, trs.SOLUTION_THREADS))
+            assert len(mine) <= -(-per // trs.SOLUTION_THREADS)
+            seen += [4 * q + k for q in mine for k in range(4)
+                     if 4 * q + k < n]
+    assert sorted(seen) == list(range(n))
 
 
 def heap_points(lo, hi, bits):
