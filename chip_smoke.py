@@ -66,7 +66,10 @@ Phases, each printing one JSON line:
    and the finalize bitwise the plain versions', each f64 sum within
    2^-40 sum|t| of the plain one, a second launch bitwise with the
    tickets at zero; times (CUDA events, device time and kernels a call,
-   the plain versions'), the bytes bound and ptxas's registers;
+   the plain versions'), the bytes bound and ptxas's registers; F2e and
+   F2f at that LP and at the million-node matrix's shape (vectors made
+   with numpy), the ray off and on, in three turns with the version in
+   --parent DIR where given, with their grids and bounds (`shapes`);
    kernels_tiled_large: the three tile-plan kernels and the three CSR
    kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
@@ -3733,7 +3736,106 @@ STATS_REPLACES = {
 STATS_SUM_BOUND = 2.0 ** -40  # times sum|t|: chains of at most 2^12 adds
 
 
-def kernels_eval_stats(torch, problem, dev, time_ms, device_profile):
+def stats_bytes(name, items, ray):
+    """F2e's or F2f's bytes bound over `items` entries: F2e reads x, A'y,
+    c, l, u (and writes the ray), F2f reads y, A x, b (and A ray) and a
+    byte a row."""
+    if name == "stats_primal":
+        return 4 * (5 + ray) * items
+    return (4 * (3 + ray) + 1) * items
+
+
+def large_stats_inputs(torch, dev):
+    """F2e's and F2f's inputs at the million-node matrix's shape (n =
+    LARGE_NODES columns, m = n + 1 rows), made with numpy from seed 4:
+    bounds of every kind, a third of the rows equalities, the products
+    normal vectors (the kernels take them as given)."""
+    from firstorderlp_torch.ops import eval_stats as es
+
+    rng = np.random.default_rng(4)
+    n, m = LARGE_NODES, LARGE_NODES + 1
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    lower = np.where(rng.random(n) < 0.5, 0.0, -np.inf)
+    upper = np.where(rng.random(n) < 0.4, 1.0 + rng.random(n), np.inf)
+    x, y = rng.normal(size=n), rng.normal(size=m)
+    scalars = es.Scalars(*(f32(v) for v in (0.25, 3.0, 2.0, 900.0, 800.0)),
+                         torch.tensor(False, device=dev),
+                         torch.tensor(80, dtype=torch.int64, device=dev),
+                         torch.tensor(164.0, dtype=torch.float64, device=dev),
+                         torch.tensor(0.0, dtype=torch.float64, device=dev))
+    return {"primal": f32(x), "aty": f32(rng.normal(size=n)),
+            "vectors": (f32(rng.normal(size=n)), f32(lower), f32(upper)),
+            "primal_norm": f32(np.max(np.abs(x))), "dual": f32(y),
+            "ax": f32(rng.normal(size=m)), "aray": f32(rng.normal(size=m)),
+            "rhs": f32(rng.normal(size=m)),
+            "is_equality": torch.as_tensor(np.arange(m) < m // 3,
+                                           device=dev),
+            "scalars": scalars}
+
+
+def stats_turns(torch, es, parent, dev, shapes, rules):
+    """F2e and F2f at each shape (name -> large_stats_inputs' keys), the
+    ray off and on: each kernel in turns with `parent`'s (another
+    version's ops.eval_stats, when given) on the same inputs, three turns
+    (probe_routed.in_turns), with its grid and bytes bound, and whether
+    the parent's maxima and flags (F2f: its totals' maxima) and all its
+    outputs have this version's bits (its sums add in another order)."""
+    from firstorderlp_torch.ops import probe_routed
+
+    out = {}
+    for label, inp in shapes.items():
+        n, m = inp["primal"].shape[0], inp["dual"].shape[0]
+        for ray in (False, True):
+            r = dataclasses.replace(rules, ray=ray)
+            versions = {"this": es, **({"parent": parent} if parent else {})}
+            ray_out, ptot = es.stats_primal(
+                inp["primal"], inp["aty"], *inp["vectors"],
+                inp["primal_norm"], ray)
+            aray = inp["aray"] if ray else None
+            primal_calls, dual_calls = {}, {}
+            for who, mod in versions.items():
+                primal_calls[who] = (
+                    lambda mod=mod: mod.stats_primal(
+                        inp["primal"], inp["aty"], *inp["vectors"],
+                        inp["primal_norm"], ray))
+                dual_calls[who] = (
+                    lambda mod=mod: mod.stats_dual(
+                        inp["dual"], inp["ax"], aray, inp["rhs"],
+                        inp["is_equality"], ptot, inp["primal_norm"],
+                        inp["scalars"], r))
+            for name, calls, items in (("stats_primal", primal_calls, n),
+                                       ("stats_dual", dual_calls, m)):
+                turns = probe_routed.in_turns(calls)
+                row = {who: probe_routed.turn_summary(got)
+                       for who, got in turns.items()}
+                row["blocks"] = es.stats_grid(items, *es.stats_wave(dev,
+                                                                    name))
+                row["bytes"] = stats_bytes(name, items, ray)
+                row["bound_ms"] = probe_routed.bound_ms(row["bytes"], 0)[0]
+                if parent:
+                    row["parent_blocks"] = parent.blocks(items)
+                    mine, theirs = calls["this"](), calls["parent"]()
+                    if name == "stats_primal":
+                        mine, theirs = mine[1], theirs[1]
+                        flags = slice(len(es.PRIMAL_SUMS), None)
+                    else:
+                        mine = torch.cat([mine[0], mine[1].double(),
+                                          mine[3].double()[None]])
+                        theirs = torch.cat([theirs[0], theirs[1].double(),
+                                            theirs[3].double()[None]])
+                        flags = slice(len(es.DUAL_SUMS), len(es.DUAL_TOTALS))
+                    row["parent_same_maxima_and_flags"] = bool(
+                        torch.equal(mine[flags], theirs[flags]))
+                    row["parent_same_bits"] = bool(torch.equal(mine, theirs))
+                out[f"{label}_ray_{'on' if ray else 'off'}_{name}"] = row
+    return out
+
+
+def kernels_eval_stats(torch, problem, dev, time_ms, device_profile,
+                       compare, parent_dir=None):
     """F2d stats_point, F2e stats_primal and F2f stats_dual
     (ops/eval_stats.py) on the main path's LP as optimize prepares it
     (the original copy's vectors, rescaling, norm cache and kernel
@@ -3746,9 +3848,11 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile):
     totals, and a second launch bitwise the first with the tickets at
     zero. At the main path's criteria: times (CUDA events, device ms and
     kernels a call, the plain versions'), the bytes bound and ptxas's
-    registers."""
+    registers. F2e and F2f also at the million-node matrix's shape, the
+    ray off and on, in three turns with `parent_dir`'s version of them
+    where given (stats_turns)."""
     from firstorderlp_torch.models import pdhg
-    from firstorderlp_torch.ops import compare_kernels, eval_stats as es
+    from firstorderlp_torch.ops import eval_stats as es
 
     params = make_params(1e-4, 20_000)
     bundle = pdhg.prepare_problem(params, problem, device=dev).bundle
@@ -3897,7 +4001,17 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile):
             # y, A x, b read and a byte a row
             13 * m, 15 * m),
     }
-    usage = compare_kernels.ptxas_usage("stats_point")
+    parent = (compare.package_module("ops.eval_stats", parent_dir)
+              if parent_dir else None)
+    main_shape = {"primal": point.primal, "aty": aty, "vectors": vectors,
+                  "primal_norm": point.primal_norm, "dual": point.dual,
+                  "ax": ax, "aray": op.mv(point.primal),
+                  "rhs": original.right_hand_side,
+                  "is_equality": original.is_equality, "scalars": scalars}
+    turns = stats_turns(torch, es, parent, dev,
+                        {"100k": main_shape,
+                         "1M": large_stats_inputs(torch, dev)}, r)
+    usage = compare.ptxas_usage("stats_point")
     rows = []
     for name, (kernel, plain, nbytes, flops) in calls.items():
         kernel()
@@ -3913,10 +4027,16 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile):
             "plain_ms": time_ms(plain, reps=10, warmup=1),
             "device_ms": dev_ms, "kernels_per_call": per_call,
             "bytes": nbytes, "flops": flops, "library_ms": None,
-            "blocks": es.blocks(n + m if name == "stats_point" else
-                                n if name == "stats_primal" else m),
+            "blocks": (es.blocks(n + m) if name == "stats_point" else
+                       es.stats_grid(n if name == "stats_primal" else m,
+                                     *es.stats_wave(dev, name))),
             **({"registers": found[0].get("registers")} if found else {}),
         })
+        if name != "stats_point":
+            rows[-1]["shapes"] = {key: row for key, row in turns.items()
+                                  if key.endswith(name)}
+            if parent_dir:
+                rows[-1]["parent"] = turns[f"100k_ray_off_{name}"]["parent"]
     return rows, variants
 
 
@@ -4115,7 +4235,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             elif phase == "kernels_eval_stats":
                 rows, variants = kernels_eval_stats(
                     torch, generate_pagerank_lp(num_nodes=NODES, seed=0),
-                    dev, time_ms, device_profile)
+                    dev, time_ms, device_profile, compare, args.parent)
                 for r in rows:
                     r["bound_ms"], r["bound_by"] = probe.bound_ms(
                         r["bytes"], r["flops"])
@@ -4474,7 +4594,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 3b. the evaluation's statistics kernels: F2d, F2e and F2f
     stats_rows, stats_variants = kernels_eval_stats(
-        torch, problem, dev, time_ms, device_profile)
+        torch, problem, dev, time_ms, device_profile, compare, args.parent)
     add_bounds(stats_rows)
     emit({"phase": "kernels_eval_stats", "ok": True,
           "tolerance": "points, ray, maxima, flags and the finalize "

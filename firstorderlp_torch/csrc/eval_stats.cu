@@ -55,8 +55,28 @@
 //
 // Bound on an H100 SXM: bytes. F2d reads 2 (n + m) floats (4 (n + m)
 // with an average) and writes 2 (n + m) (4 with the scaled point); F2e
-// reads five n-vectors and writes the ray; F2f reads four m-vectors and
-// a byte a row. Each is one grid-stride pass with 256 threads a block.
+// reads five n-vectors and writes the ray; F2f reads three m-vectors, a
+// byte a row (and A ray). F2d is one grid-stride pass with 256 threads a
+// block. At these sizes F2e and F2f are set not by their bytes but by
+// their chain of dependent steps (loads, the block's reduction, the
+// ticket, the last block's reduction, F2f's finalize), so their design
+// shortens that chain:
+// - every 0-d input (F2f: F2e's totals too) is loaded at entry by a
+//   thread of its own into shared memory; no load waits behind a store;
+// - the grid is one wave of the card at most (the occupancy query of the
+//   device, ops/eval_stats.stats_grid), a thread a 16-byte slot of each
+//   vector (kStatsSlots slots loaded at once before any arithmetic; a
+//   vector whose start is not 16-byte aligned, or the last part slot,
+//   read 4 bytes at a time; is_equality 4 bytes a slot);
+// - a block's shuffle trees run level by level across its sums; lane k
+//   of warp 0 adds value k over the warps; lane 0 stores the values
+//   value-major (partials[k * blocks + b]) and draws the ticket with one
+//   release-acquire add (no separate fence);
+// - in the last block warp w adds the values w, w + 8, ...: each lane
+//   the blocks lane, lane + 32, ... (coalesced, loaded before they are
+//   added), then a shuffle tree;
+// - F2f's finalize runs in thread 0 of the last block on inputs already
+//   in shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,7 +87,10 @@ namespace folp {
 
 constexpr int kStatsThreads = 256;
 constexpr int kStatsWarps = kStatsThreads / 32;
-constexpr int kStatsMaxBlocks = 132 * 4;  // the H100's SMs, 4 blocks each
+constexpr int kStatsMaxBlocks = 132 * 4;  // F2d: 132 SMs, 4 blocks each
+constexpr int kSlotFloats = 4;  // F2e, F2f: a 16-byte slot a thread
+constexpr int kStatsSlots = 2;  // slots a thread loads at once
+constexpr int kReach = 8;  // partials a lane of the last block loads at once
 
 // stats_primal's totals: f64 sums, then maxima and flags (as f32 values
 // and 0/1 in the f64 totals).
@@ -156,10 +179,11 @@ struct PrimalArgs {
   const float* upper;
   const float* primal_norm;
   float* ray;  // or null: no infeasibility detection
-  double* partials;
+  double* partials;  // (sums + maxima) x blocks, value-major
   double* totals;
   int* ticket;
   int n;
+  int blocks;
 };
 
 struct DualArgs {
@@ -179,7 +203,7 @@ struct DualArgs {
   const long long* iteration;   // host value below stands in
   const double* kkt_passes;
   const double* elapsed;
-  double* partials;
+  double* partials;  // (sums + maxima) x blocks, value-major
   double* totals;
   float* conv;
   float* infeas;
@@ -199,6 +223,7 @@ struct DualArgs {
   int numerical_error_value;
   int l_inf;  // 1: the optimality norm is l_inf, 0: l2
   int m;
+  int blocks;
 };
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
@@ -354,6 +379,210 @@ __global__ void __launch_bounds__(kStatsThreads)
 }
 
 // ---------------------------------------------------------------------------
+// F2e and F2f: 16-byte slots, a block's partials and the ticket, the
+// launch's totals
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool on_16_bytes(const void* v) {
+  return (reinterpret_cast<size_t>(v) & 15) == 0;
+}
+
+// Entries 4q to 4q + 3 of v (n entries): one 16-byte load where v is
+// 16-byte aligned (`vec`) and the slot lies whole inside, else four
+// 4-byte loads; 0 past the end (such an entry adds nothing to any
+// total, and nothing is written for it).
+__device__ __forceinline__ float4 load_slot(const float* __restrict__ v,
+                                            int q, int n, bool vec) {
+  if (vec && 4 * q + kSlotFloats <= n) {
+    return __ldg(reinterpret_cast<const float4*>(v) + q);
+  }
+  float e[kSlotFloats];
+#pragma unroll
+  for (int k = 0; k < kSlotFloats; ++k) {
+    const int j = 4 * q + k;
+    e[k] = j < n ? __ldg(v + j) : 0.f;
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// The flags of entries 4q to 4q + 3 as the bytes of a word, 0 past the
+// end: one 4-byte load where the flags start at a 4-byte boundary
+// (`word`) and the slot lies whole inside, else a byte at a time.
+__device__ __forceinline__ unsigned load_flags(const bool* __restrict__ v,
+                                               int q, int n, bool word) {
+  if (word && 4 * q + kSlotFloats <= n) {
+    return __ldg(reinterpret_cast<const unsigned*>(v) + q);
+  }
+  const unsigned char* bytes = reinterpret_cast<const unsigned char*>(v);
+  unsigned w = 0u;
+#pragma unroll
+  for (int k = 0; k < kSlotFloats; ++k) {
+    const int j = 4 * q + k;
+    if (j < n) w |= static_cast<unsigned>(__ldg(bytes + j)) << (8 * k);
+  }
+  return w;
+}
+
+__device__ __forceinline__ float entry_of(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// Entries 4q to 4q + 3 of v: one 16-byte store where v is 16-byte
+// aligned and the slot lies whole inside, else those below n.
+__device__ __forceinline__ void store_slot(float* v, int q, int n, bool vec,
+                                           const float (&e)[kSlotFloats]) {
+  if (vec && 4 * q + kSlotFloats <= n) {
+    reinterpret_cast<float4*>(v)[q] = make_float4(e[0], e[1], e[2], e[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kSlotFloats; ++k) {
+    if (4 * q + k < n) v[4 * q + k] = e[k];
+  }
+}
+
+// Where value k of block b lies in the partials of a launch of `blocks`
+// blocks: value-major, so the last block reads each value's partials
+// coalesced.
+__device__ __forceinline__ int partial_index(int k, int b, int blocks) {
+  return k * blocks + b;
+}
+
+// The ticket a block draws after its partials: an integer add with
+// release and acquire semantics at device scope, so the block that draws
+// the last sees every block's partials stored before its draw.
+__device__ __forceinline__ int draw_release_acquire(int* ticket) {
+  int drawn;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(drawn)
+               : "l"(ticket)
+               : "memory");
+  return drawn;
+}
+
+// A block's S sums (f64) and M maxima (bits) into its partials, then the
+// ticket: a shuffle tree in each warp, level by level across the sums
+// (a maximum by one reduction); warp w's values to red[w * K + k]; lane
+// k of warp 0 adds value k over the warps in warp order; lane 0 gathers
+// the K values, stores them past the L1 cache and draws the ticket. True
+// in every thread of the block that drew the last, which then sees every
+// block's partials (its lane 0's acquire, then the barrier).
+template <int S, int M>
+__device__ __forceinline__ bool store_partials_last(double (&s)[S],
+                                                    unsigned (&mx)[M],
+                                                    double* red,
+                                                    double* partials,
+                                                    int* ticket, int* flag) {
+  constexpr int K = S + M;
+  static_assert(K <= 32, "a lane of warp 0 a value");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      s[k] += __shfl_down_sync(kFullMask, s[k], off);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < M; ++k) mx[k] = __reduce_max_sync(kFullMask, mx[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) red[warp * K + k] = s[k];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      red[warp * K + S + k] = static_cast<double>(mx[k]);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    double acc = 0.0;
+    if (lane < S) {
+#pragma unroll
+      for (int w = 0; w < kStatsWarps; ++w) acc += red[w * K + lane];
+    } else if (lane < K) {
+      unsigned bits = 0u;
+#pragma unroll
+      for (int w = 0; w < kStatsWarps; ++w) {
+        bits = max(bits, static_cast<unsigned>(red[w * K + lane]));
+      }
+      acc = static_cast<double>(bits);
+    }
+    double value[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) value[k] = __shfl_sync(kFullMask, acc, k);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        __stcg(partials + partial_index(k, blockIdx.x, gridDim.x), value[k]);
+      }
+      const bool last = draw_release_acquire(ticket) == (int)gridDim.x - 1;
+      if (last) *ticket = 0;
+      *flag = last;
+    }
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// In the last block, the launch's K = S + M totals into `total` (shared;
+// a sum, or a maximum's bits, as the partials hold them): warp w adds
+// the values w, w + 8, ...: each lane the blocks lane, lane + 32, ... in
+// order, kReach of them loaded before they are added, then a shuffle
+// tree; lane 0 writes the total. Ends with a barrier.
+template <int S, int M>
+__device__ __forceinline__ void launch_totals(const double* partials,
+                                              double* total) {
+  constexpr int K = S + M;
+  constexpr int V = (K + kStatsWarps - 1) / kStatsWarps;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int blocks = gridDim.x;
+  double v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = 0.0;
+  for (int b0 = lane; b0 < blocks; b0 += 32 * kReach) {
+    double got[kReach][V];
+#pragma unroll
+    for (int r = 0; r < kReach; ++r) {
+      const int b = b0 + 32 * r;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int k = warp + kStatsWarps * i;
+        got[r][i] = k < K && b < blocks
+                        ? __ldcg(partials + partial_index(k, b, blocks))
+                        : 0.0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kReach; ++r) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int k = warp + kStatsWarps * i;
+        v[i] = k < S ? v[i] + got[r][i] : fmax(v[i], got[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const double o = __shfl_down_sync(kFullMask, v[i], off);
+      const int k = warp + kStatsWarps * i;
+      v[i] = k < S ? v[i] + o : fmax(v[i], o);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int k = warp + kStatsWarps * i;
+      if (k < K) total[k] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
 // F2e stats_primal
 // ---------------------------------------------------------------------------
 
@@ -378,64 +607,110 @@ __device__ __forceinline__ ReducedCost reduced_cost(float g, float l,
 constexpr int kPS = kPrimalSums;
 constexpr int kPM = kPrimalTotals - kPrimalSums;
 
+// One variable's terms into the thread's sums and maxima; returns its
+// ray entry (where `ray` is set).
+__device__ __forceinline__ float primal_entry(float x, float c, float l,
+                                              float u, float aty, float norm,
+                                              bool ray, double (&s)[kPS],
+                                              unsigned (&mx)[kPM]) {
+  s[kCx] += static_cast<double>(__fmul_rn(c, x));
+  s[kXx] += square(x);
+  const float lo = clamp_min0(__fsub_rn(l, x));
+  const float up = clamp_min0(__fsub_rn(x, u));
+  s[kLower2] += square(lo);
+  s[kUpper2] += square(up);
+  mx[kBoundMax - kPS] =
+      max(mx[kBoundMax - kPS], max(abs_bits(lo), abs_bits(up)));
+  if (!is_finite(x)) mx[kNonFinite - kPS] = 1u;
+  const float g = __fsub_rn(c, aty);
+  const ReducedCost r = reduced_cost(g, l, u);
+  const float violation = __fsub_rn(g, r.rc);
+  s[kRcViolation2] += square(violation);
+  s[kContribution] += static_cast<double>(r.term);
+  mx[kRcMax - kPS] = max(mx[kRcMax - kPS], abs_bits(r.rc));
+  mx[kRcViolationMax - kPS] =
+      max(mx[kRcViolationMax - kPS], abs_bits(violation));
+  if (r.needs_infinite) mx[kNeedsInfinite - kPS] = 1u;
+  if (!ray) return 0.f;
+  const float out = norm == 0.f ? x : __fdiv_rn(x, norm);
+  // the homogeneous primal: finite bounds at 0, infinite ones kept
+  const float hl = is_finite(l) ? 0.f : -INFINITY;
+  const float hu = is_finite(u) ? 0.f : INFINITY;
+  mx[kRayBoundMax - kPS] =
+      max(mx[kRayBoundMax - kPS],
+          max(abs_bits(clamp_min0(__fsub_rn(hl, out))),
+              abs_bits(clamp_min0(__fsub_rn(out, hu)))));
+  s[kRayC] += static_cast<double>(__fmul_rn(c, out));
+  // the homogeneous dual: the objective at 0, so g = -A'y
+  const float gh = -aty;
+  const ReducedCost h = reduced_cost(gh, l, u);
+  s[kContributionH] += static_cast<double>(h.term);
+  mx[kRcHMax - kPS] = max(mx[kRcHMax - kPS], abs_bits(h.rc));
+  mx[kRcViolationHMax - kPS] =
+      max(mx[kRcViolationHMax - kPS], abs_bits(__fsub_rn(gh, h.rc)));
+  if (h.needs_infinite) mx[kNeedsInfiniteH - kPS] = 1u;
+  return out;
+}
+
+// Grid: a.blocks blocks (ops/eval_stats.stats_grid); thread i of the
+// launch takes the slots i, i + T B, ... of the n / 4, kStatsSlots at a
+// time, their loads issued first.
 __global__ void __launch_bounds__(kStatsThreads)
     stats_primal_kernel(const PrimalArgs a) {
+  constexpr int T = kStatsThreads;
+  constexpr int U = kStatsSlots;
+  constexpr int kInputs = 5;  // x, c, l, u, A'y
+  __shared__ double red[kStatsWarps * kPrimalTotals];
+  __shared__ double total[kPrimalTotals];
+  __shared__ int last;
+  const float norm = __ldg(a.primal_norm);
+  const float* in[kInputs] = {a.primal, a.objective, a.lower, a.upper,
+                              a.aty};
+  bool vec[kInputs];
+#pragma unroll
+  for (int i = 0; i < kInputs; ++i) vec[i] = on_16_bytes(in[i]);
+  const bool ray = a.ray != nullptr;
+  const bool ray_vec = ray && on_16_bytes(a.ray);
   double s[kPS];
   unsigned mx[kPM];
 #pragma unroll
   for (int k = 0; k < kPS; ++k) s[k] = 0.0;
 #pragma unroll
   for (int k = 0; k < kPM; ++k) mx[k] = 0u;
-  const float norm = *a.primal_norm;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
-       i += gridDim.x * blockDim.x) {
-    const float x = __ldg(a.primal + i);
-    const float c = __ldg(a.objective + i);
-    const float l = __ldg(a.lower + i);
-    const float u = __ldg(a.upper + i);
-    const float aty = __ldg(a.aty + i);
-    s[kCx] += static_cast<double>(__fmul_rn(c, x));
-    s[kXx] += square(x);
-    const float lo = clamp_min0(__fsub_rn(l, x));
-    const float up = clamp_min0(__fsub_rn(x, u));
-    s[kLower2] += square(lo);
-    s[kUpper2] += square(up);
-    mx[kBoundMax - kPS] =
-        max(mx[kBoundMax - kPS], max(abs_bits(lo), abs_bits(up)));
-    if (!is_finite(x)) mx[kNonFinite - kPS] = 1u;
-    const float g = __fsub_rn(c, aty);
-    const ReducedCost r = reduced_cost(g, l, u);
-    const float violation = __fsub_rn(g, r.rc);
-    s[kRcViolation2] += square(violation);
-    s[kContribution] += static_cast<double>(r.term);
-    mx[kRcMax - kPS] = max(mx[kRcMax - kPS], abs_bits(r.rc));
-    mx[kRcViolationMax - kPS] =
-        max(mx[kRcViolationMax - kPS], abs_bits(violation));
-    if (r.needs_infinite) mx[kNeedsInfinite - kPS] = 1u;
-    if (a.ray != nullptr) {
-      const float ray = norm == 0.f ? x : __fdiv_rn(x, norm);
-      a.ray[i] = ray;
-      // the homogeneous primal: finite bounds at 0, infinite ones kept
-      const float hl = is_finite(l) ? 0.f : -INFINITY;
-      const float hu = is_finite(u) ? 0.f : INFINITY;
-      mx[kRayBoundMax - kPS] = max(
-          mx[kRayBoundMax - kPS],
-          max(abs_bits(clamp_min0(__fsub_rn(hl, ray))),
-              abs_bits(clamp_min0(__fsub_rn(ray, hu)))));
-      s[kRayC] += static_cast<double>(__fmul_rn(c, ray));
-      // the homogeneous dual: the objective at 0, so g = -A'y
-      const float gh = -aty;
-      const ReducedCost h = reduced_cost(gh, l, u);
-      s[kContributionH] += static_cast<double>(h.term);
-      mx[kRcHMax - kPS] = max(mx[kRcHMax - kPS], abs_bits(h.rc));
-      mx[kRcViolationHMax - kPS] = max(mx[kRcViolationHMax - kPS],
-                                       abs_bits(__fsub_rn(gh, h.rc)));
-      if (h.needs_infinite) mx[kNeedsInfiniteH - kPS] = 1u;
+  const int n = a.n;
+  const int slots = (n + 3) >> 2;
+  const int stride = gridDim.x * T;
+  for (int q0 = blockIdx.x * T + threadIdx.x; q0 < slots; q0 += U * stride) {
+    float4 v[U][kInputs];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (q0 + u * stride < slots) {
+#pragma unroll
+        for (int i = 0; i < kInputs; ++i) {
+          v[u][i] = load_slot(in[i], q0 + u * stride, n, vec[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * stride;
+      if (q >= slots) break;
+      float r[kSlotFloats];
+#pragma unroll
+      for (int k = 0; k < kSlotFloats; ++k) {
+        r[k] = primal_entry(entry_of(v[u][0], k), entry_of(v[u][1], k),
+                            entry_of(v[u][2], k), entry_of(v[u][3], k),
+                            entry_of(v[u][4], k), norm, ray, s, mx);
+      }
+      if (ray) store_slot(a.ray, q, n, ray_vec, r);
     }
   }
-  __shared__ double total[kPrimalTotals];
-  if (grid_totals(s, mx, a.partials, a.ticket, total) &&
-      threadIdx.x < kPrimalTotals) {
+  if (!store_partials_last<kPS, kPM>(s, mx, red, a.partials, a.ticket,
+                                     &last)) {
+    return;
+  }
+  launch_totals<kPS, kPM>(a.partials, total);
+  if (threadIdx.x < kPrimalTotals) {
     a.totals[threadIdx.x] =
         total_value(total, threadIdx.x, kPS, kNonFinite - kPS);
   }
@@ -449,15 +724,78 @@ __device__ __forceinline__ float to_f32(double v) {
   return __double2float_rn(v);
 }
 
-// The last block's thread 0: every field and the reason from the two
+constexpr int kDS = kDualSums;
+constexpr int kDM = kDualTotals - kDualSums;
+
+// F2f's f32 0-d inputs, by their place in DualInputs::f
+enum DualFloat : int {
+  kObjectiveConstant = 0, kNormCInf, kNormBInf, kNormC2, kNormB2,
+  kPrimalNormInput, kDualFloats
+};
+
+// The finalize's inputs besides the dual totals, loaded at entry.
+struct DualInputs {
+  double p[kPrimalTotals];  // F2e's totals
+  float f[kDualFloats];
+  long long iteration;
+  double kkt;
+  double elapsed;
+  int numerical_error;
+};
+
+// Every block, at entry: warp 0's lanes F2e's totals, warp 1's the f32
+// inputs, warps 2-5 one scalar each (the host value where the pointer is
+// null), so each warp waits for one load before its vectors' loads.
+__device__ __forceinline__ void load_dual_inputs(const DualArgs& a,
+                                                 DualInputs* in) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    if (lane < kPrimalTotals) in->p[lane] = __ldg(a.primal_totals + lane);
+  } else if (warp == 1) {
+    if (lane < kDualFloats) {
+      const float* src = lane == kObjectiveConstant ? a.objective_constant
+                         : lane == kNormCInf        ? a.norm_c_inf
+                         : lane == kNormBInf        ? a.norm_b_inf
+                         : lane == kNormC2          ? a.norm_c_2
+                         : lane == kNormB2          ? a.norm_b_2
+                                                    : a.primal_norm;
+      in->f[lane] = __ldg(src);
+    }
+  } else if (lane == 0) {
+    if (warp == 2) {
+      in->iteration =
+          a.iteration != nullptr ? __ldg(a.iteration) : a.iteration_value;
+    } else if (warp == 3) {
+      in->kkt = a.kkt_passes != nullptr ? __ldg(a.kkt_passes) : a.kkt_value;
+    } else if (warp == 4) {
+      in->elapsed = a.elapsed != nullptr ? __ldg(a.elapsed) : a.elapsed_value;
+    } else if (warp == 5) {
+      in->numerical_error =
+          a.numerical_error != nullptr
+              ? __ldg(reinterpret_cast<const unsigned char*>(
+                    a.numerical_error)) != 0
+              : a.numerical_error_value != 0;
+    }
+  }
+}
+
+// Thread 0 of the last block: every field and the reason from the two
 // launches' totals (iteration_stats.compute_convergence_information,
 // compute_infeasibility_information and termination.
 // check_termination_criteria, as models/common.evaluate_unscaled_stats
-// composes them).
-__device__ void finalize(const DualArgs& a, const double* d) {
-  const double* p = a.primal_totals;
+// composes them), each step rounded as stats_finalize_plain rounds it,
+// every input read from shared memory (`raw`: the dual totals as
+// launch_totals leaves them). One thread: spread over a warp's lanes, the
+// selects and shuffles cost more than the divisions they spread.
+__device__ void finalize(const DualArgs& a, const DualInputs& in,
+                         const double* raw) {
+  const double* p = in.p;
+  double d[kDualTotals];
+#pragma unroll
+  for (int k = 0; k < kDualTotals; ++k) d[k] = total_value(raw, k, kDS, kDM);
   const float nan = __int_as_float(0x7fffffff);
-  const float constant = *a.objective_constant;
+  const float constant = in.f[kObjectiveConstant];
   // x'Qx of an LP, sum(x * 0): NaN where some x is not finite
   const float qx_dot_x = p[kNonFinite] != 0.0 ? nan : 0.f;
   const float half_q = __fmul_rn(0.5f, qx_dot_x);
@@ -480,8 +818,8 @@ __device__ void finalize(const DualArgs& a, const double* d) {
   const float dobj = __fadd_rn(base, contribution);
   const float gap = fabsf(__fsub_rn(pobj, dobj));
   const float abs_obj = __fadd_rn(fabsf(pobj), fabsf(dobj));
-  const float norm_c_inf = *a.norm_c_inf, norm_b_inf = *a.norm_b_inf;
-  const float norm_c_2 = *a.norm_c_2, norm_b_2 = *a.norm_b_2;
+  const float norm_c_inf = in.f[kNormCInf], norm_b_inf = in.f[kNormBInf];
+  const float norm_c_2 = in.f[kNormC2], norm_b_2 = in.f[kNormB2];
   conv[kPrimalObjective] = pobj;
   conv[kDualObjective] = dobj;
   conv[kCorrectedDualObjective] = linf_dr == 0.f ? dobj : -INFINITY;
@@ -498,7 +836,7 @@ __device__ void finalize(const DualArgs& a, const double* d) {
   conv[kRelL2DualResidual] =
       __fdiv_rn(l2_dr, __fadd_rn(a.eps_ratio, norm_c_2));
   conv[kRelGap] = __fdiv_rn(gap, __fadd_rn(a.eps_ratio, abs_obj));
-  conv[kLInfPrimalVariable] = *a.primal_norm;
+  conv[kLInfPrimalVariable] = in.f[kPrimalNormInput];
   conv[kL2PrimalVariable] = sqrtf(to_f32(p[kXx]));
   conv[kLInfDualVariable] = to_f32(d[kYMax]);
   conv[kL2DualVariable] = sqrtf(to_f32(d[kYy]));
@@ -545,13 +883,6 @@ __device__ void finalize(const DualArgs& a, const double* d) {
       __fdiv_rn(f[kMaxPrimalRayInfeasibility], neg) <=
           a.eps_dual_infeasible &&
       __fdiv_rn(f[kPrimalRayQuadraticNorm], neg) <= a.eps_dual_infeasible;
-  const long long iteration =
-      a.iteration != nullptr ? *a.iteration : a.iteration_value;
-  const double kkt = a.kkt_passes != nullptr ? *a.kkt_passes : a.kkt_value;
-  const double elapsed = a.elapsed != nullptr ? *a.elapsed : a.elapsed_value;
-  const bool numerical_error = a.numerical_error != nullptr
-                                   ? *a.numerical_error
-                                   : a.numerical_error_value != 0;
   int reason = 0;
   if (optimal) {
     reason = 1;  // TERMINATION_REASON_OPTIMAL
@@ -559,65 +890,111 @@ __device__ void finalize(const DualArgs& a, const double* d) {
     reason = 2;  // PRIMAL_INFEASIBLE
   } else if (dual_infeasible) {
     reason = 3;  // DUAL_INFEASIBLE
-  } else if (iteration >= a.iteration_limit) {
+  } else if (in.iteration >= a.iteration_limit) {
     reason = 5;  // ITERATION_LIMIT
-  } else if (kkt >= a.kkt_limit) {
+  } else if (in.kkt >= a.kkt_limit) {
     reason = 6;  // KKT_MATRIX_PASS_LIMIT
-  } else if (elapsed >= a.time_limit) {
+  } else if (in.elapsed >= a.time_limit) {
     reason = 4;  // TIME_LIMIT
-  } else if (numerical_error) {
+  } else if (in.numerical_error) {
     reason = 7;  // NUMERICAL_ERROR
   }
   *a.reason = reason;
 }
 
-constexpr int kDS = kDualSums;
-constexpr int kDM = kDualTotals - kDualSums;
+// One row's terms into the thread's sums and maxima (`aray`: -A ray's
+// entry, where `ray` is set).
+__device__ __forceinline__ void dual_entry(float y, float b, float ax,
+                                           bool eq, bool ray, float aray,
+                                           double (&s)[kDS],
+                                           unsigned (&mx)[kDM]) {
+  const float r = __fsub_rn(b, ax);
+  const float eq_v = eq ? r : 0.f;
+  const float ineq_v = eq ? 0.f : clamp_min0(r);
+  s[kEq2] += square(eq_v);
+  s[kIneq2] += square(ineq_v);
+  mx[kRowMax - kDS] =
+      max(mx[kRowMax - kDS], max(abs_bits(eq_v), abs_bits(ineq_v)));
+  const float sign = eq ? 0.f : clamp_min0(-y);
+  s[kSign2] += square(sign);
+  mx[kSignMax - kDS] = max(mx[kSignMax - kDS], abs_bits(sign));
+  s[kBy] += static_cast<double>(__fmul_rn(b, y));
+  s[kYy] += square(y);
+  mx[kYMax - kDS] = max(mx[kYMax - kDS], abs_bits(y));
+  if (ray) {
+    const float ra = -aray;
+    mx[kRayRowMax - kDS] =
+        max(mx[kRayRowMax - kDS], max(abs_bits(eq ? ra : 0.f),
+                                      abs_bits(eq ? 0.f : clamp_min0(ra))));
+  }
+}
 
+// Grid: as stats_primal's, over the m rows.
 __global__ void __launch_bounds__(kStatsThreads)
     stats_dual_kernel(const DualArgs a) {
+  constexpr int T = kStatsThreads;
+  constexpr int U = kStatsSlots;
+  constexpr int kInputs = 4;  // y, b, A x, A ray
+  __shared__ double red[kStatsWarps * kDualTotals];
+  __shared__ double total[kDualTotals];
+  __shared__ DualInputs inputs;
+  __shared__ int last;
+  load_dual_inputs(a, &inputs);
+  const bool ray = a.aray != nullptr;
+  const float* in[kInputs] = {a.dual, a.rhs, a.ax, ray ? a.aray : a.ax};
+  bool vec[kInputs];
+#pragma unroll
+  for (int i = 0; i < kInputs; ++i) vec[i] = on_16_bytes(in[i]);
+  const bool word = (reinterpret_cast<size_t>(a.is_equality) & 3) == 0;
   double s[kDS];
   unsigned mx[kDM];
 #pragma unroll
   for (int k = 0; k < kDS; ++k) s[k] = 0.0;
 #pragma unroll
   for (int k = 0; k < kDM; ++k) mx[k] = 0u;
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < a.m;
-       j += gridDim.x * blockDim.x) {
-    const float y = __ldg(a.dual + j);
-    const float b = __ldg(a.rhs + j);
-    const bool eq = a.is_equality[j];
-    const float r = __fsub_rn(b, __ldg(a.ax + j));
-    const float eq_v = eq ? r : 0.f;
-    const float ineq_v = eq ? 0.f : clamp_min0(r);
-    s[kEq2] += square(eq_v);
-    s[kIneq2] += square(ineq_v);
-    mx[kRowMax - kDS] =
-        max(mx[kRowMax - kDS], max(abs_bits(eq_v), abs_bits(ineq_v)));
-    const float sign = eq ? 0.f : clamp_min0(-y);
-    s[kSign2] += square(sign);
-    mx[kSignMax - kDS] = max(mx[kSignMax - kDS], abs_bits(sign));
-    s[kBy] += static_cast<double>(__fmul_rn(b, y));
-    s[kYy] += square(y);
-    mx[kYMax - kDS] = max(mx[kYMax - kDS], abs_bits(y));
-    if (a.aray != nullptr) {
-      const float ra = -__ldg(a.aray + j);
-      mx[kRayRowMax - kDS] =
-          max(mx[kRayRowMax - kDS], max(abs_bits(eq ? ra : 0.f),
-                                        abs_bits(eq ? 0.f : clamp_min0(ra))));
+  const int m = a.m;
+  const int slots = (m + 3) >> 2;
+  const int stride = gridDim.x * T;
+  for (int q0 = blockIdx.x * T + threadIdx.x; q0 < slots; q0 += U * stride) {
+    float4 v[U][kInputs];
+    unsigned eq[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * stride;
+      if (q < slots) {
+#pragma unroll
+        for (int i = 0; i < kInputs - 1; ++i) {
+          v[u][i] = load_slot(in[i], q, m, vec[i]);
+        }
+        v[u][kInputs - 1] = ray ? load_slot(in[kInputs - 1], q, m,
+                                            vec[kInputs - 1])
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        eq[u] = load_flags(a.is_equality, q, m, word);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (q0 + u * stride >= slots) break;
+#pragma unroll
+      for (int k = 0; k < kSlotFloats; ++k) {
+        dual_entry(entry_of(v[u][0], k), entry_of(v[u][1], k),
+                   entry_of(v[u][2], k), ((eq[u] >> (8 * k)) & 0xffu) != 0u,
+                   ray, entry_of(v[u][3], k), s, mx);
+      }
     }
   }
-  __shared__ double total[kDualTotals];
-  __shared__ double d[kDualTotals];
-  if (!grid_totals(s, mx, a.partials, a.ticket, total)) return;
-  if (threadIdx.x < kDualTotals) {
-    d[threadIdx.x] = a.totals[threadIdx.x] =
-        total_value(total, threadIdx.x, kDS, kDM);
+  if (!store_partials_last<kDS, kDM>(s, mx, red, a.partials, a.ticket,
+                                     &last)) {
+    return;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) finalize(a, d);
+  launch_totals<kDS, kDM>(a.partials, total);
+  if (threadIdx.x < kDualTotals) {
+    a.totals[threadIdx.x] = total_value(total, threadIdx.x, kDS, kDM);
+  }
+  if (threadIdx.x == 0) finalize(a, inputs, total);
 }
 
+// F2d's grid: a block a 256 entries, at most kStatsMaxBlocks.
 inline int stats_blocks(int items) {
   const int blocks = (items + kStatsThreads - 1) / kStatsThreads;
   return blocks < 1 ? 1 : (blocks > kStatsMaxBlocks ? kStatsMaxBlocks
@@ -626,8 +1003,8 @@ inline int stats_blocks(int items) {
 
 }  // namespace folp
 
-// Each entry point launches stats_blocks(items) blocks; the caller's
-// partials hold (sums + maxima) doubles a block.
+// F2d launches stats_blocks(n + m) blocks; the caller's partials hold
+// (sums + maxima) doubles a block.
 extern "C" int folp_stats_point(const folp::PointArgs* a, void* stream_ptr) {
   using namespace folp;
   stats_point_kernel<<<stats_blocks(a->n + a->m), kStatsThreads, 0,
@@ -635,17 +1012,33 @@ extern "C" int folp_stats_point(const folp::PointArgs* a, void* stream_ptr) {
   return (int)cudaGetLastError();
 }
 
+// F2e and F2f launch a->blocks blocks (ops/eval_stats.stats_grid); the
+// partials hold (sums + maxima) x blocks doubles, value-major.
 extern "C" int folp_stats_primal(const folp::PrimalArgs* a,
                                  void* stream_ptr) {
   using namespace folp;
-  stats_primal_kernel<<<stats_blocks(a->n), kStatsThreads, 0,
+  if (a->blocks < 1) return (int)cudaErrorInvalidValue;
+  stats_primal_kernel<<<a->blocks, kStatsThreads, 0,
                         (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int folp_stats_dual(const folp::DualArgs* a, void* stream_ptr) {
   using namespace folp;
-  stats_dual_kernel<<<stats_blocks(a->m), kStatsThreads, 0,
+  if (a->blocks < 1) return (int)cudaErrorInvalidValue;
+  stats_dual_kernel<<<a->blocks, kStatsThreads, 0,
                       (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of stats_primal (`dual` 0) or stats_dual (1) an SM of
+// the current device holds at once, into *blocks.
+extern "C" int folp_stats_occupancy(int dual, int* blocks) {
+  using namespace folp;
+  if (dual) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, stats_dual_kernel, kStatsThreads, 0);
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, stats_primal_kernel, kStatsThreads, 0);
 }

@@ -27,6 +27,12 @@ whose longest chains are D1 and D2 give f64 sums within (D1 + D2)
 of about (D1 + D2) 2^-29 sum|t| / |S|, a difference that repeats at every
 run on that input.
 
+F2e and F2f take their grid from the card (``stats_grid``: a thread a
+16-byte slot, at most one wave of the device's occupancy query; a vector
+that does not start on 16 bytes, as F2d's primal and dual may not, is
+read 4 bytes at a time), lay their blocks' partials out value-major
+(``partial_index``) and load every 0-d input at entry.
+
 Each wrapper takes the plain version only when its tensors are on the
 CPU; for CUDA tensors it launches its kernel or raises, and any other
 device raises. Every launch adds one to the wrapper's entry in
@@ -43,10 +49,14 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import kernels_build
 from .pdhg_step import _check, _launch, _on_cpu
 
 THREADS = 256  # kStatsThreads
-MAX_BLOCKS = 132 * 4  # kStatsMaxBlocks
+MAX_BLOCKS = 132 * 4  # kStatsMaxBlocks: F2d's grid
+SLOT_FLOATS = 4  # kSlotFloats: F2e and F2f take 16-byte slots
+SLOTS = 2  # kStatsSlots: slots a thread loads at once
+REACH = 8  # kReach: partials a lane of the last block loads at once
 
 # stats_primal's totals (csrc/eval_stats.cu's PrimalTotal): f64 sums,
 # then maxima, then flags (0 or 1)
@@ -407,7 +417,8 @@ class _PrimalArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "primal", "aty", "objective", "lower", "upper", "primal_norm",
-        "ray", "partials", "totals", "ticket")] + [("n", ctypes.c_int)]
+        "ray", "partials", "totals", "ticket")] + [
+        ("n", ctypes.c_int), ("blocks", ctypes.c_int)]
 
 
 class _DualArgs(ctypes.Structure):
@@ -433,6 +444,7 @@ class _DualArgs(ctypes.Structure):
         ("numerical_error_value", ctypes.c_int),
         ("l_inf", ctypes.c_int),
         ("m", ctypes.c_int),
+        ("blocks", ctypes.c_int),
     ]
 
 
@@ -452,8 +464,51 @@ def tickets(device: torch.device) -> torch.Tensor:
 
 
 def blocks(items: int) -> int:
-    """The blocks a launch over `items` entries takes (stats_blocks)."""
+    """The blocks F2d's launch over `items` entries takes
+    (stats_blocks)."""
     return min(max(1, -(-items // THREADS)), MAX_BLOCKS)
+
+
+def stats_grid(items: int, sms: int, depth: int) -> int:
+    """F2e's or F2f's blocks over `items` entries on a card of `sms` SMs
+    that each hold `depth` of its blocks at once (stats_wave): a thread a
+    16-byte slot, at most one wave, at least one block."""
+    slots = -(-items // SLOT_FLOATS)
+    return max(1, min(sms * depth, -(-slots // THREADS)))
+
+
+def partial_index(k: int, b: int, blocks: int) -> int:
+    """Where value k of block b lies in the partials of F2e's or F2f's
+    launch of `blocks` blocks (csrc partial_index): value-major."""
+    return k * blocks + b
+
+
+# (device index, kernel) -> (SMs, blocks an SM holds)
+_WAVE: dict = {}
+
+
+def stats_wave(device, kernel: str) -> tuple:
+    """(SMs, blocks of `kernel` ("stats_primal" or "stats_dual") an SM
+    holds at once) of the CUDA `device`: its multiprocessor count and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once per device
+    and kernel, and cached. Raises when the query fails."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, kernel)
+    if key not in _WAVE:
+        query = kernels_build.library(kernel).folp_stats_occupancy
+        query.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        query.restype = ctypes.c_int
+        count = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = query(int(kernel == "stats_dual"), ctypes.byref(count))
+        if err != 0 or count.value < 1:
+            raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
+                               f"error {err}, {count.value} blocks")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _WAVE[key] = (sms, count.value)
+    return _WAVE[key]
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -526,7 +581,8 @@ def stats_primal(primal, aty, objective, lower, upper, primal_norm,
     _check("primal_norm", primal_norm, torch.float32, ())
     device = primal.device
     k = len(PRIMAL_TOTALS)
-    scratch = torch.empty((blocks(n) + 1) * k, dtype=torch.float64,
+    grid = stats_grid(n, *stats_wave(device, "stats_primal"))
+    scratch = torch.empty((grid + 1) * k, dtype=torch.float64,
                           device=device)
     totals, partials = scratch[:k], scratch[k:]
     ray_out = (torch.empty(n, dtype=torch.float32, device=device) if ray
@@ -534,7 +590,7 @@ def stats_primal(primal, aty, objective, lower, upper, primal_norm,
     args = _PrimalArgs(
         *(_ptr(t) for t in (*vectors, primal_norm, ray_out, partials,
                             totals)),
-        _ticket(device, "stats_primal"), n)
+        _ticket(device, "stats_primal"), n, grid)
     _launch("stats_primal", args, device)
     return ray_out, totals
 
@@ -584,7 +640,8 @@ def stats_dual(dual, ax, aray, rhs, is_equality, primal_totals,
                                    "elapsed")
     device = dual.device
     k = len(DUAL_TOTALS)
-    scratch = torch.empty((blocks(m) + 1) * k, dtype=torch.float64,
+    grid = stats_grid(m, *stats_wave(device, "stats_dual"))
+    scratch = torch.empty((grid + 1) * k, dtype=torch.float64,
                           device=device)
     totals, partials = scratch[:k], scratch[k:]
     fields = torch.empty(16 + 5, dtype=torch.float32, device=device)
@@ -606,6 +663,6 @@ def stats_dual(dual, ax, aray, rhs, is_equality, primal_totals,
         f32(criteria.eps_ratio), f32(criteria.abs_tol),
         f32(criteria.rel_tol), f32(criteria.eps_primal_infeasible),
         f32(criteria.eps_dual_infeasible), int(bool(flag)),
-        int(criteria.l_inf), m)
+        int(criteria.l_inf), m, grid)
     _launch("stats_dual", args, device)
     return totals, fields[:16], fields[16:], reason

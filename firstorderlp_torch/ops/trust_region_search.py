@@ -27,6 +27,12 @@ D1 + D2 is 2^10. So the kernels give these bits, bar a one-ulp
 difference at those odds that comes from the order of addition and
 repeats at every run on that input.
 
+A row is a block row of the kernels' grid (its y index), so a call of
+more than MAX_ROWS rows runs as several launches of at most MAX_ROWS rows
+each, in order on the caller's stream (``row_chunks``): a row's t*,
+solution and sums are its own, so they have the bits one launch would
+give. The plain versions take the same chunks.
+
 Each wrapper takes the plain version only when its tensors are on the
 CPU; for CUDA tensors it launches its kernel or raises, and any other
 device raises. Every launch adds one to the wrapper's entry in
@@ -349,25 +355,59 @@ def _launch(lib: str, args: ctypes.Structure, device, *extra) -> None:
     routed.LAUNCHES[lib] += 1
 
 
+def _check_call(c, g, lower, upper, weight, per_row) -> None:
+    """Raises unless the inputs have a call's shapes and types: c, g (B,
+    N), the bounds and weights (N,) or (B, N), each of `per_row` ((name,
+    tensor): the radius, t*) float32 (B,). Each launch checks its
+    chunk's again."""
+    rows, n = c.shape
+    for name, t in zip(_INPUTS, (c, g, lower, upper, weight)):
+        _strided(name, t, rows, n)
+    for name, t in per_row:
+        if t.dtype != torch.float32 or tuple(t.shape) != (rows,):
+            raise ValueError(f"{name} must be float32 ({rows},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def row_chunks(rows: int, c, g, lower, upper, weight, *per_row):
+    """(lo, hi, inputs, per_row) for each launch of a call of `rows` rows,
+    in order: the rows [lo, hi), at most MAX_ROWS of them (one chunk of no
+    rows for an empty call); `inputs` c, g and the (B, N) bounds and
+    weights cut to those rows ((N,) ones whole), and each tensor of
+    `per_row` (one entry or row a row: the radius, t*, the outputs) cut
+    likewise."""
+    for lo in range(0, max(rows, 1), MAX_ROWS):
+        hi = min(lo + MAX_ROWS, rows)
+        inputs = [t[lo:hi] if t.dim() == 2 else t
+                  for t in (c, g, lower, upper, weight)]
+        yield lo, hi, inputs, [t[lo:hi] for t in per_row]
+
+
 def tr_search(c, g, lower, upper, weight, radius,
               plan: Optional[SearchPlan] = None) -> torch.Tensor:
     """F2b (with F2a): tr_search_plain(tr_prologue_plain(...), radius)'s
-    contract; on CUDA one launch, t* a new (B,) tensor. `plan` defaults
-    to device_search_plan's (another cluster size or staging, for a test
-    or a timing, must stage no more than its clusters hold)."""
-    if _on_cpu(c, g, lower, upper, weight, radius):
-        return tr_search_plain(tr_prologue_plain(c, g, lower, upper, weight),
-                               radius)
+    contract; on CUDA a launch for each row_chunks chunk, t* a new (B,)
+    tensor. `plan` defaults to device_search_plan's for all the rows
+    (another cluster size or staging, for a test or a timing, must stage
+    no more than its clusters hold)."""
     rows, n = c.shape
+    if _on_cpu(c, g, lower, upper, weight, radius):
+        out = [tr_search_plain(tr_prologue_plain(*inputs), r)
+               for _, _, inputs, (r,) in row_chunks(rows, c, g, lower, upper,
+                                                    weight, radius)]
+        return out[0] if len(out) == 1 else torch.cat(out)
     if plan is None:
         plan = device_search_plan(rows, n, c.device)
     elif plan.staged and plan.cluster * plan.smem_bytes < 8 * n:
         raise ValueError(f"{plan} stages fewer than the row's {n} entries")
+    _check_call(c, g, lower, upper, weight, [("radius", radius)])
     t_star = torch.empty(rows, dtype=torch.float32, device=c.device)
-    args, keep = _args(c, g, lower, upper, weight, radius, t_star, None,
-                       None, n, plan.cluster, plan.staged)
-    _launch("tr_search", args, c.device, plan.smem_bytes)
-    del keep
+    for _, _, inputs, (r, t) in row_chunks(rows, c, g, lower, upper, weight,
+                                           radius.contiguous(), t_star):
+        args, keep = _args(*inputs, r, t, None, None, n, plan.cluster,
+                           plan.staged)
+        _launch("tr_search", args, c.device, plan.smem_bytes)
+        del keep
     return t_star
 
 
@@ -418,25 +458,32 @@ def solution_tickets(device) -> torch.Tensor:
 
 def tr_solution(c, g, lower, upper, weight, t_star, split: int,
                 blocks: Optional[int] = None):
-    """F2c: tr_solution_plain's contract; on CUDA one launch, the
-    solution (B, N) and the sums in new tensors. `blocks` (blocks a row)
-    defaults to solution_blocks for the card's wave (the card tests give
-    others: the same bits at any grid)."""
-    if _on_cpu(c, g, lower, upper, weight, t_star):
-        return tr_solution_plain(c, g, lower, upper, weight, t_star, split)
+    """F2c: tr_solution_plain's contract; on CUDA a launch for each
+    row_chunks chunk, the solution (B, N) and the sums in new tensors.
+    `blocks` (blocks a row) defaults to solution_blocks for the card's
+    wave and all the rows (the card tests give others: the same bits at
+    any grid)."""
     rows, n = c.shape
+    if _on_cpu(c, g, lower, upper, weight, t_star):
+        out = [tr_solution_plain(*inputs, t, split)
+               for _, _, inputs, (t,) in row_chunks(rows, c, g, lower, upper,
+                                                    weight, t_star)]
+        return out[0] if len(out) == 1 else tuple(
+            torch.cat(parts) for parts in zip(*out))
     if not 0 <= split <= n:
         raise ValueError(f"split {split} outside [0, {n}]")
+    _check_call(c, g, lower, upper, weight, [("t_star", t_star)])
     if blocks is None:
         blocks = solution_blocks(rows, n, *solution_wave(c.device))
-    t_star = t_star.contiguous()
     solution = torch.empty((rows, n), dtype=torch.float32, device=c.device)
     sums = torch.empty((rows, 3), dtype=torch.float32, device=c.device)
-    partials = torch.empty(2 * rows * blocks, dtype=torch.float64,
+    partials = torch.empty((rows, 2 * blocks), dtype=torch.float64,
                            device=c.device)
-    args, keep = _args(c, g, lower, upper, weight, None, t_star, solution,
-                       sums, split, blocks, False, partials,
-                       solution_tickets(c.device))
-    _launch("tr_solution", args, c.device)
-    del keep
+    for _, _, inputs, (t, x, s, part) in row_chunks(
+            rows, c, g, lower, upper, weight, t_star.contiguous(), solution,
+            sums, partials):
+        args, keep = _args(*inputs, None, t, x, s, split, blocks, False,
+                           part, solution_tickets(c.device))
+        _launch("tr_solution", args, c.device)
+        del keep
     return solution, sums[:, :2], sums[:, 2]

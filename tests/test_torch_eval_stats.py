@@ -517,3 +517,113 @@ def test_wrappers_refuse_other_devices_and_a_ray_out_of_place():
         eval_stats.stats_dual(point.dual, inp["ax"], None, inp["rhs"],
                               inp["is_equality"], totals, point.primal_norm,
                               inp["scalars"], inp["criteria"])
+
+
+# ---------------------------------------------------------------------------
+# F2e's and F2f's grid, slots and order of addition
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kStatsThreads", eval_stats.THREADS),
+    ("kStatsMaxBlocks", eval_stats.MAX_BLOCKS),
+    ("kSlotFloats", eval_stats.SLOT_FLOATS),
+    ("kStatsSlots", eval_stats.SLOTS),
+    ("kReach", eval_stats.REACH),
+])
+def test_launch_constants_match_the_kernel(name, value):
+    found = re.search(rf"constexpr int {name} = ([0-9 *]+);", source())
+    assert found, name
+    assert eval(found.group(1)) == value
+
+
+def test_partials_are_value_major():
+    """The kernel's partial_index and its mirror: value k of block b at
+    k * blocks + b, every (value, block) its own place in the partials
+    the wrappers allocate (K x blocks after the K totals)."""
+    body = re.search(r"int partial_index\(int k, int b, int blocks\) "
+                     r"\{\s*return ([^;]+);", source())
+    assert body.group(1) == "k * blocks + b"
+    for k_count, blocks in ((len(eval_stats.PRIMAL_TOTALS), 98),
+                            (len(eval_stats.DUAL_TOTALS), 1),
+                            (len(eval_stats.DUAL_TOTALS), 528)):
+        places = {eval_stats.partial_index(k, b, blocks)
+                  for k in range(k_count) for b in range(blocks)}
+        assert places == set(range(k_count * blocks))
+
+
+@pytest.mark.parametrize("sms,depth", [(132, 2), (132, 8), (114, 3)])
+@pytest.mark.parametrize("n", [0, 1, 4, 5, 1_029, 100_000, 100_001,
+                               1_000_000, 4_000_000])
+def test_grid_is_a_slot_a_thread_within_one_wave(n, sms, depth):
+    """stats_grid: a thread a 16-byte slot while the slots fit in one
+    wave of the card (the SMs times the blocks each holds), one wave
+    past that, at least one block."""
+    grid = eval_stats.stats_grid(n, sms, depth)
+    slots = -(-n // eval_stats.SLOT_FLOATS)
+    assert 1 <= grid <= sms * depth
+    if slots <= sms * depth * eval_stats.THREADS:
+        assert grid == max(1, -(-slots // eval_stats.THREADS))
+    else:
+        assert grid == sms * depth
+
+
+def warp_tree(v):
+    """A shuffle tree over the last axis (32 lanes): lane l adds lane
+    l + off, off 16 down to 1; lane 0's value."""
+    v = v.copy()
+    off = 16
+    while off:
+        v[..., :off] = v[..., :off] + v[..., off:2 * off]
+        off //= 2
+    return v[..., 0]
+
+
+def kernel_order_sum(terms, blocks):
+    """One f64 sum of F2e or F2f in the kernel's order (numpy's f64 adds
+    round as the card's): thread t of the launch adds the entries of its
+    slots t, t + T B, ... in index order; a shuffle tree in each warp;
+    the warps in order from 0 (the block's partial); in the last block,
+    lane l adds the partials of blocks l, l + 32, ... from 0, then a
+    shuffle tree. Also the number of times each entry was added."""
+    threads = blocks * eval_stats.THREADS
+    slots = -(-terms.size // eval_stats.SLOT_FLOATS)
+    rounds = max(1, -(-slots // threads))
+    grid = np.zeros(rounds * threads * eval_stats.SLOT_FLOATS)
+    grid[:terms.size] = terms
+    grid = grid.reshape(rounds, threads, eval_stats.SLOT_FLOATS)
+    index = np.arange(grid.size).reshape(grid.shape)
+    seen = np.zeros(grid.size, dtype=np.int64)
+    acc = np.zeros(threads)
+    for r in range(rounds):
+        for k in range(eval_stats.SLOT_FLOATS):
+            acc = acc + grid[r, :, k]
+            seen[index[r, :, k]] += 1
+    warps = warp_tree(acc.reshape(blocks, eval_stats.THREADS // 32, 32))
+    partial = np.zeros(blocks)
+    for w in range(warps.shape[1]):
+        partial = partial + warps[:, w]
+    lanes = np.zeros(32)
+    for b0 in range(0, blocks, 32):
+        part = np.zeros(32)
+        part[:min(32, blocks - b0)] = partial[b0:b0 + 32]
+        lanes = lanes + part
+    return float(warp_tree(lanes)), seen[:terms.size]
+
+
+@pytest.mark.parametrize("n,depth", [(1, 4), (5, 4), (1_029, 4),
+                                     (100_001, 4), (1_000_000, 2),
+                                     (2_000_003, 1)])
+def test_kernel_order_adds_each_term_once_within_the_bound(n, depth):
+    """The kernels' order of addition on stats_grid's grid (a model of
+    store_partials_last and launch_totals) adds every entry once, and
+    lands within esc.sum_bound (2^-40 sum|t|) of the plain version's f64
+    sum: the bound the card tests hold the kernels' totals to."""
+    rng = np.random.default_rng(n)
+    terms = rng.normal(size=n).astype(np.float32).astype(np.float64)
+    blocks = eval_stats.stats_grid(n, 132, depth)
+    got, seen = kernel_order_sum(terms, blocks)
+    assert np.all(seen == 1)
+    want = float(torch.sum(torch.as_tensor(terms.astype(np.float32)),
+                           dtype=torch.float64))
+    assert abs(got - want) <= esc.sum_bound(torch.as_tensor(terms))

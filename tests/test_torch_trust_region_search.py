@@ -626,3 +626,41 @@ def test_argument_struct_matches_the_c_struct():
     kind = {ctypes.c_void_p: "p", ctypes.c_int: "i"}
     assert [(n, kind[t]) for n, t in trs._TrustRegionArgs._fields_] == (
         c_struct_fields("TrustRegionArgs"))
+
+
+@pytest.mark.parametrize("bounds", BOUNDS)
+@pytest.mark.parametrize("max_rows,chunks", [
+    (3, [(0, 3), (3, 6), (6, 7)]), (7, [(0, 7)]), (1, None)])
+def test_calls_past_a_launchs_rows_run_in_chunks(monkeypatch, bounds,
+                                                 max_rows, chunks):
+    """With MAX_ROWS cut to `max_rows`, a call of 7 rows runs its rows in
+    row_chunks' chunks (one launch each on the card; the plain versions
+    here, through the same loop), and tr_search and tr_solution give the
+    rows of one call bitwise; (N,) bounds reach every chunk whole."""
+    c, g, lower, upper, weight, radius = torch_args(
+        case_inputs("mixed", bounds, rows=7, n=50, seed=3))
+    want_t = trs.tr_search(c, g, lower, upper, weight, radius)
+    want = trs.tr_solution(c, g, lower, upper, weight, want_t, 20)
+    monkeypatch.setattr(trs, "MAX_ROWS", max_rows)
+    got_chunks = []
+    for lo, hi, inputs, (r,) in trs.row_chunks(7, c, g, lower, upper,
+                                               weight, radius):
+        got_chunks.append((lo, hi))
+        assert inputs[0].shape == (hi - lo, 50) and r.shape == (hi - lo,)
+        assert inputs[2].shape == ((50,) if bounds == "shared"
+                                   else (hi - lo, 50))
+    assert got_chunks == (chunks or [(i, i + 1) for i in range(7)])
+    got_t = trs.tr_search(c, g, lower, upper, weight, radius)
+    got = trs.tr_solution(c, g, lower, upper, weight, got_t, 20)
+    assert same_bits(got_t, want_t)
+    for u, v in zip(got, want):
+        assert same_bits(u, v)
+
+
+def test_an_empty_call_is_one_chunk_of_no_rows():
+    c = torch.zeros(0, 5)
+    bounds = torch.zeros(5)
+    assert [(lo, hi) for lo, hi, _, _ in trs.row_chunks(
+        0, c, c, bounds, bounds, bounds)] == [(0, 0)]
+    assert trs.tr_search(c, c, bounds, bounds, bounds,
+                         torch.zeros(0)).shape == (0,)
