@@ -66,10 +66,11 @@ Phases, each printing one JSON line:
    and the finalize bitwise the plain versions', each f64 sum within
    2^-40 sum|t| of the plain one, a second launch bitwise with the
    tickets at zero; times (CUDA events, device time and kernels a call,
-   the plain versions'), the bytes bound and ptxas's registers; F2e and
-   F2f at that LP and at the million-node matrix's shape (vectors made
-   with numpy), the ray off and on, in three turns with the version in
-   --parent DIR where given, with their grids and bounds (`shapes`);
+   the plain versions'), the bytes bound and ptxas's registers; all three
+   at that LP and at the million-node matrix's shape (vectors made with
+   numpy; F2d with its average and without, F2e and F2f the ray off and
+   on), in three turns with the version in --parent DIR where given,
+   with their grids and bounds (`shapes`);
    kernels_tiled_large: the three tile-plan kernels and the three CSR
    kernels, again on a matrix of the PageRank LP's
    structure with a million nodes (generators.pagerank_like_matrix, made
@@ -3746,10 +3747,12 @@ def stats_bytes(name, items, ray):
 
 
 def large_stats_inputs(torch, dev):
-    """F2e's and F2f's inputs at the million-node matrix's shape (n =
-    LARGE_NODES columns, m = n + 1 rows), made with numpy from seed 4:
-    bounds of every kind, a third of the rows equalities, the products
-    normal vectors (the kernels take them as given)."""
+    """The statistics kernels' inputs at the million-node matrix's shape
+    (n = LARGE_NODES columns, m = n + 1 rows), made with numpy: F2e's and
+    F2f's from seed 4 (bounds of every kind, a third of the rows
+    equalities, the products normal vectors: the kernels take them as
+    given), F2d's from seed 5 (an iterate, an average of 40 points and
+    the rescaling)."""
     from firstorderlp_torch.ops import eval_stats as es
 
     rng = np.random.default_rng(4)
@@ -3766,7 +3769,19 @@ def large_stats_inputs(torch, dev):
                          torch.tensor(80, dtype=torch.int64, device=dev),
                          torch.tensor(164.0, dtype=torch.float64, device=dev),
                          torch.tensor(0.0, dtype=torch.float64, device=dev))
-    return {"primal": f32(x), "aty": f32(rng.normal(size=n)),
+    aty = f32(rng.normal(size=n))
+    point_rng = np.random.default_rng(5)
+    point = (f32(point_rng.normal(size=n)), f32(point_rng.normal(size=m)),
+             f32(point_rng.uniform(0.5, 2.0, n)),
+             f32(point_rng.uniform(0.5, 2.0, m)),
+             es.Average(f32(point_rng.normal(size=n) * 4.0),
+                        f32(point_rng.normal(size=m) * 4.0),
+                        torch.tensor(40, device=dev),
+                        torch.tensor(40, device=dev),
+                        torch.tensor(4.0, device=dev),
+                        torch.tensor(4.0, device=dev),
+                        torch.tensor(False, device=dev)))
+    return {"point": point, "primal": f32(x), "aty": aty,
             "vectors": (f32(rng.normal(size=n)), f32(lower), f32(upper)),
             "primal_norm": f32(np.max(np.abs(x))), "dual": f32(y),
             "ax": f32(rng.normal(size=m)), "aray": f32(rng.normal(size=m)),
@@ -3776,21 +3791,52 @@ def large_stats_inputs(torch, dev):
             "scalars": scalars}
 
 
+def point_bits(torch, point):
+    """F2d's outputs as one int32 tensor of their bits (the scaled point
+    where it is given)."""
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in point
+                      if t is not None])
+
+
 def stats_turns(torch, es, parent, dev, shapes, rules):
-    """F2e and F2f at each shape (name -> large_stats_inputs' keys), the
-    ray off and on: each kernel in turns with `parent`'s (another
-    version's ops.eval_stats, when given) on the same inputs, three turns
-    (probe_routed.in_turns), with its grid and bytes bound, and whether
-    the parent's maxima and flags (F2f: its totals' maxima) and all its
-    outputs have this version's bits (its sums add in another order)."""
+    """The statistics kernels at each shape (name -> large_stats_inputs'
+    keys): F2d with its average and without, F2e and F2f the ray off and
+    on; each kernel in turns with `parent`'s (another version's
+    ops.eval_stats, when given) on the same inputs, three turns
+    (probe_routed.in_turns), with its grid and bytes bound (F2d: the
+    sums and the rescaling read, both points written; without the
+    average the iterate and the rescaling read, the point written), and
+    whether the parent's maxima and flags (F2f: its totals' maxima) and
+    all its outputs have this version's bits (F2e's and F2f's sums add
+    in another order; F2d's contract fixes them all)."""
     from firstorderlp_torch.ops import probe_routed
 
     out = {}
+    versions = {"this": es, **({"parent": parent} if parent else {})}
     for label, inp in shapes.items():
         n, m = inp["primal"].shape[0], inp["dual"].shape[0]
+        for avg in (True, False):
+            args = inp["point"] if avg else (*inp["point"][:4], None)
+            calls = {who: (lambda mod=mod: mod.stats_point(*args))
+                     for who, mod in versions.items()}
+            row = {who: probe_routed.turn_summary(got) for who, got in
+                   probe_routed.in_turns(calls).items()}
+            row["blocks"] = es.point_grid(n, m, *es.stats_wave(
+                dev, "stats_point"))
+            row["bytes"] = (16 if avg else 12) * (n + m)
+            row["bound_ms"] = probe_routed.bound_ms(row["bytes"], 0)[0]
+            if parent:
+                row["parent_blocks"] = (
+                    parent.point_grid(n, m, *parent.stats_wave(
+                        dev, "stats_point"))
+                    if hasattr(parent, "point_grid")
+                    else parent.blocks(n + m))
+                row["parent_same_bits"] = bool(torch.equal(
+                    point_bits(torch, calls["this"]()),
+                    point_bits(torch, calls["parent"]())))
+            out[f"{label}_average_{'on' if avg else 'off'}_stats_point"] = row
         for ray in (False, True):
             r = dataclasses.replace(rules, ray=ray)
-            versions = {"this": es, **({"parent": parent} if parent else {})}
             ray_out, ptot = es.stats_primal(
                 inp["primal"], inp["aty"], *inp["vectors"],
                 inp["primal_norm"], ray)
@@ -3816,7 +3862,8 @@ def stats_turns(torch, es, parent, dev, shapes, rules):
                 row["bytes"] = stats_bytes(name, items, ray)
                 row["bound_ms"] = probe_routed.bound_ms(row["bytes"], 0)[0]
                 if parent:
-                    row["parent_blocks"] = parent.blocks(items)
+                    row["parent_blocks"] = parent.stats_grid(
+                        items, *parent.stats_wave(dev, name))
                     mine, theirs = calls["this"](), calls["parent"]()
                     if name == "stats_primal":
                         mine, theirs = mine[1], theirs[1]
@@ -3848,9 +3895,10 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile,
     totals, and a second launch bitwise the first with the tickets at
     zero. At the main path's criteria: times (CUDA events, device ms and
     kernels a call, the plain versions'), the bytes bound and ptxas's
-    registers. F2e and F2f also at the million-node matrix's shape, the
-    ray off and on, in three turns with `parent_dir`'s version of them
-    where given (stats_turns)."""
+    registers. All three also at the million-node matrix's shape (F2d
+    with its average and without, F2e and F2f the ray off and on), in
+    three turns with `parent_dir`'s version of them where given
+    (stats_turns)."""
     from firstorderlp_torch.models import pdhg
     from firstorderlp_torch.ops import eval_stats as es
 
@@ -4003,7 +4051,9 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile,
     }
     parent = (compare.package_module("ops.eval_stats", parent_dir)
               if parent_dir else None)
-    main_shape = {"primal": point.primal, "aty": aty, "vectors": vectors,
+    main_shape = {"point": (x, y, bundle.variable_rescaling,
+                            bundle.constraint_rescaling, average),
+                  "primal": point.primal, "aty": aty, "vectors": vectors,
                   "primal_norm": point.primal_norm, "dual": point.dual,
                   "ax": ax, "aray": op.mv(point.primal),
                   "rhs": original.right_hand_side,
@@ -4027,16 +4077,18 @@ def kernels_eval_stats(torch, problem, dev, time_ms, device_profile,
             "plain_ms": time_ms(plain, reps=10, warmup=1),
             "device_ms": dev_ms, "kernels_per_call": per_call,
             "bytes": nbytes, "flops": flops, "library_ms": None,
-            "blocks": (es.blocks(n + m) if name == "stats_point" else
+            "blocks": (es.point_grid(n, m, *es.stats_wave(dev, name))
+                       if name == "stats_point" else
                        es.stats_grid(n if name == "stats_primal" else m,
                                      *es.stats_wave(dev, name))),
             **({"registers": found[0].get("registers")} if found else {}),
+            "shapes": {key: row for key, row in turns.items()
+                       if key.endswith(name)},
         })
-        if name != "stats_point":
-            rows[-1]["shapes"] = {key: row for key, row in turns.items()
-                                  if key.endswith(name)}
-            if parent_dir:
-                rows[-1]["parent"] = turns[f"100k_ray_off_{name}"]["parent"]
+        if parent_dir:
+            rows[-1]["parent"] = turns[
+                "100k_average_on_stats_point" if name == "stats_point"
+                else f"100k_ray_off_{name}"]["parent"]
     return rows, variants
 
 

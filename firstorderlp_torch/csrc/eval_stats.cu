@@ -53,25 +53,34 @@
 // PyTorch rounds a Python float to against an f32 tensor (computed on
 // the host).
 //
-// Bound on an H100 SXM: bytes. F2d reads 2 (n + m) floats (4 (n + m)
-// with an average) and writes 2 (n + m) (4 with the scaled point); F2e
-// reads five n-vectors and writes the ray; F2f reads three m-vectors, a
-// byte a row (and A ray). F2d is one grid-stride pass with 256 threads a
-// block. At these sizes F2e and F2f are set not by their bytes but by
-// their chain of dependent steps (loads, the block's reduction, the
-// ticket, the last block's reduction, F2f's finalize), so their design
-// shortens that chain:
-// - every 0-d input (F2f: F2e's totals too) is loaded at entry by a
-//   thread of its own into shared memory; no load waits behind a store;
+// Bound on an H100 SXM: bytes. F2d reads 2 (n + m) floats and writes
+// 2 (n + m) (4 with the scaled point); F2e reads five n-vectors and
+// writes the ray; F2f reads three m-vectors, a byte a row (and A ray).
+// At these sizes the three are set not by their bytes but by their
+// chain of dependent steps (loads, the block's reduction, the ticket,
+// the last block's reduction, F2f's finalize), so their design shortens
+// that chain:
+// - every 0-d input (F2f: F2e's totals too) is loaded at entry; F2d
+//   issues its rescaling's loads before the 0-d inputs decide which
+//   point it takes, then loads only that point (loading the iterate and
+//   the average's sums both and selecting was slower); no load waits
+//   behind a store;
 // - the grid is one wave of the card at most (the occupancy query of the
-//   device, ops/eval_stats.stats_grid), a thread a 16-byte slot of each
-//   vector (kStatsSlots slots loaded at once before any arithmetic; a
-//   vector whose start is not 16-byte aligned, or the last part slot,
-//   read 4 bytes at a time; is_equality 4 bytes a slot);
-// - a block's shuffle trees run level by level across its sums; lane k
-//   of warp 0 adds value k over the warps; lane 0 stores the values
-//   value-major (partials[k * blocks + b]) and draws the ticket with one
-//   release-acquire add (no separate fence);
+//   device, ops/eval_stats.stats_grid and point_grid), a thread a 16-byte
+//   slot of each vector (F2e, F2f: kStatsSlots slots loaded at once
+//   before any arithmetic; F2d: a block a chunk of kStatsThreads slots,
+//   wholly in x's part or in y's; a vector whose start is not 16-byte
+//   aligned, or the last part slot, read 4 bytes at a time; is_equality
+//   4 bytes a slot); F2d's outputs each start on 16 bytes
+//   (ops/eval_stats.point_layout), so F2e and F2f read the point whole;
+// - F2d's one maximum: the bits of max |primal| of each block with an
+//   entry of x, an integer atomicMax into the device's word (exact in
+//   any order; no floating-point atomic), then the ticket; the block
+//   that draws the last moves the word into the norm and sets it to 0;
+// - F2e's and F2f's block's shuffle trees run level by level across its
+//   sums; lane k of warp 0 adds value k over the warps; lane 0 stores the
+//   values value-major (partials[k * blocks + b]) and draws the ticket
+//   with one release-acquire add (no separate fence);
 // - in the last block warp w adds the values w, w + 8, ...: each lane
 //   the blocks lane, lane + 32, ... (coalesced, loaded before they are
 //   added), then a shuffle tree;
@@ -87,8 +96,10 @@ namespace folp {
 
 constexpr int kStatsThreads = 256;
 constexpr int kStatsWarps = kStatsThreads / 32;
-constexpr int kStatsMaxBlocks = 132 * 4;  // F2d: 132 SMs, 4 blocks each
-constexpr int kSlotFloats = 4;  // F2e, F2f: a 16-byte slot a thread
+constexpr int kSlotFloats = 4;  // a 16-byte slot a thread
+constexpr int kChunkFloats = 1024;  // F2d: a block's chunk of slots
+static_assert(kChunkFloats == kStatsThreads * kSlotFloats,
+              "a chunk is a slot a thread of one block");
 constexpr int kStatsSlots = 2;  // slots a thread loads at once
 constexpr int kReach = 8;  // partials a lane of the last block loads at once
 
@@ -165,10 +176,11 @@ struct PointArgs {
   float* primal;
   float* dual;
   float* primal_norm;
-  double* partials;
+  unsigned* norm_word;  // the device's max |primal| bits, 0 between launches
   int* ticket;
   int n;
   int m;
+  int blocks;  // ops/eval_stats.point_grid
 };
 
 struct PrimalArgs {
@@ -249,81 +261,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return fmaxf(a, b);
 }
 
-// Sums (S f64 values) and maxima (M bits) of a block in one fixed order:
-// a shuffle tree in each warp, then lane k of warp 0 adds value k of the
-// warps in warp order into total[k] (a maximum as its bits). Ends with a
-// barrier, so every thread may read total.
-template <int S, int M>
-__device__ __forceinline__ void block_totals(double (&s)[S],
-                                             unsigned (&mx)[M],
-                                             double* red, double* total) {
-  static_assert(S + M <= 32, "one lane of warp 0 a value");
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s[k] += __shfl_down_sync(kFullMask, s[k], off);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < M; ++k) mx[k] = __reduce_max_sync(kFullMask, mx[k]);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) red[warp * (S + M) + k] = s[k];
-#pragma unroll
-    for (int k = 0; k < M; ++k) red[warp * (S + M) + S + k] = mx[k];
-  }
-  __syncthreads();
-  const int k = threadIdx.x;
-  if (k < S) {
-    double acc = 0.0;
-#pragma unroll
-    for (int w = 0; w < kStatsWarps; ++w) acc += red[w * (S + M) + k];
-    total[k] = acc;
-  } else if (k < S + M) {
-    unsigned acc = 0u;
-#pragma unroll
-    for (int w = 0; w < kStatsWarps; ++w) {
-      acc = max(acc, static_cast<unsigned>(red[w * (S + M) + k]));
-    }
-    total[k] = static_cast<double>(acc);
-  }
-  __syncthreads();
-}
-
-// The block's totals to its partials, then the last block to draw a
-// ticket adds every block's partials, each thread the blocks t, t + 256,
-// ... in order, by block_totals again. True in every thread of the last
-// block, where `total` (shared, S + M) then holds the launch's totals.
-template <int S, int M>
-__device__ __forceinline__ bool grid_totals(double (&s)[S], unsigned (&mx)[M],
-                                            double* partials, int* ticket,
-                                            double* total) {
-  __shared__ double red[kStatsWarps * (S + M)];
-  __shared__ int last;
-  block_totals(s, mx, red, total);
-  if (threadIdx.x < S + M) {
-    __stcg(partials + blockIdx.x * (S + M) + threadIdx.x, total[threadIdx.x]);
-  }
-  if (!last_ticket(ticket, gridDim.x, &last)) return false;
-#pragma unroll
-  for (int k = 0; k < S; ++k) s[k] = 0.0;
-#pragma unroll
-  for (int k = 0; k < M; ++k) mx[k] = 0u;
-  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
-    const double* in = partials + b * (S + M);
-#pragma unroll
-    for (int k = 0; k < S; ++k) s[k] += __ldcg(in + k);
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      mx[k] = max(mx[k], static_cast<unsigned>(__ldcg(in + S + k)));
-    }
-  }
-  block_totals(s, mx, red, total);
-  return true;
-}
-
 // A launch total as the f64 totals hold it: a sum as it is, a maximum as
 // the f32 value of its bits, a flag as 0 or 1.
 __device__ __forceinline__ double total_value(const double* total, int k,
@@ -335,52 +272,7 @@ __device__ __forceinline__ double total_value(const double* total, int k,
 }
 
 // ---------------------------------------------------------------------------
-// F2d stats_point
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kStatsThreads)
-    stats_point_kernel(const PointArgs a) {
-  // evaluation_point: the average where it exists and there is no
-  // numerical error; compute_average divides by the weight, 1 for an
-  // empty average.
-  bool has_avg = false;
-  float wx = 1.f, wy = 1.f;
-  if (a.sum_x != nullptr) {
-    has_avg = !*a.numerical_error && *a.count_x > 0 && *a.count_y > 0;
-    const float w0 = *a.weight_x, w1 = *a.weight_y;
-    wx = w0 > 0.f ? w0 : 1.f;
-    wy = w1 > 0.f ? w1 : 1.f;
-  }
-  double none[1] = {0.0};
-  unsigned mx[1] = {0u};
-  const int items = a.n + a.m;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
-       i += gridDim.x * blockDim.x) {
-    if (i < a.n) {
-      const float p =
-          has_avg ? __fdiv_rn(__ldg(a.sum_x + i), wx) : __ldg(a.x + i);
-      if (a.scaled_x != nullptr) a.scaled_x[i] = p;
-      const float o = __fdiv_rn(p, __ldg(a.variable_rescaling + i));
-      a.primal[i] = o;
-      mx[0] = max(mx[0], abs_bits(o));
-    } else {
-      const int j = i - a.n;
-      const float p =
-          has_avg ? __fdiv_rn(__ldg(a.sum_y + j), wy) : __ldg(a.y + j);
-      if (a.scaled_y != nullptr) a.scaled_y[j] = p;
-      a.dual[j] = __fdiv_rn(p, __ldg(a.constraint_rescaling + j));
-    }
-  }
-  __shared__ double total[2];
-  if (grid_totals(none, mx, a.partials, a.ticket, total) &&
-      threadIdx.x == 0) {
-    *a.primal_norm = __uint_as_float(static_cast<unsigned>(total[1]));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// F2e and F2f: 16-byte slots, a block's partials and the ticket, the
-// launch's totals
+// 16-byte slots; F2e's and F2f's partials, the ticket, the launch's totals
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool on_16_bytes(const void* v) {
@@ -580,6 +472,90 @@ __device__ __forceinline__ void launch_totals(const double* partials,
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// F2d stats_point
+// ---------------------------------------------------------------------------
+
+// F2d's chunks over a part of `len` entries: kStatsThreads slots each.
+__device__ __forceinline__ int point_chunks(int len) {
+  return (len + kChunkFloats - 1) / kChunkFloats;
+}
+
+// Grid: a.blocks blocks (ops/eval_stats.point_grid); x's part is chunks
+// 0 to point_chunks(n) - 1, y's the rest, and block b takes the chunks
+// b, b + blocks, ...: thread t slot c * kStatsThreads + t of the chunk's
+// part. evaluation_point: the average where it exists and there is no
+// numerical error; compute_average divides by the weight, 1 for an empty
+// average.
+__global__ void __launch_bounds__(kStatsThreads)
+    stats_point_kernel(const PointArgs a) {
+  __shared__ unsigned warp_max[kStatsWarps];
+  const bool avg = a.sum_x != nullptr;
+  // the 0-d inputs first; only the choice of the point waits for them
+  unsigned char flag = 1;
+  long long count_x = 0, count_y = 0;
+  float weight_x = 1.f, weight_y = 1.f;
+  if (avg) {
+    flag = __ldg(reinterpret_cast<const unsigned char*>(a.numerical_error));
+    count_x = __ldg(a.count_x);
+    count_y = __ldg(a.count_y);
+    weight_x = __ldg(a.weight_x);
+    weight_y = __ldg(a.weight_y);
+  }
+  const int x_chunks = point_chunks(a.n);
+  const int chunks = x_chunks + point_chunks(a.m);
+  unsigned mx = 0u;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const bool primal = c < x_chunks;
+    const int len = primal ? a.n : a.m;
+    const int q = (primal ? c : c - x_chunks) * kStatsThreads + threadIdx.x;
+    if (kSlotFloats * q >= len) continue;
+    const float* v = primal ? a.x : a.y;
+    const float* sum = primal ? a.sum_x : a.sum_y;
+    const float* rescale =
+        primal ? a.variable_rescaling : a.constraint_rescaling;
+    float* scaled = primal ? a.scaled_x : a.scaled_y;
+    float* out = primal ? a.primal : a.dual;
+    // the rescaling before the choice, then only the chosen vector:
+    // loading both candidates and selecting was slower (PERF.md §6)
+    const float4 r = load_slot(rescale, q, len, on_16_bytes(rescale));
+    const bool has_avg = avg && flag == 0 && count_x > 0 && count_y > 0;
+    const float* chosen = has_avg ? sum : v;
+    const float4 s = load_slot(chosen, q, len, on_16_bytes(chosen));
+    const float w0 = primal ? weight_x : weight_y;
+    const float w = w0 > 0.f ? w0 : 1.f;
+    float p[kSlotFloats], o[kSlotFloats];
+#pragma unroll
+    for (int k = 0; k < kSlotFloats; ++k) {
+      p[k] = has_avg ? __fdiv_rn(entry_of(s, k), w) : entry_of(s, k);
+      o[k] = __fdiv_rn(p[k], entry_of(r, k));
+      // past the end o is 0 / 0: not an entry
+      if (primal && kSlotFloats * q + k < len) mx = max(mx, abs_bits(o[k]));
+    }
+    if (scaled != nullptr) store_slot(scaled, q, len, on_16_bytes(scaled), p);
+    store_slot(out, q, len, on_16_bytes(out), o);
+  }
+  if (blockIdx.x >= x_chunks) {  // no entry of x in this block
+    if (x_chunks == 0 && blockIdx.x == 0 && threadIdx.x == 0) {
+      *a.primal_norm = 0.f;  // max over no entry
+    }
+    return;
+  }
+  // the block's maximum into the device's word, then the ticket of the
+  // blocks with an entry of x: the last moves the word into the norm
+  mx = __reduce_max_sync(kFullMask, mx);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int w = 1; w < kStatsWarps; ++w) mx = max(mx, warp_max[w]);
+  atomicMax(a.norm_word, mx);
+  const int drawers = min(x_chunks, (int)gridDim.x);
+  if (draw_release_acquire(a.ticket) != drawers - 1) return;
+  *a.ticket = 0;
+  *a.primal_norm = __uint_as_float(atomicExch(a.norm_word, 0u));
 }
 
 // ---------------------------------------------------------------------------
@@ -994,20 +970,13 @@ __global__ void __launch_bounds__(kStatsThreads)
   if (threadIdx.x == 0) finalize(a, inputs, total);
 }
 
-// F2d's grid: a block a 256 entries, at most kStatsMaxBlocks.
-inline int stats_blocks(int items) {
-  const int blocks = (items + kStatsThreads - 1) / kStatsThreads;
-  return blocks < 1 ? 1 : (blocks > kStatsMaxBlocks ? kStatsMaxBlocks
-                                                     : blocks);
-}
-
 }  // namespace folp
 
-// F2d launches stats_blocks(n + m) blocks; the caller's partials hold
-// (sums + maxima) doubles a block.
+// F2d launches a->blocks blocks (ops/eval_stats.point_grid).
 extern "C" int folp_stats_point(const folp::PointArgs* a, void* stream_ptr) {
   using namespace folp;
-  stats_point_kernel<<<stats_blocks(a->n + a->m), kStatsThreads, 0,
+  if (a->blocks < 1) return (int)cudaErrorInvalidValue;
+  stats_point_kernel<<<a->blocks, kStatsThreads, 0,
                        (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
 }
@@ -1031,14 +1000,20 @@ extern "C" int folp_stats_dual(const folp::DualArgs* a, void* stream_ptr) {
   return (int)cudaGetLastError();
 }
 
-// How many blocks of stats_primal (`dual` 0) or stats_dual (1) an SM of
-// the current device holds at once, into *blocks.
-extern "C" int folp_stats_occupancy(int dual, int* blocks) {
+// How many blocks of stats_primal (`kernel` 0), stats_dual (1) or
+// stats_point (2) an SM of the current device holds at once, into
+// *blocks.
+extern "C" int folp_stats_occupancy(int kernel, int* blocks) {
   using namespace folp;
-  if (dual) {
+  if (kernel == 2) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, stats_point_kernel, kStatsThreads, 0);
+  }
+  if (kernel == 1) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, stats_dual_kernel, kStatsThreads, 0);
   }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, stats_primal_kernel, kStatsThreads, 0);
 }

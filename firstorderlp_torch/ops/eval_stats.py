@@ -27,11 +27,14 @@ whose longest chains are D1 and D2 give f64 sums within (D1 + D2)
 of about (D1 + D2) 2^-29 sum|t| / |S|, a difference that repeats at every
 run on that input.
 
-F2e and F2f take their grid from the card (``stats_grid``: a thread a
-16-byte slot, at most one wave of the device's occupancy query; a vector
-that does not start on 16 bytes, as F2d's primal and dual may not, is
-read 4 bytes at a time), lay their blocks' partials out value-major
-(``partial_index``) and load every 0-d input at entry.
+The three take their grid from the card (``stats_grid``, ``point_grid``:
+a thread a 16-byte slot, at most one wave of the device's occupancy
+query; a vector that does not start on 16 bytes is read 4 bytes at a
+time) and load every 0-d input at entry. F2d lays each of its outputs
+on 16 bytes (``point_layout``), so F2e and F2f read the point whole, and
+takes its one maximum as an integer maximum of bits in a word of the
+device (exact in any order); F2e and F2f lay their blocks' partials out
+value-major (``partial_index``).
 
 Each wrapper takes the plain version only when its tensors are on the
 CPU; for CUDA tensors it launches its kernel or raises, and any other
@@ -53,8 +56,8 @@ from . import kernels_build
 from .pdhg_step import _check, _launch, _on_cpu
 
 THREADS = 256  # kStatsThreads
-MAX_BLOCKS = 132 * 4  # kStatsMaxBlocks: F2d's grid
-SLOT_FLOATS = 4  # kSlotFloats: F2e and F2f take 16-byte slots
+SLOT_FLOATS = 4  # kSlotFloats: a thread takes 16-byte slots
+CHUNK_FLOATS = THREADS * SLOT_FLOATS  # kChunkFloats: an F2d block's chunk
 SLOTS = 2  # kStatsSlots: slots a thread loads at once
 REACH = 8  # kReach: partials a lane of the last block loads at once
 
@@ -408,8 +411,8 @@ class _PointArgs(ctypes.Structure):
         "x", "y", "sum_x", "sum_y", "count_x", "count_y", "weight_x",
         "weight_y", "numerical_error", "variable_rescaling",
         "constraint_rescaling", "scaled_x", "scaled_y", "primal", "dual",
-        "primal_norm", "partials", "ticket")] + [
-        ("n", ctypes.c_int), ("m", ctypes.c_int)]
+        "primal_norm", "norm_word", "ticket")] + [
+        ("n", ctypes.c_int), ("m", ctypes.c_int), ("blocks", ctypes.c_int)]
 
 
 class _PrimalArgs(ctypes.Structure):
@@ -448,9 +451,11 @@ class _DualArgs(ctypes.Structure):
     ]
 
 
-# One ticket a kernel a device (int32, back at zero after each launch).
+# One ticket a kernel a device, and F2d's word of max |primal| bits
+# (int32, each back at zero after each launch).
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
-TICKET = {"stats_point": 0, "stats_primal": 1, "stats_dual": 2}
+TICKET = {"stats_point": 0, "stats_primal": 1, "stats_dual": 2,
+          "point_norm": 3}
 
 
 def tickets(device: torch.device) -> torch.Tensor:
@@ -463,18 +468,39 @@ def tickets(device: torch.device) -> torch.Tensor:
     return out
 
 
-def blocks(items: int) -> int:
-    """The blocks F2d's launch over `items` entries takes
-    (stats_blocks)."""
-    return min(max(1, -(-items // THREADS)), MAX_BLOCKS)
-
-
 def stats_grid(items: int, sms: int, depth: int) -> int:
     """F2e's or F2f's blocks over `items` entries on a card of `sms` SMs
     that each hold `depth` of its blocks at once (stats_wave): a thread a
     16-byte slot, at most one wave, at least one block."""
     slots = -(-items // SLOT_FLOATS)
     return max(1, min(sms * depth, -(-slots // THREADS)))
+
+
+def point_chunks(items: int) -> int:
+    """F2d's chunks over a part of `items` entries (point_chunks): THREADS
+    16-byte slots each."""
+    return -(-items // CHUNK_FLOATS)
+
+
+def point_grid(n: int, m: int, sms: int, depth: int) -> int:
+    """F2d's blocks over x's n and y's m entries on a card of `sms` SMs
+    that each hold `depth` of its blocks at once: a block a chunk (x's
+    chunks, then y's), at most one wave, at least one block."""
+    return max(1, min(sms * depth, point_chunks(n) + point_chunks(m)))
+
+
+def point_layout(n: int, m: int, scaled: bool):
+    """(scaled x, scaled y, primal, dual, norm)'s offsets in F2d's output
+    buffer, in floats (the scaled ones None where `scaled` is not set),
+    and the buffer's length: each part starts at a multiple of 4 floats
+    (16 bytes), so the kernels after F2d read whole 16-byte slots."""
+    at, offsets = 0, []
+    for size in ((n, m) if scaled else ()) + (n, m):
+        offsets.append(at)
+        at += -(-size // SLOT_FLOATS) * SLOT_FLOATS
+    if not scaled:
+        offsets = [None, None] + offsets
+    return (*offsets, at), at + 1
 
 
 def partial_index(k: int, b: int, blocks: int) -> int:
@@ -485,11 +511,13 @@ def partial_index(k: int, b: int, blocks: int) -> int:
 
 # (device index, kernel) -> (SMs, blocks an SM holds)
 _WAVE: dict = {}
+# folp_stats_occupancy's kernel argument
+OCCUPANCY = {"stats_primal": 0, "stats_dual": 1, "stats_point": 2}
 
 
 def stats_wave(device, kernel: str) -> tuple:
-    """(SMs, blocks of `kernel` ("stats_primal" or "stats_dual") an SM
-    holds at once) of the CUDA `device`: its multiprocessor count and
+    """(SMs, blocks of `kernel` (a key of OCCUPANCY) an SM holds at once)
+    of the CUDA `device`: its multiprocessor count and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once per device
     and kernel, and cached. Raises when the query fails."""
     index = torch.device(device).index
@@ -502,7 +530,7 @@ def stats_wave(device, kernel: str) -> tuple:
         query.restype = ctypes.c_int
         count = ctypes.c_int(0)
         with torch.cuda.device(index):
-            err = query(int(kernel == "stats_dual"), ctypes.byref(count))
+            err = query(OCCUPANCY[kernel], ctypes.byref(count))
         if err != 0 or count.value < 1:
             raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
                                f"error {err}, {count.value} blocks")
@@ -515,15 +543,15 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _ticket(device, lib: str) -> int:
+def _ticket(device, name: str) -> int:
     t = tickets(device)
-    return t.data_ptr() + 4 * TICKET[lib]
+    return t.data_ptr() + 4 * TICKET[name]
 
 
 def stats_point(x, y, variable_rescaling, constraint_rescaling,
                 average: Optional[Average] = None) -> Point:
-    """F2d: stats_point_plain's contract; on CUDA one launch into new
-    tensors (the points in one)."""
+    """F2d: stats_point_plain's contract; on CUDA one launch into one new
+    tensor (point_layout: each part on 16 bytes)."""
     vectors = (x, y, variable_rescaling, constraint_rescaling)
     avg = () if average is None else tuple(average)
     if _on_cpu(*vectors, *avg):
@@ -546,22 +574,18 @@ def stats_point(x, y, variable_rescaling, constraint_rescaling,
                  ())):
             _check(name, t, dtype, shape)
     device = x.device
-    scaled = 0 if average is None else n + m
-    out = torch.empty(scaled + n + m + 1, dtype=torch.float32, device=device)
-    partials = torch.empty(2 * blocks(n + m), dtype=torch.float64,
-                           device=device)
+    (sx, sy, px, dy, at), size = point_layout(n, m, average is not None)
+    out = torch.empty(size, dtype=torch.float32, device=device)
     scaled_x = scaled_y = None
     if average is not None:
-        scaled_x, scaled_y = out[:n], out[n:n + m]
-    primal = out[scaled:scaled + n]
-    dual = out[scaled + n:scaled + n + m]
-    norm = out[scaled + n + m]
+        scaled_x, scaled_y = out[sx:sx + n], out[sy:sy + m]
+    primal, dual, norm = out[px:px + n], out[dy:dy + m], out[at]
     args = _PointArgs(
         *(_ptr(t) for t in (x, y, *(avg or (None,) * 7),
                             variable_rescaling, constraint_rescaling,
-                            scaled_x, scaled_y, primal, dual, norm,
-                            partials)),
-        _ticket(device, "stats_point"), n, m)
+                            scaled_x, scaled_y, primal, dual, norm)),
+        _ticket(device, "point_norm"), _ticket(device, "stats_point"), n, m,
+        point_grid(n, m, *stats_wave(device, "stats_point")))
     _launch("stats_point", args, device)
     return Point(scaled_x, scaled_y, primal, dual, norm)
 

@@ -79,7 +79,12 @@ finalize of the kernels' own totals, the same bits on a second launch
 with the tickets back at zero; a replayed PDHG (CSR and tile plan) and
 Mirror Prox evaluation runs each once and is bitwise the eager one; and
 at iteration 81 the fused statistics give the eager route's reason and
-maxima, with infeasibility detection off and on.
+maxima, with infeasibility detection off and on. F2d alone is held to
+its plain version bitwise at n + m from 2 to twice one wave of its grid,
+aligned and 4 bytes off, with and without an average and in each case
+that decides whether the average is taken, with infinities and a NaN in
+the point: every output on 16 bytes, a second launch bitwise the first,
+its ticket and its word of the maximum back at zero.
 """
 
 import dataclasses
@@ -2303,6 +2308,84 @@ def test_eval_stats_kernels_are_bitwise_their_plain_versions(cuda, shape,
     assert int(reason) == int(want[2])
     if shape in ("100k", "1M"):  # at a few entries a ray may be a certificate
         assert int(reason) == STATS_REASONS.get(case, 0)
+
+
+# F2d's cases: the average (None: no average) and the point's entries
+POINT_CASES = ("none", "average", "numerical_error", "count_x_zero",
+               "count_y_zero", "weight_zero", "non_finite",
+               "non_finite_average")
+
+
+def point_inputs(cuda, shape, case, offset):
+    """stats_point's arguments (x, y, the rescaling, the average or None)
+    made with numpy from seed 6 on the card, every vector 4 bytes off its
+    16-byte alignment where `offset`; "past_one_wave": n and m about one
+    wave of F2d's chunks each. non_finite: +inf, -inf and a NaN in the
+    point x (in the sums with an average)."""
+    from firstorderlp_torch.ops import eval_stats as es
+
+    if shape == "past_one_wave":
+        sms, depth = es.stats_wave(cuda, "stats_point")
+        wave = sms * depth * es.CHUNK_FLOATS
+        n, m = wave - 1, wave + 2
+    else:
+        n, m = shape
+    rng = np.random.default_rng(6)
+    x, y = rng.normal(size=n), rng.normal(size=m)
+    sum_x, sum_y = rng.normal(size=n) * 3.5, rng.normal(size=m) * 2.5
+    if case.startswith("non_finite"):
+        target = sum_x if case == "non_finite_average" else x
+        for i, v in zip((n // 2, n - 1, 0), (np.inf, -np.inf, np.nan)):
+            target[i] = v
+
+    def f32(v):
+        return off_alignment(torch.as_tensor(np.asarray(v, np.float32),
+                                             device=cuda)) if offset else (
+            torch.as_tensor(np.asarray(v, np.float32), device=cuda))
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=cuda)
+
+    average = None
+    if case not in ("none", "non_finite"):
+        average = es.Average(
+            f32(sum_x), f32(sum_y),
+            scalar(0 if case == "count_x_zero" else 5, torch.int64),
+            scalar(0 if case == "count_y_zero" else 5, torch.int64),
+            scalar(0.0 if case == "weight_zero" else 3.5, torch.float32),
+            scalar(0.0 if case == "weight_zero" else 2.5, torch.float32),
+            scalar(case == "numerical_error", torch.bool))
+    return (f32(x), f32(y), f32(rng.uniform(0.5, 2.0, n)),
+            f32(rng.uniform(0.5, 2.0, m)), average)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("case", POINT_CASES)
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (1_023, 1_026),
+                                   (100_000, 100_001), (100_003, 100_002),
+                                   "past_one_wave"])
+def test_stats_point_is_bitwise_its_plain_version(cuda, shape, case,
+                                                  offset):
+    """F2d against stats_point_plain on the card: the point, the scaled
+    point and the norm's bits (a NaN in the point shows in the norm),
+    every output starting on 16 bytes, a second launch bitwise the first,
+    the ticket and the word of the maximum back at zero."""
+    from firstorderlp_torch.ops import eval_stats as es
+
+    args = point_inputs(cuda, shape, case, offset)
+    routed.reset_launch_counts()
+    first = es.stats_point(*args)
+    second = es.stats_point(*args)
+    torch.cuda.synchronize()
+    assert routed.LAUNCHES["stats_point"] == 2
+    assert not bool(es.tickets(cuda).any())
+    assert_same_bits(second, first, "second launch")
+    assert_same_bits(first, es.stats_point_plain(*args), "point")
+    for t in first:
+        assert t is None or t.data_ptr() % 16 == 0
+    assert (first.scaled_primal is None) == (args[-1] is None)
+    if case.startswith("non_finite"):
+        assert bool(torch.isnan(first.primal_norm))
 
 
 def statistics_case(cuda, solver, monkeypatch):

@@ -29,6 +29,10 @@ where the wrappers take the plain versions.
 - The wrappers' contracts: the argument structures, the totals' order
   and the reason codes against csrc/eval_stats.cu, host numbers and
   tensors alike, other devices refused.
+- The kernels' launches: the constants against the source, F2e's and
+  F2f's grid and order of addition, F2d's grid (a model of its walk
+  over x's and y's chunks) and its output buffer (every part on 16
+  bytes); F2d's plain choice of the point bitwise the JAX _eval_block's.
 """
 
 import ctypes
@@ -338,6 +342,54 @@ def test_point_is_bitwise_evaluation_point(case):
                        torch.amax(torch.abs(point.primal)))
 
 
+# the PDHG state's changes: (average fields set to zero, numerical error)
+PICKS = {
+    "average": ((), False),
+    "numerical_error": ((), True),
+    "count_x_zero": (("sum_primal_solutions_count",), False),
+    "count_y_zero": (("sum_dual_solutions_count",), False),
+    "weight_x_zero": (("sum_primal_solution_weights",), False),
+    "weight_y_zero": (("sum_dual_solution_weights",), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PICKS))
+def test_plain_point_picks_as_the_jax_eval_block(case):
+    """stats_point_plain's scaled point against the JAX package's
+    _eval_block's evaluation point (avg_primal_out and avg_dual_out,
+    firstorderlp_tpu/models/pdhg.py:586-610) from the same PDHG state on
+    the 1,000-node LP, bitwise: the average over its weights, the current
+    iterate where the numerical error is set or a count is zero, a zero
+    weight read as 1."""
+    port, jprep = prepared("pagerank")
+    state, _ = tc.case_state(port, "accept")
+    zeroed, flag = PICKS[case]
+    avg = dataclasses.replace(state.avg, **{
+        name: torch.zeros_like(getattr(state.avg, name)) for name in zeroed})
+    state = tx_pdhg._device_counters(dataclasses.replace(
+        state, avg=avg, numerical_error=torch.tensor(flag)))
+    jnew, _ = jx_pdhg._eval_block(
+        jprep.bundle, jax_state(jprep.initial_state, state),
+        jnp.asarray(0.0, jnp.float64), jax_config(jax_params("adaptive")))
+    point = eval_stats.stats_point_plain(
+        state.current_primal_solution, state.current_dual_solution,
+        port.bundle.variable_rescaling, port.bundle.constraint_rescaling,
+        eval_stats.Average(avg.sum_primal_solutions, avg.sum_dual_solutions,
+                           avg.sum_primal_solutions_count,
+                           avg.sum_dual_solutions_count,
+                           avg.sum_primal_solution_weights,
+                           avg.sum_dual_solution_weights,
+                           state.numerical_error))
+    current = case in ("numerical_error", "count_x_zero", "count_y_zero")
+    for got, want, iterate in (
+            (point.scaled_primal, jnew.avg_primal_out,
+             state.current_primal_solution),
+            (point.scaled_dual, jnew.avg_dual_out,
+             state.current_dual_solution)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        assert torch.equal(got, iterate) == current
+
+
 def test_statistics_from_the_average_are_those_from_its_point():
     """evaluate_fused_statistics with an average: the point and every
     statistic bitwise those of evaluate_unscaled_stats at
@@ -526,7 +578,7 @@ def test_wrappers_refuse_other_devices_and_a_ray_out_of_place():
 
 @pytest.mark.parametrize("name,value", [
     ("kStatsThreads", eval_stats.THREADS),
-    ("kStatsMaxBlocks", eval_stats.MAX_BLOCKS),
+    ("kChunkFloats", eval_stats.CHUNK_FLOATS),
     ("kSlotFloats", eval_stats.SLOT_FLOATS),
     ("kStatsSlots", eval_stats.SLOTS),
     ("kReach", eval_stats.REACH),
@@ -566,6 +618,81 @@ def test_grid_is_a_slot_a_thread_within_one_wave(n, sms, depth):
         assert grid == max(1, -(-slots // eval_stats.THREADS))
     else:
         assert grid == sms * depth
+
+
+# (n, m): n + m from 2 to 4M, every n mod 4, parts that end inside a
+# chunk and on its end
+POINT_SHAPES = [(1, 1), (2, 3), (3, 2), (4, 5), (1_023, 1), (1_024, 1_024),
+                (1_025, 1_027), (100_000, 100_001), (100_001, 100_002),
+                (100_002, 100_003), (100_003, 100_000),
+                (1_000_000, 1_000_001), (1_999_999, 2_000_001)]
+
+
+@pytest.mark.parametrize("sms,depth", [(132, 8), (132, 1), (114, 3)])
+@pytest.mark.parametrize("n,m", POINT_SHAPES)
+def test_point_grid_is_a_slot_a_thread_within_one_wave(n, m, sms, depth):
+    """point_grid and a model of stats_point_kernel's walk (chunk c to
+    block c mod grid, thread t to slot (c - first chunk of its part) T +
+    t, slots past the part's end idle): every 16-byte slot of x's and of
+    y's part taken once, each chunk wholly in one part; a block a chunk
+    while the chunks fit in one wave, one wave past that, at least one
+    block; the blocks with an entry of x, which draw the ticket, are
+    those below x's chunks, min(x's chunks, grid) of them."""
+    t = eval_stats.THREADS
+    grid = eval_stats.point_grid(n, m, sms, depth)
+    x_chunks, y_chunks = (eval_stats.point_chunks(k) for k in (n, m))
+    assert 1 <= grid <= sms * depth
+    if x_chunks + y_chunks <= sms * depth:
+        assert grid == x_chunks + y_chunks
+    else:
+        assert grid == sms * depth
+    chunks = np.arange(x_chunks + y_chunks)
+    for first, count, length in ((0, x_chunks, n), (x_chunks, y_chunks, m)):
+        part = chunks[first:first + count]
+        assert part.size * eval_stats.CHUNK_FLOATS >= length
+        assert (part.size - 1) * eval_stats.CHUNK_FLOATS < length
+        slots = ((part - first)[:, None] * t + np.arange(t)[None, :])
+        taken = slots[slots * eval_stats.SLOT_FLOATS < length]
+        assert np.array_equal(np.sort(taken),
+                              np.arange(-(-length // eval_stats.SLOT_FLOATS)))
+    with_x = {int(b) for b in chunks[:x_chunks] % grid}
+    assert with_x == set(range(min(x_chunks, grid)))
+    assert all(b >= x_chunks for b in set(range(grid)) - with_x)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 100_000, 100_001, 100_002,
+                               100_003])
+def test_point_layout_starts_every_part_on_16_bytes(n, scaled):
+    """point_layout, for m of every residue mod 4: the scaled x and y
+    (with an average), the primal, the dual and the norm each at a
+    multiple of 4 floats, in that order, none overlapping the next, all
+    inside the buffer."""
+    for m in (1, 2, 3, 4, 100_001, 100_002, 100_003, 100_004):
+        offsets, size = eval_stats.point_layout(n, m, scaled)
+        assert (offsets[0] is None) == (offsets[1] is None) == (not scaled)
+        parts = [(at, length) for at, length in zip(offsets, (n, m, n, m, 1))
+                 if at is not None]
+        assert parts[0][0] == 0
+        for (at, length), (following, _) in zip(parts, parts[1:]):
+            assert at % eval_stats.SLOT_FLOATS == 0
+            assert following >= at + length
+            assert following - (at + length) < eval_stats.SLOT_FLOATS
+        assert parts[-1][0] % eval_stats.SLOT_FLOATS == 0
+        assert parts[-1][0] + 1 == size
+
+
+def test_occupancy_kernels_match_the_entry_point():
+    """stats_wave's kernel argument names the kernel that
+    folp_stats_occupancy queries for it."""
+    body = source()[source().index("int folp_stats_occupancy"):]
+    found = dict(re.findall(r"kernel == (\d)\) \{\s*return \(int\)"
+                            r"cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+                            r"\(\s*blocks, (\w+)_kernel", body))
+    found.update(re.findall(r"kernel != (\d)\) return [^;]+;\s*return "
+                            r"\(int\)cudaOccupancyMaxActiveBlocksPer"
+                            r"Multiprocessor\(\s*blocks, (\w+)_kernel", body))
+    assert {name: int(k) for k, name in found.items()} == eval_stats.OCCUPANCY
 
 
 def warp_tree(v):
