@@ -1346,8 +1346,7 @@ def segment_counts(graphs):
     (ops/graphs.COUNTS): segments, evaluations, steps, read-backs (the
     evaluations' included) and read-backs a segment, graph replays of
     steps and of evaluations, loads into and unloads out of the graphs'
-    buffers, steps masked after a terminating evaluation, captures and
-    their seconds (warm-up included)."""
+    buffers, captures and their seconds (warm-up included)."""
     c = graphs.COUNTS
     return {"segments": c["segments"], "evaluations": c["evaluations"],
             "steps": c["steps"], "read_backs": c["read_backs"],
@@ -1355,7 +1354,6 @@ def segment_counts(graphs):
                 c["segments"], 1),
             "replays": c["replays"], "eval_replays": c["eval_replays"],
             "loads": c["loads"], "unloads": c["unloads"],
-            "masked_steps": c["masked_steps"],
             "captures": c["captures"],
             "capture_seconds": c["capture_seconds"]}
 
@@ -5078,9 +5076,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     if any(mp_launches[k] != 0 for k in others) or not all(
             mp_launches[k] > 0 for k in TR_KERNELS + STATS_KERNELS):
         problems.append(f"another kernel was launched: {mp_launches}")
+    # a read-back a segment, and the final statistics' one
     if (mp_segments["replays"] != mp_segments["steps"]
             or mp_segments["eval_replays"] != mp_segments["evaluations"]
-            or mp_segments["read_backs"] != mp_segments["segments"]):
+            or mp_segments["read_backs"] != mp_segments["segments"] + 1):
         problems.append(f"iterations or evaluations not replayed, or read "
                         f"back more than once a segment: {mp_segments}")
     measured = mirror_prox.prepare_problem(mp_params, problem, device=dev)

@@ -18,6 +18,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import spans
 from ..iteration_stats import (
     DeviceConvergenceInfo,
     DeviceInfeasibilityInfo,
@@ -362,16 +363,20 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def host_floats(result: EvalResult):
-    """The evaluation's scalars on the host, read back in one transfer:
-    floats, and ints for the reason, the restart and the iteration."""
+    """The evaluation's scalars on the host, read back in one transfer
+    (a read-back in spans.COUNTS): floats, and ints for the reason, the
+    restart and the iteration."""
     values = [*result.conv, *result.infeas, result.lagrangian_value,
               result.estimated_lower_bound, result.estimated_upper_bound,
               result.step_size, result.primal_weight,
               result.cumulative_kkt_passes, result.termination_reason,
               result.restart_used, result.iteration]
-    host = torch.stack(
-        [torch.as_tensor(v).reshape(()).to(torch.float64) for v in values]
-    ).tolist()
+    spans.COUNTS["read_backs"] += 1
+    with spans.span("folp.read_back"):
+        host = torch.stack(
+            [torch.as_tensor(v).reshape(()).to(torch.float64)
+             for v in values]
+        ).tolist()
     nc, ni = len(result.conv), len(result.infeas)
     k = nc + ni
     return result._replace(

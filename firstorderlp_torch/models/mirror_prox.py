@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..iteration_stats import (
     display_iteration_stats,
     display_iteration_stats_heading,
@@ -425,18 +426,21 @@ def _run_segments(bundle: DeviceScaledQp, state: MirrorProxState,
     read-back (so no iteration runs after a terminating evaluation).
     Returns (state, the last EvalResult as device tensors, the last
     termination reason as a host int)."""
-    runner = _runner(bundle, state, elapsed_time, config, _eager)
-    for _ in range(num_segments):
-        result = runner.evaluate()
-        reason, iteration = [int(v) for v in torch.stack([
-            runner.state.termination_reason.to(torch.int64),
-            runner.state.iteration]).tolist()]
-        graphs.COUNTS["read_backs"] += 1
-        graphs.COUNTS["segments"] += 1
-        if reason != 0:
-            break
-        runner.steps(next_eval_iteration(iteration, config) - iteration)
-    return runner.unload(), runner.detach(result), reason
+    with spans.span("folp.dispatch"):
+        runner = _runner(bundle, state, elapsed_time, config, _eager)
+        for _ in range(num_segments):
+            result = runner.evaluate()
+            with spans.span("folp.read_back"):
+                reason, iteration = [int(v) for v in torch.stack([
+                    runner.state.termination_reason.to(torch.int64),
+                    runner.state.iteration]).tolist()]
+            graphs.COUNTS["read_backs"] += 1
+            graphs.COUNTS["segments"] += 1
+            if reason != 0:
+                break
+            runner.steps(next_eval_iteration(iteration, config) - iteration)
+        with spans.span("folp.unload"):
+            return runner.unload(), runner.detach(result), reason
 
 
 def _segment_core(bundle: DeviceScaledQp, state: MirrorProxState,
@@ -609,43 +613,46 @@ def prepare_problem(
     device = resolve_device(device)
     validate(original_problem)
 
-    scaled_problem = rescale_problem(
-        params.l_inf_ruiz_iterations,
-        params.l2_norm_rescaling,
-        params.pock_chambolle_alpha,
-        params.verbosity,
-        original_problem,
-        bound_width_rescaling_flag=params.bound_width_rescaling,
-    )
+    with spans.timed("folp.ingest.rescale"):
+        scaled_problem = rescale_problem(
+            params.l_inf_ruiz_iterations,
+            params.l2_norm_rescaling,
+            params.pock_chambolle_alpha,
+            params.verbosity,
+            original_problem,
+            bound_width_rescaling_flag=params.bound_width_rescaling,
+        )
     dtype = torch_dtype(params.dtype)
     stats_dtype = (
         torch_dtype(params.stats_dtype) if params.stats_dtype else None
     )
-    bundle = to_device_scaled(
-        scaled_problem,
-        dtype,
-        params.matrix_format,
-        device,
-        stats_dtype=stats_dtype,
-        stats_format=params.stats_matrix_format,
-        shard_plan=_shard_plan,
-    )
+    with spans.timed("folp.ingest.to_device"):
+        bundle = to_device_scaled(
+            scaled_problem,
+            dtype,
+            params.matrix_format,
+            device,
+            stats_dtype=stats_dtype,
+            stats_format=params.stats_matrix_format,
+            shard_plan=_shard_plan,
+        )
     n = bundle.scaled.num_variables
     m = bundle.scaled.num_constraints
 
-    inf_norm = matrix_inf_norm_entrywise(
-        scaled_problem.scaled_qp.constraint_matrix
-    )
-    step_size = 1.0 / inf_norm if inf_norm > 0 else 1.0
+    with spans.timed("folp.ingest.step_size"):
+        inf_norm = matrix_inf_norm_entrywise(
+            scaled_problem.scaled_qp.constraint_matrix
+        )
+        step_size = 1.0 / inf_norm if inf_norm > 0 else 1.0
 
-    primal_scaling, dual_scaling, primal_weight = initial_mp_scalings(
-        scaled_problem.scaled_qp, params
-    )
+        primal_scaling, dual_scaling, primal_weight = initial_mp_scalings(
+            scaled_problem.scaled_qp, params
+        )
 
-    state = make_initial_state(
-        n, m, dtype, step_size, primal_scaling, dual_scaling,
-        primal_weight, device,
-    )
+        state = make_initial_state(
+            n, m, dtype, step_size, primal_scaling, dual_scaling,
+            primal_weight, device,
+        )
     if warm_start is not None:
         primal0, dual0 = warm_start
         x0 = torch.as_tensor(
@@ -745,130 +752,135 @@ def optimize(
             fingerprint=problem_fp,
         )
 
-    iteration_stats = []
-    start_time = time.time() - elapsed_offset
-    basic_algorithm_time = 0.0
-    evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
-    checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
-    dispatch_count = 0
-    state = _device_counters(state)
-    while True:
-        elapsed = agreed_seconds(
-            bundle.scaled.constraint_matrix, time.time() - start_time
-        )
-        segment_start = time.time()
-        state, result, reason = _run_segments(
-            bundle, state, elapsed, config, evals_per_dispatch)
-        terminated = reason != 0
-        basic_algorithm_time += time.time() - segment_start
-        dispatch_count += 1
-        if not (
-            terminated
-            or params.record_iteration_stats
-            or params.verbosity > 0
-        ):
-            if params.checkpoint_path and (
-                dispatch_count % checkpoint_every == 0
+    spans.COUNTS["solves"] += 1
+    with spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
+        iteration_stats = []
+        start_time = time.time() - elapsed_offset
+        basic_algorithm_time = 0.0
+        evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
+        checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
+        dispatch_count = 0
+        state = _device_counters(state)
+        while True:
+            elapsed = agreed_seconds(
+                bundle.scaled.constraint_matrix, time.time() - start_time
+            )
+            segment_start = time.time()
+            state, result, reason = _run_segments(
+                bundle, state, elapsed, config, evals_per_dispatch)
+            terminated = reason != 0
+            basic_algorithm_time += time.time() - segment_start
+            dispatch_count += 1
+            if not (
+                terminated
+                or params.record_iteration_stats
+                or params.verbosity > 0
             ):
-                checkpoint(state, {"iteration": -1})
-            continue
-        if terminated and not config.need_bound_estimates:
-            # The eval block skipped the diagnostics-only bound estimates;
-            # recover them once so the final stats entry keeps parity with
-            # the reference's method_specific_stats (saddle_point.jl:1015).
-            lagr, est_lb, est_ub = _final_bound_estimates(
-                bundle,
-                state.avg_primal_out,
-                state.avg_dual_out,
-                state.primal_scaling,
-                state.dual_scaling,
-            )
-            result = result._replace(
-                lagrangian_value=lagr,
-                estimated_lower_bound=est_lb,
-                estimated_upper_bound=est_ub,
-            )
-        result = host_floats(result)
-        eval_iteration = result.iteration
-        if params.checkpoint_path and (
-            dispatch_count % checkpoint_every == 0 or terminated
-        ):
-            checkpoint(state, {"iteration": eval_iteration + 1})
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0
+                ):
+                    checkpoint(state, {"iteration": -1})
+                continue
+            with spans.span("folp.finalize"):
+                if terminated and not config.need_bound_estimates:
+                    # The eval block skipped the diagnostics-only bound
+                    # estimates; recover them once so the final stats
+                    # entry keeps parity with the reference's
+                    # method_specific_stats (saddle_point.jl:1015).
+                    lagr, est_lb, est_ub = _final_bound_estimates(
+                        bundle,
+                        state.avg_primal_out,
+                        state.avg_dual_out,
+                        state.primal_scaling,
+                        state.dual_scaling,
+                    )
+                    result = result._replace(
+                        lagrangian_value=lagr,
+                        estimated_lower_bound=est_lb,
+                        estimated_upper_bound=est_ub,
+                    )
+                result = host_floats(result)
+                eval_iteration = result.iteration
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0 or terminated
+                ):
+                    checkpoint(state, {"iteration": eval_iteration + 1})
 
-        method_specific_stats = {
-            "time_spent_doing_basic_algorithm": basic_algorithm_time,
-            "lagrangian_value": result.lagrangian_value,
-            "estimated_lower_bound": result.estimated_lower_bound,
-            "estimated_upper_bound": result.estimated_upper_bound,
-        }
-        stats = to_host_stats(
-            result.conv,
-            result.infeas,
-            eval_iteration,
-            result.cumulative_kkt_passes,
-            elapsed,
-            RestartChoice(result.restart_used)
-            if result.restart_used != 0
-            else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
-            result.step_size,
-            result.primal_weight,
-            method_specific_stats,
-            PointType.POINT_TYPE_AVERAGE_ITERATE,
-        )
-        if params.record_iteration_stats or terminated:
-            iteration_stats.append(stats)
-        if print_to_screen_this_iteration(
-            True if terminated else False,
-            eval_iteration + 1,
-            params.verbosity,
-            params.termination_evaluation_frequency,
-        ):
-            display_iteration_stats(stats, params.verbosity)
+                method_specific_stats = {
+                    "time_spent_doing_basic_algorithm": basic_algorithm_time,
+                    "lagrangian_value": result.lagrangian_value,
+                    "estimated_lower_bound": result.estimated_lower_bound,
+                    "estimated_upper_bound": result.estimated_upper_bound,
+                }
+                stats = to_host_stats(
+                    result.conv,
+                    result.infeas,
+                    eval_iteration,
+                    result.cumulative_kkt_passes,
+                    elapsed,
+                    RestartChoice(result.restart_used)
+                    if result.restart_used != 0
+                    else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
+                    result.step_size,
+                    result.primal_weight,
+                    method_specific_stats,
+                    PointType.POINT_TYPE_AVERAGE_ITERATE,
+                )
+            if params.record_iteration_stats or terminated:
+                iteration_stats.append(stats)
+            if print_to_screen_this_iteration(
+                True if terminated else False,
+                eval_iteration + 1,
+                params.verbosity,
+                params.termination_evaluation_frequency,
+            ):
+                display_iteration_stats(stats, params.verbosity)
 
-        if terminated:
-            reason = TerminationReason(result.termination_reason)
-            if params.verbosity >= 1:
-                from ..solve_log import termination_reason_to_string
+            if terminated:
+                reason = TerminationReason(result.termination_reason)
+                if params.verbosity >= 1:
+                    from ..solve_log import termination_reason_to_string
 
-                print(
-                    f"Terminated after {eval_iteration + 1} iterations: "
-                    f"{termination_reason_to_string(reason)}"
-                )
-            output = unscaled_saddle_point_output(
-                scaled_problem,
-                state.avg_primal_out,
-                state.avg_dual_out,
-                reason,
-                int(state.iterations_completed),
-                iteration_stats,
-            )
-            if params.verbosity >= 6:
-                # reference mirror_prox.jl:453-470 prints these per
-                # display; here once at termination (per-display would
-                # cost a host fetch every evaluation).
-                s = active_variable_stats(
-                    scaled_problem.original_qp,
-                    output.primal_solution,
-                    output.dual_solution,
-                )
-                nnz = scaled_problem.original_qp.constraint_matrix.nnz
-                print(
-                    f"    primal vars [@lb: {s[0]} active: {s[1]} "
-                    f"@ub: {s[2]}] dual ineq vars [@lb: {s[3]} "
-                    f"active: {s[4]}] active mat nz: "
-                    f"{100.0 * s[5] / max(nnz, 1):6.3f}%"
-                )
-            if params.verbosity >= 7:
-                from ..problem import (
-                    print_variable_and_constraint_hardness,
-                )
+                    print(
+                        f"Terminated after {eval_iteration + 1} iterations: "
+                        f"{termination_reason_to_string(reason)}"
+                    )
+                with spans.span("folp.unscale"):
+                    output = unscaled_saddle_point_output(
+                        scaled_problem,
+                        state.avg_primal_out,
+                        state.avg_dual_out,
+                        reason,
+                        int(state.iterations_completed),
+                        iteration_stats,
+                    )
+                if params.verbosity >= 6:
+                    # reference mirror_prox.jl:453-470 prints these per
+                    # display; here once at termination (per-display would
+                    # cost a host fetch every evaluation).
+                    s = active_variable_stats(
+                        scaled_problem.original_qp,
+                        output.primal_solution,
+                        output.dual_solution,
+                    )
+                    nnz = scaled_problem.original_qp.constraint_matrix.nnz
+                    print(
+                        f"    primal vars [@lb: {s[0]} active: {s[1]} "
+                        f"@ub: {s[2]}] dual ineq vars [@lb: {s[3]} "
+                        f"active: {s[4]}] active mat nz: "
+                        f"{100.0 * s[5] / max(nnz, 1):6.3f}%"
+                    )
+                if params.verbosity >= 7:
+                    from ..problem import (
+                        print_variable_and_constraint_hardness,
+                    )
 
-                print_variable_and_constraint_hardness(
-                    scaled_problem.original_qp,
-                    output.primal_solution,
-                    output.dual_solution,
-                )
-            return output
+                    print_variable_and_constraint_hardness(
+                        scaled_problem.original_qp,
+                        output.primal_solution,
+                        output.dual_solution,
+                    )
+                return output
 
 
 def active_variable_stats(problem, primal, dual):

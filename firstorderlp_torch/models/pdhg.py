@@ -37,6 +37,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import spans
 from ..iteration_stats import (
     display_iteration_stats,
     display_iteration_stats_heading,
@@ -802,8 +803,9 @@ def _read_back(state: PdhgState, start, target: int, config: _PdhgConfig):
         _trial_active(state, start, config), target - state.iteration,
         state.iteration, state.termination_reason,
     )
-    return [int(v) for v in
-            torch.stack([v.to(torch.int64) for v in values]).tolist()]
+    with spans.span("folp.read_back"):
+        return [int(v) for v in
+                torch.stack([v.to(torch.int64) for v in values]).tolist()]
 
 
 def _runner(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
@@ -846,8 +848,6 @@ def _run_trials(runner: graphs.SegmentRunner, config: _PdhgConfig,
         active, left, iteration, reason = _read_back(
             runner.state, runner.start, target, config)
         graphs.COUNTS["read_backs"] += 1
-        if reason != 0:
-            graphs.COUNTS["masked_steps"] += need
         if not active:
             return reason, iteration
         need = left
@@ -877,30 +877,44 @@ def _run_segments(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
     dispatch (one load, one unload); each segment reads back once a round
     of trials. Returns (state, the last EvalResult as device tensors, the
     iteration and the last termination reason as host ints)."""
-    if isinstance(config.step_policy, MalitskyPockStepsizeParameters):
-        elapsed = torch.full((), float(elapsed_time), dtype=torch.float64,
-                             device=state.step_size.device)
+    with spans.span("folp.dispatch"):
+        if isinstance(config.step_policy, MalitskyPockStepsizeParameters):
+            return _malitsky_pock_segments(bundle, state, elapsed_time,
+                                           config, num_segments, iteration)
+        runner = _runner(bundle, state, elapsed_time, config, _eager)
         for _ in range(num_segments):
-            state, result = _eval_block(bundle, state, elapsed, config)
-            graphs.COUNTS["evaluations"] += 1
+            result = runner.evaluate()
+            reason, iteration = _run_trials(runner, config, iteration)
             graphs.COUNTS["segments"] += 1
-            graphs.COUNTS["read_backs"] += 1
+            if reason != 0:
+                break
+        with spans.span("folp.unload"):
+            return runner.unload(), runner.detach(result), iteration, reason
+
+
+def _malitsky_pock_segments(bundle: DeviceScaledQp, state: PdhgState,
+                            elapsed_time, config: _PdhgConfig,
+                            num_segments: int, iteration: int):
+    """_run_segments under the Malitsky-Pock rule: eager evaluations, one
+    read-back each, and a host loop of line-search steps."""
+    elapsed = torch.full((), float(elapsed_time), dtype=torch.float64,
+                         device=state.step_size.device)
+    for _ in range(num_segments):
+        with spans.span("folp.evaluate"):
+            state, result = _eval_block(bundle, state, elapsed, config)
+        graphs.COUNTS["evaluations"] += 1
+        graphs.COUNTS["segments"] += 1
+        graphs.COUNTS["read_backs"] += 1
+        with spans.span("folp.read_back"):
             reason, iteration = [int(v) for v in torch.stack([
                 state.termination_reason.to(torch.int64),
                 state.iteration]).tolist()]
-            if reason != 0:
-                break
-            state, iteration = _malitsky_pock_segment(
-                bundle.scaled, state, config, iteration)
-        return state, result, iteration, reason
-    runner = _runner(bundle, state, elapsed_time, config, _eager)
-    for _ in range(num_segments):
-        result = runner.evaluate()
-        reason, iteration = _run_trials(runner, config, iteration)
-        graphs.COUNTS["segments"] += 1
         if reason != 0:
             break
-    return runner.unload(), runner.detach(result), iteration, reason
+        with spans.span("folp.trials"):
+            state, iteration = _malitsky_pock_segment(
+                bundle.scaled, state, config, iteration)
+    return state, result, iteration, reason
 
 
 def _segment_core(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
@@ -994,68 +1008,73 @@ def prepare_problem(
         == (stats_dtype or dtype)
     ):
         scaled_problem = _reuse.scaled_problem
-        bundle = dataclasses.replace(
-            _reuse.bundle,
-            scaled=to_device(
-                scaled_problem.scaled_qp, dtype, params.matrix_format,
-                device, shard_plan=_shard_plan,
-            ),
-        )
+        with spans.timed("folp.ingest.to_device"):
+            bundle = dataclasses.replace(
+                _reuse.bundle,
+                scaled=to_device(
+                    scaled_problem.scaled_qp, dtype, params.matrix_format,
+                    device, shard_plan=_shard_plan,
+                ),
+            )
     else:
-        scaled_problem = rescale_problem(
-            params.l_inf_ruiz_iterations,
-            params.l2_norm_rescaling,
-            params.pock_chambolle_alpha,
+        with spans.timed("folp.ingest.rescale"):
+            scaled_problem = rescale_problem(
+                params.l_inf_ruiz_iterations,
+                params.l2_norm_rescaling,
+                params.pock_chambolle_alpha,
+                params.verbosity,
+                original_problem,
+                bound_width_rescaling_flag=params.bound_width_rescaling,
+            )
+        with spans.timed("folp.ingest.to_device"):
+            bundle = to_device_scaled(
+                scaled_problem,
+                dtype,
+                params.matrix_format,
+                device,
+                stats_dtype=stats_dtype,
+                stats_format=params.stats_matrix_format,
+                shard_plan=_shard_plan,
+            )
+
+    with spans.timed("folp.ingest.step_size"):
+        state = _initial_state(bundle, dtype, device)
+        cumulative_kkt_passes = 0.0
+        if isinstance(
+            params.step_size_policy_params,
+            (AdaptiveStepsizeParams, MalitskyPockStepsizeParameters),
+        ):
+            cumulative_kkt_passes += 0.5
+            inf_norm = matrix_inf_norm_entrywise(
+                scaled_problem.scaled_qp.constraint_matrix
+            )
+            step_size = 1.0 / inf_norm if inf_norm > 0 else 1.0
+        else:
+            desired_relative_error = 0.2
+            max_singular_value, num_iters = estimate_maximum_singular_value(
+                scaled_problem.scaled_qp.constraint_matrix,
+                probability_of_failure=0.001,
+                desired_relative_error=desired_relative_error,
+            )
+            step_size = (1.0 - desired_relative_error) / max_singular_value
+            cumulative_kkt_passes += num_iters
+
+        primal_weight = initial_primal_weight_host(
+            scaled_problem.scaled_qp,
+            params.primal_importance,
+            params.scale_invariant_initial_primal_weight,
             params.verbosity,
-            original_problem,
-            bound_width_rescaling_flag=params.bound_width_rescaling,
         )
-        bundle = to_device_scaled(
-            scaled_problem,
-            dtype,
-            params.matrix_format,
-            device,
-            stats_dtype=stats_dtype,
-            stats_format=params.stats_matrix_format,
-            shard_plan=_shard_plan,
-        )
-
-    state = _initial_state(bundle, dtype, device)
-    cumulative_kkt_passes = 0.0
-    if isinstance(
-        params.step_size_policy_params,
-        (AdaptiveStepsizeParams, MalitskyPockStepsizeParameters),
-    ):
-        cumulative_kkt_passes += 0.5
-        inf_norm = matrix_inf_norm_entrywise(
-            scaled_problem.scaled_qp.constraint_matrix
-        )
-        step_size = 1.0 / inf_norm if inf_norm > 0 else 1.0
-    else:
-        desired_relative_error = 0.2
-        max_singular_value, num_iters = estimate_maximum_singular_value(
-            scaled_problem.scaled_qp.constraint_matrix,
-            probability_of_failure=0.001,
-            desired_relative_error=desired_relative_error,
-        )
-        step_size = (1.0 - desired_relative_error) / max_singular_value
-        cumulative_kkt_passes += num_iters
-
-    primal_weight = initial_primal_weight_host(
-        scaled_problem.scaled_qp,
-        params.primal_importance,
-        params.scale_invariant_initial_primal_weight,
-        params.verbosity,
-    )
-    state = dataclasses.replace(
-        state,
-        step_size=torch.full((), float(step_size), dtype=dtype,
-                             device=device),
-        primal_weight=torch.full((), float(primal_weight), dtype=dtype,
+        state = dataclasses.replace(
+            state,
+            step_size=torch.full((), float(step_size), dtype=dtype,
                                  device=device),
-        cumulative_kkt_passes=torch.full((), float(cumulative_kkt_passes),
-                                         dtype=torch.float64, device=device),
-    )
+            primal_weight=torch.full((), float(primal_weight), dtype=dtype,
+                                     device=device),
+            cumulative_kkt_passes=torch.full(
+                (), float(cumulative_kkt_passes), dtype=torch.float64,
+                device=device),
+        )
     if warm_start is not None:
         primal0, dual0 = warm_start
         x0 = torch.as_tensor(
@@ -1168,7 +1187,9 @@ def optimize(
 
     display_iteration_stats_heading(params.verbosity)
 
-    with _profiler_trace(params.profiler_trace_dir, prepared.device):
+    spans.COUNTS["solves"] += 1
+    with _profiler_trace(params.profiler_trace_dir, prepared.device), \
+            spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
         iteration_stats = []
         start_time = time.time() - elapsed_offset
         basic_algorithm_time = 0.0
@@ -1197,47 +1218,51 @@ def optimize(
                 ):
                     checkpoint(state, {"iteration": -1})
                 continue
-            if terminated and not config.need_bound_estimates:
-                # The eval block skipped the diagnostics-only bound estimates;
-                # recover them once for the final stats entry.
-                lagr, est_lb, est_ub = _final_bound_estimates(
-                    bundle,
-                    state.avg_primal_out,
-                    state.avg_dual_out,
+            with spans.span("folp.finalize"):
+                if terminated and not config.need_bound_estimates:
+                    # The eval block skipped the diagnostics-only bound
+                    # estimates; recover them once for the final stats
+                    # entry.
+                    lagr, est_lb, est_ub = _final_bound_estimates(
+                        bundle,
+                        state.avg_primal_out,
+                        state.avg_dual_out,
+                        result.step_size,
+                        result.primal_weight,
+                    )
+                    result = result._replace(
+                        lagrangian_value=lagr,
+                        estimated_lower_bound=est_lb,
+                        estimated_upper_bound=est_ub,
+                    )
+                result = host_floats(result)
+                # = displayed iteration - 1
+                eval_iteration = result.iteration
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0 or terminated
+                ):
+                    checkpoint(state, {"iteration": eval_iteration + 1})
+                method_specific_stats = {
+                    "time_spent_doing_basic_algorithm":
+                        basic_algorithm_time,
+                    "lagrangian_value": result.lagrangian_value,
+                    "estimated_lower_bound": result.estimated_lower_bound,
+                    "estimated_upper_bound": result.estimated_upper_bound,
+                }
+                stats = to_host_stats(
+                    result.conv,
+                    result.infeas,
+                    eval_iteration,
+                    result.cumulative_kkt_passes,
+                    elapsed,
+                    RestartChoice(result.restart_used)
+                    if result.restart_used != 0
+                    else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
                     result.step_size,
                     result.primal_weight,
+                    method_specific_stats,
+                    PointType.POINT_TYPE_AVERAGE_ITERATE,
                 )
-                result = result._replace(
-                    lagrangian_value=lagr,
-                    estimated_lower_bound=est_lb,
-                    estimated_upper_bound=est_ub,
-                )
-            result = host_floats(result)
-            eval_iteration = result.iteration  # = displayed iteration - 1
-            if params.checkpoint_path and (
-                dispatch_count % checkpoint_every == 0 or terminated
-            ):
-                checkpoint(state, {"iteration": eval_iteration + 1})
-            method_specific_stats = {
-                "time_spent_doing_basic_algorithm": basic_algorithm_time,
-                "lagrangian_value": result.lagrangian_value,
-                "estimated_lower_bound": result.estimated_lower_bound,
-                "estimated_upper_bound": result.estimated_upper_bound,
-            }
-            stats = to_host_stats(
-                result.conv,
-                result.infeas,
-                eval_iteration,
-                result.cumulative_kkt_passes,
-                elapsed,
-                RestartChoice(result.restart_used)
-                if result.restart_used != 0
-                else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
-                result.step_size,
-                result.primal_weight,
-                method_specific_stats,
-                PointType.POINT_TYPE_AVERAGE_ITERATE,
-            )
             if params.record_iteration_stats or terminated:
                 iteration_stats.append(stats)
             if print_to_screen_this_iteration(
@@ -1257,14 +1282,15 @@ def optimize(
                         f"Terminated after {eval_iteration + 1} iterations: "
                         f"{termination_reason_to_string(reason)}"
                     )
-                output = unscaled_saddle_point_output(
-                    scaled_problem,
-                    state.avg_primal_out,
-                    state.avg_dual_out,
-                    reason,
-                    eval_iteration,
-                    iteration_stats,
-                )
+                with spans.span("folp.unscale"):
+                    output = unscaled_saddle_point_output(
+                        scaled_problem,
+                        state.avg_primal_out,
+                        state.avg_dual_out,
+                        reason,
+                        eval_iteration,
+                        iteration_stats,
+                    )
                 if params.verbosity >= 7:
                     # generic_final_log (reference saddle_point.jl:1004-1012)
                     from ..problem import (

@@ -31,37 +31,13 @@ path, plus one evaluation and one step that a capture's warm-up runs
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from . import routed
-
-# What the solvers' segments did, counted at the host: segments,
-# evaluations, steps (trials or iterations) launched, of them the steps
-# masked off by a terminating evaluation before them, read-backs (every
-# host wait on a segment's values, the evaluation's included), graph
-# replays of steps and of evaluations, loads into and unloads out of the
-# buffers, captures and the seconds they took (warm-up included).
-COUNTS: Dict[str, float] = {
-    "segments": 0,
-    "evaluations": 0,
-    "steps": 0,
-    "masked_steps": 0,
-    "read_backs": 0,
-    "replays": 0,
-    "eval_replays": 0,
-    "loads": 0,
-    "unloads": 0,
-    "captures": 0,
-    "capture_seconds": 0.0,
-}
-
-
-def reset_counts() -> None:
-    for key in COUNTS:
-        COUNTS[key] = 0
+# the solvers' counters (spans.COUNTS), also read as graphs.COUNTS
+from ..spans import COUNTS, reset_counts, span, timed  # noqa: F401
 
 
 def graphable(problem) -> bool:
@@ -171,25 +147,24 @@ class SegmentGraphs:
 
     def __init__(self, evaluate: Callable, step: Callable, state,
                  extras: Sequence[torch.Tensor]):
-        t0 = time.perf_counter()
-        self.static = StaticState(state, extras)
-        device = self.static.buffers[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        before = dict(routed.LAUNCHES)
-        with torch.cuda.stream(side):
-            # kernels loaded, pool primed
-            self.static.apply(evaluate, evaluation=True)
-            self.static.apply(step)
-        torch.cuda.current_stream(device).wait_stream(side)
-        # the warm-up's launches are real and stay counted
-        self.warmup_launches = _delta(before)
-        self.eval_graph, self.eval_launches, self.result = self._capture(
-            side, evaluate, evaluation=True)
-        self.step_graph, self.step_launches, _ = self._capture(side, step)
-        self.capture_seconds = time.perf_counter() - t0
+        with timed("folp.capture"):
+            self.static = StaticState(state, extras)
+            device = self.static.buffers[0].device
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            before = dict(routed.LAUNCHES)
+            with torch.cuda.stream(side):
+                # kernels loaded, pool primed
+                self.static.apply(evaluate, evaluation=True)
+                self.static.apply(step)
+            torch.cuda.current_stream(device).wait_stream(side)
+            # the warm-up's launches are real and stay counted
+            self.warmup_launches = _delta(before)
+            self.eval_graph, self.eval_launches, self.result = (
+                self._capture(side, evaluate, evaluation=True))
+            self.step_graph, self.step_launches, _ = self._capture(side,
+                                                                   step)
         COUNTS["captures"] += 1
-        COUNTS["capture_seconds"] += self.capture_seconds
 
     def _capture(self, side, fn, evaluation=False):
         before = dict(routed.LAUNCHES)
@@ -251,11 +226,13 @@ class SegmentRunner:
         if graphed:
             self.graphs = cached(bundle, key, lambda: SegmentGraphs(
                 evaluate, step, state, extras))
-            self.static = self.graphs.static
-            self.static.load(state)
-        else:
-            self.static = StaticState(state, extras)
-        self.static.extras[0].fill_(float(elapsed_time))
+        with span("folp.load"):
+            if self.graphs is not None:
+                self.static = self.graphs.static
+                self.static.load(state)
+            else:
+                self.static = StaticState(state, extras)
+            self.static.extras[0].fill_(float(elapsed_time))
         COUNTS["loads"] += 1
 
     @property
@@ -272,17 +249,19 @@ class SegmentRunner:
 
     def evaluate(self):
         COUNTS["evaluations"] += 1
-        if self.graphs is not None:
-            return self.graphs.evaluate()
-        return self.static.apply(self._evaluate, evaluation=True)
+        with span("folp.evaluate"):
+            if self.graphs is not None:
+                return self.graphs.evaluate()
+            return self.static.apply(self._evaluate, evaluation=True)
 
     def steps(self, times: int) -> None:
         COUNTS["steps"] += times
-        if self.graphs is not None:
-            self.graphs.steps(times)
-            return
-        for _ in range(times):
-            self.static.apply(self._step)
+        with span("folp.trials"):
+            if self.graphs is not None:
+                self.graphs.steps(times)
+                return
+            for _ in range(times):
+                self.static.apply(self._step)
 
     def detach(self, result):
         """`result` copied off the evaluation graph's output tensors,
