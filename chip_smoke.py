@@ -41,19 +41,27 @@ Phases, each printing one JSON line:
    turns with aligned ones, and on a million entries; given --parent, both kernels and the parent's in
    turns, F1a at a million entries too;
    kernels_trust_region: the f32 exact trust region's kernels
-   (ops/trust_region_search.py), F2b tr_search (the prologue F2a and the
-   knot search, 11 trips of 7 test points, SEARCH_BITS = 3: one launch)
-   and F2c tr_solution, at the restart scheme's shape (3 rows over the scaled
-   LP's primal and dual bounds), the 128-lane fleet's (384 rows of
-   40,001, bounds a row) and one row of 300,000 (past what 8-block
-   clusters stage), inputs made with numpy: t*, the solution and the
-   split sums bitwise equal to the plain versions' and to a second
-   launch, the launch plan (cluster, staged or not, shared memory) and
-   F2b's device time at each shape, F2c's grid (blocks a row, blocks)
-   and device time at each shape (given --parent, beside the parent's
-   tr_search and tr_solution in turns at each shape), tr_search under 8-
-   and 16-block plans timed in turns, times (CUDA events, device time
-   and kernels a call, the plain versions') and the bytes bound; the line before it
+   (ops/trust_region_search.py), F2b (the prologue F2a and the knot
+   search, 11 trips of 7 test points, SEARCH_BITS = 3: tr_search, one
+   launch of a cluster a row, or the whole-card path, tr_knots and 11
+   tr_trip launches, for a row too long to stage) and F2c tr_solution,
+   at the restart scheme's shape (3 rows over the scaled LP's primal and
+   dual bounds), the 128-lane fleet's (384 rows of 40,001, bounds a
+   row), one row of 300,000 (past what 8-block clusters stage) and the
+   1M-node LP's restart scheme (3 rows of 2,000,001 with its bound
+   pattern: x >= 0, the equality row's dual free, the others >= 0),
+   inputs made with numpy: t*, the solution and the split sums bitwise
+   equal to the plain versions' and to a second launch, the launch plan
+   (cluster and shared memory, or the whole card) and F2b's device time
+   at each shape, F2c's grid (blocks a row, blocks) and device time at
+   each shape (given --parent, beside the parent's tr_search and
+   tr_solution in turns at each shape; at the 1M shape also one call
+   replayed from a CUDA graph, timed in turns with the parent's, and the
+   share of the entries still in the whole-card path's lists after its
+   prologue and after each trip), F2b under 8- and 16-block plans and
+   the whole-card path timed in turns at the restart scheme's shape,
+   times (CUDA events, device time and kernels a call, the plain
+   versions') and the bytes bound; the line before it
    (kernels_trust_region_plan) prints the search's bits, K, trips,
    threads, the card's cluster limit and its co-resident clusters, and
    tr_solution's wave (the card's SMs, the blocks an SM holds);
@@ -3521,21 +3529,50 @@ def tr_solution_bytes(rows, n, bounds_rows):
     return 4 * (3 * rows * n + 3 * n * bounds_rows + rows + 3 * rows)
 
 
+def replayed(torch, call):
+    """A function that replays one call of `call` captured in a CUDA
+    graph (after a warm-up call), as the evaluation graph runs it."""
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    return graph.replay
+
+
+def live_share(torch, trs, c, g, lower, upper, weight, radius):
+    """The whole-card path's live knots over all entries after its
+    prologue and after each trip: its warps' list lengths (what _sweep
+    returns), read back here after a run of 0 to SEARCH_TRIPS trips."""
+    rows, n = c.shape
+    t_star = torch.empty(rows, dtype=torch.float32, device=c.device)
+    share = []
+    for trips in range(trs.SEARCH_TRIPS + 1):
+        counts = trs._sweep([c, g, lower, upper, weight],
+                            radius.contiguous(), t_star, trips)
+        share.append(int(counts.sum()) / (rows * n))
+    return share
+
+
 def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                          compare, parent_dir=None):
-    """F2b (tr_search, with the prologue F2a) and F2c (tr_solution) of
+    """F2b (with the prologue F2a) and F2c (tr_solution) of
     ops/trust_region_search.py at the main path's shape (the restart
     scheme's 3 rows over the scaled 100k-node LP's primal and dual
     bounds, N = n + m, bounds (N,)), the 128-lane fleet's (384 rows of
-    40,001, bounds (B, N)) and one row of 300,000 (past the 230,400
-    entries that 8-block clusters stage), inputs made with numpy from
-    seed 2: t*, the solution and the sums bitwise the plain versions',
-    twice the same bits, F2b's device time and plan and F2c's grid and
-    device time at each shape, and `parent_dir`'s tr_search and
-    tr_solution beside them in turns; at the main path's shape tr_search
-    under 8- and 16-block plans, bitwise the plain version and timed in
-    turns, and F2c's and the plain versions' times and the bytes
-    bounds."""
+    40,001, bounds (B, N)), one row of 300,000 (past the 218,112
+    entries that 8-block clusters stage) and the 1M-node LP's restart
+    scheme (3 rows of 2,000,001, its bound pattern, bounds (N,)), inputs
+    made with numpy from seed 2: t*, the solution and the sums bitwise
+    the plain versions', twice the same bits, F2b's device time and plan
+    and F2c's grid and device time at each shape, and `parent_dir`'s
+    tr_search and tr_solution beside them in turns; at the 1M shape one
+    call replayed from a CUDA graph in turns with the parent's, and the
+    whole-card path's live-knot share after its prologue and each trip
+    (its lists' lengths, read back here only); at the main path's shape
+    F2b under 8- and 16-block plans and the whole-card path, bitwise
+    the plain version and timed in turns, and F2c's and the plain
+    versions' times and the bytes bounds."""
     from firstorderlp_torch.ops import probe_routed
     from firstorderlp_torch.ops import trust_region_search as trs
 
@@ -3554,18 +3591,25 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
         long_n))
     long_upper = np.where(rng.random(long_n) < 0.3, np.inf, rng.random(
         long_n))
+    million_lower = np.zeros(2 * LARGE_NODES + 1)
+    million_lower[LARGE_NODES] = -np.inf  # the equality row's dual
+    million_upper = np.full(2 * LARGE_NODES + 1, np.inf)
     shapes = {
         "main_path": tr_inputs(torch, rng, 3, main_lower, main_upper, dev),
         "fleet": tr_inputs(torch, rng, 384, fleet_lower, fleet_upper, dev),
         "past_eight_blocks": tr_inputs(torch, rng, 1, long_lower,
                                        long_upper, dev, radii=(0.7,)),
+        "million": tr_inputs(torch, rng, 3, million_lower, million_upper,
+                             dev),
     }
     search = {"bits": trs.SEARCH_BITS, "K": 2 ** trs.SEARCH_BITS - 1,
               "trips": trs.SEARCH_TRIPS, "threads": trs.SEARCH_THREADS,
               "cluster_limit": trs.search_cluster_limit(dev),
               "active_clusters": trs.active_clusters(dev),
               "solution_wave": dict(zip(("sms", "blocks_an_sm"),
-                                        trs.solution_wave(dev)))}
+                                        trs.solution_wave(dev))),
+              "sweep_wave": dict(zip(("sms", "blocks_an_sm"),
+                                     trs.sweep_wave(dev)))}
     emit({"phase": "kernels_trust_region_plan", "ok": True, **search})
     ptrs = (compare.package_module("ops.trust_region_search", parent_dir)
             if parent_dir else None)
@@ -3627,14 +3671,25 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
                 "this": probe_routed.turn_summary(turns["this"]),
                 "parent": {**probe_routed.turn_summary(turns["parent"]),
                            "bitwise_equal": parent_bits}}
+            if label == "million":
+                shape_times[label]["replayed_in_turns"] = {
+                    key: probe_routed.turn_summary(got) for key, got in
+                    probe_routed.in_turns({
+                        "this": replayed(torch, call),
+                        "parent": replayed(torch, parent_call)}).items()}
+        if plan == trs.WHOLE_CARD:
+            shape_times[label]["live_share"] = live_share(
+                torch, trs, c, g, lower, upper, weight, radius)
         variants.append({
             "shape": label, "rows": rows, "n": n,
             "bounds": list(lower.shape),
             "search_bitwise": states_equal(outs[0][0], plain[0]),
             "solution_bitwise": states_equal(outs[0][1:], plain[1:]),
             "repeat_bitwise": states_equal(outs[0], outs[1]),
-            "cluster": plan.cluster, "staged": plan.staged,
+            "cluster": plan.cluster, "whole_card": plan == trs.WHOLE_CARD,
             "smem_bytes": plan.smem_bytes,
+            "sweep_blocks_a_row": trs.sweep_blocks(rows, n,
+                                                   *trs.sweep_wave(dev)),
             "solution_blocks_a_row": blocks,
             "solution_blocks": rows * blocks,
             "tr_search_device_ms": dev_ms,
@@ -3654,11 +3709,12 @@ def kernels_trust_region(torch, scaled, dev, time_ms, device_profile,
     tries, calls = [], {}
     want = trs.tr_search_plain(trs.tr_prologue_plain(
         c, g, lower, upper, weight), radius)
-    for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER):
-        if trs.active_clusters(dev)[limit] < 1:
-            continue
-        plan = trs.search_plan(rows, n, limit)
-        key = f"cluster{plan.cluster}"
+    plans = [trs.search_plan(rows, n, limit)
+             for limit in (trs.MAX_CLUSTER, trs.WIDE_CLUSTER)
+             if trs.active_clusters(dev)[limit] >= 1] + [trs.WHOLE_CARD]
+    for plan in plans:
+        key = (f"cluster{plan.cluster}" if plan != trs.WHOLE_CARD
+               else "whole_card")
         calls[key] = (lambda plan=plan: trs.tr_search(
             c, g, lower, upper, weight, radius, plan=plan))
         tries.append({"key": key, **plan._asdict(),

@@ -3,16 +3,21 @@
 //
 //   argmin g'x  s.t.  l <= x <= u,  ||x - c||_w <= r,
 //
-// one problem a row, as two launches:
+// one problem a row:
 //
-//   F2b tr_search (F2a, the prologue, fused into it): frozen components,
-//     direction d = -g / w, the knots tau (where each component meets its
-//     bound, +0 for one that does not move) and a = (w d) d, computed
-//     once from c, g, l, u, w; the row's totals; the 31-level bisection
-//     on the float bits of t for the segment that holds r^2, where
-//     r^2(t) = S(t) + t^2 H(t), S(t) = sum over tau <= t of (a tau) tau
-//     and H(t) = sum of a over the rest, taken kSearchBits levels a trip;
-//     then t* on that segment, 0 for a zero radius or g = 0;
+//   F2b (F2a, the prologue, fused into it): frozen components, direction
+//     d = -g / w, the knots tau (where each component meets its bound, +0
+//     for one that does not move) and a = (w d) d, computed once from c,
+//     g, l, u, w; the row's totals; the 31-level bisection on the float
+//     bits of t for the segment that holds r^2, where r^2(t) = S(t) +
+//     t^2 H(t), S(t) = sum over tau <= t of (a tau) tau and H(t) = sum
+//     of a over the rest, taken kSearchBits levels a trip; then t* on
+//     that segment, 0 for a zero radius or g = 0. Two paths, chosen by
+//     the row's length (ops/trust_region_search.search_plan): tr_search,
+//     one launch of a cluster a row, for a row whose knots the cluster's
+//     shared memory holds (up to 16 x 27,264 entries); the whole-card
+//     path, tr_knots and then kSearchTrips launches of tr_trip, for a
+//     longer one (below, after tr_solution);
 //   F2c tr_solution: x = clamp(c + t* d, l, u) and the sums of
 //     g (x - c) over the columns [0, split), [split, n) and all.
 //
@@ -24,22 +29,24 @@
 // Bits: every per-row sum is accumulated in f64 and rounded once to f32,
 // in one fixed order: each thread its entries in column order (in
 // tr_search, the knots that left the bracket before the ones still in
-// it), then the warp, the warps and the row's blocks (tr_search: its
-// cluster; tr_solution: the blocks' slots, added by the row's last
-// block), each in a fixed tree. The terms of a sum are f32 values of one
-// sign, so an order whose longest chain of additions is D gives an f64
-// result within D 2^-53 |S| of the exact sum S (here D is a thread's
-// entries, at most ceil(n / (blocks x threads)), plus at most 24 levels
-// of trees).
+// it; in tr_trip, the knots of the warp's list in list order), then the
+// warp, the warps and the row's blocks (tr_search: its cluster;
+// tr_solution and the whole-card path: the blocks' slots, added by the
+// row's last block), each in a fixed tree. The terms of a sum are f32
+// values of one sign, so an order whose longest chain of additions is D
+// gives an f64 result within D 2^-53 |S| of the exact sum S (here D is a
+// thread's entries, at most ceil(n / (blocks x threads)), plus at most 24
+// levels of trees).
 // Two orders round to different f32 values only where an f32 rounding
 // midpoint lies between their f64 results; the midpoints lie at least
 // 2^-24 |S| apart, so the odds are at most about (D1 + D2) 2^-29 a sum:
 // about 2e-6 where D1 + D2 is 2^10. The kernels therefore give the plain
 // versions' bits, bar a one-ulp difference at those odds that comes from
 // the order of addition, not from a fault, and repeats at every run on
-// that input. The order changes with a launch plan's cluster size, and
-// the same rule covers that. The elementwise work rounds each operation
-// once in PyTorch's order (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn:
+// that input. The order changes with a launch plan's cluster size, with
+// the whole-card path's grid and between the two paths, and the same
+// rule covers that. The elementwise work rounds each operation once in
+// PyTorch's order (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn:
 // never a contracted multiply-add), torch.clamp keeps its NaN rules, and
 // a knot below zero (or -0) is +0.
 //
@@ -57,13 +64,12 @@
 // S and H at the final lo are those of the last point the walk went
 // above (or the prologue's S(+0), H(+0)), so no pass follows the trips.
 //
-// Design for Hopper: one thread-block cluster a row (cudaLaunchKernelEx;
-// up to 16 blocks, the non-portable size, when the card co-schedules
-// such clusters, else 8). Each block takes a contiguous slice of the row.
-// In tr_search it stages its slice's (tau, a) in shared memory once (8
-// bytes an entry: about 100 KB a block for 200,001 entries over 16
-// blocks), or, for a row too long for that, works them out again from
-// the inputs every trip; the prologue loads a round of entries ahead.
+// tr_search's design for Hopper: one thread-block cluster a row
+// (cudaLaunchKernelEx; up to 16 blocks, the non-portable size, when the
+// card co-schedules such clusters, else 8). Each block takes a contiguous
+// slice of the row and stages its slice's (tau, a) in shared memory once
+// (8 bytes an entry: about 100 KB a block for 200,001 entries over 16
+// blocks); the prologue loads a round of entries ahead.
 // Every point a trip tests lies in [lo, hi + 1], so a staged knot at or
 // below lo stays clamped and one above hi never is: each trip adds those
 // to the thread's running sums and keeps only the bracket's knots, in
@@ -88,9 +94,31 @@
 //
 // Bound on an H100 SXM: bytes for F2c (c, g read and x written a row, l,
 // u, w once: about 9.6 MB, 2.9 us, for 3 rows of 200,001 at 3.35 TB/s);
-// F2b reads the same inputs but x (7.2 MB, 2.1 us) and then runs its
-// trips over shared memory with a cluster barrier each: its floor on
-// the card is the trips' chain of barriers and f64 adds, not its bytes.
+// F2b reads the same inputs but x (7.2 MB, 2.1 us; 72 MB, 21.5 us, for 3
+// rows of 2,000,001) and then runs its trips over shared memory with a
+// cluster barrier each: its floor on the card is the trips' chain of
+// barriers and f64 adds, not its bytes.
+//
+// The whole-card path's design: a row of 2,000,001 entries needs 74
+// blocks' shared memory, more than a cluster has, and a cluster a row
+// that worked the knots out again from the inputs every trip read its
+// 72 MB twelve times on a third of the card. Here each launch is a grid
+// of one wave (the blocks the SMs hold at once, spread over the rows),
+// each warp a contiguous run of its row. tr_knots reads the inputs once,
+// 16-byte loads where an input allows them (F2c's row_slot), and writes
+// each warp's live knots (finite and > 0: a +0 knot is clamped at every
+// test point, a knot not finite never is, and the row's totals hold
+// both) to the warp's list in device memory, in column order, with the
+// warp's count. Each tr_trip launch reads the lists, L2-resident once
+// they shrink: a warp folds the knots at or below lo and above hi into
+// its fold sums and compacts the rest in place, so a trip reads only
+// the bracket's knots. A block's 2K + 2 sums go to its slot, and the
+// row's last block (fixed_order.cuh's integer ticket, set back to zero
+// by that block so a replay starts from zero) adds the slots in block
+// order, walks the K answers and writes the row's next SweepRow, which
+// the next launch reads. The kernel boundaries are the grid's barriers:
+// 12 launches a call, captured in the evaluation's CUDA graph like any
+// other, with nothing read back to the host.
 //
 // F2c's design: its bytes are a few memory latencies' worth for the
 // whole card, so it needs every SM busy and every load in flight, in one
@@ -133,6 +161,14 @@ constexpr int kSearchBits = 3;     // tr_search: bisection levels a trip
 constexpr int kSearchThreads = 512;  // tr_search: threads a block
 constexpr int kSolutionThreads = 256;  // tr_solution: threads a block
 constexpr int kSolutionSlots = 2;  // tr_solution: slots a thread loads at once
+constexpr int kSweepThreads = 256;  // tr_knots, tr_trip: threads a block
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kSweepSlots = 2;     // tr_knots: slots a lane loads at once
+constexpr int kTripEntries = 4;    // tr_trip: knots a lane loads at once
+constexpr int kSweepValues = 16;   // tr_trip: a block's sums (2K + 2)
+// the row's last block: threads a value, each a group of the blocks
+constexpr int kSweepGroups = kSweepThreads / kSweepValues;
+constexpr int kSweepRowDoubles = 8;  // a row's SweepRow, in doubles
 
 struct TrustRegionArgs {
   const float* c;
@@ -144,8 +180,13 @@ struct TrustRegionArgs {
   float* t_star;
   float* solution;
   float* sums;
-  double* partials;  // tr_solution: (rows, blocks) pairs of block sums
-  int* tickets;      // tr_solution: one a row, zero between launches
+  // tr_solution: (rows, blocks) pairs of block sums; tr_knots, tr_trip:
+  // kSweepValues a block
+  double* partials;
+  int* tickets;      // one a row, zero between launches
+  float* knots;      // tr_knots, tr_trip: each row's live (tau, a) lists
+  int* counts;       // tr_knots, tr_trip: each warp's list length
+  double* search;    // tr_knots, tr_trip: two SweepRows a row
   // Each input's element (row, j) at row * row_stride + j * col_stride:
   // a row stride of 0 gives every row one (n,) vector, and a transposed
   // (n, rows) view is read where it lies.
@@ -163,7 +204,6 @@ struct TrustRegionArgs {
   int n;
   int split;
   int blocks;         // blocks a row (tr_search: its cluster)
-  int staged;         // 1: (tau, a) kept in shared memory
 };
 
 // torch.clamp(v, lower, upper) on CUDA: a NaN value, then a NaN bound,
@@ -339,6 +379,49 @@ __device__ __forceinline__ double tree_sum(double (&v)[N]) {
   return v[0];
 }
 
+// The walk down a trip's decision tree from [*lo, *hi]: bit q of
+// `answers` is whether node q + 1's test point lies below r^2. Leaves
+// the new bracket in *lo, *hi and returns the last node (0-based) the
+// walk went above, or -1.
+__device__ __forceinline__ int walk_answers(unsigned answers, int* lo,
+                                            int* hi) {
+  int node = 1, last = -1;
+#pragma unroll
+  for (int level = 0; level < kSearchBits; ++level) {
+    const int mid = test_point(*lo, *hi);
+    const int up = (answers >> (node - 1)) & 1;
+    if (up) {
+      *lo = mid;
+      last = node - 1;
+    } else {
+      *hi = mid - 1;
+    }
+    node = 2 * node + up;
+  }
+  return last;
+}
+
+// t* from the row's totals and S, H at the search's last lo (the plain
+// version's t_star_from): 0 for a radius <= 0 or g = 0.
+__device__ __forceinline__ float t_star_of(float r, float s_total,
+                                           float h_infinite, float tau_max,
+                                           bool moving, float s_lo,
+                                           float h_lo) {
+  const float r2 = __fmul_rn(r, r);
+  const bool any_hit =
+      __fadd_rn(s_total, __fmul_rn(__fmul_rn(tau_max, tau_max),
+                                   h_infinite)) >= r2;
+  float room = __fsub_rn(r2, s_lo);
+  if (room < 0.f) room = 0.f;
+  const float t_interior = sqrtf(__fdiv_rn(room, h_lo > 0.f ? h_lo : 1.f));
+  float beyond = __fsub_rn(r2, s_total);
+  if (beyond < 0.f) beyond = 0.f;
+  const float t_beyond =
+      h_infinite > 0.f ? sqrtf(__fdiv_rn(beyond, h_infinite)) : tau_max;
+  const bool degenerate = r <= 0.f || !moving;
+  return degenerate ? 0.f : (any_hit ? t_interior : t_beyond);
+}
+
 // A trip's decision, from warp 0 to its block: the new bracket and
 // S, H at its lo.
 struct TripDecision {
@@ -359,7 +442,7 @@ tr_search_kernel(const TrustRegionArgs p) {
   static_assert(V <= P && P >= 6, "the sums and the six totals fit P");
   static_assert(W >= kMaxCluster, "a warp sends each block its sums");
 
-  extern __shared__ float2 knots[];  // the slice's (tau, a), when staged
+  extern __shared__ float2 knots[];  // the slice's (tau, a)
   __shared__ double warp_buf[W * P];
   __shared__ double totals_slot[6];
   // What every block of the cluster sends this one: its totals, and a
@@ -402,7 +485,7 @@ tr_search_kernel(const TrustRegionArgs p) {
       const int j = j0 + u * THREADS;
       if (j >= end) break;
       const float2 k = knot_of(in[u]);
-      if (p.staged) knots[j - begin] = k;
+      knots[j - begin] = k;
       const double clamped = (double)__fmul_rn(__fmul_rn(k.y, k.x), k.x);
       if (k.x < INFINITY) {
         tot[0] += clamped;
@@ -460,8 +543,7 @@ tr_search_kernel(const TrustRegionArgs p) {
   // knot at or below lo is clamped for good and one above hi (or not
   // finite) never is, so each trip moves those into the thread's `base`
   // sums and keeps the rest, in order, in the thread's slots (slot k of
-  // thread i at i + k * THREADS). Rows read from device memory every
-  // trip take every entry every trip.
+  // thread i at i + k * THREADS).
   int lo = 0, hi = __float_as_int(tau_max);
   float s_lo = __double2float_rn(tot[2]), h_lo = __double2float_rn(tot[3]);
   const int count = end - begin;
@@ -486,63 +568,35 @@ tr_search_kernel(const TrustRegionArgs p) {
     double part[P];  // S of point k at k, H at K + k; zeros past V
 #pragma unroll
     for (int v = 0; v < P; ++v) part[v] = 0.0;
-    if (p.staged) {
-      const float lo_t = __int_as_float(lo), hi_t = __int_as_float(hi);
-      int kept = 0;
-      for (int k = 0; k < active; ++k) {
-        const float2 e = knots[threadIdx.x + k * THREADS];
-        const double clamped = (double)__fmul_rn(__fmul_rn(e.y, e.x), e.x);
-        if (e.x <= lo_t) {
-          base[0] += clamped;
-        } else if (!(e.x <= hi_t)) {
-          base[1] += (double)e.y;
-        } else {
-          knots[threadIdx.x + kept * THREADS] = e;
-          ++kept;
-          const double a = (double)e.y;
+    const float lo_t = __int_as_float(lo), hi_t = __int_as_float(hi);
+    int kept = 0;
+    for (int k = 0; k < active; ++k) {
+      const float2 e = knots[threadIdx.x + k * THREADS];
+      const double clamped = (double)__fmul_rn(__fmul_rn(e.y, e.x), e.x);
+      if (e.x <= lo_t) {
+        base[0] += clamped;
+      } else if (!(e.x <= hi_t)) {
+        base[1] += (double)e.y;
+      } else {
+        knots[threadIdx.x + kept * THREADS] = e;
+        ++kept;
+        const double a = (double)e.y;
 #pragma unroll
-          for (int q = 0; q < K; ++q) {
-            if (e.x <= point[q]) {
-              part[q] += clamped;
-            } else {
-              part[K + q] += a;
-            }
-          }
-        }
-      }
-      active = kept;
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-        part[q] += base[0];
-        part[K + q] += base[1];
-      }
-    } else {
-      for (int j0 = begin + threadIdx.x; j0 < end; j0 += 2 * THREADS) {
-        Inputs in[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int j = j0 + u * THREADS;
-          if (j < end) in[u] = load_inputs(p, row, j);
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (j0 + u * THREADS >= end) break;
-          const float2 e = knot_of(in[u]);
-          const double clamped =
-              (double)__fmul_rn(__fmul_rn(e.y, e.x), e.x);
-          const double a = (double)e.y;
-#pragma unroll
-          for (int q = 0; q < K; ++q) {
-            if (e.x <= point[q]) {
-              part[q] += clamped;
-            } else {
-              part[K + q] += a;
-            }
+        for (int q = 0; q < K; ++q) {
+          if (e.x <= point[q]) {
+            part[q] += clamped;
+          } else {
+            part[K + q] += a;
           }
         }
       }
     }
-
+    active = kept;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      part[q] += base[0];
+      part[K + q] += base[1];
+    }
     // The block's sums: the warp's butterfly, then in warp b lane v adds
     // value v of every warp in one pairwise tree and sends the sum to
     // block b's inbox (every warp adds alike).
@@ -578,20 +632,9 @@ tr_search_kernel(const TrustRegionArgs p) {
         const float t = points[lane];
         below = __fadd_rn(s, __fmul_rn(__fmul_rn(t, t), h)) < r2;
       }
-      const unsigned answers = __ballot_sync(kTrMask, below);
-      int node = 1, last = -1, new_lo = lo, new_hi = hi;
-#pragma unroll
-      for (int level = 0; level < BITS; ++level) {
-        const int mid = test_point(new_lo, new_hi);
-        const int up = (answers >> (node - 1)) & 1;
-        if (up) {
-          new_lo = mid;
-          last = node - 1;
-        } else {
-          new_hi = mid - 1;
-        }
-        node = 2 * node + up;
-      }
+      int new_lo = lo, new_hi = hi;
+      const int last =
+          walk_answers(__ballot_sync(kTrMask, below), &new_lo, &new_hi);
       const float s_at = __shfl_sync(kTrMask, s, last < 0 ? 0 : last);
       const float h_at = __shfl_sync(kTrMask, h, last < 0 ? 0 : last);
       if (lane == 0) {
@@ -612,19 +655,8 @@ tr_search_kernel(const TrustRegionArgs p) {
   }
 
   if (rank == 0 && threadIdx.x == 0) {
-    const bool any_hit =
-        __fadd_rn(s_total, __fmul_rn(__fmul_rn(tau_max, tau_max),
-                                     h_infinite)) >= r2;
-    float room = __fsub_rn(r2, s_lo);
-    if (room < 0.f) room = 0.f;
-    const float t_interior =
-        sqrtf(__fdiv_rn(room, h_lo > 0.f ? h_lo : 1.f));
-    float beyond = __fsub_rn(r2, s_total);
-    if (beyond < 0.f) beyond = 0.f;
-    const float t_beyond =
-        h_infinite > 0.f ? sqrtf(__fdiv_rn(beyond, h_infinite)) : tau_max;
-    const bool degenerate = r <= 0.f || !moving;
-    p.t_star[row] = degenerate ? 0.f : (any_hit ? t_interior : t_beyond);
+    p.t_star[row] =
+        t_star_of(r, s_total, h_infinite, tau_max, moving, s_lo, h_lo);
   }
   // No barrier here: blocks write into each other's inboxes only before
   // the last trip's barrier, and read their own.
@@ -755,6 +787,354 @@ tr_solution_kernel(const TrustRegionArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The whole-card path (a row too long for a cluster to stage): tr_knots,
+// then kSearchTrips launches of tr_trip, each a grid of (blocks, rows).
+// ---------------------------------------------------------------------------
+
+constexpr int kSearchTrips = (kLevels + kSearchBits - 1) / kSearchBits;
+
+// A row's search between the path's launches. Two copies a row: a trip
+// reads copy trip & 1 and its last block writes the other.
+struct SweepRow {
+  double base_s;  // S of the knots no list holds: +0, folded at or below lo
+  double base_h;  // H of the rest no list holds: not finite, folded above hi
+  int lo;         // the bracket's bits
+  int hi;
+  float s_lo;     // S and H at lo
+  float h_lo;
+  float s_total;  // the prologue's totals
+  float h_infinite;
+  float tau_max;
+  int moving;     // any g^2 not zero
+};
+static_assert(sizeof(SweepRow) <= kSweepRowDoubles * sizeof(double),
+              "a SweepRow fits its doubles");
+
+__device__ __forceinline__ SweepRow* sweep_row(const TrustRegionArgs& p,
+                                               int row, int copy) {
+  return reinterpret_cast<SweepRow*>(
+      p.search + ((long long)copy * p.rows + row) * kSweepRowDoubles);
+}
+
+// The run of a row's ceil(n / 4) 16-byte slots that warp `warp` of block
+// `block` owns, [*begin, *end): the row cut into `blocks` runs, each run
+// into kSweepWarps. The warp's list lies at 4 x begin of its row's list.
+__device__ __forceinline__ void warp_run(int n, int blocks, int block,
+                                         int warp, int* begin, int* end) {
+  const long long slots = ((long long)n + 3) >> 2;
+  const long long per_block = (slots + blocks - 1) / blocks;
+  const long long per_warp = (per_block + kSweepWarps - 1) / kSweepWarps;
+  const long long run = (long long)block * per_block;
+  const long long run_end = min(run + per_block, slots);
+  const long long e = min(run + (warp + 1) * per_warp, run_end);
+  *end = (int)e;
+  *begin = (int)min(run + warp * per_warp, e);
+}
+
+__device__ __forceinline__ float2* warp_list(const TrustRegionArgs& p,
+                                             int row, int begin) {
+  const long long slots = ((long long)p.n + 3) >> 2;
+  return reinterpret_cast<float2*>(p.knots) + (long long)row * 4 * slots +
+         4LL * begin;
+}
+
+__device__ __forceinline__ int* warp_count(const TrustRegionArgs& p, int row,
+                                           int block, int warp) {
+  return p.counts + ((long long)row * p.blocks + block) * kSweepWarps + warp;
+}
+
+__device__ __forceinline__ double* block_slot(const TrustRegionArgs& p,
+                                              int row, int block) {
+  return p.partials + ((long long)row * p.blocks + block) * kSweepValues;
+}
+
+// The row's last block: value t / kSweepGroups (below `values`) of the
+// row's blocks' slots, added (from SUMS on, combined by max) in one fixed
+// order: thread t takes the blocks t % kSweepGroups, t % kSweepGroups +
+// kSweepGroups, ... in block order, then the value's kSweepGroups
+// threads (neighbouring lanes of one warp) a tree of xor shuffles. Each
+// of them returns the value's total.
+template <int SUMS>
+__device__ __forceinline__ double row_total(const double* slots, int blocks,
+                                            int values) {
+  const int v = threadIdx.x / kSweepGroups, g = threadIdx.x % kSweepGroups;
+  const bool sum = v < SUMS;
+  double acc = 0.0;
+  if (v < values) {
+    for (int b = g; b < blocks; b += kSweepGroups) {
+      const double x = __ldcg(slots + (long long)b * kSweepValues + v);
+      acc = sum ? acc + x : fmax(acc, x);
+    }
+  }
+#pragma unroll
+  for (int off = kSweepGroups / 2; off > 0; off >>= 1) {
+    const double o = __shfl_xor_sync(kTrMask, acc, off);
+    acc = sum ? acc + o : fmax(acc, o);
+  }
+  return acc;
+}
+
+// The path's first launch: each warp takes its run of its row, a lane
+// kSweepSlots slots at a time with their loads issued first (row_slot:
+// 16-byte loads where an input allows them), works out (tau, a) of each
+// entry (knot_of) and its part of the row's six totals, and writes its
+// live knots (finite, > 0) to its list in column order, their count to
+// its word: a +0 knot is clamped at every test point and one not finite
+// never is, so only the live ones can ever lie in the bracket. The
+// row's last block (an integer ticket) adds the blocks' totals and
+// writes the row's first SweepRow: the bracket [0, bits(tau_max)], S and
+// H at +0, and in the base sums the knots that no list holds.
+__global__ void __launch_bounds__(kSweepThreads)
+tr_knots_kernel(const TrustRegionArgs p) {
+  constexpr int U = kSweepSlots;
+  constexpr int kInputs = 5;  // c, g, lower, upper, weight
+  __shared__ double warp_buf[kSweepWarps * 6];
+  __shared__ double totals[6];
+  __shared__ int last;
+
+  const int row = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* in[kInputs] = {
+      p.c + (long long)row * p.c_row_stride,
+      p.g + (long long)row * p.g_row_stride,
+      p.lower + (long long)row * p.lower_row_stride,
+      p.upper + (long long)row * p.upper_row_stride,
+      p.weight + (long long)row * p.weight_row_stride};
+  const int col[kInputs] = {p.c_col_stride, p.g_col_stride,
+                            p.lower_col_stride, p.upper_col_stride,
+                            p.weight_col_stride};
+  bool vec[kInputs];
+#pragma unroll
+  for (int i = 0; i < kInputs; ++i) {
+    vec[i] = col[i] == 1 && on_16_bytes(in[i]);
+  }
+  int begin, end;
+  warp_run(p.n, p.blocks, blockIdx.x, warp, &begin, &end);
+  float2* list = warp_list(p, row, begin);
+
+  // S over every finite knot, H over the others, S and H at t = +0, the
+  // largest finite knot, and whether any g^2 is not zero
+  double tot[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  int kept = 0;
+  for (int q0 = begin; q0 < end; q0 += 32 * U) {
+    float4 v[U][kInputs];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * 32 + lane;
+      if (q < end) {
+#pragma unroll
+        for (int i = 0; i < kInputs; ++i) {
+          v[u][i] = row_slot(in[i], col[i], vec[i], q, p.n);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * 32 + lane;
+      float2 k[4];
+      unsigned live = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        k[e] = make_float2(0.f, 0.f);
+        if (q >= end || 4 * q + e >= p.n) continue;
+        const Inputs x = {entry_of(v[u][0], e), entry_of(v[u][1], e),
+                          entry_of(v[u][2], e), entry_of(v[u][3], e),
+                          entry_of(v[u][4], e)};
+        k[e] = knot_of(x);
+        const double clamped =
+            (double)__fmul_rn(__fmul_rn(k[e].y, k[e].x), k[e].x);
+        if (k[e].x < INFINITY) {
+          tot[0] += clamped;
+          tot[4] = fmax(tot[4], (double)k[e].x);
+        } else {
+          tot[1] += (double)k[e].y;
+        }
+        if (k[e].x <= 0.f) {
+          tot[2] += clamped;
+        } else {
+          tot[3] += (double)k[e].y;
+        }
+        if (__fmul_rn(x.g, x.g) != 0.f) tot[5] = 1.0;
+        if (k[e].x > 0.f && k[e].x < INFINITY) live |= 1u << e;
+      }
+      // the lane's place in the warp's list: an inclusive scan of the
+      // lanes' live counts
+      const int mine = __popc(live);
+      int upto = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kTrMask, upto, off);
+        if (lane >= off) upto += o;
+      }
+      int at = kept + upto - mine;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if ((live >> e) & 1) list[at++] = k[e];
+      }
+      kept += __shfl_sync(kTrMask, upto, 31);
+    }
+  }
+  if (lane == 0) *warp_count(p, row, blockIdx.x, warp) = kept;
+
+  block_to_slot<6, 4>(tot, warp_buf, block_slot(p, row, blockIdx.x));
+  if (!last_ticket(p.tickets + row, p.blocks, &last)) return;
+  const double total = row_total<4>(block_slot(p, row, 0), p.blocks, 6);
+  if (threadIdx.x % kSweepGroups == 0 && threadIdx.x / kSweepGroups < 6) {
+    totals[threadIdx.x / kSweepGroups] = total;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    SweepRow first;
+    first.base_s = totals[2];
+    first.base_h = totals[1];
+    first.lo = 0;
+    first.hi = __float_as_int((float)totals[4]);
+    first.s_lo = __double2float_rn(totals[2]);
+    first.h_lo = __double2float_rn(totals[3]);
+    first.s_total = __double2float_rn(totals[0]);
+    first.h_infinite = __double2float_rn(totals[1]);
+    first.tau_max = (float)totals[4];  // an f32 value, exactly
+    first.moving = totals[5] != 0.0;
+    *sweep_row(p, row, 0) = first;
+  }
+}
+
+// One trip of the path: the K = 7 test points of the bisection's next
+// kSearchBits levels from the row's bracket, as tr_search_kernel's trip.
+// Each warp walks its list once: a knot at or below lo goes into the
+// fold's S for good, one above hi into its H, and every other adds to
+// each point's S or H and stays in the list, in order (compacted in
+// place), so the lists shrink as the bracket closes. The warp's
+// butterfly and a tree over the warps give the block's 2K + 2 sums, into
+// its slot; the row's last block (an integer ticket) adds the slots
+// (row_total) and the fold to the row's base sums, tests the K points,
+// walks down their answers, writes the next SweepRow and, on the last
+// trip, t*.
+__global__ void __launch_bounds__(kSweepThreads)
+tr_trip_kernel(const TrustRegionArgs p, int trip) {
+  constexpr int K = (1 << kSearchBits) - 1;
+  constexpr int E = kTripEntries;
+  static_assert(2 * K + 2 == kSweepValues, "a slot: 2K sums and the fold");
+  static_assert(kSweepWarps == 8, "tree_sum over the warps");
+  __shared__ double warp_buf[kSweepWarps * kSweepValues];
+  __shared__ double totals[kSweepValues];
+  __shared__ int last;
+
+  const int row = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const SweepRow now = *sweep_row(p, row, trip & 1);
+  float point[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    point[k] = __int_as_float(node_point(now.lo, now.hi, k + 1));
+  }
+  const float lo_t = __int_as_float(now.lo), hi_t = __int_as_float(now.hi);
+  int begin, end;
+  warp_run(p.n, p.blocks, blockIdx.x, warp, &begin, &end);
+  float2* list = warp_list(p, row, begin);
+  int* count_word = warp_count(p, row, blockIdx.x, warp);
+  const int count = *count_word;
+
+  double part[kSweepValues];  // S of point k at k, H at K + k; the fold's
+#pragma unroll
+  for (int v = 0; v < kSweepValues; ++v) part[v] = 0.0;
+  int kept = 0;
+  for (int j0 = 0; j0 < count; j0 += 32 * E) {
+    float2 e[E];
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      const int j = j0 + u * 32 + lane;
+      e[u] = j < count ? list[j] : make_float2(0.f, 0.f);
+    }
+    int at[E];
+    bool keep[E];
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      keep[u] = false;
+      if (j0 + u * 32 + lane < count) {
+        const double clamped =
+            (double)__fmul_rn(__fmul_rn(e[u].y, e[u].x), e[u].x);
+        if (e[u].x <= lo_t) {
+          part[2 * K] += clamped;
+        } else if (!(e[u].x <= hi_t)) {
+          part[2 * K + 1] += (double)e[u].y;
+        } else {
+          keep[u] = true;
+          const double a = (double)e[u].y;
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            if (e[u].x <= point[q]) {
+              part[q] += clamped;
+            } else {
+              part[K + q] += a;
+            }
+          }
+        }
+      }
+      const unsigned keeping = __ballot_sync(kTrMask, keep[u]);
+      at[u] = kept + __popc(keeping & ((1u << lane) - 1u));
+      kept += __popc(keeping);
+    }
+    __syncwarp();  // every lane has read this round before any writes
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      if (keep[u] && at[u] != j0 + u * 32 + lane) list[at[u]] = e[u];
+    }
+  }
+  if (lane == 0) *count_word = kept;
+
+  const double mine = warp_butterfly(part);
+  if ((lane & 1) == 0) warp_buf[warp * kSweepValues + lane / 2] = mine;
+  __syncthreads();
+  if (threadIdx.x < kSweepValues) {
+    double of_warps[kSweepWarps];
+#pragma unroll
+    for (int w = 0; w < kSweepWarps; ++w) {
+      of_warps[w] = warp_buf[w * kSweepValues + threadIdx.x];
+    }
+    block_slot(p, row, blockIdx.x)[threadIdx.x] = tree_sum(of_warps);
+  }
+  if (!last_ticket(p.tickets + row, p.blocks, &last)) return;
+  const double total =
+      row_total<kSweepValues>(block_slot(p, row, 0), p.blocks, kSweepValues);
+  if (threadIdx.x % kSweepGroups == 0) {
+    totals[threadIdx.x / kSweepGroups] = total;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const double base_s = now.base_s + totals[2 * K];
+  const double base_h = now.base_h + totals[2 * K + 1];
+  const float r = __ldg(p.radius + row);
+  float s = 0.f, h = 0.f;
+  bool below = false;
+  if (lane < K) {
+    s = __double2float_rn(base_s + totals[lane]);
+    h = __double2float_rn(base_h + totals[K + lane]);
+    const float t = __int_as_float(node_point(now.lo, now.hi, lane + 1));
+    below = __fadd_rn(s, __fmul_rn(__fmul_rn(t, t), h)) < __fmul_rn(r, r);
+  }
+  SweepRow next = now;
+  const int at = walk_answers(__ballot_sync(kTrMask, below), &next.lo,
+                              &next.hi);
+  const float s_at = __shfl_sync(kTrMask, s, at < 0 ? 0 : at);
+  const float h_at = __shfl_sync(kTrMask, h, at < 0 ? 0 : at);
+  if (lane == 0) {
+    next.base_s = base_s;
+    next.base_h = base_h;
+    if (at >= 0) {
+      next.s_lo = s_at;
+      next.h_lo = h_at;
+    }
+    *sweep_row(p, row, (trip + 1) & 1) = next;
+    if (trip == kSearchTrips - 1) {
+      p.t_star[row] = t_star_of(r, next.s_total, next.h_infinite,
+                                next.tau_max, next.moving != 0, next.s_lo,
+                                next.h_lo);
+    }
+  }
+}
+
 template <typename Kernel>
 int launch_clusters(Kernel kernel, const TrustRegionArgs* a, int threads,
                     size_t smem, cudaStream_t stream) {
@@ -793,7 +1173,7 @@ inline cudaError_t search_attributes(int cluster, int smem_bytes) {
 
 }  // namespace folp
 
-// F2b. `smem_bytes`: the staged slice's, 0 when not staged.
+// F2b on a cluster a row. `smem_bytes`: the staged slice's.
 extern "C" int folp_tr_search(const folp::TrustRegionArgs* a, int smem_bytes,
                               void* stream_ptr) {
   using namespace folp;
@@ -843,4 +1223,42 @@ extern "C" int folp_tr_solution(const folp::TrustRegionArgs* a,
   tr_solution_kernel<<<dim3(a->blocks, a->rows, 1), kSolutionThreads, 0,
                        (cudaStream_t)stream_ptr>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// The whole-card path of F2b: tr_knots, then `trips` launches of tr_trip
+// (the search takes kSearchTrips; fewer leave t* unwritten), grids of
+// (blocks, rows) on `stream`. `partials` holds kSweepValues doubles a
+// block, `tickets` one zero int a row, `knots` 4 ceil(n / 4) float2 a
+// row, `counts` kSweepWarps ints a block, `search` 2 rows x
+// kSweepRowDoubles doubles.
+extern "C" int folp_tr_sweep(const folp::TrustRegionArgs* a, int trips,
+                             void* stream_ptr) {
+  using namespace folp;
+  if (a->blocks < 1 || trips < 0 || trips > kSearchTrips) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(a->blocks, a->rows, 1);
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  tr_knots_kernel<<<grid, kSweepThreads, 0, stream>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  for (int trip = 0; trip < trips && err == cudaSuccess; ++trip) {
+    tr_trip_kernel<<<grid, kSweepThreads, 0, stream>>>(*a, trip);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+// How many blocks of the whole-card path's kernels an SM of the current
+// device holds at once (the fewer of the two), into *blocks.
+extern "C" int folp_tr_sweep_occupancy(int* blocks) {
+  using namespace folp;
+  int knots = 0, trip = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &knots, tr_knots_kernel, kSweepThreads, 0);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &trip, tr_trip_kernel, kSweepThreads, 0);
+  }
+  *blocks = knots < trip ? knots : trip;
+  return (int)err;
 }

@@ -41,8 +41,10 @@ KERNEL_SOURCES = {
     # F1a and F1b, one source: each library holds both entry points
     "primal_step": "pdhg_step.cu",
     "trial_epilogue": "pdhg_step.cu",
-    # F2b and F2c, the exact trust region's two launches, one source
+    # F2b (on a cluster a row, or the whole-card path for a row too long
+    # to stage) and F2c, the exact trust region's kernels, one source
     "tr_search": "trust_region_search.cu",
+    "tr_sweep": "trust_region_search.cu",
     "tr_solution": "trust_region_search.cu",
     # F2d-F2f, an evaluation's statistics and termination check, one
     # source
@@ -157,7 +159,7 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     # PrimalStepArgs or EpilogueArgs (ops/pdhg_step.py)
     pdhg_step = [p]
     # TrustRegionArgs (ops/trust_region_search.py); tr_search: then the
-    # staged slice's shared memory
+    # staged slice's shared memory; tr_sweep: then the trips to run
     tr_search = [p, i]
     tr_solution = [p]
     # PointArgs, PrimalArgs or DualArgs (ops/eval_stats.py)
@@ -175,6 +177,7 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "primal_step": pdhg_step,
         "trial_epilogue": pdhg_step,
         "tr_search": tr_search,
+        "tr_sweep": tr_search,
         "tr_solution": tr_solution,
         "stats_point": eval_stats,
         "stats_primal": eval_stats,

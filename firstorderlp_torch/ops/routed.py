@@ -101,8 +101,12 @@ LAUNCHES: Dict[str, int] = {
     # PDLP's step trial around B3/B4 or B6/B7 (ops/pdhg_step.py)
     "primal_step": 0,
     "trial_epilogue": 0,
-    # the f32 exact trust region (ops/trust_region_search.py)
+    # the f32 exact trust region (ops/trust_region_search.py): F2b on a
+    # cluster a row (tr_search) or on the whole card (tr_knots, then the
+    # trips, tr_trip), F2c
     "tr_search": 0,
+    "tr_knots": 0,
+    "tr_trip": 0,
     "tr_solution": 0,
     # an evaluation's statistics (ops/eval_stats.py)
     "stats_point": 0,

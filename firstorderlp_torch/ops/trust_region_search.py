@@ -1,8 +1,21 @@
 """The f32 exact trust-region solve (trust_region._exact_trust_region)
-as two kernels, ``csrc/trust_region_search.cu``: F2b ``tr_search``, the
-prologue (F2a) and the knot search in one launch (the 31-level
-bisection, SEARCH_BITS levels a trip), and F2c ``tr_solution``, the
-solution and its value sums.
+as kernels of ``csrc/trust_region_search.cu``: F2b, the prologue (F2a)
+and the knot search (the 31-level bisection, SEARCH_BITS levels a
+trip), and F2c ``tr_solution``, the solution and its value sums.
+
+F2b has two paths, chosen by the row's length alone (search_plan):
+
+- ``tr_search``, one launch, a thread-block cluster a row: for a row
+  whose knots the cluster's shared memory holds (up to 16 x 27,264 =
+  436,224 entries, 8 x 27,264 on a card without 16-block clusters):
+  the main path at 100k nodes, the fleets, every smaller call;
+- the whole-card path (WHOLE_CARD) for a longer row (the 1M-node LP's
+  rows of 2,000,001): ``tr_knots`` over one wave of the card works out
+  each entry's knot once and keeps each warp's live knots (finite,
+  > 0) in a device list, then SEARCH_TRIPS launches of ``tr_trip`` each
+  test K points over the lists, fold the knots that left the bracket
+  into base sums and compact the rest, so the lists shrink every trip.
+  The launches read nothing back, so a CUDA graph captures them.
 
 The JAX package has no Pallas kernel here: under ``jit`` XLA fuses its
 trust region (``firstorderlp_tpu/trust_region.py:42``
@@ -14,10 +27,10 @@ The contract, fixed by the plain versions below: every per-row sum is
 accumulated in f64 and rounded once to f32 (S(t), H(t), the totals and
 the value sums); the elementwise work rounds each operation once in the
 order written here; a knot below zero, or -0, is +0. The kernels add in
-one fixed order with no floating-point atomics (F2c's row sums: each
-block's into a scratch slot, the row's last block, behind an integer
-ticket, adding the slots in block order), and the plain versions in
-torch.sum's.
+one fixed order with no floating-point atomics (F2c's row sums and the
+whole-card path's: each block's into a scratch slot, the row's last
+block, behind an integer ticket, adding the slots in block order), and
+the plain versions in torch.sum's.
 The terms of a sum are of one sign, so an order whose longest chain of
 additions is D lands within D 2^-53 |S| of the exact sum S; two orders
 round to different f32 values only where an f32 rounding midpoint
@@ -35,8 +48,9 @@ give. The plain versions take the same chunks.
 
 Each wrapper takes the plain version only when its tensors are on the
 CPU; for CUDA tensors it launches its kernel or raises, and any other
-device raises. Every launch adds one to the wrapper's entry in
-``ops/routed.LAUNCHES``.
+device raises. Every launch adds one to its kernel's entry in
+``ops/routed.LAUNCHES`` (the whole-card path: ``tr_knots`` once a call,
+``tr_trip`` once a trip).
 """
 
 from __future__ import annotations
@@ -66,6 +80,14 @@ SEARCH_TRIPS = -(-KNOT_TRIPS // SEARCH_BITS)
 SEARCH_THREADS = 512
 # tr_solution's threads a block (csrc kSolutionThreads)
 SOLUTION_THREADS = 256
+# The whole-card path's threads a block (csrc kSweepThreads), its warps,
+# the sums a block sends a trip (kSweepValues: S and H at each of the K
+# points, then the fold's S and H) and a row's search state between its
+# launches (kSweepRowDoubles, two copies a row)
+SWEEP_THREADS = 256
+SWEEP_WARPS = SWEEP_THREADS // 32
+SWEEP_VALUES = 16
+SWEEP_ROW_DOUBLES = 8
 MAX_ROWS = 65535  # rows a launch: the grid's y extent
 
 
@@ -215,43 +237,59 @@ class _TrustRegionArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "c", "g", "lower", "upper", "weight", "radius", "t_star",
-        "solution", "sums", "partials", "tickets")] + [
+        "solution", "sums", "partials", "tickets", "knots", "counts",
+        "search")] + [
             (name, ctypes.c_int) for name in (
                 *(f"{v}_{k}_stride" for v in _INPUTS
                   for k in ("row", "col")),
-                "rows", "n", "split", "blocks", "staged")]
+                "rows", "n", "split", "blocks")]
 
 
 class SearchPlan(NamedTuple):
-    cluster: int  # blocks a row
-    staged: bool  # the slice's (tau, a) in shared memory
-    smem_bytes: int
+    cluster: int  # blocks a row's cluster; 0: the whole-card path
+    smem_bytes: int  # a block's staged slice
+
+
+# a row too long for a cluster to stage: tr_knots, then the trips
+WHOLE_CARD = SearchPlan(0, 0)
+
+
+def _one_wave(rows: int, n: int, sms: int, depth: int, threads: int) -> int:
+    """Blocks a row of a grid of `threads`-thread blocks on a card of
+    `sms` SMs that each hold `depth` of them at once: one wave over all
+    rows, at most one block a `threads`-slot run of the row's ceil(n / 4)
+    16-byte slots, at least one."""
+    wanted = -(-depth * sms // max(rows, 1))
+    slots = -(-n // 4)
+    return max(1, min(wanted, -(-slots // threads)))
 
 
 def solution_blocks(rows: int, n: int, sms: int, depth: int) -> int:
-    """tr_solution's blocks a row on a card of `sms` SMs that each hold
-    `depth` of its blocks at once (solution_wave): one wave over all
-    rows, at most one block a SOLUTION_THREADS-slot run of the row's
-    ceil(n / 4) 16-byte slots, at least one."""
-    wanted = -(-depth * sms // max(rows, 1))
-    slots = -(-n // 4)
-    return max(1, min(wanted, -(-slots // SOLUTION_THREADS)))
+    """tr_solution's blocks a row (`depth` from solution_wave): one
+    wave of SOLUTION_THREADS-thread blocks."""
+    return _one_wave(rows, n, sms, depth, SOLUTION_THREADS)
+
+
+def sweep_blocks(rows: int, n: int, sms: int, depth: int) -> int:
+    """The whole-card path's blocks a row (`depth` from sweep_wave): one
+    wave of SWEEP_THREADS-thread blocks."""
+    return _one_wave(rows, n, sms, depth, SWEEP_THREADS)
 
 
 def search_plan(rows: int, n: int,
                 max_cluster: int = MAX_CLUSTER) -> SearchPlan:
-    """tr_search's launch for `rows` rows of `n` entries with clusters of
-    at most `max_cluster` blocks (search_cluster_limit: 16 where the
-    card runs them, else 8): the fewest blocks a row whose slices fit in
-    shared memory (8 bytes an entry), raised to TARGET_BLOCKS blocks in
-    all for few rows; a row longer than `max_cluster` slices can stage
-    is read from device memory every trip."""
+    """F2b's launch for `rows` rows of `n` entries with clusters of at
+    most `max_cluster` blocks (search_cluster_limit: 16 where the card
+    runs them, else 8): tr_search on the fewest blocks a row whose slices
+    fit in shared memory (8 bytes an entry), raised to TARGET_BLOCKS
+    blocks in all for few rows; WHOLE_CARD for a row longer than
+    `max_cluster` slices can stage."""
     need = max(1, -(-8 * n // STAGE_BYTES))
     if need > max_cluster:
-        return SearchPlan(max_cluster, False, 0)
+        return WHOLE_CARD
     wanted = min(max_cluster, max(1, -(-TARGET_BLOCKS // max(rows, 1))))
     cluster = max(wanted, need)
-    return SearchPlan(cluster, True, 8 * (-(-n // cluster)))
+    return SearchPlan(cluster, 8 * (-(-n // cluster)))
 
 
 # device index -> {cluster size: clusters co-resident}
@@ -319,7 +357,8 @@ def _strided(name: str, t: torch.Tensor, rows: int, n: int):
 
 
 def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
-          split, blocks, staged, partials=None, tickets=None):
+          split, blocks, partials=None, tickets=None, knots=None,
+          counts=None, search=None):
     rows, n = c.shape
     if not 0 < rows <= MAX_ROWS:
         raise ValueError(f"{rows} rows: 1 to {MAX_ROWS} a launch")
@@ -338,21 +377,26 @@ def _args(c, g, lower, upper, weight, radius, t_star, solution, sums,
 
     args = _TrustRegionArgs(
         *(ptr(t) for t, _, _ in inputs), ptr(radius), ptr(t_star),
-        ptr(solution), ptr(sums), ptr(partials), ptr(tickets),
+        ptr(solution), ptr(sums), ptr(partials), ptr(tickets), ptr(knots),
+        ptr(counts), ptr(search),
         *(stride for _, *strides in inputs for stride in strides),
-        rows, n, split, blocks, int(staged))
+        rows, n, split, blocks)
     # the tensors the arguments point into, alive until the launch
     return args, (radius, t_star, *(t for t, _, _ in inputs))
 
 
-def _launch(lib: str, args: ctypes.Structure, device, *extra) -> None:
+def _launch(lib: str, args: ctypes.Structure, device, *extra,
+            launches=None) -> None:
+    """folp_<lib> on the current stream; adds `launches` ({kernel:
+    count}, by default {lib: 1}) to ops/routed.LAUNCHES."""
     fn = kernels_build.kernel_function(lib)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(args), *extra, stream)
     if err != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
-    routed.LAUNCHES[lib] += 1
+    for kernel, count in (launches or {lib: 1}).items():
+        routed.LAUNCHES[kernel] += count
 
 
 def _check_call(c, g, lower, upper, weight, per_row) -> None:
@@ -386,10 +430,11 @@ def row_chunks(rows: int, c, g, lower, upper, weight, *per_row):
 def tr_search(c, g, lower, upper, weight, radius,
               plan: Optional[SearchPlan] = None) -> torch.Tensor:
     """F2b (with F2a): tr_search_plain(tr_prologue_plain(...), radius)'s
-    contract; on CUDA a launch for each row_chunks chunk, t* a new (B,)
+    contract; on CUDA each row_chunks chunk runs tr_search (one launch)
+    or, under WHOLE_CARD, the whole-card path (_sweep), t* a new (B,)
     tensor. `plan` defaults to device_search_plan's for all the rows
-    (another cluster size or staging, for a test or a timing, must stage
-    no more than its clusters hold)."""
+    (another cluster size, or WHOLE_CARD, for a test or a timing; a
+    cluster must stage the whole row)."""
     rows, n = c.shape
     if _on_cpu(c, g, lower, upper, weight, radius):
         out = [tr_search_plain(tr_prologue_plain(*inputs), r)
@@ -398,21 +443,54 @@ def tr_search(c, g, lower, upper, weight, radius,
         return out[0] if len(out) == 1 else torch.cat(out)
     if plan is None:
         plan = device_search_plan(rows, n, c.device)
-    elif plan.staged and plan.cluster * plan.smem_bytes < 8 * n:
+    elif plan.cluster and plan.cluster * plan.smem_bytes < 8 * n:
         raise ValueError(f"{plan} stages fewer than the row's {n} entries")
     _check_call(c, g, lower, upper, weight, [("radius", radius)])
     t_star = torch.empty(rows, dtype=torch.float32, device=c.device)
     for _, _, inputs, (r, t) in row_chunks(rows, c, g, lower, upper, weight,
                                            radius.contiguous(), t_star):
-        args, keep = _args(*inputs, r, t, None, None, n, plan.cluster,
-                           plan.staged)
+        if plan == WHOLE_CARD:
+            _sweep(inputs, r, t)
+            continue
+        args, keep = _args(*inputs, r, t, None, None, n, plan.cluster)
         _launch("tr_search", args, c.device, plan.smem_bytes)
         del keep
     return t_star
 
 
-# device index -> (SMs, tr_solution blocks an SM holds); -> tr_solution's
-# tickets (MAX_ROWS int32, zero between launches)
+def _sweep(inputs, radius, t_star, trips: int = SEARCH_TRIPS):
+    """The whole-card path on one chunk's rows (`inputs`: c, g, the
+    bounds, the weights): tr_knots, then `trips` launches of tr_trip
+    (SEARCH_TRIPS write t*; a timing harness may stop earlier), one
+    ctypes call. Its scratch comes from the caching allocator (a
+    capture's pool inside a CUDA graph): each row's live-knot lists (8
+    bytes an entry), the warps' list lengths, which it returns, the
+    blocks' sums and the rows' search state; the tickets are the
+    device's (solution_tickets)."""
+    c = inputs[0]
+    rows, n = c.shape
+    device = c.device
+    blocks = sweep_blocks(rows, n, *sweep_wave(device))
+    knots = torch.empty((rows, 8 * -(-n // 4)), dtype=torch.float32,
+                        device=device)
+    counts = torch.empty((rows, blocks * SWEEP_WARPS), dtype=torch.int32,
+                         device=device)
+    partials = torch.empty((rows, blocks * SWEEP_VALUES),
+                           dtype=torch.float64, device=device)
+    search = torch.empty((2, rows, SWEEP_ROW_DOUBLES), dtype=torch.float64,
+                         device=device)
+    args, keep = _args(*inputs, radius, t_star, None, None, n, blocks,
+                       partials, solution_tickets(device), knots, counts,
+                       search)
+    _launch("tr_sweep", args, device, trips,
+            launches={"tr_knots": 1, "tr_trip": trips})
+    del keep
+    return counts
+
+
+# (library, device index) -> (SMs, the library's blocks an SM holds);
+# device index -> the trust region's tickets (MAX_ROWS int32, zero
+# between launches)
 _WAVE: dict = {}
 _TICKETS: dict = {}
 
@@ -422,30 +500,42 @@ def _index(device) -> int:
     return torch.cuda.current_device() if index is None else index
 
 
-def solution_wave(device) -> tuple:
-    """(SMs, tr_solution blocks an SM holds at once) of the CUDA
-    `device`: its multiprocessor count and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once per
+def _wave(lib: str, device) -> tuple:
+    """(SMs, blocks of `lib`'s kernels an SM holds at once) of the CUDA
+    `device`: its multiprocessor count and folp_<lib>_occupancy
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), queried once per
     device and cached. Raises when the query fails."""
     index = _index(device)
-    if index not in _WAVE:
-        query = kernels_build.library(
-            "tr_solution").folp_tr_solution_occupancy
+    if (lib, index) not in _WAVE:
+        query = getattr(kernels_build.library(lib), f"folp_{lib}_occupancy")
         query.argtypes = [ctypes.c_void_p]
         query.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         with torch.cuda.device(index):
             err = query(ctypes.byref(blocks))
         if err != 0 or blocks.value < 1:
-            raise RuntimeError(f"tr_solution occupancy query failed: CUDA "
-                               f"error {err}, {blocks.value} blocks")
+            raise RuntimeError(f"{lib} occupancy query failed: CUDA error "
+                               f"{err}, {blocks.value} blocks")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        _WAVE[index] = (sms, blocks.value)
-    return _WAVE[index]
+        _WAVE[lib, index] = (sms, blocks.value)
+    return _WAVE[lib, index]
+
+
+def solution_wave(device) -> tuple:
+    """(SMs, tr_solution blocks an SM holds at once) of the CUDA
+    `device`, cached."""
+    return _wave("tr_solution", device)
+
+
+def sweep_wave(device) -> tuple:
+    """(SMs, blocks of the whole-card path's kernels an SM holds at once,
+    the fewer of tr_knots and tr_trip) of the CUDA `device`, cached."""
+    return _wave("tr_sweep", device)
 
 
 def solution_tickets(device) -> torch.Tensor:
-    """The CUDA `device`'s tr_solution tickets, one a row: made (zeroed)
+    """The CUDA `device`'s trust-region tickets, one a row, which
+    tr_solution and the whole-card path's launches share: made (zeroed)
     by the first launch there (an eager evaluation or a capture's
     warm-up), each set back to zero by the row's last block, so one
     device's trust regions run on one stream at a time."""
@@ -482,8 +572,8 @@ def tr_solution(c, g, lower, upper, weight, t_star, split: int,
     for _, _, inputs, (t, x, s, part) in row_chunks(
             rows, c, g, lower, upper, weight, t_star.contiguous(), solution,
             sums, partials):
-        args, keep = _args(*inputs, None, t, x, s, split, blocks, False,
-                           part, solution_tickets(c.device))
+        args, keep = _args(*inputs, None, t, x, s, split, blocks, part,
+                           solution_tickets(c.device))
         _launch("tr_solution", args, c.device)
         del keep
     return solution, sums[:, :2], sums[:, 2]

@@ -56,11 +56,15 @@ bounds; a replayed trial is bitwise the eager one with the same
 launches, and a trial is captured under
 torch.cuda.set_sync_debug_mode("error"), four host launch calls
 eagerly. The f32 exact trust region's kernels (ops/trust_region_search.py:
-F2b tr_search, F2c tr_solution) are each bitwise their plain versions
+F2b on a cluster a row (tr_search) or on the whole card (tr_knots and
+tr_trip), F2c tr_solution) are each bitwise their plain versions
 over the cases of tests/trust_region_cases.py with bounds (N,) and
-(B, N), at the main path's (3 x 200,001), the fleet's (384 x 40,001)
-and an unstaged row's shapes, one launch each, the same bits on every
-launch; F2c also at 1, 3 and 384 rows with the split at 0, at n and
+(B, N), at the main path's (3 x 200,001), the fleet's (384 x 40,001),
+a row too long to stage and the 1M LP's (3 x 2,000,001) shapes, the
+same bits on every launch; the whole-card path also forced on every
+case and on rows with no live knot or NaN inputs, replayed from a CUDA
+graph on new inputs and cut into row chunks; F2c also at 1, 3 and 384
+rows with the split at 0, at n and
 inside a 16-byte slot, on transposed views, and replayed from a CUDA
 graph bitwise the eager call, its tickets back at zero; both at 65,536
 rows (two launches each) bitwise the plain versions, and a 21,846-lane
@@ -1774,22 +1778,35 @@ def test_a_trial_is_captured_without_synchronizing(cuda, rule, layout):
 
 # (rows, n, bounds): the 100k-node LP's restart scheme (3 x 200,001,
 # bounds (N,)), the 128-lane fleet's (384 x 40,001, bounds (B, N)), rows
-# past what 8 blocks stage (staged by 16-block clusters), and a row too
-# long to stage (read from device memory every trip)
+# past what 8 blocks stage (staged by 16-block clusters), a row too long
+# to stage (the whole-card path) and the 1M-node LP's restart scheme
+# (3 x 2,000,001, the LP's bound pattern: trust_region_cases.lp_inputs)
 TR_SHAPES = {"main_path": (3, 200_001, "shared"),
              "fleet": (384, 40_001, "rows"),
              "past_eight_blocks": (2, 250_000, "shared"),
-             "unstaged": (1, 500_000, "shared")}
+             "unstaged": (1, 500_000, "shared"),
+             "million": (3, 2_000_001, "lp")}
 
 
-def tr_on_card(args, cuda, split):
-    """(t*, solution, parts, value) of the kernels and of the plain
-    versions on the same CUDA tensors."""
+def tr_shape_inputs(shape):
+    """TR_SHAPES[shape]'s inputs as numpy arrays."""
+    import trust_region_cases as tc
+
+    rows, n, bounds = TR_SHAPES[shape]
+    if bounds == "lp":
+        return tc.lp_inputs(n // 2, rows=rows, seed=rows)
+    return tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
+
+
+def tr_on_card(args, cuda, split, plan=None):
+    """(t*, solution, parts, value) of the kernels (F2b under `plan`,
+    by default the card's) and of the plain versions on the same CUDA
+    tensors."""
     from firstorderlp_torch.ops import trust_region_search as trs
 
     c, g, lower, upper, weight, radius = (torch.as_tensor(v, device=cuda)
                                           for v in args)
-    t_star = trs.tr_search(c, g, lower, upper, weight, radius)
+    t_star = trs.tr_search(c, g, lower, upper, weight, radius, plan=plan)
     got = (t_star, *trs.tr_solution(c, g, lower, upper, weight, t_star,
                                     split))
     plain_t = trs.tr_search_plain(
@@ -1823,18 +1840,18 @@ def test_trust_region_kernels_are_bitwise_their_plain_versions(cuda, case,
 
 @pytest.mark.parametrize("shape", sorted(TR_SHAPES))
 def test_trust_region_kernels_at_the_paths_shapes(cuda, shape):
-    """The main path's, the fleet's and an unstaged row's shapes: bitwise
-    the plain versions, and the same bits again on a second launch."""
-    import trust_region_cases as tc
-
+    """The main path's, the fleet's, a row too long to stage and the 1M
+    LP's shapes: bitwise the plain versions, and the same bits again on
+    a second launch; the rows too long for a cluster take the whole-card
+    path."""
     from firstorderlp_torch.ops import trust_region_search as trs
 
-    rows, n, bounds = TR_SHAPES[shape]
+    rows, n, _ = TR_SHAPES[shape]
     plan = trs.device_search_plan(rows, n, cuda)
-    wide = plan.cluster == trs.WIDE_CLUSTER
-    assert plan.staged == (shape != "unstaged" and (
-        wide or shape != "past_eight_blocks"))
-    args = tc.case_inputs("mixed", bounds, rows=rows, n=n, seed=rows)
+    wide = trs.search_cluster_limit(cuda) == trs.WIDE_CLUSTER
+    assert (plan == trs.WHOLE_CARD) == (shape in ("unstaged", "million") or (
+        not wide and shape == "past_eight_blocks"))
+    args = tr_shape_inputs(shape)
     got, want = tr_on_card(args, cuda, n // 2)
     assert_bitwise_tuple(got, want, shape)
     again, _ = tr_on_card(args, cuda, n // 2)
@@ -1842,10 +1859,11 @@ def test_trust_region_kernels_at_the_paths_shapes(cuda, shape):
 
 
 def test_tr_search_plans_give_the_plain_bits(cuda):
-    """tr_search under 8- and 16-block plans, staged and not, at the
-    main path's shape and on the cases with repeated knots and infinite
-    bounds: t* bitwise the plain version's, the same bits on a second
-    launch. The card's co-scheduled clusters of 8 and 16 blocks
+    """F2b under 8- and 16-block plans and on the whole-card path, at
+    the main path's shape and on the cases with repeated knots and
+    infinite bounds: t* bitwise the plain version's, the same bits on a
+    second launch, each launch counted in its kernels' entries. The
+    card's co-scheduled clusters of 8 and 16 blocks
     (cudaOccupancyMaxActiveClusters) are cached per device."""
     import trust_region_cases as tc
 
@@ -1869,18 +1887,156 @@ def test_tr_search_plans_give_the_plain_bits(cuda):
             if clusters[limit] < 1:
                 continue
             staged = trs.search_plan(rows, n, limit)
-            assert staged.staged and staged.cluster == limit
-            for plan in (staged, staged._replace(staged=False,
-                                                 smem_bytes=0)):
+            assert staged.cluster == limit
+            for plan in (staged, trs.WHOLE_CARD):
                 routed.reset_launch_counts()
                 got = trs.tr_search(c, g, lower, upper, weight, radius,
                                     plan=plan)
                 again = trs.tr_search(c, g, lower, upper, weight, radius,
                                       plan=plan)
-                assert routed.LAUNCHES["tr_search"] == 2
+                whole = plan == trs.WHOLE_CARD
+                assert routed.LAUNCHES["tr_search"] == (0 if whole else 2)
+                assert routed.LAUNCHES["tr_knots"] == (2 if whole else 0)
+                assert routed.LAUNCHES["tr_trip"] == (
+                    2 * trs.SEARCH_TRIPS if whole else 0)
                 label = f"{case} {plan}"
                 assert_same_bits(got, want, label)
                 assert_same_bits(again, got, f"{label} again")
+
+
+@pytest.mark.parametrize("bounds", ["shared", "rows"])
+def test_whole_card_path_is_bitwise_on_the_cases(cuda, bounds):
+    """The whole-card path forced on every trust-region case at N = 400
+    and 2,000 (runs of a warp with no entry, lists of a few knots) and on
+    the edge rows (no live knot, radius 0, g = 0, NaN inputs): t*, the
+    solution, the split sums and the value bitwise the plain versions',
+    one tr_knots and SEARCH_TRIPS tr_trip launches a call, no tr_search,
+    the tickets back at zero."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    sets = [(f"{case} n={n}", tc.case_inputs(case, bounds, n=n, seed=n))
+            for case in tc.CASES for n in (400, 2000)]
+    if bounds == "rows":
+        sets += [(f"edge {i}", args)
+                 for i, args in enumerate(tc.edge_inputs())]
+    for label, args in sets:
+        routed.reset_launch_counts()
+        got, want = tr_on_card(args, cuda, args[0].shape[1] // 3,
+                               plan=trs.WHOLE_CARD)
+        assert routed.LAUNCHES["tr_knots"] == 1
+        assert routed.LAUNCHES["tr_trip"] == trs.SEARCH_TRIPS
+        assert routed.LAUNCHES["tr_search"] == 0
+        assert_bitwise_tuple(got, want, label)
+    assert not trs.solution_tickets(cuda).any()
+
+
+def test_whole_card_path_replays_bitwise(cuda):
+    """The whole-card path at a row too long to stage, captured in a CUDA
+    graph and replayed three times on new inputs (copied into the
+    captured ones): each replay bitwise the eager call on those inputs,
+    so no replay reads the last call's bracket or lists, and the tickets
+    are back at zero after each."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    rows, n, bounds = TR_SHAPES["unstaged"]
+
+    def inputs(seed):
+        return [torch.as_tensor(v, device=cuda) for v in tc.case_inputs(
+            "mixed", bounds, rows=rows, n=n, seed=seed)]
+
+    static = inputs(1)
+    assert trs.device_search_plan(rows, n, cuda) == trs.WHOLE_CARD
+    first = trs.tr_search(*static)  # warm-up before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trs.tr_search(*static)
+    for seed in (2, 3, 1):
+        new = inputs(seed)
+        for t, v in zip(static, new):
+            t.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = trs.tr_search_plain(trs.tr_prologue_plain(*new[:5]), new[5])
+        assert_same_bits(out, trs.tr_search(*new), f"replay {seed}")
+        assert_same_bits(out, want, f"replay {seed} plain")
+        assert not trs.solution_tickets(cuda).any()
+    assert_same_bits(out, first, "the first inputs again")
+
+
+def test_whole_card_path_runs_in_row_chunks(cuda, monkeypatch):
+    """A call of more long rows than a launch takes (MAX_ROWS cut to 2,
+    three rows too long to stage) runs the whole-card path once a chunk,
+    in row_chunks' order: bitwise the plain version and the uncut call,
+    one tr_knots launch a chunk."""
+    import trust_region_cases as tc
+
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    c, g, lower, upper, weight, radius = (
+        torch.as_tensor(v, device=cuda)
+        for v in tc.case_inputs("mixed", "rows", rows=3, n=450_000, seed=6))
+    whole = trs.tr_search(c, g, lower, upper, weight, radius)
+    monkeypatch.setattr(trs, "MAX_ROWS", 2)
+    routed.reset_launch_counts()
+    got = trs.tr_search(c, g, lower, upper, weight, radius)
+    assert routed.LAUNCHES["tr_knots"] == 2
+    assert routed.LAUNCHES["tr_trip"] == 2 * trs.SEARCH_TRIPS
+    want = trs.tr_search_plain(
+        trs.tr_prologue_plain(c, g, lower, upper, weight), radius)
+    assert_same_bits(got, want, "chunked")
+    assert_same_bits(got, whole, "chunked against one launch")
+
+
+@pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])
+@pytest.mark.parametrize("nodes", [2_000, 220_000, 440_000])
+def test_f2b_launches_follow_the_evaluations(cuda, solver, nodes):
+    """A warm solve of a PageRank LP on the graphed path runs F2b once an
+    evaluation (the restart scheme's 3 rows of n + m entries) and once
+    for its final bound estimates (2 rows of max(n, m)), each call on the
+    whole-card path (one tr_knots and SEARCH_TRIPS tr_trip launches)
+    where its rows are too long for a cluster to stage, else on
+    tr_search: at 440,000 nodes both take the whole card, as at the 1M
+    cells' shape; at 220,000 only the evaluations'; at 2,000 neither."""
+    import firstorderlp_torch as tx
+    from firstorderlp_torch.models import mirror_prox, pdhg
+    from firstorderlp_torch.ops import graphs
+    from firstorderlp_torch.ops import trust_region_search as trs
+
+    problem = generate_pagerank_lp(nodes, seed=0)
+    params = dataclasses.replace(card_params(), matrix_format="routed")
+    module = pdhg
+    if solver == "mirror_prox":
+        module = mirror_prox
+        params = tx.MirrorProxParameters(
+            l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+            pock_chambolle_alpha=1.0, primal_importance=1.0,
+            scale_invariant_initial_primal_weight=True,
+            diagonal_scaling="l2", verbosity=0, record_iteration_stats=False,
+            termination_evaluation_frequency=40,
+            termination_criteria=params.termination_criteria,
+            restart_params=params.restart_params, dtype="float32",
+            matrix_format="routed")
+    prepared = module.prepare_problem(params, problem, device=cuda)
+    module.optimize(params, problem, prepared=prepared)  # the captures
+    graphs.reset_counts()
+    routed.reset_launch_counts()
+    out = module.optimize(params, problem, prepared=prepared)
+    assert out.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+    assert graphs.COUNTS["captures"] == 0
+    evaluations = graphs.COUNTS["evaluations"]
+    by_eval = trs.device_search_plan(3, 2 * nodes + 1, cuda) == trs.WHOLE_CARD
+    by_final = trs.device_search_plan(2, nodes + 1, cuda) == trs.WHOLE_CARD
+    assert (by_eval, by_final) == (nodes > 200_000, nodes > 400_000)
+    whole = evaluations * by_eval + by_final
+    assert routed.LAUNCHES["tr_knots"] == whole
+    assert routed.LAUNCHES["tr_trip"] == trs.SEARCH_TRIPS * whole
+    assert routed.LAUNCHES["tr_search"] == evaluations + 1 - whole
+    assert routed.LAUNCHES["tr_solution"] == evaluations + 1
 
 
 @pytest.mark.parametrize("case", ["mixed", "duplicate_knots",
@@ -2016,8 +2172,7 @@ def test_trust_region_kernels_launch_on_a_second_card(cuda):
     for index in (0, 1, 0):
         device = torch.device("cuda", index)
         plan = trs.device_search_plan(rows, n, device)
-        assert plan.staged and plan.cluster == trs.search_cluster_limit(
-            device)
+        assert plan.cluster == trs.search_cluster_limit(device)
         got, want = tr_on_card(args, device, n // 2)
         assert got[0].device.index == index
         assert_bitwise_tuple(got, want, f"cuda:{index} {plan}")
@@ -2029,7 +2184,7 @@ def test_trust_region_kernels_launch_on_a_second_card(cuda):
         torch.cuda.synchronize(device)
         assert not tickets.any(), f"cuda:{index} tickets"
     assert set(trs._ACTIVE_CLUSTERS) >= {0, 1}
-    assert set(trs._WAVE) >= {0, 1}
+    assert set(trs._WAVE) >= {("tr_solution", 0), ("tr_solution", 1)}
     assert trs.solution_tickets("cuda:0").data_ptr() != \
         trs.solution_tickets("cuda:1").data_ptr()
 

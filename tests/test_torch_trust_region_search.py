@@ -411,32 +411,37 @@ def test_the_cpu_route_launches_nothing():
     assert not any(routed.LAUNCHES.values())
 
 
-def plan(cluster, staged, smem_bytes):
-    return trs.SearchPlan(cluster, staged, smem_bytes)
+def plan(cluster, smem_bytes):
+    return trs.SearchPlan(cluster, smem_bytes)
 
 
 @pytest.mark.parametrize("rows,n,max_cluster,want", [
-    (3, 200_001, 16, plan(16, True, 8 * 12_501)),  # 100k nodes
-    (3, 200_001, 8, plan(8, True, 8 * 25_001)),
-    (384, 40_001, 16, plan(2, True, 8 * 20_001)),  # the fleet
-    (384, 40_001, 8, plan(2, True, 8 * 20_001)),
-    (2, 250_000, 16, plan(16, True, 8 * 15_625)),  # past 8 blocks' stage
-    (2, 250_000, 8, plan(8, False, 0)),
-    (1, 436_224, 16, plan(16, True, 8 * 27_264)),  # 16 full slices
-    (1, 436_225, 16, plan(16, False, 0)),
-    (2, 50, 16, plan(16, True, 8 * 4)),
-    (2, 50, 8, plan(8, True, 8 * 7)),
-    (3, 2_000_001, 16, plan(16, False, 0)),  # 1M nodes
-    (3, 2_000_001, 8, plan(8, False, 0)),
-    (1, 0, 16, plan(16, True, 0)),
+    (3, 200_001, 16, plan(16, 8 * 12_501)),  # 100k nodes
+    (3, 200_001, 8, plan(8, 8 * 25_001)),
+    (384, 40_001, 16, plan(2, 8 * 20_001)),  # the fleet
+    (384, 40_001, 8, plan(2, 8 * 20_001)),
+    (2, 250_000, 16, plan(16, 8 * 15_625)),  # past 8 blocks' stage
+    (2, 250_000, 8, trs.WHOLE_CARD),
+    (1, 436_224, 16, plan(16, 8 * 27_264)),  # 16 full slices
+    (1, 436_225, 16, trs.WHOLE_CARD),
+    (2, 50, 16, plan(16, 8 * 4)),
+    (2, 50, 8, plan(8, 8 * 7)),
+    (3, 2_000_001, 16, trs.WHOLE_CARD),  # 1M nodes
+    (3, 2_000_001, 8, trs.WHOLE_CARD),
+    (1, 0, 16, plan(16, 0)),
 ])
 def test_search_plans(rows, n, max_cluster, want):
+    """F2b's plan: a cluster that stages the whole row where one can
+    (the fewest blocks that hold it, raised towards TARGET_BLOCKS), else
+    the whole-card path, chosen by the row's length alone."""
     got = trs.search_plan(rows, n, max_cluster)
     assert got == want
-    if got.staged:
+    if got != trs.WHOLE_CARD:
         assert got.smem_bytes <= trs.STAGE_BYTES
         assert got.cluster * got.smem_bytes >= 8 * n
-    assert 1 <= got.cluster <= max_cluster <= trs.WIDE_CLUSTER
+        assert 1 <= got.cluster <= max_cluster <= trs.WIDE_CLUSTER
+    else:
+        assert 8 * n > max_cluster * trs.STAGE_BYTES
     blocks = trs.solution_blocks(rows, n, 132, 3)
     assert 1 <= blocks and (blocks - 1) * trs.SOLUTION_THREADS < max(n, 1)
     assert trs.SEARCH_TRIPS == -(-trs.KNOT_TRIPS // trs.SEARCH_BITS)
@@ -451,7 +456,10 @@ def test_search_plans(rows, n, max_cluster, want):
         source = f.read()
     for name, value in (("kSearchBits", trs.SEARCH_BITS),
                         ("kSearchThreads", trs.SEARCH_THREADS),
-                        ("kSolutionThreads", trs.SOLUTION_THREADS)):
+                        ("kSolutionThreads", trs.SOLUTION_THREADS),
+                        ("kSweepThreads", trs.SWEEP_THREADS),
+                        ("kSweepValues", trs.SWEEP_VALUES),
+                        ("kSweepRowDoubles", trs.SWEEP_ROW_DOUBLES)):
         assert re.search(rf"constexpr int {name} = {value};", source), name
 
 
@@ -578,6 +586,155 @@ def test_k_way_search_gives_the_bisection_bits(inputs):
         p = trs.tr_prologue_plain(*args[:5])
         assert same_bits(k_way_t_star(p, args[5], trs.SEARCH_BITS),
                          trs.tr_search_plain(p, args[5]))
+
+
+@pytest.mark.parametrize("rows,n,sms,depth,want", [
+    (3, 2_000_001, 132, 3, 132),  # 1M nodes: one wave of 3 x 132
+    (3, 2_000_001, 132, 2, 88),
+    (1, 500_000, 132, 3, 396),
+    (3, 200_001, 132, 3, 132),
+    (384, 40_001, 132, 3, 2),
+    (2, 50, 132, 3, 1),
+    (1, 0, 132, 3, 1),
+])
+def test_sweep_blocks(rows, n, sms, depth, want):
+    """The whole-card path's grid: one wave of SWEEP_THREADS-thread
+    blocks over all rows, at most one block a run of SWEEP_THREADS slots
+    of a row, at least one."""
+    assert trs.sweep_blocks(rows, n, sms, depth) == want
+
+
+def sweep_runs(n, blocks):
+    """A model of csrc warp_run: the whole-card path's warp runs of a row
+    of `n` entries, block by block and warp by warp, [begin, end) in
+    entries (the row's ceil(n / 4) slots cut into `blocks` runs, each
+    into SWEEP_WARPS); a warp's list of live knots starts at its
+    `begin`."""
+    slots = -(-n // 4)
+    per_block = -(-slots // blocks)
+    per_warp = -(-per_block // trs.SWEEP_WARPS)
+    runs = []
+    for b in range(blocks):
+        run, run_end = b * per_block, min(b * per_block + per_block, slots)
+        for w in range(trs.SWEEP_WARPS):
+            end = min(run + (w + 1) * per_warp, run_end)
+            begin = min(run + w * per_warp, end)
+            runs.append((min(4 * begin, n), min(4 * end, n)))
+    return runs
+
+
+@pytest.mark.parametrize("n,blocks", [(0, 1), (1, 1), (7, 1), (401, 1),
+                                      (2_000, 3), (4_099, 5), (300, 40),
+                                      (2_000_001, 132)])
+def test_sweep_runs_cover_every_entry_once(n, blocks):
+    """The whole-card path's warp runs (csrc warp_run): in order, each
+    entry below n in exactly one run, every run inside its block's run of
+    ceil(ceil(n / 4) / blocks) slots and starting on a 16-byte slot."""
+    runs = sweep_runs(n, blocks)
+    assert len(runs) == blocks * trs.SWEEP_WARPS
+    per_block = 4 * -(-(-(-n // 4)) // blocks)
+    seen = 0
+    for i, (begin, end) in enumerate(runs):
+        assert begin == seen or begin == end, (i, begin, seen)
+        assert begin % 4 == 0 or begin == n
+        b = i // trs.SWEEP_WARPS
+        assert b * per_block <= begin or begin == end
+        assert end <= min((b + 1) * per_block, n)
+        seen = max(seen, end)
+    assert seen == n
+    assert sum(end - begin for begin, end in runs) == n
+
+
+def _bits(v: int) -> torch.Tensor:
+    """The f32 whose bits are the int32 `v`."""
+    return torch.tensor(v, dtype=torch.int32).view(torch.float32)
+
+
+def whole_card_t_star(p, radius, n, blocks, bits=trs.SEARCH_BITS):
+    """A torch model of the whole-card path, row by row: each warp's list
+    holds the live knots (finite, > 0) of its run (sweep_runs) in
+    column order; the base sums start from the knots no list holds (the
+    +0 ones in S, the others in H). Each trip tests the K heap points of
+    the bracket: every warp folds the knots at or below lo into the
+    fold's S and those above hi into its H and keeps the rest, in order;
+    S and H of a point are the base, with the fold added, plus the kept
+    knots' parts; then the walk down the K answers, as k_way_t_star's.
+    f64 sums, rounded once; t* from the plain version's tail."""
+    rows = p.tau.shape[0]
+    runs = sweep_runs(n, blocks)
+    s_lo_all, h_lo_all = trs._r2_parts(p, torch.zeros_like(p.tau_max))
+    s_lo_all, h_lo_all = s_lo_all.clone(), h_lo_all.clone()
+    target = radius * radius
+    for r in range(rows):
+        tau, a = p.tau[r], p.a[r]
+        clamped = a * tau * tau
+        live = torch.isfinite(tau) & (tau > 0)
+        lists = [torch.arange(b, e)[live[b:e]] for b, e in runs]
+        base_s = torch.sum(clamped[tau <= 0], dtype=torch.float64)
+        base_h = torch.sum(a[~torch.isfinite(tau)], dtype=torch.float64)
+        lo, hi = 0, int(p.tau_max[r].view(torch.int32))
+        for _ in range(-(-trs.KNOT_TRIPS // bits)):
+            t = torch.tensor(heap_points(lo, hi, bits),
+                             dtype=torch.int32).view(torch.float32)
+            lo_t, hi_t = _bits(lo), _bits(hi)
+            live_s = torch.zeros(len(t), dtype=torch.float64)
+            live_h = torch.zeros(len(t), dtype=torch.float64)
+            kept = []
+            for idx in lists:
+                knot = tau[idx]
+                down = knot <= lo_t
+                up = ~(knot <= hi_t) & ~down
+                base_s = base_s + torch.sum(clamped[idx][down],
+                                            dtype=torch.float64)
+                base_h = base_h + torch.sum(a[idx][up], dtype=torch.float64)
+                idx = idx[~down & ~up]
+                under = tau[idx][None, :] <= t[:, None]
+                live_s += torch.sum(torch.where(under, clamped[idx], 0.0),
+                                    dim=1, dtype=torch.float64)
+                live_h += torch.sum(torch.where(under, 0.0, a[idx]), dim=1,
+                                    dtype=torch.float64)
+                kept.append(idx)
+            lists = kept
+            s = (base_s + live_s).to(torch.float32)
+            h = (base_h + live_h).to(torch.float32)
+            below = s + t * t * h < target[r]
+            node = 1
+            for _ in range(bits):
+                mid = lo + ((hi - lo + 1) >> 1)
+                up = bool(below[node - 1])
+                if up:
+                    lo = mid
+                    s_lo_all[r], h_lo_all[r] = s[node - 1], h[node - 1]
+                else:
+                    hi = mid - 1
+                node = 2 * node + up
+    return trs.t_star_from(p, radius, s_lo_all, h_lo_all)
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("inputs", ["cases", "repeated_knots", "edges"])
+def test_whole_card_path_gives_the_bisection_bits(inputs, blocks):
+    """The whole-card path (per-warp lists of the live knots, the fold of
+    the knots that leave the bracket, the last block's walk), modelled
+    with the plain version's sums at 1 and 3 blocks a row, gives
+    tr_search_plain's t* bit for bit: on every case of
+    tests/trust_region_cases.py with both bound shapes, on rows with
+    repeated knots, and on rows with no live knot, a zero radius, g = 0
+    and NaN inputs."""
+    if inputs == "cases":
+        rows = [torch_args(case_inputs(case, bounds,
+                                       seed=30 + CASES.index(case)))
+                for case in CASES for bounds in BOUNDS]
+    elif inputs == "repeated_knots":
+        rows = [repeated_knot_rows(seed) for seed in range(4)]
+    else:
+        rows = [torch_args(args) for args in tc.edge_inputs()]
+    for args in rows:
+        p = trs.tr_prologue_plain(*args[:5])
+        n = args[0].shape[1]
+        got = whole_card_t_star(p, args[5], n, blocks)
+        want = trs.tr_search_plain(p, args[5])
+        assert same_bits(got, want), (got, want)
 
 
 def test_bound_strides_copy_only_what_the_kernel_cannot_read():

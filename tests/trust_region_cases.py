@@ -131,3 +131,51 @@ def exact_inputs(case, bounds="shared", rows=3, n=400, seed=0):
 
 EXACT_CASES = ["mixed", "radius_zero", "g_zero", "all_frozen",
                "infinite_bounds", "beyond_every_knot", "duplicate_knots"]
+
+
+def edge_inputs(n=300):
+    """Input sets of 5 rows (bounds (B, N)) at the whole-card path's
+    edges, as f32 numpy arrays: every knot infinite (no bounds), every
+    knot +0 (each component at a bound that the objective pushes
+    outward), a NaN in c, a NaN in g, a NaN weight; then the same rows
+    with radius 0, and with g = 0."""
+    rng = np.random.default_rng(11)
+    rows = 5
+    lower = -rng.random((rows, n))
+    upper = rng.random((rows, n))
+    c = rng.normal(size=(rows, n)) * 0.3
+    g = rng.normal(size=(rows, n))
+    weight = rng.uniform(0.5, 2.0, (rows, n))
+    lower[0], upper[0] = -np.inf, np.inf
+    at_upper = rng.random(n) < 0.5
+    c[1] = np.where(at_upper, upper[1], lower[1])
+    g[1] = np.where(at_upper, -np.abs(g[1]), np.abs(g[1]))
+    c = np.clip(c, lower, upper)
+    c[2, 7] = np.nan
+    g[3, 11] = np.nan
+    weight[4, 13] = np.nan
+    radius = np.array([0.5, 2.0, 0.7, 0.7, 0.7])
+    return [[np.asarray(v, np.float32) for v in (c, gg, lower, upper,
+                                                 weight, r)]
+            for r, gg in ((radius, g), (np.zeros(rows), g),
+                          (radius, np.zeros_like(g)))]
+
+
+def lp_inputs(nodes, rows=3, seed=0):
+    """A trust-region batch with the PageRank LP's bound pattern over
+    N = 2 nodes + 1 entries (x >= 0; the dual's one equality row free,
+    its other rows >= 0; no upper bounds), bounds (N,), as f32 numpy
+    arrays: c inside the bounds (a tenth at 0), g normal, weights
+    uniform in [0.5, 2], radii 0.05, 0.7 and 5."""
+    rng = np.random.default_rng(seed)
+    n = 2 * nodes + 1
+    lower = np.zeros(n)
+    lower[nodes] = -np.inf
+    upper = np.full(n, np.inf)
+    c = np.clip(rng.standard_normal((rows, n)), lower, upper)
+    c = np.where(rng.random((rows, n)) < 0.1, np.maximum(lower, 0.0), c)
+    g = rng.standard_normal((rows, n))
+    weight = rng.uniform(0.5, 2.0, n)
+    radius = np.resize([0.05, 0.7, 5.0], rows)
+    return [np.asarray(v, np.float32) for v in (c, g, lower, upper, weight,
+                                                radius)]
