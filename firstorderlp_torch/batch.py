@@ -65,6 +65,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import spans
 from .iteration_stats import (
     DeviceConvergenceInfo,
     DeviceInfeasibilityInfo,
@@ -654,19 +655,20 @@ def prepare_shared_pattern_fleet(params, problems, device=None
     repeated solves skip ingest."""
     device = resolve_device(device)
     _check_fleet_params(params)
-    if isinstance(problems, FleetSpec):
-        return _prepare_fleet_from_spec(params, problems, device)
-    if len(problems) == 0:
-        raise ValueError("an empty fleet has nothing to prepare")
-    fast_ok = (
-        (_is_mp(params) or isinstance(params.step_size_policy_params,
-                                      _pdhg.AdaptiveStepsizeParams))
-        and not any(_is_qp(p) for p in problems)
-        and not params.bound_width_rescaling
-    )
-    if fast_ok:
-        return _prepare_fleet_fast(params, problems, device)
-    return _prepare_fleet_slow(params, problems, device)
+    with spans.timed("folp.ingest.fleet"):
+        if isinstance(problems, FleetSpec):
+            return _prepare_fleet_from_spec(params, problems, device)
+        if len(problems) == 0:
+            raise ValueError("an empty fleet has nothing to prepare")
+        fast_ok = (
+            (_is_mp(params) or isinstance(params.step_size_policy_params,
+                                          _pdhg.AdaptiveStepsizeParams))
+            and not any(_is_qp(p) for p in problems)
+            and not params.bound_width_rescaling
+        )
+        if fast_ok:
+            return _prepare_fleet_fast(params, problems, device)
+        return _prepare_fleet_slow(params, problems, device)
 
 
 # ---------------------------------------------------------------------------
@@ -1492,47 +1494,71 @@ class SegmentCounts(NamedTuple):
     read_backs: int  # host waits for the device
 
 
+def _lane_active(state, start, config):
+    """Per lane: does the next trial run (reason 0, no numerical error,
+    and at the segment's start or not at an evaluation iteration)."""
+    return (
+        (state.termination_reason == 0)
+        & ~state.numerical_error
+        & ((state.iteration == start)
+           | ~_is_eval_iteration(state.iteration, config))
+    )
+
+
 def run_segment(bundle, state, elapsed_time, config):
     """One evaluation, then the step trials up to every lane's next
     evaluation iteration: trials with no read-back up to the fewest the
     segment can take, then one read-back a trial of whether any lane is
-    active. Returns (state, result, SegmentCounts)."""
+    active. Returns (state, result, SegmentCounts). Counts in
+    spans.COUNTS what it launches and waits for, the lanes each trial
+    computes under "lane_steps"."""
     mp = isinstance(config, _mp._MpConfig)
     constant = not mp and isinstance(config.step_policy,
                                      _pdhg.ConstantStepsizeParams)
     # the evaluation is the same for both step rules, as in the JAX
     # package's _eval_block
     eval_block = mp_eval_block if mp else pdhg_eval_block
-    state, result = eval_block(bundle, state, elapsed_time, config)
+    with spans.span("folp.evaluate"):
+        state, result = eval_block(bundle, state, elapsed_time, config)
+    spans.COUNTS["segments"] += 1
+    spans.COUNTS["evaluations"] += 1
+    spans.COUNTS["read_backs"] += 1
     running = state.termination_reason == 0
-    any_running, it0 = torch.stack([
-        running.any().to(torch.int64),
-        torch.where(running, state.iteration, 0).amax(),
-    ]).tolist()
+    with spans.span("folp.read_back"):
+        any_running, it0 = torch.stack([
+            running.any().to(torch.int64),
+            torch.where(running, state.iteration, 0).amax(),
+        ]).tolist()
     if not any_running:
         return state, result, SegmentCounts(False, 0, 1)
     start = state.iteration
+    lanes = int(start.shape[0])
+
+    def step(state, active):
+        if mp:
+            return mp_lane_step(bundle.scaled, state, active)
+        if constant:
+            return pdhg_lane_step_constant(bundle.scaled, state, active)
+        return pdhg_lane_step(bundle.scaled, state, active,
+                              config.step_policy)
+
     floor = next_eval_iteration(int(it0), config) - int(it0)
-    trials, read_backs = 0, 1
+    with spans.span("folp.trials"):
+        for _ in range(floor):
+            state = step(state, _lane_active(state, start, config))
+    trials, read_backs = floor, 1
     while True:
-        active = (
-            (state.termination_reason == 0)
-            & ~state.numerical_error
-            & ((state.iteration == start)
-               | ~_is_eval_iteration(state.iteration, config))
-        )
-        if trials >= floor:
-            read_backs += 1
+        active = _lane_active(state, start, config)
+        read_backs += 1
+        spans.COUNTS["read_backs"] += 1
+        with spans.span("folp.read_back"):
             if not bool(active.any()):
                 break
-        if mp:
-            state = mp_lane_step(bundle.scaled, state, active)
-        elif constant:
-            state = pdhg_lane_step_constant(bundle.scaled, state, active)
-        else:
-            state = pdhg_lane_step(bundle.scaled, state, active,
-                                   config.step_policy)
+        with spans.span("folp.trials"):
+            state = step(state, active)
         trials += 1
+    spans.COUNTS["steps"] += trials
+    spans.COUNTS["lane_steps"] += lanes * trials
     return state, result, SegmentCounts(True, trials, read_backs)
 
 
@@ -1674,34 +1700,40 @@ def _solve_fleet(params, problems, fleet: SharedPatternFleet,
     evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
     checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
     lane_time = [None] * lanes
-    while True:
-        elapsed = time.time() - start_time
-        for _ in range(evals_per_dispatch):
-            state, result, counts = run_segment(bundle, state, elapsed,
-                                                config)
-            run_stats.segments += 1
-            run_stats.trials += counts.trials
-            run_stats.read_backs += counts.read_backs
-            if not counts.running:
-                break
-        reasons = result.termination_reason.cpu().numpy()
-        dispatch_elapsed = time.time() - start_time
-        run_stats.dispatches += 1
-        run_stats.read_backs += 1
-        if params.checkpoint_path and (
-                run_stats.dispatches % checkpoint_every == 0):
-            from .checkpoint import save_state
+    spans.COUNTS["solves"] += 1
+    with spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
+        while True:
+            elapsed = time.time() - start_time
+            with spans.span("folp.dispatch"):
+                for _ in range(evals_per_dispatch):
+                    state, result, counts = run_segment(bundle, state,
+                                                        elapsed, config)
+                    run_stats.segments += 1
+                    run_stats.trials += counts.trials
+                    run_stats.read_backs += counts.read_backs
+                    if not counts.running:
+                        break
+                with spans.span("folp.read_back"):
+                    reasons = result.termination_reason.cpu().numpy()
+            dispatch_elapsed = time.time() - start_time
+            run_stats.dispatches += 1
+            run_stats.read_backs += 1
+            spans.COUNTS["read_backs"] += 1
+            if params.checkpoint_path and (
+                    run_stats.dispatches % checkpoint_every == 0):
+                from .checkpoint import save_state
 
-            save_state(params.checkpoint_path, state,
-                       elapsed_time=dispatch_elapsed,
-                       metadata={"dispatches": run_stats.dispatches},
-                       fingerprint=fingerprint)
-        for i in range(lanes):
-            if lane_time[i] is None and reasons[i] != 0:
-                lane_time[i] = dispatch_elapsed
-        if all(t is not None for t in lane_time):
-            break
-    return _outputs(result, state, scaled_problems, lane_time)
+                save_state(params.checkpoint_path, state,
+                           elapsed_time=dispatch_elapsed,
+                           metadata={"dispatches": run_stats.dispatches},
+                           fingerprint=fingerprint)
+            for i in range(lanes):
+                if lane_time[i] is None and reasons[i] != 0:
+                    lane_time[i] = dispatch_elapsed
+            if all(t is not None for t in lane_time):
+                break
+        with spans.span("folp.unscale"):
+            return _outputs(result, state, scaled_problems, lane_time)
 
 
 def _outputs(result, state, scaled_problems, lane_time):

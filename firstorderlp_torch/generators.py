@@ -178,6 +178,7 @@ def pagerank_fleet_spec(
     damping_factors,
     approx_num_edges: "int | None" = None,
     seed: int = 0,
+    _adjacency=None,
 ):
     """A PageRank damping sweep generated on the device (a
     batch.FleetSpec).
@@ -190,7 +191,9 @@ def pagerank_fleet_spec(
     constructor (same CSR entry order), as in the JAX package's
     pagerank_fleet_spec, and the generators compute in f32 as it does.
     Damping 0 is refused: I - 0 S loses the S entries, so the pattern
-    changes.
+    changes. `_adjacency`: the graph's symmetric 0/1 adjacency (scipy
+    sparse) in place of the one drawn from `seed`, as
+    generate_pagerank_lp takes it.
     """
     from .batch import FleetSpec
 
@@ -205,7 +208,11 @@ def pagerank_fleet_spec(
     if approx_num_edges is None:
         approx_num_edges = 3 * num_nodes
     degree = max(1, round(approx_num_edges / num_nodes))
-    adjacency = barabasi_albert_graph(num_nodes, degree, seed)
+    adjacency = (
+        _adjacency
+        if _adjacency is not None
+        else barabasi_albert_graph(num_nodes, degree, seed)
+    )
 
     def instance(d):
         return generate_pagerank_lp(

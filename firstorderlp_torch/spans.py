@@ -17,23 +17,32 @@ only (ingest, graph capture).
 Spans wrap host calls, never the functions a CUDA graph captures. Every
 name starts with `folp.`:
 
-- folp.solve: a solve's loop (`optimize` once the problem is prepared);
-  its argument `solve` is the solve's number (COUNTS["solves"]), in a
-  trace that records shapes;
-- folp.dispatch: one dispatch of segments (`_run_segments`);
+- folp.solve: a solve's loop (`optimize` once the problem is prepared,
+  or a fleet's whole solve, batch._solve_fleet); its argument `solve`
+  is the solve's number (COUNTS["solves"]), in a trace that records
+  shapes;
+- folp.dispatch: one dispatch of segments (`_run_segments`, or a
+  fleet's `evaluations_per_dispatch` segments and its read-back of the
+  lanes' reasons);
 - folp.load, folp.unload: the state into and out of the segments'
   buffers (ops/graphs.SegmentRunner), the evaluation's result copied out
   with the unload;
-- folp.evaluate: one evaluation (a graph replay, or eager);
+- folp.evaluate: one evaluation (a graph replay, or eager; a fleet's
+  evaluation of every lane);
 - folp.trials: a run of steps with no read-back between them (a PDHG
-  round of trials, a Mirror Prox segment's iterations);
-- folp.read_back: a host wait on a segment's values;
+  round of trials, a Mirror Prox segment's iterations, a fleet's lane
+  steps up to its next read-back);
+- folp.read_back: a host wait on a segment's values (in a fleet also
+  the "any lane active" flag of a trial and a dispatch's reasons);
 - folp.finalize: the host's statistics after a dispatch (bound
   estimates, the evaluation's scalars, `to_host_stats`);
-- folp.unscale: the answer unscaled and copied to the host;
+- folp.unscale: the answer unscaled and copied to the host (a fleet's
+  answers, every lane's, batch._outputs);
 - folp.ingest.rescale, folp.ingest.to_device, folp.ingest.step_size:
   `prepare_problem`'s host rescaling, device copy, and step size with
   the primal weight and the initial state;
+- folp.ingest.fleet: a fleet's whole ingest
+  (batch.prepare_shared_pattern_fleet);
 - folp.capture: the capture of a solver's segment graphs, warm-up
   included.
 """
@@ -50,7 +59,9 @@ import torch
 # iterations) launched, read-backs (every host wait on a segment's
 # values, the evaluations' included), graph replays of steps and of
 # evaluations, loads into and unloads out of the buffers, captures,
-# solves, and the seconds of the timed spans (capture warm-up included).
+# solves, the lanes a fleet's trials compute (B a trial, ended lanes
+# included), and the seconds of the timed spans (capture warm-up
+# included).
 COUNTS: Dict[str, float] = {
     "segments": 0,
     "evaluations": 0,
@@ -62,10 +73,12 @@ COUNTS: Dict[str, float] = {
     "unloads": 0,
     "captures": 0,
     "solves": 0,
+    "lane_steps": 0,
     "capture_seconds": 0.0,
     "rescale_seconds": 0.0,
     "to_device_seconds": 0.0,
     "step_size_seconds": 0.0,
+    "fleet_seconds": 0.0,
 }
 
 _collecting = torch._C._autograd._profiler_enabled

@@ -197,7 +197,8 @@ def span_names():
 
 def test_span_names_are_the_documented_ones():
     names = span_names()
-    assert set(names) == LOOP | INGEST | {"folp.capture"}
+    assert set(names) == LOOP | INGEST | {"folp.capture",
+                                          "folp.ingest.fleet"}
     runtime = re.compile(r"^cu(da)?[A-Z]")
     for name in names:
         assert name.startswith("folp.") and not runtime.match(name)
@@ -207,6 +208,11 @@ def test_span_names_are_the_documented_ones():
         assert {"models/pdhg.py", "models/mirror_prox.py"} <= names[name]
     for name in ("folp.load", "folp.evaluate", "folp.trials"):
         assert "ops/graphs.py" in names[name]
+    # the fleets' host loop and ingest (tests/test_torch_batch_spans.py)
+    for name in ("folp.solve", "folp.dispatch", "folp.evaluate",
+                 "folp.trials", "folp.read_back", "folp.unscale",
+                 "folp.ingest.fleet"):
+        assert "batch.py" in names[name], name
 
 
 @pytest.mark.cuda
