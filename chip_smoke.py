@@ -177,21 +177,33 @@ Phases, each printing one JSON line:
     variant (lanes a thread), the entries a warp loads at once, and what
     ptxas said of registers, static shared memory and spills
     (ops/compare_kernels.lanes_row, which compare_kernels --layout lanes
-    prints too);
+    prints too); kernels_lane_trial: the fleet's lane trial's four
+    kernels (ops/lanes_step.py: LF1a, L1 with the dual step, L1' with
+    the step-control sums, LF1b) at 128 x 100k and 128 x 20k on a sweep
+    three segments into its solve, each against its plain version on the
+    same inputs (vectors, mask, verdict and state bitwise, the f64 sums
+    within an ulp, a second launch bitwise, tickets at zero), then timed
+    in turns beside its plain version, and the fused trial beside the
+    eager one (device ms, bytes bound; rows in the kernel list;
+    --only kernels_lane_trial runs it alone);
 11. fleet_path: batch.solve_batch_shared_pattern on that fleet (a
     FleetSpec, pagerank_fleet_spec) by PDHG in f32 to 1e-4 with a limit
     of 20,000 iterations a lane; every lane OPTIMAL with residuals and
     gap recomputed in f64 on the host (a lane that is not: solved alone
     by optimize under the same limit, which must give the same reason);
-    L1 launched, the single-instance kernels not; lanes 0 and 127 solved
-    again by optimize (the same reason, host residuals under 1e-4);
-    fleet_mirror_prox: the same with Mirror Prox;
+    L1 launched, the single-instance kernels not, every trial the fused
+    lane trial (each of its four kernels' launches ==
+    COUNTS["fused_lane_trials"] == COUNTS["steps"] > 0 over the solve);
+    lanes 0 and 127 solved again by optimize (the same reason, host
+    residuals under 1e-4); fleet_mirror_prox: the same with Mirror Prox,
+    whose trials are never fused;
 12. fleet_throughput: bench.py's protocol (zero tolerances, 600
     iterations a lane, a warm-up solve, then a timed one), PDHG and
     Mirror Prox: aggregate iterations and KKT passes a second, ingest
     cold and warm, step trials and read-backs, and the kernel launches
     of a step trial and of an evaluation (one segment under
-    torch.profiler); with --profile the timed solves under
+    torch.profiler), and the timed PDHG solve's trials all fused (Mirror
+    Prox's none); with --profile the timed solves under
     torch.profiler (device busy and idle share, top ops);
 13. determinism_fleet: 16 lanes solved twice, bitwise equal;
     fleet_checkpoint: an 8-lane fleet stopped by a limit of 120
@@ -220,7 +232,9 @@ Phases, each printing one JSON line:
 17. constant_step_fleet: the 32-lane damping sweep as a problem list
     with constant steps and bound-width rescaling, to 1e-4 or 20,000
     iterations a lane: lanes 0 and 31 give the reasons of optimize
-    alone, OPTIMAL lanes under 1e-4 in host f64, L1 launched;
+    alone, OPTIMAL lanes under 1e-4 in host f64, L1 launched, the fused
+    lane trial not (constant steps keep the eager trial; nor does the
+    QP fleet take it);
 18. kernels_sharded: the block-partitioned operator
     (ops/routed_sharded.py) on (2, 2) and (4, 1) meshes of cuda:0, CSR
     blocks (B2) and tile-plan blocks (B5), at the shapes sharded_optimize
@@ -309,6 +323,14 @@ SLOW_FLEET_LANES = 32
 # f32 solve on the card runs them in its evaluations, fleets and meshes
 # too; their launches on each path, for the kernel list.
 TR_KERNELS = ("tr_search", "tr_solution")
+# The fleet's lane trial (ops/lanes_step.py), each launch's entry in
+# ops/lanes.LAUNCHES: LF1a, L1 with the dual step, L1' with the
+# step-control sums, LF1b.
+LANE_TRIAL_KERNELS = ("lane_primal_step", "lanes_spmv:A+dual",
+                      "lanes_spmv:AT+stats", "lane_trial_epilogue")
+# kernels_lane_trial's shapes: (nodes, lanes), the sweep cell's and the
+# fleet phases'.
+LANE_TRIAL_SHAPES = ((100_000, 128), (20_000, 128))
 _tr_launches = {}
 # An evaluation's statistics kernels (ops/eval_stats.py): every f32
 # single-instance evaluation on the kernel operator runs them, meshes and
@@ -563,13 +585,87 @@ def kernels_lanes(torch, lanes, fleet, compare):
     return rows
 
 
+def fused_trial_problems(launches, counts, fused: bool):
+    """What is wrong with a fleet solve's lane-trial launches: with
+    `fused`, each of LANE_TRIAL_KERNELS once a trial and every trial
+    fused (each count == COUNTS["fused_lane_trials"] == COUNTS["steps"]
+    > 0, the counters' change over the solve); without, none of them
+    and no fused trial."""
+    got = [launches[k] for k in LANE_TRIAL_KERNELS] + [
+        counts["fused_lane_trials"]]
+    if fused:
+        if not (counts["steps"] > 0
+                and all(v == counts["steps"] for v in got)):
+            return [f"not every trial was fused: {got} against "
+                    f"{counts['steps']} trials"]
+    elif any(got):
+        return [f"the fused lane trial ran: {got}"]
+    return []
+
+
+def counts_since(before):
+    """spans.COUNTS' change since `before` (a copy), for the trials."""
+    from firstorderlp_torch import spans
+
+    return {k: spans.COUNTS[k] - before[k]
+            for k in ("steps", "fused_lane_trials")}
+
+
+def kernels_lane_trial(torch, compare, shapes=LANE_TRIAL_SHAPES):
+    """The fleet's lane trial's four kernels (ops/lanes_step.py) on a
+    damping sweep three segments into its solve, at each (nodes, lanes)
+    of `shapes`: each against its plain version on the same inputs
+    (compare_kernels.lane_trial_checks: vectors, mask, verdict and state
+    bitwise, the f64 sums within an ulp, a second launch bitwise, the
+    tickets at zero), then each kernel, its plain version, the fused
+    trial and the eager one timed in turns (lane_trial_times). Returns
+    the kernel list's rows, one a kernel and shape."""
+    ph = "kernels_lane_trial"
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    rows, results = [], []
+    for nodes, nl in shapes:
+        case = compare.lane_trial_case(nodes, nl, dev)
+        checks = compare.lane_trial_checks(*case)
+        if not checks["ok"]:
+            fail(ph, f"{nl} x {nodes}: a kernel differs from its plain "
+                     f"version: {checks}")
+        times = compare.lane_trial_times(*case)
+        op = case[0].constraint_matrix
+        results.append({"nodes": nodes, "lanes": nl, "m": op.shape[0],
+                        "n": op.shape[1], "nnz": op.pattern.nnz,
+                        "checks": checks, "times": times})
+        for name in LANE_TRIAL_KERNELS:
+            t, plain = times[name], times[name + ":plain"]
+            rows.append({
+                "name": f"{name} {nl}x{nodes}", "route": "cuda",
+                "source": "firstorderlp_torch/csrc/" + (
+                    "lanes_spmv.cu" if name.startswith("lanes_spmv")
+                    else "lanes_step.cu"),
+                "replaces": "none (no pl.pallas_call): the JAX package's "
+                            "vmapped _segment_core, XLA-fused, "
+                            "firstorderlp_tpu/batch.py:162",
+                "ms": t["ms"], "device_ms": t["device_ms"],
+                "plain_ms": plain["ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes",
+                "kernels_per_call": t["kernels_per_call"], "lanes": nl,
+                "bitwise_equal": checks[name]["bitwise"]})
+    emit({"phase": ph, "ok": True, "phase_seconds": time.time() - t_phase,
+          "results": results})
+    return rows
+
+
 def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
-                      fleet, problems, single_optimize):
+                      fleet, problems, single_optimize, fused):
     """One fleet solve to 1e-4, checked lane by lane (see the module
-    docstring, fleet_path)."""
+    docstring, fleet_path); `fused`: whether every trial must be the
+    fused lane trial (fused_trial_problems)."""
+    from firstorderlp_torch import spans
+
     t_phase = time.time()
     lanes.reset_launch_counts()
     routed.reset_launch_counts()
+    before = dict(spans.COUNTS)
     stats = batch.FleetRunStats()
     t0 = time.time()
     outs = batch.solve_batch_shared_pattern(params, spec, fleet=fleet,
@@ -577,6 +673,7 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     launches = dict(lanes.LAUNCHES)
+    trial_counts = counts_since(before)
     _tr_launches[ph] = {k: routed.LAUNCHES[k] for k in TR_KERNELS}
     single_kernels = {k: v for k, v in routed.LAUNCHES.items()
                       if v and k not in TR_KERNELS}
@@ -610,6 +707,7 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
             problems_found.append(f"lane {i}: host residuals {res}")
     if not (launches["lanes_spmv:A"] > 0 and launches["lanes_spmv:AT"] > 0):
         problems_found.append(f"L1 was not launched: {launches}")
+    problems_found += fused_trial_problems(launches, trial_counts, fused)
     if not all(_tr_launches[ph].values()):
         problems_found.append(f"a trust-region kernel was not launched: "
                               f"{_tr_launches[ph]}")
@@ -640,7 +738,7 @@ def fleet_solve_phase(ph, torch, batch, lanes, routed, params, spec,
         "aggregate_iterations_per_second": sum(iterations) / solve_s,
         "dispatches": stats.dispatches, "evaluations": stats.segments,
         "step_trials": stats.trials, "read_backs": stats.read_backs,
-        "launches": launches,
+        "launches": launches, "trial_counts": trial_counts,
         "host_f64_worst": worst, "not_optimal": alone,
         "single_solves": singles,
         "phase_seconds": time.time() - t_phase,
@@ -662,13 +760,20 @@ def fleet_throughput(torch, batch, params_of, spec, profile_on, dev):
     fleet = batch.prepare_shared_pattern_fleet(params, spec, device=dev)
     torch.cuda.synchronize()
     ingest = time.time() - t0
+    from firstorderlp_torch import spans
+    from firstorderlp_torch.ops import lanes
+
     batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
     torch.cuda.synchronize()
     stats = batch.FleetRunStats()
+    lanes.reset_launch_counts()
+    before = dict(spans.COUNTS)
     with timed(torch, profile_on) as run:
         outs = batch.solve_batch_shared_pattern(params, spec, fleet=fleet,
                                                 run_stats=stats)
     seconds = run["seconds"]
+    counts = counts_since(before)
+    launches = {k: lanes.LAUNCHES[k] for k in LANE_TRIAL_KERNELS}
     iterations = sum(o.iteration_count for o in outs)
     kkt = sum(o.iteration_stats[-1].cumulative_kkt_matrix_passes
               for o in outs)
@@ -678,7 +783,10 @@ def fleet_throughput(torch, batch, params_of, spec, profile_on, dev):
            "aggregate_kkt_passes_per_second": kkt / seconds,
            "step_trials": stats.trials, "evaluations": stats.segments,
            "dispatches": stats.dispatches, "read_backs": stats.read_backs,
-           "reasons": sorted({o.termination_reason.name for o in outs})}
+           "reasons": sorted({o.termination_reason.name for o in outs}),
+           "trial_counts": counts, "lane_trial_launches": launches,
+           "lane_trial_problems": fused_trial_problems(
+               launches, counts, not batch._is_mp(params))}
     if profile_on:
         rec["profile"] = run["profile"]
     rec.update(segment_launches(torch, batch, params, fleet))
@@ -778,6 +886,7 @@ def fleet_phases(args, torch, dev, compare, routed,
     torch.cuda.synchronize()
     ingest_s = time.time() - t0
     rows = kernels_lanes(torch, lanes, fleet, compare)
+    trial_rows = kernels_lane_trial(torch, compare)
     # the lanes as host problems, for the f64 residuals and the single
     # solves (the same graph as the spec's)
     problems = generators.generate_pagerank_lp_fleet(FLEET_NODES, damping,
@@ -785,16 +894,20 @@ def fleet_phases(args, torch, dev, compare, routed,
 
     # 11. the fleet by PDHG, then by Mirror Prox
     rec = fleet_solve_phase("fleet_path", torch, batch, lanes, routed,
-                            params, spec, fleet, problems, single_optimize)
+                            params, spec, fleet, problems, single_optimize,
+                            fused=True)
     for r in rows:
         r["launches"] = rec["launches"][r["name"]]
+    for r in trial_rows:
+        if r["name"].endswith(f"x{FLEET_NODES}"):
+            r["launches"] = rec["launches"][r["name"].split(" ")[0]]
     del fleet
     mp_params = make_mp_params(1e-4, 20_000, fmt="auto")
     mp_fleet = batch.prepare_shared_pattern_fleet(mp_params, spec,
                                                   device=dev)
     mrec = fleet_solve_phase("fleet_mirror_prox", torch, batch, lanes,
                              routed, mp_params, spec, mp_fleet, problems,
-                             single_optimize)
+                             single_optimize, fused=False)
     for r in rows:
         r["launches_mirror_prox"] = mrec["launches"][r["name"]]
     del mp_fleet
@@ -810,13 +923,15 @@ def fleet_phases(args, torch, dev, compare, routed,
     mirror = fleet_throughput(
         torch, batch, lambda tol, lim: make_mp_params(tol, lim, fmt="auto"),
         spec, args.profile, dev)
-    emit({"phase": "fleet_throughput", "ok": True,
-          "nodes": FLEET_NODES, "lanes": FLEET_LANES,
-          "iterations_per_lane": THROUGHPUT_ITERS,
-          "ingest_cold_seconds": ingest_s,
-          "ingest_warm_seconds": warm_ingest_s,
-          "phase_seconds": time.time() - t_phase,
-          "pdhg": pdhg, "mirror_prox": mirror})
+    emit_checked({"phase": "fleet_throughput",
+                  "nodes": FLEET_NODES, "lanes": FLEET_LANES,
+                  "iterations_per_lane": THROUGHPUT_ITERS,
+                  "ingest_cold_seconds": ingest_s,
+                  "ingest_warm_seconds": warm_ingest_s,
+                  "phase_seconds": time.time() - t_phase,
+                  "pdhg": pdhg, "mirror_prox": mirror},
+                 pdhg["lane_trial_problems"]
+                 + mirror["lane_trial_problems"])
     if args.parent:
         record = fleet_parent(torch, compare, args.parent, dev)
         emit(record)
@@ -884,7 +999,7 @@ def fleet_phases(args, torch, dev, compare, routed,
           "phase_seconds": time.time() - t_phase})
     if not ok:
         raise SystemExit(1)
-    return rows
+    return rows + trial_rows
 
 
 def block_lanes_rows(torch, compare, op):
@@ -2401,6 +2516,8 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
                          f"Q: {l1}")
         if any(v for k, v in b2.items() if k not in TR_KERNELS):
             found.append(f"{solver}: a routed kernel was launched: {b2}")
+        if any(l1[k] for k in LANE_TRIAL_KERNELS):
+            found.append(f"{solver}: the fused lane trial ran: {l1}")
         record[solver] = {
             "ingest_seconds": ingest_s, "solve_seconds": solve_s,
             "aggregate_iterations_per_second":
@@ -2434,6 +2551,8 @@ def slow_and_hetero_phases(torch, dev, compare, routed, probe,
                                 last)
     if not (l1["lanes_spmv:A"] > 0 and l1["lanes_spmv:AT"] > 0):
         found.append(f"L1 was not launched: {l1}")
+    if any(l1[k] for k in LANE_TRIAL_KERNELS):
+        found.append(f"constant steps ran the fused lane trial: {l1}")
     if any(v for k, v in b2.items() if k not in TR_KERNELS):
         found.append(f"a routed kernel was launched: {b2}")
     emit_checked({
@@ -4227,7 +4346,8 @@ def main() -> int:
                         help="only the device and build phases and these "
                              "(comma-separated: evaluation_split, "
                              "kernels_trust_region, kernels_eval_stats, "
-                             "kernels_trial), then the last lines")
+                             "kernels_trial, kernels_lane_trial), then the "
+                             "last lines")
     parser.add_argument("--multi-gpu", action="store_true",
                         help="only the multi-device solve across four "
                              "cards (phase multi_gpu_path), after the "
@@ -4337,6 +4457,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
                     r["bound_ms"], r["bound_by"] = probe.bound_ms(
                         r["bytes"], r["flops"])
                 record = {"phase": phase, "ok": True, "variants": variants,
+                          "results": rows}
+            elif phase == "kernels_lane_trial":
+                rows = kernels_lane_trial(torch, compare)
+                record = {"phase": phase + "_rows", "ok": True,
                           "results": rows}
             elif phase == "kernels_eval_stats":
                 rows, variants = kernels_eval_stats(

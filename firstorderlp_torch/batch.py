@@ -47,7 +47,13 @@ semantics:
   would be exact too, since frozen lanes do not change;
 - restarts are chosen per lane (no restart, restart to average,
   weighted-average reset); A' y of the restart point is one lane
-  product for all lanes, selected where a lane restarts to the average.
+  product for all lanes, selected where a lane restarts to the average;
+- an adaptive PDHG trial of an f32 LP fleet on L1 lane operators on
+  CUDA is four kernels (``fused_lane_step``, ops/lanes_step.py: LF1a,
+  L1 with the dual step, L1' with the step-control sums, LF1b), whose
+  last kernel writes the "any lane active" word the host reads back;
+  every other fleet (heterogeneous, QP, f64, constant steps, Mirror
+  Prox, CPU) runs the eager trial.
 
 Unlike the JAX package, the per-instance ingest applies
 ``bound_width_rescaling`` (the JAX package's fleets drop the flag:
@@ -86,6 +92,7 @@ from .models.common import (
 from .ops.block_lanes import build_block_lanes
 from .ops.device import resolve_device
 from .ops.device_problem import DeviceQp, DeviceQpCache, DeviceScaledQp
+from .ops import lanes_step
 from .ops.lanes import LanesPattern, build_lanes_pattern, lanes_op, lanes_spmv
 from .ops.routed import pattern_hash
 from .parallel.sharded import pad_problem
@@ -1259,6 +1266,72 @@ def pdhg_lane_step(problem, state, active, policy):
     )
 
 
+def _fused_lanes(problem, state, config) -> bool:
+    """Whether a trial on `problem` runs fused_lane_step: PDHG with
+    adaptive steps, the lane operator L1 (LanesOp) on CUDA, an LP, f32
+    (ops/lanes_step.fusable: at most MAX_LANES lanes). Heterogeneous
+    fleets (block lanes), QPs, f64 fleets, constant steps, Mirror Prox
+    and CPU tensors keep the eager trial."""
+    if not (isinstance(config, _pdhg._PdhgConfig) and isinstance(
+            config.step_policy, _pdhg.AdaptiveStepsizeParams)):
+        return False
+    x = state.current_primal_solution
+    return (
+        problem.objective_matrix is None
+        and x.dtype == torch.float32 and x.device.type == "cuda"
+        and lanes_step.fusable(problem.constraint_matrix, int(x.shape[1]))
+    )
+
+
+def fused_lane_step(problem, state, start, config):
+    """One adaptive trial of every lane in four kernels
+    (ops/lanes_step.py): LF1a (x+, the extrapolated point and each lane's
+    mask, _lane_active from the segment's `start`), L1 with the dual
+    step, L1' with the step-control sums and each lane's verdict, LF1b
+    (the selected state). Returns (state, any_active): the bits of
+    pdhg_lane_step but for the step-control sums, added in f64 and
+    rounded once; and an int32 0-d tensor, whether any lane runs the
+    next trial."""
+    policy = config.step_policy
+    frequency = config.termination_evaluation_frequency
+    limit = config.criteria.iteration_limit
+    op = problem.constraint_matrix
+    ws = lanes_step.trial_workspace(op) if op.vals.is_cuda else None
+    x, y = state.current_primal_solution, state.current_dual_solution
+    aty = state.current_dual_product
+    step, weight = state.step_size, state.primal_weight
+    next_x, z, active = lanes_step.lane_primal_step(
+        ws, x, problem.objective_vector, aty, problem.variable_lower_bound,
+        problem.variable_upper_bound, step, weight, state.termination_reason,
+        state.numerical_error, state.iteration, start, frequency, limit)
+    next_y, dy2 = lanes_step.lanes_dual_step(
+        ws, op.pattern.fwd, op.vals, z, y, problem.right_hand_side,
+        problem.is_equality, step, weight)
+    next_aty, take, new_step, new_error = lanes_step.lanes_rmv_stats(
+        ws, op.pattern.bwd, op.vals_t, next_y, next_x, x, aty, dy2, active,
+        step, weight, state.total_number_iterations,
+        policy.reduction_exponent, policy.growth_exponent)
+    f, any_active = lanes_step.lane_trial_epilogue(
+        _pdhg._trial_fields(state), next_x, next_y, next_aty, active, take,
+        new_step, new_error, state.termination_reason, start, frequency,
+        limit)
+    return dataclasses.replace(
+        state,
+        current_primal_solution=f.x,
+        current_dual_solution=f.y,
+        delta_primal=f.delta_x,
+        delta_dual=f.delta_y,
+        current_dual_product=f.aty,
+        avg=SolutionWeightedAverage(
+            f.sum_x, f.sum_y, f.count_x, f.count_y, f.weight_x, f.weight_y),
+        step_size=f.step_size,
+        numerical_error=f.numerical_error,
+        total_number_iterations=f.total,
+        iteration=f.iteration,
+        cumulative_kkt_passes=f.kkt,
+    ), any_active
+
+
 def pdhg_lane_step_constant(problem, state, active):
     """One step of the constant step rule in every lane (the JAX
     package's _take_step_constant, pdhg.py:412-437 there): always
@@ -1482,10 +1555,9 @@ def mp_eval_block(bundle, state, elapsed_time, config):
 
 def _is_eval_iteration(iteration, config):
     """Per lane: is `iteration` an evaluation iteration."""
-    freq = config.termination_evaluation_frequency
-    return ((torch.remainder(iteration - 1, freq) == 0)
-            | (iteration == config.criteria.iteration_limit + 1)
-            | (iteration <= 10))
+    return lanes_step.eval_iteration_plain(
+        iteration, config.termination_evaluation_frequency,
+        config.criteria.iteration_limit)
 
 
 class SegmentCounts(NamedTuple):
@@ -1497,21 +1569,21 @@ class SegmentCounts(NamedTuple):
 def _lane_active(state, start, config):
     """Per lane: does the next trial run (reason 0, no numerical error,
     and at the segment's start or not at an evaluation iteration)."""
-    return (
-        (state.termination_reason == 0)
-        & ~state.numerical_error
-        & ((state.iteration == start)
-           | ~_is_eval_iteration(state.iteration, config))
-    )
+    return lanes_step.lane_active_plain(
+        state.termination_reason, state.numerical_error, state.iteration,
+        start, config.termination_evaluation_frequency,
+        config.criteria.iteration_limit)
 
 
 def run_segment(bundle, state, elapsed_time, config):
     """One evaluation, then the step trials up to every lane's next
     evaluation iteration: trials with no read-back up to the fewest the
     segment can take, then one read-back a trial of whether any lane is
-    active. Returns (state, result, SegmentCounts). Counts in
+    active (on the fused trial, fused_lane_step, the word its last kernel
+    writes). Returns (state, result, SegmentCounts). Counts in
     spans.COUNTS what it launches and waits for, the lanes each trial
-    computes under "lane_steps"."""
+    computes under "lane_steps", the fused trials under
+    "fused_lane_trials"."""
     mp = isinstance(config, _mp._MpConfig)
     constant = not mp and isinstance(config.step_policy,
                                      _pdhg.ConstantStepsizeParams)
@@ -1542,22 +1614,36 @@ def run_segment(bundle, state, elapsed_time, config):
         return pdhg_lane_step(bundle.scaled, state, active,
                               config.step_policy)
 
+    fused = _fused_lanes(bundle.scaled, state, config)
+
+    def trial(state, active=None):
+        """(state, the fused trial's word for the next trial or None)."""
+        if fused:
+            return fused_lane_step(bundle.scaled, state, start, config)
+        if active is None:
+            active = _lane_active(state, start, config)
+        return step(state, active), None
+
     floor = next_eval_iteration(int(it0), config) - int(it0)
+    any_active = None
     with spans.span("folp.trials"):
         for _ in range(floor):
-            state = step(state, _lane_active(state, start, config))
+            state, any_active = trial(state)
     trials, read_backs = floor, 1
     while True:
-        active = _lane_active(state, start, config)
+        active = (_lane_active(state, start, config) if any_active is None
+                  else None)
         read_backs += 1
         spans.COUNTS["read_backs"] += 1
         with spans.span("folp.read_back"):
-            if not bool(active.any()):
+            if not bool(active.any() if active is not None else any_active):
                 break
         with spans.span("folp.trials"):
-            state = step(state, active)
+            state, any_active = trial(state, active)
         trials += 1
     spans.COUNTS["steps"] += trials
+    if fused:
+        spans.COUNTS["fused_lane_trials"] += trials
     spans.COUNTS["lane_steps"] += lanes * trials
     return state, result, SegmentCounts(True, trials, read_backs)
 

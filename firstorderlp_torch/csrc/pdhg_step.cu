@@ -75,21 +75,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace folp {
+#include "torch_ops.cuh"
 
-// How PyTorch's CUDA pow(tensor, scalar) computes t^e for f32, chosen on
-// the host from the exponent (ops/pdhg_step.pow_route).
-enum PowRoute : int {
-  kPowGeneral = 0,  // powf(t, e)
-  kPowZero = 1,     // fill 1
-  kPowOne = 2,      // copy
-  kPowSqrt = 3,     // sqrtf
-  kPowRsqrt = 4,    // rsqrtf
-  kPowRecip = 5,    // 1 / t
-  kPowSquare = 6,   // t t
-  kPowCube = 7,     // t t t
-  kPowInvSquare = 8 // 1.0 / (t t), the division in double
-};
+namespace folp {
 
 constexpr int kPrimalThreads = 256;    // F1a: threads a block, a slot each
 constexpr int kEpilogueThreads = 128;  // F1b: threads a block
@@ -167,41 +155,6 @@ struct EpilogueArgs {
   int constant;
   int aligned;  // bit i: input vector i (x_next ... sum_y) 16-byte aligned
 };
-
-__device__ __forceinline__ bool is_nan(float v) { return v != v; }
-
-// torch.clamp(v, lower, upper) on CUDA: a NaN value, then a NaN bound,
-// is returned as it is.
-__device__ __forceinline__ float torch_clamp(float v, float lower,
-                                             float upper) {
-  if (is_nan(v)) return v;
-  if (is_nan(lower)) return lower;
-  if (is_nan(upper)) return upper;
-  return fminf(fmaxf(v, lower), upper);
-}
-
-// torch.minimum(a, b) on CUDA: NaN propagates, a's first.
-__device__ __forceinline__ float torch_minimum(float a, float b) {
-  if (is_nan(a)) return a;
-  if (is_nan(b)) return b;
-  return fminf(a, b);
-}
-
-__device__ __forceinline__ float torch_pow(float t, float e, int route) {
-  switch (route) {
-    case kPowZero: return 1.f;
-    case kPowOne: return t;
-    case kPowSqrt: return sqrtf(t);
-    case kPowRsqrt: return rsqrtf(t);
-    case kPowRecip: return __fdiv_rn(1.f, t);
-    case kPowSquare: return __fmul_rn(t, t);
-    case kPowCube: return __fmul_rn(__fmul_rn(t, t), t);
-    case kPowInvSquare:
-      return static_cast<float>(__ddiv_rn(1.0, static_cast<double>(
-                                                    __fmul_rn(t, t))));
-    default: return powf(t, e);
-  }
-}
 
 // Entries 4q to 4q + 3 of v: one 16-byte load where v is 16-byte aligned
 // (bit `input` of `aligned`), else four 4-byte loads.

@@ -3,7 +3,7 @@ GPU, optionally beside those of another checkout of this package, in
 turns on the same card.
 
     python3 -m firstorderlp_torch.ops.compare_kernels
-        [--layout csr|tiled|probe|lanes|block_lanes] [--nodes N]
+        [--layout csr|tiled|probe|lanes|block_lanes|lane_trial] [--nodes N]
         [--lanes B] [--parent DIR] [--bulk] [--sweep] [--out FILE]
 
 --layout: the CSR kernels (spmv_csr, spmv_dual_step, spmv_rmv_stats;
@@ -19,7 +19,12 @@ turns on the same card.
   of 32 PageRank LPs of 10,000-40,000 nodes (seeds 10-41), padded and
   rescaled as batch.prepare_batch does, beside the library SpMV of the
   same matrix
-  (--nodes, --lanes, --bulk and --sweep do not apply).
+  (--nodes, --lanes, --bulk and --sweep do not apply), or the fleet's
+  lane trial (ops/lanes_step.py: LF1a, L1 with the dual step, L1' with
+  the step-control sums, LF1b) on a damping sweep of --lanes lanes at
+  --nodes nodes (default 100,000) three segments into its solve, each
+  kernel beside its plain version and the fused trial beside the eager
+  one (--parent, --bulk and --sweep do not apply).
 --parent DIR: a directory that holds another version of this package
   under the name `firstorderlp_torch_parent` (for example
   `git archive <commit> firstorderlp_torch | tar -x -C DIR` and a
@@ -686,6 +691,256 @@ def compare_lanes(args, dev, card, emit):
         sweep_lanes(pat, dev, op, vecs, card, emit)
 
 
+def lane_trial_case(nodes, nl, dev, segments=3):
+    """(problem, state, start, config) of a PageRank damping sweep of
+    `nl` lanes at `nodes` nodes, `segments` segments into its solve on
+    the card (chip_smoke.py's fleet parameters), with the segment's start
+    at its iteration: every running lane active."""
+    import firstorderlp_torch as tx
+    from .. import batch
+
+    params = tx.PdhgParameters(
+        l_inf_ruiz_iterations=10, l2_norm_rescaling=False,
+        pock_chambolle_alpha=1.0, primal_importance=1.0,
+        scale_invariant_initial_primal_weight=True, verbosity=0,
+        record_iteration_stats=False, termination_evaluation_frequency=40,
+        termination_criteria=tx.TerminationCriteria(
+            eps_optimal_absolute=1e-4, eps_optimal_relative=1e-4,
+            eps_primal_infeasible=0.0, eps_dual_infeasible=0.0,
+            iteration_limit=20_000),
+        restart_params=tx.construct_restart_parameters(
+            restart_scheme=tx.RestartScheme.ADAPTIVE_NORMALIZED,
+            restart_to_current_metric=(
+                tx.RestartToCurrentMetric.GAP_OVER_DISTANCE_SQUARED),
+            restart_frequency_if_fixed=100, artificial_restart_threshold=0.5,
+            sufficient_reduction_for_restart=0.1,
+            necessary_reduction_for_restart=0.9,
+            primal_weight_update_smoothing=0.5,
+            use_approximate_localized_duality_gap=False),
+        step_size_policy_params=tx.AdaptiveStepsizeParams(
+            reduction_exponent=0.3, growth_exponent=0.6),
+        dtype="float32")
+    spec = generators.pagerank_fleet_spec(
+        nodes, np.linspace(0.7, 0.995, nl), seed=0)
+    fleet = batch.prepare_shared_pattern_fleet(params, spec, device=dev)
+    config = batch._config(params)
+    state = fleet.initial_state
+    for _ in range(segments):
+        state, _, _ = batch.run_segment(fleet.bundle, state, 0.0, config)
+    return fleet.bundle.scaled, state, state.iteration.clone(), config
+
+
+def _lane_trial_inputs(problem, state, start, config):
+    """Each of the lane trial's four kernels' arguments on the state, the
+    inputs of each the plain versions' outputs before it: (primal, dual,
+    stats, verdict, epilogue) argument tuples, and dy2 (the plain f64
+    sum L1' is given)."""
+    from . import lanes_step
+    from ..models.pdhg import _trial_fields
+
+    policy = config.step_policy
+    freq = config.termination_evaluation_frequency
+    limit = config.criteria.iteration_limit
+    op = problem.constraint_matrix
+    x, y = state.current_primal_solution, state.current_dual_solution
+    aty, step, weight = (state.current_dual_product, state.step_size,
+                         state.primal_weight)
+    primal = (x, problem.objective_vector, aty, problem.variable_lower_bound,
+              problem.variable_upper_bound, step, weight,
+              state.termination_reason, state.numerical_error,
+              state.iteration, start, freq, limit)
+    next_x, z, active = lanes_step.lane_primal_step_plain(*primal)
+    dual = (op.pattern.fwd, op.vals, z, y, problem.right_hand_side,
+            problem.is_equality, step, weight)
+    next_y, dy2 = lanes_step.lanes_dual_step_plain(*dual)
+    stats = (op.pattern.bwd, op.vals_t, next_y, next_x, x, aty)
+    verdict = (active, step, weight, state.total_number_iterations,
+               policy.reduction_exponent, policy.growth_exponent)
+    next_aty, interaction, dx2 = lanes_step.lanes_rmv_stats_plain(*stats)
+    take, new_step, new_error = lanes_step.lane_verdict_plain(
+        dy2, interaction, dx2, *verdict)
+    epilogue = (_trial_fields(state), next_x, next_y, next_aty, active, take,
+                new_step, new_error, state.termination_reason, start, freq,
+                limit)
+    return primal, dual, stats, verdict, epilogue, dy2
+
+
+def lane_trial_calls(problem, state, start, config):
+    """name -> (kernel call, its plain version's call) for the lane
+    trial's four kernels on the state, and the whole trial fused
+    (batch.fused_lane_step) beside the eager one (the mask and
+    batch.pdhg_lane_step)."""
+    from .. import batch
+    from . import lanes_step
+
+    ws = lanes_step.trial_workspace(problem.constraint_matrix)
+    primal, dual, stats, verdict, epilogue, dy2 = _lane_trial_inputs(
+        problem, state, start, config)
+
+    def eager_trial():
+        return batch.pdhg_lane_step(
+            problem, state, batch._lane_active(state, start, config),
+            config.step_policy)
+
+    def stats_plain():
+        got = lanes_step.lanes_rmv_stats_plain(*stats)
+        return (got[0], *lanes_step.lane_verdict_plain(dy2, *got[1:],
+                                                       *verdict))
+
+    return {
+        "lane_primal_step": (
+            lambda: lanes_step.lane_primal_step(ws, *primal),
+            lambda: lanes_step.lane_primal_step_plain(*primal)),
+        "lanes_spmv:A+dual": (
+            lambda: lanes_step.lanes_dual_step(ws, *dual),
+            lambda: lanes_step.lanes_dual_step_plain(*dual)),
+        "lanes_spmv:AT+stats": (
+            lambda: lanes_step.lanes_rmv_stats(ws, *stats, dy2, *verdict),
+            stats_plain),
+        "lane_trial_epilogue": (
+            lambda: lanes_step.lane_trial_epilogue(*epilogue),
+            lambda: lanes_step.lane_trial_epilogue_plain(*epilogue)),
+        "trial": (lambda: batch.fused_lane_step(problem, state, start,
+                                                config),
+                  eager_trial),
+    }
+
+
+def _within_an_ulp(got, want) -> bool:
+    """Each f32 entry equal to `want` or to a neighbour of it."""
+    up = torch.nextafter(want, torch.full_like(want, float("inf")))
+    down = torch.nextafter(want, torch.full_like(want, float("-inf")))
+    return bool(((got == want) | (got == up) | (got == down)).all())
+
+
+def lane_trial_checks(problem, state, start, config) -> dict:
+    """Each of the lane trial's four kernels against its plain version
+    on the same inputs. name -> {"bitwise": its vectors, mask, verdict
+    and state, each equal to the plain version's (L1''s verdict against
+    the plain verdict from the kernel's own sums); "sums_within_an_ulp":
+    its f64 sums rounded once (dy2; the interaction and dx2), each lane
+    within an ulp of the plain f64 sums; "repeat_bitwise": a second
+    launch the same bits; "tickets_at_zero"}; "ok" when every one
+    holds."""
+    from . import lanes_step
+
+    op = problem.constraint_matrix
+    ws = lanes_step.trial_workspace(op)
+    primal, dual, stats, verdict, epilogue, dy2 = _lane_trial_inputs(
+        problem, state, start, config)
+
+    def launch():
+        got = {"lane_primal_step": lanes_step.lane_primal_step(ws, *primal),
+               "lanes_spmv:A+dual": lanes_step.lanes_dual_step(ws, *dual)}
+        got = {k: tuple(t.clone() for t in v) for k, v in got.items()}
+        got["lanes_spmv:AT+stats"] = tuple(t.clone() for t in (
+            *lanes_step.lanes_rmv_stats(ws, *stats, dy2, *verdict),
+            *ws.stats["sums"]))
+        got["lane_trial_epilogue"] = tuple(
+            _flat(lanes_step.lane_trial_epilogue(*epilogue)))
+        return got
+
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    next_aty, interaction, dx2 = lanes_step.lanes_rmv_stats_plain(*stats)
+    kernel_sums = got["lanes_spmv:AT+stats"][4:]
+    want_y, want_dy2 = lanes_step.lanes_dual_step_plain(*dual)
+    pairs = {
+        "lane_primal_step": (
+            list(zip(got["lane_primal_step"],
+                     lanes_step.lane_primal_step_plain(*primal))), []),
+        "lanes_spmv:A+dual": ([(got["lanes_spmv:A+dual"][0], want_y)],
+                              [(got["lanes_spmv:A+dual"][1], want_dy2)]),
+        "lanes_spmv:AT+stats": (
+            list(zip(got["lanes_spmv:AT+stats"][:4], (
+                next_aty, *lanes_step.lane_verdict_plain(
+                    dy2, *kernel_sums, *verdict)))),
+            list(zip(kernel_sums, (interaction, dx2)))),
+        "lane_trial_epilogue": (
+            list(zip(got["lane_trial_epilogue"], _flat(
+                lanes_step.lane_trial_epilogue_plain(*epilogue)))), []),
+    }
+    tickets = (ws.dual["tickets"], ws.stats["tickets"],
+               op.pattern.fwd.tickets, op.pattern.bwd.tickets)
+    checks = {}
+    for name, (exact, sums) in pairs.items():
+        checks[name] = {
+            "bitwise": all(bool(torch.equal(g, w)) for g, w in exact),
+            "sums_within_an_ulp": all(_within_an_ulp(g, w)
+                                      for g, w in sums),
+            "repeat_bitwise": all(bool(torch.equal(g, a)) for g, a in zip(
+                got[name], again[name])),
+            "tickets_at_zero": not any(bool(t.any()) for t in tickets),
+        }
+    checks["ok"] = all(all(c.values()) for c in checks.values())
+    return checks
+
+
+def lane_trial_times(problem, state, start, config) -> dict:
+    """Each of the lane trial's four kernels and its plain version, and
+    the fused trial and the eager one, timed in turns
+    (probe_routed.in_turns): name -> turn_summary, with each kernel's
+    bytes bound (bound_ms)."""
+    op = problem.constraint_matrix
+    calls = lane_trial_calls(problem, state, start, config)
+    timed = {}
+    for name, (kernel, plain) in calls.items():
+        timed[name] = kernel
+        timed["trial:eager" if name == "trial" else name + ":plain"] = plain
+    bounds = {name: probe_routed.bound_ms(nbytes, 0)[0]
+              for name, nbytes in lane_trial_bytes(op, op.lanes).items()}
+    return {name: {"bound_ms": bounds.get(name.split(":plain")[0]),
+                   **probe_routed.turn_summary(result)}
+            for name, result in probe_routed.in_turns(timed).items()}
+
+
+def lane_trial_bytes(op, lanes: int) -> dict:
+    """Bytes each kernel of the lane trial must move in f32, each input
+    read once and each output written once: LF1a five (n, B) planes in,
+    two out; L1 with the dual step L1's bytes plus y and b; L1' with the
+    step control L1's plus x+, x and A'y; LF1b four (n, B) and three
+    (m, B) planes each way."""
+    from .lanes import lanes_kernel_bytes
+
+    m, n = op.shape
+    p, q = 4 * n * lanes, 4 * m * lanes
+    return {"lane_primal_step": 7 * p,
+            "lanes_spmv:A+dual": lanes_kernel_bytes(op.pattern.fwd, lanes, 4)
+            + 2 * q,
+            "lanes_spmv:AT+stats": lanes_kernel_bytes(op.pattern.bwd,
+                                                      lanes, 4) + 3 * p,
+            "lane_trial_epilogue": 8 * p + 6 * q}
+
+
+def compare_lane_trial(args, dev, card, emit):
+    """--layout lane_trial: the fleet's lane trial's four kernels on a
+    mid-solve state, each against its plain version (lane_trial_checks);
+    then each, its plain version, the fused trial and the eager one
+    timed in turns, with the bytes bound (lane_trial_times)."""
+    case = lane_trial_case(args.nodes or 100_000, args.lanes, dev)
+    op = case[0].constraint_matrix
+    m, n = op.shape
+    emit({"step": "fleet", "layout": "lane_trial", "card": card, "m": m,
+          "n": n, "nnz": op.pattern.nnz, "lanes": op.lanes,
+          "items": [op.pattern.fwd.nitems, op.pattern.bwd.nitems]})
+    emit({"step": "verify", "checks": lane_trial_checks(*case)})
+    for name, row in lane_trial_times(*case).items():
+        emit({"step": "time", "card": card, "name": name, **row})
+
+
+def _flat(out):
+    """The tensors of a kernel's result, in order (dataclasses' fields,
+    tuples' members)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if dataclasses.is_dataclass(out):
+        return [t for f in dataclasses.fields(out)
+                for t in _flat(getattr(out, f.name))]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _flat(v)]
+    return []
+
+
 def sweep_lanes(pat, dev, op, vecs, card, emit):
     """L1's design constants one at a time around the package's: item
     entries (a new pattern), entries a warp loads at once (unroll) and
@@ -726,7 +981,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layout",
                         choices=sorted(KERNELS) + ["probe", "lanes",
-                                                   "block_lanes"],
+                                                   "block_lanes",
+                                                   "lane_trial"],
                         default="csr")
     parser.add_argument("--nodes", type=int, default=None,
                         help="default 100,000 (20,000 for lanes)")
@@ -751,7 +1007,10 @@ def main(argv=None) -> int:
     print(card, flush=True)
     kernels_build.build_kernels()
     names = {"probe": probe_routed.LAUNCHES, "lanes": ("lanes_spmv",),
-             "block_lanes": ("spmv_csr",)}.get(layout) or KERNELS[layout]
+             "block_lanes": ("spmv_csr",),
+             "lane_trial": ("lanes_dual_step", "lanes_rmv_stats",
+                            "lane_primal_step", "lane_trial_epilogue")
+             }.get(layout) or KERNELS[layout]
     emit({"step": "build", "layout": layout,
           "seconds": kernels_build.last_build_seconds,
           "ptxas": {lib: [ln.strip() for ln in log.splitlines()
@@ -766,6 +1025,9 @@ def main(argv=None) -> int:
         return finish(args, card, lines)
     if layout == "block_lanes":
         compare_block_lanes(args, dev, card, emit)
+        return finish(args, card, lines)
+    if layout == "lane_trial":
+        compare_lane_trial(args, dev, card, emit)
         return finish(args, card, lines)
     args.nodes = args.nodes or 100_000
 

@@ -38,6 +38,13 @@ KERNEL_SOURCES = {
     "probe_expand": "probe_expand.cu",
     "probe_reduce": "probe_reduce.cu",
     "lanes_spmv": "lanes_spmv.cu",
+    # the fleet's lane trial: L1 with the dual step and L1' with the
+    # step-control sums (lanes_spmv.cu's epilogue variants), LF1a and
+    # LF1b (lanes_step.cu)
+    "lanes_dual_step": "lanes_spmv.cu",
+    "lanes_rmv_stats": "lanes_spmv.cu",
+    "lane_primal_step": "lanes_step.cu",
+    "lane_trial_epilogue": "lanes_step.cu",
     # F1a and F1b, one source: each library holds both entry points
     "primal_step": "pdhg_step.cu",
     "trial_epilogue": "pdhg_step.cu",
@@ -156,6 +163,10 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
     probe_reduce = [p, p, p, p, p, p, p, p, i, i, i]
     # the half's LanesArgs (ops/lanes._LanesArgs), vals, x, y
     lanes_spmv = [p, p, p, p]
+    # the half's LanesArgs, vals, x, then LaneStepArgs (ops/lanes_step.py)
+    lanes_trial_product = [p, p, p, p]
+    # LanePrimalArgs or LaneEpilogueArgs (ops/lanes_step.py)
+    lanes_step = [p]
     # PrimalStepArgs or EpilogueArgs (ops/pdhg_step.py)
     pdhg_step = [p]
     # TrustRegionArgs (ops/trust_region_search.py); tr_search: then the
@@ -174,6 +185,10 @@ def _bind(lib: str, dll: ctypes.CDLL) -> ctypes.CDLL:
         "probe_expand": probe_expand,
         "probe_reduce": probe_reduce,
         "lanes_spmv": lanes_spmv,
+        "lanes_dual_step": lanes_trial_product,
+        "lanes_rmv_stats": lanes_trial_product,
+        "lane_primal_step": lanes_step,
+        "lane_trial_epilogue": lanes_step,
         "primal_step": pdhg_step,
         "trial_epilogue": pdhg_step,
         "tr_search": tr_search,

@@ -58,9 +58,14 @@ LANE_UNROLL = 8
 LANE_VECTOR_BYTES = 16
 
 # Launch counts per orientation (A x and A' y counted apart; Q x: a QP
-# fleet's objective matrix).
+# fleet's objective matrix), and of the fleet's lane trial
+# (ops/lanes_step.py): LF1a, L1 with the dual step, L1' with the
+# step-control sums, LF1b.
 LAUNCHES: Dict[str, int] = {"lanes_spmv:A": 0, "lanes_spmv:AT": 0,
-                            "lanes_spmv:Q": 0, "lanes_spmv:QT": 0}
+                            "lanes_spmv:Q": 0, "lanes_spmv:QT": 0,
+                            "lane_primal_step": 0, "lanes_spmv:A+dual": 0,
+                            "lanes_spmv:AT+stats": 0,
+                            "lane_trial_epilogue": 0}
 
 
 def reset_launch_counts() -> None:
@@ -114,6 +119,10 @@ class LanesPattern:
     bwd: LanesHalf  # A'
     perm_t: torch.Tensor  # (nnz,) int64
     pattern_hash: str
+    # lanes -> the lane trial's scratch (ops/lanes_step.trial_workspace),
+    # made at the first trial
+    workspaces: dict = dataclasses.field(default_factory=dict,
+                                         compare=False, repr=False)
 
     @property
     def shape(self):

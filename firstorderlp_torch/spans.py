@@ -60,8 +60,9 @@ import torch
 # values, the evaluations' included), graph replays of steps and of
 # evaluations, loads into and unloads out of the buffers, captures,
 # solves, the lanes a fleet's trials compute (B a trial, ended lanes
-# included), and the seconds of the timed spans (capture warm-up
-# included).
+# included), the fleet's trials that ran as the fused lane trial
+# (batch.fused_lane_step), and the seconds of the timed spans (capture
+# warm-up included).
 COUNTS: Dict[str, float] = {
     "segments": 0,
     "evaluations": 0,
@@ -74,6 +75,7 @@ COUNTS: Dict[str, float] = {
     "captures": 0,
     "solves": 0,
     "lane_steps": 0,
+    "fused_lane_trials": 0,
     "capture_seconds": 0.0,
     "rescale_seconds": 0.0,
     "to_device_seconds": 0.0,

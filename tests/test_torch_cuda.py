@@ -34,9 +34,17 @@ scalar variant, with the dense rows cut into pieces and walked whole,
 gives the same bits on row slices that are not 16-byte aligned and
 under every plan the sweep takes, repeats its bits with the tickets
 back at zero, counts one launch a product, rejects bad inputs, and
-carries a small fleet to OPTIMAL. The heterogeneous fleet's block lane
-operator (ops/block_lanes.py) runs B2 on an interleaved block-diagonal
-matrix of lanes of mixed sizes and patterns: against its plain version,
+carries a small fleet to OPTIMAL. The fleet's lane trial
+(ops/lanes_step.py: LF1a, L1 with the dual step, L1' with the
+step-control sums, LF1b) is held to its plain versions at 128 x 20k,
+128 x 100k and 3 lanes (vectors, mask, verdict and state bitwise, the
+f64 sums within an ulp), repeats its bits, is four launches a trial,
+is not taken by constant steps, and carries a 128-lane sweep to
+OPTIMAL within the sweep cell's limits, every trial fused, each lane's
+answer within the cell's l1 limit of the eager trial's. The
+heterogeneous fleet's block lane operator (ops/block_lanes.py) runs B2
+on an interleaved block-diagonal matrix of lanes of mixed sizes and
+patterns: against its plain version,
 20 launches bitwise equal; a 4-lane heterogeneous fleet and a 4-lane QP
 fleet (PDHG and Mirror Prox) end OPTIMAL on the card with the reasons
 of the same fleets on the CPU. The block-partitioned operator
@@ -935,8 +943,8 @@ def test_lanes_wrapper_rejects_bad_inputs_and_counts(cuda):
     op.mv(x)
     op.rmv(y)
     op.rmv(y)
-    assert lanes.LAUNCHES == {"lanes_spmv:A": 1, "lanes_spmv:AT": 2,
-                              "lanes_spmv:Q": 0, "lanes_spmv:QT": 0}
+    assert {k: v for k, v in lanes.LAUNCHES.items() if v} == {
+        "lanes_spmv:A": 1, "lanes_spmv:AT": 2}
 
 
 def card_params():
@@ -986,6 +994,294 @@ def test_fleet_solves_on_the_card(cuda):
         assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
         assert b.termination_reason == a.termination_reason
         assert np.all(np.isfinite(a.primal_solution))
+
+
+# ---------------------------------------------------------------------------
+# The fleet's lane trial (ops/lanes_step.py: LF1a, L1 with the dual step,
+# L1' with the step-control sums, LF1b)
+# ---------------------------------------------------------------------------
+
+
+def lane_trial_case(cuda, nodes, lanes_count, segments=3):
+    """A PageRank damping sweep of `lanes_count` lanes at `nodes` nodes on
+    the card, `segments` segments into its solve: (problem, state,
+    config)."""
+    from firstorderlp_torch import batch
+    from firstorderlp_torch.generators import pagerank_fleet_spec
+
+    params = card_params()
+    spec = pagerank_fleet_spec(nodes, np.linspace(0.7, 0.995, lanes_count),
+                               seed=0)
+    fleet = batch.prepare_shared_pattern_fleet(params, spec, device=cuda)
+    config = batch._config(params)
+    state = fleet.initial_state
+    for _ in range(segments):
+        state, _, _ = batch.run_segment(fleet.bundle, state, 0.0, config)
+    return fleet.bundle.scaled, state, config
+
+
+def within_an_ulp(got, want):
+    """Each f32 entry equal to `want` or its neighbour on either side."""
+    up = torch.nextafter(want, torch.full_like(want, float("inf")))
+    down = torch.nextafter(want, torch.full_like(want, float("-inf")))
+    return bool(((got == want) | (got == up) | (got == down)).all())
+
+
+def lane_trial_kernels(problem, state, start, config, ws):
+    """Each of the four kernels on the state, and its plain version on the
+    same inputs (its own plain inputs: each kernel is held alone). Returns
+    (kernel outputs, plain outputs), name -> tuple, cloned."""
+    from firstorderlp_torch.models import pdhg as _pdhg
+    from firstorderlp_torch.ops import lanes_step
+
+    policy = config.step_policy
+    frequency = config.termination_evaluation_frequency
+    limit = config.criteria.iteration_limit
+    op = problem.constraint_matrix
+    x, y = state.current_primal_solution, state.current_dual_solution
+    aty, step, weight = (state.current_dual_product, state.step_size,
+                         state.primal_weight)
+    got, want = {}, {}
+
+    def keep(t):
+        return tuple(None if v is None else v.clone() for v in t)
+
+    primal = (x, problem.objective_vector, aty,
+              problem.variable_lower_bound, problem.variable_upper_bound,
+              step, weight, state.termination_reason, state.numerical_error,
+              state.iteration, start, frequency, limit)
+    got["primal"] = keep(lanes_step.lane_primal_step(ws, *primal))
+    want["primal"] = lanes_step.lane_primal_step_plain(*primal)
+    next_x, z, active = want["primal"]
+    dual = (op.pattern.fwd, op.vals, z, y, problem.right_hand_side,
+            problem.is_equality, step, weight)
+    got["dual"] = keep(lanes_step.lanes_dual_step(ws, *dual))
+    want["dual"] = lanes_step.lanes_dual_step_plain(*dual)
+    next_y, dy2 = want["dual"]
+    stats = (op.pattern.bwd, op.vals_t, next_y, next_x, x, aty)
+    verdict_args = (active, step, weight, state.total_number_iterations,
+                    policy.reduction_exponent, policy.growth_exponent)
+    got["stats"] = keep(lanes_step.lanes_rmv_stats(ws, *stats, dy2,
+                                                   *verdict_args))
+    got["sums"] = keep(tuple(ws.stats["sums"]))
+    next_aty, interaction, dx2 = lanes_step.lanes_rmv_stats_plain(*stats)
+    want["sums"] = (interaction, dx2)
+    want["stats"] = (next_aty, *lanes_step.lane_verdict_plain(
+        dy2, interaction, dx2, *verdict_args))
+    # the verdict from the kernel's own sums: bitwise the plain one
+    want["verdict"] = lanes_step.lane_verdict_plain(
+        dy2, *got["sums"], *verdict_args)
+    take, new_step, new_error = want["stats"][1:]
+    epilogue = (_pdhg._trial_fields(state), next_x, next_y, next_aty,
+                active, take, new_step, new_error, state.termination_reason,
+                start, frequency, limit)
+    f, word = lanes_step.lane_trial_epilogue(*epilogue)
+    got["epilogue"] = (*(getattr(f, fl.name).clone()
+                         for fl in dataclasses.fields(f)), word.clone())
+    f, word = lanes_step.lane_trial_epilogue_plain(*epilogue)
+    want["epilogue"] = (*(getattr(f, fl.name) for fl in dataclasses.fields(f)),
+                        word)
+    return got, want
+
+
+@pytest.mark.parametrize("nodes,lanes_count", [(20_000, 128),
+                                               (100_000, 128), (2_000, 3)])
+def test_lane_trial_kernels_are_their_plain_versions(cuda, nodes,
+                                                     lanes_count):
+    """At 128 x 20k and 128 x 100k (the vector variants) and 3 lanes (the
+    scalar ones), mid-solve: each kernel's vectors, mask, verdict and
+    selected state bitwise its plain version; the f64 step-control sums
+    (dy2, the interaction, dx2) within an ulp of the plain f64 sums, and
+    the verdict from the kernel's sums bitwise the plain verdict from
+    them; the tickets back at zero."""
+    from firstorderlp_torch.ops import lanes_step
+
+    problem, state, config = lane_trial_case(cuda, nodes, lanes_count)
+    start = state.iteration.clone()
+    ws = lanes_step.trial_workspace(problem.constraint_matrix)
+    got, want = lane_trial_kernels(problem, state, start, config, ws)
+    torch.cuda.synchronize()
+    for name in ("primal", "epilogue"):
+        for k, (g, w) in enumerate(zip(got[name], want[name])):
+            assert torch.equal(g, w), (name, k)
+    assert torch.equal(got["dual"][0], want["dual"][0])
+    assert within_an_ulp(got["dual"][1], want["dual"][1])
+    assert torch.equal(got["stats"][0], want["stats"][0])
+    for g, w in zip(got["sums"], want["sums"]):
+        assert within_an_ulp(g, w)
+    for g, w in zip(got["stats"][1:], want["verdict"]):
+        assert torch.equal(g, w)
+    assert bool(want["primal"][2].any())  # the trial is active somewhere
+    op = problem.constraint_matrix
+    for t in (ws.dual["tickets"], ws.stats["tickets"], op.pattern.fwd.tickets,
+              op.pattern.bwd.tickets):
+        assert not t.any()
+
+
+def test_lane_trial_kernels_repeat_bitwise(cuda):
+    """Two launches of each kernel on the same inputs give the same bits
+    (the f64 sums in one fixed order, no floating-point atomics)."""
+    from firstorderlp_torch.ops import lanes_step
+
+    problem, state, config = lane_trial_case(cuda, 20_000, 128)
+    start = state.iteration.clone()
+    ws = lanes_step.trial_workspace(problem.constraint_matrix)
+    first, _ = lane_trial_kernels(problem, state, start, config, ws)
+    second, _ = lane_trial_kernels(problem, state, start, config, ws)
+    for name in first:
+        for g, w in zip(first[name], second[name]):
+            assert g is None or torch.equal(g, w), name
+
+
+def test_fused_lane_trial_counts_its_launches(cuda):
+    """A fused trial is four launches, one in each of its entries of
+    ops/lanes.LAUNCHES, and the eager trial's own state but for the
+    step size, which follows the f64 sums (within an ulp here)."""
+    from firstorderlp_torch import batch
+
+    problem, state, config = lane_trial_case(cuda, 20_000, 128)
+    start = state.iteration.clone()
+    lane_ops.reset_launch_counts()
+    got, word = batch.fused_lane_step(problem, state, start, config)
+    assert {k: v for k, v in lane_ops.LAUNCHES.items() if v} == {
+        "lane_primal_step": 1, "lanes_spmv:A+dual": 1,
+        "lanes_spmv:AT+stats": 1, "lane_trial_epilogue": 1}
+    active = batch._lane_active(state, start, config)
+    want = batch.pdhg_lane_step(problem, state, active, config.step_policy)
+    assert_same_bits(dataclasses.replace(got, step_size=want.step_size),
+                     want)
+    assert within_an_ulp(got.step_size, want.step_size)
+    assert int(word) == int(batch._lane_active(got, start, config).any())
+
+
+def test_constant_step_fleet_keeps_the_eager_trial(cuda):
+    """Constant steps (a list fleet, the per-instance ingest) keep the
+    eager trial, pdhg_lane_step_constant: a segment launches none of the
+    lane trial's kernels and counts no fused trial, at 128 lanes and at
+    3."""
+    import firstorderlp_torch as tx
+    from firstorderlp_torch import batch, spans
+    from firstorderlp_torch.generators import generate_pagerank_lp_fleet
+
+    params = dataclasses.replace(
+        card_params(), step_size_policy_params=tx.ConstantStepsizeParams())
+    for lanes_count in (128, 3):
+        problems = generate_pagerank_lp_fleet(
+            2_000, np.linspace(0.7, 0.99, lanes_count), seed=0)
+        fleet = batch.prepare_shared_pattern_fleet(params, problems,
+                                                   device=cuda)
+        config = batch._config(params)
+        assert not batch._fused_lanes(fleet.bundle.scaled,
+                                      fleet.initial_state, config)
+        lane_ops.reset_launch_counts()
+        before = dict(spans.COUNTS)
+        state = fleet.initial_state
+        for _ in range(12):
+            state, _, _ = batch.run_segment(fleet.bundle, state, 0.0,
+                                            config)
+        assert spans.COUNTS["steps"] > before["steps"]
+        assert spans.COUNTS["fused_lane_trials"] == before[
+            "fused_lane_trials"]
+        assert {k for k, v in lane_ops.LAUNCHES.items() if v} == {
+            "lanes_spmv:A", "lanes_spmv:AT"}
+
+
+def plain_lane_trial(monkeypatch):
+    """Routes the four wrappers of ops/lanes_step.py to their plain
+    versions, so batch.fused_lane_step runs the same contract (the
+    step-control sums in f64, rounded once) in PyTorch on the card."""
+    from firstorderlp_torch.ops import lanes_step
+
+    def verdict_too(ws, half, vals_t, y_next, x_next, x, aty, dy2, *rest):
+        aty_next, interaction, dx2 = lanes_step.lanes_rmv_stats_plain(
+            half, vals_t, y_next, x_next, x, aty)
+        return (aty_next, *lanes_step.lane_verdict_plain(
+            dy2, interaction, dx2, *rest))
+
+    monkeypatch.setattr(lanes_step, "lane_primal_step",
+                        lambda ws, *a: lanes_step.lane_primal_step_plain(*a))
+    monkeypatch.setattr(
+        lanes_step, "lanes_dual_step",
+        lambda ws, *a, **k: lanes_step.lanes_dual_step_plain(*a, **k))
+    monkeypatch.setattr(lanes_step, "lanes_rmv_stats", verdict_too)
+    monkeypatch.setattr(lanes_step, "lane_trial_epilogue",
+                        lanes_step.lane_trial_epilogue_plain)
+
+
+def test_fused_fleet_solve_on_the_card(cuda, monkeypatch):
+    """A 128-lane 20k-node damping sweep by the fused trial: every lane
+    OPTIMAL with host-f64 residuals within the sweep cell's 1.1e-4, every
+    trial fused (COUNTS["fused_lane_trials"] == COUNTS["steps"]), the
+    same bits in a second solve, and each lane's iterations those of the
+    plain versions of the kernels (the same contract: the step-control
+    sums in f64, rounded once). Against the eager trial, whose f32 sums
+    round otherwise (the trial the JAX package's fleet computes;
+    test_torch_lanes_step.py holds the fused answers against that fleet
+    on the CPU): each lane OPTIMAL in both, each lane's primal answer
+    within the sweep cell's l1 limit of 0.01 of the eager one, and the
+    fleet's lane-iterations within 5% (a lane's own count moves with its
+    restarts: PERF.md §6)."""
+    from firstorderlp_torch import batch, spans
+    from firstorderlp_torch.generators import pagerank_fleet_spec
+
+    params = card_params()
+    damping = np.linspace(0.7, 0.995, 128)
+    spec = pagerank_fleet_spec(20_000, damping, seed=0)
+    fleet = batch.prepare_shared_pattern_fleet(params, spec, device=cuda)
+    before = dict(spans.COUNTS)
+    fused = batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+    steps = spans.COUNTS["steps"] - before["steps"]
+    assert steps > 0
+    assert spans.COUNTS["fused_lane_trials"] - before[
+        "fused_lane_trials"] == steps
+    again = batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+    for a, b in zip(fused, again):
+        assert np.array_equal(a.primal_solution, b.primal_solution)
+    for d, a in zip(damping, fused):
+        assert a.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+        lp = generate_pagerank_lp(20_000, damping_factor=float(d), seed=0)
+        assert max(host_lp_residuals(lp, a.primal_solution,
+                                     a.dual_solution)) <= 1.1e-4, d
+    with monkeypatch.context() as patch:
+        plain_lane_trial(patch)
+        plain = batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+    assert [a.iteration_count for a in fused] == [
+        b.iteration_count for b in plain]
+    monkeypatch.setattr(batch, "_fused_lanes", lambda *args: False)
+    before = spans.COUNTS["fused_lane_trials"]
+    eager = batch.solve_batch_shared_pattern(params, spec, fleet=fleet)
+    assert spans.COUNTS["fused_lane_trials"] == before
+    for a, b in zip(fused, eager):
+        assert b.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+        assert float(np.abs(np.asarray(a.primal_solution, np.float64)
+                            - b.primal_solution).sum()) <= 0.01
+    total = sum(a.iteration_count for a in fused)
+    eager_total = sum(b.iteration_count for b in eager)
+    assert abs(total - eager_total) <= 0.05 * eager_total
+
+
+def host_lp_residuals(lp, x, y):
+    """The relative primal and dual residuals and the gap of (x, y) on
+    the LP, in f64 (the benchmark's judge, lpbench/reference/kkt.py)."""
+    a = sp.csr_matrix(lp.constraint_matrix)
+    b, c = lp.right_hand_side, lp.objective_vector
+    lb, ub = lp.variable_lower_bound, lp.variable_upper_bound
+    meq = lp.num_equalities
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    ax = a @ x
+    viol = np.concatenate([(b - ax)[:meq], np.maximum(b - ax, 0.0)[meq:],
+                           np.maximum(lb - x, 0.0), np.maximum(x - ub, 0.0)])
+    g = c - a.T @ y
+    bound = np.where(g > 0.0, lb, ub)
+    rc = np.where(np.isfinite(bound), g, 0.0)
+    dual_viol = np.concatenate([np.maximum(-y[meq:], 0.0), g - rc])
+    pobj = lp.objective_constant + float(c @ x)
+    dobj = (float(b @ y) + lp.objective_constant
+            + float(np.sum(np.where(rc != 0.0, bound, 0.0) * rc)))
+    return (np.linalg.norm(viol) / (1 + np.linalg.norm(b)),
+            np.linalg.norm(dual_viol) / (1 + np.linalg.norm(c)),
+            abs(pobj - dobj) / (1 + abs(pobj) + abs(dobj)))
 
 
 def mixed_fleet_matrices(sizes=(300, 1000, 2500, 600), seed=3):
