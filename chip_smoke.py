@@ -100,7 +100,7 @@ Phases, each printing one JSON line:
    kernel operator, to OPTIMAL at 1e-4, with residuals recomputed in f64
    on the host, each kernel's launch count on that run (the graph
    replays credited, exactly one eager evaluation's and step's times
-   their counts) and what its segments did (ops/graphs.COUNTS:
+   their counts) and what its segments did (spans.COUNTS:
    evaluations, steps, read-backs a segment, replays, loads and
    unloads, the capture and its seconds, which the solve's seconds
    include); every trial and evaluation must be a replay; then the
@@ -1464,13 +1464,13 @@ def distributed_worker(argv) -> int:
     return 0
 
 
-def segment_counts(graphs):
+def segment_counts(spans):
     """What the solvers' segments did in the run just made
-    (ops/graphs.COUNTS): segments, evaluations, steps, read-backs (the
+    (spans.COUNTS): segments, evaluations, steps, read-backs (the
     evaluations' included) and read-backs a segment, graph replays of
     steps and of evaluations, loads into and unloads out of the graphs'
     buffers, captures and their seconds (warm-up included)."""
-    c = graphs.COUNTS
+    c = spans.COUNTS
     return {"segments": c["segments"], "evaluations": c["evaluations"],
             "steps": c["steps"], "read_backs": c["read_backs"],
             "read_backs_per_segment": c["read_backs"] / max(
@@ -1689,6 +1689,7 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
     untraced, in turns (eager, replayed, replayed, eager)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from firstorderlp_torch import spans
     from firstorderlp_torch.models import mirror_prox, pdhg
     from firstorderlp_torch.ops import graphs
     from firstorderlp_torch.ops.probe_routed import LAUNCH_CALLS
@@ -1733,10 +1734,10 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
                     bundle, state, 0.0, config, count, _eager=eager)
             return out, result, reason
 
-        graphs.reset_counts()
+        spans.reset_counts()
         state = solver._device_counters(prepared.initial_state)
         state, _, reason = dispatch(state, SEGMENT_WARMUP)
-        captured = segment_counts(graphs)
+        captured = segment_counts(spans)
         start = int(state.iteration)
         if reason != 0 or start != 81:
             problems.append(f"{label}: warm-up ended at {start}, "
@@ -1745,7 +1746,7 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
 
         def evaluation(eager):
             runner = solver._runner(bundle, state, 0.0, config, eager)
-            graphs.reset_counts()
+            spans.reset_counts()
             routed.reset_launch_counts()
             result, calls = host_calls(runner.evaluate)
             launches = dict(routed.LAUNCHES)
@@ -1753,12 +1754,12 @@ def segment_graph(torch, routed, problem, params, mp_params, dev):
                     launches)
 
         def segments(eager):
-            graphs.reset_counts()
+            spans.reset_counts()
             routed.reset_launch_counts()
             (out, result, _), calls = host_calls(
                 lambda: dispatch(state, SEGMENT_COMPARED, eager))
             return (out, result, calls, dict(routed.LAUNCHES),
-                    segment_counts(graphs))
+                    segment_counts(spans))
 
         ev = {mode: evaluation(mode == "eager")
               for mode in ("eager", "graphed")}
@@ -4388,8 +4389,8 @@ def main() -> int:
 def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
         prepare_problem, kernels_build, routed, refine, mirror_prox,
         probe, compare) -> int:
+    from firstorderlp_torch import spans
     from firstorderlp_torch.models import pdhg
-    from firstorderlp_torch.ops import graphs
 
     dev = torch.device("cuda")
     time_ms = probe.time_ms  # CUDA events, median of 100 after warm-up
@@ -4966,13 +4967,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     torch.cuda.synchronize()
     prepare_s = time.time() - t0
     routed.reset_launch_counts()
-    graphs.reset_counts()
+    spans.reset_counts()
     t0 = time.time()
     out = optimize(params, problem, prepared=prepared)
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     launches = dict(routed.LAUNCHES)
-    main_segments = segment_counts(graphs)
+    main_segments = segment_counts(spans)
     reason = out.termination_reason.name
     stats = out.iteration_stats[-1] if out.iteration_stats else None
     res = host_residuals(problem, out.primal_solution, out.dual_solution)
@@ -5031,7 +5032,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     # loaded), optionally under torch.profiler for the device busy time.
     warm = prepare_problem(params, problem, device=dev)
     torch.cuda.synchronize()
-    graphs.reset_counts()
+    spans.reset_counts()
     with timed(torch, args.profile) as warm_run:
         out2 = optimize(params, problem, prepared=warm)
     warm_s = warm_run["seconds"]
@@ -5039,7 +5040,7 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
               "iterations": out2.iteration_count,
               "solve_seconds": warm_s,
               "iterations_per_second": out2.iteration_count / warm_s,
-              "segments": segment_counts(graphs)}
+              "segments": segment_counts(spans)}
     if args.profile:
         record["profile"] = warm_run["profile"]
     emit(record)
@@ -5094,13 +5095,11 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     # 6. refine path: certified 1e-8 with the f32 phases on the tile plan
     stages = []
-    inner_optimize = refine._optimize
+    inner_optimize = refine.api.optimize
 
-    def logged_optimize(stage_params, stage_problem, stage_prepared,
-                        elapsed_offset=0.0):
+    def logged_optimize(stage_params, stage_problem, **kwargs):
         t_stage = time.time()
-        stage_out = inner_optimize(stage_params, stage_problem,
-                                   stage_prepared, elapsed_offset)
+        stage_out = inner_optimize(stage_params, stage_problem, **kwargs)
         crit = stage_params.termination_criteria
         stages.append({
             "dtype": stage_params.dtype,
@@ -5117,10 +5116,10 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     def run_refine(profile_on=False):
         del stages[:]
         routed.DEFAULT_TILE_ALIGNED = True
-        refine._optimize = logged_optimize
+        refine.api.optimize = logged_optimize
         try:
             routed.reset_launch_counts()
-            graphs.reset_counts()
+            spans.reset_counts()
             with timed(torch, profile_on) as run:
                 result = refine.optimize_iterative_refinement(
                     refine_params, problem, device=dev
@@ -5128,9 +5127,9 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
             for stage in stages:
                 stage["begin"] -= run["t0"]
             return (result, run["seconds"], dict(routed.LAUNCHES),
-                    run.get("profile"), segment_counts(graphs))
+                    run.get("profile"), segment_counts(spans))
         finally:
-            refine._optimize = inner_optimize
+            refine.api.optimize = inner_optimize
             routed.DEFAULT_TILE_ALIGNED = False
 
     (rout, used_fallback), refine_s, refine_launches, _, refine_segments = (
@@ -5218,13 +5217,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
 
     mp_params = make_mp_params(1e-4, 20_000)
     routed.reset_launch_counts()
-    graphs.reset_counts()
+    spans.reset_counts()
     t0 = time.time()
     mout = package_optimize(mp_params, problem, device=dev)
     torch.cuda.synchronize()
     mp_s = time.time() - t0
     mp_launches = dict(routed.LAUNCHES)
-    mp_segments = segment_counts(graphs)
+    mp_segments = segment_counts(spans)
     mstats = mout.iteration_stats[-1] if mout.iteration_stats else None
     mres = host_residuals(problem, mout.primal_solution, mout.dual_solution)
     iters = max(mout.iteration_count, 1)
@@ -5288,13 +5287,13 @@ def run(args, torch, optimize, rescale_problem, generate_pagerank_lp,
     mp_warm = mirror_prox.prepare_problem(mp_params, problem, device=dev)
     torch.cuda.synchronize()
     mp_prepare_s = time.time() - t0
-    graphs.reset_counts()
+    spans.reset_counts()
     with timed(torch, args.profile) as mp_run:
         pout = mirror_prox.optimize(mp_params, problem, prepared=mp_warm)
     record = {"phase": "mirror_prox_path_warm", "ok": True,
               "iterations": pout.iteration_count,
               "prepare_seconds": mp_prepare_s,
-              "segments": segment_counts(graphs),
+              "segments": segment_counts(spans),
               "solve_seconds": mp_run["seconds"],
               "iterations_per_second": (
                   pout.iteration_count / mp_run["seconds"])}

@@ -55,10 +55,9 @@ from .models.pdhg import (
     AdaptiveStepsizeParams,
     MalitskyPockStepsizeParameters,
     ConstantStepsizeParams,
-    prepare_problem,
 )
 from .models.mirror_prox import MirrorProxParameters
-from .models.api import optimize
+from .models.api import optimize, prepare_problem
 from .refine import (
     optimize_split_precision,
     optimize_iterative_refinement,

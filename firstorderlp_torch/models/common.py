@@ -1,4 +1,6 @@
-"""Shared pieces of the PDHG / Mirror Prox solve loops.
+"""Shared pieces of the PDHG / Mirror Prox solves: the ingest
+(`ingest`, `PreparedProblem`), the host loop (`solve`) and the
+evaluation's statistics.
 
 The solvers run as a host loop over *dispatches* of up to
 `evaluations_per_dispatch` segments: each segment performs one
@@ -11,7 +13,9 @@ transfer once a dispatch (host_floats), when it needs them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -24,11 +28,20 @@ from ..iteration_stats import (
     DeviceInfeasibilityInfo,
     compute_convergence_information,
     compute_infeasibility_information,
+    display_iteration_stats,
+    display_iteration_stats_heading,
+    print_to_screen_this_iteration,
+    to_host_stats,
 )
 from ..ops import eval_stats
+from ..ops.device import resolve_device
+from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
 from ..ops.routed import RoutedOp
-from ..saddle_point import compute_average
-from ..solve_log import TerminationReason
+from ..ops.routed_sharded import agreed_seconds
+from ..preprocess import rescale_problem
+from ..problem import validate
+from ..saddle_point import SaddlePointOutput, compute_average
+from ..solve_log import PointType, RestartChoice, TerminationReason
 from ..termination import (
     TerminationCriteria,
     check_termination_criteria,
@@ -392,3 +405,282 @@ def host_floats(result: EvalResult):
         restart_used=int(host[k + 7]),
         iteration=int(host[k + 8]),
     )
+
+
+# ---------------------------------------------------------------------------
+# Ingest and host loop
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PreparedProblem:
+    """An ingested problem for a solver's `optimize`: the host rescaling
+    (a ScaledQpProblem), the device bundle, the solver's initial state
+    and the device the solve runs on."""
+
+    scaled_problem: object
+    bundle: DeviceScaledQp
+    initial_state: object
+    device: torch.device
+
+
+def ingest(params, original_problem, device=None, _reuse=None,
+           _shard_plan=None):
+    """What both solvers' prepare_problem do before their own initial
+    state (reference: the rescaling step of optimize, pdhg.jl:769-819,
+    mirror_prox.jl:627-688): validates `original_problem`, rescales it
+    on the host and moves the scaled and the original copy to `device`.
+    Returns (scaled_problem, bundle, device).
+
+    `device` defaults to CUDA and raises when no GPU is present.
+
+    _reuse: a PreparedProblem for the SAME problem from an earlier phase
+    (refine.py). The solve stays on its device. When its original
+    (stats) bundle has this phase's stats dtype, its host
+    ScaledQpProblem (rescaling does not depend on the dtype) and that
+    bundle are reused, and only the scaled bundle is rebuilt.
+
+    _shard_plan: a RoutedShardPlan (parallel.sharded): the constraint
+    operator is built block-partitioned over the plan's mesh, the rest
+    on `device` (default: the mesh's home device)."""
+    if _reuse is not None:
+        device = _reuse.device
+    else:
+        if _shard_plan is not None and device is None:
+            device = _shard_plan.mesh.home_device
+        device = resolve_device(device)
+    validate(original_problem)
+    dtype = torch_dtype(params.dtype)
+    stats_dtype = (
+        torch_dtype(params.stats_dtype) if params.stats_dtype else None
+    )
+    if _reuse is not None and (
+        _reuse.bundle.original.objective_vector.dtype
+        == (stats_dtype or dtype)
+    ):
+        scaled_problem = _reuse.scaled_problem
+        with spans.timed("folp.ingest.to_device"):
+            bundle = dataclasses.replace(
+                _reuse.bundle,
+                scaled=to_device(
+                    scaled_problem.scaled_qp, dtype, params.matrix_format,
+                    device, shard_plan=_shard_plan,
+                ),
+            )
+        return scaled_problem, bundle, device
+    with spans.timed("folp.ingest.rescale"):
+        scaled_problem = rescale_problem(
+            params.l_inf_ruiz_iterations,
+            params.l2_norm_rescaling,
+            params.pock_chambolle_alpha,
+            params.verbosity,
+            original_problem,
+            bound_width_rescaling_flag=params.bound_width_rescaling,
+        )
+    with spans.timed("folp.ingest.to_device"):
+        bundle = to_device_scaled(
+            scaled_problem,
+            dtype,
+            params.matrix_format,
+            device,
+            stats_dtype=stats_dtype,
+            stats_format=params.stats_matrix_format,
+            shard_plan=_shard_plan,
+        )
+    return scaled_problem, bundle, device
+
+
+def scaled_warm_start(scaled_problem, warm_start, dtype, device):
+    """(x0, y0): a warm start (primal, dual) given in UNSCALED space,
+    mapped into the solver's scaled space, in `dtype` on `device`."""
+    primal0, dual0 = warm_start
+    x0 = torch.as_tensor(
+        np.asarray(primal0) * np.asarray(scaled_problem.variable_rescaling),
+        device=device,
+    ).to(dtype)
+    y0 = torch.as_tensor(
+        np.asarray(dual0) * np.asarray(scaled_problem.constraint_rescaling),
+        device=device,
+    ).to(dtype)
+    return x0, y0
+
+
+def solve(params, original_problem, prepared: PreparedProblem, config, *,
+          begin, dispatch, final_bound_estimates, output_iteration,
+          unscale, context=None, final_log=None, elapsed_offset: float = 0.0,
+          placement=None) -> SaddlePointOutput:
+    """A solver's host loop (reference optimize, pdhg.jl:885-1048,
+    mirror_prox.jl:700-919) on a prepared problem: the checkpoint's
+    resume and cadence, one dispatch after another until a termination
+    reason, the statistics of each dispatch the parameters record or
+    display, and the answer unscaled. What the solver does its own way:
+
+    - begin(state) -> state: the state made ready for the loop (its
+      counters on the device), once, inside the folp.solve span;
+    - dispatch(bundle, state, elapsed, num_segments) -> (state, the last
+      EvalResult, its termination reason as a host int);
+    - final_bound_estimates(bundle, state, result) -> (lagrangian, lower,
+      upper): the bound estimates an evaluation skipped when
+      `config.need_bound_estimates` is off, for the final statistics;
+    - output_iteration(state, result) -> the iteration count the output
+      reports (`result` holds host numbers);
+    - unscale: saddle_point.unscaled_saddle_point_output as the solver's
+      module names it, so that replacing it there (lpbench's fault tests)
+      reaches every answer of that solver;
+    - context: a context manager around the solve (PDHG's profiler);
+    - final_log(scaled_problem, output): printed after the answer.
+
+    `elapsed_offset` pre-charges the time-limit clock. `placement`: a
+    function (bundle, state) -> (bundle, state) applied before the loop
+    starts. Under a process group the time limit reads rank 0's clock on
+    every rank (ops/routed_sharded.agreed_seconds)."""
+    scaled_problem = prepared.scaled_problem
+    bundle = prepared.bundle
+    state = prepared.initial_state
+
+    problem_fp = None
+    if params.checkpoint_path or params.resume_from_checkpoint:
+        from ..checkpoint import problem_fingerprint
+
+        problem_fp = problem_fingerprint(original_problem)
+    elapsed_offset = float(elapsed_offset)
+    if params.resume_from_checkpoint:
+        from ..checkpoint import load_state
+
+        state, elapsed_offset, _ = load_state(
+            params.resume_from_checkpoint, state, fingerprint=problem_fp
+        )
+        # The previous run's termination (e.g. its iteration limit) does
+        # not apply to this run's criteria; re-evaluate from scratch.
+        state = dataclasses.replace(
+            state,
+            termination_reason=torch.zeros_like(state.termination_reason))
+    if placement is not None:
+        bundle, state = placement(bundle, state)
+
+    def checkpoint(state, metadata):
+        from ..checkpoint import save_state
+
+        save_state(
+            params.checkpoint_path,
+            state,
+            elapsed_time=time.time() - start_time,
+            metadata=metadata,
+            fingerprint=problem_fp,
+        )
+
+    display_iteration_stats_heading(params.verbosity)
+
+    spans.COUNTS["solves"] += 1
+    with context or contextlib.nullcontext(), \
+            spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
+        iteration_stats = []
+        start_time = time.time() - elapsed_offset
+        basic_algorithm_time = 0.0
+        evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
+        checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
+        dispatch_count = 0
+        state = begin(state)
+        while True:
+            elapsed = agreed_seconds(
+                bundle.scaled.constraint_matrix, time.time() - start_time
+            )
+            segment_start = time.time()
+            state, result, reason = dispatch(
+                bundle, state, elapsed, evals_per_dispatch)
+            terminated = reason != 0
+            basic_algorithm_time += time.time() - segment_start
+            dispatch_count += 1
+            if not (
+                terminated
+                or params.record_iteration_stats
+                or params.verbosity > 0
+            ):
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0
+                ):
+                    checkpoint(state, {"iteration": -1})
+                continue
+            with spans.span("folp.finalize"):
+                if terminated and not config.need_bound_estimates:
+                    # The eval block skipped the diagnostics-only bound
+                    # estimates; recover them once so the final stats
+                    # entry keeps parity with the reference's
+                    # method_specific_stats (saddle_point.jl:1015).
+                    lagr, est_lb, est_ub = final_bound_estimates(
+                        bundle, state, result)
+                    result = result._replace(
+                        lagrangian_value=lagr,
+                        estimated_lower_bound=est_lb,
+                        estimated_upper_bound=est_ub,
+                    )
+                result = host_floats(result)
+                # = displayed iteration - 1
+                eval_iteration = result.iteration
+                if params.checkpoint_path and (
+                    dispatch_count % checkpoint_every == 0 or terminated
+                ):
+                    checkpoint(state, {"iteration": eval_iteration + 1})
+                method_specific_stats = {
+                    "time_spent_doing_basic_algorithm":
+                        basic_algorithm_time,
+                    "lagrangian_value": result.lagrangian_value,
+                    "estimated_lower_bound": result.estimated_lower_bound,
+                    "estimated_upper_bound": result.estimated_upper_bound,
+                }
+                stats = to_host_stats(
+                    result.conv,
+                    result.infeas,
+                    eval_iteration,
+                    result.cumulative_kkt_passes,
+                    elapsed,
+                    RestartChoice(result.restart_used)
+                    if result.restart_used != 0
+                    else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
+                    result.step_size,
+                    result.primal_weight,
+                    method_specific_stats,
+                    PointType.POINT_TYPE_AVERAGE_ITERATE,
+                )
+            if params.record_iteration_stats or terminated:
+                iteration_stats.append(stats)
+            if print_to_screen_this_iteration(
+                terminated,
+                eval_iteration + 1,
+                params.verbosity,
+                params.termination_evaluation_frequency,
+            ):
+                display_iteration_stats(stats, params.verbosity)
+
+            if terminated:
+                reason = TerminationReason(result.termination_reason)
+                if params.verbosity >= 1:
+                    from ..solve_log import termination_reason_to_string
+
+                    print(
+                        f"Terminated after {eval_iteration + 1} iterations: "
+                        f"{termination_reason_to_string(reason)}"
+                    )
+                with spans.span("folp.unscale"):
+                    output = unscale(
+                        scaled_problem,
+                        state.avg_primal_out,
+                        state.avg_dual_out,
+                        reason,
+                        output_iteration(state, result),
+                        iteration_stats,
+                    )
+                if final_log is not None:
+                    final_log(scaled_problem, output)
+                if params.verbosity >= 7:
+                    # generic_final_log (reference saddle_point.jl:1004-1012)
+                    from ..problem import (
+                        print_variable_and_constraint_hardness,
+                    )
+
+                    print_variable_and_constraint_hardness(
+                        scaled_problem.original_qp,
+                        output.primal_solution,
+                        output.dual_solution,
+                    )
+                return output

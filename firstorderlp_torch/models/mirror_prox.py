@@ -32,25 +32,17 @@ set of buffers that holds the state for the whole dispatch
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import spans
-from ..iteration_stats import (
-    display_iteration_stats,
-    display_iteration_stats_heading,
-    print_to_screen_this_iteration,
-    to_host_stats,
-)
 from ..ops import graphs
 from ..ops.device import resolve_device
-from ..ops.device_problem import DeviceScaledQp, to_device_scaled
-from ..ops.routed_sharded import agreed_seconds
-from ..preprocess import rescale_problem, sparse_l2_norms
-from ..problem import QuadraticProgrammingProblem, validate
+from ..ops.device_problem import DeviceScaledQp
+from ..preprocess import sparse_l2_norms
+from ..problem import QuadraticProgrammingProblem
 from ..saddle_point import (
     RestartInfo,
     RestartParameters,
@@ -68,17 +60,20 @@ from ..saddle_point import (
     unscaled_saddle_point_output,
     update_objective_bound_estimates,
 )
-from ..solve_log import PointType, RestartChoice, TerminationReason
+from ..solve_log import RestartChoice
 from ..termination import TerminationCriteria, validate_termination_criteria
 from .common import (
     EvalResult,
+    PreparedProblem,
     device_counters,
     evaluate_statistics,
     graph_key,
-    host_floats,
+    ingest,
     matrix_inf_norm_entrywise,
     next_eval_iteration,
+    scaled_warm_start,
     select_average,
+    solve,
     torch_dtype,
 )
 
@@ -434,8 +429,8 @@ def _run_segments(bundle: DeviceScaledQp, state: MirrorProxState,
                 reason, iteration = [int(v) for v in torch.stack([
                     runner.state.termination_reason.to(torch.int64),
                     runner.state.iteration]).tolist()]
-            graphs.COUNTS["read_backs"] += 1
-            graphs.COUNTS["segments"] += 1
+            spans.COUNTS["read_backs"] += 1
+            spans.COUNTS["segments"] += 1
             if reason != 0:
                 break
             runner.steps(next_eval_iteration(iteration, config) - iteration)
@@ -580,62 +575,26 @@ def make_initial_state(
     )
 
 
-class PreparedMpProblem(NamedTuple):
-    """Host rescaling + device bundle + initial state, split out of
-    optimize() so repeated solves don't pay ingest again: the Mirror
-    Prox analogue of pdhg.prepare_problem."""
-
-    scaled_problem: object
-    bundle: DeviceScaledQp
-    initial_state: MirrorProxState
-    device: torch.device
-
-
 def prepare_problem(
     params: MirrorProxParameters,
     original_problem: QuadraticProgrammingProblem,
     warm_start=None,
     device=None,
+    _reuse: "PreparedProblem | None" = None,
     _shard_plan=None,
-) -> PreparedMpProblem:
+) -> PreparedProblem:
     """Validates, rescales and moves `original_problem` to `device` for
-    `optimize` (reference: the rescaling step of optimize,
-    mirror_prox.jl:627-688, split out for reuse). `device` defaults to
-    CUDA and raises when no GPU is present.
+    `optimize` (common.ingest: `device`, `_reuse` and `_shard_plan`
+    there), then sets the step size, the mirror-map scalings and the
+    initial state. `device` defaults to CUDA and raises when no GPU is
+    present.
 
     warm_start: optional (primal, dual) in UNSCALED space, mirroring
     pdhg.prepare_problem's contract (used by the refinement path's
-    f64 tail; the reference always cold-starts, mirror_prox.jl:646).
-
-    _shard_plan: see pdhg.prepare_problem."""
-    if _shard_plan is not None and device is None:
-        device = _shard_plan.mesh.home_device
-    device = resolve_device(device)
-    validate(original_problem)
-
-    with spans.timed("folp.ingest.rescale"):
-        scaled_problem = rescale_problem(
-            params.l_inf_ruiz_iterations,
-            params.l2_norm_rescaling,
-            params.pock_chambolle_alpha,
-            params.verbosity,
-            original_problem,
-            bound_width_rescaling_flag=params.bound_width_rescaling,
-        )
+    f64 tail; the reference always cold-starts, mirror_prox.jl:646)."""
+    scaled_problem, bundle, device = ingest(
+        params, original_problem, device, _reuse, _shard_plan)
     dtype = torch_dtype(params.dtype)
-    stats_dtype = (
-        torch_dtype(params.stats_dtype) if params.stats_dtype else None
-    )
-    with spans.timed("folp.ingest.to_device"):
-        bundle = to_device_scaled(
-            scaled_problem,
-            dtype,
-            params.matrix_format,
-            device,
-            stats_dtype=stats_dtype,
-            stats_format=params.stats_matrix_format,
-            shard_plan=_shard_plan,
-        )
     n = bundle.scaled.num_variables
     m = bundle.scaled.num_constraints
 
@@ -654,24 +613,14 @@ def prepare_problem(
             primal_weight, device,
         )
     if warm_start is not None:
-        primal0, dual0 = warm_start
-        x0 = torch.as_tensor(
-            np.asarray(primal0)
-            * np.asarray(scaled_problem.variable_rescaling),
-            device=device,
-        ).to(dtype)
-        y0 = torch.as_tensor(
-            np.asarray(dual0)
-            * np.asarray(scaled_problem.constraint_rescaling),
-            device=device,
-        ).to(dtype)
+        x0, y0 = scaled_warm_start(scaled_problem, warm_start, dtype, device)
         state = dataclasses.replace(
             state,
             current_primal=x0,
             current_dual=y0,
             restart_info=create_last_restart_info(x0, y0),
         )
-    return PreparedMpProblem(
+    return PreparedProblem(
         scaled_problem=scaled_problem, bundle=bundle, initial_state=state,
         device=device,
     )
@@ -693,7 +642,7 @@ def _make_config(params: MirrorProxParameters) -> _MpConfig:
 def optimize(
     params: MirrorProxParameters,
     original_problem: QuadraticProgrammingProblem,
-    prepared: "PreparedMpProblem | None" = None,
+    prepared: "PreparedProblem | None" = None,
     device=None,
     _elapsed_offset: float = 0.0,
     _placement=None,
@@ -704,183 +653,49 @@ def optimize(
 
     Runs on CUDA unless `device` names another device; raises when no
     GPU is present and no device was asked for. `prepared`: a
-    PreparedMpProblem from prepare_problem (skips the per-call rescale +
-    device transfer). `_elapsed_offset`: see pdhg.optimize; pre-charges
-    the time-limit clock for refinement sub-solves. `_placement`,
-    `_shard_plan`: see pdhg.optimize.
+    PreparedProblem from prepare_problem (skips the per-call rescale +
+    device transfer). `_elapsed_offset`, `_placement`, `_shard_plan`: see
+    pdhg.optimize. The host loop is common.solve's.
     """
     validate_termination_criteria(params.termination_criteria)
     if prepared is None:
         prepared = prepare_problem(params, original_problem, device=device,
                                    _shard_plan=_shard_plan)
-    scaled_problem = prepared.scaled_problem
-    bundle = prepared.bundle
-    state = prepared.initial_state
-
     config = _make_config(params)
+    return solve(
+        params, original_problem, prepared, config,
+        begin=_device_counters,
+        dispatch=lambda bundle, state, elapsed, num_segments: (
+            _run_segments(bundle, state, elapsed, config, num_segments)),
+        final_bound_estimates=lambda bundle, state, result: (
+            _final_bound_estimates(
+                bundle, state.avg_primal_out, state.avg_dual_out,
+                state.primal_scaling, state.dual_scaling)),
+        output_iteration=lambda state, result: int(
+            state.iterations_completed),
+        unscale=unscaled_saddle_point_output,
+        final_log=_print_active_variables if params.verbosity >= 6 else None,
+        elapsed_offset=_elapsed_offset,
+        placement=_placement,
+    )
 
-    display_iteration_stats_heading(params.verbosity)
 
-    problem_fp = None
-    if params.checkpoint_path or params.resume_from_checkpoint:
-        from ..checkpoint import problem_fingerprint
-
-        problem_fp = problem_fingerprint(original_problem)
-    elapsed_offset = float(_elapsed_offset)
-    if params.resume_from_checkpoint:
-        from ..checkpoint import load_state
-
-        state, elapsed_offset, _ = load_state(
-            params.resume_from_checkpoint, state, fingerprint=problem_fp
-        )
-        # The previous run's termination (e.g. its iteration limit) does
-        # not apply to this run's criteria; re-evaluate from scratch.
-        state = dataclasses.replace(
-            state,
-            termination_reason=torch.zeros_like(state.termination_reason))
-    if _placement is not None:
-        bundle, state = _placement(bundle, state)
-
-    def checkpoint(state, metadata):
-        from ..checkpoint import save_state
-
-        save_state(
-            params.checkpoint_path,
-            state,
-            elapsed_time=time.time() - start_time,
-            metadata=metadata,
-            fingerprint=problem_fp,
-        )
-
-    spans.COUNTS["solves"] += 1
-    with spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
-        iteration_stats = []
-        start_time = time.time() - elapsed_offset
-        basic_algorithm_time = 0.0
-        evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
-        checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
-        dispatch_count = 0
-        state = _device_counters(state)
-        while True:
-            elapsed = agreed_seconds(
-                bundle.scaled.constraint_matrix, time.time() - start_time
-            )
-            segment_start = time.time()
-            state, result, reason = _run_segments(
-                bundle, state, elapsed, config, evals_per_dispatch)
-            terminated = reason != 0
-            basic_algorithm_time += time.time() - segment_start
-            dispatch_count += 1
-            if not (
-                terminated
-                or params.record_iteration_stats
-                or params.verbosity > 0
-            ):
-                if params.checkpoint_path and (
-                    dispatch_count % checkpoint_every == 0
-                ):
-                    checkpoint(state, {"iteration": -1})
-                continue
-            with spans.span("folp.finalize"):
-                if terminated and not config.need_bound_estimates:
-                    # The eval block skipped the diagnostics-only bound
-                    # estimates; recover them once so the final stats
-                    # entry keeps parity with the reference's
-                    # method_specific_stats (saddle_point.jl:1015).
-                    lagr, est_lb, est_ub = _final_bound_estimates(
-                        bundle,
-                        state.avg_primal_out,
-                        state.avg_dual_out,
-                        state.primal_scaling,
-                        state.dual_scaling,
-                    )
-                    result = result._replace(
-                        lagrangian_value=lagr,
-                        estimated_lower_bound=est_lb,
-                        estimated_upper_bound=est_ub,
-                    )
-                result = host_floats(result)
-                eval_iteration = result.iteration
-                if params.checkpoint_path and (
-                    dispatch_count % checkpoint_every == 0 or terminated
-                ):
-                    checkpoint(state, {"iteration": eval_iteration + 1})
-
-                method_specific_stats = {
-                    "time_spent_doing_basic_algorithm": basic_algorithm_time,
-                    "lagrangian_value": result.lagrangian_value,
-                    "estimated_lower_bound": result.estimated_lower_bound,
-                    "estimated_upper_bound": result.estimated_upper_bound,
-                }
-                stats = to_host_stats(
-                    result.conv,
-                    result.infeas,
-                    eval_iteration,
-                    result.cumulative_kkt_passes,
-                    elapsed,
-                    RestartChoice(result.restart_used)
-                    if result.restart_used != 0
-                    else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
-                    result.step_size,
-                    result.primal_weight,
-                    method_specific_stats,
-                    PointType.POINT_TYPE_AVERAGE_ITERATE,
-                )
-            if params.record_iteration_stats or terminated:
-                iteration_stats.append(stats)
-            if print_to_screen_this_iteration(
-                True if terminated else False,
-                eval_iteration + 1,
-                params.verbosity,
-                params.termination_evaluation_frequency,
-            ):
-                display_iteration_stats(stats, params.verbosity)
-
-            if terminated:
-                reason = TerminationReason(result.termination_reason)
-                if params.verbosity >= 1:
-                    from ..solve_log import termination_reason_to_string
-
-                    print(
-                        f"Terminated after {eval_iteration + 1} iterations: "
-                        f"{termination_reason_to_string(reason)}"
-                    )
-                with spans.span("folp.unscale"):
-                    output = unscaled_saddle_point_output(
-                        scaled_problem,
-                        state.avg_primal_out,
-                        state.avg_dual_out,
-                        reason,
-                        int(state.iterations_completed),
-                        iteration_stats,
-                    )
-                if params.verbosity >= 6:
-                    # reference mirror_prox.jl:453-470 prints these per
-                    # display; here once at termination (per-display would
-                    # cost a host fetch every evaluation).
-                    s = active_variable_stats(
-                        scaled_problem.original_qp,
-                        output.primal_solution,
-                        output.dual_solution,
-                    )
-                    nnz = scaled_problem.original_qp.constraint_matrix.nnz
-                    print(
-                        f"    primal vars [@lb: {s[0]} active: {s[1]} "
-                        f"@ub: {s[2]}] dual ineq vars [@lb: {s[3]} "
-                        f"active: {s[4]}] active mat nz: "
-                        f"{100.0 * s[5] / max(nnz, 1):6.3f}%"
-                    )
-                if params.verbosity >= 7:
-                    from ..problem import (
-                        print_variable_and_constraint_hardness,
-                    )
-
-                    print_variable_and_constraint_hardness(
-                        scaled_problem.original_qp,
-                        output.primal_solution,
-                        output.dual_solution,
-                    )
-                return output
+def _print_active_variables(scaled_problem, output):
+    """The active-set counts of the answer (reference mirror_prox.jl:
+    453-470 prints these per display; here once at termination, since
+    per display would cost a host fetch every evaluation)."""
+    s = active_variable_stats(
+        scaled_problem.original_qp,
+        output.primal_solution,
+        output.dual_solution,
+    )
+    nnz = scaled_problem.original_qp.constraint_matrix.nnz
+    print(
+        f"    primal vars [@lb: {s[0]} active: {s[1]} "
+        f"@ub: {s[2]}] dual ineq vars [@lb: {s[3]} "
+        f"active: {s[4]}] active mat nz: "
+        f"{100.0 * s[5] / max(nnz, 1):6.3f}%"
+    )
 
 
 def active_variable_stats(problem, primal, dual):

@@ -31,26 +31,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import time
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .. import spans
-from ..iteration_stats import (
-    display_iteration_stats,
-    display_iteration_stats_heading,
-    print_to_screen_this_iteration,
-    to_host_stats,
-)
 from ..ops import graphs, pdhg_step
-from ..ops.device import resolve_device
-from ..ops.device_problem import DeviceScaledQp, to_device, to_device_scaled
+from ..ops.device_problem import DeviceScaledQp
 from ..ops.routed import RoutedOp
-from ..ops.routed_sharded import agreed_seconds
-from ..preprocess import rescale_problem
-from ..problem import QuadraticProgrammingProblem, validate
+from ..problem import QuadraticProgrammingProblem
 from ..saddle_point import (
     RestartInfo,
     RestartParameters,
@@ -70,19 +60,22 @@ from ..saddle_point import (
     unscaled_saddle_point_output,
     update_objective_bound_estimates,
 )
-from ..solve_log import PointType, RestartChoice, TerminationReason
+from ..solve_log import RestartChoice
 from ..termination import TerminationCriteria, validate_termination_criteria
 from .common import (
     EvalResult,
+    PreparedProblem,
     estimate_maximum_singular_value,
     device_counters,
     evaluate_statistics,
     graph_key,
-    host_floats,
+    ingest,
     initial_primal_weight_host,
     matrix_inf_norm_entrywise,
     next_eval_iteration,
+    scaled_warm_start,
     select_average,
+    solve,
     torch_dtype,
 )
 
@@ -847,7 +840,7 @@ def _run_trials(runner: graphs.SegmentRunner, config: _PdhgConfig,
         runner.steps(need)
         active, left, iteration, reason = _read_back(
             runner.state, runner.start, target, config)
-        graphs.COUNTS["read_backs"] += 1
+        spans.COUNTS["read_backs"] += 1
         if not active:
             return reason, iteration
         need = left
@@ -885,7 +878,7 @@ def _run_segments(bundle: DeviceScaledQp, state: PdhgState, elapsed_time,
         for _ in range(num_segments):
             result = runner.evaluate()
             reason, iteration = _run_trials(runner, config, iteration)
-            graphs.COUNTS["segments"] += 1
+            spans.COUNTS["segments"] += 1
             if reason != 0:
                 break
         with spans.span("folp.unload"):
@@ -902,9 +895,9 @@ def _malitsky_pock_segments(bundle: DeviceScaledQp, state: PdhgState,
     for _ in range(num_segments):
         with spans.span("folp.evaluate"):
             state, result = _eval_block(bundle, state, elapsed, config)
-        graphs.COUNTS["evaluations"] += 1
-        graphs.COUNTS["segments"] += 1
-        graphs.COUNTS["read_backs"] += 1
+        spans.COUNTS["evaluations"] += 1
+        spans.COUNTS["segments"] += 1
+        spans.COUNTS["read_backs"] += 1
         with spans.span("folp.read_back"):
             reason, iteration = [int(v) for v in torch.stack([
                 state.termination_reason.to(torch.int64),
@@ -950,16 +943,6 @@ def _final_bound_estimates(bundle, avg_primal, avg_dual, step_size,
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass
-class PreparedProblem:
-    """Ingested problem (rescaled + device bundle + initial state)."""
-
-    scaled_problem: object
-    bundle: DeviceScaledQp
-    initial_state: PdhgState
-    device: torch.device
-
-
 def prepare_problem(
     params: PdhgParameters,
     original_problem: QuadraticProgrammingProblem,
@@ -969,29 +952,12 @@ def prepare_problem(
     _shard_plan=None,
 ) -> PreparedProblem:
     """Validates, rescales and moves `original_problem` to `device` for
-    `optimize` (reference: the rescaling step of optimize, pdhg.jl:
-    769-819, split out for reuse). `device` defaults to CUDA and raises
-    when no GPU is present.
+    `optimize` (common.ingest: `device`, `_reuse` and `_shard_plan`
+    there), then sets the initial state, the step size and the primal
+    weight. `device` defaults to CUDA and raises when no GPU is present.
 
     warm_start: optional (primal, dual) in UNSCALED space; the solver
-    starts from that point instead of zeros.
-
-    _reuse: a PreparedProblem for the SAME problem from an earlier phase
-    (refine.py). The solve stays on its device. When its original
-    (stats) bundle has this phase's stats dtype, its host
-    ScaledQpProblem (rescaling does not depend on the dtype) and that
-    bundle are reused, and only the scaled bundle is rebuilt.
-
-    _shard_plan: a RoutedShardPlan (parallel.sharded): the constraint
-    operator is built block-partitioned over the plan's mesh, the rest
-    on `device` (default: the mesh's home device)."""
-    if _reuse is not None:
-        device = _reuse.device
-    elif _shard_plan is not None and device is None:
-        device = _shard_plan.mesh.home_device
-    else:
-        device = resolve_device(device)
-    validate(original_problem)
+    starts from that point instead of zeros."""
     if isinstance(
         params.step_size_policy_params, MalitskyPockStepsizeParameters
     ) and original_problem.objective_matrix.nnz > 0:
@@ -999,43 +965,9 @@ def prepare_problem(
             "Malitsky and Pock linesearch is only supported for linear"
             " programming problems."
         )
+    scaled_problem, bundle, device = ingest(
+        params, original_problem, device, _reuse, _shard_plan)
     dtype = torch_dtype(params.dtype)
-    stats_dtype = (
-        torch_dtype(params.stats_dtype) if params.stats_dtype else None
-    )
-    if _reuse is not None and (
-        _reuse.bundle.original.objective_vector.dtype
-        == (stats_dtype or dtype)
-    ):
-        scaled_problem = _reuse.scaled_problem
-        with spans.timed("folp.ingest.to_device"):
-            bundle = dataclasses.replace(
-                _reuse.bundle,
-                scaled=to_device(
-                    scaled_problem.scaled_qp, dtype, params.matrix_format,
-                    device, shard_plan=_shard_plan,
-                ),
-            )
-    else:
-        with spans.timed("folp.ingest.rescale"):
-            scaled_problem = rescale_problem(
-                params.l_inf_ruiz_iterations,
-                params.l2_norm_rescaling,
-                params.pock_chambolle_alpha,
-                params.verbosity,
-                original_problem,
-                bound_width_rescaling_flag=params.bound_width_rescaling,
-            )
-        with spans.timed("folp.ingest.to_device"):
-            bundle = to_device_scaled(
-                scaled_problem,
-                dtype,
-                params.matrix_format,
-                device,
-                stats_dtype=stats_dtype,
-                stats_format=params.stats_matrix_format,
-                shard_plan=_shard_plan,
-            )
 
     with spans.timed("folp.ingest.step_size"):
         state = _initial_state(bundle, dtype, device)
@@ -1076,17 +1008,7 @@ def prepare_problem(
                 device=device),
         )
     if warm_start is not None:
-        primal0, dual0 = warm_start
-        x0 = torch.as_tensor(
-            np.asarray(primal0)
-            * np.asarray(scaled_problem.variable_rescaling),
-            device=device,
-        ).to(dtype)
-        y0 = torch.as_tensor(
-            np.asarray(dual0)
-            * np.asarray(scaled_problem.constraint_rescaling),
-            device=device,
-        ).to(dtype)
+        x0, y0 = scaled_warm_start(scaled_problem, warm_start, dtype, device)
         state = dataclasses.replace(
             state,
             current_primal_solution=x0,
@@ -1138,9 +1060,8 @@ def optimize(
     `_placement` (parallel.sharded.make_placement): a function
     (bundle, state) -> (bundle, state) applied before the loop starts.
     `_shard_plan` (parallel.sharded): the constraint operator is built
-    block-partitioned over the plan's mesh at ingest. Under a process
-    group the time limit reads rank 0's clock on every rank
-    (ops/routed_sharded.agreed_seconds)."""
+    block-partitioned over the plan's mesh at ingest. The host loop is
+    common.solve's."""
     validate_termination_criteria(params.termination_criteria)
     if params.primal_importance <= 0 or not np.isfinite(
         params.primal_importance
@@ -1149,157 +1070,32 @@ def optimize(
     if prepared is None:
         prepared = prepare_problem(params, original_problem, device=device,
                                    _shard_plan=_shard_plan)
-    scaled_problem = prepared.scaled_problem
-    bundle = prepared.bundle
-    state = prepared.initial_state
     config = _make_config(params)
+    iteration = None  # the state's iteration, known on the host
 
-    problem_fp = None
-    if params.checkpoint_path or params.resume_from_checkpoint:
-        from ..checkpoint import problem_fingerprint
-
-        problem_fp = problem_fingerprint(original_problem)
-    elapsed_offset = float(_elapsed_offset)
-    if params.resume_from_checkpoint:
-        from ..checkpoint import load_state
-
-        state, elapsed_offset, _ = load_state(
-            params.resume_from_checkpoint, state, fingerprint=problem_fp
-        )
-        # The previous run's termination (e.g. its iteration limit) does
-        # not apply to this run's criteria; re-evaluate from scratch.
-        state = dataclasses.replace(
-            state,
-            termination_reason=torch.zeros_like(state.termination_reason))
-    if _placement is not None:
-        bundle, state = _placement(bundle, state)
-
-    def checkpoint(state, metadata):
-        from ..checkpoint import save_state
-
-        save_state(
-            params.checkpoint_path,
-            state,
-            elapsed_time=time.time() - start_time,
-            metadata=metadata,
-            fingerprint=problem_fp,
-        )
-
-    display_iteration_stats_heading(params.verbosity)
-
-    spans.COUNTS["solves"] += 1
-    with _profiler_trace(params.profiler_trace_dir, prepared.device), \
-            spans.span("folp.solve", {"solve": spans.COUNTS["solves"]}):
-        iteration_stats = []
-        start_time = time.time() - elapsed_offset
-        basic_algorithm_time = 0.0
-        evals_per_dispatch = max(1, int(params.evaluations_per_dispatch))
-        checkpoint_every = max(1, int(params.checkpoint_every_n_dispatches))
-        dispatch_count = 0
+    def begin(state):
+        nonlocal iteration
         state = _device_counters(state)
         iteration = int(state.iteration)
-        while True:
-            elapsed = agreed_seconds(
-                bundle.scaled.constraint_matrix, time.time() - start_time
-            )
-            segment_start = time.time()
-            state, result, iteration, reason = _run_segments(
-                bundle, state, elapsed, config, evals_per_dispatch, iteration)
-            terminated = reason != 0
-            basic_algorithm_time += time.time() - segment_start
-            dispatch_count += 1
-            if not (
-                terminated
-                or params.record_iteration_stats
-                or params.verbosity > 0
-            ):
-                if params.checkpoint_path and (
-                    dispatch_count % checkpoint_every == 0
-                ):
-                    checkpoint(state, {"iteration": -1})
-                continue
-            with spans.span("folp.finalize"):
-                if terminated and not config.need_bound_estimates:
-                    # The eval block skipped the diagnostics-only bound
-                    # estimates; recover them once for the final stats
-                    # entry.
-                    lagr, est_lb, est_ub = _final_bound_estimates(
-                        bundle,
-                        state.avg_primal_out,
-                        state.avg_dual_out,
-                        result.step_size,
-                        result.primal_weight,
-                    )
-                    result = result._replace(
-                        lagrangian_value=lagr,
-                        estimated_lower_bound=est_lb,
-                        estimated_upper_bound=est_ub,
-                    )
-                result = host_floats(result)
-                # = displayed iteration - 1
-                eval_iteration = result.iteration
-                if params.checkpoint_path and (
-                    dispatch_count % checkpoint_every == 0 or terminated
-                ):
-                    checkpoint(state, {"iteration": eval_iteration + 1})
-                method_specific_stats = {
-                    "time_spent_doing_basic_algorithm":
-                        basic_algorithm_time,
-                    "lagrangian_value": result.lagrangian_value,
-                    "estimated_lower_bound": result.estimated_lower_bound,
-                    "estimated_upper_bound": result.estimated_upper_bound,
-                }
-                stats = to_host_stats(
-                    result.conv,
-                    result.infeas,
-                    eval_iteration,
-                    result.cumulative_kkt_passes,
-                    elapsed,
-                    RestartChoice(result.restart_used)
-                    if result.restart_used != 0
-                    else RestartChoice.RESTART_CHOICE_UNSPECIFIED,
-                    result.step_size,
-                    result.primal_weight,
-                    method_specific_stats,
-                    PointType.POINT_TYPE_AVERAGE_ITERATE,
-                )
-            if params.record_iteration_stats or terminated:
-                iteration_stats.append(stats)
-            if print_to_screen_this_iteration(
-                True if terminated else False,
-                eval_iteration + 1,
-                params.verbosity,
-                params.termination_evaluation_frequency,
-            ):
-                display_iteration_stats(stats, params.verbosity)
+        return state
 
-            if terminated:
-                reason = TerminationReason(result.termination_reason)
-                if params.verbosity >= 1:
-                    from ..solve_log import termination_reason_to_string
+    def dispatch(bundle, state, elapsed, num_segments):
+        nonlocal iteration
+        state, result, iteration, reason = _run_segments(
+            bundle, state, elapsed, config, num_segments, iteration)
+        return state, result, reason
 
-                    print(
-                        f"Terminated after {eval_iteration + 1} iterations: "
-                        f"{termination_reason_to_string(reason)}"
-                    )
-                with spans.span("folp.unscale"):
-                    output = unscaled_saddle_point_output(
-                        scaled_problem,
-                        state.avg_primal_out,
-                        state.avg_dual_out,
-                        reason,
-                        eval_iteration,
-                        iteration_stats,
-                    )
-                if params.verbosity >= 7:
-                    # generic_final_log (reference saddle_point.jl:1004-1012)
-                    from ..problem import (
-                        print_variable_and_constraint_hardness,
-                    )
-
-                    print_variable_and_constraint_hardness(
-                        scaled_problem.original_qp,
-                        output.primal_solution,
-                        output.dual_solution,
-                    )
-                return output
+    return solve(
+        params, original_problem, prepared, config,
+        begin=begin,
+        dispatch=dispatch,
+        final_bound_estimates=lambda bundle, state, result: (
+            _final_bound_estimates(
+                bundle, state.avg_primal_out, state.avg_dual_out,
+                result.step_size, result.primal_weight)),
+        output_iteration=lambda state, result: result.iteration,
+        unscale=unscaled_saddle_point_output,
+        context=_profiler_trace(params.profiler_trace_dir, prepared.device),
+        elapsed_offset=_elapsed_offset,
+        placement=_placement,
+    )

@@ -35,9 +35,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from .. import spans
 from . import routed
-# the solvers' counters (spans.COUNTS), also read as graphs.COUNTS
-from ..spans import COUNTS, reset_counts, span, timed  # noqa: F401
 
 
 def graphable(problem) -> bool:
@@ -147,7 +146,7 @@ class SegmentGraphs:
 
     def __init__(self, evaluate: Callable, step: Callable, state,
                  extras: Sequence[torch.Tensor]):
-        with timed("folp.capture"):
+        with spans.timed("folp.capture"):
             self.static = StaticState(state, extras)
             device = self.static.buffers[0].device
             side = torch.cuda.Stream(device)
@@ -164,7 +163,7 @@ class SegmentGraphs:
                 self._capture(side, evaluate, evaluation=True))
             self.step_graph, self.step_launches, _ = self._capture(side,
                                                                    step)
-        COUNTS["captures"] += 1
+        spans.COUNTS["captures"] += 1
 
     def _capture(self, side, fn, evaluation=False):
         before = dict(routed.LAUNCHES)
@@ -189,13 +188,13 @@ class SegmentGraphs:
         """One evaluation on the current stream; its result (the graph's
         output tensors)."""
         self._replay(self.eval_graph, self.eval_launches, 1)
-        COUNTS["eval_replays"] += 1
+        spans.COUNTS["eval_replays"] += 1
         return self.result
 
     def steps(self, times: int) -> None:
         """`times` steps on the current stream."""
         self._replay(self.step_graph, self.step_launches, times)
-        COUNTS["replays"] += times
+        spans.COUNTS["replays"] += times
 
 
 def cached(bundle, key, make: Callable[[], SegmentGraphs]) -> SegmentGraphs:
@@ -226,14 +225,14 @@ class SegmentRunner:
         if graphed:
             self.graphs = cached(bundle, key, lambda: SegmentGraphs(
                 evaluate, step, state, extras))
-        with span("folp.load"):
+        with spans.span("folp.load"):
             if self.graphs is not None:
                 self.static = self.graphs.static
                 self.static.load(state)
             else:
                 self.static = StaticState(state, extras)
             self.static.extras[0].fill_(float(elapsed_time))
-        COUNTS["loads"] += 1
+        spans.COUNTS["loads"] += 1
 
     @property
     def state(self):
@@ -248,15 +247,15 @@ class SegmentRunner:
         return self.static.extras[1]
 
     def evaluate(self):
-        COUNTS["evaluations"] += 1
-        with span("folp.evaluate"):
+        spans.COUNTS["evaluations"] += 1
+        with spans.span("folp.evaluate"):
             if self.graphs is not None:
                 return self.graphs.evaluate()
             return self.static.apply(self._evaluate, evaluation=True)
 
     def steps(self, times: int) -> None:
-        COUNTS["steps"] += times
-        with span("folp.trials"):
+        spans.COUNTS["steps"] += times
+        with spans.span("folp.trials"):
             if self.graphs is not None:
                 self.graphs.steps(times)
                 return
@@ -272,5 +271,5 @@ class SegmentRunner:
         return _rebuild(result, iter([t.clone() for t in _leaves(result)]))
 
     def unload(self):
-        COUNTS["unloads"] += 1
+        spans.COUNTS["unloads"] += 1
         return self.static.unload()

@@ -137,8 +137,7 @@ def sharded_optimize(params, problem: QuadraticProgrammingProblem,
     nnz >= ROUTED_NNZ_THRESHOLD on a CUDA home device), runs the
     solver's own loop with every vector on the home device, and returns
     the solution cut back to the problem's own m rows and n columns."""
-    from ..models import mirror_prox as _mp
-    from ..models import pdhg as _pdhg
+    from ..models import api
     from ..ops.routed_sharded import plan_routed_shards
 
     if params.matrix_format == "routed" and params.dtype != "float32":
@@ -151,14 +150,8 @@ def sharded_optimize(params, problem: QuadraticProgrammingProblem,
         problem.constraint_matrix.nnz, mesh,
     )
     padded, m, n = pad_problem(problem, plan.row_multiple, plan.col_multiple)
-    placement = make_placement(mesh)
-    if isinstance(params, _pdhg.PdhgParameters):
-        solve = _pdhg.optimize
-    elif isinstance(params, _mp.MirrorProxParameters):
-        solve = _mp.optimize
-    else:
-        raise TypeError(f"Unknown parameter type: {type(params)!r}")
-    output = solve(params, padded, _placement=placement, _shard_plan=plan)
+    output = api.optimize(params, padded, _placement=make_placement(mesh),
+                          _shard_plan=plan)
     return SaddlePointOutput(
         primal_solution=np.asarray(output.primal_solution)[:n],
         dual_solution=np.asarray(output.dual_solution)[:m],

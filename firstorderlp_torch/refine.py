@@ -28,8 +28,6 @@ problem brings its own device, and every phase stays on it.
 from __future__ import annotations
 
 import dataclasses
-import os as _os
-import sys as _sys
 import time as _time
 import types
 
@@ -44,25 +42,14 @@ from .host_stats import (
     host_qp_cache,
 )
 from .iteration_stats import to_host_stats
+from .models import api
 from .models import mirror_prox as _mp
 from .models import pdhg as _pdhg
-from .models.common import initial_primal_weight_host
+from .models.common import PreparedProblem, initial_primal_weight_host
 from .ops.device import resolve_device
 from .ops.device_problem import DeviceQpCache
 from .saddle_point import SaddlePointOutput
 from .solve_log import PointType, RestartChoice, TerminationReason
-
-# FOLP_REFINE_TRACE=1 prints a per-stage wall-clock breakdown (phase-1,
-# per-round certification + sub-solve, f64 tail) to stderr - the
-# path's time is split across stages no profiler sees as one program,
-# so this is the practical way to attribute it.
-_TRACE = _os.environ.get("FOLP_REFINE_TRACE", "0") == "1"
-
-
-def _trace(msg: str) -> None:
-    if _TRACE:
-        print(f"# refine: {msg}", file=_sys.stderr, flush=True)
-
 
 # The JAX package keeps these layouts through the refinement phases
 # (they are keyed only on a shape bucket there); anything else becomes
@@ -139,36 +126,6 @@ def _is_mp_params(params) -> bool:
     return isinstance(params, _mp.MirrorProxParameters)
 
 
-def _prepare(params, problem, warm_start=None, _reuse=None, device=None):
-    """Solver-dispatched prepare: both refinement entry points cover PDHG and
-    Mirror Prox (the shift construction never touches solver state;
-    reference bar: termination.jl:33-45 applied to mirror_prox.jl:
-    623-919). Mirror Prox's prepare has no _reuse fast path: its f64
-    tail pays a fresh ingest, on the device of the earlier phase."""
-    if _is_mp_params(params):
-        if _reuse is not None:
-            device = _reuse.device
-        return _mp.prepare_problem(
-            params, problem, warm_start=warm_start, device=device
-        )
-    return _pdhg.prepare_problem(
-        params, problem, warm_start=warm_start, device=device,
-        _reuse=_reuse,
-    )
-
-
-def _optimize(params, problem, prepared, elapsed_offset=0.0):
-    if _is_mp_params(params):
-        return _mp.optimize(
-            params, problem, prepared=prepared,
-            _elapsed_offset=elapsed_offset,
-        )
-    return _pdhg.optimize(
-        params, problem, prepared=prepared,
-        _elapsed_offset=elapsed_offset,
-    )
-
-
 def _phase1_refinable(out) -> bool:
     """Whether the f32 phase produced a point worth refining.
 
@@ -234,8 +191,9 @@ def optimize_split_precision(
     t_begin = _time.time()
     p1 = phase1_params(params, switch_tolerance)
     if prepared is None:
-        prepared = _prepare(p1, problem, device=resolve_device(device))
-    out1 = _optimize(p1, problem, prepared)
+        prepared = api.prepare_problem(p1, problem,
+                                       device=resolve_device(device))
+    out1 = api.optimize(p1, problem, prepared=prepared)
     crit = params.termination_criteria
     refinable, trusted = _phase1_verdict(problem, crit, out1)
     if not refinable:
@@ -275,14 +233,15 @@ def optimize_split_precision(
             crit, iteration_limit=remaining
         ),
     )
-    prep2 = _prepare(
+    prep2 = api.prepare_problem(
         p2,
         problem,
         warm_start=(out1.primal_solution, out1.dual_solution),
         _reuse=prepared,
     )
     off_tail = _time.time() - t_begin
-    out2 = _optimize(p2, problem, prep2, elapsed_offset=off_tail)
+    out2 = api.optimize(p2, problem, prepared=prep2,
+                        _elapsed_offset=off_tail)
 
     kkt1 = last1.cumulative_kkt_matrix_passes
     t1 = last1.cumulative_time_sec
@@ -531,7 +490,7 @@ def _prepare_shifted_fast(prepared, params, c_hat, b_hat, lo, hi,
             pw,
             device,
         )
-        return _mp.PreparedMpProblem(
+        return PreparedProblem(
             scaled_problem=sp_prob,
             bundle=new_bundle,
             initial_state=state,
@@ -555,7 +514,7 @@ def _prepare_shifted_fast(prepared, params, c_hat, b_hat, lo, hi,
         cumulative_kkt_passes=torch.full((), 0.5, dtype=torch.float64,
                                          device=device),
     )
-    return _pdhg.PreparedProblem(
+    return PreparedProblem(
         scaled_problem=sp_prob,
         bundle=new_bundle,
         initial_state=state,
@@ -634,12 +593,9 @@ def optimize_iterative_refinement(
     t_begin = _time.time()
     p1 = phase1_params(params, switch_tolerance)
     if prepared is None:
-        prepared = _prepare(p1, problem, device=resolve_device(device))
-    out1 = _optimize(p1, problem, prepared)
-    _trace(
-        f"phase1 {out1.termination_string} {out1.iteration_count} iters "
-        f"in {_time.time() - t_begin:.2f}s"
-    )
+        prepared = api.prepare_problem(p1, problem,
+                                       device=resolve_device(device))
+    out1 = api.optimize(p1, problem, prepared=prepared)
     crit = params.termination_criteria
     refinable, trusted = _phase1_verdict(problem, crit, out1)
     if not refinable:
@@ -660,12 +616,7 @@ def optimize_iterative_refinement(
     best_res = np.inf
     best_x, best_y = x, y
     for round_idx in range(max_rounds):
-        t_cert = _time.time()
         ok, conv = _certified(problem, crit, x, y)
-        _trace(
-            f"round {round_idx} certify {_time.time() - t_cert:.2f}s "
-            f"ok={ok} (t={_time.time() - t_begin:.2f}s)"
-        )
         if ok:
             stats = to_host_stats(
                 conv,
@@ -770,14 +721,9 @@ def optimize_iterative_refinement(
             prepared, sub_params, c_hat, b_hat, lo_hat, hi_hat, eq_mask
         )
         off_sub = _time.time() - t_begin
-        sub = _optimize(
-            sub_params, problem, prep_shift, elapsed_offset=off_sub
-        )
-        _trace(
-            f"round {round_idx} sub-solve {sub.termination_string} "
-            f"{sub.iteration_count} iters eps_sub={eps_sub:g} in "
-            f"{_time.time() - t_begin - off_sub:.2f}s "
-            f"(t={_time.time() - t_begin:.2f}s)"
+        sub = api.optimize(
+            sub_params, problem, prepared=prep_shift,
+            _elapsed_offset=off_sub,
         )
         # NUMERICAL_ERROR on the shifted solve usually means movement
         # hit zero at f32 exactness, and a capped (ITERATION_LIMIT)
@@ -858,14 +804,11 @@ def optimize_iterative_refinement(
             crit, iteration_limit=remaining
         ),
     )
-    prep2 = _prepare(p2, problem, warm_start=(x, y), _reuse=prepared)
+    prep2 = api.prepare_problem(p2, problem, warm_start=(x, y),
+                                _reuse=prepared)
     off_tail = _time.time() - t_begin
-    out2 = _optimize(p2, problem, prep2, elapsed_offset=off_tail)
-    _trace(
-        f"f64 tail {out2.termination_string} {out2.iteration_count} "
-        f"iters in {_time.time() - t_begin - off_tail:.2f}s "
-        f"(t={_time.time() - t_begin:.2f}s)"
-    )
+    out2 = api.optimize(p2, problem, prepared=prep2,
+                        _elapsed_offset=off_tail)
     stats = stats_tail + _offset_stats(
         out2.iteration_stats, total_iters, kkt, t_accum - off_tail
     )

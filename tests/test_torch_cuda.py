@@ -1597,19 +1597,19 @@ def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
     same launch counts (the replays credited; the capture's warm-up
     evaluation and step apart), one replay a trial and an evaluation,
     and the kernels' tickets back at zero after the replays."""
-    from firstorderlp_torch.ops import graphs
+    from firstorderlp_torch import spans
 
     module, bundle, config, state = segment_case(cuda, solver,
                                                  tile_aligned, monkeypatch)
     eager = graphed = state
-    graphs.reset_counts()
+    spans.reset_counts()
     for _ in range(3):
         routed.reset_launch_counts()
         eager, eres = module._segment_core(bundle, eager, 0.0, config,
                                            _eager=True)
         eager_launches = dict(routed.LAUNCHES)
         routed.reset_launch_counts()
-        replays = graphs.COUNTS["replays"]
+        replays = spans.COUNTS["replays"]
         captured = dict(bundle.graphs)
         graphed, gres = module._segment_core(bundle, graphed, 0.0, config)
         for key, graph in bundle.graphs.items():
@@ -1622,10 +1622,10 @@ def test_graphed_segments_are_bitwise_the_eager_ones(cuda, solver,
         assert_same_bits(gres, eres, "result")
         if gres.termination_reason != 0:  # the evaluation ended the solve
             break
-        assert graphs.COUNTS["replays"] > replays
-    assert len(bundle.graphs) == graphs.COUNTS["captures"] == 1
-    assert 2 * graphs.COUNTS["replays"] == graphs.COUNTS["steps"]
-    assert 2 * graphs.COUNTS["eval_replays"] == graphs.COUNTS["evaluations"]
+        assert spans.COUNTS["replays"] > replays
+    assert len(bundle.graphs) == spans.COUNTS["captures"] == 1
+    assert 2 * spans.COUNTS["replays"] == spans.COUNTS["steps"]
+    assert 2 * spans.COUNTS["eval_replays"] == spans.COUNTS["evaluations"]
     torch.cuda.synchronize()
     op = bundle.scaled.constraint_matrix
     for tickets in tickets_of(op.a, op.at):
@@ -2299,8 +2299,8 @@ def test_f2b_launches_follow_the_evaluations(cuda, solver, nodes):
     tr_search: at 440,000 nodes both take the whole card, as at the 1M
     cells' shape; at 220,000 only the evaluations'; at 2,000 neither."""
     import firstorderlp_torch as tx
+    from firstorderlp_torch import spans
     from firstorderlp_torch.models import mirror_prox, pdhg
-    from firstorderlp_torch.ops import graphs
     from firstorderlp_torch.ops import trust_region_search as trs
 
     problem = generate_pagerank_lp(nodes, seed=0)
@@ -2319,12 +2319,12 @@ def test_f2b_launches_follow_the_evaluations(cuda, solver, nodes):
             matrix_format="routed")
     prepared = module.prepare_problem(params, problem, device=cuda)
     module.optimize(params, problem, prepared=prepared)  # the captures
-    graphs.reset_counts()
+    spans.reset_counts()
     routed.reset_launch_counts()
     out = module.optimize(params, problem, prepared=prepared)
     assert out.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
-    assert graphs.COUNTS["captures"] == 0
-    evaluations = graphs.COUNTS["evaluations"]
+    assert spans.COUNTS["captures"] == 0
+    evaluations = spans.COUNTS["evaluations"]
     by_eval = trs.device_search_plan(3, 2 * nodes + 1, cuda) == trs.WHOLE_CARD
     by_final = trs.device_search_plan(2, nodes + 1, cuda) == trs.WHOLE_CARD
     assert (by_eval, by_final) == (nodes > 200_000, nodes > 400_000)

@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 torch.set_num_threads(1)
-from firstorderlp_torch.models import mirror_prox, pdhg
+from firstorderlp_torch.models import common
 from firstorderlp_torch.parallel import distributed as D
 
 rank, world, port = (int(a) for a in sys.argv[1:4])
@@ -62,7 +62,7 @@ if case["fast_clock_rank"] == rank:
         def time():
             return start + 3.0 * (real() - start)
 
-    pdhg.time = mirror_prox.time = FastClock
+    common.time = FastClock
 D.initialize(f"localhost:{port}", world, rank)
 n_dual, n_primal = case["mesh"]
 out = D.distributed_optimize(case["params"], case["problem"], n_dual,

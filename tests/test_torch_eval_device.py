@@ -35,7 +35,7 @@ from firstorderlp_tpu.models import pdhg as jx_pdhg
 from firstorderlp_tpu.saddle_point import run_restart_scheme as jx_restart
 
 import firstorderlp_torch as tx
-from firstorderlp_torch import batch, convert, saddle_point
+from firstorderlp_torch import batch, convert, saddle_point, spans
 from firstorderlp_torch.models import mirror_prox as tx_mp
 from firstorderlp_torch.models import pdhg as tx_pdhg
 from firstorderlp_torch.ops import graphs
@@ -377,7 +377,7 @@ def test_dispatch_matches_the_jax_run_segments(solver, segments,
         jax_config(solver, params), segments)
     tprep, tcfg = port_of(solver, params)
     tstate = to_port(solver, jstate)
-    graphs.reset_counts()
+    spans.reset_counts()
     if solver == "pdhg":
         got_state, got, iteration, reason = tx_pdhg._run_segments(
             tprep.bundle, tstate, 0.0, tcfg, segments, 41)
@@ -393,11 +393,11 @@ def test_dispatch_matches_the_jax_run_segments(solver, segments,
         want.cumulative_kkt_passes)
     assert float(got_state.cumulative_kkt_passes) == float(
         want_state.cumulative_kkt_passes)
-    assert graphs.COUNTS["loads"] == graphs.COUNTS["unloads"] == 1
+    assert spans.COUNTS["loads"] == spans.COUNTS["unloads"] == 1
     if segments == 64:
         assert reason == int(tx.TerminationReason.TERMINATION_REASON_OPTIMAL)
     else:
-        assert graphs.COUNTS["segments"] == segments
+        assert spans.COUNTS["segments"] == segments
 
 
 @pytest.mark.parametrize("segments", [1, 3])
@@ -411,15 +411,15 @@ def test_a_segment_with_no_rejection_reads_back_once(segments,
         step_size_policy_params=jx.ConstantStepsizeParams())
     tprep, tcfg = port_of("pdhg", params)
     state = tprep.initial_state
-    graphs.reset_counts()
+    spans.reset_counts()
     with host_reads(monkeypatch) as calls:
         state, _, iteration, reason = tx_pdhg._run_segments(
             tprep.bundle, state, 0.0, tcfg, segments, 1)
     assert reason == 0 and iteration == segments + 1
     assert calls == ["tolist"] * segments
-    assert graphs.COUNTS["read_backs"] == graphs.COUNTS["segments"] == (
+    assert spans.COUNTS["read_backs"] == spans.COUNTS["segments"] == (
         segments)
-    assert graphs.COUNTS["evaluations"] == segments
+    assert spans.COUNTS["evaluations"] == segments
 
 
 @pytest.mark.parametrize("solver", ["pdhg", "mirror_prox"])

@@ -501,6 +501,56 @@ def test_prepared_problem_reuse():
         assert out.iteration_count == plain.iteration_count
 
 
+def assert_same_bits(got, want, path="prepared"):
+    """Every compared field equal: tensors bitwise with their dtypes,
+    other values by ==."""
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want), path
+    elif dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            if f.compare:
+                assert_same_bits(getattr(got, f.name),
+                                 getattr(want, f.name), f"{path}.{f.name}")
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), path
+        for i, (u, v) in enumerate(zip(got, want)):
+            assert_same_bits(u, v, f"{path}[{i}]")
+    else:
+        assert got == want, path
+
+
+def test_prepare_reuses_an_earlier_phase():
+    """prepare_problem(_reuse=) keeps an earlier phase's host rescaling
+    and original copy, builds the scaled copy anew, and gives a fresh
+    prepare's bits: the device bundle, the initial state and the solve."""
+    problem = port_problem(fixtures.example_lp())
+    params = port_mp_params(mp_params(optimality_criteria(1e-6),
+                                      diagonal_scaling="l2"))
+    first = tx_mp.prepare_problem(params, problem, device="cpu")  # f64
+    f32 = dataclasses.replace(params, dtype="float32",
+                              stats_dtype="float64")
+    again = tx_mp.prepare_problem(f32, problem, _reuse=first)
+    fresh = tx_mp.prepare_problem(f32, problem, device="cpu")
+    assert again.scaled_problem is first.scaled_problem
+    assert again.bundle.original is first.bundle.original
+    assert again.bundle.scaled.objective_vector.dtype == torch.float32
+    assert_same_bits(again.bundle, fresh.bundle, "bundle")
+    assert_same_bits(again.initial_state, fresh.initial_state, "state")
+    got = tx_mp.optimize(f32, problem, prepared=again)
+    want = tx_mp.optimize(f32, problem, prepared=fresh)
+    assert got.termination_reason.name == want.termination_reason.name
+    assert got.iteration_count == want.iteration_count
+    np.testing.assert_array_equal(got.primal_solution, want.primal_solution)
+    np.testing.assert_array_equal(got.dual_solution, want.dual_solution)
+    for g, w in zip(got.iteration_stats, want.iteration_stats, strict=True):
+        assert g.convergence_information == w.convergence_information
+        assert g.infeasibility_information == w.infeasibility_information
+        assert (g.iteration_number, g.cumulative_kkt_matrix_passes,
+                g.step_size, g.primal_weight) == (
+            w.iteration_number, w.cumulative_kkt_matrix_passes,
+            w.step_size, w.primal_weight)
+
+
 def test_bound_estimates_recovered_without_stats_recording():
     criteria = optimality_criteria(1e-6)
     problem = port_problem(fixtures.example_lp())
@@ -611,7 +661,7 @@ def test_mp_shifted_prepare_swaps_vectors_on_the_same_bundle():
     step size is phase 1's, the state is fresh."""
     problem = port_problem(fixtures.example_lp())
     p1 = tx.phase1_params(mp_params_1e8())
-    prepared = tx_refine._prepare(p1, problem, device="cpu")
+    prepared = tx_mp.prepare_problem(p1, problem, device="cpu")
     m, n = problem.constraint_matrix.shape
     rng = np.random.default_rng(2)
     c_hat, b_hat = rng.normal(size=n), rng.normal(size=m)
@@ -620,7 +670,8 @@ def test_mp_shifted_prepare_swaps_vectors_on_the_same_bundle():
     shifted = tx_refine._prepare_shifted_fast(
         prepared, p1, c_hat, b_hat, lo, hi, eq
     )
-    assert isinstance(shifted, tx_mp.PreparedMpProblem)
+    assert isinstance(shifted, tx_mp.PreparedProblem)
+    assert isinstance(shifted.initial_state, tx_mp.MirrorProxState)
     assert (shifted.bundle.scaled.constraint_matrix
             is prepared.bundle.scaled.constraint_matrix)
     assert torch.equal(shifted.bundle.scaled.is_equality,

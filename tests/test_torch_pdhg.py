@@ -32,6 +32,7 @@ from firstorderlp_tpu.models.common import HashableCriteria
 import firstorderlp_torch as tx
 from firstorderlp_torch import convert
 from firstorderlp_torch.models import pdhg as tx_pdhg
+from firstorderlp_torch.ops.device import resolve_device
 
 import fixtures
 from utils import (
@@ -309,7 +310,7 @@ def test_entry_points_raise_without_a_gpu():
     params = port_params(pdhg_params(optimality_criteria(1e-4)))
     problem = port_problem(fixtures.example_lp())
     if torch.cuda.is_available():
-        assert tx_pdhg.resolve_device().type == "cuda"
+        assert resolve_device().type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         tx.optimize(params, problem)

@@ -30,6 +30,7 @@ from firstorderlp_tpu import refine as jx_refine
 import firstorderlp_torch as tx
 from firstorderlp_torch import host_stats as tx_host
 from firstorderlp_torch import refine as tx_refine
+from firstorderlp_torch.models import api as tx_api
 from firstorderlp_torch.models import pdhg as tx_pdhg
 from firstorderlp_torch.ops import routed as tx_routed
 
@@ -410,9 +411,9 @@ def test_unconfirmed_infeasibility_is_a_numerical_error(entry, monkeypatch):
             np.nan,
         )
         out = package.SaddlePointOutput(**fields)
-        return lambda params, problem, prepared, elapsed_offset=0.0: out
+        return lambda params, problem, *args, **kwargs: out
 
-    monkeypatch.setattr(tx_refine, "_optimize", fake(tx))
+    monkeypatch.setattr(tx_api, "optimize", fake(tx))
     monkeypatch.setattr(jx_refine, "_optimize", fake(jx))
     jparams = jx_params(False)
     tparams = port_params(jparams)
@@ -478,29 +479,31 @@ def test_confirmed_infeasibility_stays_final():
 
 def test_mirror_prox_is_not_ported():
     """The name is from before Mirror Prox was ported, when both hooks
-    raised for it. Now they dispatch on the parameter type: Mirror Prox
-    parameters get Mirror Prox's prepare and solver (the entry points
-    themselves are held in test_torch_mirror_prox.py)."""
-    from firstorderlp_torch.models import mirror_prox as tx_mp
+    raised for it. Now the refinement entry points prepare and solve
+    through models/api, which dispatches on the parameter type: Mirror
+    Prox parameters get Mirror Prox's prepare and solver (the entry
+    points themselves are held in test_torch_mirror_prox.py)."""
     from test_mirror_prox import mp_params
     from test_torch_mirror_prox import port_mp_params
 
     q = port_problem(fixtures.example_lp())
     mp = port_mp_params(mp_params(optimality_criteria(1e-6),
                                   diagonal_scaling="l2"))
-    prepared = tx_refine._prepare(mp, q, device="cpu")
-    assert isinstance(prepared, tx_mp.PreparedMpProblem)
-    out = tx_refine._optimize(mp, q, prepared)
+    prepared = tx_api.prepare_problem(mp, q, device="cpu")
+    assert isinstance(prepared, tx_pdhg.PreparedProblem)
+    assert prepared.initial_state.primal_scaling is not None
+    out = tx_api.optimize(mp, q, prepared=prepared)
     assert out.termination_reason.name == OPTIMAL
     # the tail's prepare stays on the earlier phase's device
-    tail = tx_refine._prepare(mp, q, warm_start=(out.primal_solution,
-                                                 out.dual_solution),
-                              _reuse=prepared)
+    tail = tx_api.prepare_problem(mp, q, warm_start=(out.primal_solution,
+                                                     out.dual_solution),
+                                  _reuse=prepared)
     assert tail.device == prepared.device
-    pdhg = tx_refine._prepare(
+    pdhg = tx_api.prepare_problem(
         port_params(pdhg_params(optimality_criteria(1e-6))), q, device="cpu"
     )
     assert isinstance(pdhg, tx_pdhg.PreparedProblem)
+    assert isinstance(pdhg.initial_state, tx_pdhg.PdhgState)
 
 
 def test_entry_points_follow_the_device_rule():
@@ -514,22 +517,20 @@ def test_entry_points_follow_the_device_rule():
     # a prepared problem brings its device: every phase stays on it
     prepared = tx.prepare_problem(tx.phase1_params(params), q, device="cpu")
     seen = []
-    inner = tx_refine._optimize
+    inner = tx_api.optimize
 
-    def watching(stage_params, problem, stage_prepared, elapsed_offset=0.0):
-        seen.append(stage_prepared.device.type)
-        seen.append(
-            stage_prepared.bundle.scaled.objective_vector.device.type
-        )
-        return inner(stage_params, problem, stage_prepared, elapsed_offset)
+    def watching(stage_params, problem, prepared=None, **kwargs):
+        seen.append(prepared.device.type)
+        seen.append(prepared.bundle.scaled.objective_vector.device.type)
+        return inner(stage_params, problem, prepared=prepared, **kwargs)
 
-    tx_refine._optimize = watching
+    tx_api.optimize = watching
     try:
         out, _ = tx.optimize_iterative_refinement(
             params, q, prepared=prepared, max_rounds=1
         )
     finally:
-        tx_refine._optimize = inner
+        tx_api.optimize = inner
     assert out.termination_reason.name == OPTIMAL
     assert len(seen) >= 4 and set(seen) == {"cpu"}
 
@@ -584,9 +585,9 @@ def test_time_limit_is_global_across_phases():
     q = port_problem(fixtures.example_lp())
     params = port_params(jx_params(False))
     calls = []
-    inner = tx_refine._optimize
+    inner = tx_api.optimize
 
-    def slow_phase1(stage_params, problem, prepared, elapsed_offset=0.0):
+    def slow_phase1(stage_params, problem, **kwargs):
         # The phase itself runs without a time limit, so it ends OPTIMAL
         # or at its iteration limit however loaded the host is; then the
         # sleep spends the global budget before the next phase could start.
@@ -598,7 +599,7 @@ def test_time_limit_is_global_across_phases():
                 time_sec_limit=float("inf"),
             ),
         )
-        out = inner(unlimited, problem, prepared, elapsed_offset)
+        out = inner(unlimited, problem, **kwargs)
         tx_refine._time.sleep(0.3)
         return out
 
@@ -608,14 +609,14 @@ def test_time_limit_is_global_across_phases():
             params.termination_criteria, time_sec_limit=0.25
         ),
     )
-    tx_refine._optimize = slow_phase1
+    tx_api.optimize = slow_phase1
     try:
         out = tx.optimize_split_precision(limited, q, device="cpu")
         out2, used_fallback = tx.optimize_iterative_refinement(
             limited, q, device="cpu"
         )
     finally:
-        tx_refine._optimize = inner
+        tx_api.optimize = inner
     assert calls == ["float32", "float32"]
     assert out.termination_reason.name == "TERMINATION_REASON_TIME_LIMIT"
     assert out2.termination_reason.name == "TERMINATION_REASON_TIME_LIMIT"

@@ -32,7 +32,7 @@ from firstorderlp_tpu.models import mirror_prox as jx_mp
 from firstorderlp_tpu.models import pdhg as jx_pdhg
 
 import firstorderlp_torch as tx
-from firstorderlp_torch import convert
+from firstorderlp_torch import convert, spans
 from firstorderlp_torch.models import mirror_prox as tx_mp
 from firstorderlp_torch.models import pdhg as tx_pdhg
 from firstorderlp_torch.ops import graphs
@@ -208,10 +208,10 @@ def test_rounds_equal_trial_by_trial_and_the_jax_counters(name,
     accepted = int(jnext.iteration) - int(jstate.iteration)
     assert trials > accepted  # the segment rejects
 
-    graphs.reset_counts()
+    spans.reset_counts()
     rounds, _ = tx_pdhg._segment_core(tprep.bundle, tstate, 0.0, tcfg)
     want, one_by_one = trial_by_trial(tprep.bundle, tstate, tcfg)
-    assert one_by_one == trials == graphs.COUNTS["steps"]
+    assert one_by_one == trials == spans.COUNTS["steps"]
     assert_same_bits(rounds, want)
     # the state leaves the segment with its counters on the device
     for name, dtype in tx_pdhg.COUNTER_DTYPES.items():
@@ -227,7 +227,7 @@ def test_rounds_equal_trial_by_trial_and_the_jax_counters(name,
     assert rounds.avg.sum_primal_solutions_count == int(
         jnext.avg.sum_primal_solutions_count)
     # at most one read-back a rejection beyond the first round's
-    assert 2 <= graphs.COUNTS["read_backs"] <= 1 + (trials - accepted)
+    assert 2 <= spans.COUNTS["read_backs"] <= 1 + (trials - accepted)
 
 
 @pytest.mark.parametrize("rule", ["adaptive", "constant"])
@@ -239,22 +239,22 @@ def test_segment_reads_back_once_a_round(rule, monkeypatch):
     policy = jx.ConstantStepsizeParams() if rule == "constant" else None
     tprep, tcfg, tstate, *_ = port_state("random_lp", 81, policy)
     state = tx_pdhg._device_counters(tstate)
-    graphs.reset_counts()
+    spans.reset_counts()
     with host_reads(monkeypatch) as calls:
         after, _, iteration, reason = tx_pdhg._run_segments(
             tprep.bundle, state, 0.0, tcfg, 1, 81)
     assert reason == 0 and iteration == int(after.iteration)
-    assert calls == ["tolist"] * graphs.COUNTS["read_backs"]
+    assert calls == ["tolist"] * spans.COUNTS["read_backs"]
     trials = after.total_number_iterations - state.total_number_iterations
     accepted = after.iteration - state.iteration
     assert accepted == tx_pdhg.next_eval_iteration(81, tcfg) - 81
     if trials == accepted:
-        assert graphs.COUNTS["read_backs"] == 1
+        assert spans.COUNTS["read_backs"] == 1
     else:
-        assert graphs.COUNTS["read_backs"] <= 1 + trials - accepted
-    assert graphs.COUNTS["segments"] == graphs.COUNTS["evaluations"] == 1
-    assert graphs.COUNTS["loads"] == graphs.COUNTS["unloads"] == 1
-    assert graphs.COUNTS["replays"] == 0  # the CPU runs them eagerly
+        assert spans.COUNTS["read_backs"] <= 1 + trials - accepted
+    assert spans.COUNTS["segments"] == spans.COUNTS["evaluations"] == 1
+    assert spans.COUNTS["loads"] == spans.COUNTS["unloads"] == 1
+    assert spans.COUNTS["replays"] == 0  # the CPU runs them eagerly
 
 
 def test_mirror_prox_segment_reads_nothing_back(monkeypatch):
@@ -265,14 +265,14 @@ def test_mirror_prox_segment_reads_nothing_back(monkeypatch):
         convert.mp_state_from_arrays(state_leaves(state), device="cpu"))
     start = int(tstate.iteration)
     iterations = tx_mp.next_eval_iteration(start, tcfg) - start
-    graphs.reset_counts()
+    spans.reset_counts()
     with host_reads(monkeypatch) as calls:
         after, _, reason = tx_mp._run_segments(tprep.bundle, tstate, 0.0,
                                                tcfg, 1)
     assert reason == 0
     assert calls == ["tolist"]
-    assert graphs.COUNTS["read_backs"] == 1
-    assert graphs.COUNTS["steps"] == iterations
+    assert spans.COUNTS["read_backs"] == 1
+    assert spans.COUNTS["steps"] == iterations
     assert int(after.iteration) == start + iterations
 
 

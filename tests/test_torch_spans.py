@@ -9,6 +9,9 @@ adaptive and constant steps, and Mirror Prox.
   host loop and of the ingest, nested solve > dispatch > evaluate /
   trials / read_back / load / unload, and the spans of evaluate and
   read_back as many as the counters' changes.
+- Every solver runs the one host loop (models/common.solve): the same
+  sequence of dispatch, finalize and unscale spans, and the same
+  counters moved.
 - prepare_problem adds its host seconds to the ingest counters.
 - Every span name in the program starts with `folp.` and none reads as
   a CUDA runtime call (lpbench/tracing.py counts those by name).
@@ -18,6 +21,7 @@ to `capture_seconds`, and no span leaves a device-side record.
 """
 
 import ast
+import dataclasses
 import os
 import re
 
@@ -28,7 +32,6 @@ import torch
 import firstorderlp_torch as tx
 from firstorderlp_torch import spans
 from firstorderlp_torch.models import mirror_prox, pdhg
-from firstorderlp_torch.ops import graphs
 
 import trial_cases
 
@@ -110,7 +113,7 @@ def test_no_profiler_enters_nothing_and_keeps_the_bits(name, problem,
 
 @pytest.mark.parametrize("name", SOLVERS)
 def test_profiled_solve_shows_every_span_nested(name, problem):
-    graphs.reset_counts()
+    spans.reset_counts()
     out, events = profiled(lambda: solve(name, problem))
     assert out.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
     folp = [e[:3] for e in events if e[2].startswith("folp.")]
@@ -141,10 +144,54 @@ def test_profiled_solve_shows_every_span_nested(name, problem):
     assert spans.COUNTS["solves"] == 1
 
 
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("name", SOLVERS)
+def test_every_solver_runs_the_one_host_loop(name, recorded, problem):
+    """models/common.solve drives every solver alike. Inside folp.solve:
+    a dispatch each time round, a finalize after each dispatch whose
+    statistics are kept (every one with record_iteration_stats, else
+    the last), then the unscale. A solve moves the same counters
+    whichever solver ran: one evaluation a segment, one load and one
+    unload a dispatch, a read-back at least once a segment and once a
+    finalize (exactly so for Mirror Prox, whose segments read back once)."""
+    module, params = solver_of(name)
+    params = dataclasses.replace(params, record_iteration_stats=recorded,
+                                 evaluations_per_dispatch=2)
+    prepared = module.prepare_problem(params, problem, device="cpu")
+    spans.reset_counts()
+    out, events = profiled(
+        lambda: module.optimize(params, problem, prepared=prepared))
+    assert out.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
+    (solve_span,) = [e for e in events if e[2] == "folp.solve"]
+    loop = sorted(e for e in events if e[2] in (
+        "folp.dispatch", "folp.finalize", "folp.unscale"))
+    assert all(inside(e, solve_span) for e in loop)
+    seen = [e[2] for e in loop]
+    dispatches = seen.count("folp.dispatch")
+    want = []
+    for i in range(dispatches):
+        want.append("folp.dispatch")
+        if recorded or i == dispatches - 1:
+            want.append("folp.finalize")
+    assert seen == want + ["folp.unscale"]
+    assert len(out.iteration_stats) == seen.count("folp.finalize")
+    c = spans.COUNTS
+    assert {k for k, v in c.items() if v} == {
+        "solves", "segments", "evaluations", "steps", "read_backs",
+        "loads", "unloads"}
+    assert c["solves"] == 1
+    assert c["loads"] == c["unloads"] == dispatches
+    assert c["evaluations"] == c["segments"] <= 2 * dispatches
+    finalizes = seen.count("folp.finalize")
+    if module is mirror_prox:
+        assert c["read_backs"] == c["segments"] + finalizes
+    assert c["read_backs"] >= c["segments"] + finalizes
+
+
 @pytest.mark.parametrize("name", SOLVERS)
 def test_prepare_problem_times_its_ingest(name, problem):
     module, params = solver_of(name)
-    graphs.reset_counts()
+    spans.reset_counts()
     module.prepare_problem(params, problem, device="cpu")
     for key in ("rescale_seconds", "to_device_seconds",
                 "step_size_seconds"):
@@ -153,8 +200,8 @@ def test_prepare_problem_times_its_ingest(name, problem):
 
 
 def test_one_counter_table():
-    assert graphs.COUNTS is spans.COUNTS
-    assert graphs.reset_counts is spans.reset_counts
+    assert spans.COUNTS is spans.COUNTS
+    assert spans.reset_counts is spans.reset_counts
     assert "masked_steps" not in spans.COUNTS
     spans.COUNTS["steps"] = 3
     spans.reset_counts()
@@ -203,8 +250,14 @@ def test_span_names_are_the_documented_ones():
     for name in names:
         assert name.startswith("folp.") and not runtime.match(name)
         assert name in spans.__doc__, name
-    # the solvers name their spans alike; the runner's are shared
-    for name in LOOP - {"folp.load", "folp.evaluate", "folp.trials"}:
+    # the solvers share their host loop and ingest, name their own
+    # dispatch's spans alike, and share the runner's
+    for name in ("folp.solve", "folp.finalize", "folp.unscale",
+                 "folp.ingest.rescale", "folp.ingest.to_device"):
+        assert "models/common.py" in names[name], name
+        assert not {"models/pdhg.py", "models/mirror_prox.py"} & names[name]
+    for name in ("folp.dispatch", "folp.unload", "folp.read_back",
+                 "folp.ingest.step_size"):
         assert {"models/pdhg.py", "models/mirror_prox.py"} <= names[name]
     for name in ("folp.load", "folp.evaluate", "folp.trials"):
         assert "ops/graphs.py" in names[name]
@@ -219,7 +272,7 @@ def test_span_names_are_the_documented_ones():
 def test_capture_is_a_span_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    graphs.reset_counts()
+    spans.reset_counts()
     out, events = profiled(lambda: solve(
         "pdhg-adaptive", trial_cases.PROBLEMS["pagerank"](), "cuda"))
     assert out.termination_reason.name == "TERMINATION_REASON_OPTIMAL"
